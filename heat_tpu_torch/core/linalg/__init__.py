@@ -1,0 +1,3 @@
+"""Linear algebra (counterpart of heat_tpu/core/linalg)."""
+
+from .basics import *

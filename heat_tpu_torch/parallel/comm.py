@@ -1,0 +1,163 @@
+"""Communication over ``torch.distributed`` (counterpart of heat_tpu/parallel/comm.py).
+
+The port is SPMD: one process (rank) per card, and a :class:`Communication`
+is a ``torch.distributed`` process group seen from one rank.  With no process
+group initialised the world has one rank.
+
+Canonical distribution (pad-and-mask), the same as the JAX package's: a
+global shape ``g`` split along axis ``s`` over ``n`` ranks is padded along
+``s`` to the next multiple of ``n`` and cut into equal chunks.  The real data
+is a contiguous prefix and the padding a suffix owned by the highest ranks.
+Each rank stores its padded chunk; anything that reduces or contracts across
+the split axis masks the padding with its own neutral element first.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+import torch.distributed as dist
+
+__all__ = ["Communication", "WORLD", "get_comm", "sanitize_comm", "use_comm"]
+
+
+class Communication:
+    """One rank's view of a process group.
+
+    ``size`` and ``rank`` may be given to describe a world without joining
+    it: such a communicator answers the layout questions (``chunk``,
+    ``lshape_map``, ``counts_displs_shape``) and refuses collectives."""
+
+    def __init__(self, group=None, size: Optional[int] = None, rank: Optional[int] = None):
+        if (size is None) != (rank is None):
+            raise ValueError("give both size and rank, or neither")
+        if size is not None and not 0 <= rank < size:
+            raise ValueError(f"rank {rank} is outside a world of size {size}")
+        self.group = group
+        self._size = size
+        self._rank = rank
+
+    @property
+    def size(self) -> int:
+        """Number of ranks."""
+        if self._size is not None:
+            return self._size
+        return dist.get_world_size(self.group) if dist.is_initialized() else 1
+
+    @property
+    def rank(self) -> int:
+        """This process's rank."""
+        if self._rank is not None:
+            return self._rank
+        return dist.get_rank(self.group) if dist.is_initialized() else 0
+
+    def __repr__(self) -> str:
+        return f"Communication(size={self.size}, rank={self.rank})"
+
+    # ------------------------------------------------------------------
+    # canonical layout (heat_tpu/parallel/comm.py:271-368)
+    # ------------------------------------------------------------------
+    def pad_amount(self, extent: int) -> int:
+        """Padding needed to make ``extent`` divisible by ``size``."""
+        return (-extent) % self.size
+
+    def padded_extent(self, extent: int) -> int:
+        return extent + self.pad_amount(extent)
+
+    def chunk(
+        self, shape: Sequence[int], split: Optional[int], rank: Optional[int] = None
+    ) -> Tuple[int, Tuple[int, ...], Tuple[slice, ...]]:
+        """``(offset, true local shape, slices)`` of one rank's block: every
+        rank gets ``ceil(extent / size)`` rows, so the true local shape of
+        the highest ranks may be smaller or zero."""
+        shape = tuple(int(s) for s in shape)
+        if split is None:
+            return 0, shape, tuple(slice(0, s) for s in shape)
+        rank = self.rank if rank is None else rank
+        extent = shape[split]
+        per = self.padded_extent(extent) // self.size
+        start = min(rank * per, extent)
+        stop = min(start + per, extent)
+        lshape = shape[:split] + (stop - start,) + shape[split + 1 :]
+        slices = tuple(slice(start, stop) if d == split else slice(0, s) for d, s in enumerate(shape))
+        return start, lshape, slices
+
+    def lshape_map(self, shape: Sequence[int], split: Optional[int]) -> np.ndarray:
+        """(size, ndim) array of true local shapes, one row per rank."""
+        shape = tuple(int(s) for s in shape)
+        out = np.empty((self.size, max(len(shape), 1)), dtype=np.int64)
+        for r in range(self.size):
+            out[r, : len(shape)] = self.chunk(shape, split, rank=r)[1]
+        return out[:, : len(shape)]
+
+    def counts_displs_shape(
+        self, shape: Sequence[int], axis: int
+    ) -> Tuple[Tuple[int, ...], Tuple[int, ...], Tuple[int, ...]]:
+        """Counts and displacements along ``axis`` per rank, and this rank's
+        true local shape."""
+        counts, displs = [], []
+        for r in range(self.size):
+            off, lsh, _ = self.chunk(shape, axis, rank=r)
+            counts.append(lsh[axis])
+            displs.append(off)
+        return tuple(counts), tuple(displs), tuple(self.chunk(shape, axis)[1])
+
+    # ------------------------------------------------------------------
+    # collectives: eager, on this rank's tensors
+    # ------------------------------------------------------------------
+    def _check_joined(self) -> None:
+        if self._size is not None and self._size > 1:
+            raise RuntimeError("this Communication only describes a world; it has joined no process group")
+
+    def _reduce(self, x: torch.Tensor, op) -> torch.Tensor:
+        if self.size > 1:
+            self._check_joined()
+            dist.all_reduce(x, op=op, group=self.group)
+        return x
+
+    def psum(self, x: torch.Tensor) -> torch.Tensor:
+        """Sum ``x`` over all ranks, in place; returns ``x``."""
+        return self._reduce(x, dist.ReduceOp.SUM)
+
+    def pmin(self, x: torch.Tensor) -> torch.Tensor:
+        return self._reduce(x, dist.ReduceOp.MIN)
+
+    def pmax(self, x: torch.Tensor) -> torch.Tensor:
+        return self._reduce(x, dist.ReduceOp.MAX)
+
+    def all_gather(self, x: torch.Tensor, axis: int = 0) -> torch.Tensor:
+        """Every rank's ``x`` (all of one shape), concatenated along ``axis``
+        in rank order."""
+        if self.size == 1:
+            return x
+        self._check_joined()
+        parts = [torch.empty_like(x) for _ in range(self.size)]
+        dist.all_gather(parts, x.contiguous(), group=self.group)
+        return torch.cat(parts, dim=axis)
+
+
+WORLD = Communication()
+
+__default_comm = WORLD
+
+
+def get_comm() -> Communication:
+    """The current default communication."""
+    return __default_comm
+
+
+def sanitize_comm(comm: Optional[Communication]) -> Communication:
+    """Validate ``comm`` or return the default."""
+    if comm is None:
+        return get_comm()
+    if not isinstance(comm, Communication):
+        raise TypeError(f"Unknown communication, must be instance of Communication, got {type(comm)}")
+    return comm
+
+
+def use_comm(comm: Optional[Communication] = None) -> None:
+    """Set the default communication."""
+    global __default_comm
+    __default_comm = sanitize_comm(comm)
