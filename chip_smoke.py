@@ -11,18 +11,33 @@ file, it exits non-zero before printing any result):
 
 1. device: the card's name and count, and nvidia-smi's name and power limit;
 2. build: every CUDA source under heat_tpu_torch/csrc, one nvcc each, at once;
-3. rng and kernels: seeded draws on the card bitwise equal to the host's;
-   each kernel against its plain PyTorch version on the card, at
-   the main path's shape (2^27 x 16 float32 points, k = 8) and at ragged
-   shapes, plus a bitwise repeat;
-4. main path: KMeans(n_clusters=8, init="random", max_iter=30).fit on 2^27
+3. rng and kernel_check: seeded draws on the card bitwise equal to the
+   host's; the Lloyd kernel against its plain PyTorch version on the card,
+   at the KMeans path's shape (2^27 x 16 float32 points, k = 8) and at
+   ragged shapes, plus a bitwise repeat;
+4. main_path: KMeans(n_clusters=8, init="random", max_iter=30).fit on 2^27
    x 16 Gaussian blobs made on the card from a seeded torch.Generator, the
    kernel launch count of that fit, a check of its labels and inertia
    against the plain version, and three predict requests (1, 64, 4096 rows);
 5. profile: the same fit again under torch.profiler: the device's busy and
    idle share of the fit's wall time and the kernels that took the most;
-6. times: each kernel's time per launch (CUDA events, after warm-up), its
-   plain version's, and the least time the card could take (the bound).
+6. times: the Lloyd kernel's time per launch (CUDA events, after warm-up),
+   its plain version's, and the least time the card could take (the bound).
+
+The KMeans data is then freed, and the hierarchical SVD path follows on a
+2^25 x 128 float32 matrix with a decaying spectrum, made on the card:
+
+7. gram_check: the Gram kernel against its plain version at that shape and
+   at ragged ones (padding poisoned), exact symmetry, a bitwise repeat, and
+   the inputs it must refuse;
+8. hsvd: hsvd_rank (rank 10) and hsvd_rtol (1e-2) through the entry points
+   a user calls, one Gram launch per call, singular values, orthonormal U
+   and the error estimate against the plain version's;
+9. pca: PCA(n_components=10, svd_solver="hierarchical").fit and transforms
+   of 1, 64 and 4096 rows, checked against the float64 projection;
+10. hsvd_profile: the hsvd_rank call under torch.profiler;
+11. times: the Gram kernel beside its plain version, the library's
+    ``x.T @ x`` (cuBLAS, full float32) and its bound.
 
 The line before the last is the kernel summary, the last line
 ``{"ok": true, "device": {...}}``.
@@ -41,9 +56,16 @@ FEATURES = 16
 CLUSTERS = 8
 MAX_ITER = 30
 SEED = 0
-# published peaks of one H100 SXM: HBM bytes/s, float32 FLOP/s outside the tensor cores
+# BASELINE config 3's ~3.9e8 rows of 128 columns (200 GB) cut to fit one card
+# with PCA's centred copy; width and rank are the JAX package's own benchmark's
+HSVD_ROWS = 1 << 25
+HSVD_COLS = 128
+HSVD_RANK = 10
+# published peaks of one H100 SXM: HBM bytes/s, float32 FLOP/s outside the
+# tensor cores, bf16 FLOP/s on the tensor cores (dense)
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS = 67e12
+BF16_FLOPS = 989e12
 
 
 def emit(obj) -> None:
@@ -82,6 +104,17 @@ def near_tie_mismatches(x, c, got, want) -> int:
     return int(bad.numel())
 
 
+def wall_ms(fn) -> tuple:
+    """``(fn's result, its wall time in ms up to a synchronise)``."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
 def profile_fit(fit) -> dict:
     """Run ``fit`` under torch.profiler: its wall time, the device time of
     every kernel it launched (one stream, so the sum is the busy time), and
@@ -91,10 +124,7 @@ def profile_fit(fit) -> dict:
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        fit()
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
+        _, wall_ms_ = wall_ms(fit)
     by_name: dict = {}
     for e in prof.events():
         if e.device_type != torch.autograd.DeviceType.CUDA:
@@ -103,7 +133,7 @@ def profile_fit(fit) -> dict:
         by_name[e.name] = (ms + e.device_time_total / 1e3, calls + 1)
     busy_ms = sum(ms for ms, _ in by_name.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:6]
-    return {"fit_wall_ms": wall_ms, "device_busy_ms": busy_ms, "idle_share": 1.0 - busy_ms / wall_ms,
+    return {"fit_wall_ms": wall_ms_, "device_busy_ms": busy_ms, "idle_share": 1.0 - busy_ms / wall_ms_,
             "top_kernels": [{"name": n[:80], "ms": ms, "calls": c} for n, (ms, c) in top]}
 
 
@@ -138,6 +168,81 @@ def compare_lloyd(x, c, n_true: int) -> dict:
         raise AssertionError("two launches on the same inputs differ")
     return {"rows": x.shape[0], "f": x.shape[1], "k": c.shape[0], "n_true": n_true, "max_abs_err": err,
             "inertia_rel_err": rel, "label_mismatches": mism, "bitwise_repeat": True}
+
+
+def compare_gram(x, n_true: int) -> dict:
+    """The Gram kernel against its plain version on the same inputs:
+    relative Frobenius error at most 5e-6, G exactly symmetric, and a second
+    launch bitwise equal to the first."""
+    import torch
+    from heat_tpu_torch.core import kernels
+
+    got = kernels.gram_partials(x, n_true)
+    again = kernels.gram_partials(x, n_true)
+    want = kernels._gram_plain(x, n_true)
+    torch.cuda.synchronize()
+    diff = got.double() - want.double()
+    rel = float(diff.norm() / want.double().norm())
+    if rel > 5e-6:
+        raise AssertionError(f"Gram of {tuple(x.shape)} differs from the plain version by {rel} (Frobenius, relative)")
+    if not torch.equal(got, got.T):
+        raise AssertionError(f"Gram of {tuple(x.shape)} is not exactly symmetric")
+    if not torch.equal(got, again):
+        raise AssertionError(f"two Gram launches on {tuple(x.shape)} differ")
+    return {"rows": x.shape[0], "n": x.shape[1], "n_true": n_true, "rel_frobenius_err": rel,
+            "max_abs_err": float(diff.abs().max()), "max_abs_g": float(want.abs().max()),
+            "symmetric": True, "bitwise_repeat": True}
+
+
+def spectrum_matrix(dev):
+    """The hSVD path's matrix, built in place on the card from a seeded
+    generator: 0.01 N(0, 1) noise plus z w, z (rows, 16) and w (16, 128)
+    normal with w's rows scaled 10, 9, ..., 1, 0.5, 0.1, ..., 0.005, so that
+    the spectrum decays (hsvd_rtol at 1e-2 keeps 11 directions)."""
+    import torch
+    from heat_tpu_torch.core.linalg.basics import full_f32_matmul
+
+    g = torch.Generator(device=dev).manual_seed(SEED + 2)
+    a = torch.randn(HSVD_ROWS, HSVD_COLS, device=dev, generator=g)
+    a.mul_(0.01)
+    z = torch.randn(HSVD_ROWS, 16, device=dev, generator=g)
+    scale = torch.tensor([10.0 - i for i in range(10)] + [0.5, 0.1, 0.05, 0.02, 0.01, 0.005], device=dev)
+    w = torch.randn(16, HSVD_COLS, device=dev, generator=g) * scale[:, None]
+    with full_f32_matmul():
+        a.addmm_(z, w)
+    return a
+
+
+def plain_spectrum(a):
+    """Eigenvalues of the plain version's Gram matrix, descending, float64."""
+    import torch
+    from heat_tpu_torch.core import kernels
+
+    return torch.linalg.eigvalsh(kernels._gram_plain(a, a.shape[0]).double()).flip(0).clamp(min=0.0)
+
+
+def check_factors(U, S, err, lam, k: int) -> dict:
+    """hsvd's factors against the plain spectrum: S within rtol 1e-4 of its
+    square roots, U^T U within 1e-4 of I (in float64), rel_err within 1e-4
+    of sqrt(1 - sum S^2 / |a|^2)."""
+    import torch
+
+    s = S.larray.double()
+    want_s = lam[:k].sqrt()
+    if S.shape != (k,) or not bool(torch.isfinite(s).all()):
+        raise AssertionError(f"S has shape {S.shape}, not ({k},), or is not finite")
+    s_err = float(((s - want_s).abs() / want_s).max())
+    if s_err > 1e-4:
+        raise AssertionError(f"singular values differ from the plain spectrum's by {s_err} relative")
+    u = U.larray.double()
+    orth = float((u.T @ u - torch.eye(k, dtype=torch.float64, device=u.device)).abs().max())
+    if orth > 1e-4:
+        raise AssertionError(f"U^T U differs from I by {orth}")
+    want_err = float(torch.sqrt(torch.clamp(1.0 - (want_s**2).sum() / lam.sum(), min=0.0)))
+    if abs(float(err) - want_err) > 1e-4:
+        raise AssertionError(f"rel_err {float(err)} against {want_err} from the plain spectrum")
+    return {"k": k, "s_max_rel_err": s_err, "u_orthonormality_err": orth, "rel_err": float(err),
+            "plain_rel_err": want_err}
 
 
 def main() -> int:
@@ -207,7 +312,7 @@ def main() -> int:
 
     # 4. the main path, through the entry points a user calls
     ht.use_device("gpu")
-    kernels.LLOYD_LAUNCHES = 0
+    kernels.LLOYD_LAUNCHES = kernels.GRAM_LAUNCHES = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     pts = ht.array(x, split=0)
@@ -216,6 +321,8 @@ def main() -> int:
     torch.cuda.synchronize()
     fit_s = time.perf_counter() - t0
     launches = kernels.LLOYD_LAUNCHES
+    if kernels.GRAM_LAUNCHES:
+        raise AssertionError(f"the KMeans fit launched the Gram kernel {kernels.GRAM_LAUNCHES} times")
     if launches < n_iter + 1:
         raise AssertionError(f"the fit launched the Lloyd kernel {launches} times for {n_iter} iterations")
     centres = km.cluster_centers_.larray
@@ -260,11 +367,118 @@ def main() -> int:
           "library_ms": None, "library_note": "no single PyTorch call computes the fused Lloyd step",
           "card": smi})
 
-    emit({"kernels": [{
-        "name": "lloyd_step", "route": "cuda", "source": "heat_tpu_torch/csrc/lloyd.cu",
-        "replaces": "heat_tpu/core/kernels.py:121", "launches": launches, "max_abs_err": max_abs_err,
-        "ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bound[bound_by], "bound_by": bound_by,
-        "library_ms": None,
+    lloyd = {"name": "lloyd_step", "route": "cuda", "source": "heat_tpu_torch/csrc/lloyd.cu",
+             "replaces": "heat_tpu/core/kernels.py:121", "launches": launches, "max_abs_err": max_abs_err,
+             "ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bound[bound_by], "bound_by": bound_by,
+             "library_ms": None}
+
+    # the KMeans data is freed before the hSVD path's matrix is made
+    del x, pts, km, centres, labels, plain_labels, truth, pred
+    torch.cuda.empty_cache()
+    a = spectrum_matrix(dev)
+    m, n = a.shape
+
+    # 7. the Gram kernel against its plain version
+    checks = [compare_gram(a, m)]
+    for rows, cols, n_true in ((4233, 128, 4100), (3 * 2048 + 11, 64, 3 * 2048 + 11), (5000, 200, 5000),
+                               (2049, 512, 2049), (100, 128, 100)):
+        xs = torch.randn(rows, cols, device=dev, generator=g)
+        xs[n_true:] = 1e6  # padding, poisoned: it must add nothing
+        checks.append(compare_gram(xs, n_true))
+    refused = []
+    for bad, what in ((torch.zeros(64, 16, dtype=torch.float64, device=dev), "float64"),
+                      (torch.zeros(64, 513, device=dev), "n=513"),
+                      (torch.zeros(16, 64, device=dev).T, "non-contiguous")):
+        try:
+            kernels.gram_partials(bad, 64)
+        except (TypeError, ValueError):
+            refused.append(what)
+        else:
+            raise AssertionError(f"the Gram kernel took a {what} input")
+    for c in checks:
+        emit({"phase": "gram_check", "kernel": "gram_syrk", **c})
+    emit({"phase": "gram_check", "kernel": "gram_syrk", "refused": refused})
+    gram_abs_err = max(c["max_abs_err"] for c in checks)
+    lam = plain_spectrum(a)
+
+    # 8. the hSVD path, through the entry points a user calls
+    kernels.LLOYD_LAUNCHES = kernels.GRAM_LAUNCHES = 0
+    A = ht.array(a, split=0)
+    (U, S, V, err), rank_ms = wall_ms(
+        lambda: ht.linalg.hsvd_rank(A, HSVD_RANK, compute_sv=True, safetyshift=5))
+    gram_launches = kernels.GRAM_LAUNCHES
+    if gram_launches != 1 or kernels.LLOYD_LAUNCHES:
+        raise AssertionError(f"hsvd_rank launched the Gram kernel {gram_launches} times (and Lloyd's "
+                             f"{kernels.LLOYD_LAUNCHES}); it should once")
+    rank_check = check_factors(U, S, err, lam, HSVD_RANK)
+    if V.shape != (n, HSVD_RANK) or U.shape != (m, HSVD_RANK) or U.split != 0:
+        raise AssertionError(f"U {U.shape} split {U.split}, V {V.shape}")
+    del U, V
+    rtol = 1e-2
+    (U, S, V, err), rtol_ms = wall_ms(lambda: ht.linalg.hsvd_rtol(A, rtol, compute_sv=True))
+    sq = lam.sum() - torch.cumsum(lam, 0)
+    plain_k = int(torch.nonzero(sq <= rtol**2 * lam.sum())[0, 0]) + 1
+    if S.shape[0] != plain_k:
+        raise AssertionError(f"hsvd_rtol chose rank {S.shape[0]}, the plain spectrum {plain_k}")
+    rtol_check = check_factors(U, S, err, lam, plain_k)
+    del U, V
+    emit({"phase": "hsvd", "rows": m, "cols": n, "gram_launches": gram_launches,
+          "hsvd_rank": {"wall_ms": rank_ms, **rank_check},
+          "hsvd_rtol": {"rtol": rtol, "wall_ms": rtol_ms, **rtol_check}})
+
+    # 9. PCA through the hierarchical solver
+    kernels.LLOYD_LAUNCHES = kernels.GRAM_LAUNCHES = 0
+    pca, fit_ms = wall_ms(lambda: ht.decomposition.PCA(n_components=HSVD_RANK, svd_solver="hierarchical").fit(A))
+    pca_launches = kernels.GRAM_LAUNCHES
+    if pca_launches != 1 or kernels.LLOYD_LAUNCHES:
+        raise AssertionError(f"PCA.fit launched the Gram kernel {pca_launches} times; it should once")
+    comps = pca.components_.larray.double()
+    orth = float((comps @ comps.T - torch.eye(HSVD_RANK, dtype=torch.float64, device=dev)).abs().max())
+    ratio_sum = float(pca.explained_variance_ratio_.larray.double().sum())
+    tevr = pca.total_explained_variance_ratio_
+    if comps.shape != (HSVD_RANK, n) or orth > 1e-4 or abs(ratio_sum - tevr) > 1e-4:
+        raise AssertionError(f"components {tuple(comps.shape)}, orthonormality {orth}, "
+                             f"ratio sum {ratio_sum} against tevr {tevr}")
+    mean = pca.mean_.larray.double()
+    transforms = []
+    for size in (1, 64, 4096):
+        rows = a[torch.randint(0, m, (size,), generator=rng).to(dev)]
+        out, ms = wall_ms(lambda: pca.transform(ht.array(rows, split=0)).larray)
+        want = (rows.double() - mean) @ comps.T
+        dev_ = float(((out.double() - want).abs() / (1.0 + want.abs())).max())
+        if out.shape != (size, HSVD_RANK) or dev_ > 1e-4:
+            raise AssertionError(f"transform of {size} rows: shape {tuple(out.shape)}, error {dev_}")
+        transforms.append({"rows": size, "wall_ms": ms, "max_err": dev_})
+    emit({"phase": "pca", "fit_wall_ms": fit_ms, "gram_launches": pca_launches, "components_orthonormality_err": orth,
+          "explained_variance_ratio_sum": ratio_sum, "total_explained_variance_ratio": tevr,
+          "transforms": transforms})
+    del pca, comps, mean
+
+    # 10. where the hsvd_rank call's time goes (the launches here are not counted)
+    emit({"phase": "hsvd_profile", **profile_fit(lambda: ht.linalg.hsvd_rank(A, HSVD_RANK, compute_sv=True)[3])})
+
+    # 11. times, beside the bound: one read of x, or three bf16 products of
+    # the upper triangle on the tensor cores, as the TPU kernel counts them
+    from heat_tpu_torch.core.linalg.basics import full_f32_matmul
+
+    gram_ms = time_ms(lambda: kernels.gram_partials(a, m), reps=20)
+    gram_plain_ms = time_ms(lambda: kernels._gram_plain(a, m), reps=3, warmup=1)
+    with full_f32_matmul():
+        library_ms = time_ms(lambda: a.T @ a, reps=20)
+    nbytes = 4 * m * n + 4 * n * n
+    bound = {"bytes": nbytes / HBM_BYTES_PER_S * 1e3, "operations": 3 * m * n * (n + 1) / BF16_FLOPS * 1e3}
+    gram_bound_by = max(bound, key=bound.get)
+    emit({"phase": "times", "kernel": "gram_syrk", "ms": gram_ms, "plain_ms": gram_plain_ms,
+          "bound_ms": bound[gram_bound_by], "bound_by": gram_bound_by,
+          "share_of_bound": bound[gram_bound_by] / gram_ms,
+          "cuda_core_floor_ms": m * n * (n + 1) / F32_FLOPS * 1e3,
+          "library_ms": library_ms, "library_call": "x.T @ x, full float32 (cuBLAS)", "card": smi})
+
+    emit({"kernels": [lloyd, {
+        "name": "gram_syrk", "route": "cuda", "source": "heat_tpu_torch/csrc/syrk.cu",
+        "replaces": "heat_tpu/core/kernels.py:378", "launches": gram_launches, "max_abs_err": gram_abs_err,
+        "ms": gram_ms, "plain_ms": gram_plain_ms, "bound_ms": bound[gram_bound_by], "bound_by": gram_bound_by,
+        "library_ms": library_ms,
     }]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": name, "count": torch.cuda.device_count()}})
     return 0

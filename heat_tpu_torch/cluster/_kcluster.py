@@ -7,19 +7,16 @@ checkpoint/resume options are not ported yet and raise.
 
 from __future__ import annotations
 
-import os
 from typing import Callable, Optional, Union
 
 import torch
 
 from ..core import random as ht_random
 from ..core import statistics, types
-from ..core.base import BaseEstimator, ClusteringMixin, lazy_scalar_property
+from ..core.base import BaseEstimator, ClusteringMixin, lazy_scalar_property, low_precision_predict_requested
 from ..core.dndarray import DNDarray
 
 __all__ = ["_KCluster"]
-
-_NATIVE_PREDICT = ("", "0", "off", "float32", "f32", "native")
 
 
 class _KCluster(BaseEstimator, ClusteringMixin):
@@ -99,7 +96,7 @@ class _KCluster(BaseEstimator, ClusteringMixin):
         """Nearest learned centre for each sample, in native float32."""
         if not isinstance(x, DNDarray):
             raise ValueError(f"input needs to be a DNDarray, but was {type(x)}")
-        if os.environ.get("HEAT_TPU_PREDICT_DTYPE", "").strip().lower() not in _NATIVE_PREDICT:
+        if low_precision_predict_requested():
             raise NotImplementedError("low-precision predict (HEAT_TPU_PREDICT_DTYPE) is not ported yet")
         return self._assign_to_cluster(x)
 

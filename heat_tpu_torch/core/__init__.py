@@ -11,6 +11,7 @@ from .statistics import *
 from . import devices
 from . import types
 from . import random
+from . import sanitation
 from . import kernels
 from . import linalg
 from .linalg import *

@@ -3,9 +3,24 @@
 from __future__ import annotations
 
 import inspect
+import os
 from typing import Dict, List, Optional
 
-__all__ = ["BaseEstimator", "ClusteringMixin", "lazy_scalar_property"]
+__all__ = [
+    "BaseEstimator",
+    "ClusteringMixin",
+    "TransformMixin",
+    "lazy_scalar_property",
+    "low_precision_predict_requested",
+]
+
+_NATIVE_PREDICT = ("", "0", "off", "float32", "f32", "native")
+
+
+def low_precision_predict_requested() -> bool:
+    """True where ``HEAT_TPU_PREDICT_DTYPE`` asks predict and transform for a
+    low-precision compute type (not ported yet: callers raise)."""
+    return os.environ.get("HEAT_TPU_PREDICT_DTYPE", "").strip().lower() not in _NATIVE_PREDICT
 
 
 def lazy_scalar_property(attr: str, kind: type = float, doc: Optional[str] = None) -> property:
@@ -80,3 +95,16 @@ class ClusteringMixin:
     def fit_predict(self, x):
         self.fit(x)
         return self.predict(x)
+
+
+class TransformMixin:
+    """fit / transform protocol of transformers."""
+
+    def fit(self, x):
+        raise NotImplementedError()
+
+    def fit_transform(self, x):
+        return self.fit(x).transform(x)
+
+    def transform(self, x):
+        raise NotImplementedError()

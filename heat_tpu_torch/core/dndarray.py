@@ -161,6 +161,13 @@ class DNDarray:
         return self.__split
 
     @property
+    def T(self) -> "DNDarray":
+        """The transpose (2-D arrays): the split moves with its axis."""
+        from .linalg import basics
+
+        return basics.transpose(self)
+
+    @property
     def lshape(self) -> Tuple[int, ...]:
         """True shape of this rank's chunk."""
         return tuple(int(s) for s in self.__comm.chunk(self.__gshape, self.__split)[1])

@@ -12,6 +12,13 @@ and the centre update.
 Sums come back in float64: the kernel accumulates each block's columns in
 f64 and adds the blocks in a fixed order, so a run is bitwise reproducible
 and counts stay exact beyond 2^24 members.
+
+The Gram matrix of hierarchical SVD (the counterpart of
+``heat_tpu/core/kernels.py::_syrk_kernel``) is ``csrc/syrk.cu``:
+:func:`gram_partials` gives ``x[:n_true].T @ x[:n_true]`` of a rank's padded
+chunk, in the same idiom: the kernel for a CUDA float32 tensor or a raise,
+:func:`_gram_plain` for a CPU tensor.  It too adds f64 partials in a fixed
+order, and its G is exactly symmetric.
 """
 
 from __future__ import annotations
@@ -24,15 +31,29 @@ import torch
 from . import _build
 from .linalg.basics import full_f32_matmul
 
-__all__ = ["LLOYD_LAUNCHES", "lloyd_partials", "lloyd_unsupported", "lloyd_update"]
+__all__ = [
+    "GRAM_LAUNCHES",
+    "LLOYD_LAUNCHES",
+    "gram_partials",
+    "gram_unsupported",
+    "lloyd_partials",
+    "lloyd_unsupported",
+    "lloyd_update",
+]
 
 #: launches of the CUDA Lloyd kernel in this process (the plain version adds nothing)
 LLOYD_LAUNCHES = 0
+#: launches of the CUDA Gram kernel in this process (the plain version adds nothing)
+GRAM_LAUNCHES = 0
 
 _TILE = 256  # points per tile and threads per block (lloyd.cu kTile)
 _MAX_FEATURES = 128  # widest register tile lloyd.cu instantiates
 _SMEM_LIMIT = 232448  # shared memory one block may use on Hopper (227 KB)
-_PLAIN_ROWS = 1 << 20  # rows per chunk of the plain version
+_PLAIN_ROWS = 1 << 20  # rows per chunk of the plain versions
+_GRAM_MAX_N = 512  # widest matrix syrk.cu takes
+_GRAM_TILE = 64  # side of an output tile (syrk.cu kT)
+_GRAM_STAGE_ROWS = 32  # rows per shared-memory stage (syrk.cu kK)
+_GRAM_MAX_RUNS = 65535  # runs of rows: the grid's y extent
 
 
 def _feature_bucket(f: int) -> int:
@@ -211,3 +232,111 @@ def lloyd_update(x, centers: torch.Tensor, labels: bool = False) -> Tuple[torch.
     if x.split is None:
         return _lloyd_single(x.larray_padded, centers, x.shape[0], labels)
     raise NotImplementedError(f"the fused Lloyd step takes points split along rows or not split, got split={x.split}")
+
+
+# ----------------------------------------------------------------------
+# Gram matrix (hierarchical SVD)
+# ----------------------------------------------------------------------
+def gram_unsupported(n: int, dtype) -> Optional[str]:
+    """Why the CUDA Gram kernel cannot take an (m, n) matrix of ``dtype``, or
+    None.  Rows are not limited."""
+    if dtype != torch.float32:
+        return f"takes float32, got {dtype}"
+    if not 1 <= n <= _GRAM_MAX_N:
+        return f"takes 1 to {_GRAM_MAX_N} columns, got n={n}"
+    return None
+
+
+def _gram_plain(x: torch.Tensor, n_true: int) -> torch.Tensor:
+    """The Gram matrix of the first ``n_true`` rows in plain PyTorch: chunks
+    of rows multiplied and summed in float64, made exactly symmetric, and
+    returned as float32."""
+    n = x.shape[1]
+    g = torch.zeros((n, n), dtype=torch.float64, device=x.device)
+    for start in range(0, n_true, _PLAIN_ROWS):
+        xc = x[start : min(start + _PLAIN_ROWS, n_true)].to(torch.float64)
+        g += xc.T @ xc
+    return ((g + g.T) * 0.5).to(torch.float32)
+
+
+_GRAM_LIB = None
+_GRAM_RESIDENT: dict = {}
+
+
+def _gram_lib() -> ctypes.CDLL:
+    global _GRAM_LIB
+    if _GRAM_LIB is None:
+        lib = _build.load("syrk")
+        lib.heat_syrk_f32.argtypes = [
+            ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64, ctypes.c_void_p, ctypes.c_int64,
+            ctypes.c_int64, ctypes.c_void_p, ctypes.c_void_p,
+        ]
+        lib.heat_syrk_f32.restype = ctypes.c_int
+        lib.heat_syrk_blocks_per_sm.argtypes = []
+        lib.heat_syrk_blocks_per_sm.restype = ctypes.c_int64
+        _GRAM_LIB = lib
+    return _GRAM_LIB
+
+
+def _gram_tiles(n: int) -> int:
+    """Upper-triangle output tiles of an (n, n) Gram matrix."""
+    nt = -(-n // _GRAM_TILE)
+    return nt * (nt + 1) // 2
+
+
+def _gram_runs(dev: torch.device, tiles: int, n_true: int) -> Tuple[int, int]:
+    """``(runs, rows per run)``: the rows cut into runs so that the grid of
+    (tiles, runs) blocks is about one wave of what the card holds at once."""
+    if dev.index not in _GRAM_RESIDENT:
+        per_sm = _gram_lib().heat_syrk_blocks_per_sm()
+        if per_sm < 1:
+            raise RuntimeError("the CUDA Gram kernel cannot be resident")
+        _GRAM_RESIDENT[dev.index] = per_sm * torch.cuda.get_device_properties(dev).multi_processor_count
+    stages = max(1, -(-n_true // _GRAM_STAGE_ROWS))
+    runs = max(1, min(stages, _GRAM_RESIDENT[dev.index] // tiles, _GRAM_MAX_RUNS))
+    per = -(-stages // runs) * _GRAM_STAGE_ROWS
+    return max(1, -(-n_true // per)), per
+
+
+def _gram_cuda(x: torch.Tensor, n_true: int) -> torch.Tensor:
+    """Launch csrc/syrk.cu on PyTorch's current stream (no synchronise)."""
+    global GRAM_LAUNCHES
+    n = x.shape[1]
+    dev = x.device
+    lib = _gram_lib()
+    tiles = _gram_tiles(n)
+    runs, per = _gram_runs(dev, tiles, n_true)
+    partial = torch.empty((runs * tiles * _GRAM_TILE * _GRAM_TILE,), dtype=torch.float64, device=dev)
+    g = torch.empty((n, n), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.heat_syrk_f32(x.data_ptr(), n_true, n, partial.data_ptr(), runs, per, g.data_ptr(), stream)
+    if err != 0:
+        raise RuntimeError(f"gram kernel launch failed: CUDA error {err}")
+    GRAM_LAUNCHES += 1
+    return g
+
+
+def gram_partials(x: torch.Tensor, n_true: int) -> torch.Tensor:
+    """One rank's Gram matrix ``x[:n_true].T @ x[:n_true]``, (n, n) float32;
+    rows at or past ``n_true`` (padding) add nothing.
+
+    A CPU tensor runs the plain version; a CUDA tensor runs the kernel or
+    raises."""
+    if x.ndim != 2:
+        raise ValueError(f"need a matrix (rows, n), got shape {tuple(x.shape)}")
+    n_true = int(n_true)
+    if not 0 <= n_true <= x.shape[0]:
+        raise ValueError(f"n_true={n_true} is outside the {x.shape[0]} rows")
+    if x.device.type == "cpu":
+        return _gram_plain(x, n_true)
+    if x.device.type != "cuda":
+        raise ValueError(f"no Gram kernel for device {x.device}")
+    if x.dtype != torch.float32:
+        raise TypeError(f"the CUDA Gram kernel takes float32, got {x.dtype}")
+    if not x.is_contiguous():
+        raise ValueError("the CUDA Gram kernel needs a contiguous matrix")
+    reason = gram_unsupported(x.shape[1], x.dtype)
+    if reason is not None:
+        raise ValueError(f"the CUDA Gram kernel {reason}")
+    return _gram_cuda(x, n_true)

@@ -1,4 +1,4 @@
-"""Matrix product and norm (counterpart of heat_tpu/core/linalg/basics.py).
+"""Matrix product, norm and transpose (counterpart of heat_tpu/core/linalg/basics.py).
 
 Float32 products stay in full float32: the JAX package asks for
 ``Precision.HIGHEST``, and TF32 (about three decimal digits) is in neither
@@ -14,8 +14,9 @@ import torch
 
 from .. import types
 from ..dndarray import DNDarray
+from ..sanitation import sanitize_in
 
-__all__ = ["full_f32_matmul", "matmul", "norm"]
+__all__ = ["full_f32_matmul", "matmul", "norm", "transpose"]
 
 
 @contextlib.contextmanager
@@ -61,3 +62,15 @@ def norm(x: DNDarray, axis=None, keepdims: bool = False) -> DNDarray:
         x = x.astype(types.float32)
     s = arithmetics.sum(x * x, axis=axis, keepdims=keepdims)
     return s._like(torch.sqrt(s.larray_padded))
+
+
+def transpose(a: DNDarray) -> DNDarray:
+    """The transpose of a 2-D array.
+
+    Each rank transposes its padded chunk, and the split moves with its
+    axis (split 0 becomes split 1 and back): nothing is gathered."""
+    sanitize_in(a)
+    if a.ndim != 2:
+        raise NotImplementedError(f"transpose of a {a.ndim}-D array is not ported yet")
+    split = None if a.split is None else 1 - a.split
+    return a._like(a.larray_padded.T, (a.shape[1], a.shape[0]), split)

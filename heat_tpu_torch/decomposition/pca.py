@@ -1,0 +1,147 @@
+"""Principal component analysis (counterpart of heat_tpu/decomposition/pca.py).
+
+Ported: ``svd_solver="hierarchical"`` (``hsvd_rank`` for an int
+``n_components``, ``hsvd_rtol`` for a float one), ``transform``,
+``inverse_transform`` and ``fit_transform``.  A fit over data split along
+rows gathers nothing of the data's size: the mean, the Gram matrix and the
+total variance are local sums followed by one all-reduce each.  The other
+solvers, the checkpoint parameters and low-precision transforms are not
+ported yet and raise.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Union
+
+import torch
+
+from ..core import random as ht_random
+from ..core import statistics
+from ..core.base import BaseEstimator, TransformMixin, lazy_scalar_property, low_precision_predict_requested
+from ..core.dndarray import DNDarray
+from ..core.linalg import basics, svdtools
+
+__all__ = ["PCA"]
+
+
+class PCA(BaseEstimator, TransformMixin):
+    """Linear dimensionality reduction by the SVD of the centred data."""
+
+    def __init__(
+        self,
+        n_components: Optional[Union[int, float]] = None,
+        copy: bool = True,
+        whiten: bool = False,
+        svd_solver: str = "hierarchical",
+        tol: Optional[float] = None,
+        iterated_power: Union[str, int] = "auto",
+        n_oversamples: int = 10,
+        power_iteration_normalizer: str = "qr",
+        random_state: Optional[int] = None,
+        checkpoint_every: Optional[int] = None,
+        checkpoint_dir: Optional[str] = None,
+        resume_from: Optional[str] = None,
+    ):
+        if whiten:
+            raise NotImplementedError("whitening is not supported")
+        if svd_solver not in ("full", "hierarchical", "randomized"):
+            raise ValueError(f"svd_solver must be 'full', 'hierarchical' or 'randomized', got {svd_solver!r}")
+        if random_state is not None and not isinstance(random_state, int):
+            raise ValueError(f"random_state must be None or int, got {type(random_state)}")
+        if checkpoint_every is not None or checkpoint_dir is not None or resume_from is not None:
+            raise NotImplementedError(
+                "resumable fits (checkpoint_every, checkpoint_dir, resume_from) are not ported yet "
+                "(ROADMAP Queue 1 item 15)"
+            )
+        self.checkpoint_every = checkpoint_every
+        self.checkpoint_dir = checkpoint_dir
+        self.resume_from = resume_from
+
+        self.n_components = n_components
+        self.copy = copy
+        self.whiten = whiten
+        self.svd_solver = svd_solver
+        self.tol = tol
+        self.iterated_power = iterated_power
+        self.n_oversamples = n_oversamples
+        self.power_iteration_normalizer = power_iteration_normalizer
+        self.random_state = random_state
+
+        self.components_ = None
+        self.explained_variance_ = None
+        self.explained_variance_ratio_ = None
+        self.singular_values_ = None
+        self.mean_ = None
+        self.n_components_ = None
+        self._tevr = None
+        self.noise_variance_ = None
+
+    # a fit stores a device scalar; the host value is taken on first access
+    total_explained_variance_ratio_ = lazy_scalar_property("_tevr", float)
+
+    def fit(self, X: DNDarray, y=None) -> "PCA":
+        """Estimate the principal components of ``X`` (samples along rows)."""
+        if not isinstance(X, DNDarray):
+            raise TypeError(f"X must be a DNDarray, got {type(X)}")
+        if X.ndim != 2:
+            raise ValueError(f"X must be 2D, got {X.ndim}D")
+        if y is not None:
+            raise ValueError("PCA is an unsupervised transform; y must be None")
+        if self.svd_solver == "full":
+            raise NotImplementedError("svd_solver='full' needs qr and svd, not ported yet (ROADMAP Queue 1 item 9)")
+        if self.svd_solver == "randomized":
+            raise NotImplementedError(
+                "svd_solver='randomized' needs rsvd and randn, not ported yet (ROADMAP Queue 1 items 5 and 9)"
+            )
+        n, f = X.shape
+        mean = statistics.mean(X, axis=0)
+        self.mean_ = mean
+        centered = X - mean
+        if self.random_state is not None:
+            ht_random.seed(self.random_state)
+
+        rank_cap = min(n, f)
+        if isinstance(self.n_components, float):
+            if not 0.0 < self.n_components <= 1.0:
+                raise ValueError("float n_components must be in (0, 1]")
+            U, S, V, err = svdtools.hsvd_rtol(centered, rtol=(1 - self.n_components) ** 0.5, compute_sv=True)
+        else:
+            k = min(self.n_components, rank_cap) if self.n_components else rank_cap
+            U, S, V, err = svdtools.hsvd_rank(centered, maxrank=k, compute_sv=True)
+        self.components_ = DNDarray.from_dense(V._dense().T, None, X.device, X.comm)
+        self.singular_values_ = S
+        s = S._dense()
+        ev = s**2 / max(n - 1, 1)
+        self.explained_variance_ = DNDarray.from_dense(ev, None, X.device, X.comm)
+        total_var = _sum_of_squares(centered) / max(n - 1, 1)
+        ratio = ev / torch.clamp(total_var, min=1e-30)
+        self.explained_variance_ratio_ = DNDarray.from_dense(ratio, None, X.device, X.comm)
+        self._tevr = 1.0 - err**2
+        self.n_components_ = int(s.shape[0])
+        return self
+
+    def transform(self, X: DNDarray) -> DNDarray:
+        """Project ``X`` onto the principal axes."""
+        if self.components_ is None:
+            raise RuntimeError("fit needs to be called before transform")
+        if not isinstance(X, DNDarray):
+            raise TypeError(f"X must be a DNDarray, got {type(X)}")
+        if low_precision_predict_requested():
+            raise NotImplementedError(
+                "low-precision transform (HEAT_TPU_PREDICT_DTYPE) needs the precision scope, "
+                "not ported yet (ROADMAP Queue 1 item 18)"
+            )
+        return basics.matmul(X - self.mean_, self.components_.T)
+
+    def inverse_transform(self, X: DNDarray) -> DNDarray:
+        """Map projected data back to the original space."""
+        if self.components_ is None:
+            raise RuntimeError("fit needs to be called before inverse_transform")
+        return basics.matmul(X, self.components_) + self.mean_
+
+
+def _sum_of_squares(x: DNDarray) -> torch.Tensor:
+    """The float32 sum of squares of x's true entries: a local sum over this
+    rank's chunk (padding left out), then one all-reduce."""
+    ss = (torch.linalg.vector_norm(x.larray, dtype=torch.float32) ** 2).reshape(1)
+    return (ss if x.split is None else x.comm.psum(ss))[0]

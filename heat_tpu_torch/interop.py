@@ -3,7 +3,8 @@
 :func:`from_reference_state` takes the document that heat_tpu's
 ``serving.model_io.export_state`` writes, ``{"kind", "params", "state"}``,
 with its array leaves already turned into numpy arrays, and returns the
-port's fitted estimator, ready to ``predict``.
+port's fitted estimator, ready to ``predict`` (KMeans) or ``transform``
+(PCA).
 """
 
 from __future__ import annotations
@@ -14,21 +15,43 @@ import numpy as np
 
 from .cluster import KMeans
 from .core import factories
+from .decomposition import PCA
 
 __all__ = ["from_reference_state"]
 
-_KINDS = {"KMeans": KMeans}
+
+def _kmeans_state(est: KMeans, state: Dict[str, Any], device, comm) -> None:
+    est._cluster_centers = factories.array(np.asarray(state["cluster_centers"]), device=device, comm=comm)
+
+
+_PCA_ARRAYS = {
+    "mean_": "mean",
+    "components_": "components",
+    "singular_values_": "singular_values",
+    "explained_variance_": "explained_variance",
+    "explained_variance_ratio_": "explained_variance_ratio",
+}
+
+
+def _pca_state(est: PCA, state: Dict[str, Any], device, comm) -> None:
+    for attr, key in _PCA_ARRAYS.items():
+        setattr(est, attr, factories.array(np.asarray(state[key]), device=device, comm=comm))
+    est._tevr = float(state["tevr"])
+    est.n_components_ = int(state["n_components"])
+
+
+_KINDS = {"KMeans": (KMeans, _kmeans_state), "PCA": (PCA, _pca_state)}
 
 
 def from_reference_state(doc: Dict[str, Any], device=None, comm=None):
-    """A fitted port estimator from a heat_tpu model document (KMeans only)."""
+    """A fitted port estimator from a heat_tpu model document (KMeans or PCA)."""
     try:
         kind, params, state = doc["kind"], doc["params"], doc["state"]
     except (TypeError, KeyError):
         raise ValueError("not a model document: it needs kind, params and state") from None
     if kind not in _KINDS:
         raise NotImplementedError(f"carrying over a fitted {kind} is not ported yet; supported: {sorted(_KINDS)}")
-    est = _KINDS[kind](**params)
-    centers = np.asarray(state["cluster_centers"])
-    est._cluster_centers = factories.array(centers, device=device, comm=comm)
+    cls, restore = _KINDS[kind]
+    est = cls(**params)
+    restore(est, state, device, comm)
     return est

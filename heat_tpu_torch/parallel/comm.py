@@ -14,7 +14,7 @@ the split axis masks the padding with its own neutral element first.
 
 from __future__ import annotations
 
-from typing import Optional, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -136,6 +136,25 @@ class Communication:
         parts = [torch.empty_like(x) for _ in range(self.size)]
         dist.all_gather(parts, x.contiguous(), group=self.group)
         return torch.cat(parts, dim=axis)
+
+    def all_gather_varying(self, x: torch.Tensor, extents: Sequence[int], axis: int) -> List[torch.Tensor]:
+        """Every rank's ``x``, in rank order, where rank r's extent along
+        ``axis`` is ``extents[r]`` and all else is equal: each is padded to
+        the largest extent for one equal-shape all-gather and cut back."""
+        extents = [int(e) for e in extents]
+        if len(extents) != self.size or x.shape[axis] != extents[self.rank]:
+            raise ValueError(f"rank {self.rank} holds extent {x.shape[axis]}; extents are {extents}")
+        pad = max(extents) - x.shape[axis]
+        if pad:
+            widths = list(x.shape)
+            widths[axis] = pad
+            x = torch.cat([x, x.new_zeros(widths)], dim=axis)
+        if self.size == 1:
+            return [x.narrow(axis, 0, extents[0])]
+        self._check_joined()
+        parts = [torch.empty_like(x) for _ in range(self.size)]
+        dist.all_gather(parts, x.contiguous(), group=self.group)
+        return [p.narrow(axis, 0, e) for p, e in zip(parts, extents)]
 
 
 WORLD = Communication()

@@ -1,6 +1,7 @@
 """The port in a world of 3 CPU ranks (torch.distributed, gloo) against
 heat_tpu on a 3-device Communication: the canonical layout of an uneven
-split and the distributed KMeans fit and predict.
+split, the distributed KMeans fit and predict, and hierarchical SVD and PCA
+over rows (one Gram all-reduce) and over columns (the merge tree).
 
 The ranks are separate processes that meet through a file store under the
 test's temporary directory (no TCP port).  The test waits at most 60 s for
@@ -24,9 +25,10 @@ WORLD = 3
 DEADLINE_S = 60.0
 REPO = Path(__file__).resolve().parents[1]
 
-_RANK_MAIN = r"""
+_RANK_HEAD = r"""
 import sys
 import numpy as np
+import torch
 import torch.distributed as dist
 
 rank, store, data, out = int(sys.argv[1]), sys.argv[2], sys.argv[3], sys.argv[4]
@@ -35,6 +37,9 @@ import heat_tpu_torch as ht
 
 ht.use_device("cpu")
 arrays = np.load(data)
+"""
+
+_KMEANS_MAIN = _RANK_HEAD + r"""
 x = ht.array(arrays["x"], split=0)
 km = ht.cluster.KMeans(n_clusters=8, init="random", random_state=0, max_iter=30).fit(x)
 np.savez(
@@ -50,6 +55,52 @@ np.savez(
 dist.destroy_process_group()
 """
 
+# every eigh input is recorded: the first of a split=0 fit is the summed Gram
+# matrix, which must be the same bits on every rank
+_HSVD_MAIN = _RANK_HEAD + r"""
+seen = []
+_eigh = torch.linalg.eigh
+
+
+def recording_eigh(g):
+    seen.append(g.clone())
+    return _eigh(g)
+
+
+torch.linalg.eigh = recording_eigh
+gathered = []
+_all_gather = ht.Communication.all_gather
+
+
+def recording_all_gather(self, x, axis=0):
+    gathered.append(x.numel())
+    return _all_gather(self, x, axis)
+
+
+ht.Communication.all_gather = recording_all_gather
+rows = ht.array(arrays["rows"], split=0)
+u, s, v, err = ht.linalg.hsvd_rank(rows, 5, compute_sv=True)
+gram = seen[0].numpy()
+u_rt, s_rt, v_rt, err_rt = ht.linalg.hsvd_rtol(rows, 0.3, compute_sv=True)
+pca = ht.decomposition.PCA(n_components=4).fit(rows)
+row_gathers = len(gathered)  # a fit over rows gathers nothing
+cols = ht.array(arrays["cols"], split=1)
+cu, cs, cv, cerr = ht.linalg.hsvd_rank(cols, 4, compute_sv=True)
+cu_rt, cs_rt, cv_rt, cerr_rt = ht.linalg.hsvd_rtol(cols, 0.3, compute_sv=True)
+np.savez(
+    out,
+    row_gathers=np.asarray(row_gathers),
+    gram=gram, u=u.numpy(), u_split=np.asarray(u.split), s=s.numpy(), v=v.numpy(), err=np.asarray(float(err)),
+    u_rt=u_rt.numpy(), s_rt=s_rt.numpy(), v_rt=v_rt.numpy(), err_rt=np.asarray(float(err_rt)),
+    cu=cu.numpy(), cs=cs.numpy(), cv=cv.numpy(), cv_split=np.asarray(cv.split), cerr=np.asarray(float(cerr)),
+    cs_rt=cs_rt.numpy(), cv_rt=cv_rt.numpy(), cerr_rt=np.asarray(float(cerr_rt)),
+    components=pca.components_.numpy(), ev=pca.explained_variance_.numpy(),
+    ratio=pca.explained_variance_ratio_.numpy(), tevr=np.asarray(pca.total_explained_variance_ratio_),
+    transform=pca.transform(ht.array(arrays["fresh"], split=0)).numpy(),
+)
+dist.destroy_process_group()
+"""
+
 
 def _blobs(n, f, k, seed):
     rng = np.random.default_rng(seed)
@@ -57,13 +108,13 @@ def _blobs(n, f, k, seed):
     return (centres[rng.integers(0, k, n)] + rng.standard_normal((n, f))).astype(np.float32)
 
 
-def _run_world(tmp_path, x, fresh):
+def _run_world(tmp_path, script, **arrays):
     data = tmp_path / "data.npz"
-    np.savez(data, x=x, fresh=fresh)
+    np.savez(data, **arrays)
     env = {**os.environ, "OMP_NUM_THREADS": "1", "PYTHONPATH": str(REPO)}
     procs = []
     for r in range(WORLD):
-        cmd = [sys.executable, "-c", _RANK_MAIN, str(r), str(tmp_path / "store"), str(data), str(tmp_path / f"rank{r}.npz")]
+        cmd = [sys.executable, "-c", script, str(r), str(tmp_path / "store"), str(data), str(tmp_path / f"rank{r}.npz")]
         log = open(tmp_path / f"rank{r}.log", "w")
         procs.append((subprocess.Popen(cmd, cwd=REPO, env=env, stdout=log, stderr=subprocess.STDOUT), log))
     deadline = time.monotonic() + DEADLINE_S
@@ -86,7 +137,7 @@ def _run_world(tmp_path, x, fresh):
 def test_kmeans_in_a_gloo_world_of_three(tmp_path):
     x = _blobs(1003, 16, 8, 0)  # 1003 = 3 * 335 - 2: rank 2 holds padding
     fresh = _blobs(301, 16, 8, 9)
-    ranks = _run_world(tmp_path, x, fresh)
+    ranks = _run_world(tmp_path, _KMEANS_MAIN, x=x, fresh=fresh)
 
     ref_comm = hj.Communication(jax.devices()[:WORLD])
     ref_x = hj.array(x, split=0, comm=ref_comm)
@@ -100,3 +151,62 @@ def test_kmeans_in_a_gloo_world_of_three(tmp_path):
         np.testing.assert_array_equal(got["labels"], ref.labels_.numpy())
         np.testing.assert_allclose(float(got["inertia"]), ref.inertia_, rtol=1e-4)
         np.testing.assert_array_equal(got["predict"], want_predict)
+
+
+def _signed_like(got, want):
+    """got's columns flipped to agree in sign with want's."""
+    signs = np.sign(np.sum(got * want, axis=0))
+    signs[signs == 0] = 1
+    return got * signs
+
+
+def _lowrank(m, n, rank, seed):
+    rng = np.random.default_rng(seed)
+    a = rng.standard_normal((m, rank)) @ (rng.standard_normal((rank, n)) * np.linspace(3.0, 1.0, rank)[:, None])
+    return (a + 0.05 * rng.standard_normal((m, n)) + 2.0).astype(np.float32)
+
+
+def test_hsvd_and_pca_in_a_gloo_world_of_three(tmp_path):
+    rows = _lowrank(1003, 12, 6, 1)  # 1003 = 3 * 335 - 2: rank 2 holds padding
+    cols = _lowrank(60, 37, 8, 2)  # 37 columns over 3 ranks: leaves of 13, 13 and 11
+    fresh = _lowrank(29, 12, 6, 3)
+    ranks = _run_world(tmp_path, _HSVD_MAIN, rows=rows, cols=cols, fresh=fresh)
+
+    assert all(int(got["row_gathers"]) == 0 for got in ranks)
+    # replicated decisions: the same bits of G, V and the rtol rank everywhere
+    for got in ranks[1:]:
+        for key in ("gram", "s", "v", "s_rt", "v_rt", "cs", "cv", "cs_rt", "cv_rt", "components"):
+            np.testing.assert_array_equal(got[key], ranks[0][key], err_msg=key)
+
+    ref_comm = hj.Communication(jax.devices()[:WORLD])
+    ref_rows = hj.array(rows, split=0, comm=ref_comm)
+    ref_cols = hj.array(cols, split=1, comm=ref_comm)
+    want = hj.linalg.hsvd_rank(ref_rows, 5, compute_sv=True)
+    want_rt = hj.linalg.hsvd_rtol(ref_rows, 0.3, compute_sv=True)
+    want_c = hj.linalg.hsvd_rank(ref_cols, 4, compute_sv=True)
+    want_crt = hj.linalg.hsvd_rtol(ref_cols, 0.3, compute_sv=True)
+    pca = hj.decomposition.PCA(n_components=4).fit(ref_rows)
+    want_t = pca.transform(hj.array(fresh, split=0, comm=ref_comm)).numpy()
+    got = ranks[0]
+    np.testing.assert_allclose(got["gram"], rows.astype(np.float64).T @ rows.astype(np.float64), rtol=1e-5)
+    assert int(got["u_split"]) == 0 and int(got["cv_split"]) == 1
+    for (u, s, v, e), (wu, ws, wv, we) in (
+        ((got["u"], got["s"], got["v"], got["err"]), want),
+        ((got["u_rt"], got["s_rt"], got["v_rt"], got["err_rt"]), want_rt),
+        ((got["cu"], got["cs"], got["cv"], got["cerr"]), want_c),
+        ((None, got["cs_rt"], got["cv_rt"], got["cerr_rt"]), want_crt),
+    ):
+        assert s.shape == ws.shape  # the same rank, fixed or chosen by rtol
+        np.testing.assert_allclose(s, ws.numpy(), rtol=1e-4)
+        np.testing.assert_allclose(_signed_like(v, wv.numpy()), wv.numpy(), atol=1e-4)
+        if u is not None:
+            np.testing.assert_allclose(_signed_like(u, wu.numpy()), wu.numpy(), atol=1e-4)
+        np.testing.assert_allclose(float(e), float(we), atol=1e-5)
+    wc = pca.components_.numpy()
+    signs = np.sign(np.sum(got["components"] * wc, axis=1))
+    np.testing.assert_allclose(got["components"] * signs[:, None], wc, atol=1e-4)
+    np.testing.assert_allclose(got["ev"], pca.explained_variance_.numpy(), rtol=1e-4)
+    np.testing.assert_allclose(got["ratio"], pca.explained_variance_ratio_.numpy(), rtol=1e-4)
+    np.testing.assert_allclose(float(got["tevr"]), pca.total_explained_variance_ratio_, atol=1e-5)
+    for r, rk in enumerate(ranks):
+        np.testing.assert_allclose(rk["transform"] * signs[None, :], want_t, atol=1e-4, err_msg=f"rank {r}")

@@ -1,5 +1,6 @@
-"""The port's CUDA Lloyd kernel on the card, held against its plain PyTorch
-version at small shapes (chip_smoke.py does the same at full size).
+"""The port's CUDA kernels on the card (the Lloyd step and the Gram matrix),
+held against their plain PyTorch versions at small shapes (chip_smoke.py
+does the same at full size).
 
 Marked ``gpu``: run on a machine with a CUDA card by
 ``python -m pytest -m gpu tests/test_torch_gpu.py``; elsewhere every test
@@ -113,3 +114,88 @@ def test_rand_on_the_card_is_bitwise_the_hosts(card):
         on_host = ht.random.rand(n, device="cpu").larray_padded
         assert on_card.device.type == "cuda"
         assert torch.equal(on_card.cpu().view(torch.int32), on_host.view(torch.int32))
+
+
+GRAM_CASES = [
+    (4233, 128, 4100),  # padding past n_true, poisoned below
+    (3 * 2048 + 11, 64, 3 * 2048 + 11),
+    (5000, 200, 5000),
+    (2049, 512, 2049),
+    (100, 128, 100),
+    (1003, 37, 1000),  # n % 4 != 0: the kernel's 4-byte copies
+]
+
+
+def _gram_check(x, n_true):
+    before = kernels.GRAM_LAUNCHES
+    got = kernels.gram_partials(x, n_true)
+    again = kernels.gram_partials(x, n_true)
+    assert kernels.GRAM_LAUNCHES == before + 2
+    want = kernels._gram_plain(x, n_true)
+    torch.cuda.synchronize()
+    rel = float((got.double() - want.double()).norm() / want.double().norm())
+    assert rel <= 5e-6, rel
+    assert torch.equal(got, got.T)  # exactly symmetric
+    assert torch.equal(got, again)  # bitwise reproducible
+
+
+@pytest.mark.parametrize("rows,n,n_true", GRAM_CASES)
+def test_gram_kernel_matches_plain(card, rows, n, n_true):
+    g = torch.Generator(device=card).manual_seed(rows + n)
+    x = torch.randn(rows, n, device=card, generator=g)
+    x[n_true:] = 1e6
+    _gram_check(x, n_true)
+
+
+def test_gram_kernel_on_unaligned_rows(card):
+    # contiguous, but 4 bytes past a 16-byte boundary: the 4-byte copies
+    flat = torch.randn(777 * 64 + 1, device=card)
+    _gram_check(flat[1:].view(777, 64), 777)
+
+
+def test_gram_kernel_refuses_what_it_cannot_take(card):
+    with pytest.raises(TypeError):
+        kernels.gram_partials(torch.randn(64, 16, device=card, dtype=torch.float64), 64)
+    with pytest.raises(ValueError, match="columns"):
+        kernels.gram_partials(torch.randn(64, 513, device=card), 64)
+    with pytest.raises(ValueError, match="contiguous"):
+        kernels.gram_partials(torch.randn(16, 64, device=card).T, 64)
+
+
+def _spectrum_matrix(rows, cols, seed):
+    rng = np.random.default_rng(seed)
+    scale = np.linspace(6.0, 1.0, 8)[:, None]
+    a = rng.standard_normal((rows, 8)) @ (rng.standard_normal((8, cols)) * scale) + 3.0
+    return (a + 0.01 * rng.standard_normal((rows, cols))).astype(np.float32)
+
+
+def test_hsvd_on_the_card_matches_cpu(card):
+    a = _spectrum_matrix(20011, 64, 2)
+    before = kernels.GRAM_LAUNCHES
+    got = ht.linalg.hsvd_rank(ht.array(a, split=0), 6, compute_sv=True)
+    assert kernels.GRAM_LAUNCHES == before + 1  # one Gram pass, through the kernel
+    assert got[0].larray_padded.device.type == "cuda"
+    want = ht.linalg.hsvd_rank(ht.array(a, split=0, device="cpu"), 6, compute_sv=True)
+    np.testing.assert_allclose(got[1].numpy(), want[1].numpy(), rtol=1e-4)
+    for g, w in ((got[0].numpy(), want[0].numpy()), (got[2].numpy(), want[2].numpy())):
+        signs = np.sign(np.sum(g * w, axis=0))
+        np.testing.assert_allclose(g * signs, w, atol=1e-4)
+    np.testing.assert_allclose(float(got[3]), float(want[3]), atol=1e-5)
+    k_card = ht.linalg.hsvd_rtol(ht.array(a, split=0), 1e-3)[0].shape[1]
+    assert k_card == ht.linalg.hsvd_rtol(ht.array(a, split=0, device="cpu"), 1e-3)[0].shape[1]
+
+
+def test_pca_on_the_card_matches_cpu(card):
+    a = _spectrum_matrix(5003, 40, 3)
+    before = kernels.GRAM_LAUNCHES
+    got = ht.decomposition.PCA(n_components=5).fit(ht.array(a, split=0))
+    assert kernels.GRAM_LAUNCHES == before + 1
+    want = ht.decomposition.PCA(n_components=5).fit(ht.array(a, split=0, device="cpu"))
+    gc, wc = got.components_.numpy(), want.components_.numpy()
+    signs = np.sign(np.sum(gc * wc, axis=1))
+    np.testing.assert_allclose(gc * signs[:, None], wc, atol=1e-4)
+    np.testing.assert_allclose(got.explained_variance_ratio_.numpy(), want.explained_variance_ratio_.numpy(), rtol=1e-4)
+    fresh = a[:300]
+    t_got = got.transform(ht.array(fresh, split=0)).numpy() * signs[None, :]
+    t_want = want.transform(ht.array(fresh, split=0, device="cpu")).numpy()
+    assert np.all(np.abs(t_got - t_want) <= 1e-4 * (1 + np.abs(t_want)))
