@@ -39,6 +39,24 @@ The KMeans data is then freed, and the hierarchical SVD path follows on a
 11. times: the Gram kernel beside its plain version, the library's
     ``x.T @ x`` (cuBLAS, full float32) and its bound.
 
+The hSVD data is then freed, and the FFT path follows at the JAX package's
+config-5 size (a real 512^3 float32 cube, split=0), on data made on the card:
+
+12. fft_check: each FFT kernel -- K3 (the two-plane stage, blocked form),
+    K4 (the cat-layout pair stage, as entry and as stage), K5 (the combine
+    plus Hermitian extension) and K6 (the fused last-axis pass) -- against
+    its plain version at the main path's shapes and at ragged ones
+    (relative error at most 1e-5), a bitwise repeat, the inputs each must
+    refuse, and each kernel's time beside its plain version's, its bound
+    and ``torch.fft``'s time on the same data;
+13. fftn: ht.fft.fftn of the cube, fftn and ifftn of its spectrum, through
+    the entry points a user calls: K3 and K5 once, K4 three times a complex
+    transform, against torch.fft in complex128, Parseval and the round trip;
+14. fft2_fft: ht.fft.fft2 of a real 8192^2 image (one K4 launch) and
+    ht.fft.fft of (2^19, 1024) complex64 signals (one K6 launch);
+15. fft_profile: the real and the complex fftn under torch.profiler;
+16. fft_times: the whole path against torch.fft.fftn on the same inputs.
+
 The line before the last is the kernel summary, the last line
 ``{"ok": true, "device": {...}}``.
 """
@@ -63,6 +81,11 @@ HSVD_COLS = 128
 HSVD_RANK = 10
 # published peaks of one H100 SXM: HBM bytes/s, float32 FLOP/s outside the
 # tensor cores, bf16 FLOP/s on the tensor cores (dense)
+# the FFT path: BASELINE config 5 and the JAX package's own config-5 benchmark
+FFT_N = 512
+FFT2_N = 8192
+FFT1_ROWS = 1 << 19
+FFT1_N = 1024
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS = 67e12
 BF16_FLOPS = 989e12
@@ -115,7 +138,7 @@ def wall_ms(fn) -> tuple:
     return out, (time.perf_counter() - t0) * 1e3
 
 
-def profile_fit(fit) -> dict:
+def profile_fit(fit, top_n: int = 6) -> dict:
     """Run ``fit`` under torch.profiler: its wall time, the device time of
     every kernel it launched (one stream, so the sum is the busy time), and
     the kernels that took the most."""
@@ -132,7 +155,7 @@ def profile_fit(fit) -> dict:
         ms, calls = by_name.get(e.name, (0.0, 0))
         by_name[e.name] = (ms + e.device_time_total / 1e3, calls + 1)
     busy_ms = sum(ms for ms, _ in by_name.values())
-    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:6]
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:top_n]
     return {"fit_wall_ms": wall_ms_, "device_busy_ms": busy_ms, "idle_share": 1.0 - busy_ms / wall_ms_,
             "top_kernels": [{"name": n[:80], "ms": ms, "calls": c} for n, (ms, c) in top]}
 
@@ -243,6 +266,287 @@ def check_factors(U, S, err, lam, k: int) -> dict:
         raise AssertionError(f"rel_err {float(err)} against {want_err} from the plain spectrum")
     return {"k": k, "s_max_rel_err": s_err, "u_orthonormality_err": orth, "rel_err": float(err),
             "plain_rel_err": want_err}
+
+
+def rel_err(got, want) -> float:
+    """max |got - want| / max |want|, in float64 or complex128."""
+    import torch
+
+    wide = torch.complex128 if got.is_complex() or want.is_complex() else torch.float64
+    w = want.to(wide)
+    return float((got.to(wide) - w).abs().max() / w.abs().max())
+
+
+def fft_launches() -> dict:
+    from heat_tpu_torch.fft import _axis_pass, _leading
+
+    return {"fft_stage": _leading.FFT_STAGE_LAUNCHES, "fft_pair": _leading.FFT_PAIR_LAUNCHES,
+            "fft_ext": _leading.FFT_EXT_LAUNCHES, "fft_axis": _axis_pass.FFT_AXIS_LAUNCHES}
+
+
+def zero_launches() -> None:
+    from heat_tpu_torch.core import kernels
+    from heat_tpu_torch.fft import _axis_pass, _leading
+
+    kernels.LLOYD_LAUNCHES = kernels.GRAM_LAUNCHES = 0
+    _leading.FFT_STAGE_LAUNCHES = _leading.FFT_PAIR_LAUNCHES = _leading.FFT_EXT_LAUNCHES = 0
+    _axis_pass.FFT_AXIS_LAUNCHES = 0
+
+
+def compare_fft(kernel, plain, label: str) -> dict:
+    """A kernel wrapper against its plain version on the same card tensors:
+    relative error at most 1e-5 on every output, and a second launch
+    bitwise equal to the first."""
+    import torch
+
+    def outs(r):
+        return tuple(r) if isinstance(r, tuple) else (r,)
+
+    got, again, want = outs(kernel()), outs(kernel()), outs(plain())
+    torch.cuda.synchronize()
+    rel = max(rel_err(g, w) for g, w in zip(got, want))
+    err = max(float((g.double() - w.double()).abs().max()) for g, w in zip(got, want))
+    if any(g.shape != w.shape for g, w in zip(got, want)) or rel > 1e-5:
+        raise AssertionError(f"{label}: {[tuple(g.shape) for g in got]} against {[tuple(w.shape) for w in want]}, "
+                             f"relative error {rel}")
+    if not all(torch.equal(a, b) for a, b in zip(got, again)):
+        raise AssertionError(f"{label}: two launches on the same inputs differ")
+    return {"case": label, "rel_err": rel, "max_abs_err": err, "bitwise_repeat": True}
+
+
+def fft_kernels(dev, g, smi: str) -> list:
+    """Phase fft_check: K3-K6 against their plain versions at the main
+    path's shapes (timed there, beside their bounds and torch.fft) and at
+    ragged ones, and the inputs they refuse.  Returns the kernel entries of
+    the summary line, launches still to fill in."""
+    import torch
+    from heat_tpu_torch.fft import _axis_pass, _leading
+
+    n = FFT_N
+    m = n // 2
+
+    def wcat(k, inverse=False, scale=1.0, like=None):
+        return _leading._w(_leading._w_cat, k, "float32", inverse, scale, like=like)
+
+    def randn(*shape):
+        return torch.randn(*shape, device=dev, generator=g)
+
+    def bound(nbytes: float, flops: float) -> tuple:
+        b = {"bytes": nbytes / HBM_BYTES_PER_S * 1e3, "operations": flops / BF16_FLOPS * 1e3}
+        by = max(b, key=b.get)
+        return b[by], by
+
+    entries = []
+
+    def finish(name, source, replaces, checks, kernel, plain, library, nbytes, flops, stage_flops=None, note=None):
+        kernel_ms = time_ms(kernel, reps=10)
+        plain_ms = time_ms(plain, reps=3, warmup=1)
+        library_ms = time_ms(library, reps=10) if library is not None else None
+        bound_ms, bound_by = bound(nbytes, flops)
+        for c in checks:
+            emit({"phase": "fft_check", "kernel": name, **c})
+        line = {"phase": "fft_check", "kernel": name, "ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                "bound_by": bound_by, "share_of_bound": bound_ms / kernel_ms, "library_ms": library_ms, "card": smi}
+        if stage_flops is not None:
+            line["cuda_core_floor_ms"] = stage_flops / F32_FLOPS * 1e3
+        if note:
+            line["library_note"] = note
+        emit(line)
+        entries.append({"name": name, "route": "cuda", "source": source, "replaces": replaces, "launches": None,
+                        "max_abs_err": max(c["max_abs_err"] for c in checks), "ms": kernel_ms, "plain_ms": plain_ms,
+                        "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms})
+
+    # K3: the mid stage of the real 512^3 fftn, blocked form: z (K = 512, B = 512, 2m = 512)
+    z = randn(n, n, 2 * m)
+    w = wcat(n, like=z)
+    k3 = lambda: _leading._stage_fused_blocked(z, n, m, False, 1.0)  # noqa: E731
+    k3_plain = lambda: _leading._stage(z[..., :m], z[..., m:], w, n)  # noqa: E731
+    checks = [compare_fft(k3, k3_plain, f"blocked ({n}, {n}, {2 * m})")]
+    zs = randn(100, 7, 2 * 37)
+    checks.append(compare_fft(lambda: _leading._stage_fused_blocked(zs, 100, 37, True, 0.01),
+                              lambda: _leading._stage(zs[..., :37], zs[..., 37:], wcat(100, True, 0.01, zs), 100),
+                              "blocked (100, 7, 74), inverse, scaled"))
+    re, im = randn(96, 5, 33), randn(96, 5, 33)
+    checks.append(compare_fft(lambda: _leading._stage_fused(re, im, 96, False, 1.0),
+                              lambda: _leading._stage(re, im, wcat(96, like=re), 96), "planes (96, 5, 33)"))
+    cz = torch.complex(z[..., :m], z[..., m:])  # K3's operand as complex data, for torch.fft over its axis
+    K, M = n, n * m
+    finish("fft_stage", "heat_tpu_torch/csrc/fft_stage.cu", "heat_tpu/fft/_leading.py:220", checks, k3, k3_plain,
+           lambda: torch.fft.fft(cz, dim=0), 4 * (2 * K * M + 2 * M * n + K * 2 * n), 3 * 8 * K * M * n,
+           stage_flops=8 * K * M * n)
+    del z, cz, w
+
+    # K4: one pair stage of the complex 512^3 transform: z (K = 512, 512, 2, 512), and the entry
+    zp = randn(n, n, 2, n)
+    w = wcat(n, like=zp)
+    k4 = lambda: _leading._stage_pair_fused(zp, n, False, 1.0)  # noqa: E731
+
+    def k4_plain():
+        z3 = zp.reshape(n, n, 2 * n)
+        return _leading._pair_plain(z3[..., :n].reshape(n, -1), z3[..., n:].reshape(n, -1), w, n).reshape(n, n, 2, n)
+
+    checks = [compare_fft(k4, k4_plain, f"pair stage ({n}, {n}, 2, {n})")]
+    checks.append(compare_fft(lambda: _leading._entry_pair_fused(zp[:, :, 0], zp[:, :, 1], n, True),
+                              lambda: _leading._pair_plain(zp[:, :, 0].reshape(n, -1), zp[:, :, 1].reshape(n, -1),
+                                                           wcat(n, True, like=zp), n).reshape(n, n, 2, n),
+                              f"entry ({n}, {n}, {n}), inverse"))
+    zr_ = randn(64, 5, 2, 50)
+    checks.append(compare_fft(lambda: _leading._stage_pair_fused(zr_, 64, False, 0.5, planes=True),
+                              lambda: (lambda o: (o[..., 0, :], o[..., 1, :]))(_leading._stage_pair(zr_, 64, False, 0.5)),
+                              "pair stage (64, 5, 2, 50) into complex64, against the pair-block product"))
+    cz = torch.complex(zp[:, :, 0], zp[:, :, 1])
+    K, M = n, n * n
+    finish("fft_pair", "heat_tpu_torch/csrc/fft_stage.cu", "heat_tpu/fft/_leading.py:369", checks, k4, k4_plain,
+           lambda: torch.fft.fft(cz, dim=0), 4 * (2 * K * M + 2 * M * n + K * 2 * n), 3 * 8 * K * M * n,
+           stage_flops=8 * K * M * n)
+    del zp, cz, w
+
+    # K5: the raw exit products (m, n1, 2 n2) of the real 512^3 fftn and its Nyquist planes
+    zr, zi = randn(m, n, 2 * n), randn(m, n, 2 * n)
+    nyr, nyi = randn(n, n), randn(n, n)
+    k5 = lambda: _leading._ext_fused(zr, zi, nyr, nyi)  # noqa: E731
+
+    def ext_plain(a, b, c, d):
+        h = a.shape[2] // 2
+        return _leading._ext_xla(a[..., :h] - b[..., h:], a[..., h:] + b[..., :h], c, d)
+
+    k5_plain = lambda: ext_plain(zr, zi, nyr, nyi)  # noqa: E731
+    checks = [compare_fft(k5, k5_plain, f"extension ({m}, {n}, {2 * n})")]
+    small = [randn(5, 7, 18), randn(5, 7, 18), randn(7, 9), randn(7, 9)]
+    checks.append(compare_fft(lambda: _leading._ext_fused(*small), lambda: ext_plain(*small), "extension (5, 7, 18)"))
+    if any(c["max_abs_err"] != 0.0 for c in checks):
+        raise AssertionError("the extension is an exact copy after one subtraction, yet differs from its plain version")
+    finish("fft_ext", "heat_tpu_torch/csrc/fft_ext.cu", "heat_tpu/fft/_leading.py:491", checks, k5, k5_plain, None,
+           4 * (2 * m * n * 2 * n + 2 * n * n) + 8 * 2 * m * n * n, 2 * m * n * n * 2,
+           note="no single PyTorch call computes the combine plus the Hermitian extension")
+    del zr, zi, nyr, nyi
+
+    # K6: the last-axis pass of fft on (2^19, 1024) complex64, read in place from the complex tensor
+    sig = torch.complex(randn(FFT1_ROWS, FFT1_N), randn(FFT1_ROWS, FFT1_N))
+    n1, n2 = _axis_pass._split_factors(FFT1_N)
+    consts = _axis_pass.on_device(_axis_pass._kernel_consts, FFT1_N, False, device=dev)
+    k6 = lambda: _axis_pass.fused_axis_pass(sig.real, sig.imag, False)  # noqa: E731
+    k6_plain = lambda: _axis_pass._axis_pass_plain(sig.real, sig.imag, n1, n2, consts)  # noqa: E731
+    checks = [compare_fft(k6, k6_plain, f"axis pass ({FFT1_ROWS}, {FFT1_N}) complex64")]
+    for rows, length, real, inverse in ((37, 1000, True, False), (300, 96, False, True), (5, 6, False, False),
+                                        (1003, 384, False, False), (64, 127, True, True)):
+        xr = randn(rows, length)
+        xi = None if real else randn(rows, length)
+        f1, f2 = _axis_pass._split_factors(length)
+        cst = _axis_pass.on_device(_axis_pass._kernel_consts, length, inverse, device=dev)
+        checks.append(compare_fft(lambda: _axis_pass.fused_axis_pass(xr, xi, inverse),
+                                  lambda: _axis_pass._axis_pass_plain(xr, xi, f1, f2, cst),
+                                  f"axis pass ({rows}, {length}){' real' if real else ''}{' inverse' if inverse else ''}"))
+    B = FFT1_ROWS
+    finish("fft_axis", "heat_tpu_torch/csrc/fft_axis.cu", "heat_tpu/fft/_pallas_fft.py:141", checks, k6, k6_plain,
+           lambda: torch.fft.fft(sig, dim=-1), 8 * B * FFT1_N * 2 + 4 * 2 * (n1 * n1 + FFT1_N + n2 * n2),
+           B * FFT1_N * (3 * 8 * n1 + 8 * n2 + 6), stage_flops=B * FFT1_N * (8 * n1 + 8 * n2 + 6))
+    del sig
+
+    refused = []
+    d = torch.zeros(8, 4, device=dev, dtype=torch.float64)
+    for what, call, err in (
+        ("K3 float64", lambda: _leading._stage_fused(d, d, 8, False, 1.0), TypeError),
+        ("K3 no rows", lambda: _leading._stage_fused(torch.zeros(8, 0, device=dev), torch.zeros(8, 0, device=dev),
+                                                    8, False, 1.0), ValueError),
+        ("K4 float64", lambda: _leading._entry_pair_fused(d, d, 8, False), TypeError),
+        ("K5 float64", lambda: _leading._ext_fused(d[None], d[None], d[:, :2], d[:, :2]), TypeError),
+        ("K6 float64", lambda: _axis_pass.fused_axis_pass(d.reshape(2, 16), None, False), TypeError),
+        ("K6 n = 262 (2 x 131, no factor pair)", lambda: _axis_pass.fused_axis_pass(
+            torch.zeros(2, 262, device=dev), None, False), ValueError),
+    ):
+        try:
+            call()
+        except err:
+            refused.append(what)
+        else:
+            raise AssertionError(f"{what} was taken")
+    emit({"phase": "fft_check", "refused": refused})
+    return entries
+
+
+def fft_path(dev, g, smi: str) -> dict:
+    """Phases fftn, fft2_fft, fft_profile and fft_times; returns the FFT
+    kernels' launches on the main path (fftn, fftn and ifftn of the cube's
+    spectrum, fft2 and fft)."""
+    import torch
+    import heat_tpu_torch as ht
+    from heat_tpu_torch.core import kernels
+
+    # 13. the FFT path, through the entry points a user calls: a real 512^3 cube, split=0
+    x = torch.randn(FFT_N, FFT_N, FFT_N, device=dev, generator=g)
+    X = ht.array(x, split=0)
+    zero_launches()
+    spec, real_ms = wall_ms(lambda: ht.fft.fftn(X))
+    real_launches = fft_launches()
+    spec2, complex_ms = wall_ms(lambda: ht.fft.fftn(spec))
+    back, inverse_ms = wall_ms(lambda: ht.fft.ifftn(spec))
+    fftn_launches = fft_launches()
+    if real_launches != {"fft_stage": 1, "fft_pair": 0, "fft_ext": 1, "fft_axis": 0}:
+        raise AssertionError(f"the real fftn launched {real_launches}; K3 and K5 once each, nothing else")
+    if fftn_launches != {"fft_stage": 1, "fft_pair": 6, "fft_ext": 1, "fft_axis": 0}:
+        raise AssertionError(f"fftn, fftn and ifftn launched {fftn_launches}; K4 three times a complex transform")
+    if kernels.LLOYD_LAUNCHES or kernels.GRAM_LAUNCHES:
+        raise AssertionError("the FFT path launched the Lloyd or the Gram kernel")
+    s_, s2, b_ = spec.larray, spec2.larray, back.larray
+    if (s_.dtype, s2.dtype, b_.dtype) != (torch.complex64,) * 3 or s_.shape != x.shape or spec.split != 0:
+        raise AssertionError(f"fftn gave {s_.dtype} {tuple(s_.shape)} split {spec.split}")
+    if not all(bool(torch.isfinite(torch.view_as_real(t)).all()) for t in (s_, s2, b_)):
+        raise AssertionError("an FFT result is not finite")
+    oracle = torch.fft.fftn(x.double())
+    spec_err = rel_err(s_, oracle)
+    energy = float((s_.abs().double() ** 2).sum())
+    parseval = abs(energy - x.numel() * float((x.double() ** 2).sum())) / energy
+    oracle = torch.fft.fftn(oracle)
+    spec2_err = rel_err(s2, oracle)
+    del oracle
+    back_err = rel_err(b_, x)
+    if max(spec_err, spec2_err, back_err, parseval) > 1e-4:
+        raise AssertionError(f"fftn {spec_err}, fftn of the spectrum {spec2_err}, round trip {back_err}, "
+                             f"Parseval {parseval}: each must be at most 1e-4")
+    emit({"phase": "fftn", "shape": list(x.shape), "split": 0, "launches": fftn_launches,
+          "real_fftn_wall_ms": real_ms, "complex_fftn_wall_ms": complex_ms, "ifftn_wall_ms": inverse_ms,
+          "rel_err_vs_torch_fft_complex128": spec_err, "complex_rel_err": spec2_err, "round_trip_rel_err": back_err,
+          "parseval_rel_err": parseval})
+    del spec2, back, s2, b_
+
+    # 14. fft2 of a real image (one K4 launch), fft of complex signals along the last axis (one K6 launch)
+    img = torch.randn(FFT2_N, FFT2_N, device=dev, generator=g)
+    sig = torch.complex(torch.randn(FFT1_ROWS, FFT1_N, device=dev, generator=g),
+                        torch.randn(FFT1_ROWS, FFT1_N, device=dev, generator=g))
+    IMG, SIG = ht.array(img), ht.array(sig, split=0)
+    zero_launches()
+    f2, fft2_ms = wall_ms(lambda: ht.fft.fft2(IMG))
+    f1, fft_ms = wall_ms(lambda: ht.fft.fft(SIG))
+    more = fft_launches()
+    if more != {"fft_stage": 0, "fft_pair": 1, "fft_ext": 0, "fft_axis": 1} or kernels.LLOYD_LAUNCHES or kernels.GRAM_LAUNCHES:
+        raise AssertionError(f"fft2 and fft launched {more}; K4 once and K6 once")
+    fft2_err = rel_err(f2.larray, torch.fft.fft2(img.double()))
+    fft_err = rel_err(f1.larray, torch.fft.fft(sig.to(torch.complex128)))
+    if f2.larray.shape != img.shape or f1.larray.shape != sig.shape or max(fft2_err, fft_err) > 1e-4:
+        raise AssertionError(f"fft2 {tuple(f2.larray.shape)} rel {fft2_err}; fft {tuple(f1.larray.shape)} rel {fft_err}")
+    emit({"phase": "fft2_fft", "fft2_shape": list(img.shape), "fft2_wall_ms": fft2_ms, "fft2_rel_err": fft2_err,
+          "fft_shape": list(sig.shape), "fft_wall_ms": fft_ms, "fft_rel_err": fft_err, "launches": more})
+    fft2_warm_ms = time_ms(lambda: ht.fft.fft2(IMG), reps=3, warmup=0)  # its matrices now built and cached
+    fft_warm_ms = time_ms(lambda: ht.fft.fft(SIG), reps=3, warmup=0)
+    emit({"phase": "fft2_fft", "fft2_warm_ms": fft2_warm_ms, "fft_warm_ms": fft_warm_ms,
+          "torch_fft2_ms": time_ms(lambda: torch.fft.fft2(img), reps=3),
+          "torch_fft_ms": time_ms(lambda: torch.fft.fft(sig), reps=3), "card": smi})
+    del f2, f1, IMG, SIG, img, sig
+    torch.cuda.empty_cache()
+
+    # 15. where the fftn's time goes: the real and then the complex transform
+    # in one profiled window (the launches here are not counted)
+    emit({"phase": "fft_profile", "transforms": "fftn of the real 512^3 cube, then fftn of its spectrum",
+          **profile_fit(lambda: (ht.fft.fftn(X).larray.shape, ht.fft.fftn(spec).larray.shape), top_n=10)})
+
+    # 16. the whole path against torch.fft on the same inputs
+    emit({"phase": "fft_times", "card": smi,
+          "real_fftn_ms": time_ms(lambda: ht.fft.fftn(X), reps=5),
+          "torch_fft_real_fftn_ms": time_ms(lambda: torch.fft.fftn(x), reps=5),
+          "complex_fftn_ms": time_ms(lambda: ht.fft.fftn(spec), reps=5),
+          "torch_fft_complex_fftn_ms": time_ms(lambda: torch.fft.fftn(s_), reps=5)})
+    return {k: fftn_launches[k] + more[k] for k in more}
 
 
 def main() -> int:
@@ -474,12 +778,24 @@ def main() -> int:
           "cuda_core_floor_ms": m * n * (n + 1) / F32_FLOPS * 1e3,
           "library_ms": library_ms, "library_call": "x.T @ x, full float32 (cuBLAS)", "card": smi})
 
-    emit({"kernels": [lloyd, {
-        "name": "gram_syrk", "route": "cuda", "source": "heat_tpu_torch/csrc/syrk.cu",
-        "replaces": "heat_tpu/core/kernels.py:378", "launches": gram_launches, "max_abs_err": gram_abs_err,
-        "ms": gram_ms, "plain_ms": gram_plain_ms, "bound_ms": bound[gram_bound_by], "bound_by": gram_bound_by,
-        "library_ms": library_ms,
-    }]})
+    gram = {"name": "gram_syrk", "route": "cuda", "source": "heat_tpu_torch/csrc/syrk.cu",
+            "replaces": "heat_tpu/core/kernels.py:378", "launches": gram_launches, "max_abs_err": gram_abs_err,
+            "ms": gram_ms, "plain_ms": gram_plain_ms, "bound_ms": bound[gram_bound_by], "bound_by": gram_bound_by,
+            "library_ms": library_ms}
+
+    # the hSVD data is freed before the FFT path's
+    del a, A, S, lam, sq
+    torch.cuda.empty_cache()
+
+    # 12. the FFT kernels against their plain versions, and their times
+    fft_entries = fft_kernels(dev, g, smi)
+
+    # 13.-16. the FFT path through the entry points a user calls
+    main_launches = fft_path(dev, g, smi)
+    for e in fft_entries:
+        e["launches"] = main_launches[e["name"]]
+
+    emit({"kernels": [lloyd, gram, *fft_entries]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": name, "count": torch.cuda.device_count()}})
     return 0
 

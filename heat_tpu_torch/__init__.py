@@ -17,4 +17,5 @@ from .core import devices, kernels, linalg, random, types
 from . import spatial
 from . import cluster
 from . import decomposition
+from . import fft
 from . import interop

@@ -40,7 +40,8 @@ def arange(*args, dtype=None, split=None, device=None, comm=None) -> DNDarray:
 def array(obj, dtype=None, split=None, device=None, comm=None) -> DNDarray:
     """A DNDarray from array-like data, distributed along ``split``.
 
-    Python floats default to float32 and python ints to int32; numpy arrays
+    Python floats default to float32, python ints to int32 and python complex
+    numbers to complex64; numpy arrays
     and tensors keep their dtype.  A tensor already on the target device is
     not copied (the DNDarray may share its memory)."""
     comm = sanitize_comm(comm)
@@ -54,6 +55,8 @@ def array(obj, dtype=None, split=None, device=None, comm=None) -> DNDarray:
             host = host.astype(np.float32)
         elif not explicit and host.dtype == np.int64:
             host = host.astype(np.int32)
+        elif not explicit and host.dtype == np.complex128:
+            host = host.astype(np.complex64)
         data = torch.tensor(host, device=device.torch_device)
     if dtype is not None:
         data = data.to(types.canonical_heat_type(dtype).torch_type())

@@ -1,7 +1,7 @@
 """The heat type hierarchy on torch dtypes (counterpart of heat_tpu/core/types.py).
 
-This slice carries the five concrete types the main path uses: bool, int32,
-int64, float32 and float64.  Each class stands for one torch dtype.
+This port carries seven concrete types: bool, int32, int64, float32, float64,
+complex64 and complex128.  Each class stands for one torch dtype.
 """
 
 from __future__ import annotations
@@ -23,7 +23,12 @@ __all__ = [
     "int64",
     "float32",
     "float64",
+    "complex",
+    "complexfloating",
+    "complex64",
+    "complex128",
     "canonical_heat_type",
+    "heat_type_is_complexfloating",
     "heat_type_is_exact",
     "heat_type_is_inexact",
     "promote_types",
@@ -78,8 +83,27 @@ class float64(floating):
     _torch_dtype = torch.float64
 
 
-_CONCRETE = (bool, int32, int64, float32, float64)
-_NUMPY = {bool: np.bool_, int32: np.int32, int64: np.int64, float32: np.float32, float64: np.float64}
+class complexfloating(number):
+    pass
+
+
+# the reference names its abstract complex class plain ``complex``
+complex = complexfloating
+
+
+class complex64(complexfloating):
+    _torch_dtype = torch.complex64
+
+
+class complex128(complexfloating):
+    _torch_dtype = torch.complex128
+
+
+_CONCRETE = (bool, int32, int64, float32, float64, complex64, complex128)
+_NUMPY = {
+    bool: np.bool_, int32: np.int32, int64: np.int64, float32: np.float32, float64: np.float64,
+    complex64: np.complex64, complex128: np.complex128,
+}
 
 _MAPPINGS: dict = {}
 for _t in _CONCRETE:
@@ -89,7 +113,10 @@ for _t in _CONCRETE:
     _MAPPINGS[np.dtype(_NUMPY[_t]).name] = _t
     _MAPPINGS[_NUMPY[_t]] = _t
 _MAPPINGS.update(
-    {builtins.bool: bool, builtins.int: int32, builtins.float: float32, "int": int32, "float": float32}
+    {
+        builtins.bool: bool, builtins.int: int32, builtins.float: float32, builtins.complex: complex64,
+        "int": int32, "float": float32, "complex": complex64,
+    }
 )
 
 
@@ -115,8 +142,13 @@ def heat_type_is_exact(ht_dtype) -> builtins.bool:
 
 
 def heat_type_is_inexact(ht_dtype) -> builtins.bool:
-    """True for floating types."""
-    return issubclass(canonical_heat_type(ht_dtype), floating)
+    """True for floating and complex types."""
+    return issubclass(canonical_heat_type(ht_dtype), (floating, complexfloating))
+
+
+def heat_type_is_complexfloating(ht_dtype) -> builtins.bool:
+    """True for complex types."""
+    return issubclass(canonical_heat_type(ht_dtype), complexfloating)
 
 
 def promote_types(type1, type2) -> Type[datatype]:

@@ -1,10 +1,12 @@
-"""Fitted state carried over from the JAX package.
+"""Fitted state and results carried over from the JAX package.
 
 :func:`from_reference_state` takes the document that heat_tpu's
 ``serving.model_io.export_state`` writes, ``{"kind", "params", "state"}``,
 with its array leaves already turned into numpy arrays, and returns the
 port's fitted estimator, ready to ``predict`` (KMeans) or ``transform``
-(PCA).
+(PCA).  :func:`from_reference_array` takes a result of heat_tpu (for example
+a spectrum, which heat_tpu may hold as two real planes) as numpy and returns
+the port's DNDarray of it, complex where it is complex.
 """
 
 from __future__ import annotations
@@ -17,7 +19,22 @@ from .cluster import KMeans
 from .core import factories
 from .decomposition import PCA
 
-__all__ = ["from_reference_state"]
+__all__ = ["from_reference_array", "from_reference_state"]
+
+
+def from_reference_array(value, split=None, device=None, comm=None):
+    """The port's DNDarray of a reference result given as numpy: one array
+    (real or complex), or an ``(re, im)`` pair of real planes, which becomes
+    one complex array (complex64 from float32 planes, else complex128)."""
+    if isinstance(value, tuple):
+        if len(value) != 2:
+            raise ValueError(f"planes come as (re, im), got {len(value)} arrays")
+        re, im = (np.asarray(v) for v in value)
+        if re.shape != im.shape or re.dtype != im.dtype or re.dtype.kind != "f":
+            raise ValueError(f"planes must be real and alike, got {re.dtype}{re.shape} and {im.dtype}{im.shape}")
+        value = np.empty(re.shape, np.complex64 if re.dtype == np.float32 else np.complex128)
+        value.real, value.imag = re, im
+    return factories.array(np.asarray(value), split=split, device=device, comm=comm)
 
 
 def _kmeans_state(est: KMeans, state: Dict[str, Any], device, comm) -> None:

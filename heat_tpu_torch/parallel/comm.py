@@ -156,6 +156,25 @@ class Communication:
         dist.all_gather(parts, x.contiguous(), group=self.group)
         return [p.narrow(axis, 0, e) for p, e in zip(parts, extents)]
 
+    def all_to_all(self, x: torch.Tensor, split_axis: int, concat_axis: int) -> torch.Tensor:
+        """The tiled all-to-all of ``jax.lax.all_to_all(..., tiled=True)``:
+        ``x`` is cut into ``size`` equal blocks along ``split_axis``, block r
+        goes to rank r, and the blocks received are concatenated along
+        ``concat_axis`` in rank order.  A complex tensor travels as its real
+        view."""
+        size = self.size
+        if x.shape[split_axis] % size:
+            raise ValueError(f"all_to_all: extent {x.shape[split_axis]} of axis {split_axis} is not divisible by {size} ranks")
+        if size == 1:
+            return x
+        self._check_joined()
+        if x.is_complex():
+            return torch.view_as_complex(self.all_to_all(torch.view_as_real(x), split_axis % x.ndim, concat_axis % x.ndim))
+        parts = [p.contiguous() for p in torch.tensor_split(x, size, dim=split_axis)]
+        got = [torch.empty_like(parts[0]) for _ in range(size)]
+        dist.all_to_all(got, parts, group=self.group)
+        return torch.cat(got, dim=concat_axis)
+
 
 WORLD = Communication()
 

@@ -1,7 +1,8 @@
 """The port in a world of 3 CPU ranks (torch.distributed, gloo) against
 heat_tpu on a 3-device Communication: the canonical layout of an uneven
-split, the distributed KMeans fit and predict, and hierarchical SVD and PCA
-over rows (one Gram all-reduce) and over columns (the merge tree).
+split, the distributed KMeans fit and predict, hierarchical SVD and PCA
+over rows (one Gram all-reduce) and over columns (the merge tree), and the
+FFT along a split axis (the pencil: tiled all-to-alls, no gather).
 
 The ranks are separate processes that meet through a file store under the
 test's temporary directory (no TCP port).  The test waits at most 60 s for
@@ -97,6 +98,33 @@ np.savez(
     components=pca.components_.numpy(), ev=pca.explained_variance_.numpy(),
     ratio=pca.explained_variance_ratio_.numpy(), tevr=np.asarray(pca.total_explained_variance_ratio_),
     transform=pca.transform(ht.array(arrays["fresh"], split=0)).numpy(),
+)
+dist.destroy_process_group()
+"""
+
+_FFT_MAIN = _RANK_HEAD + r"""
+gathered = []
+_all_gather = ht.Communication.all_gather
+
+
+def recording_all_gather(self, x, axis=0):
+    gathered.append(x.numel())
+    return _all_gather(self, x, axis)
+
+
+ht.Communication.all_gather = recording_all_gather
+cube = ht.array(arrays["cube"], split=0)
+spec = ht.fft.fftn(cube)
+back = ht.fft.ifftn(spec)
+sig = ht.array(arrays["sig"], split=0)
+f1 = ht.fft.fft(sig, axis=0)
+r1 = ht.fft.rfft(ht.array(arrays["cube"][:, :, 0], split=0), axis=0, norm="ortho")
+lshapes = np.asarray([spec.larray_padded.shape[0], f1.larray_padded.shape[0], r1.larray_padded.shape[0]])
+transform_gathers = len(gathered)  # the pencil gathers nothing
+np.savez(
+    out,
+    gathers=np.asarray(transform_gathers), lshapes=lshapes, splits=np.asarray([spec.split, f1.split, r1.split]),
+    spec=spec.numpy(), back=back.numpy(), f1=f1.numpy(), r1=r1.numpy(),
 )
 dist.destroy_process_group()
 """
@@ -210,3 +238,30 @@ def test_hsvd_and_pca_in_a_gloo_world_of_three(tmp_path):
     np.testing.assert_allclose(float(got["tevr"]), pca.total_explained_variance_ratio_, atol=1e-5)
     for r, rk in enumerate(ranks):
         np.testing.assert_allclose(rk["transform"] * signs[None, :], want_t, atol=1e-4, err_msg=f"rank {r}")
+
+
+def test_fft_along_the_split_axis_in_a_gloo_world_of_three(tmp_path, monkeypatch):
+    rng = np.random.default_rng(4)
+    cube = rng.standard_normal((10, 7, 8)).astype(np.float32)  # 10 rows over 3 ranks; no partner divides by 3
+    sig = (rng.standard_normal((7, 12)) + 1j * rng.standard_normal((7, 12))).astype(np.complex64)
+    ranks = _run_world(tmp_path, _FFT_MAIN, cube=cube, sig=sig)
+
+    monkeypatch.setenv("HEAT_TPU_PLANAR", "1")
+    ref_comm = hj.Communication(jax.devices()[:WORLD])
+    want_spec = hj.fft.fftn(hj.array(cube, split=0, comm=ref_comm)).numpy()
+    want_f1 = hj.fft.fft(hj.array(sig, split=0, comm=ref_comm), axis=0).numpy()
+    want_r1 = hj.fft.rfft(hj.array(cube[:, :, 0], split=0, comm=ref_comm), axis=0, norm="ortho").numpy()
+    truth = {"spec": np.fft.fftn(cube.astype(np.float64)), "f1": np.fft.fft(sig.astype(np.complex128), axis=0),
+             "r1": np.fft.rfft(cube[:, :, 0].astype(np.float64), axis=0, norm="ortho")}
+
+    def rel(a, b):
+        return np.abs(a - b).max() / np.abs(b).max()
+
+    for r, got in enumerate(ranks):
+        assert int(got["gathers"]) == 0
+        np.testing.assert_array_equal(got["splits"], [0, 0, 0])
+        np.testing.assert_array_equal(got["lshapes"], [4, 3, 2])  # ceil(10/3), ceil(7/3), ceil(6/3)
+        for key, want in (("spec", want_spec), ("f1", want_f1), ("r1", want_r1)):
+            assert rel(got[key], want) < 5e-4, (r, key)
+            assert rel(got[key], truth[key]) < 5e-4, (r, key)
+        assert rel(got["back"], cube) < 5e-4

@@ -199,3 +199,142 @@ def test_pca_on_the_card_matches_cpu(card):
     t_got = got.transform(ht.array(fresh, split=0)).numpy() * signs[None, :]
     t_want = want.transform(ht.array(fresh, split=0, device="cpu")).numpy()
     assert np.all(np.abs(t_got - t_want) <= 1e-4 * (1 + np.abs(t_want)))
+
+
+# ----------------------------------------------------------------------
+# the FFT kernels K3-K6 against their plain versions, and ht.fft on the card
+# ----------------------------------------------------------------------
+from heat_tpu_torch.fft import _axis_pass, _leading  # noqa: E402
+
+
+def _rel(got, want):
+    got, want = got.double(), want.double()
+    return float((got - want).abs().max() / want.abs().max().clamp(min=1e-30))
+
+
+def _same_planes(got, want, tol=1e-5):
+    for g, w in zip(got, want):
+        assert g.shape == w.shape
+        assert _rel(g, w) <= tol
+
+
+@pytest.mark.parametrize("n,rest", [(128, (4, 64)), (100, (7, 11)), (37, (300,)), (512, (3, 129))])
+def test_fft_stage_kernel_matches_plain(card, n, rest):
+    g = torch.Generator(device=card).manual_seed(n)
+    re = torch.randn(n, *rest, device=card, generator=g)
+    im = torch.randn(n, *rest, device=card, generator=g)
+    before = _leading.FFT_STAGE_LAUNCHES
+    got = _leading._stage_fused(re, im, n, False, 1.0 / n)
+    again = _leading._stage_fused(re, im, n, False, 1.0 / n)
+    assert _leading.FFT_STAGE_LAUNCHES == before + 2
+    want = _leading._stage_fused(re.cpu(), im.cpu(), n, False, 1.0 / n)
+    _same_planes([t.cpu() for t in got], want)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))  # bitwise reproducible
+    c = torch.complex(re, im)  # read in place from a complex64 tensor
+    _same_planes([t.cpu() for t in _leading._stage_fused(c.real, c.imag, n, False, 1.0 / n)], want)
+
+
+@pytest.mark.parametrize("k,b,m", [(128, 3, 128), (96, 5, 37), (64, 1, 200)])
+def test_fft_blocked_stage_kernel_matches_plain(card, k, b, m):
+    z = torch.randn(k, b, 2 * m, device=card, generator=torch.Generator(device=card).manual_seed(k + m))
+    got = _leading._stage_fused_blocked(z, k, m, True, 1.0)
+    want = _leading._stage_fused_blocked(z.cpu(), k, m, True, 1.0)
+    _same_planes([t.cpu() for t in got], want)
+
+
+@pytest.mark.parametrize("k,rest,m", [(128, (2,), 128), (64, (3, 5), 50), (33, (), 70)])
+def test_fft_pair_kernels_match_plain(card, k, rest, m):
+    g = torch.Generator(device=card).manual_seed(k + m)
+    z = torch.randn(k, *rest, 2, m, device=card, generator=g)
+    before = _leading.FFT_PAIR_LAUNCHES
+    got = _leading._stage_pair_fused(z, k, False, 0.5)
+    planes = _leading._stage_pair_fused(z, k, False, 0.5, planes=True)
+    want = _leading._stage_pair_fused(z.cpu(), k, False, 0.5)
+    assert _rel(got.cpu(), want) <= 1e-5
+    _same_planes([p.cpu() for p in planes], [want[..., 0, :], want[..., 1, :]])
+    assert planes[0]._base is planes[1]._base and planes[0]._base.dtype == torch.complex64
+    re = torch.randn(k, *rest, m, device=card, generator=g)
+    im = torch.randn(k, *rest, m, device=card, generator=g)
+    entry = _leading._entry_pair_fused(re, im, k, True)
+    assert _leading.FFT_PAIR_LAUNCHES == before + 3
+    assert _rel(entry.cpu(), _leading._entry_pair_fused(re.cpu(), im.cpu(), k, True)) <= 1e-5
+
+
+@pytest.mark.parametrize("m,n1,n2", [(8, 8, 128), (5, 7, 9), (64, 12, 130), (1, 3, 2)])
+def test_fft_ext_kernel_matches_plain_exactly(card, m, n1, n2):
+    g = torch.Generator(device=card).manual_seed(m * n1 * n2)
+    zr, zi = (torch.randn(m, n1, 2 * n2, device=card, generator=g) for _ in range(2))
+    nyr, nyi = (torch.randn(n1, n2, device=card, generator=g) for _ in range(2))
+    before = _leading.FFT_EXT_LAUNCHES
+    got = _leading._ext_fused(zr, zi, nyr, nyi)
+    assert _leading.FFT_EXT_LAUNCHES == before + 1
+    want = _leading._ext_fused(zr.cpu(), zi.cpu(), nyr.cpu(), nyi.cpu())
+    for a, b in zip(got, want):  # an indexed copy after one subtraction: exact
+        assert torch.equal(a.cpu(), b)
+
+
+@pytest.mark.parametrize("n", [96, 127, 384, 512, 1000, 1024, 6])
+@pytest.mark.parametrize("real", [False, True])
+def test_fft_axis_kernel_matches_plain(card, n, real):
+    g = torch.Generator(device=card).manual_seed(n)
+    re = torch.randn(37, n, device=card, generator=g)
+    im = None if real else torch.randn(37, n, device=card, generator=g)
+    before = _axis_pass.FFT_AXIS_LAUNCHES
+    got = _axis_pass.fused_axis_pass(re, im, inverse=not real)
+    again = _axis_pass.fused_axis_pass(re, im, inverse=not real)
+    assert _axis_pass.FFT_AXIS_LAUNCHES == before + 2
+    want = _axis_pass.fused_axis_pass(re.cpu(), None if real else im.cpu(), inverse=not real)
+    _same_planes([t.cpu() for t in got], want)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    if not real:
+        c = torch.complex(re, im)
+        _same_planes([t.cpu() for t in _axis_pass.fused_axis_pass(c.real, c.imag, True)], want)
+
+
+def test_fft_kernels_refuse_what_they_cannot_take(card):
+    d = torch.zeros(8, 4, device=card, dtype=torch.float64)
+    with pytest.raises(TypeError):
+        _leading._stage_fused(d, d, 8, False, 1.0)
+    with pytest.raises(TypeError):
+        _leading._ext_fused(d[None], d[None], d[:, :2], d[:, :2])
+    with pytest.raises(ValueError):
+        _axis_pass.fused_axis_pass(torch.zeros(2, 262, device=card), None, False)
+    with pytest.raises(TypeError):
+        _axis_pass.fused_axis_pass(torch.zeros(2, 96, device=card, dtype=torch.float64), None, False)
+
+
+def _launches():
+    return (_leading.FFT_STAGE_LAUNCHES, _leading.FFT_PAIR_LAUNCHES, _leading.FFT_EXT_LAUNCHES,
+            _axis_pass.FFT_AXIS_LAUNCHES)
+
+
+def _rel_np(got, want):
+    return np.abs(got - want).max() / np.abs(want).max()
+
+
+def test_fft_on_the_card_matches_cpu(card):
+    rng = np.random.default_rng(0)
+    x = rng.standard_normal((16, 12, 20)).astype(np.float32)
+    before = _launches()
+    y = ht.fft.fftn(ht.array(x, split=0))
+    assert np.subtract(_launches(), before).tolist() == [1, 0, 1, 0]  # K3 and K5 once each
+    assert y.larray_padded.device.type == "cuda" and y.larray_padded.dtype == torch.complex64
+    want = np.fft.fftn(x.astype(np.float64))
+    assert _rel_np(y.numpy(), want) < 5e-4
+    np.testing.assert_allclose(y.numpy(), ht.fft.fftn(ht.array(x, split=0, device="cpu")).numpy(), atol=1e-3)
+    before = _launches()
+    z = ht.fft.fftn(y)
+    back = ht.fft.ifftn(y)
+    assert np.subtract(_launches(), before).tolist() == [0, 6, 0, 0]  # K4 three times a transform
+    assert _rel_np(z.numpy(), np.fft.fftn(want)) < 5e-4
+    assert _rel_np(back.numpy(), x) < 5e-4
+    img = rng.standard_normal((40, 24)).astype(np.float32)
+    before = _launches()
+    f2 = ht.fft.fft2(ht.array(img))
+    assert np.subtract(_launches(), before).tolist() == [0, 1, 0, 0]
+    assert _rel_np(f2.numpy(), np.fft.fft2(img.astype(np.float64))) < 5e-4
+    s = (rng.standard_normal((300, 1000)) + 1j * rng.standard_normal((300, 1000))).astype(np.complex64)
+    before = _launches()
+    f1 = ht.fft.fft(ht.array(s))
+    assert np.subtract(_launches(), before).tolist() == [0, 0, 0, 1]
+    assert _rel_np(f1.numpy(), np.fft.fft(s.astype(np.complex128))) < 5e-4
