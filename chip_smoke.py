@@ -57,6 +57,24 @@ config-5 size (a real 512^3 float32 cube, split=0), on data made on the card:
 15. fft_profile: the real and the complex fftn under torch.profiler;
 16. fft_times: the whole path against torch.fft.fftn on the same inputs.
 
+The FFT data is then freed, and the attention path follows at the JAX
+package's long-context configuration (benchmarks/cb/attention.py at scale 1:
+seq 16384, 8 heads of 64, float32, causal):
+
+17. attn_check: the flash-attention kernel K7 against its plain version at
+    that shape and at ragged ones (relative error at most 1e-5), a bitwise
+    repeat, the inputs it must refuse, and its time beside its plain
+    version's, its bound, the CUDA cores' floor and
+    ``torch.nn.functional.scaled_dot_product_attention``'s;
+18. attention: q, k and v from ht.random.randn on the card (the first
+    2^20 values of each against the same draws on the host, at most 4 ulp
+    apart), then
+    ht.nn.scaled_dot_product_attention through the entry point a user calls:
+    "flash" on split=0 and on split=None (K7 once each), "ring" and
+    "ulysses" (no K7), each against float64 attention computed head by head
+    (max abs error at most 1e-4), with its wall time;
+19. attn_profile: the split=0 flash call under torch.profiler.
+
 The line before the last is the kernel summary, the last line
 ``{"ok": true, "device": {...}}``.
 """
@@ -86,6 +104,12 @@ FFT_N = 512
 FFT2_N = 8192
 FFT1_ROWS = 1 << 19
 FFT1_N = 1024
+# the attention path: benchmarks/cb/attention.py:13-17 at scale 1
+ATTN_SEQ = 16384
+ATTN_HEADS = 8
+ATTN_HEAD_DIM = 64
+ATTN_SEED = 7
+ATTN_HOST_DRAWS = 1 << 20  # values of each draw redrawn on the host to check the card's
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS = 67e12
 BF16_FLOPS = 989e12
@@ -287,10 +311,19 @@ def fft_launches() -> dict:
 def zero_launches() -> None:
     from heat_tpu_torch.core import kernels
     from heat_tpu_torch.fft import _axis_pass, _leading
+    from heat_tpu_torch.nn import _flash
 
     kernels.LLOYD_LAUNCHES = kernels.GRAM_LAUNCHES = 0
     _leading.FFT_STAGE_LAUNCHES = _leading.FFT_PAIR_LAUNCHES = _leading.FFT_EXT_LAUNCHES = 0
     _axis_pass.FFT_AXIS_LAUNCHES = 0
+    _flash.FLASH_LAUNCHES = 0
+
+
+def other_launches() -> int:
+    """Launches of every kernel but K7 since the counts were last zeroed."""
+    from heat_tpu_torch.core import kernels
+
+    return kernels.LLOYD_LAUNCHES + kernels.GRAM_LAUNCHES + sum(fft_launches().values())
 
 
 def compare_fft(kernel, plain, label: str) -> dict:
@@ -314,6 +347,14 @@ def compare_fft(kernel, plain, label: str) -> dict:
     return {"case": label, "rel_err": rel, "max_abs_err": err, "bitwise_repeat": True}
 
 
+def bound(nbytes: float, flops: float) -> tuple:
+    """The least time the card could take, in ms, and what bounds it: the
+    bytes at the HBM rate or the operations at the bf16 tensor-core rate."""
+    b = {"bytes": nbytes / HBM_BYTES_PER_S * 1e3, "operations": flops / BF16_FLOPS * 1e3}
+    by = max(b, key=b.get)
+    return b[by], by
+
+
 def fft_kernels(dev, g, smi: str) -> list:
     """Phase fft_check: K3-K6 against their plain versions at the main
     path's shapes (timed there, beside their bounds and torch.fft) and at
@@ -330,11 +371,6 @@ def fft_kernels(dev, g, smi: str) -> list:
 
     def randn(*shape):
         return torch.randn(*shape, device=dev, generator=g)
-
-    def bound(nbytes: float, flops: float) -> tuple:
-        b = {"bytes": nbytes / HBM_BYTES_PER_S * 1e3, "operations": flops / BF16_FLOPS * 1e3}
-        by = max(b, key=b.get)
-        return b[by], by
 
     entries = []
 
@@ -547,6 +583,156 @@ def fft_path(dev, g, smi: str) -> dict:
           "complex_fftn_ms": time_ms(lambda: ht.fft.fftn(spec), reps=5),
           "torch_fft_complex_fftn_ms": time_ms(lambda: torch.fft.fftn(s_), reps=5)})
     return {k: fftn_launches[k] + more[k] for k in more}
+
+
+def compare_flash(q, k, v, scale: float, causal: bool, n_true: int) -> dict:
+    """K7 against its plain version on the same card tensors: relative
+    error (max abs over max abs) at most 1e-5, and a second launch bitwise
+    equal to the first."""
+    import torch
+    from heat_tpu_torch.nn import _flash
+
+    got = _flash.flash_attention(q, k, v, scale, causal, n_true)
+    again = _flash.flash_attention(q, k, v, scale, causal, n_true)
+    want = _flash._flash_plain(q, k, v, scale, causal, n_true)
+    torch.cuda.synchronize()
+    label = f"s={q.shape[0]} h={q.shape[1]} d={q.shape[2]} n_true={n_true}{' causal' if causal else ''}"
+    rel = rel_err(got, want)
+    if got.shape != want.shape or not bool(torch.isfinite(got).all()) or rel > 1e-5:
+        raise AssertionError(f"flash {label}: {tuple(got.shape)} against {tuple(want.shape)}, relative error {rel}")
+    if not torch.equal(got, again):
+        raise AssertionError(f"flash {label}: two launches on the same inputs differ")
+    return {"case": label, "rel_err": rel, "max_abs_err": float((got.double() - want.double()).abs().max()),
+            "bitwise_repeat": True}
+
+
+def attention_kernel(dev, g, smi: str) -> dict:
+    """Phase attn_check: K7 against its plain version at the main path's
+    shape (timed there) and at ragged ones, and the inputs it refuses.
+    Returns K7's entry of the summary line, launches still to fill in."""
+    import torch
+    import torch.nn.functional as F
+    from heat_tpu_torch.nn import _flash
+
+    t0 = time.perf_counter()
+    s, h, d = ATTN_SEQ, ATTN_HEADS, ATTN_HEAD_DIM
+    scale = 1.0 / d**0.5
+    q, k, v = (torch.randn(s, h, d, device=dev, generator=g) for _ in range(3))
+    checks = [compare_flash(q, k, v, scale, True, s), compare_flash(q, k, v, scale, False, s - 5)]
+    for (rows, heads, dim, n_true) in ((1, 1, 16, 0), (127, 3, 64, 100), (1000, 1, 128, 999), (1000, 3, 256, 937),
+                                       (127, 1, 16, 120)):
+        qs, ks, vs = (torch.randn(rows, heads, dim, device=dev, generator=g) for _ in range(3))
+        for causal in (False, True):
+            checks.append(compare_flash(qs, ks, vs, 1.0 / dim**0.5, causal, n_true))
+    for c in checks:
+        emit({"phase": "attn_check", "kernel": "flash_attention", **c})
+    refused = []
+    x = torch.zeros(16, 2, 8, device=dev)
+    for what, args, err in (("float64", (x.double(),) * 3, TypeError),
+                            ("d = 257", (torch.zeros(4, 1, 257, device=dev),) * 3, ValueError),
+                            ("s = 0", (torch.zeros(0, 2, 8, device=dev),) * 3, ValueError)):
+        try:
+            _flash.flash_attention(*args, 1.0, False, 4)
+        except err:
+            refused.append(what)
+        else:
+            raise AssertionError(f"the flash kernel took a {what} input")
+    emit({"phase": "attn_check", "kernel": "flash_attention", "refused": refused})
+
+    kernel_ms = time_ms(lambda: _flash.flash_attention(q, k, v, scale, True, s), reps=10)
+    plain_ms = time_ms(lambda: _flash._flash_plain(q, k, v, scale, True, s), reps=3, warmup=1)
+    # the library's fused attention on the same data in its (1, h, s, d) layout
+    qt, kt, vt = (t.permute(1, 0, 2).contiguous()[None] for t in (q, k, v))
+    backend = "efficient_attention"
+    try:
+        from torch.nn.attention import SDPBackend, sdpa_kernel
+
+        with sdpa_kernel([SDPBackend.EFFICIENT_ATTENTION]):
+            library_ms = time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True), reps=10)
+    except RuntimeError as e:
+        backend = f"default (efficient attention refused: {str(e)[:80]})"
+        library_ms = time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True), reps=10)
+    del qt, kt, vt
+    flops = 2 * s * s * h * d  # two products over the causal half
+    bound_ms, bound_by = bound(4 * 4 * s * h * d, flops)
+    emit({"phase": "attn_check", "kernel": "flash_attention", "shape": [s, h, d], "causal": True, "ms": kernel_ms,
+          "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by, "share_of_bound": bound_ms / kernel_ms,
+          "cuda_core_floor_ms": flops / F32_FLOPS * 1e3, "library_ms": library_ms,
+          "library_call": f"torch.nn.functional.scaled_dot_product_attention, is_causal, float32, {backend}",
+          "card": smi, "phase_seconds": time.perf_counter() - t0})
+    return {"name": "flash_attention", "route": "cuda", "source": "heat_tpu_torch/csrc/flash_attn.cu",
+            "replaces": "heat_tpu/nn/attention.py:66", "launches": None,
+            "max_abs_err": max(c["max_abs_err"] for c in checks), "ms": kernel_ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms}
+
+
+def attention_truth(q, k, v):
+    """Causal attention of (s, h, d) tensors in float64, one head at a time."""
+    import torch
+
+    s, h, d = q.shape
+    out = torch.empty((s, h, d), dtype=torch.float64, device=q.device)
+    above = torch.ones(s, s, dtype=torch.bool, device=q.device).triu_(1)
+    for j in range(h):
+        scores = (q[:, j].double() @ k[:, j].double().T) / d**0.5
+        scores.masked_fill_(above, float("-inf"))
+        out[:, j] = torch.softmax(scores, dim=-1) @ v[:, j].double()
+    return out
+
+
+def attention_path(smi: str) -> int:
+    """Phases attention and attn_profile; returns K7's launches on the main
+    path (the two flash calls)."""
+    import torch
+    import heat_tpu_torch as ht
+    from heat_tpu_torch.nn import _flash
+
+    t0 = time.perf_counter()
+    shape = (ATTN_SEQ, ATTN_HEADS, ATTN_HEAD_DIM)
+    torch.cuda.reset_peak_memory_stats()
+    ht.random.seed(ATTN_SEED)
+    Q, K, V = (ht.random.randn(*shape, split=0) for _ in range(3))
+    # element i of a draw hashes counter i alone, so a shorter draw under the
+    # same key repeats the first values of the long one
+    ht.random.seed(ATTN_SEED)
+    worst = 0
+    for X in (Q, K, V):
+        host = ht.random.randn(ATTN_HOST_DRAWS, device="cpu").larray
+        card = X.larray.reshape(-1)[:ATTN_HOST_DRAWS].cpu()
+        worst = max(worst, int((card.view(torch.int32).long() - host.view(torch.int32).long()).abs().max()))
+    if worst > 4 or X.larray.device.type != "cuda":
+        raise AssertionError(f"randn on the card is {worst} ulp from the host's draws (or not on the card)")
+    draws_s = time.perf_counter() - t0
+    truth = attention_truth(Q.larray, K.larray, V.larray)
+    unsplit = [ht.array(X.larray) for X in (Q, K, V)]
+    calls = []
+    for method, args in (("flash", (Q, K, V)), ("flash", unsplit), ("ring", (Q, K, V)), ("ulysses", (Q, K, V))):
+        zero_launches()
+        out, ms = wall_ms(lambda: ht.nn.scaled_dot_product_attention(*args, causal=True, method=method))
+        launches = _flash.FLASH_LAUNCHES
+        if launches != (1 if method == "flash" else 0) or other_launches():
+            raise AssertionError(f"{method} on split={args[0].split} launched K7 {launches} times and "
+                                 f"{other_launches()} other kernels; K7 once per flash call, nothing else")
+        o = out.larray
+        err = float((o.double() - truth).abs().max())
+        if o.shape != shape or out.split != args[0].split or not bool(torch.isfinite(o).all()) or err > 1e-4:
+            raise AssertionError(f"{method} on split={args[0].split}: {tuple(o.shape)} split {out.split}, "
+                                 f"max abs error {err} against float64")
+        calls.append({"method": method, "split": args[0].split, "wall_ms": ms, "flash_launches": launches,
+                      "max_abs_err_vs_float64": err})
+        del out, o
+        torch.cuda.empty_cache()
+    emit({"phase": "attention", "shape": list(shape), "causal": True, "randn_card_vs_host_max_ulp": worst,
+          "calls": calls, "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9, "card": smi,
+          "draws_seconds": draws_s, "phase_seconds": time.perf_counter() - t0})
+    main_launches = sum(c["flash_launches"] for c in calls)
+    del truth
+    torch.cuda.empty_cache()
+
+    # 19. where the split=0 flash call's time goes (the launches here are not counted)
+    emit({"phase": "attn_profile", "call": "scaled_dot_product_attention, method flash, split=0, causal",
+          **profile_fit(lambda: ht.nn.scaled_dot_product_attention(Q, K, V, causal=True, method="flash").shape)})
+    return main_launches
 
 
 def main() -> int:
@@ -795,7 +981,17 @@ def main() -> int:
     for e in fft_entries:
         e["launches"] = main_launches[e["name"]]
 
-    emit({"kernels": [lloyd, gram, *fft_entries]})
+    # the FFT data is freed before the attention path's
+    torch.cuda.empty_cache()
+
+    # 17. K7 against its plain version, and its times
+    flash = attention_kernel(dev, g, smi)
+    torch.cuda.empty_cache()
+
+    # 18.-19. the attention path through the entry point a user calls
+    flash["launches"] = attention_path(smi)
+
+    emit({"kernels": [lloyd, gram, *fft_entries, flash]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": name, "count": torch.cuda.device_count()}})
     return 0
 

@@ -18,4 +18,5 @@ from . import spatial
 from . import cluster
 from . import decomposition
 from . import fft
+from . import nn
 from . import interop

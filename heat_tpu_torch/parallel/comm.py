@@ -175,6 +175,44 @@ class Communication:
         dist.all_to_all(got, parts, group=self.group)
         return torch.cat(got, dim=concat_axis)
 
+    def ppermute(self, x: torch.Tensor, perm: Sequence[Tuple[int, int]]) -> torch.Tensor:
+        """``jax.lax.ppermute``: for each ``(src, dst)`` pair rank src sends
+        its ``x`` to rank dst; a rank that is no pair's destination gets
+        zeros.  Every rank passes the same ``perm``, with each rank at most
+        once as a source and once as a destination."""
+        if self.size == 1:
+            return x
+        self._check_joined()
+        perm = [(int(s), int(d)) for s, d in perm]
+        rank = self.rank
+        dst = [d for s, d in perm if s == rank]
+        src = [s for s, d in perm if d == rank]
+        if len(dst) > 1 or len(src) > 1:
+            raise ValueError(f"rank {rank} appears more than once as a source or a destination in {perm}")
+        x = x.contiguous()
+        out = torch.zeros_like(x)
+        if dst == [rank]:
+            out.copy_(x)
+            return out
+        ops = []
+        if dst:
+            ops.append(dist.P2POp(dist.isend, x, self._global_rank(dst[0]), self.group))
+        if src:
+            ops.append(dist.P2POp(dist.irecv, out, self._global_rank(src[0]), self.group))
+        if ops:
+            for req in dist.batch_isend_irecv(ops):
+                req.wait()
+        return out
+
+    def ring_shift(self, x: torch.Tensor, shift: int = 1) -> torch.Tensor:
+        """Cyclic shift by ``shift`` ranks: rank i's ``x`` goes to rank
+        ``(i + shift) % size`` (the ring of ring attention)."""
+        n = self.size
+        return self.ppermute(x, [(i, (i + shift) % n) for i in range(n)])
+
+    def _global_rank(self, rank: int) -> int:
+        return rank if self.group is None else dist.get_global_rank(self.group, rank)
+
 
 WORLD = Communication()
 

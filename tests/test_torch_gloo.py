@@ -1,8 +1,9 @@
 """The port in a world of 3 CPU ranks (torch.distributed, gloo) against
 heat_tpu on a 3-device Communication: the canonical layout of an uneven
 split, the distributed KMeans fit and predict, hierarchical SVD and PCA
-over rows (one Gram all-reduce) and over columns (the merge tree), and the
-FFT along a split axis (the pencil: tiled all-to-alls, no gather).
+over rows (one Gram all-reduce) and over columns (the merge tree), the
+FFT along a split axis (the pencil: tiled all-to-alls, no gather), and
+sequence-parallel attention (the ring of ring_shift, Ulysses' all-to-alls).
 
 The ranks are separate processes that meet through a file store under the
 test's temporary directory (no TCP port).  The test waits at most 60 s for
@@ -129,6 +130,31 @@ np.savez(
 dist.destroy_process_group()
 """
 
+
+_ATTN_MAIN = _RANK_HEAD + r"""
+q, k, v = (ht.array(arrays[n], split=0) for n in ("q", "k", "v"))
+ring = ht.nn.scaled_dot_product_attention(q, k, v, causal=True, method="ring")
+q6, k6, v6 = (ht.array(arrays[n], split=0) for n in ("q6", "k6", "v6"))
+uly = ht.nn.scaled_dot_product_attention(q6, k6, v6, causal=True, method="ulysses")
+flash = ht.nn.scaled_dot_product_attention(q6, k6, v6, method="flash")
+comm = ht.get_comm()
+x = torch.full((2, 3), float(rank))
+errors = []
+try:
+    ht.nn.scaled_dot_product_attention(q, k, v, method="ulysses")  # 4 heads over 3 ranks
+except ValueError as e:
+    errors.append(str(e))
+try:
+    ht.nn.ring_attention(*(torch.zeros(4 + (rank == 1), 4, 8) for _ in range(3)))  # rank 1's block is longer
+except ValueError as e:
+    errors.append(str(e))
+np.savez(
+    out, ring=ring.numpy(), ring_lshape=np.asarray(ring.larray_padded.shape), uly=uly.numpy(), flash=flash.numpy(),
+    shifted=comm.ring_shift(x).numpy(), back=comm.ring_shift(x, shift=-1).numpy(),
+    partial=comm.ppermute(x, [(0, 2), (2, 1)]).numpy(), errors=np.asarray(errors),
+)
+dist.destroy_process_group()
+"""
 
 def _blobs(n, f, k, seed):
     rng = np.random.default_rng(seed)
@@ -265,3 +291,28 @@ def test_fft_along_the_split_axis_in_a_gloo_world_of_three(tmp_path, monkeypatch
             assert rel(got[key], want) < 5e-4, (r, key)
             assert rel(got[key], truth[key]) < 5e-4, (r, key)
         assert rel(got["back"], cube) < 5e-4
+
+
+def test_attention_in_a_gloo_world_of_three(tmp_path):
+    rng = np.random.default_rng(5)
+    q, k, v = (rng.standard_normal((10, 4, 8)).astype(np.float32) for _ in range(3))  # 10 over 3: padded to 12
+    q6, k6, v6 = (rng.standard_normal((11, 6, 4)).astype(np.float32) for _ in range(3))
+    ranks = _run_world(tmp_path, _ATTN_MAIN, q=q, k=k, v=v, q6=q6, k6=k6, v6=v6)
+
+    ref_comm = hj.Communication(jax.devices()[:WORLD])
+
+    def ref(arrays, **kw):
+        return hj.nn.scaled_dot_product_attention(*(hj.array(a, split=0, comm=ref_comm) for a in arrays), **kw).numpy()
+
+    want = {"ring": ref((q, k, v), causal=True, method="ring"),
+            "uly": ref((q6, k6, v6), causal=True, method="ulysses"),
+            "flash": ref((q6, k6, v6), method="flash")}
+    for r, got in enumerate(ranks):
+        np.testing.assert_array_equal(got["ring_lshape"], [4, 4, 8])
+        for key, w in want.items():
+            np.testing.assert_allclose(got[key], w, atol=1e-5, rtol=0, err_msg=f"rank {r} {key}")
+        np.testing.assert_array_equal(got["shifted"], np.full((2, 3), (r - 1) % WORLD, np.float32))
+        np.testing.assert_array_equal(got["back"], np.full((2, 3), (r + 1) % WORLD, np.float32))
+        np.testing.assert_array_equal(got["partial"], np.full((2, 3), {0: 0.0, 1: 2.0, 2: 0.0}[r], np.float32))
+        assert list(got["errors"]) == ["ulysses needs heads (4) divisible by the mesh size (3)",
+                                      "padded sequence 13 must divide the mesh size 3"]

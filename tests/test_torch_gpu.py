@@ -1,4 +1,5 @@
-"""The port's CUDA kernels on the card (the Lloyd step and the Gram matrix),
+"""The port's CUDA kernels on the card (the Lloyd step, the Gram matrix, the
+FFT kernels and flash attention),
 held against their plain PyTorch versions at small shapes (chip_smoke.py
 does the same at full size).
 
@@ -338,3 +339,81 @@ def test_fft_on_the_card_matches_cpu(card):
     f1 = ht.fft.fft(ht.array(s))
     assert np.subtract(_launches(), before).tolist() == [0, 0, 0, 1]
     assert _rel_np(f1.numpy(), np.fft.fft(s.astype(np.complex128))) < 5e-4
+
+
+# ----------------------------------------------------------------------
+# K7, flash attention, against its plain version, and ht.nn on the card
+# ----------------------------------------------------------------------
+from heat_tpu_torch.nn import _flash  # noqa: E402
+
+FLASH_CASES = [  # (s, h, d, n_true)
+    (1, 1, 1, 1), (127, 3, 16, 100), (1000, 1, 64, 999), (1000, 3, 128, 1000), (130, 2, 256, 64), (64, 2, 33, 64),
+    (257, 2, 200, 0), (200, 5, 32, 199),
+]
+
+
+def _flash_check(q, k, v, scale, causal, n_true):
+    before = _flash.FLASH_LAUNCHES
+    got = _flash.flash_attention(q, k, v, scale, causal, n_true)
+    again = _flash.flash_attention(q, k, v, scale, causal, n_true)
+    assert _flash.FLASH_LAUNCHES == before + 2
+    want = _flash._flash_plain(q, k, v, scale, causal, n_true)
+    torch.cuda.synchronize()
+    assert got.shape == want.shape and got.dtype == torch.float32
+    assert _rel(got, want) <= 1e-5
+    assert torch.equal(got, again)  # bitwise reproducible
+
+
+@pytest.mark.parametrize("s,h,d,n_true", FLASH_CASES)
+@pytest.mark.parametrize("causal", [False, True])
+def test_flash_kernel_matches_plain(card, s, h, d, n_true, causal):
+    g = torch.Generator(device=card).manual_seed(s * h + d)
+    q, k, v = (torch.randn(s, h, d, device=card, generator=g) for _ in range(3))
+    _flash_check(q, k, v, 1.0 / np.sqrt(d), causal, n_true)
+
+
+def test_flash_kernel_reads_strided_inputs(card):
+    g = torch.Generator(device=card).manual_seed(3)
+    base = torch.randn(3, 4, 300, 64, device=card, generator=g)  # (qkv, h, s, d): (s, h, d) views, strided
+    q, k, v = (base[i].transpose(0, 1) for i in range(3))
+    assert not q.is_contiguous()
+    _flash_check(q, k, v, 0.125, True, 290)
+    got = _flash.flash_attention(q, k, v, 0.125, True, 290)
+    assert torch.equal(got, _flash.flash_attention(q.contiguous(), k.contiguous(), v.contiguous(), 0.125, True, 290))
+
+
+def test_flash_kernel_refuses_what_it_cannot_take(card):
+    x = torch.zeros(16, 2, 8, device=card)
+    with pytest.raises(TypeError, match="float32"):
+        _flash.flash_attention(x.double(), x.double(), x.double(), 1.0, False, 16)
+    big = torch.zeros(4, 1, 257, device=card)
+    with pytest.raises(ValueError, match="head dimension"):
+        _flash.flash_attention(big, big, big, 1.0, False, 4)
+    empty = torch.zeros(0, 2, 8, device=card)
+    with pytest.raises(ValueError, match="s >= 1"):
+        _flash.flash_attention(empty, empty, empty, 1.0, False, 0)
+
+
+def test_attention_on_the_card_matches_cpu(card):
+    rng = np.random.default_rng(7)
+    qkv = [rng.standard_normal((300, 4, 32)).astype(np.float32) for _ in range(3)]
+    for method in ("flash", "ring", "ulysses"):
+        for split in (0, None):
+            before = _flash.FLASH_LAUNCHES
+            got = ht.nn.scaled_dot_product_attention(*(ht.array(x, split=split) for x in qkv), causal=True, method=method)
+            assert _flash.FLASH_LAUNCHES - before == (1 if method == "flash" else 0)  # K7 once per flash call
+            assert got.larray_padded.device.type == "cuda"
+            want = ht.nn.scaled_dot_product_attention(*(ht.array(x, split=split, device="cpu") for x in qkv),
+                                                      causal=True, method=method)
+            np.testing.assert_allclose(got.numpy(), want.numpy(), atol=1e-5, rtol=0)
+
+
+def test_randn_on_the_card_matches_the_hosts(card):
+    for n in (1, 1003, 65539):
+        ht.random.seed(n)
+        on_card = ht.random.randn(n).larray_padded
+        ht.random.seed(n)
+        on_host = ht.random.randn(n, device="cpu").larray_padded
+        assert on_card.device.type == "cuda"
+        diff = (on_card.cpu().view(torch.int32).long() - on_host.view(torch.int32).long()).abs().max()
+        assert int(diff) <= 4  # ulp; the card's log and sqrt may round apart from the host's
