@@ -11,6 +11,10 @@ file, it exits non-zero before printing any result):
 
 1. device: the card's name and count, and nvidia-smi's name and power limit;
 2. build: every CUDA source under heat_tpu_torch/csrc, one nvcc each, at once;
+   ptxas's registers and spills of the two tensor-core kernels (fft_stage,
+   fft_axis) and their count of HMMA (mma.sync) and HGMMA (wgmma)
+   instructions in the built SASS (where the toolkit has cuobjdump; none
+   fails the run);
 3. rng and kernel_check: seeded draws on the card bitwise equal to the
    host's; the Lloyd kernel against its plain PyTorch version on the card,
    at the KMeans path's shape (2^27 x 16 float32 points, k = 8) and at
@@ -45,10 +49,15 @@ config-5 size (a real 512^3 float32 cube, split=0), on data made on the card:
 12. fft_check: each FFT kernel -- K3 (the two-plane stage, blocked form),
     K4 (the cat-layout pair stage, as entry and as stage), K5 (the combine
     plus Hermitian extension) and K6 (the fused last-axis pass) -- against
-    its plain version at the main path's shapes and at ragged ones
+    its plain version at the main path's shapes and at ragged ones (K and
+    n not multiples of 8, n = 1, M one past a tile, operands only 4-byte
+    aligned, complex64 views, cat operands whose row tiles straddle blocks,
+    element stride 2 through the C entry; K6 at n1 = 6, 127, 125, 128)
     (relative error at most 1e-5), a bitwise repeat, the inputs each must
     refuse, and each kernel's time beside its plain version's, its bound
-    and ``torch.fft``'s time on the same data;
+    (bf16x3 at 989 TFLOP/s, as the TPU kernels count), its 3xTF32 floor
+    (three TF32 products at 495 TFLOP/s), its CUDA-core floor and
+    ``torch.fft``'s time on the same data;
 13. fftn: ht.fft.fftn of the cube, fftn and ifftn of its spectrum, through
     the entry points a user calls: K3 and K5 once, K4 three times a complex
     transform, against torch.fft in complex128, Parseval and the round trip;
@@ -113,6 +122,7 @@ ATTN_HOST_DRAWS = 1 << 20  # values of each draw redrawn on the host to check th
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS = 67e12
 BF16_FLOPS = 989e12
+TF32_FLOPS = 495e12  # dense TF32 on the tensor cores: the floor of a 3xTF32 product is 3 flops / this
 
 
 def emit(obj) -> None:
@@ -372,9 +382,16 @@ def fft_kernels(dev, g, smi: str) -> list:
     def randn(*shape):
         return torch.randn(*shape, device=dev, generator=g)
 
+    def offset(*shape):
+        """A contiguous tensor whose data starts one float past an aligned
+        address (4-byte aligned only, as a view z[..., 1:] is)."""
+        flat = torch.randn(int(torch.Size(shape).numel()) + 1, device=dev, generator=g)
+        return flat[1:].view(shape)
+
     entries = []
 
-    def finish(name, source, replaces, checks, kernel, plain, library, nbytes, flops, stage_flops=None, note=None):
+    def finish(name, source, replaces, checks, kernel, plain, library, nbytes, flops, stage_flops=None, note=None,
+               tensor_flops=None):
         kernel_ms = time_ms(kernel, reps=10)
         plain_ms = time_ms(plain, reps=3, warmup=1)
         library_ms = time_ms(library, reps=10) if library is not None else None
@@ -385,6 +402,8 @@ def fft_kernels(dev, g, smi: str) -> list:
                 "bound_by": bound_by, "share_of_bound": bound_ms / kernel_ms, "library_ms": library_ms, "card": smi}
         if stage_flops is not None:
             line["cuda_core_floor_ms"] = stage_flops / F32_FLOPS * 1e3
+        if tensor_flops is not None:
+            line["tf32x3_floor_ms"] = 3 * tensor_flops / TF32_FLOPS * 1e3
         if note:
             line["library_note"] = note
         emit(line)
@@ -405,11 +424,31 @@ def fft_kernels(dev, g, smi: str) -> list:
     re, im = randn(96, 5, 33), randn(96, 5, 33)
     checks.append(compare_fft(lambda: _leading._stage_fused(re, im, 96, False, 1.0),
                               lambda: _leading._stage(re, im, wcat(96, like=re), 96), "planes (96, 5, 33)"))
+    # the tensor-core tiles' edges: K = n not a multiple of 8 (or 1), M one
+    # past a 128-row tile, planes only 4-byte aligned, complex64 views read in
+    # place as (re, im) pairs, cat operands whose row tiles straddle blocks
+    for k, rest, off in ((1, (5,), False), (33, (129,), False), (100, (2, 65), True), (37, (257,), True)):
+        pr, pi = (offset if off else randn)(k, *rest), (offset if off else randn)(k, *rest)
+        wk = wcat(k, False, 0.5, pr)
+        checks.append(compare_fft(lambda: _leading._stage_fused(pr, pi, k, False, 0.5),
+                                  lambda: _leading._stage(pr, pi, wk, k),
+                                  f"planes ({k}, {', '.join(map(str, rest))}){' offset by one float' if off else ''}"))
+        cp = torch.complex(pr, pi)
+        checks.append(compare_fft(lambda: _leading._stage_fused(cp.real, cp.imag, k, False, 0.5),
+                                  lambda: _leading._stage(pr, pi, wk, k),
+                                  f"complex64 views ({k}, {', '.join(map(str, rest))})"))
+    for k, b, mm, off in ((96, 5, 36, False), (40, 7, 37, False), (64, 3, 44, True)):
+        zb = (offset if off else randn)(k, b, 2 * mm)
+        wk = wcat(k, True, like=zb)
+        checks.append(compare_fft(lambda: _leading._stage_fused_blocked(zb, k, mm, True, 1.0),
+                                  lambda: _leading._stage(zb[..., :mm], zb[..., mm:], wk, k),
+                                  f"blocked ({k}, {b}, {2 * mm}), row tiles straddle blocks"
+                                  f"{', offset by one float' if off else ''}"))
     cz = torch.complex(z[..., :m], z[..., m:])  # K3's operand as complex data, for torch.fft over its axis
     K, M = n, n * m
     finish("fft_stage", "heat_tpu_torch/csrc/fft_stage.cu", "heat_tpu/fft/_leading.py:220", checks, k3, k3_plain,
            lambda: torch.fft.fft(cz, dim=0), 4 * (2 * K * M + 2 * M * n + K * 2 * n), 3 * 8 * K * M * n,
-           stage_flops=8 * K * M * n)
+           stage_flops=8 * K * M * n, tensor_flops=8 * K * M * n)
     del z, cz, w
 
     # K4: one pair stage of the complex 512^3 transform: z (K = 512, 512, 2, 512), and the entry
@@ -430,11 +469,31 @@ def fft_kernels(dev, g, smi: str) -> list:
     checks.append(compare_fft(lambda: _leading._stage_pair_fused(zr_, 64, False, 0.5, planes=True),
                               lambda: (lambda o: (o[..., 0, :], o[..., 1, :]))(_leading._stage_pair(zr_, 64, False, 0.5)),
                               "pair stage (64, 5, 2, 50) into complex64, against the pair-block product"))
+    zo = offset(9, 2, 3, 2, 13)
+    checks.append(compare_fft(lambda: _leading._stage_pair_fused(zo, 9, False, 0.5),
+                              lambda: _leading._stage_pair(zo, 9, False, 0.5),
+                              "pair stage (9, 2, 3, 2, 13) offset by one float, against the pair-block product"))
+    # the C entry on element stride 2 that is not one complex64 tensor: an
+    # interleaved operand only 4-byte aligned, and planes of two tensors,
+    # written with element stride 2 into two tensors
+    xi_, yi_ = offset(40, 300, 2), randn(40, 300, 2)
+    w40 = wcat(40, like=xi_)
+    for label, (pr, pi) in (("interleaved, offset by one float", (xi_[..., 0], xi_[..., 1])),
+                            ("planes of two tensors", (xi_[..., 0], yi_[..., 1]))):
+        def strided(pr=pr, pi=pi):
+            o_re, o_im = torch.empty(300, 40, 2, device=dev), torch.empty(300, 40, 2, device=dev)
+            _leading._launch_stage(pr.data_ptr(), pi.data_ptr(), 600, 2, 300, 0, 40, 300, 40, w40, o_re.data_ptr(),
+                                   o_im.data_ptr(), 80, 2, dev)
+            return o_re[..., 0], o_im[..., 0]
+
+        checks.append(compare_fft(strided, lambda pr=pr, pi=pi: _leading._stage(pr.contiguous(), pi.contiguous(),
+                                                                                  w40, 40),
+                                  f"element stride 2 (40, 300), {label}, outputs with element stride 2"))
     cz = torch.complex(zp[:, :, 0], zp[:, :, 1])
     K, M = n, n * n
     finish("fft_pair", "heat_tpu_torch/csrc/fft_stage.cu", "heat_tpu/fft/_leading.py:369", checks, k4, k4_plain,
            lambda: torch.fft.fft(cz, dim=0), 4 * (2 * K * M + 2 * M * n + K * 2 * n), 3 * 8 * K * M * n,
-           stage_flops=8 * K * M * n)
+           stage_flops=8 * K * M * n, tensor_flops=8 * K * M * n)
     del zp, cz, w
 
     # K5: the raw exit products (m, n1, 2 n2) of the real 512^3 fftn and its Nyquist planes
@@ -473,10 +532,26 @@ def fft_kernels(dev, g, smi: str) -> list:
         checks.append(compare_fft(lambda: _axis_pass.fused_axis_pass(xr, xi, inverse),
                                   lambda: _axis_pass._axis_pass_plain(xr, xi, f1, f2, cst),
                                   f"axis pass ({rows}, {length}){' real' if real else ''}{' inverse' if inverse else ''}"))
+    # the tensor-core tiles' edges: n1 = 6, 127, 125 and 128 (padded to a
+    # multiple of 8), several blocks' rows, planes only 4-byte aligned, and
+    # complex64 views read in place
+    for length in (6, 127, 1000, 1024):
+        f1, f2 = _axis_pass._split_factors(length)
+        cst = _axis_pass.on_device(_axis_pass._kernel_consts, length, True, device=dev)
+        xr, xi = offset(300, length), offset(300, length)
+        for label, args in (("real", (xr, None)), ("complex", (xr, xi))):
+            checks.append(compare_fft(lambda args=args: _axis_pass.fused_axis_pass(*args, True),
+                                      lambda args=args: _axis_pass._axis_pass_plain(*args, f1, f2, cst),
+                                      f"axis pass (300, {length}) {label}, offset by one float, inverse"))
+        xc = torch.complex(xr, xi)
+        checks.append(compare_fft(lambda: _axis_pass.fused_axis_pass(xc.real, xc.imag, True),
+                                  lambda: _axis_pass._axis_pass_plain(xr, xi, f1, f2, cst),
+                                  f"axis pass (300, {length}) complex64 views, inverse"))
     B = FFT1_ROWS
     finish("fft_axis", "heat_tpu_torch/csrc/fft_axis.cu", "heat_tpu/fft/_pallas_fft.py:141", checks, k6, k6_plain,
            lambda: torch.fft.fft(sig, dim=-1), 8 * B * FFT1_N * 2 + 4 * 2 * (n1 * n1 + FFT1_N + n2 * n2),
-           B * FFT1_N * (3 * 8 * n1 + 8 * n2 + 6), stage_flops=B * FFT1_N * (8 * n1 + 8 * n2 + 6))
+           B * FFT1_N * (3 * 8 * n1 + 8 * n2 + 6), stage_flops=B * FFT1_N * (8 * n1 + 8 * n2 + 6),
+           tensor_flops=B * FFT1_N * 8 * n1)
     del sig
 
     refused = []
@@ -735,6 +810,35 @@ def attention_path(smi: str) -> int:
     return main_launches
 
 
+def tensor_core_report(build) -> dict:
+    """ptxas's report (registers, spills) of the two tensor-core kernels, and
+    their count of tensor-core instructions in the built SASS -- HMMA
+    (mma.sync, fft_axis) and HGMMA (wgmma, fft_stage) -- which shows that
+    the tensor cores are used (null where the toolkit has no cuobjdump)."""
+    import os
+    import shutil
+
+    cuobjdump = shutil.which("cuobjdump") or os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin",
+                                                          "cuobjdump")
+    report = {"ptxas_tensor_core_kernels": {}, "tensor_core_sass_instructions": {}}
+    for name in ("fft_stage", "fft_axis"):
+        log = build.BUILD_LOGS.get(name, "")
+        report["ptxas_tensor_core_kernels"][name] = [ln.strip() for ln in log.splitlines()
+                                                     if "registers" in ln or "spill" in ln]
+        counts = None
+        if os.path.exists(cuobjdump):
+            sass = subprocess.run([cuobjdump, "-sass", str(build._target(name))], capture_output=True, text=True)
+            if sass.returncode == 0:
+                ops = [ln.split(";")[0].split() for ln in sass.stdout.splitlines() if "MMA" in ln]
+                words = [w for op in ops for w in op]
+                counts = {"HMMA": sum(w.startswith("HMMA.") for w in words),
+                          "HGMMA": sum(w.startswith("HGMMA.") for w in words)}
+                if counts["HMMA"] + counts["HGMMA"] == 0:
+                    raise AssertionError(f"{name} has no tensor-core instruction in its SASS")
+        report["tensor_core_sass_instructions"][name] = counts
+    return report
+
+
 def main() -> int:
     import torch
 
@@ -771,6 +875,7 @@ def main() -> int:
     _build.build_all(sources)
     regs = [ln.strip() for log in _build.BUILD_LOGS.values() for ln in log.splitlines() if "registers" in ln]
     emit({"phase": "build", "sources": sources, "seconds": time.perf_counter() - t0, "ptxas": regs})
+    emit({"phase": "build", **tensor_core_report(_build)})
 
     # the seeded generator on the card draws the host's bits (the host's are
     # the JAX package's, tests/test_torch_random.py)

@@ -3,8 +3,9 @@
 Each ``heat_tpu_torch/csrc/<name>.cu`` is compiled by ``nvcc`` for ``sm_90a``
 into a shared library with a plain C interface, at first use, into
 ``build/heat_tpu_torch/`` at the root of the checkout.  The library's file
-name carries a hash of the source and the flags, so an edited source builds
-anew and an unchanged one is loaded as it is.  Nothing here runs at import.
+name carries a hash of the source, of every header ``csrc/*.cuh`` and of the
+flags, so an edited source or header builds anew and an unchanged one is
+loaded as it is.  Nothing here runs at import.
 """
 
 from __future__ import annotations
@@ -41,8 +42,11 @@ def _nvcc() -> str:
 
 
 def _target(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode() + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    digest = h.hexdigest()[:16]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
 

@@ -104,10 +104,20 @@ def axis_pass_unsupported(n: int, batch: int, dtype) -> Optional[str]:
         return f"needs at least one row, got {batch}"
     if _split_factors(n) is None:
         return f"needs n = n1 * n2 with n1 <= {_LANES} and n2 <= {_MAX_RADIX}, got n={n}"
-    n2 = _split_factors(n)[1]
-    if -(-batch // (64 // n2)) > _MAX_BLOCKS:
-        return f"takes at most {_MAX_BLOCKS * (64 // n2)} rows, got {batch}"
+    rows = _rows_per_block(*_split_factors(n))
+    if -(-batch // rows) > _MAX_BLOCKS:
+        return f"takes at most {_MAX_BLOCKS * rows} rows, got {batch}"
     return None
+
+
+def _rows_per_block(n1: int, n2: int) -> int:
+    """Batch rows of one block of csrc/fft_axis.cu (its ``batch_rows``): 8
+    warps of 32 stage-B rows x 32 bins tile (rows, n1 rounded up to 8), so a
+    block covers 64, 128 or 256 stage-B rows, that is that many over n2 rows
+    of the batch."""
+    n1p = -(-n1 // 8) * 8
+    warps_n = 1 if n1p <= 32 else 2 if n1p <= 64 else 4
+    return (256 // warps_n) // n2
 
 
 def _axis_pass_plain(re, im, n1: int, n2: int, consts):

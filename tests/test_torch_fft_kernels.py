@@ -14,6 +14,7 @@ import torch
 
 from heat_tpu.fft import _leading as ref_leading
 from heat_tpu.fft import _pallas_fft as ref_pf
+from heat_tpu_torch.core.linalg.basics import full_f32_matmul
 from heat_tpu_torch.fft import _axis_pass, _leading
 
 
@@ -149,3 +150,71 @@ def test_gates_refuse_what_the_kernels_do_not_take():
         _leading._stage_fused(torch.zeros(8, 4, dtype=torch.float64), torch.zeros(8, 4, dtype=torch.float64), 8, False, 1.0)
     with pytest.raises(ValueError):
         _axis_pass.fused_axis_pass(torch.zeros(2, 262), None, False)
+
+
+# ----------------------------------------------------------------------
+# the precision of csrc/fft_stage.cu and csrc/fft_axis.cu: 3xTF32 on the
+# tensor cores, emulated here with integer operations on the f32 bits
+# ----------------------------------------------------------------------
+def _tf32_rna(x):
+    """x rounded to TF32 (10 mantissa bits), to nearest with ties away from
+    zero, as ``cvt.rna.tf32.f32`` rounds: add half of the 13 dropped bits'
+    range to the bits, then clear them."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def _tf32x3_mm(a, b):
+    """a @ b as the kernels take it: each operand split into TF32 big and
+    small parts, small x big + big x small + big x big summed in f32 (the
+    product of two TF32 values is exact in f32)."""
+    ab, bb = _tf32_rna(a), _tf32_rna(b)
+    as_, bs = _tf32_rna(a - ab), _tf32_rna(b - bb)
+    with full_f32_matmul():
+        return as_ @ bb + ab @ bs + ab @ bb
+
+
+def _tf32_mm(a, b):
+    """a @ b in one TF32 pass, for contrast."""
+    with full_f32_matmul():
+        return _tf32_rna(a) @ _tf32_rna(b)
+
+
+def test_tf32_rounding_is_to_nearest_ties_away():
+    one = 1.0 + 2.0**-10  # the TF32 neighbour above 1
+    x = torch.tensor([1.0 + 2.0**-11, -(1.0 + 2.0**-11), 1.0 + 2.0**-11 - 2.0**-23, 1.0 + 3 * 2.0**-12, 0.0],
+                     dtype=torch.float32)
+    assert _tf32_rna(x).tolist() == [one, -one, 1.0, one, 0.0]
+    v = torch.from_numpy(np.random.default_rng(2).standard_normal(4096).astype(np.float32))
+    big = _tf32_rna(v)
+    small = _tf32_rna(v - big)
+    assert torch.equal(_tf32_rna(big), big) and torch.equal(_tf32_rna(small), small)  # both exact in TF32
+    assert float(((big.double() + small.double() - v.double()).abs() / v.double().abs()).max()) <= 2.0**-22
+
+
+@pytest.mark.parametrize("inverse", [False, True])
+def test_k3_stage_in_3xtf32_holds_f32_accuracy(inverse):
+    """K3's contraction at K = n = 512 (the 512^3 stage's depth), M small,
+    with every product taken in 3xTF32: within 1e-6 of a float64 DFT and
+    within the FFT tolerance (5e-4) of the reference's Pallas K3 run by the
+    interpreter; one TF32 pass misses 1e-5."""
+    rng = np.random.default_rng(17)
+    n, m = 512, 128
+    re = rng.standard_normal((n, m)).astype(np.float32)
+    im = rng.standard_normal((n, m)).astype(np.float32)
+    w = _leading._w(_leading._w_cat, n, "float32", inverse, 1.0, like=_t(re))
+    c, s = w[:, :n], w[:, n:]
+    a_re, a_im = _t(re).T.contiguous(), _t(im).T.contiguous()  # (M, K): row r of the output
+
+    def stage(mm):
+        return mm(a_re, c) - mm(a_im, s), mm(a_re, s) + mm(a_im, c)
+
+    got = stage(_tf32x3_mm)
+    z = re.astype(np.float64) + 1j * im
+    truth = (np.fft.ifft(z, axis=0) * n if inverse else np.fft.fft(z, axis=0)).T
+    got_c = _np(got[0]).astype(np.float64) + 1j * _np(got[1])
+    assert _rel(got_c, truth) < 1e-6
+    want = ref_leading._stage_fused_pallas(re, im, n, inverse, 1.0)
+    assert _rel(got_c, np.asarray(want[0]) + 1j * np.asarray(want[1])) < 5e-4
+    one = stage(_tf32_mm)
+    assert _rel(_np(one[0]).astype(np.float64) + 1j * _np(one[1]), truth) > 1e-5

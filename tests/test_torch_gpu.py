@@ -292,6 +292,113 @@ def test_fft_axis_kernel_matches_plain(card, n, real):
         _same_planes([t.cpu() for t in _axis_pass.fused_axis_pass(c.real, c.imag, True)], want)
 
 
+def _kernel_check(kernel, plain):
+    """A K3/K4/K6 wrapper against its plain version on the same card tensors:
+    within 1e-5 (max abs error over max abs), and bitwise on a repeat."""
+    def outs(r):
+        return r if isinstance(r, tuple) else (r,)
+
+    got, again, want = outs(kernel()), outs(kernel()), outs(plain())
+    _same_planes([t.cpu() for t in got], [t.cpu() for t in want])
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+def _operand(shape, card, g, offset):
+    """A contiguous f32 tensor; with ``offset`` its data starts one float past
+    an aligned address (only 4-byte aligned, as a view ``z[..., 1:]`` is)."""
+    if not offset:
+        return torch.randn(*shape, device=card, generator=g)
+    flat = torch.randn(int(np.prod(shape)) + 1, device=card, generator=g)
+    return flat[1:].view(shape)
+
+
+def _wcat(n, like, inverse=False, scale=1.0):
+    return _leading._w(_leading._w_cat, n, "float32", inverse, scale, like=like)
+
+
+@pytest.mark.parametrize("n,rest,offset", [(1, (5,), False), (33, (129,), False), (100, (2, 65), True),
+                                           (64, (128,), True), (8, (3,), True), (37, (257,), False)])
+def test_fft_stage_kernel_on_ragged_and_unaligned_operands(card, n, rest, offset):
+    """K3 where K = n is not a multiple of 8 (or is 1), M is one past a tile,
+    and the planes are 4-byte aligned; and the same data read in place as
+    the two views of one complex64 tensor (8-byte (re, im) copies)."""
+    g = torch.Generator(device=card).manual_seed(n + len(rest))
+    re, im = _operand((n, *rest), card, g, offset), _operand((n, *rest), card, g, offset)
+    w = _wcat(n, re, False, 0.5)
+    _kernel_check(lambda: _leading._stage_fused(re, im, n, False, 0.5), lambda: _leading._stage(re, im, w, n))
+    c = torch.complex(re, im)
+    _kernel_check(lambda: _leading._stage_fused(c.real, c.imag, n, False, 0.5), lambda: _leading._stage(re, im, w, n))
+
+
+@pytest.mark.parametrize("k,b,m,offset", [(96, 5, 36, False), (40, 7, 37, False), (64, 3, 44, True), (17, 9, 4, False)])
+def test_fft_blocked_stage_kernel_row_tiles_straddle_blocks(card, k, b, m, offset):
+    """K3 on a cat operand whose 128-row tiles straddle its m-column blocks:
+    16-byte copies where m is a multiple of 4, 4-byte ones otherwise."""
+    g = torch.Generator(device=card).manual_seed(k * b + m)
+    z = _operand((k, b, 2 * m), card, g, offset)
+    w = _wcat(k, z, True)
+    _kernel_check(lambda: _leading._stage_fused_blocked(z, k, m, True, 1.0),
+                  lambda: _leading._stage(z[..., :m], z[..., m:], w, k))
+
+
+@pytest.mark.parametrize("k,rest,m,offset", [(24, (3,), 44, False), (9, (2, 3), 13, True), (512, (1,), 129, False)])
+def test_fft_pair_kernel_on_ragged_and_unaligned_operands(card, k, rest, m, offset):
+    """K4 in cat layout and straight into complex64, on ragged and 4-byte
+    aligned pair operands whose row tiles straddle blocks."""
+    g = torch.Generator(device=card).manual_seed(k + m)
+    z = _operand((k, *rest, 2, m), card, g, offset)
+    b = int(np.prod(rest))
+    w = _wcat(k, z, False, 0.5)
+    z3 = z.reshape(k, b, 2 * m)
+
+    def plain():
+        return _leading._pair_plain(z3[..., :m].reshape(k, -1), z3[..., m:].reshape(k, -1), w, k)
+
+    _kernel_check(lambda: _leading._stage_pair_fused(z, k, False, 0.5).reshape(b * m, 2 * k), plain)
+    _kernel_check(lambda: tuple(p.reshape(b * m, k) for p in _leading._stage_pair_fused(z, k, False, 0.5, planes=True)),
+                  lambda: (lambda o: (o[:, :k], o[:, k:]))(plain()))
+
+
+def test_fft_stage_kernel_reads_and_writes_strided_planes(card):
+    """K3/K4's C entry on element stride 2 that is not one complex64 tensor:
+    planes of two different tensors, and an interleaved operand only 4-byte
+    aligned (no 8-byte pair copies); outputs with element stride 2 in two
+    tensors."""
+    g = torch.Generator(device=card).manual_seed(5)
+    K, M, n = 40, 300, 40
+    x = _operand((K, M, 2), card, g, True)
+    y = torch.randn(K, M, 2, device=card, generator=g)
+    w = _wcat(n, x)
+    for re, im in ((x[..., 0], x[..., 1]), (x[..., 0], y[..., 1]), (y[..., 0], y[..., 1])):
+        def kernel(re=re, im=im):
+            o_re = torch.empty(M, n, 2, device=card)
+            o_im = torch.empty(M, n, 2, device=card)
+            _leading._launch_stage(re.data_ptr(), im.data_ptr(), 2 * M, 2, M, 0, K, M, n, w, o_re.data_ptr(),
+                                   o_im.data_ptr(), 2 * n, 2, card)
+            return o_re[..., 0], o_im[..., 0]
+
+        _kernel_check(kernel, lambda re=re, im=im: _leading._stage(re.contiguous(), im.contiguous(), w, n))
+
+
+@pytest.mark.parametrize("n", [6, 127, 1000, 1024])
+@pytest.mark.parametrize("real", [False, True])
+def test_fft_axis_kernel_on_many_tiles_and_unaligned_rows(card, n, real):
+    """K6 over several blocks' rows, on 4-byte aligned planes, and on the
+    two views of one complex64 tensor (8-byte (re, im) reads)."""
+    g = torch.Generator(device=card).manual_seed(n + real)
+    rows = 300
+    re = _operand((rows, n), card, g, True)
+    im = None if real else _operand((rows, n), card, g, True)
+    n1, n2 = _axis_pass._split_factors(n)
+    consts = _axis_pass.on_device(_axis_pass._kernel_consts, n, True, device=card)
+    _kernel_check(lambda: _axis_pass.fused_axis_pass(re, im, True),
+                  lambda: _axis_pass._axis_pass_plain(re, im, n1, n2, consts))
+    if not real:
+        c = torch.complex(re, im)
+        _kernel_check(lambda: _axis_pass.fused_axis_pass(c.real, c.imag, True),
+                      lambda: _axis_pass._axis_pass_plain(re, im, n1, n2, consts))
+
+
 def test_fft_kernels_refuse_what_they_cannot_take(card):
     d = torch.zeros(8, 4, device=card, dtype=torch.float64)
     with pytest.raises(TypeError):
