@@ -11,10 +11,10 @@ file, it exits non-zero before printing any result):
 
 1. device: the card's name and count, and nvidia-smi's name and power limit;
 2. build: every CUDA source under heat_tpu_torch/csrc, one nvcc each, at once;
-   ptxas's registers and spills of the two tensor-core kernels (fft_stage,
-   fft_axis) and their count of HMMA (mma.sync) and HGMMA (wgmma)
-   instructions in the built SASS (where the toolkit has cuobjdump; none
-   fails the run);
+   ptxas's registers and spills of the four tensor-core kernels (syrk,
+   fft_stage, fft_axis, flash_attn) and their count of HMMA (mma.sync) and
+   HGMMA (wgmma) instructions in the built SASS (where the toolkit has
+   cuobjdump; none fails the run);
 3. rng and kernel_check: seeded draws on the card bitwise equal to the
    host's; the Lloyd kernel against its plain PyTorch version on the card,
    at the KMeans path's shape (2^27 x 16 float32 points, k = 8) and at
@@ -31,9 +31,10 @@ file, it exits non-zero before printing any result):
 The KMeans data is then freed, and the hierarchical SVD path follows on a
 2^25 x 128 float32 matrix with a decaying spectrum, made on the card:
 
-7. gram_check: the Gram kernel against its plain version at that shape and
-   at ragged ones (padding poisoned), exact symmetry, a bitwise repeat, and
-   the inputs it must refuse;
+7. gram_check: the Gram kernel against its plain version at that shape, at
+   ragged ones (padding poisoned) and at 2^22 x 128 of mean 10 (uncentred,
+   the stress case of its tensor-core chains), exact symmetry, a bitwise
+   repeat, and the inputs it must refuse;
 8. hsvd: hsvd_rank (rank 10) and hsvd_rtol (1e-2) through the entry points
    a user calls, one Gram launch per call, singular values, orthonormal U
    and the error estimate against the plain version's;
@@ -41,7 +42,8 @@ The KMeans data is then freed, and the hierarchical SVD path follows on a
    of 1, 64 and 4096 rows, checked against the float64 projection;
 10. hsvd_profile: the hsvd_rank call under torch.profiler;
 11. times: the Gram kernel beside its plain version, the library's
-    ``x.T @ x`` (cuBLAS, full float32) and its bound.
+    ``x.T @ x`` (cuBLAS, full float32), its bound, its 3xTF32 floor and its
+    CUDA-core floor.
 
 The hSVD data is then freed, and the FFT path follows at the JAX package's
 config-5 size (a real 512^3 float32 cube, split=0), on data made on the card:
@@ -71,9 +73,11 @@ package's long-context configuration (benchmarks/cb/attention.py at scale 1:
 seq 16384, 8 heads of 64, float32, causal):
 
 17. attn_check: the flash-attention kernel K7 against its plain version at
-    that shape and at ragged ones (relative error at most 1e-5), a bitwise
-    repeat, the inputs it must refuse, and its time beside its plain
-    version's, its bound, the CUDA cores' floor and
+    that shape, at ragged ones and at (4096, 4, 64) with q scaled by 8 (a
+    peaked softmax, the stress case of its tensor-core chains) (relative
+    error at most 1e-5), a bitwise repeat, the inputs it must refuse, and
+    its time beside its plain version's, its bound, its 3xTF32 floor, the
+    CUDA cores' floor and
     ``torch.nn.functional.scaled_dot_product_attention``'s;
 18. attention: q, k and v from ht.random.randn on the card (the first
     2^20 values of each against the same draws on the host, at most 4 ulp
@@ -699,6 +703,11 @@ def attention_kernel(dev, g, smi: str) -> dict:
         qs, ks, vs = (torch.randn(rows, heads, dim, device=dev, generator=g) for _ in range(3))
         for causal in (False, True):
             checks.append(compare_flash(qs, ks, vs, 1.0 / dim**0.5, causal, n_true))
+    # a peaked softmax (q scaled by 8), where long tensor-core chains would drift
+    qs, ks, vs = (torch.randn(4096, 4, 64, device=dev, generator=g) for _ in range(3))
+    for causal in (False, True):
+        checks.append({**compare_flash(qs * 8, ks, vs, 0.125, causal, 4096 - 37), "q_scaled_by": 8})
+    del qs, ks, vs
     for c in checks:
         emit({"phase": "attn_check", "kernel": "flash_attention", **c})
     refused = []
@@ -732,7 +741,8 @@ def attention_kernel(dev, g, smi: str) -> dict:
     bound_ms, bound_by = bound(4 * 4 * s * h * d, flops)
     emit({"phase": "attn_check", "kernel": "flash_attention", "shape": [s, h, d], "causal": True, "ms": kernel_ms,
           "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by, "share_of_bound": bound_ms / kernel_ms,
-          "cuda_core_floor_ms": flops / F32_FLOPS * 1e3, "library_ms": library_ms,
+          "tf32x3_floor_ms": 3 * flops / TF32_FLOPS * 1e3, "cuda_core_floor_ms": flops / F32_FLOPS * 1e3,
+          "library_ms": library_ms,
           "library_call": f"torch.nn.functional.scaled_dot_product_attention, is_causal, float32, {backend}",
           "card": smi, "phase_seconds": time.perf_counter() - t0})
     return {"name": "flash_attention", "route": "cuda", "source": "heat_tpu_torch/csrc/flash_attn.cu",
@@ -811,17 +821,18 @@ def attention_path(smi: str) -> int:
 
 
 def tensor_core_report(build) -> dict:
-    """ptxas's report (registers, spills) of the two tensor-core kernels, and
-    their count of tensor-core instructions in the built SASS -- HMMA
-    (mma.sync, fft_axis) and HGMMA (wgmma, fft_stage) -- which shows that
-    the tensor cores are used (null where the toolkit has no cuobjdump)."""
+    """ptxas's report (registers, spills) of the four tensor-core kernels,
+    and their count of tensor-core instructions in the built SASS -- HMMA
+    (mma.sync: fft_axis) and HGMMA (wgmma: syrk, fft_stage, flash_attn) --
+    which shows that the tensor cores are used (null where the toolkit has
+    no cuobjdump; a kernel without any fails the run)."""
     import os
     import shutil
 
     cuobjdump = shutil.which("cuobjdump") or os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin",
                                                           "cuobjdump")
     report = {"ptxas_tensor_core_kernels": {}, "tensor_core_sass_instructions": {}}
-    for name in ("fft_stage", "fft_axis"):
+    for name in ("syrk", "fft_stage", "fft_axis", "flash_attn"):
         log = build.BUILD_LOGS.get(name, "")
         report["ptxas_tensor_core_kernels"][name] = [ln.strip() for ln in log.splitlines()
                                                      if "registers" in ln or "spill" in ln]
@@ -980,6 +991,11 @@ def main() -> int:
         xs = torch.randn(rows, cols, device=dev, generator=g)
         xs[n_true:] = 1e6  # padding, poisoned: it must add nothing
         checks.append(compare_gram(xs, n_true))
+    # uncentred data of mean 10, as hsvd_rank receives it, where long
+    # tensor-core chains would drift
+    xs = torch.randn(1 << 22, HSVD_COLS, device=dev, generator=g) + 10.0
+    checks.append({**compare_gram(xs, xs.shape[0]), "mean": 10.0})
+    del xs
     refused = []
     for bad, what in ((torch.zeros(64, 16, dtype=torch.float64, device=dev), "float64"),
                       (torch.zeros(64, 513, device=dev), "n=513"),
@@ -1066,6 +1082,7 @@ def main() -> int:
     emit({"phase": "times", "kernel": "gram_syrk", "ms": gram_ms, "plain_ms": gram_plain_ms,
           "bound_ms": bound[gram_bound_by], "bound_by": gram_bound_by,
           "share_of_bound": bound[gram_bound_by] / gram_ms,
+          "tf32x3_floor_ms": 3 * m * n * (n + 1) / TF32_FLOPS * 1e3,
           "cuda_core_floor_ms": m * n * (n + 1) / F32_FLOPS * 1e3,
           "library_ms": library_ms, "library_call": "x.T @ x, full float32 (cuBLAS)", "card": smi})
 

@@ -11,6 +11,7 @@ from __future__ import annotations
 
 from typing import Callable, Optional
 
+import numpy as np
 import torch
 
 from . import types
@@ -32,11 +33,27 @@ def _scalar_tensor(v, like: torch.Tensor) -> torch.Tensor:
     return torch.tensor(v)
 
 
+def _as_dndarray(v, like: DNDarray) -> DNDarray:
+    """A numpy scalar or array as an unsplit DNDarray of its own dtype on
+    ``like``'s device and communicator, as the reference's ``_as_dndarray``
+    makes it; anything else is returned as it is."""
+    if isinstance(v, (np.generic, np.ndarray)):
+        from . import factories
+
+        return factories.array(v, device=like.device, comm=like.comm)
+    return v
+
+
 def __binary_op(operation: Callable, t1, t2) -> DNDarray:
     """``operation`` element-wise on two operands with numpy broadcasting;
-    at least one is a DNDarray, the other may be a python scalar."""
+    at least one is a DNDarray, the other may be a python scalar or a numpy
+    scalar or array.  Two DNDarrays of different types meet in their
+    promoted type (``types.promote_types``), as the reference's do: a 0-d
+    operand widens the result like any other."""
     if not isinstance(t1, DNDarray) and not isinstance(t2, DNDarray):
         raise TypeError(f"at least one operand must be a DNDarray, got {type(t1)} and {type(t2)}")
+    like = t1 if isinstance(t1, DNDarray) else t2
+    t1, t2 = _as_dndarray(t1, like), _as_dndarray(t2, like)
     if isinstance(t1, _SCALARS) or isinstance(t2, _SCALARS):
         # a python scalar becomes a 0-d tensor, which (like the scalar)
         # does not widen the array's type within its kind
@@ -46,7 +63,10 @@ def __binary_op(operation: Callable, t1, t2) -> DNDarray:
         b = data if t2 is arr else _scalar_tensor(t2, data)
         return arr._like(operation(a, b))
     if not isinstance(t1, DNDarray) or not isinstance(t2, DNDarray):
-        raise TypeError(f"operands must be DNDarrays or python scalars, got {type(t1)} and {type(t2)}")
+        raise TypeError(f"operands must be DNDarrays, numpy or python scalars, got {type(t1)} and {type(t2)}")
+    if t1.dtype != t2.dtype:
+        common = types.promote_types(t1.dtype, t2.dtype)
+        t1, t2 = t1.astype(common), t2.astype(common)
     gshape = broadcast_shape(t1.gshape, t2.gshape)
     ndim = len(gshape)
     # the split of the result, in the result's axes

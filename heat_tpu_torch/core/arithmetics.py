@@ -25,9 +25,17 @@ def mul(t1, t2) -> DNDarray:
     return _operations.__binary_op(torch.mul, t1, t2)
 
 
+def _true_divide(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a / b`` in the reference's type: int64 operands divide in float64
+    (torch would give its default float32), int32 and bool in float32."""
+    if torch.result_type(a, b) == torch.int64:
+        return torch.true_divide(a.to(torch.float64), b.to(torch.float64))
+    return torch.true_divide(a, b)
+
+
 def div(t1, t2) -> DNDarray:
     """Element-wise true division ``t1 / t2``."""
-    return _operations.__binary_op(torch.true_divide, t1, t2)
+    return _operations.__binary_op(_true_divide, t1, t2)
 
 
 def pow(t1, t2) -> DNDarray:

@@ -52,7 +52,7 @@ _SMEM_LIMIT = 232448  # shared memory one block may use on Hopper (227 KB)
 _PLAIN_ROWS = 1 << 20  # rows per chunk of the plain versions
 _GRAM_MAX_N = 512  # widest matrix syrk.cu takes
 _GRAM_TILE = 64  # side of an output tile (syrk.cu kT)
-_GRAM_STAGE_ROWS = 32  # rows per shared-memory stage (syrk.cu kK)
+_GRAM_STAGE_ROWS = 64  # rows per shared-memory stage (syrk.cu kK)
 _GRAM_MAX_RUNS = 65535  # runs of rows: the grid's y extent
 
 
@@ -272,8 +272,10 @@ def _gram_lib() -> ctypes.CDLL:
             ctypes.c_int64, ctypes.c_void_p, ctypes.c_void_p,
         ]
         lib.heat_syrk_f32.restype = ctypes.c_int
-        lib.heat_syrk_blocks_per_sm.argtypes = []
+        lib.heat_syrk_blocks_per_sm.argtypes = [ctypes.c_int64]
         lib.heat_syrk_blocks_per_sm.restype = ctypes.c_int64
+        lib.heat_syrk_units.argtypes = [ctypes.c_int64]
+        lib.heat_syrk_units.restype = ctypes.c_int64
         _GRAM_LIB = lib
     return _GRAM_LIB
 
@@ -284,16 +286,21 @@ def _gram_tiles(n: int) -> int:
     return nt * (nt + 1) // 2
 
 
-def _gram_runs(dev: torch.device, tiles: int, n_true: int) -> Tuple[int, int]:
+def _gram_runs(dev: torch.device, n: int, n_true: int) -> Tuple[int, int]:
     """``(runs, rows per run)``: the rows cut into runs so that the grid of
-    (tiles, runs) blocks is about one wave of what the card holds at once."""
-    if dev.index not in _GRAM_RESIDENT:
-        per_sm = _gram_lib().heat_syrk_blocks_per_sm()
+    (units, runs) blocks is about one wave of what the card holds at once;
+    a unit is one block of a run (syrk.cu: one for 64 < n <= 128, else one
+    per upper-triangle tile)."""
+    key = (dev.index, n)
+    if key not in _GRAM_RESIDENT:
+        lib = _gram_lib()
+        per_sm = lib.heat_syrk_blocks_per_sm(n)
         if per_sm < 1:
             raise RuntimeError("the CUDA Gram kernel cannot be resident")
-        _GRAM_RESIDENT[dev.index] = per_sm * torch.cuda.get_device_properties(dev).multi_processor_count
+        resident = per_sm * torch.cuda.get_device_properties(dev).multi_processor_count
+        _GRAM_RESIDENT[key] = max(1, resident // lib.heat_syrk_units(n))
     stages = max(1, -(-n_true // _GRAM_STAGE_ROWS))
-    runs = max(1, min(stages, _GRAM_RESIDENT[dev.index] // tiles, _GRAM_MAX_RUNS))
+    runs = max(1, min(stages, _GRAM_RESIDENT[key], _GRAM_MAX_RUNS))
     per = -(-stages // runs) * _GRAM_STAGE_ROWS
     return max(1, -(-n_true // per)), per
 
@@ -305,7 +312,7 @@ def _gram_cuda(x: torch.Tensor, n_true: int) -> torch.Tensor:
     dev = x.device
     lib = _gram_lib()
     tiles = _gram_tiles(n)
-    runs, per = _gram_runs(dev, tiles, n_true)
+    runs, per = _gram_runs(dev, n, n_true)
     partial = torch.empty((runs * tiles * _GRAM_TILE * _GRAM_TILE,), dtype=torch.float64, device=dev)
     g = torch.empty((n, n), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):

@@ -97,11 +97,9 @@ static_assert(kABytes % 128 == 0 && kStageBytes % 128 == 0, "aligned tiles");
 
 enum : int { kAVec = 1, kWVec = 2, kPairOut = 4 };
 
-// byte offset of W element (bin nb, depth jj) within a part of a stage: slab
-// jj / 8, core matrix (nb / 8, (jj % 8) / 4), row nb % 8, column jj % 4
-__device__ __forceinline__ int w_off(int nb, int jj) {
-  return (jj >> 3) * kSlabBytes + (nb >> 3) * 256 + ((jj >> 2) & 1) * 128 + (nb & 7) * 16 + (jj & 3) * 4;
-}
+// W element (bin nb, depth jj) lies at tf32x3::cm_off(nb, jj) within a part
+// of a stage: slabs of 64 bins x 8 depths
+static_assert(kSlabBytes == 2048, "tf32x3::cm_off's slab");
 
 template <bool kPair>
 __global__ void __launch_bounds__(kThreads, 1)
@@ -172,8 +170,8 @@ stage_kernel(const float* __restrict__ a_re, const float* __restrict__ a_im, int
     const int64_t j0 = kb + 4 * wq;
     const int64_t dl = K - j0;
     const int depth = w_ok ? (int)(dl < 0 ? 0 : dl > 4 ? 4 : dl) : 0;
-    unsigned char* dc = w_part(buf, 0) + w_off(wb, 4 * wq);
-    unsigned char* ds = w_part(buf, 1) + w_off(wb, 4 * wq);
+    unsigned char* dc = w_part(buf, 0) + tf32x3::cm_off(wb, 4 * wq);
+    unsigned char* ds = w_part(buf, 1) + tf32x3::cm_off(wb, 4 * wq);
     if (w_vec) {
       tf32x3::cp16(dc, depth ? wrow_p + j0 : w, 4u * depth);
       tf32x3::cp16(ds, depth ? wrow_p + n + j0 : w, 4u * depth);
@@ -190,8 +188,8 @@ stage_kernel(const float* __restrict__ a_re, const float* __restrict__ a_im, int
   auto split_w = [&](int buf) {
 #pragma unroll
     for (int p = 0; p < 2; ++p) {
-      float* big = reinterpret_cast<float*>(w_part(buf, p) + w_off(wb, 4 * wq));
-      float* small = reinterpret_cast<float*>(w_part(buf, p + 2) + w_off(wb, 4 * wq));
+      float* big = reinterpret_cast<float*>(w_part(buf, p) + tf32x3::cm_off(wb, 4 * wq));
+      float* small = reinterpret_cast<float*>(w_part(buf, p + 2) + tf32x3::cm_off(wb, 4 * wq));
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         uint32_t b, l;

@@ -1,6 +1,6 @@
 // 3xTF32 products on Hopper's tensor cores, and the cp.async copies that feed
-// them: the helpers shared by fft_stage.cu (K3/K4, wgmma) and fft_axis.cu
-// (K6, mma.sync).
+// them: the helpers shared by fft_stage.cu (K3/K4, wgmma), fft_axis.cu (K6,
+// mma.sync), flash_attn.cu (K7, wgmma) and syrk.cu (K2, wgmma).
 //
 // 3xTF32: a float x is split into big = rna_tf32(x) and small =
 // rna_tf32(x - big), each exact in TF32 (10 mantissa bits).  A product a b is
@@ -124,6 +124,38 @@ __device__ __forceinline__ void wg_mma(float (&d)[32], const uint32_t (&a)[4], u
         "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d), "n"(SA));
+}
+
+// d = a b + (scale_d ? d : 0), both operands from shared memory (K-major, no
+// swizzle, as above: A's core matrices are 8 rows (m) x 16 bytes (4 k))
+__device__ __forceinline__ void wg_mma_ss(float (&d)[32], uint64_t a, uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+
+// d += a b in 3xTF32 with both operands from shared memory: the big and small
+// planes of A (ab, as) and of B (bb, bs)
+__device__ __forceinline__ void wg_mma3_ss(float (&d)[32], uint64_t ab, uint64_t as, uint64_t bb, uint64_t bs,
+                                           int scale_d) {
+  wg_mma_ss(d, as, bb, scale_d);
+  wg_mma_ss(d, ab, bs, 1);
+  wg_mma_ss(d, ab, bb, 1);
+}
+
+// byte offset of element (row r, depth j) of a 64-row plane laid out for the
+// descriptors above (lbo 128, sbo 256): slab j / 8 of 2048 bytes, core matrix
+// (r / 8, (j % 8) / 4), row r % 8, column j % 4
+__device__ __forceinline__ int cm_off(int r, int j) {
+  return (j >> 3) * 2048 + (r >> 3) * 256 + ((j >> 2) & 1) * 128 + (r & 7) * 16 + (j & 3) * 4;
 }
 
 // d += a b in 3xTF32 on one warpgroup accumulator chain (scale_d = 0 starts it)

@@ -142,6 +142,7 @@ class PCA(BaseEstimator, TransformMixin):
 
 def _sum_of_squares(x: DNDarray) -> torch.Tensor:
     """The float32 sum of squares of x's true entries: a local sum over this
-    rank's chunk (padding left out), then one all-reduce."""
-    ss = (torch.linalg.vector_norm(x.larray, dtype=torch.float32) ** 2).reshape(1)
+    rank's chunk (padding left out), then one all-reduce.  Any float type
+    is cast to float32 first, as the reference does."""
+    ss = (torch.linalg.vector_norm(x.larray.to(torch.float32)) ** 2).reshape(1)
     return (ss if x.split is None else x.comm.psum(ss))[0]

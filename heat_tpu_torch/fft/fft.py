@@ -267,9 +267,14 @@ def _planar_entry(x: DNDarray, kind: str, axes_ns, norm) -> DNDarray:
         out_re, out_im = _planar_prog(kind, norm, axes_ns)(*_planes(x._dense()))
         arr = out_re if out_im is None else _pl.as_complex(out_re, out_im)
         return DNDarray.from_dense(arr, split, x.device, x.comm)
-    # no transform axis is split: each rank transforms its padded chunk
+    # no transform axis is split (or one rank holds the split axis whole):
+    # each rank transforms its padded chunk; an untransformed split axis
+    # keeps its true extent, a transformed one takes the output's
     out_re, out_im = _planar_prog(kind, norm, axes_ns)(*_planes(x.larray_padded))
-    gshape = tuple(x.shape[d] if d == split else int(s) for d, s in enumerate(out_re.shape))
+    transformed = {a for a, _ in axes_ns}
+    gshape = tuple(
+        x.shape[d] if d == split and d not in transformed else int(s) for d, s in enumerate(out_re.shape)
+    )
     return _wrap(x, out_re, out_im, gshape, split)
 
 

@@ -28,8 +28,8 @@ __all__ = ["FLASH_LAUNCHES", "flash_attention", "flash_unsupported"]
 #: launches of the CUDA flash-attention kernel in this process (the plain version adds nothing)
 FLASH_LAUNCHES = 0
 
-_MAX_HEAD_DIM = 256  # widest head flash_attn.cu holds: Q, K, V and P tiles fill 217 KB of shared memory
-_TILE = 64  # queries per block (flash_attn.cu kBQ)
+_MAX_HEAD_DIM = 256  # widest head flash_attn.cu holds: Q's planes and a ring of three 32 KB items fill 224 KB
+_TILE = 64  # queries per warpgroup (flash_attn.cu kBQ); the gate counts blocks of one warpgroup
 _MAX_BLOCKS = (1 << 31) - 1  # the grid's x extent
 _PLAIN_SCORES = 1 << 26  # scores per query block of the plain version (256 MB in float32)
 
@@ -80,24 +80,31 @@ def _lib() -> ctypes.CDLL:
     if _LIB is None:
         lib = _build.load("flash_attn")
         lib.heat_flash_attn_f32.argtypes = (
-            [ctypes.c_void_p] * 4 + [ctypes.c_int64] * 12 + [ctypes.c_float, ctypes.c_int64, ctypes.c_int, ctypes.c_void_p]
+            [ctypes.c_void_p] * 4 + [ctypes.c_int64] * 12
+            + [ctypes.c_float, ctypes.c_int64, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
         )
         lib.heat_flash_attn_f32.restype = ctypes.c_int
+        lib.heat_flash_attn_scratch.argtypes = [ctypes.c_int64] * 3
+        lib.heat_flash_attn_scratch.restype = ctypes.c_int64
         _LIB = lib
     return _LIB
 
 
 def _flash_cuda(q, k, v, scale: float, causal: bool, n_true: int) -> torch.Tensor:
-    """Launch csrc/flash_attn.cu on PyTorch's current stream (no synchronise)."""
+    """Launch csrc/flash_attn.cu (its pre-pass, then the kernel) on
+    PyTorch's current stream (no synchronise).  The pre-pass writes K and V's
+    TF32 planes into a scratch tensor of 4 h s d floats (s and d rounded up
+    to 64), freed when the call returns."""
     global FLASH_LAUNCHES
     s, h, d = q.shape
     out = torch.empty((s, h, d), dtype=torch.float32, device=q.device)
     lib = _lib()
+    scratch = torch.empty((lib.heat_flash_attn_scratch(s, h, d),), dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = lib.heat_flash_attn_f32(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), s, h, d,
-            *q.stride(), *k.stride(), *v.stride(), scale, n_true, int(causal), stream,
+            *q.stride(), *k.stride(), *v.stride(), scale, n_true, int(causal), scratch.data_ptr(), stream,
         )
     if err != 0:
         raise RuntimeError(f"flash-attention kernel launch failed: CUDA error {err}")

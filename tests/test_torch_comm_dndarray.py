@@ -108,6 +108,39 @@ def test_binary_ops_match_reference(split):
         assert got.split == want.split
 
 
+_NUMPY_OPERANDS = [
+    np.float32(2.0),
+    np.float64(2.0),
+    np.int64(3),
+    np.arange(1, 4, dtype=np.float64),
+    np.arange(1, 4, dtype=np.int64),
+    np.arange(1, 4, dtype=np.float32),
+]
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.int32])
+@pytest.mark.parametrize("split", [None, 0, 1])
+@pytest.mark.parametrize("op", ["add", "sub", "mul", "div", "pow"])
+@pytest.mark.parametrize("first", [False, True])
+def test_numpy_operands_match_reference(dtype, split, op, first):
+    """Numpy scalars and arrays meet a DNDarray as the reference's
+    ``_as_dndarray`` has them: of their own type, which promotes the
+    result's exactly as the reference's does."""
+    x = np.arange(1, 13, dtype=dtype).reshape(4, 3)
+    for other in _NUMPY_OPERANDS:
+        a, r = ht.array(x, split=split), hj.array(x, split=split)
+        got = getattr(ht, op)(other, a) if first else getattr(ht, op)(a, other)
+        want = getattr(hj, op)(other, r) if first else getattr(hj, op)(r, other)
+        assert got.dtype.__name__ == want.dtype.__name__, (other, op)
+        assert got.shape == want.shape and got.split == want.split
+        np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-6)
+    # the operator forms, with the DNDarray on the left and through __r*__
+    a, r = ht.array(x, split=split), hj.array(x, split=split)
+    for other in _NUMPY_OPERANDS:
+        assert (a * other).dtype.__name__ == (r * other).dtype.__name__
+        assert a.__rmul__(other).dtype.__name__ == r.__rmul__(other).dtype.__name__
+
+
 @pytest.mark.parametrize("split", [None, 0])
 @pytest.mark.parametrize("axis", [None, 0, 1])
 def test_reductions_match_reference(split, axis):

@@ -191,6 +191,30 @@ def test_split_axis_kept_in_a_world_of_one():
     _check("fft", x, split=1, axis=1)
 
 
+# A transformed split axis in a world of one takes the output's extent:
+# rfft/ihfft halve it, irfft/hfft and an explicit n or s set it.
+_SPLIT_AXIS_CASES = [
+    ("rfft", {}),
+    ("ihfft", {}),
+    ("irfft", {}),
+    ("hfft", {}),
+    ("fft", {"n": 16, "axis": 0}),
+    ("fft2", {"s": (16, 4)}),
+    ("fftn", {"s": (16, 4), "axes": (0, 1)}),
+]
+
+
+@pytest.mark.parametrize("split", [0, 1])
+@pytest.mark.parametrize("name,kw", _SPLIT_AXIS_CASES, ids=[c[0] + ("_n" if c[1] else "") for c in _SPLIT_AXIS_CASES])
+def test_transformed_split_axis_takes_the_output_extent_in_a_world_of_one(name, kw, split):
+    complex_in = name in ("irfft", "hfft")
+    x = _data((12, 10), complex_in, seed=5)
+    if name in ("rfft", "ihfft", "irfft", "hfft") and split == 0:
+        kw = {"axis": 0}
+    got = _check(name, x, split=split, **kw)
+    assert got.lshape == got.shape
+
+
 def test_real_input_to_rfft_only():
     with pytest.raises(TypeError):
         ht.fft.rfft(ht.array(_data((4, 8), True)))

@@ -14,7 +14,7 @@ import torch
 
 from heat_tpu.fft import _leading as ref_leading
 from heat_tpu.fft import _pallas_fft as ref_pf
-from heat_tpu_torch.core.linalg.basics import full_f32_matmul
+from heat_tpu_torch.core._tf32x3 import tf32_mm, tf32_rna, tf32x3_mm
 from heat_tpu_torch.fft import _axis_pass, _leading
 
 
@@ -156,28 +156,9 @@ def test_gates_refuse_what_the_kernels_do_not_take():
 # the precision of csrc/fft_stage.cu and csrc/fft_axis.cu: 3xTF32 on the
 # tensor cores, emulated here with integer operations on the f32 bits
 # ----------------------------------------------------------------------
-def _tf32_rna(x):
-    """x rounded to TF32 (10 mantissa bits), to nearest with ties away from
-    zero, as ``cvt.rna.tf32.f32`` rounds: add half of the 13 dropped bits'
-    range to the bits, then clear them."""
-    bits = x.contiguous().view(torch.int32)
-    return ((bits + 0x1000) & -0x2000).view(torch.float32)
-
-
-def _tf32x3_mm(a, b):
-    """a @ b as the kernels take it: each operand split into TF32 big and
-    small parts, small x big + big x small + big x big summed in f32 (the
-    product of two TF32 values is exact in f32)."""
-    ab, bb = _tf32_rna(a), _tf32_rna(b)
-    as_, bs = _tf32_rna(a - ab), _tf32_rna(b - bb)
-    with full_f32_matmul():
-        return as_ @ bb + ab @ bs + ab @ bb
-
-
-def _tf32_mm(a, b):
-    """a @ b in one TF32 pass, for contrast."""
-    with full_f32_matmul():
-        return _tf32_rna(a) @ _tf32_rna(b)
+# the emulation of csrc/tf32x3.cuh, shared with tests/test_torch_flash.py and
+# tests/test_torch_syrk.py
+_tf32_rna, _tf32x3_mm, _tf32_mm = tf32_rna, tf32x3_mm, tf32_mm
 
 
 def test_tf32_rounding_is_to_nearest_ties_away():

@@ -118,3 +118,91 @@ def test_gate_refuses(s, h, d, dtype, reason):
 @pytest.mark.parametrize("s,h,d", [(1, 1, 1), (16384, 8, 64), (1000, 3, 256), (127, 1, 16)])
 def test_gate_takes(s, h, d):
     assert _flash.flash_unsupported(s, h, d, torch.float32) is None
+
+
+# ----------------------------------------------------------------------
+# the precision of csrc/flash_attn.cu: 3xTF32 on the tensor cores,
+# emulated with integer operations on the f32 bits (core/_tf32x3.py)
+# ----------------------------------------------------------------------
+def _flash_emulated(q, k, v, scale, causal, n_true, mm):
+    """K7's arithmetic on (s, h, d) float32 tensors: per query tile of 64
+    and key tile of 64 (the kernel's tiles), S = Q K^T as one chain, the
+    online softmax in float32 (m, l, corr), this tile's P V from zero and
+    added to the rescaled output, the output divided by l at the end.  The
+    products are ``mm`` (3xTF32, or one TF32 pass for contrast)."""
+    s, h, d = q.shape
+    qh, kh, vh = (x.permute(1, 0, 2) for x in (q, k, v))  # (h, s, d)
+    out = torch.empty((s, h, d), dtype=torch.float32)
+    pos = torch.arange(s)
+    for i0 in range(0, s, 64):
+        i1 = min(s, i0 + 64)
+        rows = pos[i0:i1]
+        m = torch.full((h, i1 - i0, 1), float("-inf"))
+        l = torch.zeros((h, i1 - i0, 1))
+        o = torch.zeros((h, i1 - i0, d))
+        for k0 in range(0, (i1 if causal else s), 64):
+            k1 = min(s, k0 + 64)
+            keys = pos[k0:k1]
+            ok = (keys[None, :] >= n_true) == (rows[:, None] >= n_true)
+            if causal:
+                ok &= keys[None, :] <= rows[:, None]
+            if not bool(ok.any()):
+                continue  # a tile the kernel skips
+            x = mm(qh[:, i0:i1], kh[:, k0:k1].transpose(1, 2)) * scale
+            x = x.masked_fill(~ok, float("-inf"))
+            m_new = torch.maximum(m, x.amax(-1, keepdim=True))
+            base = torch.where(m_new == float("-inf"), torch.zeros_like(m_new), m_new)
+            corr = torch.exp(m - base)
+            p = torch.exp(x - base)
+            l = l * corr + p.sum(-1, keepdim=True)
+            m = m_new
+            o = o * corr + mm(p, vh[:, k0:k1])
+        out[i0:i1] = (o / l).permute(1, 0, 2)
+    return out
+
+
+def _rel(got, want):
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    return np.abs(got - want).max() / np.abs(want).max()
+
+
+@pytest.mark.parametrize("causal,n_true", [(True, 1024), (False, 1000), (True, 1000)])
+def test_3xtf32_flash_holds_f32_accuracy(causal, n_true):
+    """K7's tiles and chains at d = 64, s = 1024 with every product in
+    3xTF32: within 1e-6 of float64, and within 1e-5 of the reference's
+    Pallas flash kernel (interpreted); one TF32 pass misses 1e-5."""
+    from heat_tpu_torch.core._tf32x3 import tf32_mm, tf32x3_mm
+
+    s, h, d = 1024, 2, 64
+    q, k, v = _qkv(s, h, d, 21)
+    scale = 1.0 / np.sqrt(d)
+    truth = _truth(q, k, v, scale, causal, n_true)
+    tq, tk, tv = (torch.from_numpy(x) for x in (q, k, v))
+    got = _flash_emulated(tq, tk, tv, scale, causal, n_true, tf32x3_mm).numpy()
+    assert _rel(got, truth) < 1e-6
+    with pltpu.force_tpu_interpret_mode(), jax.enable_x64(False):
+        want = np.asarray(ref_attention._local_flash(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), scale, causal,
+                                                     n_true))
+    assert _rel(got, want) < TOL
+    one = _flash_emulated(tq, tk, tv, scale, causal, n_true, tf32_mm).numpy()
+    assert _rel(one, truth) > TOL
+
+
+def test_3xtf32_flash_with_a_peaked_softmax():
+    """q scaled by 8 (the card's stress case, at the interpreter's size): the
+    scores are large, so float32 itself sits about 2.6e-6 from float64 here.
+    The 3xTF32 emulation stays within the card's 1e-5 of the plain version
+    and of float64; one TF32 pass misses both by two orders."""
+    from heat_tpu_torch.core._tf32x3 import tf32_mm, tf32x3_mm
+
+    s, h, d = 512, 2, 64
+    q, k, v = _qkv(s, h, d, 23)
+    q = q * 8
+    for causal in (False, True):
+        truth = _truth(q, k, v, 0.125, causal, s - 37)
+        plain = _plain(q, k, v, 0.125, causal, s - 37)
+        tq, tk, tv = (torch.from_numpy(x) for x in (q, k, v))
+        got = _flash_emulated(tq, tk, tv, 0.125, causal, s - 37, tf32x3_mm).numpy()
+        assert _rel(got, plain) < TOL and _rel(got, truth) < TOL
+        one = _flash_emulated(tq, tk, tv, 0.125, causal, s - 37, tf32_mm).numpy()
+        assert _rel(one, truth) > 100 * TOL

@@ -154,6 +154,14 @@ def test_gram_kernel_on_unaligned_rows(card):
     _gram_check(flat[1:].view(777, 64), 777)
 
 
+def test_gram_kernel_on_offset_data(card):
+    """2^22 x 128 rows of mean 10, uncentred as hsvd_rank receives them: the
+    stress case of the tensor-core chains (chip_smoke.py runs it too)."""
+    g = torch.Generator(device=card).manual_seed(22)
+    x = torch.randn(1 << 22, 128, device=card, generator=g) + 10.0
+    _gram_check(x, x.shape[0])
+
+
 def test_gram_kernel_refuses_what_it_cannot_take(card):
     with pytest.raises(TypeError):
         kernels.gram_partials(torch.randn(64, 16, device=card, dtype=torch.float64), 64)
@@ -479,6 +487,15 @@ def test_flash_kernel_matches_plain(card, s, h, d, n_true, causal):
     _flash_check(q, k, v, 1.0 / np.sqrt(d), causal, n_true)
 
 
+@pytest.mark.parametrize("causal", [False, True])
+def test_flash_kernel_with_a_peaked_softmax(card, causal):
+    """(4096, 4, 64) with q scaled by 8 and n_true = s - 37: the stress case
+    of the tensor-core chains (chip_smoke.py runs it too)."""
+    g = torch.Generator(device=card).manual_seed(4096)
+    q, k, v = (torch.randn(4096, 4, 64, device=card, generator=g) for _ in range(3))
+    _flash_check(q * 8, k, v, 0.125, causal, 4096 - 37)
+
+
 def test_flash_kernel_reads_strided_inputs(card):
     g = torch.Generator(device=card).manual_seed(3)
     base = torch.randn(3, 4, 300, 64, device=card, generator=g)  # (qkv, h, s, d): (s, h, d) views, strided
@@ -524,3 +541,23 @@ def test_randn_on_the_card_matches_the_hosts(card):
         assert on_card.device.type == "cuda"
         diff = (on_card.cpu().view(torch.int32).long() - on_host.view(torch.int32).long()).abs().max()
         assert int(diff) <= 4  # ulp; the card's log and sqrt may round apart from the host's
+
+
+@pytest.mark.parametrize("name", ["syrk", "flash_attn", "fft_stage", "fft_axis"])
+def test_tensor_core_kernels_use_the_tensor_cores(card, name):
+    """The built SASS of each 3xTF32 kernel holds tensor-core instructions
+    (HGMMA for wgmma, HMMA for mma.sync)."""
+    import os
+    import shutil
+    import subprocess
+
+    from heat_tpu_torch.core import _build
+
+    cuobjdump = shutil.which("cuobjdump") or os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin",
+                                                          "cuobjdump")
+    if not os.path.exists(cuobjdump):
+        pytest.skip("needs cuobjdump from the CUDA toolkit")
+    lib = _build.build_all([name])[name]
+    sass = subprocess.run([cuobjdump, "-sass", str(lib)], capture_output=True, text=True, check=True).stdout
+    words = [w for ln in sass.splitlines() if "MMA" in ln for w in ln.split(";")[0].split()]
+    assert sum(w.startswith(("HGMMA.", "HMMA.")) for w in words) > 0

@@ -103,3 +103,30 @@ def test_params_and_not_ported_options(monkeypatch):
     monkeypatch.setenv("HEAT_TPU_PREDICT_DTYPE", "bfloat16")
     with pytest.raises(NotImplementedError, match="Queue 1 item 18"):
         fitted.transform(x)
+
+
+def _data64():
+    rng = np.random.default_rng(11)
+    basis = rng.standard_normal((2, 6))
+    coef = rng.standard_normal((40, 2)) * np.array([1.3, 1.1])
+    return coef @ basis + 0.05 * rng.standard_normal((40, 6))
+
+
+@pytest.mark.parametrize("split", [None, 0, 1])
+@pytest.mark.parametrize("n_components", [2, 0.9])
+def test_float64_fit_matches_reference(split, n_components):
+    """A float64 array fits as the reference's does (its sum of squares is
+    taken in float32)."""
+    data = _data64()
+    got = ht.decomposition.PCA(n_components=n_components, svd_solver="hierarchical", random_state=0)
+    want = hj.decomposition.PCA(n_components=n_components, svd_solver="hierarchical", random_state=0)
+    got.fit(ht.array(data, split=split))
+    want.fit(hj.array(data, split=split))
+    assert got.n_components_ == want.n_components_
+    np.testing.assert_allclose(got.singular_values_.numpy(), want.singular_values_.numpy(), rtol=1e-4)
+    np.testing.assert_allclose(got.explained_variance_.numpy(), want.explained_variance_.numpy(), rtol=1e-4)
+    np.testing.assert_allclose(
+        got.explained_variance_ratio_.numpy(), want.explained_variance_ratio_.numpy(), rtol=1e-4
+    )
+    signs = _signs(got.components_.numpy(), want.components_.numpy())
+    np.testing.assert_allclose(got.components_.numpy() * signs[:, None], want.components_.numpy(), atol=1e-4)

@@ -104,3 +104,56 @@ def test_hsvd_gram_takes_the_kernel_where_the_gate_admits(n, dtype, through_kern
     assert g.dtype == dtype
     truth = x[:650].double().T @ x[:650].double()
     assert _rel(g.numpy(), truth.numpy()) <= (5e-5 if dtype == torch.float32 else 1e-12)
+
+
+# ----------------------------------------------------------------------
+# the precision of csrc/syrk.cu: 3xTF32 on the tensor cores, emulated with
+# integer operations on the f32 bits (core/_tf32x3.py)
+# ----------------------------------------------------------------------
+def _gram_emulated(x, mm, runs=4):
+    """K2's arithmetic on a float32 (rows, n) tensor: the rows cut into
+    ``runs`` runs; in each, one chain from zero per stage of 64 rows, added
+    in float32, the float32 sums added into float64 every 4 stages (256
+    rows); the runs' partials added in order in float64, the upper triangle
+    mirrored.  The products are ``mm`` (3xTF32, or one TF32 pass)."""
+    rows, n = x.shape
+    per = -(-rows // (64 * runs)) * 64
+    g = torch.zeros((n, n), dtype=torch.float64)
+    for r0 in range(0, rows, per):
+        xr = x[r0 : r0 + per]
+        pad = (-xr.shape[0]) % 64
+        xr = torch.cat([xr, torch.zeros((pad, n))]) if pad else xr
+        stages = xr.reshape(-1, 64, n)
+        chains = mm(stages.transpose(1, 2), stages)  # (stages, n, n), each from zero
+        dacc = torch.zeros((n, n), dtype=torch.float64)
+        for f0 in range(0, chains.shape[0], 4):
+            facc = torch.zeros((n, n))
+            for c in chains[f0 : f0 + 4]:
+                facc = facc + c
+            dacc += facc.double()
+        g += dacc
+    up = torch.triu(g)
+    return (up + torch.triu(g, 1).T).float()
+
+
+def test_3xtf32_gram_of_offset_data_holds_f32_accuracy():
+    """K2's stages and flushes at 2^16 x 128 on data of mean 10 (uncentred,
+    as hsvd_rank receives it) with every product in 3xTF32: within 5e-6
+    (Frobenius) of float64 and of the reference's gram_syrk (interpreted),
+    exactly symmetric.  On the same data centred (PCA's input) 3xTF32 stays
+    within 5e-6 where one TF32 pass misses it (about 1.3e-5; on the offset
+    data the mean's large, exact part hides it)."""
+    from heat_tpu_torch.core._tf32x3 import tf32_mm, tf32x3_mm
+
+    rng = np.random.default_rng(29)
+    x = (rng.standard_normal((1 << 16, 128)) + 10.0).astype(np.float32)
+    truth = x.astype(np.float64).T @ x.astype(np.float64)
+    got = _gram_emulated(torch.from_numpy(x), tf32x3_mm)
+    assert torch.equal(got, got.T)
+    assert _rel(got.numpy(), truth) <= 5e-6
+    want = np.asarray(ref_kernels.gram_syrk(jnp.asarray(x)))
+    assert _rel(got.numpy(), want) <= 5e-6
+    xc = x - x.mean(0)
+    centred = xc.astype(np.float64).T @ xc.astype(np.float64)
+    assert _rel(_gram_emulated(torch.from_numpy(xc), tf32x3_mm).numpy(), centred) <= 5e-6
+    assert _rel(_gram_emulated(torch.from_numpy(xc), tf32_mm).numpy(), centred) > 5e-6
