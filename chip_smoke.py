@@ -5,28 +5,39 @@ Run from the root of a checkout, with no arguments:
 
     python3 chip_smoke.py
 
+(``python3 chip_smoke.py --kmeans-only`` stops after phase 6, before the
+summary and the last line: a quicker probe of the KMeans path alone.)
+
 Phases, each printing one JSON line (any failure raises and the script
 exits non-zero; without a CUDA card, or without the package beside this
 file, it exits non-zero before printing any result):
 
 1. device: the card's name and count, and nvidia-smi's name and power limit;
-2. build: every CUDA source under heat_tpu_torch/csrc, one nvcc each, at once;
-   ptxas's registers and spills of the four tensor-core kernels (syrk,
-   fft_stage, fft_axis, flash_attn) and their count of HMMA (mma.sync) and
-   HGMMA (wgmma) instructions in the built SASS (where the toolkit has
-   cuobjdump; none fails the run);
-3. rng and kernel_check: seeded draws on the card bitwise equal to the
-   host's; the Lloyd kernel against its plain PyTorch version on the card,
-   at the KMeans path's shape (2^27 x 16 float32 points, k = 8) and at
-   ragged shapes, plus a bitwise repeat;
+2. build: every CUDA source under heat_tpu_torch/csrc, one nvcc each, at once
+   (lloyd_phases.cu is K1 with its clock64() stamps compiled in);
+   ptxas's registers and spills of the five tensor-core kernels (lloyd,
+   syrk, fft_stage, fft_axis, flash_attn) and their count of HMMA
+   (mma.sync) and HGMMA (wgmma) instructions in the built SASS (where the
+   toolkit has cuobjdump; none fails the run);
+3. rng, threefry_check, kernel_check and lloyd_phases: seeded draws on the
+   card bitwise equal to the host's; the threefry kernel bitwise equal to
+   the plain hash (both words and the float32 uniform) at n = 1, 65539 and
+   2^27 and at counters past 2^32, timed beside its bound; the Lloyd
+   kernel (K1) against its plain PyTorch version on the card, by both its
+   routes (tc, walk) at the KMeans path's shape (2^27 x 16 float32 points,
+   k = 8) and at ragged shapes, plus a bitwise repeat, and the shapes its
+   tc route refuses; K1's stamped build by each route at the path's shape,
+   each phase's share of the cycles;
 4. main_path: KMeans(n_clusters=8, init="random", max_iter=30).fit on 2^27
    x 16 Gaussian blobs made on the card from a seeded torch.Generator, the
-   kernel launch count of that fit, a check of its labels and inertia
-   against the plain version, and three predict requests (1, 64, 4096 rows);
+   launch counts of that fit (K1 and the random init's threefry), a check
+   of its labels and inertia against the plain version and of its labels
+   against the walk route's, and three predict requests (1, 64, 4096 rows);
 5. profile: the same fit again under torch.profiler: the device's busy and
    idle share of the fit's wall time and the kernels that took the most;
 6. times: the Lloyd kernel's time per launch (CUDA events, after warm-up),
-   its plain version's, and the least time the card could take (the bound).
+   the walk route's, its plain version's, and the least time the card
+   could take (the bound).
 
 The KMeans data is then freed, and the hierarchical SVD path follows on a
 2^25 x 128 float32 matrix with a decaying spectrum, made on the card:
@@ -125,6 +136,9 @@ ATTN_SEED = 7
 ATTN_HOST_DRAWS = 1 << 20  # values of each draw redrawn on the host to check the card's
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS = 67e12
+# no 32-bit lane operation runs faster than the f32 lanes' 128 a clock an SM
+# (the table's f32 rate counts an FMA as two): the integer hash's ceiling
+INT32_OPS = F32_FLOPS / 2
 BF16_FLOPS = 989e12
 TF32_FLOPS = 495e12  # dense TF32 on the tensor cores: the floor of a 3xTF32 product is 3 flops / this
 
@@ -198,16 +212,22 @@ def profile_fit(fit, top_n: int = 6) -> dict:
             "top_kernels": [{"name": n[:80], "ms": ms, "calls": c} for n, (ms, c) in top]}
 
 
-def compare_lloyd(x, c, n_true: int) -> dict:
-    """The Lloyd kernel against its plain version on the same inputs:
-    centres atol 1e-4, counts exact (up to near-tie relabels), inertia rtol
-    1e-4, labels equal but at near-ties (at most 1e-6 of the rows), and a
-    second launch bitwise equal to the first."""
+def compare_lloyd(x, c, n_true: int, route=None) -> dict:
+    """The Lloyd kernel, by the route its wrapper picks or by ``route``,
+    against its plain version on the same inputs: centres atol 1e-4, counts
+    exact (up to near-tie relabels), inertia rtol 1e-4, labels equal but at
+    near-ties (at most 1e-6 of the rows), and a second launch bitwise equal
+    to the first."""
     import torch
     from heat_tpu_torch.core import kernels
 
-    got = kernels.lloyd_partials(x, c, n_true, labels=True)
-    again = kernels.lloyd_partials(x, c, n_true, labels=True)
+    if route is None:
+        route = kernels.lloyd_route(x.shape[1], c.shape[0], x.data_ptr() % 16 == 0)
+        launch = lambda: kernels.lloyd_partials(x, c, n_true, labels=True)  # noqa: E731
+    else:
+        launch = lambda: kernels._lloyd_cuda(x, c, n_true, True, route)  # noqa: E731
+    got = launch()
+    again = launch()
     want = kernels._lloyd_plain(x, c, n_true, True)
     torch.cuda.synchronize()
     sums, counts, inertia, lab = got
@@ -227,8 +247,86 @@ def compare_lloyd(x, c, n_true: int) -> dict:
         raise AssertionError(f"inertia differs by {rel} relative")
     if not all(torch.equal(a, b) for a, b in zip(got, again)):
         raise AssertionError("two launches on the same inputs differ")
-    return {"rows": x.shape[0], "f": x.shape[1], "k": c.shape[0], "n_true": n_true, "max_abs_err": err,
+    return {"route": route, "rows": x.shape[0], "f": x.shape[1], "k": c.shape[0], "n_true": n_true, "max_abs_err": err,
             "inertia_rel_err": rel, "label_mismatches": mism, "bitwise_repeat": True}
+
+
+def lloyd_phases(x, c, n_true: int, route: str, smi: str) -> dict:
+    """Phase lloyd_phases: K1's stamped build (csrc/lloyd_phases.cu) by
+    ``route`` on the main path's inputs, each phase's share of the grid's
+    thread-cycles over three launches (after one to warm up), and the
+    stamped step's time beside the unstamped one's."""
+    from heat_tpu_torch.core import kernels
+
+    kernels.lloyd_phase_cycles(x, c, n_true, route)
+    total = dict.fromkeys(kernels.LLOYD_PHASES[route], 0)
+    for _ in range(3):
+        for name, cyc in kernels.lloyd_phase_cycles(x, c, n_true, route).items():
+            total[name] += cyc
+    whole = sum(total.values())
+    import torch
+
+    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+    line = {"phase": "lloyd_phases", "route": route, "rows": x.shape[0], "f": x.shape[1], "k": c.shape[0],
+            "blocks_per_sm": kernels._resident_blocks(x.device, x.shape[1], c.shape[0], route) // sms,
+            "shares": {name: cyc / whole for name, cyc in total.items()},
+            "thread_cycles_per_launch": whole / 3,
+            "stamped_ms": time_ms(lambda: kernels.lloyd_phase_cycles(x, c, n_true, route), reps=5),
+            "ms": time_ms(lambda: kernels._lloyd_cuda(x, c, n_true, False, route), reps=5), "card": smi}
+    emit(line)
+    return line
+
+
+# per counter: an add, a rotation and an xor in each of 20 rounds, the key
+# additions (2 first, 2 after every fourth round), the mantissa (xor, shift, or)
+THREEFRY_OPS = 20 * 3 + 2 + 5 * 2 + 3
+
+
+def threefry_check(dev, smi: str) -> dict:
+    """Phase threefry_check: the threefry kernel bitwise against the plain
+    hash on the card -- both words and the float32 uniform -- at n = 1,
+    65539 and 2^27 and at counters past 2^32 (where the high word is not
+    zero), its time beside the plain version's and its bound.  Returns its
+    entry of the summary line, launches still to fill in."""
+    import torch
+    from heat_tpu_torch.core import random as rnd
+
+    key = (0x9E3779B9, 0x7F4A7C15)
+    cases = []
+    for n, start in ((1, 0), (65539, 0), (ROWS, 0), (70001, (1 << 32) - 35000), (4099, 3 * (1 << 32) + 7)):
+        w0, w1 = rnd._threefry_cuda(key, n, dev, start, False)
+        u = rnd._threefry_cuda(key, n, dev, start, True)
+        p0, p1 = rnd._random_bits_plain(key, n, dev, start)
+        pu = rnd._unit_f32_plain(p0, p1)
+        torch.cuda.synchronize()
+        if not (torch.equal(w0, p0) and torch.equal(w1, p1) and torch.equal(u.view(torch.int32), pu.view(torch.int32))):
+            raise AssertionError(f"threefry at n={n}, start={start} differs from the plain hash")
+        cases.append({"n": n, "start": start, "bitwise": True})
+        del w0, w1, u, p0, p1, pu
+    for c in cases:
+        emit({"phase": "threefry_check", "kernel": "threefry", **c})
+    refused = []
+    for what, call in (("start < 0", lambda: rnd._threefry_cuda(key, 4, dev, -1, True)),
+                       ("device meta", lambda: rnd._random_bits(key, 4, torch.device("meta")))):
+        try:
+            call()
+        except ValueError:
+            refused.append(what)
+        else:
+            raise AssertionError(f"the threefry kernel took {what}")
+    kernel_ms = time_ms(lambda: rnd._threefry_cuda(key, ROWS, dev, 0, True), reps=10)
+    plain_ms = time_ms(lambda: rnd._unit_f32_plain(*rnd._random_bits_plain(key, ROWS, dev)), reps=3, warmup=1)
+    bound_ms = {"bytes": 4 * ROWS / HBM_BYTES_PER_S * 1e3, "operations": THREEFRY_OPS * ROWS / INT32_OPS * 1e3}
+    bound_by = max(bound_ms, key=bound_ms.get)
+    emit({"phase": "threefry_check", "kernel": "threefry", "n": ROWS, "output": "float32 uniform", "ms": kernel_ms,
+          "plain_ms": plain_ms, "bound_ms": bound_ms[bound_by], "bound_by": bound_by,
+          "share_of_bound": bound_ms[bound_by] / kernel_ms, "library_ms": None,
+          "library_note": "no PyTorch call computes threefry (torch.rand is Philox)", "refused": refused,
+          "card": smi})
+    return {"name": "threefry", "route": "cuda", "source": "heat_tpu_torch/csrc/threefry.cu",
+            "replaces": "heat_tpu/core/random.py:150", "note": "not a TPU kernel: XLA's threefry in the JAX package",
+            "launches": None, "max_abs_err": 0.0, "ms": kernel_ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms[bound_by], "bound_by": bound_by, "library_ms": None}
 
 
 def compare_gram(x, n_true: int) -> dict:
@@ -324,10 +422,12 @@ def fft_launches() -> dict:
 
 def zero_launches() -> None:
     from heat_tpu_torch.core import kernels
+    from heat_tpu_torch.core import random as rnd
     from heat_tpu_torch.fft import _axis_pass, _leading
     from heat_tpu_torch.nn import _flash
 
     kernels.LLOYD_LAUNCHES = kernels.GRAM_LAUNCHES = 0
+    rnd.THREEFRY_LAUNCHES = 0
     _leading.FFT_STAGE_LAUNCHES = _leading.FFT_PAIR_LAUNCHES = _leading.FFT_EXT_LAUNCHES = 0
     _axis_pass.FFT_AXIS_LAUNCHES = 0
     _flash.FLASH_LAUNCHES = 0
@@ -336,8 +436,9 @@ def zero_launches() -> None:
 def other_launches() -> int:
     """Launches of every kernel but K7 since the counts were last zeroed."""
     from heat_tpu_torch.core import kernels
+    from heat_tpu_torch.core import random as rnd
 
-    return kernels.LLOYD_LAUNCHES + kernels.GRAM_LAUNCHES + sum(fft_launches().values())
+    return kernels.LLOYD_LAUNCHES + kernels.GRAM_LAUNCHES + rnd.THREEFRY_LAUNCHES + sum(fft_launches().values())
 
 
 def compare_fft(kernel, plain, label: str) -> dict:
@@ -821,9 +922,10 @@ def attention_path(smi: str) -> int:
 
 
 def tensor_core_report(build) -> dict:
-    """ptxas's report (registers, spills) of the four tensor-core kernels,
+    """ptxas's report (registers, spills) of the five tensor-core kernels,
     and their count of tensor-core instructions in the built SASS -- HMMA
-    (mma.sync: fft_axis) and HGMMA (wgmma: syrk, fft_stage, flash_attn) --
+    (mma.sync: lloyd's tc route, fft_axis) and HGMMA (wgmma: syrk,
+    fft_stage, flash_attn) --
     which shows that the tensor cores are used (null where the toolkit has
     no cuobjdump; a kernel without any fails the run)."""
     import os
@@ -832,10 +934,10 @@ def tensor_core_report(build) -> dict:
     cuobjdump = shutil.which("cuobjdump") or os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin",
                                                           "cuobjdump")
     report = {"ptxas_tensor_core_kernels": {}, "tensor_core_sass_instructions": {}}
-    for name in ("syrk", "fft_stage", "fft_axis", "flash_attn"):
+    for name in ("lloyd", "syrk", "fft_stage", "fft_axis", "flash_attn"):
         log = build.BUILD_LOGS.get(name, "")
         report["ptxas_tensor_core_kernels"][name] = [ln.strip() for ln in log.splitlines()
-                                                     if "registers" in ln or "spill" in ln]
+                                                     if "registers" in ln or "spill" in ln or "Compiling entry" in ln]
         counts = None
         if os.path.exists(cuobjdump):
             sass = subprocess.run([cuobjdump, "-sass", str(build._target(name))], capture_output=True, text=True)
@@ -906,19 +1008,48 @@ def main() -> int:
     x += truth[member]
     del member
 
-    # 3. kernels against their plain versions
-    checks = [compare_lloyd(x, truth, ROWS)]
-    for rows, f, k, n_true in ((1003, 17, 30, 1003), (1003, 16, 8, 901)):
+    # 3. kernels against their plain versions: K1 by both routes at the main
+    # path's shape (tc is its route), then ragged shapes by the route the
+    # wrapper picks (tc: f a multiple of 4 within 8 output tiles; walk: the
+    # rest, and points not 16-byte aligned)
+    threefry = threefry_check(dev, smi)
+    checks = [compare_lloyd(x, truth, ROWS), compare_lloyd(x, truth, ROWS - 77, "walk")]
+    for rows, f, k, n_true in ((1003, 17, 30, 1003), (1003, 16, 8, 901), (1003, 16, 30, 1000), (4096, 128, 8, 4000),
+                               (777, 4, 3, 777), (1000, 32, 24, 999), (1003, 20, 12, 1003), (300, 64, 40, 299),
+                               (33, 8, 64, 31), (5, 16, 8, 5)):
         xs = torch.randn(rows, f, device=dev, generator=g)
         cs = torch.randn(k, f, device=dev, generator=g)
         checks.append(compare_lloyd(xs, cs, n_true))
+        if kernels.lloyd_route(f, k) == "tc":
+            checks.append(compare_lloyd(xs, cs, n_true, "walk"))
+    flat = torch.randn(1003 * 16 + 1, device=dev, generator=g)
+    checks.append(compare_lloyd(flat[1:].view(1003, 16), truth, 1003))  # 4-byte aligned: the walk route
+    if {c["route"] for c in checks} != {"tc", "walk"}:
+        raise AssertionError("the K1 checks did not cover both routes")
     for c in checks:
         emit({"phase": "kernel_check", "kernel": "lloyd_step", **c})
+    refused = []
+    for what, call in (("tc, f = 17", lambda: kernels._lloyd_cuda(torch.zeros(64, 17, device=dev),
+                                                                  torch.zeros(4, 17, device=dev), 64, False, "tc")),
+                       ("tc, 4-byte aligned", lambda: kernels._lloyd_cuda(flat[1:].view(1003, 16), truth, 1003, False,
+                                                                          "tc")),
+                       ("tc, 16 features x 72 centres", lambda: kernels._lloyd_cuda(
+                           torch.zeros(64, 16, device=dev), torch.zeros(72, 16, device=dev), 64, False, "tc"))):
+        try:
+            call()
+        except ValueError:
+            refused.append(what)
+        else:
+            raise AssertionError(f"K1's tc route took {what}")
+    emit({"phase": "kernel_check", "kernel": "lloyd_step", "refused": refused})
     max_abs_err = max(c["max_abs_err"] for c in checks)
+    del flat
+    for route in ("tc", "walk"):
+        lloyd_phases(x, truth, ROWS, route, smi)
 
     # 4. the main path, through the entry points a user calls
     ht.use_device("gpu")
-    kernels.LLOYD_LAUNCHES = kernels.GRAM_LAUNCHES = 0
+    zero_launches()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     pts = ht.array(x, split=0)
@@ -927,6 +1058,11 @@ def main() -> int:
     torch.cuda.synchronize()
     fit_s = time.perf_counter() - t0
     launches = kernels.LLOYD_LAUNCHES
+    from heat_tpu_torch.core import random as rnd
+
+    threefry["launches"] = rnd.THREEFRY_LAUNCHES
+    if threefry["launches"] != 1:
+        raise AssertionError(f"the fit's random init launched the threefry kernel {threefry['launches']} times; once")
     if kernels.GRAM_LAUNCHES:
         raise AssertionError(f"the KMeans fit launched the Gram kernel {kernels.GRAM_LAUNCHES} times")
     if launches < n_iter + 1:
@@ -937,11 +1073,14 @@ def main() -> int:
         raise AssertionError("the fit's centres or labels have the wrong shape or are not finite")
     _, _, plain_inertia, plain_labels = kernels._lloyd_plain(x, centres, ROWS, True)
     relabelled = near_tie_mismatches(x, centres, labels, plain_labels)
+    if not torch.equal(labels, kernels._lloyd_cuda(x, centres, ROWS, True, "walk")[3]):
+        raise AssertionError("the fit's labels (tc route) differ from the walk route's on the same centres")
     if abs(inertia - float(plain_inertia)) > 1e-4 * abs(float(plain_inertia)):
         raise AssertionError(f"inertia {inertia} against {float(plain_inertia)} from the plain version")
     emit({"phase": "main_path", "rows": ROWS, "features": FEATURES, "clusters": CLUSTERS, "n_iter": n_iter,
-          "inertia": inertia, "fit_wall_s": fit_s, "lloyd_launches": launches,
-          "labels_vs_plain_near_ties": relabelled})
+          "inertia": inertia, "fit_wall_s": fit_s, "lloyd_launches": launches, "lloyd_route": kernels.lloyd_route(FEATURES, CLUSTERS, x.data_ptr() % 16 == 0),
+          "threefry_launches": threefry["launches"],
+          "labels_vs_plain_near_ties": relabelled, "labels_equal_walk_route": True})
 
     rng = torch.Generator(device="cpu").manual_seed(SEED + 1)
     requests = []
@@ -962,13 +1101,15 @@ def main() -> int:
 
     # 6. times, beside the bound
     kernel_ms = time_ms(lambda: kernels.lloyd_partials(x, centres, ROWS), reps=20)
+    walk_ms = time_ms(lambda: kernels._lloyd_cuda(x, centres, ROWS, False, "walk"), reps=20)
     plain_ms = time_ms(lambda: kernels._lloyd_plain(x, centres, ROWS, False), reps=3, warmup=1)
     n, f, k = ROWS, FEATURES, CLUSTERS
     nbytes = 4 * n * f + 4 * k * f + 8 * (k * f + k + 1)  # x and c read once, the sums written once
     ops = n * (2 * k * f + 2 * f + 3 * k + f)  # dots, |x|^2, half-distance and argmin, the sums
     bound = {"bytes": nbytes / HBM_BYTES_PER_S * 1e3, "operations": ops / F32_FLOPS * 1e3}
     bound_by = max(bound, key=bound.get)
-    emit({"phase": "times", "kernel": "lloyd_step", "ms": kernel_ms, "plain_ms": plain_ms,
+    emit({"phase": "times", "kernel": "lloyd_step", "route": "tc", "ms": kernel_ms, "walk_route_ms": walk_ms,
+          "plain_ms": plain_ms,
           "bound_ms": bound[bound_by], "bound_by": bound_by, "share_of_bound": bound[bound_by] / kernel_ms,
           "library_ms": None, "library_note": "no single PyTorch call computes the fused Lloyd step",
           "card": smi})
@@ -977,6 +1118,9 @@ def main() -> int:
              "replaces": "heat_tpu/core/kernels.py:121", "launches": launches, "max_abs_err": max_abs_err,
              "ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bound[bound_by], "bound_by": bound_by,
              "library_ms": None}
+    if "--kmeans-only" in sys.argv[1:]:
+        emit({"partial_run": "--kmeans-only: the phases after the KMeans path were not run"})
+        return 0
 
     # the KMeans data is freed before the hSVD path's matrix is made
     del x, pts, km, centres, labels, plain_labels, truth, pred
@@ -1113,7 +1257,7 @@ def main() -> int:
     # 18.-19. the attention path through the entry point a user calls
     flash["launches"] = attention_path(smi)
 
-    emit({"kernels": [lloyd, gram, *fft_entries, flash]})
+    emit({"kernels": [lloyd, threefry, gram, *fft_entries, flash]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": name, "count": torch.cuda.device_count()}})
     return 0
 

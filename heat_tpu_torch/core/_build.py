@@ -3,9 +3,10 @@
 Each ``heat_tpu_torch/csrc/<name>.cu`` is compiled by ``nvcc`` for ``sm_90a``
 into a shared library with a plain C interface, at first use, into
 ``build/heat_tpu_torch/`` at the root of the checkout.  The library's file
-name carries a hash of the source, of every header ``csrc/*.cuh`` and of the
-flags, so an edited source or header builds anew and an unchanged one is
-loaded as it is.  Nothing here runs at import.
+name carries a hash of the source, of every ``csrc/*.cu`` it includes (as
+``csrc/lloyd_phases.cu`` includes ``lloyd.cu``), of every header
+``csrc/*.cuh`` and of the flags, so an edited source or header builds anew
+and an unchanged one is loaded as it is.  Nothing here runs at import.
 """
 
 from __future__ import annotations
@@ -13,6 +14,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
@@ -41,8 +43,14 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels are built from source and need the CUDA toolkit")
 
 
+_INCLUDED_CU = re.compile(rb'^\s*#\s*include\s+"([\w.]+\.cu)"', re.MULTILINE)
+
+
 def _target(name: str) -> Path:
-    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    source = (CSRC / f"{name}.cu").read_bytes()
+    h = hashlib.sha256(source)
+    for included in _INCLUDED_CU.findall(source):
+        h.update(included + (CSRC / included.decode()).read_bytes())
     for header in sorted(CSRC.glob("*.cuh")):
         h.update(header.name.encode() + header.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())

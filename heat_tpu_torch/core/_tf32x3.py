@@ -10,8 +10,10 @@ mantissa bits), and a product ``a b`` is taken as
 about 2^-22 relative, is dropped).  The tensor core cannot run here, so the
 CPU tests hold the kernels' precision class through these functions: the
 products of two TF32 values are exact in float32, so a full-float32 matmul
-of the split operands gives the same terms.  Nothing on the kernels' path
-calls this module.
+of the split operands gives the same terms.  K1's tc route
+(``csrc/lloyd.cu``) takes its one-hot products over three planes instead
+(:func:`tf32_split`, by truncation), which hold a float32 exactly.  Nothing on the kernels'
+path calls this module.
 """
 
 from __future__ import annotations
@@ -20,7 +22,7 @@ import torch
 
 from .linalg.basics import full_f32_matmul
 
-__all__ = ["tf32_rna", "tf32_mm", "tf32x3_mm"]
+__all__ = ["tf32_rna", "tf32_mm", "tf32_split", "tf32_trunc", "tf32x3_mm"]
 
 
 def tf32_rna(x: torch.Tensor) -> torch.Tensor:
@@ -29,6 +31,29 @@ def tf32_rna(x: torch.Tensor) -> torch.Tensor:
     to the bits, then clear them."""
     bits = x.contiguous().view(torch.int32)
     return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def tf32_trunc(x: torch.Tensor) -> torch.Tensor:
+    """``x`` (float32) cut to TF32 by clearing its 13 low bits (toward zero)."""
+    return (x.contiguous().view(torch.int32) & -0x2000).view(torch.float32)
+
+
+def tf32_split(x: torch.Tensor, planes: int = 3):
+    """``x`` (float32) as TF32 planes.  Two planes split as
+    ``csrc/tf32x3.cuh`` does: ``big = rna(x)``, ``small = rna(x - big)``,
+    the remainder dropped.  Three split as lloyd.cu's ``split3`` does, by
+    truncation: ``big`` and ``mid`` the top 11 significant bits of ``x`` and
+    of ``x - big``, ``small`` the at most 2 bits left; the three sum to ``x``
+    exactly."""
+    if planes == 2:
+        big = tf32_rna(x)
+        return big, tf32_rna(x - big)
+    if planes != 3:
+        raise ValueError(f"splits into 2 or 3 planes, got {planes}")
+    big = tf32_trunc(x)
+    rest = x - big
+    mid = tf32_trunc(rest)
+    return big, mid, rest - mid
 
 
 def tf32x3_mm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

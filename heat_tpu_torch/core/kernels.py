@@ -7,7 +7,10 @@ counts, the inertia and, on request, the labels.  The wrapper
 :func:`lloyd_partials` launches it for a CUDA tensor and raises where it
 cannot; for a CPU tensor, and only there, it runs :func:`_lloyd_plain`, the
 same function in plain PyTorch.  :func:`lloyd_update` adds the cross-rank sum
-and the centre update.
+and the centre update.  The kernel has two routes, chosen by shape in
+:func:`lloyd_route`: ``"tc"`` (per-warp batches, the sums as one-hot products
+on the tensor cores) where it fits, ``"walk"`` (per-block tiles listed by
+cluster) for every other shape the gate takes.
 
 Sums come back in float64: the kernel accumulates each block's columns in
 f64 and adds the blocks in a fixed order, so a run is bitwise reproducible
@@ -37,6 +40,7 @@ __all__ = [
     "gram_partials",
     "gram_unsupported",
     "lloyd_partials",
+    "lloyd_route",
     "lloyd_unsupported",
     "lloyd_update",
 ]
@@ -46,7 +50,12 @@ LLOYD_LAUNCHES = 0
 #: launches of the CUDA Gram kernel in this process (the plain version adds nothing)
 GRAM_LAUNCHES = 0
 
-_TILE = 256  # points per tile and threads per block (lloyd.cu kTile)
+_TILE = 256  # points per tile and threads per block of the walk route (lloyd.cu kTile)
+_TC_WARPS = 4  # warps per block of the tc route (lloyd.cu kTcWarps)
+_TC_STAGES = {16: 3, 32: 3, 64: 3, 128: 2}  # batches in a warp's cp.async ring by width (tc_stages)
+_TC_POINTS = {16: 2, 32: 2, 64: 1, 128: 1}  # points a lane owns at a time by width (tc_points)
+_TC_MAX_TILES = 8  # output tiles of 16 features x 8 clusters the tc route holds (kTcMaxTiles)
+_ROUTES = {"walk": 0, "tc": 1}
 _MAX_FEATURES = 128  # widest register tile lloyd.cu instantiates
 _SMEM_LIMIT = 232448  # shared memory one block may use on Hopper (227 KB)
 _PLAIN_ROWS = 1 << 20  # rows per chunk of the plain versions
@@ -63,8 +72,36 @@ def _feature_bucket(f: int) -> int:
     return 128
 
 
-def lloyd_smem_bytes(f: int, k: int) -> int:
-    """Shared memory of one kernel block (mirrors ``smem_bytes`` in lloyd.cu)."""
+def _tc_bucket(f: int) -> int:
+    for fb in (16, 32, 64):
+        if f <= fb:
+            return fb
+    return 128
+
+
+def _tc_tiles(f: int, k: int) -> int:
+    return (_tc_bucket(f) // 16) * -(-k // 8)
+
+
+def lloyd_route(f: int, k: int, aligned: bool = True) -> str:
+    """The kernel's route for f features and k centres (mirrors
+    ``route_takes`` in lloyd.cu): ``"tc"`` where f is a multiple of 4, the
+    sums fit in at most 8 output tiles of 16 features x 8 clusters and the
+    points are 16-byte aligned; ``"walk"`` otherwise."""
+    if aligned and 1 <= f <= _MAX_FEATURES and f % 4 == 0 and k >= 1 and _tc_tiles(f, k) <= _TC_MAX_TILES:
+        return "tc"
+    return "walk"
+
+
+def lloyd_smem_bytes(f: int, k: int, route: Optional[str] = None) -> int:
+    """Shared memory of one kernel block of the route (default: the route
+    :func:`lloyd_route` picks); mirrors ``tc_smem_bytes`` and
+    ``smem_bytes`` in lloyd.cu."""
+    if (route or lloyd_route(f, k)) == "tc":
+        fb = _tc_bucket(f)
+        doubles = (_tc_tiles(f, k) * 128 + k + 2) & ~1
+        ring = _TC_STAGES[fb] * 32 * _TC_POINTS[fb] * fb
+        return 8 * _TC_WARPS * doubles + 4 * (k * fb + ((k + 3) & ~3) + _TC_WARPS * ring)
     fb = _feature_bucket(f)
     w = k * f + k + 1
     warps = _TILE // 32
@@ -77,7 +114,7 @@ def lloyd_unsupported(f: int, k: int) -> Optional[str]:
         return f"needs f >= 1 and k >= 1, got f={f}, k={k}"
     if f > _MAX_FEATURES:
         return f"holds a point in registers up to {_MAX_FEATURES} features, got f={f}"
-    smem = lloyd_smem_bytes(f, k)
+    smem = lloyd_smem_bytes(f, k, "walk")  # the walk route takes every shape the tc route does
     if smem > _SMEM_LIMIT:
         return f"needs {smem} bytes of shared memory for f={f}, k={k}; a block has {_SMEM_LIMIT}"
     return None
@@ -113,43 +150,71 @@ def _lloyd_plain(xp: torch.Tensor, centers: torch.Tensor, n_true: int, labels: b
     return sums, counts, inertia, lab
 
 
-def _lloyd_cuda(xp: torch.Tensor, centers: torch.Tensor, n_true: int, labels: bool):
-    """Launch csrc/lloyd.cu on PyTorch's current stream (no synchronise)."""
-    global LLOYD_LAUNCHES
+def _lloyd_launch(fn, xp: torch.Tensor, centers: torch.Tensor, n_true: int, labels: bool, route: str, *extra):
+    """Launch a Lloyd step of csrc/lloyd.cu's C interface ``fn`` by ``route``
+    on PyTorch's current stream (no synchronise)."""
     rows, f = xp.shape
     k = centers.shape[0]
     dev = xp.device
-    nblocks = max(1, min(-(-rows // _TILE), _resident_blocks(dev, f, k)))
+    nblocks = _lloyd_grid(xp, k, route)
     w = k * f + k + 1
     partial = torch.empty((nblocks, w), dtype=torch.float64, device=dev)
     out = torch.empty((w,), dtype=torch.float64, device=dev)
     lab = torch.empty((rows,), dtype=torch.int64, device=dev) if labels else None
-    lib = _lib()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.heat_lloyd_step_f32(
-            xp.data_ptr(), centers.data_ptr(), rows, n_true, f, k,
-            partial.data_ptr(), nblocks, out.data_ptr(),
-            lab.data_ptr() if lab is not None else None, stream,
+        err = fn(
+            xp.data_ptr(), centers.data_ptr(), rows, n_true, f, k, partial.data_ptr(), nblocks, out.data_ptr(),
+            lab.data_ptr() if lab is not None else None, _ROUTES[route], stream, *extra,
         )
     if err != 0:
-        raise RuntimeError(f"lloyd kernel launch failed: CUDA error {err}")
-    LLOYD_LAUNCHES += 1
+        raise RuntimeError(f"lloyd kernel launch ({route} route) failed: CUDA error {err}")
     return out[: k * f].view(k, f), out[k * f : k * f + k], out[k * f + k], lab
+
+
+def _lloyd_cuda(xp: torch.Tensor, centers: torch.Tensor, n_true: int, labels: bool, route: Optional[str] = None):
+    """Launch csrc/lloyd.cu on PyTorch's current stream (no synchronise), by
+    the route :func:`lloyd_route` picks or by ``route`` (``"walk"`` takes
+    every shape; ``"tc"`` raises on a shape it does not take)."""
+    global LLOYD_LAUNCHES
+    f, k = xp.shape[1], centers.shape[0]
+    fits = lloyd_route(f, k, xp.data_ptr() % 16 == 0)
+    if route is None:
+        route = fits
+    elif route == "tc" and fits != "tc":
+        raise ValueError(f"the Lloyd kernel's tc route does not take f={f}, k={k} with these points: "
+                         "it needs f a multiple of 4, at most 8 output tiles and 16-byte aligned points")
+    out = _lloyd_launch(_lib().heat_lloyd_step_f32, xp, centers, n_true, labels, route)
+    LLOYD_LAUNCHES += 1
+    return out
 
 
 _LIB = None
 _RESIDENT: dict = {}
+# heat_lloyd_step_f32(x, c, rows, n_true, f, k, partial, nblocks, out, labels, route, stream)
+_LLOYD_ARGTYPES = [
+    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,
+    ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p,
+]
 
 
-def _resident_blocks(dev: torch.device, f: int, k: int) -> int:
-    """Blocks the card holds at once for (f, k): the grid of the kernel.
-    A larger grid would leave blocks queued behind whole grid-stride loops."""
-    key = (dev.index, f, k)
+def _lloyd_grid(xp: torch.Tensor, k: int, route: str) -> int:
+    """Blocks of a launch: one per tile (walk) or per batch of each of its
+    warps (tc), at most as many as the card holds at once."""
+    rows, f = xp.shape
+    per_block = _TC_WARPS * 32 * _TC_POINTS[_tc_bucket(f)] if route == "tc" else _TILE
+    return max(1, min(-(-rows // per_block), _resident_blocks(xp.device, f, k, route)))
+
+
+def _resident_blocks(dev: torch.device, f: int, k: int, route: str) -> int:
+    """Blocks the card holds at once for (f, k) by the route: the grid of
+    the kernel.  A larger grid would leave blocks queued behind whole
+    grid-stride loops."""
+    key = (dev.index, f, k, route)
     if key not in _RESIDENT:
-        per_sm = _lib().heat_lloyd_blocks_per_sm(f, k)
+        per_sm = _lib().heat_lloyd_blocks_per_sm(f, k, _ROUTES[route])
         if per_sm < 1:
-            raise RuntimeError(f"the CUDA Lloyd kernel cannot be resident for f={f}, k={k}")
+            raise RuntimeError(f"the CUDA Lloyd kernel's {route} route cannot be resident for f={f}, k={k}")
         _RESIDENT[key] = per_sm * torch.cuda.get_device_properties(dev).multi_processor_count
     return _RESIDENT[key]
 
@@ -159,16 +224,40 @@ def _lib() -> ctypes.CDLL:
     if _LIB is None:
         lib = _build.load("lloyd")
         fn = lib.heat_lloyd_step_f32
-        fn.argtypes = [
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,
-            ctypes.c_int64, ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p, ctypes.c_void_p,
-            ctypes.c_void_p,
-        ]
+        fn.argtypes = _LLOYD_ARGTYPES
         fn.restype = ctypes.c_int
-        lib.heat_lloyd_blocks_per_sm.argtypes = [ctypes.c_int64, ctypes.c_int64]
+        lib.heat_lloyd_blocks_per_sm.argtypes = [ctypes.c_int64, ctypes.c_int64, ctypes.c_int64]
         lib.heat_lloyd_blocks_per_sm.restype = ctypes.c_int64
         _LIB = lib
     return _LIB
+
+
+#: the phases of csrc/lloyd.cu's clock64() stamps by route, in the order of its enum
+LLOYD_PHASES = {
+    "walk": ("stage", "distances", "count", "scan", "list", "sums", "barrier"),
+    "tc": ("stage", "distances", "count", "unused", "fragments", "sums", "syncwarp"),
+}
+_PHASES_LIB = None
+
+
+def lloyd_phase_cycles(xp: torch.Tensor, centers: torch.Tensor, n_true: int, route: Optional[str] = None) -> dict:
+    """One step of the stamped build (``csrc/lloyd_phases.cu``) on CUDA
+    float32 tensors, by the route :func:`lloyd_route` picks or by ``route``:
+    the cycles each phase took, summed over every thread of the grid, by
+    phase name.  A measurement: it is not counted in ``LLOYD_LAUNCHES`` and
+    nothing on the main path calls it."""
+    global _PHASES_LIB
+    if _PHASES_LIB is None:
+        lib = _build.load("lloyd_phases")
+        lib.heat_lloyd_phases_f32.argtypes = _LLOYD_ARGTYPES + [ctypes.c_void_p]
+        lib.heat_lloyd_phases_f32.restype = ctypes.c_int
+        _PHASES_LIB = lib
+    if route is None:
+        route = lloyd_route(xp.shape[1], centers.shape[0], xp.data_ptr() % 16 == 0)
+    names = LLOYD_PHASES[route]
+    cycles = torch.zeros((_lloyd_grid(xp, centers.shape[0], route), len(names)), dtype=torch.int64, device=xp.device)
+    _lloyd_launch(_PHASES_LIB.heat_lloyd_phases_f32, xp, centers, int(n_true), False, route, cycles.data_ptr())
+    return dict(zip(names, cycles.sum(0).tolist()))
 
 
 def lloyd_partials(xp: torch.Tensor, centers: torch.Tensor, n_true: int, labels: bool = False):

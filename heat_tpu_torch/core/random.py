@@ -11,24 +11,33 @@ bits here as there, on any device and at any world size.  Normal draws are
 ``[nextafter(-1, 0), 1)``, with ``erfinv`` evaluated by the polynomials
 XLA's host compiler uses (:func:`_erfinv`, :func:`_log1p`, :func:`_log`):
 float32 draws are within 2 ulp of the JAX package's, nearly all bitwise
-equal, float64 within 3.  Torch has little
-support for uint32, so the hash runs on int32 tensors holding the words'
-bits: additions wrap modulo 2^32 as unsigned ones do, and right shifts are
-masked to act as logical ones.
+equal, float64 within 3.
+
+On a CUDA device the hash of a draw is one launch of the hand-written kernel
+``csrc/threefry.cu`` (which also writes float32 uniforms directly); it
+launches or raises, and ``THREEFRY_LAUNCHES`` counts its launches.  On the
+CPU, and only there, the plain version runs: torch has little support for
+uint32, so the hash runs on int32 tensors holding the words' bits (additions
+wrap modulo 2^32 as unsigned ones do, and right shifts are masked to act as
+logical ones).  The two are bitwise equal.
 """
 
 from __future__ import annotations
 
+import ctypes
 import os
 from typing import Optional, Tuple
 
 import numpy as np
 import torch
 
-from . import types
+from . import _build, types
 from .devices import sanitize_device
 from .dndarray import DNDarray
 from .stride_tricks import sanitize_axis, sanitize_shape
+
+#: launches of the CUDA threefry kernel in this process (the plain version adds nothing)
+THREEFRY_LAUNCHES = 0
 
 __all__ = ["default_seed", "get_state", "normal", "rand", "randn", "seed", "set_state", "standard_normal"]
 
@@ -109,10 +118,78 @@ def _next_key() -> Tuple[int, int]:
     return int(a) & _M32, int(b) & _M32
 
 
-def _random_bits(key: Tuple[int, int], n: int, device: torch.device) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The two hash words of counters 0..n-1 (JAX's partitionable layout)."""
-    i = torch.arange(n, dtype=torch.int64, device=device)
+def _random_bits_plain(key: Tuple[int, int], n: int, device: torch.device, start: int = 0):
+    """The two hash words of counters start..start+n-1 (JAX's partitionable
+    layout), as int32 tensors, in plain torch."""
+    i = torch.arange(start, start + n, dtype=torch.int64, device=device)
     return _threefry2x32(key[0], key[1], (i >> 32).to(torch.int32), (i & _M32).to(torch.int32))
+
+
+def _unit_f32_plain(b0: torch.Tensor, b1: torch.Tensor) -> torch.Tensor:
+    """float32 on [0, 1) from the hash words: 23 random mantissa bits under
+    the exponent of 1.0, minus 1 (``jax.random.uniform``'s construction)."""
+    bits = (((b0 ^ b1) >> 9) & 0x7FFFFF) | 0x3F800000
+    return bits.view(torch.float32) - 1.0
+
+
+_THREEFRY_LIB = None
+
+
+def _threefry_cuda(key: Tuple[int, int], n: int, device: torch.device, start: int, uniform: bool):
+    """Launch csrc/threefry.cu on PyTorch's current stream (no synchronise):
+    the float32 uniforms of counters start..start+n-1, or their two hash
+    words as int32 tensors."""
+    global _THREEFRY_LIB, THREEFRY_LAUNCHES
+    if start < 0 or start + n > 1 << 63:
+        raise ValueError(f"the kernel hashes counters below 2^63, got {start}..{start + n - 1}")
+    if n == 0:
+        empty = torch.empty((0,), dtype=torch.int32, device=device)
+        return empty.view(torch.float32) if uniform else (empty, empty)
+    if _THREEFRY_LIB is None:
+        lib = _build.load("threefry")
+        lib.heat_threefry2x32.argtypes = [
+            ctypes.c_uint32, ctypes.c_uint32, ctypes.c_int64, ctypes.c_int64, ctypes.c_void_p, ctypes.c_void_p,
+            ctypes.c_void_p, ctypes.c_void_p,
+        ]
+        lib.heat_threefry2x32.restype = ctypes.c_int
+        _THREEFRY_LIB = lib
+    if uniform:
+        out = torch.empty((n,), dtype=torch.float32, device=device)
+        ptrs = (None, None, out.data_ptr())
+    else:
+        out = (torch.empty((n,), dtype=torch.int32, device=device), torch.empty((n,), dtype=torch.int32, device=device))
+        ptrs = (out[0].data_ptr(), out[1].data_ptr(), None)
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = _THREEFRY_LIB.heat_threefry2x32(key[0], key[1], start, n, *ptrs, stream)
+    if err != 0:
+        raise RuntimeError(f"threefry kernel launch failed: CUDA error {err}")
+    THREEFRY_LAUNCHES += 1
+    return out
+
+
+def _hash_device(device: torch.device) -> str:
+    if device.type not in ("cpu", "cuda"):
+        raise ValueError(f"no threefry hash for device {device}")
+    return device.type
+
+
+def _random_bits(key: Tuple[int, int], n: int, device: torch.device, start: int = 0):
+    """The two hash words of counters start..start+n-1 (JAX's partitionable
+    layout), as int32 tensors: the CUDA kernel on a CUDA device (or a
+    raise), the plain version on the CPU."""
+    if _hash_device(device) == "cuda":
+        return _threefry_cuda(key, n, device, start, False)
+    return _random_bits_plain(key, n, device, start)
+
+
+def _unit_f32(key: Tuple[int, int], n: int, device: torch.device) -> torch.Tensor:
+    """``jax.random.uniform``'s float32 on [0, 1) of counters 0..n-1:
+    written by the CUDA kernel on a CUDA device (or a raise), the plain
+    version on the CPU."""
+    if _hash_device(device) == "cuda":
+        return _threefry_cuda(key, n, device, 0, True)
+    return _unit_f32_plain(*_random_bits_plain(key, n, device))
 
 
 def _uniform(key: Tuple[int, int], shape, dtype, device: torch.device, lo: float = 0.0, hi: float = 1.0) -> torch.Tensor:
@@ -121,11 +198,10 @@ def _uniform(key: Tuple[int, int], shape, dtype, device: torch.device, lo: float
     n = 1
     for s in shape:
         n *= s
-    b0, b1 = _random_bits(key, n, device)
     if dtype is types.float32:
-        bits = (((b0 ^ b1) >> 9) & 0x7FFFFF) | 0x3F800000
-        floats = bits.view(torch.float32) - 1.0
+        floats = _unit_f32(key, n, device)
     elif dtype is types.float64:
+        b0, b1 = _random_bits(key, n, device)
         w0, w1 = b0.to(torch.int64) & _M32, b1.to(torch.int64) & _M32
         bits = (w0 << 20) | (w1 >> 12) | 0x3FF0000000000000  # the 64-bit word >> 12
         floats = bits.view(torch.float64) - 1.0

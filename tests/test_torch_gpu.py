@@ -117,6 +117,117 @@ def test_rand_on_the_card_is_bitwise_the_hosts(card):
         assert torch.equal(on_card.cpu().view(torch.int32), on_host.view(torch.int32))
 
 
+LLOYD_ROUTE_CASES = [
+    (1003, 16, 8, 1003),  # the KMeans path's shape, one output tile
+    (1003, 16, 30, 1000),  # four cluster tiles
+    (4096, 128, 8, 4000),  # eight feature tiles, two ring stages
+    (777, 4, 3, 777),  # 4 features zero-filled to 16
+    (1000, 32, 24, 999),
+    (1003, 20, 12, 1003),  # 20 features in a 32-wide row
+    (33, 8, 64, 31),  # eight cluster tiles, one batch and a bit
+    (5, 16, 8, 5),  # less than one batch
+]
+
+
+@pytest.mark.parametrize("rows,f,k,n_true", LLOYD_ROUTE_CASES)
+def test_tc_route_matches_plain_and_walk(card, rows, f, k, n_true):
+    assert kernels.lloyd_route(f, k) == "tc"
+    g = torch.Generator(device=card).manual_seed(rows * k + f)
+    x = torch.randn(rows, f, device=card, generator=g)
+    c = torch.randn(k, f, device=card, generator=g)
+    tc = kernels._lloyd_cuda(x, c, n_true, True, "tc")
+    again = kernels._lloyd_cuda(x, c, n_true, True, "tc")
+    walk = kernels._lloyd_cuda(x, c, n_true, True, "walk")
+    ps, pc, pi, pl = kernels._lloyd_plain(x, c, n_true, True)
+    torch.cuda.synchronize()
+    assert _near_tie_mismatches(x, c, tc[3], pl) == 0
+    assert torch.equal(tc[3], walk[3])  # one distance arithmetic on both routes
+    assert torch.equal(tc[1], pc)
+    torch.testing.assert_close(tc[0] / tc[1].clamp(min=1)[:, None], ps / pc.clamp(min=1)[:, None], atol=1e-4, rtol=0)
+    torch.testing.assert_close(tc[2], pi, rtol=1e-4, atol=0)
+    for a, b in zip(tc, again):
+        assert torch.equal(a, b)  # bitwise reproducible
+
+
+def test_wrapper_picks_the_route_by_shape_and_alignment(card):
+    before = kernels.LLOYD_LAUNCHES
+    flat = torch.randn(1003 * 16 + 1, device=card)
+    c = torch.randn(8, 16, device=card)
+    x = flat[1:].view(1003, 16)  # contiguous, 4 bytes past a 16-byte boundary
+    got = kernels.lloyd_partials(x, c, 1003, labels=True)
+    want = kernels._lloyd_cuda(x, c, 1003, True, "walk")
+    assert kernels.LLOYD_LAUNCHES == before + 2
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)  # the walk route took it
+    with pytest.raises(ValueError, match="tc route"):
+        kernels._lloyd_cuda(x, c, 1003, False, "tc")
+    with pytest.raises(ValueError, match="tc route"):
+        kernels._lloyd_cuda(torch.zeros(64, 17, device=card), torch.zeros(4, 17, device=card), 64, False, "tc")
+    with pytest.raises(ValueError, match="tc route"):
+        kernels._lloyd_cuda(torch.zeros(64, 16, device=card), torch.zeros(72, 16, device=card), 64, False, "tc")
+
+
+@pytest.mark.parametrize("route", ["tc", "walk"])
+def test_stamped_build_counts_every_phase(card, route):
+    g = torch.Generator(device=card).manual_seed(3)
+    x = torch.randn(1 << 16, 16, device=card, generator=g)
+    c = torch.randn(8, 16, device=card, generator=g)
+    before = kernels.LLOYD_LAUNCHES
+    cycles = kernels.lloyd_phase_cycles(x, c, x.shape[0], route)
+    assert kernels.LLOYD_LAUNCHES == before  # a measurement, not a launch of the main path
+    assert tuple(cycles) == kernels.LLOYD_PHASES[route]
+    busy = {"tc": ("stage", "distances", "count", "fragments", "sums"),
+            "walk": ("stage", "distances", "count", "scan", "list", "sums")}[route]
+    assert all(cycles[name] > 0 for name in busy)
+
+
+THREEFRY_CASES = [(1, 0), (7, 0), (1003, 0), (65539, 0), (70001, (1 << 32) - 35000), (4099, 3 * (1 << 32) + 7)]
+
+
+@pytest.mark.parametrize("n,start", THREEFRY_CASES)
+def test_threefry_kernel_is_bitwise_the_plain_hash(card, n, start):
+    from heat_tpu_torch.core import random as rnd
+
+    key = (0x9E3779B9, 0x7F4A7C15)
+    before = rnd.THREEFRY_LAUNCHES
+    w0, w1 = rnd._threefry_cuda(key, n, card, start, False)
+    u = rnd._threefry_cuda(key, n, card, start, True)
+    assert rnd.THREEFRY_LAUNCHES == before + 2
+    p0, p1 = rnd._random_bits_plain(key, n, card, start)
+    assert torch.equal(w0, p0) and torch.equal(w1, p1)
+    assert torch.equal(u.view(torch.int32), rnd._unit_f32_plain(p0, p1).view(torch.int32))
+    if start >= 1 << 32:
+        assert bool((p0 != 0).all())  # the counters' high word reached the hash
+
+
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_uniform_on_the_card_is_bitwise_its_plain_path(card, dtype):
+    from heat_tpu_torch.core import random as rnd
+
+    dt = getattr(ht, dtype)
+    key = (12345, 678)
+    for shape in ((1,), (1003,), (33, 65)):
+        got = rnd._uniform(key, shape, dt, card)
+        want = rnd._uniform(key, shape, dt, torch.device("cpu"))
+        assert got.device.type == "cuda" and got.shape == want.shape
+        assert torch.equal(got.cpu(), want)
+    lo = rnd._uniform(key, (4097,), dt, card, -1.0 + 2.0**-20, 1.0)
+    assert torch.equal(lo.cpu(), rnd._uniform(key, (4097,), dt, torch.device("cpu"), -1.0 + 2.0**-20, 1.0))
+
+
+def test_random_bits_launch_on_the_card_only(card):
+    from heat_tpu_torch.core import random as rnd
+
+    before = rnd.THREEFRY_LAUNCHES
+    rnd._random_bits((1, 2), 1000, card)
+    assert rnd.THREEFRY_LAUNCHES == before + 1
+    rnd._random_bits((1, 2), 1000, torch.device("cpu"))
+    assert rnd.THREEFRY_LAUNCHES == before + 1
+    ht.random.seed(4)
+    ht.random.randn(3000)  # on the card: one hash launch
+    assert rnd.THREEFRY_LAUNCHES == before + 2
+
+
 GRAM_CASES = [
     (4233, 128, 4100),  # padding past n_true, poisoned below
     (3 * 2048 + 11, 64, 3 * 2048 + 11),

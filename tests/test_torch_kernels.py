@@ -115,7 +115,8 @@ def test_kernel_gate():
     assert "128 features" in kernels.lloyd_unsupported(129, 8)
     assert "shared memory" in kernels.lloyd_unsupported(128, 400)
     assert kernels.lloyd_unsupported(0, 8) is not None
-    assert kernels.lloyd_smem_bytes(16, 8) < 48 * 1024
+    assert kernels.lloyd_smem_bytes(16, 8, "walk") < 48 * 1024
+    assert kernels.lloyd_smem_bytes(16, 8) <= 232448  # the tc route, which (16, 8) takes
 
 
 def test_shape_and_device_checks():

@@ -137,3 +137,36 @@ def test_randn_split_layout_equals_the_reference():
         np.testing.assert_array_equal(got.lshape_map, want.lshape_map)
         chunks.append(got.larray.numpy())
     assert _ulps(np.concatenate(chunks), want.numpy()) <= 2
+
+
+@pytest.mark.parametrize("start", [0, (1 << 32) - 3, 5 * (1 << 32) + 11])
+def test_hash_words_at_any_start_match_jax_threefry(start):
+    """The plain hash of counters start..start+n-1 (the card kernel is held
+    bitwise against it in tests/test_torch_gpu.py) against JAX's own
+    threefry primitive on the same (high, low) counter words."""
+    import jax.numpy as jnp
+    import torch
+    from jax._src import prng
+
+    from heat_tpu_torch.core import random as rnd
+
+    key, n = (0x9E3779B9, 0x7F4A7C15), 1003
+    b0, b1 = rnd._random_bits(key, n, torch.device("cpu"), start)
+    i = np.arange(start, start + n, dtype=np.uint64)
+    words = np.concatenate([(i >> np.uint64(32)).astype(np.uint32), (i & np.uint64(0xFFFFFFFF)).astype(np.uint32)])
+    want = np.asarray(prng.threefry_2x32((jnp.uint32(key[0]), jnp.uint32(key[1])), jnp.asarray(words)))
+    np.testing.assert_array_equal(b0.numpy().view(np.uint32), want[:n])
+    np.testing.assert_array_equal(b1.numpy().view(np.uint32), want[n:])
+
+
+def test_plain_hash_serves_the_cpu_only():
+    import torch
+
+    from heat_tpu_torch.core import random as rnd
+
+    before = rnd.THREEFRY_LAUNCHES
+    u = rnd._unit_f32((3, 4), 100, torch.device("cpu"))
+    assert u.dtype == torch.float32 and bool(((u >= 0) & (u < 1)).all())
+    assert rnd.THREEFRY_LAUNCHES == before  # the plain version launches nothing
+    with pytest.raises(ValueError, match="no threefry hash"):
+        rnd._random_bits((3, 4), 4, torch.device("meta"))
