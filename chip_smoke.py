@@ -99,6 +99,34 @@ seq 16384, 8 heads of 64, float32, causal):
     (max abs error at most 1e-4), with its wall time;
 19. attn_profile: the split=0 flash call under torch.profiler.
 
+Then the training path, first at the same attention configuration:
+
+20. flash_bwd_check: the three backward kernels of flash attention (K7-bwd,
+    csrc/flash_attn_bwd.cu: di, dK/dV, dQ) against their plain versions on
+    the same inputs (the forward kernel's output and log-sum-exp) at that
+    shape and at ragged ones (s = 1, 63, 65, 1000; d = 16, 100, 128, 256;
+    n_true < s; causal and not; strided q, k, v) (max abs error over max
+    abs, over the three gradients, at most 5e-5), a bitwise repeat, the
+    gradient through the autograd Function at (4096, 4, 64), q as drawn and
+    scaled by 8, within 1e-4 of float64, the inputs it must refuse, and each
+    kernel's time beside its plain version's, its bound (bf16 at 989
+    TFLOP/s, as the TPU kernels count), its 3xTF32 and CUDA-core floors,
+    and the time of the backward of
+    ``torch.nn.functional.scaled_dot_product_attention``;
+21. train_attention: a user module (x of (16384, 512) -> q, k, v
+    projections -> ulysses_attention(use_flash=True, causal=True) -> output
+    projection, MSE loss) in ht.nn.DataParallel with ht.optim.Adam: the
+    first step's parameter gradients against the same step through the
+    plain forward and backward on the card (max abs error over max abs,
+    over all parameters together, at most 1e-4), then 3 steps, K7 once
+    and each backward kernel once a step, the loss falling, the wall time
+    per step;
+22. train_cnn: BASELINE config 4 (benchmarks/cb/nn.py): the MNIST CNN on
+    synthetic_mnist(2048), batch 128, Adam(1e-3), softmax cross-entropy:
+    the first step's loss against the same step on the CPU from the same
+    parameters (within 1e-5), then an epoch of 16 steps, steps/s, the loss
+    falling.
+
 The line before the last is the kernel summary, the last line
 ``{"ok": true, "device": {...}}``.
 """
@@ -431,10 +459,13 @@ def zero_launches() -> None:
     _leading.FFT_STAGE_LAUNCHES = _leading.FFT_PAIR_LAUNCHES = _leading.FFT_EXT_LAUNCHES = 0
     _axis_pass.FFT_AXIS_LAUNCHES = 0
     _flash.FLASH_LAUNCHES = 0
+    for key in _flash.FLASH_BWD_LAUNCHES:
+        _flash.FLASH_BWD_LAUNCHES[key] = 0
 
 
 def other_launches() -> int:
-    """Launches of every kernel but K7 since the counts were last zeroed."""
+    """Launches of every kernel but K7 and K7-bwd since the counts were last
+    zeroed."""
     from heat_tpu_torch.core import kernels
     from heat_tpu_torch.core import random as rnd
 
@@ -896,7 +927,7 @@ def attention_path(smi: str) -> int:
         zero_launches()
         out, ms = wall_ms(lambda: ht.nn.scaled_dot_product_attention(*args, causal=True, method=method))
         launches = _flash.FLASH_LAUNCHES
-        if launches != (1 if method == "flash" else 0) or other_launches():
+        if launches != (1 if method == "flash" else 0) or other_launches() or any(_flash.FLASH_BWD_LAUNCHES.values()):
             raise AssertionError(f"{method} on split={args[0].split} launched K7 {launches} times and "
                                  f"{other_launches()} other kernels; K7 once per flash call, nothing else")
         o = out.larray
@@ -919,6 +950,319 @@ def attention_path(smi: str) -> int:
     emit({"phase": "attn_profile", "call": "scaled_dot_product_attention, method flash, split=0, causal",
           **profile_fit(lambda: ht.nn.scaled_dot_product_attention(Q, K, V, causal=True, method="flash").shape)})
     return main_launches
+
+
+def attended_pairs(s: int, n_true: int, causal: bool) -> int:
+    """The (query, key) pairs flash attention computes: within the real
+    rows and within the padded tail, under causal only keys not after the
+    query."""
+    pad = s - n_true
+    if causal:
+        return n_true * (n_true + 1) // 2 + pad * (pad + 1) // 2
+    return n_true * n_true + pad * pad
+
+
+def flash_bwd_kernels(q, k, v, do, scale: float, causal: bool, n_true: int):
+    """The backward kernels on the forward kernel's output and log-sum-exp,
+    and their plain versions on the same inputs: (kernel, plain), each
+    (di, dq, dk, dv)."""
+    from heat_tpu_torch.nn import _flash
+
+    out, lse = _flash._flash_cuda(q, k, v, scale, causal, n_true, with_lse=True)
+    di = _flash._bwd_di_cuda(out, do)
+    dk, dv = _flash._bwd_dkv_cuda(q, k, v, do, lse, di, scale, causal, n_true)
+    dq = _flash._bwd_dq_cuda(q, k, v, do, lse, di, scale, causal, n_true)
+    pdi = _flash._bwd_di_plain(out, do)
+    pdk, pdv = _flash._bwd_dkv_plain(q, k, v, do, lse, di, scale, causal, n_true)
+    pdq = _flash._bwd_dq_plain(q, k, v, do, lse, di, scale, causal, n_true)
+    return (di, dq, dk, dv), (pdi, pdq, pdk, pdv)
+
+
+def grad_err(got, want) -> float:
+    """max abs error over max abs, over a group of gradients together."""
+    err = max(float((a.double() - b.double()).abs().max()) for a, b in zip(got, want))
+    return err / max(float(b.double().abs().max()) for b in want)
+
+
+def compare_flash_bwd(q, k, v, do, scale: float, causal: bool, n_true: int) -> dict:
+    """K7-bwd against its plain versions on the same inputs: di, and dQ, dK,
+    dV together, within 5e-5 (max abs error over max abs), finite, and a
+    second launch of each kernel bitwise equal to the first."""
+    import torch
+
+    got, want = flash_bwd_kernels(q, k, v, do, scale, causal, n_true)
+    again, _ = flash_bwd_kernels(q, k, v, do, scale, causal, n_true)
+    torch.cuda.synchronize()
+    label = (f"s={q.shape[0]} h={q.shape[1]} d={q.shape[2]} n_true={n_true}{' causal' if causal else ''}"
+             f"{'' if q.is_contiguous() else ' strided'}")
+    di_rel, grads_rel = grad_err(got[:1], want[:1]), grad_err(got[1:], want[1:])
+    finite = all(bool(torch.isfinite(t).all()) for t in got + want)
+    if not finite or any(a.shape != b.shape for a, b in zip(got, want)) or max(di_rel, grads_rel) > 5e-5:
+        raise AssertionError(f"flash backward {label}: finite {finite}, di relative error {di_rel}, "
+                             f"dQ/dK/dV {grads_rel}")
+    if not all(torch.equal(a, b) for a, b in zip(got, again)):
+        raise AssertionError(f"flash backward {label}: two launches on the same inputs differ")
+    return {"case": label, "di_rel_err": di_rel, "grads_rel_err": grads_rel,
+            "max_abs_err": {name: float((a.double() - b.double()).abs().max())
+                            for name, a, b in zip(("di", "dq", "dk", "dv"), got, want)},
+            "bitwise_repeat": True}
+
+
+def flash_bwd_check(dev, g, smi: str) -> list:
+    """Phase flash_bwd_check: K7-bwd against its plain versions at the main
+    path's shape (timed there) and at ragged ones, end to end against
+    float64, and the inputs it refuses.  Returns the kernels' entries of the
+    summary line, launches still to fill in."""
+    import torch
+    import torch.nn.functional as F
+    from heat_tpu_torch.nn import _flash
+
+    t0 = time.perf_counter()
+    s, h, d = ATTN_SEQ, ATTN_HEADS, ATTN_HEAD_DIM
+    scale = 1.0 / d**0.5
+    q, k, v, do = (torch.randn(s, h, d, device=dev, generator=g) for _ in range(4))
+    checks = [compare_flash_bwd(q, k, v, do, scale, True, s)]
+    for rows, heads, dim, n_true in ((1, 1, 16, 1), (63, 2, 16, 60), (65, 3, 100, 65), (65, 3, 100, 30),
+                                     (1000, 2, 128, 937), (1000, 2, 256, 999), (1000, 1, 256, 500)):
+        ts = [torch.randn(rows, heads, dim, device=dev, generator=g) for _ in range(4)]
+        for causal in (False, True):
+            checks.append(compare_flash_bwd(*ts, 1.0 / dim**0.5, causal, n_true))
+    base = torch.randn(4, 2, 300, 64, device=dev, generator=g)  # (q, k, v, do) x (h, s, d): strided (s, h, d)
+    for causal in (False, True):
+        checks.append(compare_flash_bwd(*(base[i].transpose(0, 1) for i in range(4)), 0.125, causal, 290))
+    # end to end through the autograd Function against float64, q as drawn
+    # and scaled by 8 (a peaked softmax)
+    qs, ks, vs, dos = (torch.randn(4096, 4, 64, device=dev, generator=g) for _ in range(4))
+    for qm in (1.0, 8.0):
+        leaves = [t.clone().requires_grad_() for t in (qs * qm, ks, vs)]
+        _flash.flash_attention(*leaves, 0.125, True, 4096 - 37).backward(dos)
+        w64 = [t.double() for t in (qs * qm, ks, vs, dos)]
+        out64, lse64 = _flash._flash_plain(*w64[:3], 0.125, True, 4096 - 37, with_lse=True)
+        di64 = _flash._bwd_di_plain(out64, w64[3])
+        dk64, dv64 = _flash._bwd_dkv_plain(*w64, lse64, di64, 0.125, True, 4096 - 37)
+        dq64 = _flash._bwd_dq_plain(*w64, lse64, di64, 0.125, True, 4096 - 37)
+        rel = grad_err([t.grad for t in leaves], (dq64, dk64, dv64))
+        if rel > 1e-4:
+            raise AssertionError(f"flash gradient at (4096, 4, 64), q x {qm}: {rel} from float64")
+        checks.append({"case": "s=4096 h=4 d=64 n_true=4059 causal, autograd Function", "q_scaled_by": qm,
+                       "grads_rel_err_vs_float64": rel})
+    del qs, ks, vs, dos, leaves, w64, out64, lse64, di64, dk64, dv64, dq64
+    for c in checks:
+        emit({"phase": "flash_bwd_check", "kernel": "flash_attn_bwd", **c})
+    refused = []
+    x = torch.zeros(16, 2, 8, device=dev)
+    for what, args, err in (("float64", [x.double()] * 3, TypeError),
+                            ("d = 257", [torch.zeros(4, 1, 257, device=dev)] * 3, ValueError)):
+        try:
+            _flash.flash_attention(*(a.clone().requires_grad_() for a in args), 1.0, False, 4).sum().backward()
+        except err:
+            refused.append(what)
+        else:
+            raise AssertionError(f"the flash kernels took a {what} input for a gradient")
+    emit({"phase": "flash_bwd_check", "kernel": "flash_attn_bwd", "refused": refused})
+
+    # times at the main path's shape, beside the bounds and the library's backward
+    out, lse = _flash._flash_cuda(q, k, v, scale, True, s, with_lse=True)
+    di = _flash._bwd_di_cuda(out, do)
+    pairs = attended_pairs(s, s, True)
+    product = 2 * pairs * d * h
+    io = 4 * s * h * d  # bytes of one (s, h, d) float32 tensor
+    runs = {
+        "di": (lambda: _flash._bwd_di_cuda(out, do), lambda: _flash._bwd_di_plain(out, do),
+               lambda: torch.einsum("qhd,qhd->hq", out, do), 2 * io + 4 * h * s, 2 * s * h * d,
+               "torch.einsum('qhd,qhd->hq', o, do)", "flash_attention.py:271 (di in _flash_attention_bwd, "
+               "outside the kernels)"),
+        "dkv": (lambda: _flash._bwd_dkv_cuda(q, k, v, do, lse, di, scale, True, s),
+                lambda: _flash._bwd_dkv_plain(q, k, v, do, lse, di, scale, True, s), None,
+                6 * io + 8 * h * s, 4 * product, None, "flash_attention.py:941 (_flash_attention_bwd_dkv)"),
+        "dq": (lambda: _flash._bwd_dq_cuda(q, k, v, do, lse, di, scale, True, s),
+               lambda: _flash._bwd_dq_plain(q, k, v, do, lse, di, scale, True, s), None,
+               5 * io + 8 * h * s, 3 * product, None, "flash_attention.py:1287 (_flash_attention_bwd_dq)"),
+    }
+    qt, kt, vt = (t.permute(1, 0, 2).contiguous()[None].requires_grad_() for t in (q, k, v))
+    dot = do.permute(1, 0, 2).contiguous()[None]
+    backend = "efficient_attention"
+    try:
+        from torch.nn.attention import SDPBackend, sdpa_kernel
+
+        with sdpa_kernel([SDPBackend.EFFICIENT_ATTENTION]):
+            o_sdpa = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+            sdpa_bwd_ms = time_ms(lambda: torch.autograd.grad(o_sdpa, (qt, kt, vt), dot, retain_graph=True), reps=10)
+    except RuntimeError as e:
+        backend = f"default (efficient attention refused: {str(e)[:80]})"
+        o_sdpa = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+        sdpa_bwd_ms = time_ms(lambda: torch.autograd.grad(o_sdpa, (qt, kt, vt), dot, retain_graph=True), reps=10)
+    del qt, kt, vt, dot, o_sdpa
+    entries = []
+    max_abs = {"di": max(c["max_abs_err"]["di"] for c in checks if "max_abs_err" in c),
+               "dkv": max(max(c["max_abs_err"]["dk"], c["max_abs_err"]["dv"]) for c in checks if "max_abs_err" in c),
+               "dq": max(c["max_abs_err"]["dq"] for c in checks if "max_abs_err" in c)}
+    for name, (kernel, plain, library, nbytes, flops, library_call, replaces) in runs.items():
+        kernel_ms = time_ms(kernel, reps=10 if name == "di" else 5)
+        plain_ms = time_ms(plain, reps=3, warmup=1)
+        library_ms = time_ms(library, reps=10) if library is not None else None
+        bound_ms, bound_by = bound(nbytes, flops)
+        emit({"phase": "flash_bwd_check", "kernel": f"flash_attn_bwd_{name}", "shape": [s, h, d], "causal": True,
+              "ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+              "share_of_bound": bound_ms / kernel_ms, "tf32x3_floor_ms": 3 * flops / TF32_FLOPS * 1e3,
+              "cuda_core_floor_ms": flops / F32_FLOPS * 1e3, "library_ms": library_ms,
+              "library_call": library_call or "none: no single PyTorch call computes this part of the backward",
+              "sdpa_backward_ms": sdpa_bwd_ms,
+              "sdpa_backward_call": f"torch.autograd.grad of scaled_dot_product_attention, is_causal, float32, "
+                                    f"{backend}: the whole backward", "card": smi})
+        entries.append({"name": f"flash_attn_bwd_{name}", "route": "cuda",
+                        "source": "heat_tpu_torch/csrc/flash_attn_bwd.cu",
+                        "replaces": f"jax/experimental/pallas/ops/tpu/{replaces}", "launches": None,
+                        "max_abs_err": max_abs[name], "ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                        "bound_by": bound_by, "library_ms": library_ms})
+    emit({"phase": "flash_bwd_check", "kernel": "flash_attn_bwd", "shape": [s, h, d], "causal": True,
+          "kernels_ms": sum(e["ms"] for e in entries), "sdpa_backward_ms": sdpa_bwd_ms, "card": smi,
+          "phase_seconds": time.perf_counter() - t0})
+    return entries
+
+
+class _PlainFlash:
+    """Inside the block, the flash-attention Function runs its plain forward
+    and backward on the card (the reference for the training step's
+    gradients); the kernels' wrappers are put back on the way out."""
+
+    names = ("_flash_cuda", "_bwd_di_cuda", "_bwd_dkv_cuda", "_bwd_dq_cuda")
+
+    def __enter__(self):
+        from heat_tpu_torch.nn import _flash
+
+        self.saved = {n: getattr(_flash, n) for n in self.names}
+        for n, plain in zip(self.names, (_flash._flash_plain, _flash._bwd_di_plain, _flash._bwd_dkv_plain,
+                                         _flash._bwd_dq_plain)):
+            setattr(_flash, n, plain)
+
+    def __exit__(self, *exc):
+        from heat_tpu_torch.nn import _flash
+
+        for n, fn in self.saved.items():
+            setattr(_flash, n, fn)
+
+
+def train_attention(dev, smi: str) -> int:
+    """Phase train_attention: a user's attention module in DataParallel with
+    Adam, three steps on the card.  Returns the steps' launches of each
+    backward kernel (one a step)."""
+    import torch
+    import torch.nn.functional as F
+    import heat_tpu_torch as ht
+    from heat_tpu_torch.nn import _flash
+
+    width, heads = ATTN_HEADS * ATTN_HEAD_DIM, ATTN_HEADS
+
+    class Attention(torch.nn.Module):  # user code: projections around ht.nn.ulysses_attention
+        def __init__(self):
+            super().__init__()
+            self.wq, self.wk, self.wv, self.wo = (torch.nn.Linear(width, width) for _ in range(4))
+
+        def forward(self, x):
+            q, k, v = (f(x).view(x.shape[0], heads, width // heads) for f in (self.wq, self.wk, self.wv))
+            return self.wo(ht.nn.ulysses_attention(q, k, v, causal=True, use_flash=True).reshape(x.shape[0], width))
+
+    t0 = time.perf_counter()
+    g = torch.Generator(device=dev).manual_seed(ATTN_SEED + 1)
+    x = torch.randn(ATTN_SEQ, width, device=dev, generator=g)
+    target = torch.randn(ATTN_SEQ, width, device=dev, generator=g)
+    model = Attention().to(dev)
+    dp = ht.nn.DataParallel(model, optimizer=ht.optim.Adam(model.parameters(), lr=1e-3))
+    dp.init(g, x[:64])
+
+    # the first step's gradients by the kernels and by the plain versions
+    loss_k, grads_k = dp.value_and_grad(F.mse_loss, x, target)
+    with _PlainFlash():
+        loss_p, grads_p = dp.value_and_grad(F.mse_loss, x, target)
+    # over all parameters together: the key bias's gradient is zero in exact
+    # arithmetic (a softmax does not see a constant added to a query's
+    # scores), so on its own it compares rounding with rounding
+    names = list(grads_k)
+    grad_rel = grad_err([grads_k[n] for n in names], [grads_p[n] for n in names])
+    grad_abs = {n: float((grads_k[n].double() - grads_p[n].double()).abs().max()) for n in names}
+    if not grad_rel <= 1e-4 or abs(float(loss_k) - float(loss_p)) > 1e-5 * abs(float(loss_p)):
+        raise AssertionError(f"train_attention: the kernels' first step against the plain one: loss {float(loss_k)} "
+                             f"and {float(loss_p)}, gradients {grad_rel} (max abs error over max abs), {grad_abs}")
+    del grads_k, grads_p
+
+    zero_launches()
+    torch.cuda.synchronize()
+    losses, step_ms = [], []
+    for _ in range(3):
+        t1 = time.perf_counter()
+        losses.append(dp.step(F.mse_loss, x, target))
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t1) * 1e3)
+    fwd, bwd = _flash.FLASH_LAUNCHES, dict(_flash.FLASH_BWD_LAUNCHES)
+    if fwd != 3 or any(n != 3 for n in bwd.values()) or other_launches():
+        raise AssertionError(f"train_attention: 3 steps launched K7 {fwd} times, the backward kernels {bwd} and "
+                             f"{other_launches()} others; K7 and each backward kernel once a step")
+    if not all(l == l and l < float("inf") for l in losses) or not losses[-1] < losses[0]:
+        raise AssertionError(f"train_attention: the loss did not fall: {losses}")
+    emit({"phase": "train_attention", "x": [ATTN_SEQ, width], "heads": heads, "causal": True,
+          "optimizer": "Adam(1e-3)", "loss": "MSE", "losses": losses, "step_wall_ms": step_ms,
+          "first_step_grads_rel_err_vs_plain": grad_rel, "first_step_grads_max_abs_err_vs_plain": grad_abs,
+          "first_step_loss": float(loss_k),
+          "flash_launches": fwd, "flash_bwd_launches": bwd, "card": smi, "phase_seconds": time.perf_counter() - t0})
+    del dp, model, x, target
+    torch.cuda.empty_cache()
+    return bwd["dkv"]
+
+
+def train_cnn(dev, smi: str) -> None:
+    """Phase train_cnn: BASELINE config 4, the data-parallel MNIST CNN of
+    benchmarks/cb/nn.py at its published size."""
+    import copy
+
+    import torch
+    import torch.nn.functional as F
+    import heat_tpu_torch as ht
+    from heat_tpu_torch.nn import _flash
+
+    class CNN(torch.nn.Module):  # user code: benchmarks/cb/nn.py's CNN, NHWC in and flattened as flax does
+        def __init__(self):
+            super().__init__()
+            self.conv = torch.nn.Conv2d(1, 16, 3, padding=1)
+            self.dense0 = torch.nn.Linear(14 * 14 * 16, 64)
+            self.dense1 = torch.nn.Linear(64, 10)
+
+        def forward(self, x):
+            t = F.avg_pool2d(F.relu(self.conv(x.permute(0, 3, 1, 2))), 2)
+            return self.dense1(F.relu(self.dense0(t.permute(0, 2, 3, 1).reshape(t.shape[0], -1))))
+
+    def loss_fn(pred, target):
+        return F.cross_entropy(pred, target.long())
+
+    t0 = time.perf_counter()
+    n, batch = 2048, 128
+    x, y = ht.utils.data.synthetic_mnist(n)
+    xd, yd = x.larray, y.larray
+    if xd.device.type != "cuda":
+        raise AssertionError(f"synthetic_mnist made its images on {xd.device}, not the card")
+    model = CNN().to(dev)
+    dp = ht.nn.DataParallel(model, optimizer=ht.optim.Adam(model.parameters(), lr=1e-3))
+    dp.init(torch.Generator(device=dev).manual_seed(0), xd[:batch])
+    host = copy.deepcopy(model).cpu()
+    host_dp = ht.nn.DataParallel(host, optimizer=ht.optim.Adam(host.parameters(), lr=1e-3))
+    zero_launches()
+    first = dp.step(loss_fn, xd[:batch], yd[:batch])  # the warm-up step, as benchmarks/cb/nn.py takes one
+    host_first = host_dp.step(loss_fn, xd[:batch].cpu(), yd[:batch].cpu())
+    if abs(first - host_first) > 1e-5 * abs(host_first):
+        raise AssertionError(f"train_cnn: the first step's loss {first} on the card, {host_first} on the CPU")
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    losses = [dp.step(loss_fn, xd[i:i + batch], yd[i:i + batch]) for i in range(0, n - batch + 1, batch)]
+    epoch_s = time.perf_counter() - t1
+    if other_launches() or _flash.FLASH_LAUNCHES or any(_flash.FLASH_BWD_LAUNCHES.values()):
+        raise AssertionError("train_cnn launched a kernel of the port; the CNN runs on cuDNN and cuBLAS")
+    if not losses[-1] < first:
+        raise AssertionError(f"train_cnn: the loss did not fall: {first} then {losses}")
+    emit({"phase": "train_cnn", "config": "BASELINE config 4, benchmarks/cb/nn.py", "images": n, "batch": batch,
+          "steps": len(losses), "optimizer": "Adam(1e-3)", "first_step_loss": first,
+          "first_step_loss_cpu": host_first, "losses": losses, "epoch_wall_s": epoch_s,
+          "steps_per_s": len(losses) / epoch_s, "cudnn_allow_tf32": torch.backends.cudnn.allow_tf32, "card": smi,
+          "phase_seconds": time.perf_counter() - t0})
 
 
 def tensor_core_report(build) -> dict:
@@ -1256,8 +1600,19 @@ def main() -> int:
 
     # 18.-19. the attention path through the entry point a user calls
     flash["launches"] = attention_path(smi)
+    torch.cuda.empty_cache()
 
-    emit({"kernels": [lloyd, threefry, gram, *fft_entries, flash]})
+    # 20. K7-bwd against its plain versions, and its times
+    flash_bwd = flash_bwd_check(dev, g, smi)
+    torch.cuda.empty_cache()
+
+    # 21.-22. the training path through the entry points a user calls
+    bwd_launches = train_attention(dev, smi)
+    for e in flash_bwd:
+        e["launches"] = bwd_launches
+    train_cnn(dev, smi)
+
+    emit({"kernels": [lloyd, threefry, gram, *fft_entries, flash, *flash_bwd]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": name, "count": torch.cuda.device_count()}})
     return 0
 

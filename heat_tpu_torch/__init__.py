@@ -19,4 +19,6 @@ from . import cluster
 from . import decomposition
 from . import fft
 from . import nn
+from . import optim
+from . import utils
 from . import interop

@@ -57,6 +57,10 @@
 //     the end of the sequence are masked element by element.  Query tiles
 //     are launched last-first, so under causal the longest rows start first.
 //   - No atomics: a repeat is bitwise equal.
+//   - For the backward (flash_attn_bwd.cu), the first column block of each
+//     row also writes lse = m + log l, the log-sum-exp of the row's scaled
+//     scores, into an (h, s) float32 buffer; a null pointer skips it, so a
+//     forward without a gradient writes nothing more.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -144,8 +148,9 @@ __device__ __forceinline__ void key_range(int64_t r0, int64_t rn, int64_t s, int
 template <int ND, int NWG, int R>
 __global__ void __launch_bounds__(128 * NWG) flash_fwd(
     const float* __restrict__ q, const float* __restrict__ kb, const float* __restrict__ ksm,
-    const float* __restrict__ vb, const float* __restrict__ vsm, float* __restrict__ out, int64_t s, int64_t sp,
-    int64_t h, int d, int64_t qs, int64_t qh, int64_t qd, float scale, int64_t n_true, int causal) {
+    const float* __restrict__ vb, const float* __restrict__ vsm, float* __restrict__ out, float* __restrict__ lse,
+    int64_t s, int64_t sp, int64_t h, int d, int64_t qs, int64_t qh, int64_t qd, float scale, int64_t n_true,
+    int causal) {
   using C = Cfg<ND, NWG, R>;
   constexpr int DP = C::DP;
   constexpr int kRows = kBQ * NWG;  // queries per block
@@ -328,6 +333,7 @@ __global__ void __launch_bounds__(128 * NWG) flash_fwd(
   for (int rh = 0; rh < 2; ++rh) {
     const int64_t row = qw0 + 16 * warp + g + 8 * rh;
     if (row >= s) continue;
+    if (lse != nullptr && oc == 0 && t == 0) lse[head * s + row] = m[rh] + logf(l[rh]);
     float* orow = out + (row * h + head) * d;
 #pragma unroll
     for (int i = 0; i < 8; ++i)
@@ -341,14 +347,14 @@ __global__ void __launch_bounds__(128 * NWG) flash_fwd(
 
 template <int ND, int NWG, int R>
 cudaError_t launch_fwd(const float* q, const float* kb, const float* ksm, const float* vb, const float* vsm,
-                       float* out, int64_t s, int64_t sp, int64_t h, int d, int64_t qs, int64_t qh, int64_t qd,
-                       float scale, int64_t n_true, int causal, cudaStream_t stream) {
+                       float* out, float* lse, int64_t s, int64_t sp, int64_t h, int d, int64_t qs, int64_t qh,
+                       int64_t qd, float scale, int64_t n_true, int causal, cudaStream_t stream) {
   using C = Cfg<ND, NWG, R>;
   cudaError_t err = cudaFuncSetAttribute(flash_fwd<ND, NWG, R>, cudaFuncAttributeMaxDynamicSharedMemorySize, C::bytes);
   if (err != cudaSuccess) return err;
   const dim3 grid((unsigned)((s + kBQ * NWG - 1) / (kBQ * NWG) * h), ND);
-  flash_fwd<ND, NWG, R><<<grid, C::threads, C::bytes, stream>>>(q, kb, ksm, vb, vsm, out, s, sp, h, d, qs, qh, qd,
-                                                                 scale, n_true, causal);
+  flash_fwd<ND, NWG, R><<<grid, C::threads, C::bytes, stream>>>(q, kb, ksm, vb, vsm, out, lse, s, sp, h, d, qs, qh,
+                                                                 qd, scale, n_true, causal);
   return cudaGetLastError();
 }
 
@@ -364,11 +370,12 @@ extern "C" {
 int64_t heat_flash_attn_scratch(int64_t s, int64_t h, int64_t d) { return 4 * h * padded_keys(s) * padded_dim(d); }
 
 // q, k, v: (s, h, d) float32 with element strides (qs, qh, qd, ks, kh, kd,
-// vs, vh, vd); out: (s, h, d) float32, contiguous; scratch: at least
+// vs, vh, vd); out: (s, h, d) float32, contiguous; lse: null, or (h, s)
+// float32 for each row's log-sum-exp (the backward's); scratch: at least
 // heat_flash_attn_scratch(s, h, d) floats.  1 <= d <= 256 and
 // ceil(s / 64) * h < 2^31 (the wrapper's gate).  Returns the CUDA error of
 // the launches (0 on success); does not synchronise.
-int heat_flash_attn_f32(const float* q, const float* k, const float* v, float* out, int64_t s, int64_t h,
+int heat_flash_attn_f32(const float* q, const float* k, const float* v, float* out, float* lse, int64_t s, int64_t h,
                         int64_t d, int64_t qs, int64_t qh, int64_t qd, int64_t ks, int64_t kh, int64_t kd,
                         int64_t vs, int64_t vh, int64_t vd, float scale, int64_t n_true, int causal, float* scratch,
                         void* stream) {
@@ -384,13 +391,13 @@ int heat_flash_attn_f32(const float* q, const float* k, const float* v, float* o
   if (err != cudaSuccess) return (int)err;
   switch (dp / kC) {
     case 1:
-      return (int)launch_fwd<1, 2, 4>(q, kb, ksm, vb, vsm, out, s, sp, h, dd, qs, qh, qd, scale, n_true, causal, cs);
+      return (int)launch_fwd<1, 2, 4>(q, kb, ksm, vb, vsm, out, lse, s, sp, h, dd, qs, qh, qd, scale, n_true, causal, cs);
     case 2:
-      return (int)launch_fwd<2, 1, 3>(q, kb, ksm, vb, vsm, out, s, sp, h, dd, qs, qh, qd, scale, n_true, causal, cs);
+      return (int)launch_fwd<2, 1, 3>(q, kb, ksm, vb, vsm, out, lse, s, sp, h, dd, qs, qh, qd, scale, n_true, causal, cs);
     case 3:
-      return (int)launch_fwd<3, 1, 3>(q, kb, ksm, vb, vsm, out, s, sp, h, dd, qs, qh, qd, scale, n_true, causal, cs);
+      return (int)launch_fwd<3, 1, 3>(q, kb, ksm, vb, vsm, out, lse, s, sp, h, dd, qs, qh, qd, scale, n_true, causal, cs);
     default:
-      return (int)launch_fwd<4, 1, 3>(q, kb, ksm, vb, vsm, out, s, sp, h, dd, qs, qh, qd, scale, n_true, causal, cs);
+      return (int)launch_fwd<4, 1, 3>(q, kb, ksm, vb, vsm, out, lse, s, sp, h, dd, qs, qh, qd, scale, n_true, causal, cs);
   }
 }
 

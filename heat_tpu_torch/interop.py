@@ -7,6 +7,9 @@ port's fitted estimator, ready to ``predict`` (KMeans) or ``transform``
 (PCA).  :func:`from_reference_array` takes a result of heat_tpu (for example
 a spectrum, which heat_tpu may hold as two real planes) as numpy and returns
 the port's DNDarray of it, complex where it is complex.
+:func:`params_from_reference` takes a flax parameter tree of the JAX
+package's data-parallel models and returns a ``torch.nn.Module``'s
+parameters by name.
 """
 
 from __future__ import annotations
@@ -14,12 +17,13 @@ from __future__ import annotations
 from typing import Any, Dict
 
 import numpy as np
+import torch
 
 from .cluster import KMeans
 from .core import factories
 from .decomposition import PCA
 
-__all__ = ["from_reference_array", "from_reference_state"]
+__all__ = ["from_reference_array", "from_reference_state", "params_from_reference"]
 
 
 def from_reference_array(value, split=None, device=None, comm=None):
@@ -72,3 +76,41 @@ def from_reference_state(doc: Dict[str, Any], device=None, comm=None):
     est = cls(**params)
     restore(est, state, device, comm)
     return est
+
+
+_FLAX_LEAVES = {"kernel": "weight", "bias": "bias"}
+
+
+def params_from_reference(params: Dict[str, Any], module: torch.nn.Module) -> Dict[str, torch.Tensor]:
+    """``module``'s parameters by name (as ``DataParallel.set_params`` takes
+    them) from a flax parameter tree with numpy leaves, ``{"params": {layer:
+    {"kernel", "bias"}}}`` or its inner dict.
+
+    The tree's layers, in their order (the order flax made them), go to
+    ``module``'s layers that hold parameters, in theirs.  A kernel's two
+    last axes (in, out) become torch's two first (out, in): a Dense kernel
+    (in, out) becomes (out, in), a Conv kernel (H, W, in, out) becomes (out,
+    in, H, W); biases are taken as they are.  flax
+    convolves NHWC and flattens in (H, W, C) order, so a module that
+    flattens a convolution's output for a Dense layer must flatten in that
+    order too (NHWC), for the Dense kernel to meet its inputs in place."""
+    tree = params.get("params", params)
+    layers = [(name, m) for name, m in module.named_modules() if any(True for _ in m.parameters(recurse=False))]
+    if len(tree) != len(layers):
+        raise ValueError(f"the tree has {len(tree)} layers ({list(tree)}), the module {len(layers)} "
+                         f"({[name for name, _ in layers]})")
+    own = dict(module.named_parameters())
+    out: Dict[str, torch.Tensor] = {}
+    for (ref_name, leaves), (name, _) in zip(tree.items(), layers):
+        for key, value in leaves.items():
+            if key not in _FLAX_LEAVES:
+                raise ValueError(f"{ref_name}: no counterpart for the flax parameter {key!r}")
+            a = np.asarray(value)
+            if key == "kernel":
+                a = np.moveaxis(a, (-1, -2), (0, 1))
+            target = f"{name}.{_FLAX_LEAVES[key]}" if name else _FLAX_LEAVES[key]
+            if target not in own or tuple(own[target].shape) != a.shape:
+                want = tuple(own[target].shape) if target in own else "no such parameter"
+                raise ValueError(f"{ref_name}.{key} of shape {a.shape} does not fit {target}: {want}")
+            out[target] = torch.tensor(a)
+    return {name: out[name] for name in own if name in out}

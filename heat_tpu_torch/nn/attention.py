@@ -52,7 +52,9 @@ def _block_attn_update(o, m, l, q, k, v, q_off, k_off, scale, causal, n_true):
     ``q_off``/``k_off`` are the global positions of the local blocks,
     needed for causal masking and for masking the padded tail rows (global
     index >= n_true).  The (h, sq, sk) scores are masked and exponentiated
-    in place, so one such tensor is held at a time.
+    in place, so one such tensor is held at a time; none of those in-place
+    steps overwrites a tensor that autograd keeps, so the update is
+    differentiable in q, k and v.
     """
     sq, h, d = q.shape
     sk = k.shape[0]
@@ -63,15 +65,16 @@ def _block_attn_update(o, m, l, q, k, v, q_off, k_off, scale, causal, n_true):
     if causal:
         q_pos = q_off + torch.arange(sq, device=q.device)
         mask = mask & (k_pos[None, None, :] <= q_pos[None, :, None])
-    masked = ~mask
-    scores.masked_fill_(masked, _NEG_INF)
-    m_new = torch.maximum(m, scores.amax(dim=-1))  # (h, sq)
+    scores.masked_fill_(~mask, _NEG_INF)
+    # the running max only steadies the exponentials: the result does not
+    # depend on it, so it carries no gradient
+    m_new = torch.maximum(m, scores.detach().amax(dim=-1))  # (h, sq)
     corr = torch.exp(m - m_new)
-    p_block = scores.sub_(m_new[..., None]).exp_()  # (h, sq, sk)
-    # rows whose every key so far is masked have m_new == _NEG_INF and
-    # exp(scores - m_new) == exp(0): zero those weights explicitly so a
+    # rows whose every key so far is masked have m_new == _NEG_INF; their
+    # base is 0, so exp(scores - base) underflows to exactly 0 and a
     # fully-masked block contributes nothing regardless of arrival order
-    p_block.masked_fill_(masked, 0.0)
+    base = torch.where(m_new == _NEG_INF, torch.zeros_like(m_new), m_new)
+    p_block = scores.sub_(base[..., None]).exp_()  # (h, sq, sk)
     l_new = l * corr + p_block.sum(dim=-1)
     with full_f32_matmul():
         pv = torch.einsum("hqk,khd->qhd", p_block, v.float())
@@ -125,7 +128,10 @@ def ring_attention(
     head_dim), every rank's block of one length; the global padded sequence
     is ``block * comm.size`` (the pad-and-mask layer guarantees this for
     DNDarray inputs; raw callers pass padded chunks plus ``n_true``, the
-    true global length).  Returns this rank's chunk of the output.
+    true global length).  Returns this rank's chunk of the output,
+    differentiable in q, k and v across the ranks (``ring_shift`` carries the
+    gradient back round the ring), as ``jax.grad`` through the JAX
+    package's ``shard_map`` is.
     """
     comm = sanitize_comm(comm)
     seq = _padded_seq(q, comm)
@@ -179,6 +185,9 @@ def ulysses_attention(
     :func:`ring_attention`.  ``use_flash=True`` runs the local
     full-sequence attention through the flash kernel: the (h/p, seq, seq)
     score tensor never materialises.  The kernel stays in exact float32.
+    Differentiable in q, k and v: the all-to-alls carry the gradient back,
+    and with ``use_flash`` the flash kernel's backward
+    (``csrc/flash_attn_bwd.cu`` on the card) computes it.
     """
     comm = sanitize_comm(comm)
     seq = _padded_seq(q, comm)
@@ -206,6 +215,10 @@ def scaled_dot_product_attention(
     ("ring", "ulysses", or its alias "alltoall"; "flash" is Ulysses with the
     flash kernel); ``split=None`` computes locally, through the flash kernel
     for "flash".
+
+    DNDarrays carry no gradient, here as in the JAX package (whose DNDarray
+    is no pytree): to differentiate, call :func:`ring_attention` or
+    :func:`ulysses_attention` on this rank's tensors.
     """
     for name, t in (("q", q), ("k", k), ("v", v)):
         if not isinstance(t, DNDarray):

@@ -118,7 +118,13 @@ class Communication:
         return x
 
     def psum(self, x: torch.Tensor) -> torch.Tensor:
-        """Sum ``x`` over all ranks, in place; returns ``x``."""
+        """Sum ``x`` over all ranks, in place; returns ``x``.  A tensor that
+        takes part in a gradient (``requires_grad`` under grad mode) is
+        summed out of place instead, and its gradient is the sum of the
+        ranks' gradients, as ``jax.lax.psum`` transposes."""
+        if self.size > 1 and torch.is_grad_enabled() and x.requires_grad:
+            self._check_joined()
+            return _PSum.apply(x, self)
         return self._reduce(x, dist.ReduceOp.SUM)
 
     def pmin(self, x: torch.Tensor) -> torch.Tensor:
@@ -161,17 +167,22 @@ class Communication:
         ``x`` is cut into ``size`` equal blocks along ``split_axis``, block r
         goes to rank r, and the blocks received are concatenated along
         ``concat_axis`` in rank order.  A complex tensor travels as its real
-        view."""
+        view.  Differentiable: the gradient goes back by the all-to-all with
+        the two axes swapped."""
         size = self.size
         if x.shape[split_axis] % size:
             raise ValueError(f"all_to_all: extent {x.shape[split_axis]} of axis {split_axis} is not divisible by {size} ranks")
         if size == 1:
             return x
         self._check_joined()
+        return _AllToAll.apply(x, self, split_axis % x.ndim, concat_axis % x.ndim)
+
+    def _all_to_all(self, x: torch.Tensor, split_axis: int, concat_axis: int) -> torch.Tensor:
+        """The exchange itself, outside autograd (both axes non-negative)."""
         if x.is_complex():
-            return torch.view_as_complex(self.all_to_all(torch.view_as_real(x), split_axis % x.ndim, concat_axis % x.ndim))
-        parts = [p.contiguous() for p in torch.tensor_split(x, size, dim=split_axis)]
-        got = [torch.empty_like(parts[0]) for _ in range(size)]
+            return torch.view_as_complex(self._all_to_all(torch.view_as_real(x), split_axis, concat_axis))
+        parts = [p.contiguous() for p in torch.tensor_split(x, self.size, dim=split_axis)]
+        got = [torch.empty_like(parts[0]) for _ in range(self.size)]
         dist.all_to_all(got, parts, group=self.group)
         return torch.cat(got, dim=concat_axis)
 
@@ -179,11 +190,17 @@ class Communication:
         """``jax.lax.ppermute``: for each ``(src, dst)`` pair rank src sends
         its ``x`` to rank dst; a rank that is no pair's destination gets
         zeros.  Every rank passes the same ``perm``, with each rank at most
-        once as a source and once as a destination."""
+        once as a source and once as a destination.  Differentiable: the
+        gradient goes back by the ppermute with every pair reversed (a
+        rank that sent nothing gets a zero gradient)."""
         if self.size == 1:
             return x
         self._check_joined()
-        perm = [(int(s), int(d)) for s, d in perm]
+        perm = tuple((int(s), int(d)) for s, d in perm)
+        return _PPermute.apply(x, self, perm)
+
+    def _ppermute(self, x: torch.Tensor, perm: Sequence[Tuple[int, int]]) -> torch.Tensor:
+        """The exchange itself, outside autograd."""
         rank = self.rank
         dst = [d for s, d in perm if s == rank]
         src = [s for s, d in perm if d == rank]
@@ -206,12 +223,54 @@ class Communication:
 
     def ring_shift(self, x: torch.Tensor, shift: int = 1) -> torch.Tensor:
         """Cyclic shift by ``shift`` ranks: rank i's ``x`` goes to rank
-        ``(i + shift) % size`` (the ring of ring attention)."""
+        ``(i + shift) % size`` (the ring of ring attention).  Its gradient
+        goes back by ``ring_shift(-shift)``."""
         n = self.size
         return self.ppermute(x, [(i, (i + shift) % n) for i in range(n)])
 
     def _global_rank(self, rank: int) -> int:
         return rank if self.group is None else dist.get_global_rank(self.group, rank)
+
+
+class _PSum(torch.autograd.Function):
+    """psum out of place; the gradient of every rank's sum is the sum of
+    the ranks' gradients."""
+
+    @staticmethod
+    def forward(ctx, x, comm):
+        ctx.comm = comm
+        return comm._reduce(x.clone(), dist.ReduceOp.SUM)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.comm._reduce(g.clone(), dist.ReduceOp.SUM), None
+
+
+class _AllToAll(torch.autograd.Function):
+    """The tiled all-to-all; its transpose swaps the split and concat axes."""
+
+    @staticmethod
+    def forward(ctx, x, comm, split_axis, concat_axis):
+        ctx.comm, ctx.axes = comm, (split_axis, concat_axis)
+        return comm._all_to_all(x, split_axis, concat_axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        split_axis, concat_axis = ctx.axes
+        return ctx.comm._all_to_all(g, concat_axis, split_axis), None, None, None
+
+
+class _PPermute(torch.autograd.Function):
+    """ppermute; its transpose sends back along every pair reversed."""
+
+    @staticmethod
+    def forward(ctx, x, comm, perm):
+        ctx.comm, ctx.perm = comm, perm
+        return comm._ppermute(x, perm)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.comm._ppermute(g, [(d, s) for s, d in ctx.perm]), None, None
 
 
 WORLD = Communication()

@@ -3,7 +3,9 @@ heat_tpu on a 3-device Communication: the canonical layout of an uneven
 split, the distributed KMeans fit and predict, hierarchical SVD and PCA
 over rows (one Gram all-reduce) and over columns (the merge tree), the
 FFT along a split axis (the pencil: tiled all-to-alls, no gather), and
-sequence-parallel attention (the ring of ring_shift, Ulysses' all-to-alls).
+sequence-parallel attention (the ring of ring_shift, Ulysses' all-to-alls)
+and its gradients across the ranks, and DataParallel's three gradient
+schedules.
 
 The ranks are separate processes that meet through a file store under the
 test's temporary directory (no TCP port).  The test waits at most 60 s for
@@ -16,6 +18,7 @@ import time
 from pathlib import Path
 
 import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 
@@ -155,6 +158,58 @@ np.savez(
 )
 dist.destroy_process_group()
 """
+
+# one world for the training path: gradients of sum(attention * g) by the
+# rank's chunk of q, k and v (the cross-rank terms ride back through
+# ring_shift's and all_to_all's backward) and of a psum; then three
+# DataParallels, one per schedule, from the reference's initial parameters,
+# two Adam steps each on batches of 12 rows (4 a rank), and the forward
+_TRAIN_MAIN = _RANK_HEAD + r"""
+import os
+import torch.nn.functional as F
+from heat_tpu_torch.interop import params_from_reference
+from heat_tpu_torch.nn import data_parallel
+
+block = arrays["q"].shape[0] // 3
+rows = slice(rank * block, (rank + 1) * block)
+saved = {}
+for name, fn, keys, kw in (("ring", ht.nn.ring_attention, ("q", "k", "v", "g"), {}),
+                           ("uly", ht.nn.ulysses_attention, ("q6", "k6", "v6", "g6"), {}),
+                           ("flash", ht.nn.ulysses_attention, ("q6", "k6", "v6", "g6"), {"use_flash": True})):
+    q, k, v = (torch.from_numpy(arrays[key][rows].copy()).requires_grad_() for key in keys[:3])
+    res = fn(q, k, v, causal=True, n_true=int(arrays["n_true"]), **kw)
+    (res * torch.from_numpy(arrays[keys[3]][rows])).sum().backward()
+    for t, key in zip((q, k, v), "qkv"):
+        saved[f"{name}_d{key}"] = t.grad.numpy()
+comm = ht.get_comm()
+x = torch.full((2,), float(rank + 1), requires_grad=True)
+(comm.psum(x) * float(rank + 1)).sum().backward()  # every rank's sum weighs x by the ranks' weights: 1 + 2 + 3
+saved["psum_grad"] = x.grad.numpy()
+plain = torch.full((2,), float(rank + 1))
+saved["psum_in_place"] = np.asarray(comm.psum(plain) is plain)
+
+os.environ["HEAT_TPU_GRAD_BUCKET_MB"] = str(300 / 2**20)  # 300-byte buckets: several a step
+start = {"params": {"Dense_0": {"kernel": arrays["k0"], "bias": arrays["b0"]},
+                    "Dense_1": {"kernel": arrays["k1"], "bias": arrays["b1"]}}}
+for schedule in ("implicit", "bucketed", "fused"):
+    model = torch.nn.Sequential(torch.nn.Linear(4, 32), torch.nn.ReLU(), torch.nn.Linear(32, 2))
+    dp = ht.nn.DataParallel(model, optimizer=ht.optim.Adam(model.parameters(), lr=1e-2), grad_reduction=schedule)
+    dp.set_params(params_from_reference(start, model))
+    before = data_parallel.GRAD_BUCKETS
+    losses = [dp.step(lambda p, t: F.cross_entropy(p, t.long()), ht.array(arrays["x"][s], split=0),
+                      ht.array(arrays["y"][s], split=0)) for s in range(2)]
+    saved[schedule + "_buckets"] = np.asarray(data_parallel.GRAD_BUCKETS - before)
+    saved[schedule + "_losses"] = np.asarray(losses)
+    for name, p in dp.params.items():
+        saved[f"{schedule}_{name}"] = p.numpy()
+split_out = dp(ht.array(arrays["x"][0], split=0))  # each rank its rows, the result split the same way
+saved["forward_split"] = np.asarray(split_out.split)
+saved["forward_local"] = split_out.larray.numpy()
+saved["forward_whole"] = dp(torch.from_numpy(arrays["x"][0])).detach().numpy()  # a tensor: whole on every rank
+np.savez(out, **saved)
+dist.destroy_process_group()
+"""
+
 
 def _blobs(n, f, k, seed):
     rng = np.random.default_rng(seed)
@@ -316,3 +371,101 @@ def test_attention_in_a_gloo_world_of_three(tmp_path):
         np.testing.assert_array_equal(got["partial"], np.full((2, 3), {0: 0.0, 1: 2.0, 2: 0.0}[r], np.float32))
         assert list(got["errors"]) == ["ulysses needs heads (4) divisible by the mesh size (3)",
                                       "padded sequence 13 must divide the mesh size 3"]
+
+
+def _mlp():
+    import flax.linen as lnn
+
+    class MLP(lnn.Module):
+        @lnn.compact
+        def __call__(self, x):
+            x = lnn.relu(lnn.Dense(32)(x))
+            return lnn.Dense(2)(x)
+
+    return MLP()
+
+
+@pytest.fixture(scope="module")
+def training_world(tmp_path_factory):
+    """The inputs, the reference's initial DataParallel (3 devices) and
+    every rank's results of _TRAIN_MAIN."""
+    import optax
+
+    rng = np.random.default_rng(6)
+    n_true = 10  # 12 rows over 3 ranks: the last two are padding
+    q, k, v, g = (rng.standard_normal((12, 4, 8)).astype(np.float32) for _ in range(4))
+    q6, k6, v6, g6 = (rng.standard_normal((12, 6, 4)).astype(np.float32) for _ in range(4))
+    g[n_true:] = g6[n_true:] = 0.0
+    x = rng.standard_normal((2, 12, 4)).astype(np.float32)
+    y = (x @ np.array([1.0, -2.0, 0.5, 3.0], np.float32) > 0).astype(np.int32)
+    ref_comm = hj.Communication(jax.devices()[:WORLD])
+    dp = hj.nn.DataParallel(_mlp(), comm=ref_comm, optimizer=optax.adam(1e-2))
+    dp.init(jax.random.PRNGKey(0), jnp.asarray(x[0]))
+    tree = jax.tree_util.tree_map(np.asarray, dp.params)["params"]
+    arrays = dict(q=q, k=k, v=v, g=g, q6=q6, k6=k6, v6=v6, g6=g6, n_true=np.asarray(n_true), x=x, y=y,
+                  k0=tree["Dense_0"]["kernel"], b0=tree["Dense_0"]["bias"], k1=tree["Dense_1"]["kernel"],
+                  b1=tree["Dense_1"]["bias"])
+    ranks = _run_world(tmp_path_factory.mktemp("train"), _TRAIN_MAIN, **arrays)
+    return arrays, ref_comm, dp, ranks
+
+
+def test_attention_gradients_in_a_gloo_world_of_three(training_world):
+    """dQ, dK and dV of ring_attention and ulysses_attention (einsum and
+    flash) on each rank's chunk against jax.grad of the JAX package's
+    functions on a 3-device Communication, and psum's gradient.  A zero
+    cotangent on the padded rows: the reference's Ulysses on the CPU masks
+    padded keys only, the flash path isolates the padded tail
+    (tests/test_torch_flash_bwd.py)."""
+    arrays, ref_comm, _, ranks = training_world
+    n_true = int(arrays["n_true"])
+
+    def ref_grads(fn, names, cot, **kw):
+        def loss(a, b, c):
+            return jnp.sum(fn(a, b, c, comm=ref_comm, causal=True, n_true=n_true, **kw) * jnp.asarray(arrays[cot]))
+
+        return [np.asarray(x) for x in jax.grad(loss, argnums=(0, 1, 2))(*(jnp.asarray(arrays[n]) for n in names))]
+
+    want = {"ring": ref_grads(hj.nn.ring_attention, ("q", "k", "v"), "g"),
+            "uly": ref_grads(hj.nn.ulysses_attention, ("q6", "k6", "v6"), "g6"),
+            "flash": ref_grads(hj.nn.ulysses_attention, ("q6", "k6", "v6"), "g6", use_flash=True)}
+    for r, got in enumerate(ranks):
+        np.testing.assert_array_equal(got["psum_grad"], [6.0, 6.0])
+        assert bool(got["psum_in_place"])
+        rows = slice(4 * r, 4 * r + 4)
+        for name, grads in want.items():
+            for key, w in zip("qkv", grads):
+                np.testing.assert_allclose(got[f"{name}_d{key}"], w[rows], atol=1e-5, rtol=0,
+                                           err_msg=f"rank {r} {name} d{key}")
+
+
+def test_data_parallel_schedules_in_a_gloo_world_of_three(training_world):
+    """The three gradient schedules give bitwise equal parameters after two
+    Adam steps, and match the JAX package's DataParallel on 3 devices, as
+    does the forward of each rank's rows."""
+    import optax
+
+    arrays, ref_comm, dp, ranks = training_world
+    x, y = arrays["x"], arrays["y"]
+
+    def loss_fn(pred, target):
+        return optax.softmax_cross_entropy_with_integer_labels(pred, target).mean()
+
+    want_losses = [dp.step(loss_fn, hj.array(x[s], split=0, comm=ref_comm), hj.array(y[s], split=0, comm=ref_comm))
+                   for s in range(2)]
+    final = jax.tree_util.tree_map(np.asarray, dp.params)["params"]
+    want_forward = np.asarray(dp(jnp.asarray(x[0])))
+    want = {"0.weight": final["Dense_0"]["kernel"].T, "0.bias": final["Dense_0"]["bias"],
+            "2.weight": final["Dense_1"]["kernel"].T, "2.bias": final["Dense_1"]["bias"]}
+    for r, got in enumerate(ranks):
+        assert int(got["implicit_buckets"]) == 0 and int(got["fused_buckets"]) == 2  # one a step
+        assert int(got["bucketed_buckets"]) > int(got["fused_buckets"])
+        for name, w in want.items():
+            for schedule in ("bucketed", "fused"):
+                np.testing.assert_array_equal(got[f"{schedule}_{name}"], got[f"implicit_{name}"],
+                                              err_msg=f"rank {r} {schedule} {name}")
+            np.testing.assert_array_equal(got[f"implicit_{name}"], ranks[0][f"implicit_{name}"])
+            np.testing.assert_allclose(got[f"implicit_{name}"], w, atol=1e-5, rtol=0, err_msg=f"rank {r} {name}")
+        np.testing.assert_allclose(got["implicit_losses"], want_losses, rtol=1e-5)
+        assert int(got["forward_split"]) == 0
+        np.testing.assert_allclose(got["forward_local"], want_forward[4 * r:4 * r + 4], atol=1e-5, rtol=0)
+        np.testing.assert_allclose(got["forward_whole"], want_forward, atol=1e-5, rtol=0)

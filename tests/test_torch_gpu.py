@@ -672,3 +672,100 @@ def test_tensor_core_kernels_use_the_tensor_cores(card, name):
     sass = subprocess.run([cuobjdump, "-sass", str(lib)], capture_output=True, text=True, check=True).stdout
     words = [w for ln in sass.splitlines() if "MMA" in ln for w in ln.split(";")[0].split()]
     assert sum(w.startswith(("HGMMA.", "HMMA.")) for w in words) > 0
+
+
+# ----------------------------------------------------------------------
+# K7-bwd: the gradient of flash attention on the card (F4: the forward's
+# output had no grad_fn there), the backward kernels against the plain
+# backward, and the training path
+# ----------------------------------------------------------------------
+def _flash_grads(q, k, v, do, scale, causal, n_true):
+    qs, ks, vs = (t.detach().clone().requires_grad_() for t in (q, k, v))
+    out = _flash.flash_attention(qs, ks, vs, scale, causal, n_true)
+    assert out.grad_fn is not None
+    out.backward(do)
+    return out.detach(), (qs.grad, ks.grad, vs.grad)
+
+
+def _plain_grads(q, k, v, do, scale, causal, n_true):
+    out, lse = _flash._flash_plain(q, k, v, scale, causal, n_true, with_lse=True)
+    di = _flash._bwd_di_plain(out, do)
+    dk, dv = _flash._bwd_dkv_plain(q, k, v, do, lse, di, scale, causal, n_true)
+    return _flash._bwd_dq_plain(q, k, v, do, lse, di, scale, causal, n_true), dk, dv
+
+
+def _rel3(got, want):
+    err = max(float((a.double() - b.double()).abs().max()) for a, b in zip(got, want))
+    return err / max(float(b.double().abs().max()) for b in want)
+
+
+@pytest.mark.parametrize("s,h,d,n_true", FLASH_CASES)
+@pytest.mark.parametrize("causal", [False, True])
+def test_flash_gradient_on_the_card_matches_the_plain_backward(card, s, h, d, n_true, causal):
+    g = torch.Generator(device=card).manual_seed(s * h + d + 1)
+    q, k, v, do = (torch.randn(s, h, d, device=card, generator=g) for _ in range(4))
+    scale = 1.0 / np.sqrt(d)
+    before = (_flash.FLASH_LAUNCHES, dict(_flash.FLASH_BWD_LAUNCHES))
+    _, got = _flash_grads(q, k, v, do, scale, causal, n_true)
+    _, again = _flash_grads(q, k, v, do, scale, causal, n_true)
+    assert _flash.FLASH_LAUNCHES == before[0] + 2
+    assert all(_flash.FLASH_BWD_LAUNCHES[key] == before[1][key] + 2 for key in before[1])
+    want = _plain_grads(q, k, v, do, scale, causal, n_true)
+    torch.cuda.synchronize()
+    assert all(a.shape == (s, h, d) and a.dtype == torch.float32 for a in got)
+    assert _rel3(got, want) <= 1e-5
+    assert all(torch.equal(a, b) for a, b in zip(got, again))  # bitwise reproducible
+
+
+def test_flash_gradient_with_strided_inputs_and_a_stride_0_gradient(card):
+    g = torch.Generator(device=card).manual_seed(5)
+    base = torch.randn(3, 4, 300, 64, device=card, generator=g)
+    q, k, v = (base[i].transpose(0, 1).requires_grad_() for i in range(3))
+    out = _flash.flash_attention(q, k, v, 0.125, True, 290)
+    out.sum().backward()  # an expanded, stride-0 gradient
+    want = _plain_grads(*(t.detach() for t in (q, k, v)), torch.ones_like(out), 0.125, True, 290)
+    assert _rel3((q.grad, k.grad, v.grad), want) <= 1e-5
+
+
+def test_flash_gradient_within_float64(card):
+    """(4096, 4, 64), causal, q scaled by 8 (a peaked softmax): within 1e-4
+    of the plain backward in float64 (chip_smoke.py runs it too)."""
+    g = torch.Generator(device=card).manual_seed(4097)
+    q, k, v, do = (torch.randn(4096, 4, 64, device=card, generator=g) for _ in range(4))
+    for qm in (1.0, 8.0):
+        _, got = _flash_grads(q * qm, k, v, do, 0.125, True, 4096 - 37)
+        want = _plain_grads(*(t.double() for t in (q * qm, k, v, do)), 0.125, True, 4096 - 37)
+        assert _rel3(got, want) <= 1e-4
+
+
+def test_sequence_parallel_gradients_on_the_card_match_the_cpu(card):
+    rng = np.random.default_rng(9)
+    q, k, v, g = (rng.standard_normal((300, 4, 32)).astype(np.float32) for _ in range(4))
+    for fn, kw in ((ht.nn.ring_attention, {}), (ht.nn.ulysses_attention, {}),
+                   (ht.nn.ulysses_attention, {"use_flash": True})):
+        grads = []
+        for dev in (card, torch.device("cpu")):
+            ts = [torch.from_numpy(x).to(dev).requires_grad_() for x in (q, k, v)]
+            (fn(*ts, causal=True, n_true=280, **kw) * torch.from_numpy(g).to(dev)).sum().backward()
+            grads.append([t.grad.cpu() for t in ts])
+        assert _rel3(*grads) <= 1e-5
+
+
+def test_data_parallel_on_the_card_matches_the_cpu(card):
+    import copy
+    import torch.nn.functional as F
+
+    torch.manual_seed(0)
+    model = torch.nn.Sequential(torch.nn.Conv2d(1, 4, 3, padding=1), torch.nn.ReLU(), torch.nn.Flatten(),
+                                torch.nn.Linear(4 * 8 * 8, 10))
+    rng = np.random.default_rng(1)
+    x = rng.standard_normal((32, 1, 8, 8)).astype(np.float32)
+    y = rng.integers(0, 10, 32)
+    losses = []
+    for dev in (card, torch.device("cpu")):
+        m = copy.deepcopy(model).to(dev)
+        dp = ht.nn.DataParallel(m, optimizer=ht.optim.Adam(m.parameters(), lr=1e-3))
+        losses.append([dp.step(lambda p, t: F.cross_entropy(p, t), torch.from_numpy(x).to(dev),
+                               torch.from_numpy(y).to(dev)) for _ in range(2)])
+    np.testing.assert_allclose(losses[0], losses[1], rtol=1e-5)
+    assert torch.backends.cudnn.allow_tf32 is False
