@@ -15,10 +15,10 @@ file, it exits non-zero before printing any result):
 1. device: the card's name and count, and nvidia-smi's name and power limit;
 2. build: every CUDA source under heat_tpu_torch/csrc, one nvcc each, at once
    (lloyd_phases.cu is K1 with its clock64() stamps compiled in);
-   ptxas's registers and spills of the five tensor-core kernels (lloyd,
-   syrk, fft_stage, fft_axis, flash_attn) and their count of HMMA
-   (mma.sync) and HGMMA (wgmma) instructions in the built SASS (where the
-   toolkit has cuobjdump; none fails the run);
+   ptxas's registers and spills of the six tensor-core kernels (lloyd,
+   syrk, fft_stage, fft_axis, flash_attn, flash_attn_bwd) and their count
+   of HMMA (mma.sync) and HGMMA (wgmma) instructions in the built SASS
+   (where the toolkit has cuobjdump; none fails the run);
 3. rng, threefry_check, kernel_check and lloyd_phases: seeded draws on the
    card bitwise equal to the host's; the threefry kernel bitwise equal to
    the plain hash (both words and the float32 uniform) at n = 1, 65539 and
@@ -101,17 +101,23 @@ seq 16384, 8 heads of 64, float32, causal):
 
 Then the training path, first at the same attention configuration:
 
-20. flash_bwd_check: the three backward kernels of flash attention (K7-bwd,
-    csrc/flash_attn_bwd.cu: di, dK/dV, dQ) against their plain versions on
-    the same inputs (the forward kernel's output and log-sum-exp) at that
-    shape and at ragged ones (s = 1, 63, 65, 1000; d = 16, 100, 128, 256;
-    n_true < s; causal and not; strided q, k, v) (max abs error over max
-    abs, over the three gradients, at most 5e-5), a bitwise repeat, the
-    gradient through the autograd Function at (4096, 4, 64), q as drawn and
-    scaled by 8, within 1e-4 of float64, the inputs it must refuse, and each
-    kernel's time beside its plain version's, its bound (bf16 at 989
-    TFLOP/s, as the TPU kernels count), its 3xTF32 and CUDA-core floors,
-    and the time of the backward of
+20. flash_bwd_check: the backward kernels of flash attention (K7-bwd,
+    csrc/flash_attn_bwd.cu: di, then dK/dV and dQ by each route -- tc, the
+    tensor cores in 3xTF32 after a pre-pass that splits q, k, v and do into
+    TF32 planes, for d <= 64; cuda_core, exact f32 FMAs, for any d) against
+    their plain versions on the same inputs (the forward kernel's output
+    and log-sum-exp) at that shape and at ragged ones (s = 1, 63, 65, 129,
+    1000; d = 16, 33, 64, 100, 128, 256; n_true < s; causal and not;
+    strided q, k, v; a stride-0 do), every route at every shape it takes
+    (max abs error over max abs, over the three gradients, at most 5e-5),
+    bitwise repeats, the pre-pass bitwise equal to its plain version, the
+    gradient at (4096, 4, 64), q as drawn and scaled by 8, through the
+    autograd Function and through each route within 1e-4 of float64, the
+    inputs it must refuse, and each kernel's time beside its plain
+    version's, its bound (bf16 at 989 TFLOP/s, as the TPU kernels count),
+    its 3xTF32 and CUDA-core floors, the other route's time in the same run
+    (timed in turns; the tc route's pre-pass, dkv and dq must beat the
+    cuda_core route's dkv and dq), and the time of the backward of
     ``torch.nn.functional.scaled_dot_product_attention``;
 21. train_attention: a user module (x of (16384, 512) -> q, k, v
     projections -> ulysses_attention(use_flash=True, causal=True) -> output
@@ -119,8 +125,8 @@ Then the training path, first at the same attention configuration:
     first step's parameter gradients against the same step through the
     plain forward and backward on the card (max abs error over max abs,
     over all parameters together, at most 1e-4), then 3 steps, K7 once
-    and each backward kernel once a step, the loss falling, the wall time
-    per step;
+    and di, the pre-pass and the tc route's dkv and dq once a step (the
+    cuda_core route never), the loss falling, the wall time per step;
 22. train_cnn: BASELINE config 4 (benchmarks/cb/nn.py): the MNIST CNN on
     synthetic_mnist(2048), batch 128, Adam(1e-3), softmax cross-entropy:
     the first step's loss against the same step on the CPU from the same
@@ -962,16 +968,15 @@ def attended_pairs(s: int, n_true: int, causal: bool) -> int:
     return n_true * n_true + pad * pad
 
 
-def flash_bwd_kernels(q, k, v, do, scale: float, causal: bool, n_true: int):
-    """The backward kernels on the forward kernel's output and log-sum-exp,
-    and their plain versions on the same inputs: (kernel, plain), each
-    (di, dq, dk, dv)."""
+def flash_bwd_kernels(q, k, v, do, scale: float, causal: bool, n_true: int, route: str):
+    """The backward kernels by ``route`` on the forward kernel's output and
+    log-sum-exp, and their plain versions on the same inputs: (kernel,
+    plain), each (di, dq, dk, dv)."""
     from heat_tpu_torch.nn import _flash
 
     out, lse = _flash._flash_cuda(q, k, v, scale, causal, n_true, with_lse=True)
     di = _flash._bwd_di_cuda(out, do)
-    dk, dv = _flash._bwd_dkv_cuda(q, k, v, do, lse, di, scale, causal, n_true)
-    dq = _flash._bwd_dq_cuda(q, k, v, do, lse, di, scale, causal, n_true)
+    dq, dk, dv = _flash._bwd_cuda(q, k, v, do, lse, di, scale, causal, n_true, route)
     pdi = _flash._bwd_di_plain(out, do)
     pdk, pdv = _flash._bwd_dkv_plain(q, k, v, do, lse, di, scale, causal, n_true)
     pdq = _flash._bwd_dq_plain(q, k, v, do, lse, di, scale, causal, n_true)
@@ -984,28 +989,51 @@ def grad_err(got, want) -> float:
     return err / max(float(b.double().abs().max()) for b in want)
 
 
-def compare_flash_bwd(q, k, v, do, scale: float, causal: bool, n_true: int) -> dict:
-    """K7-bwd against its plain versions on the same inputs: di, and dQ, dK,
-    dV together, within 5e-5 (max abs error over max abs), finite, and a
-    second launch of each kernel bitwise equal to the first."""
+def compare_flash_bwd(q, k, v, do, scale: float, causal: bool, n_true: int, route: str) -> dict:
+    """K7-bwd by ``route`` against its plain versions on the same inputs: di,
+    and dQ, dK, dV together, within 5e-5 (max abs error over max abs),
+    finite, and a second launch of each kernel bitwise equal to the first."""
     import torch
 
-    got, want = flash_bwd_kernels(q, k, v, do, scale, causal, n_true)
-    again, _ = flash_bwd_kernels(q, k, v, do, scale, causal, n_true)
+    got, want = flash_bwd_kernels(q, k, v, do, scale, causal, n_true, route)
+    again, _ = flash_bwd_kernels(q, k, v, do, scale, causal, n_true, route)
     torch.cuda.synchronize()
-    label = (f"s={q.shape[0]} h={q.shape[1]} d={q.shape[2]} n_true={n_true}{' causal' if causal else ''}"
-             f"{'' if q.is_contiguous() else ' strided'}")
+    strided = "" if q.is_contiguous() else " strided"
+    if 0 in do.stride():
+        strided += f" do strides {tuple(do.stride())}"
+    label = f"s={q.shape[0]} h={q.shape[1]} d={q.shape[2]} n_true={n_true}{' causal' if causal else ''}{strided}"
     di_rel, grads_rel = grad_err(got[:1], want[:1]), grad_err(got[1:], want[1:])
     finite = all(bool(torch.isfinite(t).all()) for t in got + want)
     if not finite or any(a.shape != b.shape for a, b in zip(got, want)) or max(di_rel, grads_rel) > 5e-5:
-        raise AssertionError(f"flash backward {label}: finite {finite}, di relative error {di_rel}, "
+        raise AssertionError(f"flash backward {label}, {route} route: finite {finite}, di relative error {di_rel}, "
                              f"dQ/dK/dV {grads_rel}")
     if not all(torch.equal(a, b) for a, b in zip(got, again)):
-        raise AssertionError(f"flash backward {label}: two launches on the same inputs differ")
-    return {"case": label, "di_rel_err": di_rel, "grads_rel_err": grads_rel,
+        raise AssertionError(f"flash backward {label}, {route} route: two launches on the same inputs differ")
+    return {"case": label, "route": route, "di_rel_err": di_rel, "grads_rel_err": grads_rel,
             "max_abs_err": {name: float((a.double() - b.double()).abs().max())
                             for name, a, b in zip(("di", "dq", "dk", "dv"), got, want)},
             "bitwise_repeat": True}
+
+
+def compare_bwd_prep(q, k, v, do) -> dict:
+    """The tc route's pre-pass against its plain version, on an lse and di
+    drawn for the purpose: bitwise equal (the TF32 split is exact integer
+    work on the bits, the rest copies), and a repeat too."""
+    import torch
+    from heat_tpu_torch.nn import _flash
+
+    lse, di = torch.randn(2, q.shape[1], q.shape[0], device=q.device)
+    got = _flash._bwd_prep_cuda(q, k, v, do, lse, di)
+    again = _flash._bwd_prep_cuda(q, k, v, do, lse, di)
+    want = _flash._bwd_prep_plain(q, k, v, do, lse, di)
+    torch.cuda.synchronize()
+    label = f"s={q.shape[0]} h={q.shape[1]} d={q.shape[2]}{'' if q.is_contiguous() else ' strided'}"
+    if 0 in do.stride():
+        label += f" do strides {tuple(do.stride())}"
+    if not (torch.equal(got.view(torch.int32), want.view(torch.int32)) and torch.equal(got, again)):
+        raise AssertionError(f"flash backward pre-pass {label}: {float((got - want).abs().max())} from its plain "
+                             f"version, or a repeat differs")
+    return {"case": label, "bitwise_equal_plain": True, "bitwise_repeat": True}
 
 
 def flash_bwd_check(dev, g, smi: str) -> list:
@@ -1021,64 +1049,99 @@ def flash_bwd_check(dev, g, smi: str) -> list:
     s, h, d = ATTN_SEQ, ATTN_HEADS, ATTN_HEAD_DIM
     scale = 1.0 / d**0.5
     q, k, v, do = (torch.randn(s, h, d, device=dev, generator=g) for _ in range(4))
-    checks = [compare_flash_bwd(q, k, v, do, scale, True, s)]
+    if _flash.bwd_route(s, h, d) != "tc":
+        raise AssertionError(f"the backward's gate picks the {_flash.bwd_route(s, h, d)} route at the main shape")
+    # every route at every shape it takes: tc at d <= 64, cuda_core at any d
+    checks = [compare_flash_bwd(q, k, v, do, scale, True, s, route) for route in ("tc", "cuda_core")]
+    prep = [compare_bwd_prep(q, k, v, do)]
     for rows, heads, dim, n_true in ((1, 1, 16, 1), (63, 2, 16, 60), (65, 3, 100, 65), (65, 3, 100, 30),
-                                     (1000, 2, 128, 937), (1000, 2, 256, 999), (1000, 1, 256, 500)):
+                                     (1000, 2, 128, 937), (1000, 2, 256, 999), (1000, 1, 256, 500),
+                                     (1000, 2, 64, 937), (129, 3, 33, 100)):
         ts = [torch.randn(rows, heads, dim, device=dev, generator=g) for _ in range(4)]
+        routes = ("tc", "cuda_core") if _flash.bwd_route(rows, heads, dim) == "tc" else ("cuda_core",)
         for causal in (False, True):
-            checks.append(compare_flash_bwd(*ts, 1.0 / dim**0.5, causal, n_true))
+            for route in routes:
+                checks.append(compare_flash_bwd(*ts, 1.0 / dim**0.5, causal, n_true, route))
     base = torch.randn(4, 2, 300, 64, device=dev, generator=g)  # (q, k, v, do) x (h, s, d): strided (s, h, d)
+    strided = [base[i].transpose(0, 1) for i in range(4)]
+    flat = torch.randn((), device=dev, generator=g).expand(300, 2, 64)  # autograd's gradient of a sum: stride 0
+    prep += [compare_bwd_prep(*strided), compare_bwd_prep(*strided[:3], flat)]
     for causal in (False, True):
-        checks.append(compare_flash_bwd(*(base[i].transpose(0, 1) for i in range(4)), 0.125, causal, 290))
-    # end to end through the autograd Function against float64, q as drawn
-    # and scaled by 8 (a peaked softmax)
+        for route in ("tc", "cuda_core"):
+            checks.append(compare_flash_bwd(*strided, 0.125, causal, 290, route))
+            checks.append(compare_flash_bwd(*strided[:3], flat, 0.125, causal, 290, route))
+    # end to end against float64, q as drawn and scaled by 8 (a peaked
+    # softmax): through the autograd Function (the route its gate picks,
+    # tc) and through each route's kernels
     qs, ks, vs, dos = (torch.randn(4096, 4, 64, device=dev, generator=g) for _ in range(4))
     for qm in (1.0, 8.0):
-        leaves = [t.clone().requires_grad_() for t in (qs * qm, ks, vs)]
-        _flash.flash_attention(*leaves, 0.125, True, 4096 - 37).backward(dos)
         w64 = [t.double() for t in (qs * qm, ks, vs, dos)]
         out64, lse64 = _flash._flash_plain(*w64[:3], 0.125, True, 4096 - 37, with_lse=True)
         di64 = _flash._bwd_di_plain(out64, w64[3])
         dk64, dv64 = _flash._bwd_dkv_plain(*w64, lse64, di64, 0.125, True, 4096 - 37)
         dq64 = _flash._bwd_dq_plain(*w64, lse64, di64, 0.125, True, 4096 - 37)
-        rel = grad_err([t.grad for t in leaves], (dq64, dk64, dv64))
-        if rel > 1e-4:
-            raise AssertionError(f"flash gradient at (4096, 4, 64), q x {qm}: {rel} from float64")
-        checks.append({"case": "s=4096 h=4 d=64 n_true=4059 causal, autograd Function", "q_scaled_by": qm,
-                       "grads_rel_err_vs_float64": rel})
-    del qs, ks, vs, dos, leaves, w64, out64, lse64, di64, dk64, dv64, dq64
+        leaves = [t.clone().requires_grad_() for t in (qs * qm, ks, vs)]
+        _flash.flash_attention(*leaves, 0.125, True, 4096 - 37).backward(dos)
+        ways = {"autograd Function": [t.grad for t in leaves]}
+        for route in ("tc", "cuda_core"):
+            (_, *grads), _ = flash_bwd_kernels(qs * qm, ks, vs, dos, 0.125, True, 4096 - 37, route)
+            ways[f"{route} route"] = grads
+        for way, grads in ways.items():
+            rel = grad_err(grads, (dq64, dk64, dv64))
+            if rel > 1e-4:
+                raise AssertionError(f"flash gradient at (4096, 4, 64), q x {qm}, {way}: {rel} from float64")
+            checks.append({"case": f"s=4096 h=4 d=64 n_true=4059 causal, {way}", "q_scaled_by": qm,
+                           "grads_rel_err_vs_float64": rel})
+    del qs, ks, vs, dos, leaves, w64, out64, lse64, di64, dk64, dv64, dq64, ways, base, strided, flat
+    if {c.get("route") for c in checks if "route" in c} != {"tc", "cuda_core"}:
+        raise AssertionError("the K7-bwd checks did not cover both routes")
     for c in checks:
         emit({"phase": "flash_bwd_check", "kernel": "flash_attn_bwd", **c})
+    for c in prep:
+        emit({"phase": "flash_bwd_check", "kernel": "flash_attn_bwd_prep", **c})
     refused = []
     x = torch.zeros(16, 2, 8, device=dev)
-    for what, args, err in (("float64", [x.double()] * 3, TypeError),
-                            ("d = 257", [torch.zeros(4, 1, 257, device=dev)] * 3, ValueError)):
+    for what, call, err in (
+            ("float64", lambda: _flash.flash_attention(*(x.double().requires_grad_() for _ in range(3)), 1.0, False,
+                                                       4).sum().backward(), TypeError),
+            ("d = 257", lambda: _flash.flash_attention(*(torch.zeros(4, 1, 257, device=dev).requires_grad_()
+                                                         for _ in range(3)), 1.0, False, 4).sum().backward(),
+             ValueError),
+            ("tc route, d = 65", lambda: _flash._bwd_prep_cuda(*[torch.zeros(4, 1, 65, device=dev)] * 4,
+                                                               *torch.zeros(2, 1, 4, device=dev)), ValueError)):
         try:
-            _flash.flash_attention(*(a.clone().requires_grad_() for a in args), 1.0, False, 4).sum().backward()
+            call()
         except err:
             refused.append(what)
         else:
-            raise AssertionError(f"the flash kernels took a {what} input for a gradient")
+            raise AssertionError(f"the flash kernels took {what} for a gradient")
     emit({"phase": "flash_bwd_check", "kernel": "flash_attn_bwd", "refused": refused})
 
     # times at the main path's shape, beside the bounds and the library's backward
     out, lse = _flash._flash_cuda(q, k, v, scale, True, s, with_lse=True)
     di = _flash._bwd_di_cuda(out, do)
+    planes = _flash._bwd_prep_cuda(q, k, v, do, lse, di)
     pairs = attended_pairs(s, s, True)
     product = 2 * pairs * d * h
     io = 4 * s * h * d  # bytes of one (s, h, d) float32 tensor
-    runs = {
+    jax_op = "jax/experimental/pallas/ops/tpu/flash_attention.py"
+    runs = {  # name: kernel, plain, library, bytes, flops, library call, replaces
         "di": (lambda: _flash._bwd_di_cuda(out, do), lambda: _flash._bwd_di_plain(out, do),
                lambda: torch.einsum("qhd,qhd->hq", out, do), 2 * io + 4 * h * s, 2 * s * h * d,
-               "torch.einsum('qhd,qhd->hq', o, do)", "flash_attention.py:271 (di in _flash_attention_bwd, "
-               "outside the kernels)"),
-        "dkv": (lambda: _flash._bwd_dkv_cuda(q, k, v, do, lse, di, scale, True, s),
+               "torch.einsum('qhd,qhd->hq', o, do)", f"{jax_op}:271 (di in _flash_attention_bwd, outside the kernels)"),
+        "prep": (lambda: _flash._bwd_prep_cuda(q, k, v, do, lse, di),
+                 lambda: _flash._bwd_prep_plain(q, k, v, do, lse, di), None, 4 * io + 8 * h * s + 4 * planes.numel(), 0,
+                 None,
+                 f"{jax_op}:941 and :1287 (the tc route's operand planes of _flash_attention_bwd_dkv and _dq)"),
+        "dkv": (lambda: _flash._bwd_dkv_cuda(q, k, v, do, lse, di, scale, True, s, "tc", planes),
                 lambda: _flash._bwd_dkv_plain(q, k, v, do, lse, di, scale, True, s), None,
-                6 * io + 8 * h * s, 4 * product, None, "flash_attention.py:941 (_flash_attention_bwd_dkv)"),
-        "dq": (lambda: _flash._bwd_dq_cuda(q, k, v, do, lse, di, scale, True, s),
+                6 * io + 8 * h * s, 4 * product, None, f"{jax_op}:941 (_flash_attention_bwd_dkv)"),
+        "dq": (lambda: _flash._bwd_dq_cuda(q, k, v, do, lse, di, scale, True, s, "tc", planes),
                lambda: _flash._bwd_dq_plain(q, k, v, do, lse, di, scale, True, s), None,
-               5 * io + 8 * h * s, 3 * product, None, "flash_attention.py:1287 (_flash_attention_bwd_dq)"),
+               5 * io + 8 * h * s, 3 * product, None, f"{jax_op}:1287 (_flash_attention_bwd_dq)"),
     }
+    cuda_core = {"dkv": lambda: _flash._bwd_dkv_cuda(q, k, v, do, lse, di, scale, True, s, "cuda_core"),
+                 "dq": lambda: _flash._bwd_dq_cuda(q, k, v, do, lse, di, scale, True, s, "cuda_core")}
     qt, kt, vt = (t.permute(1, 0, 2).contiguous()[None].requires_grad_() for t in (q, k, v))
     dot = do.permute(1, 0, 2).contiguous()[None]
     backend = "efficient_attention"
@@ -1093,32 +1156,63 @@ def flash_bwd_check(dev, g, smi: str) -> list:
         o_sdpa = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
         sdpa_bwd_ms = time_ms(lambda: torch.autograd.grad(o_sdpa, (qt, kt, vt), dot, retain_graph=True), reps=10)
     del qt, kt, vt, dot, o_sdpa
+    routed = [c for c in checks if "max_abs_err" in c]
+    max_abs = {"di": max(c["max_abs_err"]["di"] for c in routed), "prep": 0.0}
+    for route in ("tc", "cuda_core"):
+        cs = [c for c in routed if c["route"] == route]
+        max_abs[f"dkv_{route}"] = max(max(c["max_abs_err"]["dk"], c["max_abs_err"]["dv"]) for c in cs)
+        max_abs[f"dq_{route}"] = max(c["max_abs_err"]["dq"] for c in cs)
     entries = []
-    max_abs = {"di": max(c["max_abs_err"]["di"] for c in checks if "max_abs_err" in c),
-               "dkv": max(max(c["max_abs_err"]["dk"], c["max_abs_err"]["dv"]) for c in checks if "max_abs_err" in c),
-               "dq": max(c["max_abs_err"]["dq"] for c in checks if "max_abs_err" in c)}
     for name, (kernel, plain, library, nbytes, flops, library_call, replaces) in runs.items():
-        kernel_ms = time_ms(kernel, reps=10 if name == "di" else 5)
+        key = f"{name}_tc" if name in cuda_core else name
+        # the tc route and the cuda_core route in turns (tc, cuda_core, cuda_core, tc)
+        kernel_ms = time_ms(kernel, reps=10 if name in ("di", "prep") else 5)
+        other = None
+        if name in cuda_core:
+            other_ms = time_ms(cuda_core[name], reps=5)
+            other_ms = (other_ms + time_ms(cuda_core[name], reps=5)) / 2
+            kernel_ms = (kernel_ms + time_ms(kernel, reps=5)) / 2
+            other = {"route": "cuda_core", "ms": other_ms, "max_abs_err": max_abs[f"{name}_cuda_core"],
+                     "launches": None}
         plain_ms = time_ms(plain, reps=3, warmup=1)
         library_ms = time_ms(library, reps=10) if library is not None else None
         bound_ms, bound_by = bound(nbytes, flops)
-        emit({"phase": "flash_bwd_check", "kernel": f"flash_attn_bwd_{name}", "shape": [s, h, d], "causal": True,
-              "ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-              "share_of_bound": bound_ms / kernel_ms, "tf32x3_floor_ms": 3 * flops / TF32_FLOPS * 1e3,
-              "cuda_core_floor_ms": flops / F32_FLOPS * 1e3, "library_ms": library_ms,
-              "library_call": library_call or "none: no single PyTorch call computes this part of the backward",
-              "sdpa_backward_ms": sdpa_bwd_ms,
-              "sdpa_backward_call": f"torch.autograd.grad of scaled_dot_product_attention, is_causal, float32, "
-                                    f"{backend}: the whole backward", "card": smi})
-        entries.append({"name": f"flash_attn_bwd_{name}", "route": "cuda",
-                        "source": "heat_tpu_torch/csrc/flash_attn_bwd.cu",
-                        "replaces": f"jax/experimental/pallas/ops/tpu/{replaces}", "launches": None,
-                        "max_abs_err": max_abs[name], "ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-                        "bound_by": bound_by, "library_ms": library_ms})
+        line = {"phase": "flash_bwd_check", "kernel": f"flash_attn_bwd_{name}", "shape": [s, h, d], "causal": True,
+                "route": "tc" if name in cuda_core else None, "ms": kernel_ms, "plain_ms": plain_ms,
+                "bound_ms": bound_ms, "bound_by": bound_by, "share_of_bound": bound_ms / kernel_ms,
+                "tf32x3_floor_ms": 3 * flops / TF32_FLOPS * 1e3, "cuda_core_floor_ms": flops / F32_FLOPS * 1e3,
+                "library_ms": library_ms,
+                "library_call": library_call or "none: no single PyTorch call computes this part of the backward",
+                "sdpa_backward_ms": sdpa_bwd_ms,
+                "sdpa_backward_call": f"torch.autograd.grad of scaled_dot_product_attention, is_causal, float32, "
+                                      f"{backend}: the whole backward", "card": smi}
+        if other is not None:
+            line["cuda_core_route_ms"] = other["ms"]
+        emit(line)
+        entry = {"name": f"flash_attn_bwd_{name}", "route": "cuda", "source": "heat_tpu_torch/csrc/flash_attn_bwd.cu",
+                 "replaces": replaces, "launches": None, "launch_key": key, "max_abs_err": max_abs[key],
+                 "ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+                 "library_ms": library_ms}
+        if other is not None:
+            entry["kernel_route"] = "tc"
+            entry["cuda_core_route"] = other
+        entries.append(entry)
+    del planes
+    tc_ms = sum(e["ms"] for e in entries if e["name"] != "flash_attn_bwd_di")
+    cc_ms = sum(e["cuda_core_route"]["ms"] for e in entries if "cuda_core_route" in e)
+    if not tc_ms < cc_ms:
+        raise AssertionError(f"the tc route's pre-pass, dkv and dq take {tc_ms} ms, the cuda_core route's {cc_ms}")
     emit({"phase": "flash_bwd_check", "kernel": "flash_attn_bwd", "shape": [s, h, d], "causal": True,
-          "kernels_ms": sum(e["ms"] for e in entries), "sdpa_backward_ms": sdpa_bwd_ms, "card": smi,
-          "phase_seconds": time.perf_counter() - t0})
+          "tc_route_ms": tc_ms, "cuda_core_route_ms": cc_ms, "di_ms": entries[0]["ms"],
+          "sdpa_backward_ms": sdpa_bwd_ms, "card": smi, "phase_seconds": time.perf_counter() - t0})
     return entries
+
+
+def _bwd_plain(q, k, v, do, lse, di, scale, causal, n_true, route=None):
+    from heat_tpu_torch.nn import _flash
+
+    dk, dv = _flash._bwd_dkv_plain(q, k, v, do, lse, di, scale, causal, n_true)
+    return _flash._bwd_dq_plain(q, k, v, do, lse, di, scale, causal, n_true), dk, dv
 
 
 class _PlainFlash:
@@ -1126,14 +1220,13 @@ class _PlainFlash:
     and backward on the card (the reference for the training step's
     gradients); the kernels' wrappers are put back on the way out."""
 
-    names = ("_flash_cuda", "_bwd_di_cuda", "_bwd_dkv_cuda", "_bwd_dq_cuda")
+    names = ("_flash_cuda", "_bwd_di_cuda", "_bwd_cuda")
 
     def __enter__(self):
         from heat_tpu_torch.nn import _flash
 
         self.saved = {n: getattr(_flash, n) for n in self.names}
-        for n, plain in zip(self.names, (_flash._flash_plain, _flash._bwd_di_plain, _flash._bwd_dkv_plain,
-                                         _flash._bwd_dq_plain)):
+        for n, plain in zip(self.names, (_flash._flash_plain, _flash._bwd_di_plain, _bwd_plain)):
             setattr(_flash, n, plain)
 
     def __exit__(self, *exc):
@@ -1143,10 +1236,11 @@ class _PlainFlash:
             setattr(_flash, n, fn)
 
 
-def train_attention(dev, smi: str) -> int:
+def train_attention(dev, smi: str) -> dict:
     """Phase train_attention: a user's attention module in DataParallel with
     Adam, three steps on the card.  Returns the steps' launches of each
-    backward kernel (one a step)."""
+    backward kernel by route (one a step of di, the pre-pass and the tc
+    route's dkv and dq: the gate's route at this shape)."""
     import torch
     import torch.nn.functional as F
     import heat_tpu_torch as ht
@@ -1195,9 +1289,10 @@ def train_attention(dev, smi: str) -> int:
         torch.cuda.synchronize()
         step_ms.append((time.perf_counter() - t1) * 1e3)
     fwd, bwd = _flash.FLASH_LAUNCHES, dict(_flash.FLASH_BWD_LAUNCHES)
-    if fwd != 3 or any(n != 3 for n in bwd.values()) or other_launches():
+    want = {"di": 3, "prep": 3, "dkv_tc": 3, "dq_tc": 3, "dkv_cuda_core": 0, "dq_cuda_core": 0}
+    if fwd != 3 or bwd != want or other_launches():
         raise AssertionError(f"train_attention: 3 steps launched K7 {fwd} times, the backward kernels {bwd} and "
-                             f"{other_launches()} others; K7 and each backward kernel once a step")
+                             f"{other_launches()} others; K7 and each backward kernel of the tc route once a step")
     if not all(l == l and l < float("inf") for l in losses) or not losses[-1] < losses[0]:
         raise AssertionError(f"train_attention: the loss did not fall: {losses}")
     emit({"phase": "train_attention", "x": [ATTN_SEQ, width], "heads": heads, "causal": True,
@@ -1207,7 +1302,7 @@ def train_attention(dev, smi: str) -> int:
           "flash_launches": fwd, "flash_bwd_launches": bwd, "card": smi, "phase_seconds": time.perf_counter() - t0})
     del dp, model, x, target
     torch.cuda.empty_cache()
-    return bwd["dkv"]
+    return bwd
 
 
 def train_cnn(dev, smi: str) -> None:
@@ -1266,10 +1361,10 @@ def train_cnn(dev, smi: str) -> None:
 
 
 def tensor_core_report(build) -> dict:
-    """ptxas's report (registers, spills) of the five tensor-core kernels,
+    """ptxas's report (registers, spills) of the six tensor-core kernels,
     and their count of tensor-core instructions in the built SASS -- HMMA
     (mma.sync: lloyd's tc route, fft_axis) and HGMMA (wgmma: syrk,
-    fft_stage, flash_attn) --
+    fft_stage, flash_attn, flash_attn_bwd's tc route) --
     which shows that the tensor cores are used (null where the toolkit has
     no cuobjdump; a kernel without any fails the run)."""
     import os
@@ -1278,7 +1373,7 @@ def tensor_core_report(build) -> dict:
     cuobjdump = shutil.which("cuobjdump") or os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin",
                                                           "cuobjdump")
     report = {"ptxas_tensor_core_kernels": {}, "tensor_core_sass_instructions": {}}
-    for name in ("lloyd", "syrk", "fft_stage", "fft_axis", "flash_attn"):
+    for name in ("lloyd", "syrk", "fft_stage", "fft_axis", "flash_attn", "flash_attn_bwd"):
         log = build.BUILD_LOGS.get(name, "")
         report["ptxas_tensor_core_kernels"][name] = [ln.strip() for ln in log.splitlines()
                                                      if "registers" in ln or "spill" in ln or "Compiling entry" in ln]
@@ -1609,7 +1704,9 @@ def main() -> int:
     # 21.-22. the training path through the entry points a user calls
     bwd_launches = train_attention(dev, smi)
     for e in flash_bwd:
-        e["launches"] = bwd_launches
+        e["launches"] = bwd_launches[e.pop("launch_key")]
+        if "cuda_core_route" in e:
+            e["cuda_core_route"]["launches"] = bwd_launches[f"{e['name'].rsplit('_', 1)[1]}_cuda_core"]
     train_cnn(dev, smi)
 
     emit({"kernels": [lloyd, threefry, gram, *fft_entries, flash, *flash_bwd]})

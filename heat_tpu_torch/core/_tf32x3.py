@@ -2,8 +2,8 @@
 operations on the float32 bits.
 
 The hand-written kernels K2 (``csrc/syrk.cu``), K3/K4 (``csrc/fft_stage.cu``),
-K6 (``csrc/fft_axis.cu``) and K7 (``csrc/flash_attn.cu``) multiply on the
-tensor cores in 3xTF32: each float32 operand x is split into
+K6 (``csrc/fft_axis.cu``), K7 (``csrc/flash_attn.cu``) and K7-bwd's tc route
+(``csrc/flash_attn_bwd.cu``) multiply on the tensor cores in 3xTF32: each float32 operand x is split into
 ``big = rna(x)`` and ``small = rna(x - big)``, both exact in TF32 (10
 mantissa bits), and a product ``a b`` is taken as
 ``a_small b_big + a_big b_small + a_big b_big`` (the small x small term,
@@ -13,7 +13,8 @@ products of two TF32 values are exact in float32, so a full-float32 matmul
 of the split operands gives the same terms.  K1's tc route
 (``csrc/lloyd.cu``) takes its one-hot products over three planes instead
 (:func:`tf32_split`, by truncation), which hold a float32 exactly.  Nothing on the kernels'
-path calls this module.
+path calls this module; the plain version of K7-bwd's pre-pass
+(``nn/_flash.py::_bwd_prep_plain``) splits with :func:`tf32_rna`.
 """
 
 from __future__ import annotations

@@ -1,6 +1,7 @@
 // 3xTF32 products on Hopper's tensor cores, and the cp.async copies that feed
 // them: the helpers shared by fft_stage.cu (K3/K4, wgmma), fft_axis.cu (K6,
-// mma.sync), flash_attn.cu (K7, wgmma) and syrk.cu (K2, wgmma).
+// mma.sync), flash_attn.cu (K7, wgmma), flash_attn_bwd.cu (K7-bwd's tc
+// route, wgmma) and syrk.cu (K2, wgmma).
 //
 // 3xTF32: a float x is split into big = rna_tf32(x) and small =
 // rna_tf32(x - big), each exact in TF32 (10 mantissa bits).  A product a b is

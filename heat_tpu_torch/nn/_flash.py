@@ -14,9 +14,13 @@ only there, it runs :func:`_flash_plain`.  Where a gradient is wanted it
 goes through :class:`_FlashAttention`, the counterpart of JAX's
 ``_flash_attention`` ``custom_vjp``: the forward also keeps each row's
 log-sum-exp (one float32 per query and head, where JAX keeps ``l`` and
-``m``), and the backward runs the three passes of ``csrc/flash_attn_bwd.cu``
-in JAX's order -- ``di = rowsum(o * do)``, dK/dV, then dQ -- or, on the CPU,
-their plain versions, written out blockwise the same way.
+``m``), and the backward runs the passes of ``csrc/flash_attn_bwd.cu`` in
+JAX's order -- ``di = rowsum(o * do)``, dK/dV, then dQ -- or, on the CPU,
+their plain versions, written out blockwise the same way.  dK/dV and dQ take
+one of two routes, chosen by shape in :func:`bwd_route`: ``"tc"`` (d <= 64:
+a pre-pass splits q, k, v and do into TF32 planes, then both kernels
+multiply on the tensor cores in 3xTF32) or ``"cuda_core"`` (64 < d <= 256:
+exact float32 FMAs on the CUDA cores).
 """
 
 from __future__ import annotations
@@ -29,22 +33,28 @@ import torch
 from ..core import _build
 from ..core.linalg.basics import full_f32_matmul
 
-__all__ = ["FLASH_BWD_LAUNCHES", "FLASH_LAUNCHES", "flash_attention", "flash_unsupported"]
+__all__ = ["FLASH_BWD_LAUNCHES", "FLASH_LAUNCHES", "bwd_route", "flash_attention", "flash_unsupported"]
 
 #: launches of the CUDA flash-attention kernel in this process (the plain version adds nothing)
 FLASH_LAUNCHES = 0
-#: launches of each CUDA backward kernel (di, dkv, dq) in this process; one backward launches each once
-FLASH_BWD_LAUNCHES = {"di": 0, "dkv": 0, "dq": 0}
+#: launches of each CUDA backward kernel in this process, dK/dV and dQ by route: one backward launches
+#: di once, and prep, dkv_tc and dq_tc (tc route) or dkv_cuda_core and dq_cuda_core once each
+FLASH_BWD_LAUNCHES = {"di": 0, "prep": 0, "dkv_tc": 0, "dq_tc": 0, "dkv_cuda_core": 0, "dq_cuda_core": 0}
 
 _MAX_HEAD_DIM = 256  # widest head flash_attn.cu holds: Q's planes and a ring of three 32 KB items fill 224 KB
 _TILE = 32  # the shortest tile of a block of either direction (flash_attn_bwd.cu's keys at d > 128)
 _MAX_BLOCKS = (1 << 31) - 1  # the grid's x extent
+_MAX_HEADS = 65535  # the grid's y extent: flash_prep and flash_bwd_prep launch a row of blocks per head
 _PLAIN_SCORES = 1 << 26  # scores per query block of the plain versions (256 MB in float32)
+_TC_MAX_HEAD_DIM = 64  # the backward's tc route holds d <= 64, padded to 64 (flash_attn_bwd.cu kTcD)
+_TC_ROWS = 128  # rows a tc block owns; the planes' rows are s rounded up to it (kTcBlockRows)
+_TC_PLANES = 14  # q, k, v, do natural and q, k, do transposed, big and small (2 kPlanes)
+_TC_TILE = 64 * 64  # floats of a plane's tile (kTile)
 
 
 def flash_unsupported(s: int, h: int, d: int, dtype) -> Optional[str]:
     """Why the CUDA kernels (forward and backward) cannot take (s, h, d)
-    tensors of ``dtype``, or None: they take float32, any s >= 1 and h >= 1,
+    tensors of ``dtype``, or None: they take float32, s >= 1, 1 <= h <= 65535
     and 1 <= d <= 256."""
     if dtype != torch.float32:
         return f"takes float32, got {dtype}"
@@ -54,7 +64,17 @@ def flash_unsupported(s: int, h: int, d: int, dtype) -> Optional[str]:
         return f"takes a head dimension of 1 to {_MAX_HEAD_DIM}, got d={d}"
     if -(-s // _TILE) * h > _MAX_BLOCKS:
         return f"launches one block per {_TILE} rows and head, at most {_MAX_BLOCKS}; s={s}, h={h}"
+    if h > _MAX_HEADS:
+        return f"launches its pre-passes with one grid row per head, at most {_MAX_HEADS}; h={h}"
     return None
+
+
+def bwd_route(s: int, h: int, d: int) -> str:
+    """The route of the backward's dK/dV and dQ kernels for (s, h, d)
+    tensors that :func:`flash_unsupported` takes: ``"tc"`` for d <= 64 (the
+    tensor cores in 3xTF32), ``"cuda_core"`` for wider heads (exact float32
+    FMAs), which the tc route's one 64-column warpgroup tile does not hold."""
+    return "tc" if d <= _TC_MAX_HEAD_DIM else "cuda_core"
 
 
 # ----------------------------------------------------------------------
@@ -146,6 +166,54 @@ def _bwd_dq_plain(q, k, v, do, lse, di, scale: float, causal: bool, n_true: int)
     return dq.to(q.dtype)
 
 
+def _perm8(n: int) -> torch.Tensor:
+    """Row perm8(p) of each group of 8 at position p: (p % 4) * 2 + p // 4
+    (flash_attn_bwd.cu's perm8)."""
+    p = torch.arange(n)
+    return (p & ~7) | ((p & 3) << 1) | ((p & 7) >> 2)
+
+
+def _tile_order() -> tuple:
+    """(row, depth) of each float of a 64 x 64 tile laid out for the
+    kernels' wgmma descriptors (flash_attn_bwd.cu's tile_row and tile_col,
+    the inverse of tf32x3.cuh's cm_off / 4)."""
+    e = torch.arange(_TC_TILE)
+    return ((e >> 6) & 7) * 8 + ((e >> 2) & 7), ((e >> 9) & 7) * 8 + ((e >> 5) & 1) * 4 + (e & 3)
+
+
+def _bwd_prep_plain(q, k, v, do, lse, di) -> torch.Tensor:
+    """The tc route's pre-pass: a flat float32 tensor of 14 planes of h sp
+    64 floats (sp = s rounded up to 128; zeros past s and d), each a TF32
+    big part then its small part (``core/_tf32x3.py``), of q, k, v, do
+    natural (rows x depths) and q, k, do transposed (depths x rows, position
+    p of each group of 8 rows holding row perm8(p)); each plane as (h, sp /
+    64) tiles of 64 rows (or depths) x 64 depths (or rows) in the order
+    :func:`_tile_order` gives; then lse and di as (h, sp), zeros past s."""
+    from ..core._tf32x3 import tf32_rna
+
+    s, h, d = q.shape
+    sp = -(-s // _TC_ROWS) * _TC_ROWS
+    nt, w = sp // _TC_MAX_HEAD_DIM, _TC_MAX_HEAD_DIM
+    rows, cols = (i.to(q.device) for i in _tile_order())
+    perm = _perm8(sp).to(q.device)
+    out = torch.zeros((_TC_PLANES * h * sp * w + 2 * h * sp,), dtype=torch.float32, device=q.device)
+    planes = out[: _TC_PLANES * h * sp * w].view(_TC_PLANES, h, nt, _TC_TILE)
+    for i, x in enumerate((q, k, v, do, q, k, do)):
+        xp = torch.zeros((h, sp, w), dtype=torch.float32, device=q.device)
+        xp[:, :s, :d] = x.permute(1, 0, 2)
+        if i < 4:
+            tiles = xp.view(h, nt, w, w)  # (head, tile, row, depth)
+        else:
+            tiles = xp[:, perm].view(h, nt, w, w).transpose(2, 3)  # (head, tile, depth, position)
+        flat = tiles[:, :, rows, cols].contiguous()
+        planes[2 * i] = big = tf32_rna(flat)
+        planes[2 * i + 1] = tf32_rna(flat - big)
+    pad = out[_TC_PLANES * h * sp * w:].view(2, h, sp)
+    pad[0, :, :s] = lse
+    pad[1, :, :s] = di
+    return out
+
+
 # ----------------------------------------------------------------------
 # the CUDA kernels
 # ----------------------------------------------------------------------
@@ -176,7 +244,14 @@ def _bwd_lib() -> ctypes.CDLL:
         tail = [ctypes.c_int64] * 3 + [ctypes.c_void_p, ctypes.c_float, ctypes.c_int64, ctypes.c_int, ctypes.c_void_p]
         lib.heat_flash_bwd_dkv.argtypes = [ctypes.c_void_p] * 8 + tail
         lib.heat_flash_bwd_dq.argtypes = [ctypes.c_void_p] * 7 + tail
-        for fn in (lib.heat_flash_bwd_di, lib.heat_flash_bwd_dkv, lib.heat_flash_bwd_dq):
+        lib.heat_flash_bwd_tc_scratch.argtypes = [ctypes.c_int64] * 2
+        lib.heat_flash_bwd_tc_scratch.restype = ctypes.c_int64
+        lib.heat_flash_bwd_prep.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int64] * 3 + [ctypes.c_void_p] * 3
+        tc_tail = [ctypes.c_int64] * 3 + [ctypes.c_float, ctypes.c_int64, ctypes.c_int, ctypes.c_void_p]
+        lib.heat_flash_bwd_dkv_tc.argtypes = [ctypes.c_void_p] * 3 + tc_tail
+        lib.heat_flash_bwd_dq_tc.argtypes = [ctypes.c_void_p] * 4 + tc_tail
+        for fn in (lib.heat_flash_bwd_di, lib.heat_flash_bwd_dkv, lib.heat_flash_bwd_dq, lib.heat_flash_bwd_prep,
+                   lib.heat_flash_bwd_dkv_tc, lib.heat_flash_bwd_dq_tc):
             fn.restype = ctypes.c_int
         _BWD_LIB = lib
     return _BWD_LIB
@@ -234,33 +309,91 @@ def _strides(*ts):
     return (ctypes.c_int64 * len(flat))(*flat)
 
 
-def _bwd_dkv_cuda(q, k, v, do, lse, di, scale: float, causal: bool, n_true: int):
-    """csrc/flash_attn_bwd.cu's flash_bwd_dkv: dK and dV, contiguous."""
+def _route(q, route: Optional[str]) -> str:
+    """``route``, or the one :func:`bwd_route` picks; raises where the tc
+    route cannot take d."""
     s, h, d = q.shape
+    fits = bwd_route(s, h, d)
+    if route is None:
+        return fits
+    if route not in ("tc", "cuda_core"):
+        raise ValueError(f"the flash-attention backward has the routes tc and cuda_core, not {route!r}")
+    if route == "tc" and fits != "tc":
+        raise ValueError(f"the flash-attention backward's tc route takes d <= {_TC_MAX_HEAD_DIM}, got d={d}")
+    return route
+
+
+def _bwd_prep_cuda(q, k, v, do, lse, di) -> torch.Tensor:
+    """csrc/flash_attn_bwd.cu's flash_bwd_prep: the tc route's TF32 planes
+    of q, k, v and do and its padded lse and di, as :func:`_bwd_prep_plain`
+    lays them out, in a scratch tensor of (14 * 64 + 2) h sp floats (sp = s
+    rounded up to 128): 0.47 GB at (16384, 8, 64).  The backward frees it
+    when it returns."""
+    s, h, d = q.shape
+    _route(q, "tc")
+    lib = _bwd_lib()
+    planes = torch.empty((lib.heat_flash_bwd_tc_scratch(s, h),), dtype=torch.float32, device=q.device)
+    with torch.cuda.device(q.device):
+        err = lib.heat_flash_bwd_prep(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
+                                      di.data_ptr(), s, h, d, _strides(q, k, v, do), planes.data_ptr(), _stream(q))
+    _check(err, "flash-attention backward (prep)")
+    FLASH_BWD_LAUNCHES["prep"] += 1
+    return planes
+
+
+def _bwd_dkv_cuda(q, k, v, do, lse, di, scale: float, causal: bool, n_true: int, route: str,
+                  planes: Optional[torch.Tensor] = None):
+    """dK and dV, contiguous, by ``route``: csrc/flash_attn_bwd.cu's
+    flash_bwd_dkv_tc on the pre-pass's ``planes``, or flash_bwd_dkv."""
+    s, h, d = q.shape
+    route = _route(q, route)
     dk = torch.empty((s, h, d), dtype=torch.float32, device=q.device)
     dv = torch.empty_like(dk)
+    lib = _bwd_lib()
     with torch.cuda.device(q.device):
-        err = _bwd_lib().heat_flash_bwd_dkv(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(), di.data_ptr(), dk.data_ptr(),
-            dv.data_ptr(), s, h, d, _strides(q, k, v, do), scale, n_true, int(causal), _stream(q),
-        )
-    _check(err, "flash-attention backward (dkv)")
-    FLASH_BWD_LAUNCHES["dkv"] += 1
+        if route == "tc":
+            err = lib.heat_flash_bwd_dkv_tc(planes.data_ptr(), dk.data_ptr(), dv.data_ptr(), s, h, d, scale, n_true,
+                                            int(causal), _stream(q))
+        else:
+            err = lib.heat_flash_bwd_dkv(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(), di.data_ptr(),
+                dk.data_ptr(), dv.data_ptr(), s, h, d, _strides(q, k, v, do), scale, n_true, int(causal), _stream(q),
+            )
+    _check(err, f"flash-attention backward (dkv, {route} route)")
+    FLASH_BWD_LAUNCHES[f"dkv_{route}"] += 1
     return dk, dv
 
 
-def _bwd_dq_cuda(q, k, v, do, lse, di, scale: float, causal: bool, n_true: int) -> torch.Tensor:
-    """csrc/flash_attn_bwd.cu's flash_bwd_dq: dQ, contiguous."""
+def _bwd_dq_cuda(q, k, v, do, lse, di, scale: float, causal: bool, n_true: int, route: str,
+                 planes: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """dQ, contiguous, by ``route``: csrc/flash_attn_bwd.cu's
+    flash_bwd_dq_tc on the pre-pass's ``planes``, or flash_bwd_dq."""
     s, h, d = q.shape
+    route = _route(q, route)
     dq = torch.empty((s, h, d), dtype=torch.float32, device=q.device)
+    lib = _bwd_lib()
     with torch.cuda.device(q.device):
-        err = _bwd_lib().heat_flash_bwd_dq(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(), di.data_ptr(), dq.data_ptr(),
-            s, h, d, _strides(q, k, v, do), scale, n_true, int(causal), _stream(q),
-        )
-    _check(err, "flash-attention backward (dq)")
-    FLASH_BWD_LAUNCHES["dq"] += 1
+        if route == "tc":
+            err = lib.heat_flash_bwd_dq_tc(planes.data_ptr(), lse.data_ptr(), di.data_ptr(), dq.data_ptr(), s, h, d,
+                                           scale, n_true, int(causal), _stream(q))
+        else:
+            err = lib.heat_flash_bwd_dq(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(), di.data_ptr(),
+                dq.data_ptr(), s, h, d, _strides(q, k, v, do), scale, n_true, int(causal), _stream(q),
+            )
+    _check(err, f"flash-attention backward (dq, {route} route)")
+    FLASH_BWD_LAUNCHES[f"dq_{route}"] += 1
     return dq
+
+
+def _bwd_cuda(q, k, v, do, lse, di, scale: float, causal: bool, n_true: int, route: Optional[str] = None):
+    """dQ, dK, dV by the route :func:`bwd_route` picks or by ``route``; the
+    tc route's pre-pass runs once for both kernels."""
+    route = _route(q, route)
+    planes = _bwd_prep_cuda(q, k, v, do, lse, di) if route == "tc" else None
+    dk, dv = _bwd_dkv_cuda(q, k, v, do, lse, di, scale, causal, n_true, route, planes)
+    dq = _bwd_dq_cuda(q, k, v, do, lse, di, scale, causal, n_true, route, planes)
+    return dq, dk, dv
 
 
 class _FlashAttention(torch.autograd.Function):
@@ -287,8 +420,7 @@ class _FlashAttention(torch.autograd.Function):
             if do.dtype != torch.float32:
                 raise TypeError(f"the CUDA flash-attention backward takes a float32 gradient, got {do.dtype}")
             di = _bwd_di_cuda(out, do)
-            dk, dv = _bwd_dkv_cuda(q, k, v, do, lse, di, *args)
-            dq = _bwd_dq_cuda(q, k, v, do, lse, di, *args)
+            dq, dk, dv = _bwd_cuda(q, k, v, do, lse, di, *args)
         return dq, dk, dv, None, None, None
 
 

@@ -654,7 +654,7 @@ def test_randn_on_the_card_matches_the_hosts(card):
         assert int(diff) <= 4  # ulp; the card's log and sqrt may round apart from the host's
 
 
-@pytest.mark.parametrize("name", ["syrk", "flash_attn", "fft_stage", "fft_axis"])
+@pytest.mark.parametrize("name", ["syrk", "flash_attn", "fft_stage", "fft_axis", "flash_attn_bwd"])
 def test_tensor_core_kernels_use_the_tensor_cores(card, name):
     """The built SASS of each 3xTF32 kernel holds tensor-core instructions
     (HGMMA for wgmma, HMMA for mma.sync)."""
@@ -709,7 +709,9 @@ def test_flash_gradient_on_the_card_matches_the_plain_backward(card, s, h, d, n_
     _, got = _flash_grads(q, k, v, do, scale, causal, n_true)
     _, again = _flash_grads(q, k, v, do, scale, causal, n_true)
     assert _flash.FLASH_LAUNCHES == before[0] + 2
-    assert all(_flash.FLASH_BWD_LAUNCHES[key] == before[1][key] + 2 for key in before[1])
+    route = _flash.bwd_route(s, h, d)  # tc at d <= 64: the pre-pass too
+    launched = {"di", f"dkv_{route}", f"dq_{route}"} | ({"prep"} if route == "tc" else set())
+    assert all(_flash.FLASH_BWD_LAUNCHES[key] == before[1][key] + 2 * (key in launched) for key in before[1])
     want = _plain_grads(q, k, v, do, scale, causal, n_true)
     torch.cuda.synchronize()
     assert all(a.shape == (s, h, d) and a.dtype == torch.float32 for a in got)
@@ -725,6 +727,59 @@ def test_flash_gradient_with_strided_inputs_and_a_stride_0_gradient(card):
     out.sum().backward()  # an expanded, stride-0 gradient
     want = _plain_grads(*(t.detach() for t in (q, k, v)), torch.ones_like(out), 0.125, True, 290)
     assert _rel3((q.grad, k.grad, v.grad), want) <= 1e-5
+
+
+def _route_grads(q, k, v, do, scale, causal, n_true, route):
+    out, lse = _flash._flash_cuda(q, k, v, scale, causal, n_true, with_lse=True)
+    di = _flash._bwd_di_cuda(out, do)
+    return _flash._bwd_cuda(q, k, v, do, lse, di, scale, causal, n_true, route), (lse, di)
+
+
+@pytest.mark.parametrize("s,h,d,n_true", [(1, 1, 1, 1), (127, 3, 16, 100), (1000, 1, 64, 999), (64, 2, 33, 64),
+                                          (200, 5, 32, 199), (129, 2, 64, 0)])
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("route", ["tc", "cuda_core"])
+def test_flash_backward_routes_match_the_plain_backward(card, s, h, d, n_true, causal, route):
+    """Each route of dK/dV and dQ at shapes both take (d <= 64), against the
+    plain backward on the same lse and di, and a bitwise repeat."""
+    g = torch.Generator(device=card).manual_seed(s * h + d + 3)
+    q, k, v, do = (torch.randn(s, h, d, device=card, generator=g) for _ in range(4))
+    scale = 1.0 / np.sqrt(d)
+    before = dict(_flash.FLASH_BWD_LAUNCHES)
+    got, (lse, di) = _route_grads(q, k, v, do, scale, causal, n_true, route)
+    again, _ = _route_grads(q, k, v, do, scale, causal, n_true, route)
+    assert _flash.FLASH_BWD_LAUNCHES[f"dkv_{route}"] == before[f"dkv_{route}"] + 2
+    assert _flash.FLASH_BWD_LAUNCHES[f"dq_{route}"] == before[f"dq_{route}"] + 2
+    dk, dv = _flash._bwd_dkv_plain(q, k, v, do, lse, di, scale, causal, n_true)
+    want = (_flash._bwd_dq_plain(q, k, v, do, lse, di, scale, causal, n_true), dk, dv)
+    torch.cuda.synchronize()
+    assert _rel3(got, want) <= 1e-5
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.parametrize("route", ["tc", "cuda_core"])
+def test_flash_backward_routes_read_strided_inputs_and_a_stride_0_gradient(card, route):
+    g = torch.Generator(device=card).manual_seed(7)
+    base = torch.randn(3, 4, 300, 64, device=card, generator=g)
+    q, k, v = (base[i].transpose(0, 1) for i in range(3))
+    do = torch.randn((), device=card, generator=g).expand(300, 4, 64)
+    got, (lse, di) = _route_grads(q, k, v, do, 0.125, True, 290, route)
+    dk, dv = _flash._bwd_dkv_plain(q, k, v, do, lse, di, 0.125, True, 290)
+    assert _rel3(got, (_flash._bwd_dq_plain(q, k, v, do, lse, di, 0.125, True, 290), dk, dv)) <= 1e-5
+
+
+def test_flash_backward_prep_is_bitwise_its_plain_version(card):
+    g = torch.Generator(device=card).manual_seed(8)
+    base = torch.randn(3, 3, 300, 33, device=card, generator=g)
+    q, k, v = (base[i].transpose(0, 1) for i in range(3))
+    do = torch.randn((), device=card, generator=g).expand(300, 3, 33)
+    lse, di = torch.randn(2, 3, 300, device=card, generator=g)
+    before = _flash.FLASH_BWD_LAUNCHES["prep"]
+    got = _flash._bwd_prep_cuda(q, k, v, do, lse, di)
+    assert _flash.FLASH_BWD_LAUNCHES["prep"] == before + 1
+    assert torch.equal(got.view(torch.int32), _flash._bwd_prep_plain(q, k, v, do, lse, di).view(torch.int32))
+    with pytest.raises(ValueError, match="d <= 64"):
+        _flash._bwd_prep_cuda(*[torch.zeros(4, 1, 65, device=card)] * 4, *torch.zeros(2, 1, 4, device=card))
 
 
 def test_flash_gradient_within_float64(card):
