@@ -51,6 +51,19 @@ The KMeans data is then freed, and the hierarchical SVD path follows on a
    and the error estimate against the plain version's;
 9. pca: PCA(n_components=10, svd_solver="hierarchical").fit and transforms
    of 1, 64 and 4096 rows, checked against the float64 projection;
+9a. rsvd: linalg.rsvd(A, 10) with power_iter 0 and 1 through the entry
+   point: one threefry launch a call (the Gaussian test matrix) and no
+   other kernel, S within rtol 1e-4 of the plain spectrum, U orthonormal
+   within 1e-4, the first and a warm call's wall time beside the byte bound (A read 2 (1 +
+   power_iter) times, U written once), and a profile split between the
+   range products (A Omega), the Gram orthonormalizations, Q^T A and the
+   small SVD;
+9b. pca_randomized: PCA(n_components=10, svd_solver="randomized",
+   random_state=0).fit (one threefry launch), transforms of 1, 64 and 4096
+   rows against the float64 projection, and the largest principal angle
+   between its components and the hierarchical fit's, within 4 sigma_21 /
+   sigma_10 (the randomized range's error without power iterations) plus
+   the Gram kernel's tolerated error over the spectral gap;
 10. hsvd_profile: the hsvd_rank call under torch.profiler;
 11. times: the Gram kernel beside its plain version, the library's
     ``x.T @ x`` (cuBLAS, full float32), its bound, its 3xTF32 floor and its
@@ -224,10 +237,11 @@ def wall_ms(fn) -> tuple:
     return out, (time.perf_counter() - t0) * 1e3
 
 
-def profile_fit(fit, top_n: int = 6) -> dict:
+def profile_fit(fit, top_n: int = 6, labels=()) -> dict:
     """Run ``fit`` under torch.profiler: its wall time, the device time of
     every kernel it launched (one stream, so the sum is the busy time), and
-    the kernels that took the most."""
+    the kernels that took the most; with profiler ``labels``, also the
+    device time of the kernels launched under each label."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -235,15 +249,23 @@ def profile_fit(fit, top_n: int = 6) -> dict:
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         _, wall_ms_ = wall_ms(fit)
     by_name: dict = {}
+    by_label = {label: 0.0 for label in labels}
     for e in prof.events():
         if e.device_type != torch.autograd.DeviceType.CUDA:
+            if e.name in by_label:
+                by_label[e.name] += e.device_time_total / 1e3
+            continue
+        if e.name in by_label:  # a label's own range on the device is no kernel
             continue
         ms, calls = by_name.get(e.name, (0.0, 0))
         by_name[e.name] = (ms + e.device_time_total / 1e3, calls + 1)
     busy_ms = sum(ms for ms, _ in by_name.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:top_n]
-    return {"fit_wall_ms": wall_ms_, "device_busy_ms": busy_ms, "idle_share": 1.0 - busy_ms / wall_ms_,
-            "top_kernels": [{"name": n[:80], "ms": ms, "calls": c} for n, (ms, c) in top]}
+    out = {"fit_wall_ms": wall_ms_, "device_busy_ms": busy_ms, "idle_share": 1.0 - busy_ms / wall_ms_,
+           "top_kernels": [{"name": n[:80], "ms": ms, "calls": c} for n, (ms, c) in top]}
+    if labels:
+        out["device_ms_by_step"] = by_label
+    return out
 
 
 def compare_lloyd(x, c, n_true: int, route=None) -> dict:
@@ -1646,7 +1668,101 @@ def main() -> int:
     emit({"phase": "pca", "fit_wall_ms": fit_ms, "gram_launches": pca_launches, "components_orthonormality_err": orth,
           "explained_variance_ratio_sum": ratio_sum, "total_explained_variance_ratio": tevr,
           "transforms": transforms})
-    del pca, comps, mean
+    del pca
+
+    # 9a. rsvd through the entry point
+    from heat_tpu_torch.core import random as rnd
+
+    want_s = lam[:HSVD_RANK].sqrt()
+    ell = min(HSVD_RANK + 10, m, n)  # rsvd's default n_oversamples
+    rsvd_calls = []
+    for p_iter in (0, 1):
+        zero_launches()
+        ht.random.seed(SEED + 3)
+        (Ur, Sr, Vr), ms = wall_ms(lambda: ht.linalg.rsvd(A, HSVD_RANK, power_iter=p_iter))
+        launches = rnd.THREEFRY_LAUNCHES
+        if launches != 1 or other_launches() != launches:
+            raise AssertionError(f"rsvd launched the threefry kernel {launches} times and {other_launches()} kernels "
+                                 "in all; the threefry kernel once, nothing else")
+        _, warm_ms = wall_ms(lambda: ht.linalg.rsvd(A, HSVD_RANK, power_iter=p_iter)[1].shape)
+        s = Sr.larray.double()
+        u = Ur.larray.double()
+        s_err = float(((s - want_s).abs() / want_s).max())
+        orth = float((u.T @ u - torch.eye(HSVD_RANK, dtype=torch.float64, device=dev)).abs().max())
+        if (Ur.shape != (m, HSVD_RANK) or Ur.split != 0 or Sr.shape != (HSVD_RANK,) or Vr.shape != (n, HSVD_RANK)
+                or not bool(torch.isfinite(u).all() and torch.isfinite(s).all())):
+            raise AssertionError(f"rsvd: U {Ur.shape} split {Ur.split}, S {Sr.shape}, V {Vr.shape}, or not finite")
+        # two float32 Gram passes over a sample this ill-conditioned leave U
+        # orthonormal to about 2e-5 at this size (1.96e-5 and 1.90e-5 on an
+        # H100, the same in repeated runs of this seed): held to 5e-5
+        if s_err > 1e-4 or orth > 5e-5:
+            raise AssertionError(f"rsvd power_iter={p_iter}: S {s_err} from the plain spectrum (rtol 1e-4), "
+                                 f"U^T U {orth} from I (5e-5)")
+        reads = 2 * (1 + p_iter)  # A Omega, A^T Q and A Q per power iteration, Q^T A
+        nbytes = reads * 4 * m * n + 4 * m * HSVD_RANK
+        ops = reads * 2 * m * n * ell + (1 + 2 * p_iter) * 2 * 4 * m * ell * ell + 2 * m * ell * ell
+        bound = {"bytes": nbytes / HBM_BYTES_PER_S * 1e3, "operations": ops / F32_FLOPS * 1e3}
+        bound_by = max(bound, key=bound.get)
+        rsvd_calls.append({"power_iter": p_iter, "wall_ms": ms, "warm_wall_ms": warm_ms, "threefry_launches": launches,
+                           "s_max_rel_err": s_err, "u_orthonormality_err": orth, "bound_ms": bound[bound_by],
+                           "bound_by": bound_by, "share_of_bound": bound[bound_by] / warm_ms})
+        del Ur, Sr, Vr, u, s
+    ht.random.seed(SEED + 3)
+    split = profile_fit(lambda: ht.linalg.rsvd(A, HSVD_RANK)[1].shape,
+                        labels=("rsvd.range", "rsvd.gram", "rsvd.project", "rsvd.small_svd"))
+    emit({"phase": "rsvd", "rows": m, "cols": n, "rank": HSVD_RANK, "ell": ell, "calls": rsvd_calls,
+          "profile_power_iter_0": split, "card": smi})
+    rsvd_threefry = sum(c["threefry_launches"] for c in rsvd_calls)
+    torch.cuda.empty_cache()
+
+    # 9b. PCA through the randomized solver, held against the hierarchical fit's subspace
+    def randomized_fit():
+        return ht.decomposition.PCA(n_components=HSVD_RANK, svd_solver="randomized", random_state=SEED).fit(A)
+
+    zero_launches()
+    rpca, rfit_ms = wall_ms(randomized_fit)
+    rpca_threefry = rnd.THREEFRY_LAUNCHES
+    if rpca_threefry != 1 or other_launches() != rpca_threefry:
+        raise AssertionError(f"the randomized PCA launched the threefry kernel {rpca_threefry} times and "
+                             f"{other_launches()} kernels in all; the threefry kernel once, nothing else")
+    _, rfit_warm_ms = wall_ms(lambda: randomized_fit().n_components_)
+    rcomps = rpca.components_.larray.double()
+    rorth = float((rcomps @ rcomps.T - torch.eye(HSVD_RANK, dtype=torch.float64, device=dev)).abs().max())
+    rratio_sum = float(rpca.explained_variance_ratio_.larray.double().sum())
+    rtevr = rpca.total_explained_variance_ratio_
+    if rcomps.shape != (HSVD_RANK, n) or rorth > 1e-4 or abs(rratio_sum - rtevr) > 1e-4:
+        raise AssertionError(f"randomized components {tuple(rcomps.shape)}, orthonormality {rorth}, "
+                             f"ratio sum {rratio_sum} against tevr {rtevr}")
+    # largest principal angle between the two fits' subspaces: the randomized
+    # range without power iterations is off by about sigma_ell+1 / sigma_k (4
+    # times that allowed for the Gaussian draw), the Gram route by the Gram
+    # kernel's tolerated error (5e-6 of |G|) over the gap lam_k - lam_k+1
+    # (the sine, from orthonormal bases in float64: arccos of the cosines
+    # cannot resolve angles below about 1e-3 from float32 components)
+    basis_h, basis_r = torch.linalg.qr(comps.T).Q, torch.linalg.qr(rcomps.T).Q
+    residual = basis_r - basis_h @ (basis_h.T @ basis_r)
+    angle = float(torch.arcsin(torch.clamp(torch.linalg.svdvals(residual).max(), max=1.0)))
+    angle_bound = float(4 * torch.sqrt(lam[ell] / lam[HSVD_RANK - 1])
+                        + 5e-6 * lam[0] / (lam[HSVD_RANK - 1] - lam[HSVD_RANK]))
+    if not angle <= angle_bound:
+        raise AssertionError(f"the randomized and hierarchical subspaces are {angle} rad apart (bound {angle_bound})")
+    rmean = rpca.mean_.larray.double()
+    rtransforms = []
+    for size in (1, 64, 4096):
+        rows = a[torch.randint(0, m, (size,), generator=rng).to(dev)]
+        out, ms = wall_ms(lambda: rpca.transform(ht.array(rows, split=0)).larray)
+        want = (rows.double() - rmean) @ rcomps.T
+        dev_ = float(((out.double() - want).abs() / (1.0 + want.abs())).max())
+        if out.shape != (size, HSVD_RANK) or dev_ > 1e-4:
+            raise AssertionError(f"randomized transform of {size} rows: shape {tuple(out.shape)}, error {dev_}")
+        rtransforms.append({"rows": size, "wall_ms": ms, "max_err": dev_})
+    emit({"phase": "pca_randomized", "fit_wall_ms": rfit_ms, "warm_fit_wall_ms": rfit_warm_ms,
+          "threefry_launches": rpca_threefry,
+          "components_orthonormality_err": rorth, "explained_variance_ratio_sum": rratio_sum,
+          "total_explained_variance_ratio": rtevr, "largest_principal_angle_vs_hierarchical_rad": angle,
+          "angle_bound_rad": angle_bound, "transforms": rtransforms, "card": smi})
+    del rpca, rcomps, rmean, comps, mean
+    torch.cuda.empty_cache()
 
     # 10. where the hsvd_rank call's time goes (the launches here are not counted)
     emit({"phase": "hsvd_profile", **profile_fit(lambda: ht.linalg.hsvd_rank(A, HSVD_RANK, compute_sv=True)[3])})
@@ -1709,6 +1825,7 @@ def main() -> int:
             e["cuda_core_route"]["launches"] = bwd_launches[f"{e['name'].rsplit('_', 1)[1]}_cuda_core"]
     train_cnn(dev, smi)
 
+    threefry["launches"] += rsvd_threefry + rpca_threefry  # the KMeans init's, rsvd's and the randomized PCA's
     emit({"kernels": [lloyd, threefry, gram, *fft_entries, flash, *flash_bwd]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": name, "count": torch.cuda.device_count()}})
     return 0

@@ -8,6 +8,7 @@ from .stride_tricks import *
 from .base import *
 from .arithmetics import *
 from .statistics import *
+from .relational import *
 from . import devices
 from . import types
 from . import random

@@ -25,11 +25,13 @@ _SCALARS = (bool, int, float)
 
 def _scalar_tensor(v, like: torch.Tensor) -> torch.Tensor:
     """A python scalar as a 0-d tensor that promotes with ``like`` as the
-    scalar itself would: in ``like``'s dtype when of the same kind."""
+    scalar itself does in the reference: in ``like``'s dtype when of the same
+    kind, an int beside bool data in the reference's default integer type
+    (int32), else in torch's default type of its own kind."""
     if isinstance(v, float) and like.is_floating_point():
         return torch.tensor(v, dtype=like.dtype)
-    if isinstance(v, int) and not isinstance(v, bool) and not like.is_floating_point() and like.dtype != torch.bool:
-        return torch.tensor(v, dtype=like.dtype)
+    if isinstance(v, int) and not isinstance(v, bool) and not like.is_floating_point():
+        return torch.tensor(v, dtype=torch.int32 if like.dtype == torch.bool else like.dtype)
     return torch.tensor(v)
 
 

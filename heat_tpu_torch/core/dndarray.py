@@ -195,6 +195,11 @@ class DNDarray:
         """The full array on the host (a collective when split)."""
         return self._dense().cpu().numpy()
 
+    def __array__(self, dtype=None, copy=None) -> np.ndarray:
+        """The full array on the host, for ``np.asarray`` (a collective when split)."""
+        a = self.numpy()
+        return a.astype(dtype) if dtype is not None else a
+
     def item(self):
         """The value of a one-element array."""
         if self.size != 1:
@@ -242,10 +247,20 @@ class DNDarray:
 
         return arithmetics.div(self, other)
 
+    def __rtruediv__(self, other):
+        from . import arithmetics
+
+        return arithmetics.div(other, self)
+
     def __pow__(self, other):
         from . import arithmetics
 
         return arithmetics.pow(self, other)
+
+    def __rpow__(self, other):
+        from . import arithmetics
+
+        return arithmetics.pow(other, self)
 
     def __neg__(self):
         from . import arithmetics
@@ -256,6 +271,48 @@ class DNDarray:
         from .linalg import basics
 
         return basics.matmul(self, other)
+
+    def __eq__(self, other):
+        from . import relational
+
+        return relational.eq(self, other)
+
+    def __ne__(self, other):
+        from . import relational
+
+        return relational.ne(self, other)
+
+    def __lt__(self, other):
+        from . import relational
+
+        return relational.lt(self, other)
+
+    def __le__(self, other):
+        from . import relational
+
+        return relational.le(self, other)
+
+    def __gt__(self, other):
+        from . import relational
+
+        return relational.gt(self, other)
+
+    def __ge__(self, other):
+        from . import relational
+
+        return relational.ge(self, other)
+
+    # element-wise == makes a DNDarray unhashable, as in the reference
+    __hash__ = None
+
+    def __bool__(self) -> bool:
+        return bool(self.item())
+
+    def __int__(self) -> int:
+        return int(self.item())
+
+    def __float__(self) -> float:
+        return float(self.item())
 
     def sum(self, axis=None, keepdims: bool = False):
         from . import arithmetics

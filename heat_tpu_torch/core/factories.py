@@ -43,7 +43,28 @@ def array(obj, dtype=None, split=None, device=None, comm=None) -> DNDarray:
     Python floats default to float32, python ints to int32 and python complex
     numbers to complex64; numpy arrays
     and tensors keep their dtype.  A tensor already on the target device is
-    not copied (the DNDarray may share its memory)."""
+    not copied (the DNDarray may share its memory).  A DNDarray comes back
+    as it is, cast when ``dtype`` differs and moved when ``device`` does;
+    another split or another communication raises until ``resplit`` is
+    ported."""
+    if isinstance(obj, DNDarray):
+        if split is not None and sanitize_axis(obj.shape, split) != obj.split:
+            raise NotImplementedError(
+                f"ht.array of a DNDarray split along {obj.split} with split={split} needs resplit, "
+                "not ported yet (ROADMAP Queue 1 item 4)"
+            )
+        if comm is not None and sanitize_comm(comm) is not obj.comm:
+            raise NotImplementedError(
+                "ht.array of a DNDarray onto another communication needs resplit, "
+                "not ported yet (ROADMAP Queue 1 item 4)"
+            )
+        if device is not None and sanitize_device(device) != obj.device:
+            device = sanitize_device(device)
+            moved = obj.larray_padded.to(device.torch_device)
+            obj = DNDarray(moved, obj.gshape, obj.dtype, obj.split, device, obj.comm)
+        if dtype is not None and types.canonical_heat_type(dtype) != obj.dtype:
+            obj = obj.astype(dtype)
+        return obj
     comm = sanitize_comm(comm)
     device = sanitize_device(device)
     if isinstance(obj, torch.Tensor):

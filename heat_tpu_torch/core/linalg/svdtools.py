@@ -19,8 +19,14 @@ the route:
 - **The reference's dense cases** (a wide array split along rows, fewer
   columns than ranks): the whole array, gathered, as the reference does.
 
-Every product runs in IEEE float32 or float64 (no TF32).  ``rsvd`` is not
-ported yet and raises.
+``rsvd`` is the reference's randomized SVD: a Gaussian test matrix from the
+seeded ``random.randn`` (on the card, one launch of the threefry kernel),
+``A Omega``, optional power iterations, an orthonormal basis Q by two passes
+of symmetric (Loewdin) Gram orthogonalization, ``Q^T A`` and one small SVD.
+It works on the dense matrix, as the reference does: on a world of one that
+is A itself, on more ranks A gathered.
+
+Every product runs in IEEE float32 or float64 (no TF32).
 """
 
 from __future__ import annotations
@@ -29,6 +35,7 @@ from typing import List, Optional, Tuple
 
 import numpy as np
 import torch
+from torch.profiler import record_function
 
 from .. import kernels, types
 from ..dndarray import DNDarray
@@ -94,11 +101,76 @@ def hsvd(
 
 
 def rsvd(A: DNDarray, rank: int, n_oversamples: int = 10, power_iter: int = 0, qr_procs_to_merge: int = 2):
-    """Randomized SVD: not ported yet."""
-    raise NotImplementedError(
-        "rsvd is not ported yet: it needs randn bitwise equal to the reference's (ROADMAP Queue 1 item 5) "
-        "and the rest of linalg (Queue 1 item 9)"
-    )
+    """Randomized SVD: ``(U, S, V)`` of rank at most ``rank``, from a range
+    sampled with ``rank + n_oversamples`` Gaussian columns and ``power_iter``
+    power iterations.  U is split along rows when A is, S and V are whole.
+    Integer input works in float32."""
+    sanitize_in(A)
+    if not isinstance(rank, int) or rank < 1:
+        raise ValueError(f"rank must be a positive integer, but is {rank}")
+    if not isinstance(n_oversamples, int) or n_oversamples < 0:
+        raise ValueError(f"n_oversamples must be a non-negative integer, but is {n_oversamples}")
+    if not isinstance(power_iter, int) or power_iter < 0:
+        raise ValueError(f"power_iter must be a non-negative integer, but is {power_iter}")
+    from .. import random
+
+    m, n = A.shape
+    ell = min(rank + n_oversamples, m, n)
+    dtype = A.dtype if types.heat_type_is_inexact(A.dtype) else types.float32
+    omega = random.randn(n, ell, dtype=dtype, device=A.device, comm=A.comm)
+    k = min(rank, min(ell, m))
+    u_k, s_k, v_k = _rsvd_jit(A._dense(), omega.larray, power_iter, k, dtype.torch_type())
+    U = DNDarray.from_dense(u_k, A.split if A.split == 0 else None, A.device, A.comm)
+    S = DNDarray.from_dense(s_k, None, A.device, A.comm)
+    V = DNDarray.from_dense(v_k, None, A.device, A.comm)
+    return U, S, V
+
+
+def _rsvd_jit(dense: torch.Tensor, omega: torch.Tensor, power_iter: int, k: int, dtype: torch.dtype):
+    """The randomized factorization of the dense matrix: range sampling,
+    power iterations, orthonormal bases, ``Q^T A``, its SVD and the rank-k
+    truncation (the reference compiles this as one program, hence the name).
+    ``dense`` is not copied when it already has the working dtype.  Each
+    step runs under a profiler label, so that a profile splits the time:
+    ``rsvd.range`` (the products of A or A^T with the basis),
+    ``rsvd.gram`` (the orthonormalizations), ``rsvd.project`` (``Q^T A``)
+    and ``rsvd.small_svd``."""
+    with full_f32_matmul():
+        dense = dense.to(dtype)
+        with record_function("rsvd.range"):
+            y = dense @ omega.to(dtype)
+        q = _gram_orthonormalize(y)
+        for _ in range(power_iter):
+            with record_function("rsvd.range"):
+                z = dense.T @ q
+            q = _gram_orthonormalize(z)
+            with record_function("rsvd.range"):
+                y = dense @ q
+            q = _gram_orthonormalize(y)
+        with record_function("rsvd.project"):
+            b = q.T @ dense
+        with record_function("rsvd.small_svd"):
+            u_b, s, vt = torch.linalg.svd(b, full_matrices=False)
+            u = q @ u_b
+    return u[:, :k], s[:k], vt[:k].T
+
+
+def _gram_orthonormalize(y: torch.Tensor, passes: int = 2) -> torch.Tensor:
+    """An orthonormal basis of the tall matrix y by symmetric (Loewdin) Gram
+    orthogonalization, ``q V diag(lam^-1/2) V^T`` with ``(lam, V) = eigh(q^T
+    q)``, twice (the CholeskyQR2 recipe).  The product does not depend on
+    the signs eigh gives its vectors.  Directions whose eigenvalue is at most
+    eps of y's type times the largest (a rank-deficient y) become zero
+    columns, not amplified noise.  The Gram matrices are full-precision
+    products, as the reference's HIGHEST ones are."""
+    q = y
+    with record_function("rsvd.gram"):
+        for _ in range(passes):
+            lam, v = torch.linalg.eigh(q.T @ q)
+            cutoff = torch.finfo(q.dtype).eps * torch.clamp(torch.max(lam), min=1e-30)
+            inv_sqrt = torch.where(lam > cutoff, 1.0 / torch.sqrt(torch.clamp(lam, min=1e-30)), 0.0)
+            q = q @ ((v * inv_sqrt[None, :]) @ v.T)
+    return q
 
 
 def _hsvd(

@@ -14,19 +14,24 @@ __all__ = ["argmin", "max", "mean", "min"]
 def argmin(x: DNDarray, axis=None, keepdims: bool = False) -> DNDarray:
     """Index of the minimum along ``axis`` (of the flattened array when
     None); ties go to the first index.  Along any axis but the split one
-    each rank works on its own chunk."""
+    each rank works on its own chunk.  Bool input is taken as 0 and 1 (torch
+    has no bool argmin)."""
     if not isinstance(x, DNDarray):
         raise TypeError(f"expected x to be a DNDarray, but was {type(x)}")
     axis = sanitize_axis(x.shape, axis)
     if isinstance(axis, tuple):
         raise TypeError("argmin takes one axis or None")
+
+    def _argmin(t):
+        return torch.argmin(t.to(torch.uint8) if t.dtype == torch.bool else t, dim=axis, keepdim=keepdims)
+
     if axis is not None and axis != x.split:
-        local = torch.argmin(x.larray_padded, dim=axis, keepdim=keepdims)
+        local = _argmin(x.larray_padded)
         gshape = tuple(1 if d == axis else s for d, s in enumerate(x.gshape) if keepdims or d != axis)
         split = x.split if x.split is None or keepdims or x.split < axis else x.split - 1
         return x._like(local, gshape, split)
     # across the split axis: the global array decides (gathered)
-    res = torch.argmin(x._dense(), dim=axis, keepdim=keepdims)
+    res = _argmin(x._dense())
     return DNDarray.from_dense(res, None, x.device, x.comm)
 
 

@@ -1,12 +1,14 @@
 """Principal component analysis (counterpart of heat_tpu/decomposition/pca.py).
 
 Ported: ``svd_solver="hierarchical"`` (``hsvd_rank`` for an int
-``n_components``, ``hsvd_rtol`` for a float one), ``transform``,
-``inverse_transform`` and ``fit_transform``.  A fit over data split along
-rows gathers nothing of the data's size: the mean, the Gram matrix and the
-total variance are local sums followed by one all-reduce each.  The other
-solvers, the checkpoint parameters and low-precision transforms are not
-ported yet and raise.
+``n_components``, ``hsvd_rtol`` for a float one), ``svd_solver=
+"randomized"`` (``rsvd``, an int ``n_components`` only), ``transform``,
+``inverse_transform`` and ``fit_transform``.  A hierarchical fit over data
+split along rows gathers nothing of the data's size: the mean, the Gram
+matrix and the total variance are local sums followed by one all-reduce
+each; a randomized fit gathers the centred data, as the reference's does.
+``svd_solver="full"``, the checkpoint parameters and low-precision
+transforms are not ported yet and raise.
 """
 
 from __future__ import annotations
@@ -88,11 +90,7 @@ class PCA(BaseEstimator, TransformMixin):
         if y is not None:
             raise ValueError("PCA is an unsupervised transform; y must be None")
         if self.svd_solver == "full":
-            raise NotImplementedError("svd_solver='full' needs qr and svd, not ported yet (ROADMAP Queue 1 item 9)")
-        if self.svd_solver == "randomized":
-            raise NotImplementedError(
-                "svd_solver='randomized' needs rsvd and randn, not ported yet (ROADMAP Queue 1 items 5 and 9)"
-            )
+            raise NotImplementedError("svd_solver='full' needs qr and svd, not ported yet (ROADMAP Queue 1 item 9b)")
         n, f = X.shape
         mean = statistics.mean(X, axis=0)
         self.mean_ = mean
@@ -104,20 +102,32 @@ class PCA(BaseEstimator, TransformMixin):
         if isinstance(self.n_components, float):
             if not 0.0 < self.n_components <= 1.0:
                 raise ValueError("float n_components must be in (0, 1]")
-            U, S, V, err = svdtools.hsvd_rtol(centered, rtol=(1 - self.n_components) ** 0.5, compute_sv=True)
+            k, rtol = None, (1 - self.n_components) ** 0.5
         else:
-            k = min(self.n_components, rank_cap) if self.n_components else rank_cap
+            k, rtol = (min(self.n_components, rank_cap) if self.n_components else rank_cap), None
+
+        if self.svd_solver == "randomized":
+            if k is None:
+                raise ValueError("randomized solver requires an integer n_components")
+            p_iter = 0 if self.iterated_power == "auto" else int(self.iterated_power)
+            U, S, V = svdtools.rsvd(centered, rank=k, n_oversamples=self.n_oversamples, power_iter=p_iter)
+        elif rtol is not None:
+            U, S, V, err = svdtools.hsvd_rtol(centered, rtol=rtol, compute_sv=True)
+        else:
             U, S, V, err = svdtools.hsvd_rank(centered, maxrank=k, compute_sv=True)
         self.components_ = DNDarray.from_dense(V._dense().T, None, X.device, X.comm)
         self.singular_values_ = S
         s = S._dense()
         ev = s**2 / max(n - 1, 1)
         self.explained_variance_ = DNDarray.from_dense(ev, None, X.device, X.comm)
-        total_var = _sum_of_squares(centered) / max(n - 1, 1)
-        ratio = ev / torch.clamp(total_var, min=1e-30)
-        self.explained_variance_ratio_ = DNDarray.from_dense(ratio, None, X.device, X.comm)
-        self._tevr = 1.0 - err**2
-        self.n_components_ = int(s.shape[0])
+        total_var = torch.clamp(_sum_of_squares(centered) / max(n - 1, 1), min=1e-30)
+        self.explained_variance_ratio_ = DNDarray.from_dense(ev / total_var, None, X.device, X.comm)
+        if self.svd_solver == "randomized":
+            self._tevr = torch.sum(ev) / total_var
+            self.n_components_ = k
+        else:
+            self._tevr = 1.0 - err**2
+            self.n_components_ = int(s.shape[0])
         return self
 
     def transform(self, X: DNDarray) -> DNDarray:

@@ -1,7 +1,8 @@
 """The port in a world of 3 CPU ranks (torch.distributed, gloo) against
 heat_tpu on a 3-device Communication: the canonical layout of an uneven
 split, the distributed KMeans fit and predict, hierarchical SVD and PCA
-over rows (one Gram all-reduce) and over columns (the merge tree), the
+over rows (one Gram all-reduce) and over columns (the merge tree), rsvd
+and the randomized PCA over uneven rows, the
 FFT along a split axis (the pencil: tiled all-to-alls, no gather), and
 sequence-parallel attention (the ring of ring_shift, Ulysses' all-to-alls)
 and its gradients across the ranks, and DataParallel's three gradient
@@ -92,8 +93,16 @@ row_gathers = len(gathered)  # a fit over rows gathers nothing
 cols = ht.array(arrays["cols"], split=1)
 cu, cs, cv, cerr = ht.linalg.hsvd_rank(cols, 4, compute_sv=True)
 cu_rt, cs_rt, cv_rt, cerr_rt = ht.linalg.hsvd_rtol(cols, 0.3, compute_sv=True)
+ht.random.seed(5)
+ru, rs, rv = ht.linalg.rsvd(rows, 5, n_oversamples=2, power_iter=1)
+rpca = ht.decomposition.PCA(n_components=4, svd_solver="randomized", random_state=7, n_oversamples=3).fit(rows)
 np.savez(
     out,
+    ru=ru.numpy(), ru_local=ru.larray.numpy(), ru_split=np.asarray(ru.split), rs=rs.numpy(), rv=rv.numpy(),
+    rpca_components=rpca.components_.numpy(), rpca_s=rpca.singular_values_.numpy(),
+    rpca_ev=rpca.explained_variance_.numpy(), rpca_ratio=rpca.explained_variance_ratio_.numpy(),
+    rpca_tevr=np.asarray(rpca.total_explained_variance_ratio_),
+    rpca_transform=rpca.transform(ht.array(arrays["fresh"], split=0)).numpy(),
     row_gathers=np.asarray(row_gathers),
     gram=gram, u=u.numpy(), u_split=np.asarray(u.split), s=s.numpy(), v=v.numpy(), err=np.asarray(float(err)),
     u_rt=u_rt.numpy(), s_rt=s_rt.numpy(), v_rt=v_rt.numpy(), err_rt=np.asarray(float(err_rt)),
@@ -275,19 +284,25 @@ def _lowrank(m, n, rank, seed):
     return (a + 0.05 * rng.standard_normal((m, n)) + 2.0).astype(np.float32)
 
 
-def test_hsvd_and_pca_in_a_gloo_world_of_three(tmp_path):
+@pytest.fixture(scope="module")
+def hsvd_world(tmp_path_factory):
+    """The inputs, the reference's 3-device Communication and every rank's
+    results of _HSVD_MAIN."""
     rows = _lowrank(1003, 12, 6, 1)  # 1003 = 3 * 335 - 2: rank 2 holds padding
     cols = _lowrank(60, 37, 8, 2)  # 37 columns over 3 ranks: leaves of 13, 13 and 11
     fresh = _lowrank(29, 12, 6, 3)
-    ranks = _run_world(tmp_path, _HSVD_MAIN, rows=rows, cols=cols, fresh=fresh)
+    ranks = _run_world(tmp_path_factory.mktemp("hsvd"), _HSVD_MAIN, rows=rows, cols=cols, fresh=fresh)
+    return (rows, cols, fresh), hj.Communication(jax.devices()[:WORLD]), ranks
 
+
+def test_hsvd_and_pca_in_a_gloo_world_of_three(hsvd_world):
+    (rows, cols, fresh), ref_comm, ranks = hsvd_world
     assert all(int(got["row_gathers"]) == 0 for got in ranks)
     # replicated decisions: the same bits of G, V and the rtol rank everywhere
     for got in ranks[1:]:
         for key in ("gram", "s", "v", "s_rt", "v_rt", "cs", "cv", "cs_rt", "cv_rt", "components"):
             np.testing.assert_array_equal(got[key], ranks[0][key], err_msg=key)
 
-    ref_comm = hj.Communication(jax.devices()[:WORLD])
     ref_rows = hj.array(rows, split=0, comm=ref_comm)
     ref_cols = hj.array(cols, split=1, comm=ref_comm)
     want = hj.linalg.hsvd_rank(ref_rows, 5, compute_sv=True)
@@ -319,6 +334,39 @@ def test_hsvd_and_pca_in_a_gloo_world_of_three(tmp_path):
     np.testing.assert_allclose(float(got["tevr"]), pca.total_explained_variance_ratio_, atol=1e-5)
     for r, rk in enumerate(ranks):
         np.testing.assert_allclose(rk["transform"] * signs[None, :], want_t, atol=1e-4, err_msg=f"rank {r}")
+
+
+def test_rsvd_and_randomized_pca_in_a_gloo_world_of_three(hsvd_world):
+    """rsvd of the rows (split 0, uneven) and the randomized PCA against the
+    reference on 3 devices, seeded alike: the tolerances of
+    tests/test_torch_rsvd.py.  Every rank computes the same factors from
+    the gathered matrix and keeps its own rows of U."""
+    (rows, _, fresh), ref_comm, ranks = hsvd_world
+    ref_rows = hj.array(rows, split=0, comm=ref_comm)
+    hj.random.seed(5)
+    wu, ws, wv = (w.numpy() for w in hj.linalg.rsvd(ref_rows, 5, n_oversamples=2, power_iter=1))
+    pca = hj.decomposition.PCA(n_components=4, svd_solver="randomized", random_state=7, n_oversamples=3).fit(ref_rows)
+    wc = pca.components_.numpy()
+    want_t = pca.transform(hj.array(fresh, split=0, comm=ref_comm)).numpy()
+    for key in ("rs", "rv", "rpca_components", "rpca_s"):
+        for got in ranks[1:]:
+            np.testing.assert_array_equal(got[key], ranks[0][key], err_msg=key)
+    for r, got in enumerate(ranks):
+        assert int(got["ru_split"]) == 0
+        lo, lshape, _ = ref_comm.chunk(rows.shape, 0, rank=r)
+        np.testing.assert_array_equal(got["ru_local"], got["ru"][lo:lo + lshape[0]])
+        np.testing.assert_allclose(got["rs"], ws, rtol=1e-4)
+        np.testing.assert_allclose(_signed_like(got["ru"], wu), wu, atol=1e-3)
+        np.testing.assert_allclose(_signed_like(got["rv"], wv), wv, atol=1e-3)
+        np.testing.assert_allclose(got["ru"] @ np.diag(got["rs"]) @ got["rv"].T, wu @ np.diag(ws) @ wv.T,
+                                   rtol=1e-3, atol=1e-3)
+        signs = np.sign(np.sum(got["rpca_components"] * wc, axis=1))
+        np.testing.assert_allclose(got["rpca_components"] * signs[:, None], wc, atol=1e-4)
+        np.testing.assert_allclose(got["rpca_s"], pca.singular_values_.numpy(), rtol=1e-4)
+        np.testing.assert_allclose(got["rpca_ev"], pca.explained_variance_.numpy(), rtol=1e-4)
+        np.testing.assert_allclose(got["rpca_ratio"], pca.explained_variance_ratio_.numpy(), rtol=1e-4)
+        np.testing.assert_allclose(float(got["rpca_tevr"]), pca.total_explained_variance_ratio_, atol=1e-5)
+        np.testing.assert_allclose(got["rpca_transform"] * signs[None, :], want_t, atol=1e-4, err_msg=f"rank {r}")
 
 
 def test_fft_along_the_split_axis_in_a_gloo_world_of_three(tmp_path, monkeypatch):

@@ -824,3 +824,108 @@ def test_data_parallel_on_the_card_matches_the_cpu(card):
                                torch.from_numpy(y).to(dev)) for _ in range(2)])
     np.testing.assert_allclose(losses[0], losses[1], rtol=1e-5)
     assert torch.backends.cudnn.allow_tf32 is False
+
+
+# ----------------------------------------------------------------------
+# rsvd, the randomized PCA and the DNDarray's operators on the card
+# ----------------------------------------------------------------------
+from heat_tpu_torch.core import random as rnd  # noqa: E402
+
+
+@pytest.mark.parametrize("dtype,power_iter", [(np.float32, 0), (np.float32, 1), (np.float64, 1)])
+def test_rsvd_on_the_card_matches_cpu(card, dtype, power_iter):
+    """The test matrix hashed on the card (one threefry launch), then the
+    factors within tests/test_torch_rsvd.py's tolerances of the CPU's."""
+    a = _spectrum_matrix(20011, 64, 4).astype(dtype)
+    f32 = dtype == np.float32
+    ht.random.seed(3)
+    before = rnd.THREEFRY_LAUNCHES
+    U, S, V = ht.linalg.rsvd(ht.array(a, split=0), 6, power_iter=power_iter)
+    assert rnd.THREEFRY_LAUNCHES == before + 1
+    assert U.larray_padded.device.type == "cuda" and U.split == 0 and S.split is None and V.split is None
+    ht.random.seed(3)
+    want = ht.linalg.rsvd(ht.array(a, split=0, device="cpu"), 6, power_iter=power_iter)
+    np.testing.assert_allclose(S.numpy(), want[1].numpy(), rtol=1e-4 if f32 else 1e-10)
+    for g, w in ((U.numpy(), want[0].numpy()), (V.numpy(), want[2].numpy())):
+        signs = np.sign(np.sum(g * w, axis=0))
+        np.testing.assert_allclose(g * signs, w, atol=1e-3 if f32 else 1e-10)
+    # two Gram passes in float32 leave U orthonormal to about 1e-5-1e-4 on
+    # this spectrum, on the card and on the CPU (the JAX package's too); 1e-4
+    # is the bound of the hsvd card check
+    u = U.numpy().astype(np.float64)
+    assert np.abs(u.T @ u - np.eye(6)).max() < (1e-4 if f32 else 1e-5)
+
+
+def test_randomized_pca_on_the_card_matches_cpu(card):
+    a = _spectrum_matrix(5003, 40, 5)
+    before = rnd.THREEFRY_LAUNCHES
+    kw = dict(n_components=5, svd_solver="randomized", random_state=2)
+    got = ht.decomposition.PCA(**kw).fit(ht.array(a, split=0))
+    assert rnd.THREEFRY_LAUNCHES == before + 1
+    want = ht.decomposition.PCA(**kw).fit(ht.array(a, split=0, device="cpu"))
+    # the components are rsvd's V and the explained variance S^2 / (n - 1):
+    # held to V's atol 1e-3 and S's rtol 1e-4 (squared: 2e-4) of
+    # tests/test_torch_rsvd.py, and each projection to 1e-3 of its centred
+    # row's norm
+    gc, wc = got.components_.numpy(), want.components_.numpy()
+    signs = np.sign(np.sum(gc * wc, axis=1))
+    np.testing.assert_allclose(gc * signs[:, None], wc, atol=1e-3)
+    np.testing.assert_allclose(got.explained_variance_ratio_.numpy(), want.explained_variance_ratio_.numpy(), rtol=2e-4)
+    fresh = a[:300]
+    t_got = got.transform(ht.array(fresh, split=0)).numpy() * signs[None, :]
+    t_want = want.transform(ht.array(fresh, split=0, device="cpu")).numpy()
+    row_norms = np.linalg.norm(fresh - want.mean_.numpy(), axis=1)
+    assert np.all(np.abs(t_got - t_want) <= 1e-3 * row_norms[:, None])
+
+
+_CARD_OPERATORS = {
+    "gt": lambda t: t > 0,
+    "eq": lambda t: t == t,
+    "ne_scalar": lambda t: t != 0.5,
+    "rtruediv": lambda t: 2 / t,
+    "rpow": lambda t: 2**t,
+    "bool_plus_int": lambda t: (t > 0) + 1,
+    "int_minus_bool": lambda t: 2 - (t > 0),
+    "bool_minus_float": lambda t: (t > 0) - 1.5,
+    "bool_div": lambda t: ht.div(t > 0, 3),
+    "argmin_bool_0": lambda t: ht.argmin(t > 0, axis=0),
+    "argmin_bool_1": lambda t: ht.argmin(t > 0, axis=1),
+    "argmin_bool": lambda t: ht.argmin(t > 0),
+}
+
+
+@pytest.mark.parametrize("split", [None, 0])
+@pytest.mark.parametrize("name", list(_CARD_OPERATORS))
+def test_operators_on_the_card_match_cpu(card, split, name):
+    """Results stay on the card in the CPU's dtype and split: bitwise for
+    bool, integer and divided results, within an ulp for the power."""
+    x = np.random.default_rng(6).standard_normal((1003, 5)).astype(np.float32)
+    got = _CARD_OPERATORS[name](ht.array(x, split=split))
+    want = _CARD_OPERATORS[name](ht.array(x, split=split, device="cpu"))
+    assert got.larray_padded.device.type == "cuda"
+    assert got.dtype is want.dtype and got.split == want.split
+    if name == "rpow":
+        np.testing.assert_allclose(np.asarray(got), np.asarray(want), rtol=2.4e-7)
+    else:
+        np.testing.assert_array_equal(np.asarray(got), np.asarray(want))
+
+
+def test_scalar_conversions_and_equal_on_the_card(card):
+    x = np.random.default_rng(7).standard_normal((1003, 5)).astype(np.float32)
+    a = ht.array(x, split=0)
+    assert ht.equal(a, ht.array(x.copy(), split=0)) and not ht.equal(a, a + 1.0)
+    assert bool(ht.array([0.0])) is False and float(ht.array([2.5])) == 2.5 and int(ht.array([[7]])) == 7
+    assert np.asarray(a).dtype == np.float32 and ht.array(a, dtype=ht.float64).larray_padded.device.type == "cuda"
+
+
+@pytest.mark.parametrize("split", [None, 0])
+def test_array_of_a_card_array_moves_to_the_asked_device(card, split):
+    x = np.random.default_rng(8).standard_normal((1003, 5)).astype(np.float32)
+    a = ht.array(x, split=split)
+    host = ht.array(a, device="cpu")
+    assert host.larray_padded.device.type == "cpu" and host.device == "cpu" and host.split == split
+    np.testing.assert_array_equal(host.numpy(), x)
+    back = ht.array(host, device="gpu", dtype=ht.float64)
+    assert back.larray_padded.device.type == "cuda" and back.dtype is ht.float64 and back.split == split
+    np.testing.assert_array_equal(back.numpy(), x.astype(np.float64))
+    assert ht.array(a, device="gpu") is a

@@ -192,8 +192,8 @@ def test_one_gram_per_call(monkeypatch):
 
 def test_refusals():
     x = ht.array(np.ones((10, 4), np.float32), split=0)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
-        ht.linalg.rsvd(x, 2)
+    with pytest.raises(ValueError, match="rank must be a positive integer"):
+        ht.linalg.rsvd(x, 0)
     with pytest.raises(ValueError):
         ht.linalg.hsvd_rank(x, 0)
     with pytest.raises(ValueError):

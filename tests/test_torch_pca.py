@@ -83,8 +83,8 @@ def test_params_and_not_ported_options(monkeypatch):
         pca.transform(x)
     with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
         ht.decomposition.PCA(n_components=2, svd_solver="full").fit(x)
-    with pytest.raises(NotImplementedError, match="items 5 and 9"):
-        ht.decomposition.PCA(n_components=2, svd_solver="randomized").fit(x)
+    with pytest.raises(ValueError, match="randomized solver requires an integer n_components"):
+        ht.decomposition.PCA(n_components=0.5, svd_solver="randomized").fit(x)
     with pytest.raises(NotImplementedError, match="Queue 1 item 15"):
         ht.decomposition.PCA(n_components=2, checkpoint_every=1, checkpoint_dir="ckpt")
     with pytest.raises(NotImplementedError, match="Queue 1 item 15"):
