@@ -5,7 +5,7 @@ Run from the root of a checkout, with no arguments:
 
     python3 chip_smoke.py
 
-(``python3 chip_smoke.py --kmeans-only`` stops after phase 6, before the
+(``python3 chip_smoke.py --kmeans-only`` stops after phase 6b, before the
 summary and the last line: a quicker probe of the KMeans path alone.)
 
 Phases, each printing one JSON line (any failure raises and the script
@@ -37,7 +37,22 @@ file, it exits non-zero before printing any result):
    idle share of the fit's wall time and the kernels that took the most;
 6. times: the Lloyd kernel's time per launch (CUDA events, after warm-up),
    the walk route's, its plain version's, and the least time the card
-   could take (the bound).
+   could take (the bound);
+6a. rng_draws: every seeded draw beyond rand and randn (randint and its
+   aliases at int64 and int32 edge ranges, uniform, random_sample,
+   permutation, randperm, shuffle, choice's four branches, bytes) on the
+   card bitwise equal to the host's draw at 2^20, with the threefry
+   launches each made; randint, uniform and permutation at 2^27, the host
+   redrawing the first 2^20 values and the permutation checked to be one,
+   each with its wall time and launches beside its bound;
+6b. kmeanspp: kmeans++ on 2^20 x 16 blobs on the card against the CPU path,
+   round by round (a differing pick passes only where u lies within 1e-6
+   of the cumulative boundary between the two rows; every such case is
+   printed), then KMeans(init="kmeans++").fit at the main path's size
+   through the entry point: K1 n_iter + 1 and threefry 9 launches, labels
+   against the plain version and the walk route, three predicts, the peak
+   memory, and the init alone: its centres the rows its draws pick,
+   distinct, in every run, its wall time beside its bound and its profile.
 
 The KMeans data is then freed, and the hierarchical SVD path follows on a
 2^25 x 128 float32 matrix with a decaying spectrum, made on the card:
@@ -383,6 +398,262 @@ def threefry_check(dev, smi: str) -> dict:
             "replaces": "heat_tpu/core/random.py:150", "note": "not a TPU kernel: XLA's threefry in the JAX package",
             "launches": None, "max_abs_err": 0.0, "ms": kernel_ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms[bound_by], "bound_by": bound_by, "library_ms": None}
+
+
+RNG_SMALL = 1 << 20  # draws compared whole between the card and the host
+RNG_SEED = 11
+
+
+def rng_draws(dev, smi: str) -> None:
+    """Phase rng_draws: every seeded draw beyond rand and randn (randint, its
+    aliases, uniform, random_sample, permutation, randperm, shuffle, choice's
+    four branches, bytes) through the entry points on the card, bitwise
+    equal to the host's draw of the same seed at 2^20, with the threefry
+    launches each made; then randint, uniform and permutation at 2^27, the
+    host redrawing the first 2^20 values (element i hashes counter i alone),
+    the permutation checked to be one, each with its wall time and launches
+    beside its bound."""
+    import torch
+    import heat_tpu_torch as ht
+    from heat_tpu_torch.core import random as rnd
+
+    t0 = time.perf_counter()
+    n = RNG_SMALL
+    pool = torch.randn(n, 3, generator=torch.Generator().manual_seed(RNG_SEED))
+    p64 = torch.rand(n, generator=torch.Generator().manual_seed(RNG_SEED + 1), dtype=torch.float64)
+    p64[::7] = 0.0
+    p64 /= p64.sum()
+    p32 = p64.float()
+
+    def on(device):
+        return dev if device == "gpu" else torch.device("cpu")
+
+    def shuffled(device):
+        x = ht.array(pool.to(on(device)), split=0, device=device)
+        ht.random.shuffle(x)
+        return x
+
+    def random_bytes(device):
+        ht.use_device(device)
+        try:
+            return torch.frombuffer(bytearray(ht.random.bytes(4099)), dtype=torch.uint8)
+        finally:
+            ht.use_device("gpu")
+
+    rounds = rnd._shuffle_rounds(n)
+    draws = [  # (name, draw on a device, threefry launches on the card)
+        ("randint int64 [0, 3n)", lambda d: ht.random.randint(0, 3 * n, size=(n,), device=d), 2),
+        ("randint int64 span 2^63 + 5", lambda d: ht.random.randint(-(2**62) - 3, 2**62 + 2, size=(n,), device=d), 2),
+        ("randint int32 [-7, 2^31 - 1)", lambda d: ht.random.randint(-7, 2**31 - 1, size=(n,), dtype=ht.int32,
+                                                                      device=d), 2),
+        ("randint int32 [-2^31, 2^40)", lambda d: ht.random.randint(-(2**31), 2**40, size=(n,), dtype=ht.int32,
+                                                                     device=d), 2),
+        ("random_integers [-3, 3]", lambda d: ht.random.random_integers(-3, 3, size=(n,), device=d), 2),
+        ("uniform float32 [-3.7, 11.2)", lambda d: ht.random.uniform(-3.7, 11.2, (n,), device=d), 1),
+        ("uniform float64 [-3.7, 11.2)", lambda d: ht.random.uniform(-3.7, 11.2, (n,), dtype=ht.float64, device=d), 1),
+        ("random_sample float64", lambda d: ht.random.random_sample((n,), dtype=ht.float64, device=d), 1),
+        ("permutation(n)", lambda d: ht.random.permutation(n, device=d), rounds),
+        ("randperm(n) int32", lambda d: ht.random.randperm(n, dtype=ht.int32, device=d), rounds),
+        ("permutation of (n, 3) split=0", lambda d: ht.random.permutation(ht.array(pool.to(on(d)), split=0, device=d)),
+         rounds),
+        ("shuffle of (n, 3) split=0", shuffled, rounds),
+        ("choice, replace", lambda d: ht.random.choice(n, size=(4096,), device=d), 2),
+        ("choice, no replace", lambda d: ht.random.choice(ht.array(pool.to(on(d)), device=d), size=(4096,), replace=False,
+                                                          device=d), rounds),
+        ("choice, p float64, replace", lambda d: ht.random.choice(n, size=(4096,), p=p64.to(on(d)), device=d), 1),
+        ("choice, p float32, no replace (Gumbel)", lambda d: ht.random.choice(n, size=(4096,), replace=False,
+                                                                               p=p32.to(on(d)), device=d), 1),
+        ("bytes(4099)", random_bytes, 2),
+    ]
+    small = []
+    for name, draw, want_launches in draws:
+        ht.random.seed(RNG_SEED)
+        rnd.THREEFRY_LAUNCHES = 0
+        card = draw("gpu")
+        launches = rnd.THREEFRY_LAUNCHES
+        state = ht.random.get_state()
+        ht.random.seed(RNG_SEED)
+        host = draw("cpu")
+        if isinstance(card, ht.DNDarray):
+            if card.larray.device.type != "cuda":
+                raise AssertionError(f"{name}: drawn on {card.larray.device}, not on the card")
+            card, host = card.larray.cpu(), host.larray
+        if launches != want_launches or rnd.THREEFRY_LAUNCHES != launches or ht.random.get_state() != state:
+            raise AssertionError(f"{name}: {launches} threefry launches on the card ({want_launches} wanted), "
+                                 f"{rnd.THREEFRY_LAUNCHES - launches} on the host")
+        if card.dtype != host.dtype or card.shape != host.shape or not torch.equal(
+                card.view(torch.uint8) if card.is_floating_point() else card,
+                host.view(torch.uint8) if host.is_floating_point() else host):
+            raise AssertionError(f"{name}: the card's draw differs from the host's")
+        small.append({"draw": name, "n": card.numel(), "threefry_launches": launches, "bitwise": True})
+    emit({"phase": "rng_draws", "size": n, "checks": small})
+
+    big = []
+    for name, draw, out_bytes, hashes, prefix in (
+            ("randint int64 [0, 2^27)", lambda d, m: ht.random.randint(0, ROWS, size=(m,), device=d), 8, 2, True),
+            ("randint int32 [-7, 2^31 - 1)", lambda d, m: ht.random.randint(-7, 2**31 - 1, size=(m,),
+                                                                            dtype=ht.int32, device=d), 4, 2, True),
+            ("uniform float32 [-3.7, 11.2)", lambda d, m: ht.random.uniform(-3.7, 11.2, (m,), device=d), 4, 1, True),
+            ("permutation(2^27)", lambda d, m: ht.random.permutation(m, device=d), 8, rnd._shuffle_rounds(ROWS),
+             False)):
+        ht.random.seed(RNG_SEED)
+        draw("gpu", ROWS)  # warm-up: the allocator's first growth
+        ht.random.seed(RNG_SEED)
+        rnd.THREEFRY_LAUNCHES = 0
+        out, ms = wall_ms(lambda: draw("gpu", ROWS).larray)
+        launches = rnd.THREEFRY_LAUNCHES
+        if launches != hashes:
+            raise AssertionError(f"{name} at 2^27: {launches} threefry launches, {hashes} wanted")
+        if prefix:
+            ht.random.seed(RNG_SEED)
+            host = draw("cpu", n).larray
+            head = out[:n].cpu()
+            if not torch.equal(head.view(torch.uint8) if head.is_floating_point() else head,
+                               host.view(torch.uint8) if host.is_floating_point() else host):
+                raise AssertionError(f"{name} at 2^27: the first 2^20 values differ from the host's draw")
+        else:
+            if not torch.equal(torch.sort(out).values, torch.arange(ROWS, device=dev)):
+                raise AssertionError("permutation(2^27) is not a permutation of range(2^27)")
+        # each output written once; each hashed counter's 75 integer operations
+        # (a sort's work depends on its algorithm: not counted)
+        bound = {"bytes": out_bytes * ROWS / HBM_BYTES_PER_S * 1e3,
+                 "operations": hashes * THREEFRY_OPS * ROWS / INT32_OPS * 1e3}
+        bound_by = max(bound, key=bound.get)
+        big.append({"draw": name, "n": ROWS, "wall_ms": ms, "threefry_launches": launches,
+                    "bound_ms": bound[bound_by], "bound_by": bound_by, "share_of_bound": bound[bound_by] / ms,
+                    "checked": "first 2^20 bitwise the host's" if prefix else "a permutation"})
+        del out
+    torch.cuda.empty_cache()
+    emit({"phase": "rng_draws", "size": ROWS, "draws": big, "card": smi, "phase_seconds": time.perf_counter() - t0})
+
+
+def kmeanspp_pick_check(dev, g, smi: str) -> dict:
+    """Phase kmeanspp (first part): kmeans++ on 2^20 x 16 blobs on the card
+    against the CPU path on a host copy, round by round: the host replays
+    each round from the card's centres so far and must pick the card's row,
+    unless u lies within 1e-6 (relative, in float64) of the cumulative
+    boundary between the two picks (float32 cumulative sums resolve about
+    6e-8 near 1, summed in other orders on the two devices)."""
+    import torch
+    import heat_tpu_torch as ht
+    from heat_tpu_torch.cluster import _kcluster
+
+    t0 = time.perf_counter()
+    n = RNG_SMALL
+    truth = torch.randn(CLUSTERS, FEATURES, device=dev, generator=g) * 10.0
+    xs = torch.randn(n, FEATURES, device=dev, generator=g)
+    xs += truth[torch.randint(0, CLUSTERS, (n,), device=dev, generator=g)]
+    card = ht.array(xs, split=0)
+    host = ht.array(xs.cpu(), split=0, device="cpu")
+    cases = []
+    for seed in range(3):
+        ht.random.seed(seed)
+        first = int(ht.random.randint(0, n, size=(1,)).larray[0])
+        us = [float(ht.random.rand(1).larray[0]) for _ in range(CLUSTERS - 1)]
+        picks = _kcluster._kmeanspp_indices(card, first, us).cpu()
+        local = host.larray
+        x2 = (local * local).sum(1)
+        d2 = torch.full_like(x2, float("inf"))
+        for i, u in enumerate(us, 1):
+            d2, mine = _kcluster._kmeanspp_round(host, x2, d2, picks[i - 1:i], u)
+            a, b = sorted((int(mine), int(picks[i])))
+            if a == b:
+                continue
+            xd = local.double()
+            d64 = torch.stack([((xd - local[j].double()) ** 2).sum(1) for j in picks[:i].tolist()]).min(0).values
+            cum = torch.cumsum(d64, 0) / d64.sum()
+            gap = max(abs(float(cum[a]) - u), abs(float(cum[b - 1]) - u)) / u
+            case = {"seed": seed, "round": i, "u": u, "host_pick": int(mine), "card_pick": int(picks[i]),
+                    "cum_f64_at_lower": float(cum[a]), "cum_f64_before_upper": float(cum[b - 1]), "rel_gap": gap}
+            print(json.dumps({"phase": "kmeanspp", "near_boundary_case": case}), flush=True)
+            if gap > 1e-6:
+                raise AssertionError(f"kmeans++ round {i} (seed {seed}): the card picked row {picks[i]}, the host "
+                                     f"{int(mine)}, and u is {gap} (relative) from their boundary")
+            cases.append(case)
+    return {"rows": n, "seeds": 3, "rounds": 3 * (CLUSTERS - 1), "near_boundary_cases": len(cases),
+            "seconds": time.perf_counter() - t0}
+
+
+def kmeanspp_path(x, pts, check: dict, smi: str) -> dict:
+    """Phase kmeanspp (second part): KMeans(init="kmeans++") through the
+    entry point at full width, its launches (K1 n_iter + 1, threefry 9),
+    labels against the plain version, three predicts; then the init alone,
+    its centres distinct rows of x, its wall time beside its bound (x read
+    once for |x|^2 and once a round) and its profile.  Returns the launches
+    of the fit."""
+    import torch
+    import heat_tpu_torch as ht
+    from heat_tpu_torch.cluster import _kcluster
+    from heat_tpu_torch.core import kernels
+    from heat_tpu_torch.core import random as rnd
+
+    def model():
+        return ht.cluster.KMeans(n_clusters=CLUSTERS, init="kmeans++", random_state=SEED, max_iter=MAX_ITER)
+
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    zero_launches()
+    km, fit_ms = wall_ms(lambda: model().fit(pts))
+    launches = {"lloyd_step": kernels.LLOYD_LAUNCHES, "threefry": rnd.THREEFRY_LAUNCHES}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    n_iter, inertia = km.n_iter_, km.inertia_
+    if launches != {"lloyd_step": n_iter + 1, "threefry": CLUSTERS + 1} or other_launches() != sum(launches.values()):
+        raise AssertionError(f"the kmeans++ fit launched {launches} and {other_launches()} kernels in all; K1 "
+                             f"{n_iter + 1} times, threefry {CLUSTERS + 1}")
+    centres, labels = km.cluster_centers_.larray, km.labels_.larray
+    if centres.shape != (CLUSTERS, FEATURES) or labels.shape != (ROWS,) or not bool(torch.isfinite(centres).all()):
+        raise AssertionError("the kmeans++ fit's centres or labels have the wrong shape or are not finite")
+    _, _, plain_inertia, plain_labels = kernels._lloyd_plain(x, centres, ROWS, True)
+    relabelled = near_tie_mismatches(x, centres, labels, plain_labels)
+    if not torch.equal(labels, kernels._lloyd_cuda(x, centres, ROWS, True, "walk")[3]):
+        raise AssertionError("the kmeans++ fit's labels differ from the walk route's on the same centres")
+    if abs(inertia - float(plain_inertia)) > 1e-4 * abs(float(plain_inertia)):
+        raise AssertionError(f"kmeans++ fit inertia {inertia} against {float(plain_inertia)} from the plain version")
+    del plain_labels
+    gen = torch.Generator(device="cpu").manual_seed(SEED + 2)
+    requests = []
+    for size in (1, 64, 4096):
+        rows = torch.randint(0, ROWS, (size,), generator=gen).to(x.device)
+        pred, ms = wall_ms(lambda: km.predict(ht.array(x[rows], split=0)).larray)
+        if not torch.equal(pred, labels[rows]):
+            raise AssertionError(f"kmeans++ model: predict on {size} rows disagrees with labels_")
+        requests.append({"rows": size, "wall_ms": ms})
+
+    # the init alone: its centres are the rows the draws pick, distinct
+    init = model()
+    _, init_first_ms = wall_ms(lambda: init._initialize_cluster_centers(pts))
+    _, init_ms = wall_ms(lambda: init._initialize_cluster_centers(pts))
+    ht.random.seed(SEED)
+    first = int(ht.random.randint(0, ROWS, size=(1,)).larray[0])
+    idx = _kcluster._kmeanspp_indices(pts, first, [float(ht.random.rand(1).larray[0]) for _ in range(CLUSTERS - 1)])
+    if len(set(idx.tolist())) != CLUSTERS or not torch.equal(init._cluster_centers.larray, x[idx]):
+        raise AssertionError(f"the kmeans++ centres are not {CLUSTERS} distinct rows of x: rows {idx.tolist()}")
+    nbytes = CLUSTERS * 4 * ROWS * FEATURES  # x read for |x|^2 and once a round
+    ops = ROWS * (2 * FEATURES + (CLUSTERS - 1) * (2 * FEATURES + 8))  # |x|^2; a round's dot, D^2, min, sum, cumsum
+    bound = {"bytes": nbytes / HBM_BYTES_PER_S * 1e3, "operations": ops / F32_FLOPS * 1e3}
+    bound_by = max(bound, key=bound.get)
+    profile = profile_fit(lambda: init._initialize_cluster_centers(pts))
+    # a round's two largest steps beside the library calls they replace:
+    # x @ c as one block-diagonal GEMM against cuBLAS's gemv, the cumulative
+    # sum in a fixed order against torch.cumsum (whose rounding varies by run)
+    from heat_tpu_torch.core import arithmetics
+
+    c = x[idx[1]]
+    w = torch.rand(ROWS, device=x.device, generator=torch.Generator(device=x.device).manual_seed(SEED)) / ROWS
+    steps = {"row_dots_ms": time_ms(lambda: _kcluster._row_dots(x, c), reps=10),
+             "gemv_ms": time_ms(lambda: x @ c, reps=10),
+             "ordered_cumsum_ms": time_ms(lambda: arithmetics._ordered_cumsum(w), reps=10),
+             "torch_cumsum_ms": time_ms(lambda: torch.cumsum(w, 0), reps=10)}
+    del w
+    emit({"phase": "kmeanspp", "rows": ROWS, "features": FEATURES, "clusters": CLUSTERS, "picks_2^20": check,
+          "fit_wall_ms": fit_ms, "n_iter": n_iter, "inertia": inertia, "launches": launches,
+          "labels_vs_plain_near_ties": relabelled, "labels_equal_walk_route": True, "peak_memory_gb": peak_gb,
+          "predict": requests, "init_rows": idx.tolist(), "init_first_wall_ms": init_first_ms,
+          "init_wall_ms": init_ms, "init_bound_ms": bound[bound_by], "init_bound_by": bound_by,
+          "init_share_of_bound": bound[bound_by] / init_ms, "init_profile": profile, "round_steps": steps, "card": smi,
+          "phase_seconds": time.perf_counter() - t0 + check["seconds"]})
+    return launches
 
 
 def compare_gram(x, n_true: int) -> dict:
@@ -1575,10 +1846,18 @@ def main() -> int:
           "library_ms": None, "library_note": "no single PyTorch call computes the fused Lloyd step",
           "card": smi})
 
+    # 6a. the rest of the seeded draws on the card, against the host's
+    rng_draws(dev, smi)
+
+    # 6b. the kmeans++ path: the card's picks against the host's, then the
+    # fit at full width through the entry point
+    kpp_launches = kmeanspp_path(x, pts, kmeanspp_pick_check(dev, g, smi), smi)
+    threefry["launches"] += kpp_launches["threefry"]
+
     lloyd = {"name": "lloyd_step", "route": "cuda", "source": "heat_tpu_torch/csrc/lloyd.cu",
-             "replaces": "heat_tpu/core/kernels.py:121", "launches": launches, "max_abs_err": max_abs_err,
-             "ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bound[bound_by], "bound_by": bound_by,
-             "library_ms": None}
+             "replaces": "heat_tpu/core/kernels.py:121", "launches": launches + kpp_launches["lloyd_step"],
+             "max_abs_err": max_abs_err, "ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bound[bound_by],
+             "bound_by": bound_by, "library_ms": None}
     if "--kmeans-only" in sys.argv[1:]:
         emit({"partial_run": "--kmeans-only: the phases after the KMeans path were not run"})
         return 0
@@ -1825,7 +2104,7 @@ def main() -> int:
             e["cuda_core_route"]["launches"] = bwd_launches[f"{e['name'].rsplit('_', 1)[1]}_cuda_core"]
     train_cnn(dev, smi)
 
-    threefry["launches"] += rsvd_threefry + rpca_threefry  # the KMeans init's, rsvd's and the randomized PCA's
+    threefry["launches"] += rsvd_threefry + rpca_threefry  # the KMeans inits', rsvd's and the randomized PCA's
     emit({"kernels": [lloyd, threefry, gram, *fft_entries, flash, *flash_bwd]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": name, "count": torch.cuda.device_count()}})
     return 0

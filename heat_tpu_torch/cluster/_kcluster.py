@@ -1,8 +1,9 @@
 """Shared k-clustering base (counterpart of heat_tpu/cluster/_kcluster.py).
 
-Ported here: ``init="random"`` and an explicit array of centres, the
-nearest-centre assignment and ``predict``.  kmeans++ seeding and the
-checkpoint/resume options are not ported yet and raise.
+Ported here: ``init="random"``, kmeans++ (``"kmeans++"``,
+``"probability_based"``, ``"++"``) and an explicit array of centres, the
+nearest-centre assignment and ``predict``.  The checkpoint/resume options
+and the low-precision predict scope are not ported yet and raise.
 """
 
 from __future__ import annotations
@@ -12,7 +13,7 @@ from typing import Callable, Optional, Union
 import torch
 
 from ..core import random as ht_random
-from ..core import statistics, types
+from ..core import arithmetics, statistics, types
 from ..core.base import BaseEstimator, ClusteringMixin, lazy_scalar_property, low_precision_predict_requested
 from ..core.dndarray import DNDarray
 
@@ -80,7 +81,11 @@ class _KCluster(BaseEstimator, ClusteringMixin):
             idx = torch.argsort(u, stable=True)[:k]
             centers = _global_rows(x, idx).to(dtype)
         elif self.init in ("kmeans++", "probability_based", "++"):
-            raise NotImplementedError("kmeans++ initialisation is not ported yet; use init='random' or an array")
+            # the JAX package's draw order: the first centre's index, then
+            # one uniform per added centre, then the greedy D^2 rounds
+            first = int(ht_random.randint(0, n, size=(1,), device=x.device, comm=x.comm).larray[0])
+            uniforms = [float(ht_random.rand(1, device=x.device, comm=x.comm).larray[0]) for _ in range(k - 1)]
+            centers = _global_rows(x, _kmeanspp_indices(x, first, uniforms)).to(dtype)
         elif self.init == "batchparallel":
             raise NotImplementedError("batchparallel init: use BatchParallelKMeans")
         else:
@@ -111,3 +116,70 @@ def _global_rows(x: DNDarray, idx: torch.Tensor) -> torch.Tensor:
     rows = torch.zeros((idx.shape[0], x.shape[1]), dtype=x.larray_padded.dtype, device=idx.device)
     rows[mine] = x.larray_padded[local[mine]]
     return x.comm.psum(rows)
+
+
+def _kmeanspp_indices(x: DNDarray, first: int, uniforms) -> torch.Tensor:
+    """kmeans++ seeding of split=0 (or unsplit) points without gathering
+    them: the global indices of the centres, row ``first`` and then one
+    D^2-weighted pick (:func:`_kmeanspp_round`) per uniform in
+    ``uniforms``."""
+    if x.split not in (None, 0):
+        raise NotImplementedError(f"kmeans++ seeds points split along rows or not split, got split={x.split}")
+    local = x.larray
+    ones = torch.ones(local.shape[1], dtype=local.dtype, device=local.device)
+    # |x|^2 from 2^22 rows at a time: the squares of all of x would double its memory
+    x2 = torch.cat([_row_dots(rows * rows, ones) for rows in torch.split(local, 1 << 22)]) if local.shape[0] else ones[:0]
+    d2 = torch.full_like(x2, float("inf"))
+    picks = [torch.tensor([first], dtype=torch.int64, device=local.device)]
+    for u in uniforms:
+        d2, pick = _kmeanspp_round(x, x2, d2, picks[-1], u)
+        picks.append(pick)
+    return torch.cat(picks)
+
+
+def _kmeanspp_round(x: DNDarray, x2: torch.Tensor, d2: torch.Tensor, newest: torch.Tensor, u: float):
+    """One greedy round of the JAX package's kmeans++ loop on this rank's
+    rows: ``(d2, pick)``, the squared distances to the nearest centre so far
+    and the global index (shape (1,)) of the next centre.
+
+    D^2 is the minimum over the centres of ``|x|^2 + |c|^2 - 2 x.c``, kept as
+    a running minimum ``d2`` that takes the ``newest`` centre's column (a
+    minimum is exact, so this equals the minimum over all columns), clipped
+    at 0 and divided by its sum (one psum).  The cumulative sum runs over
+    the local rows in a fixed order (:func:`arithmetics._ordered_cumsum`:
+    the same picks in every run), offset by the exscan of the ranks'
+    totals; the pick is
+    the first global row whose cumulative sum is at least ``u`` (a pmin of
+    the ranks' candidates), the last row where there is none, as the
+    reference's ``clip(searchsorted(cumsum, u), 0, n - 1)``."""
+    local, comm, n = x.larray, x.comm, x.shape[0]
+    offset = comm.chunk(x.shape, x.split)[0] if x.split == 0 else 0
+    c = _global_rows(x, newest)[0].to(local.dtype)
+    d2 = torch.minimum(d2, torch.add(x2 + (c * c).sum(), _row_dots(local, c), alpha=-2.0))
+    w = torch.clamp(d2, min=0.0)
+    total = comm.psum(w.sum().reshape(1))
+    cum = arithmetics._ordered_cumsum(w / torch.clamp(total, min=1e-30))
+    carry = cum[-1:] if cum.numel() else torch.zeros(1, dtype=cum.dtype, device=cum.device)
+    hits = (cum + comm.exscan(carry)) >= u
+    none = torch.tensor([n], dtype=torch.int64, device=cum.device)
+    candidate = torch.where(hits.any(), hits.to(torch.int32).argmax() + offset, none) if hits.numel() else none
+    return d2, torch.clamp(comm.pmin(candidate), max=n - 1)
+
+
+def _row_dots(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` for an (n, f) tensor and a vector of f, as one matrix
+    product: ``g = 128 // f`` rows at a time, each (g f)-wide row against a
+    block-diagonal (g f, g) copy of ``b``, the rows left over by a vector
+    product.  cuBLAS's vector product over rows of 16 floats reads x at a
+    fraction of the memory rate (chip_smoke.py, phase kmeanspp, times
+    both)."""
+    n, f = a.shape
+    g = max(1, 128 // f)
+    if g == 1:
+        return a @ b
+    whole = n - n % g
+    out = torch.empty(n, dtype=a.dtype, device=a.device)
+    torch.mm(a[:whole].reshape(whole // g, g * f), torch.block_diag(*[b[:, None]] * g),
+             out=out[:whole].view(whole // g, g))
+    torch.mv(a[whole:], b, out=out[whole:])
+    return out

@@ -2,12 +2,15 @@
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from . import _operations, types
 from .dndarray import DNDarray
 
 __all__ = ["add", "div", "mul", "neg", "pow", "sub", "sum"]
+
+_SCAN_BLOCK = 4096
 
 
 def add(t1, t2) -> DNDarray:
@@ -72,3 +75,18 @@ def sum(x: DNDarray, axis=None, keepdims: bool = False) -> DNDarray:
     return _operations.__reduce_op(
         x, lambda t, dims, keep: torch.sum(t, dim=dims, keepdim=keep), x.comm.psum, 0, axis, keepdims
     )
+
+
+def _ordered_cumsum(w: torch.Tensor) -> torch.Tensor:
+    """The inclusive cumulative sum of the 1-D tensor ``w``, added in the
+    same order in every run: row-wise scans of blocks of 4096 (zero-padded
+    to at least two rows, so that torch takes its row-wise scan), each
+    offset by the sum of the blocks before it, accumulated on the host in
+    ``w``'s dtype.  ``torch.cumsum`` of a whole CUDA vector is a decoupled
+    look-back scan whose rounding changes from run to run."""
+    n = w.shape[0]
+    rows = max(2, -(-n // _SCAN_BLOCK))
+    scans = torch.cumsum(torch.nn.functional.pad(w, (0, rows * _SCAN_BLOCK - n)).view(rows, _SCAN_BLOCK), 1)
+    totals = scans[:, -1].cpu().numpy()
+    offsets = np.concatenate([np.zeros(1, totals.dtype), np.cumsum(totals[:-1], dtype=totals.dtype)])
+    return (scans + torch.from_numpy(offsets).to(w.device)[:, None]).view(-1)[:n]

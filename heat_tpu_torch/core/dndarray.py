@@ -86,6 +86,11 @@ class DNDarray:
             self.__comm,
         )
 
+    def _replace_local(self, dense: torch.Tensor) -> None:
+        """Replace the data in place by the true-shape global tensor
+        ``dense`` of the same dtype: this rank keeps its chunk of it."""
+        self.__array = DNDarray.from_dense(dense, self.__split, self.__device, self.__comm).larray_padded
+
     # ------------------------------------------------------------------
     # padded / local / dense views
     # ------------------------------------------------------------------

@@ -4,14 +4,26 @@
 The JAX package draws every array from the key ``fold_in(PRNGKey(seed),
 counter)`` and bumps the counter once per draw.  This module computes the
 same Threefry-2x32 hash (20 rounds, the partitionable bit layout: element i
-hashes the 64-bit counter i split into its high and low words) and JAX's
-mantissa construction of uniform floats, so a seeded draw gives the same
-bits here as there, on any device and at any world size.  Normal draws are
-``jax.random.normal``'s: ``sqrt(2) erfinv(u)`` of a uniform ``u`` on
-``[nextafter(-1, 0), 1)``, with ``erfinv`` evaluated by the polynomials
-XLA's host compiler uses (:func:`_erfinv`, :func:`_log1p`, :func:`_log`):
-float32 draws are within 2 ulp of the JAX package's, nearly all bitwise
-equal, float64 within 3.
+hashes the 64-bit counter i split into its high and low words) and builds
+each draw from it as ``jax.random`` does (jax 0.9, partitionable threefry),
+so a seeded draw gives the same bits here as there, on any device and at
+any world size:
+
+- uniform floats (:func:`rand`, :func:`uniform`, :func:`random_sample` and
+  its aliases): random mantissa bits under the exponent of 1.0, minus 1;
+- integers (:func:`randint`, :func:`random_integers`, :func:`bytes`): JAX's
+  ``_randint``, two bit sets from the two halves of a split key, folded into
+  the span by unsigned remainders (:func:`_randint`);
+- permutations (:func:`permutation`, :func:`randperm`, :func:`shuffle`,
+  :func:`choice` without replacement): JAX's ``_shuffle``, rounds of a
+  stable sort on 32-bit keys read as unsigned (:func:`_shuffle_perm`);
+- weighted choices: a cumulative sum searched (with replacement), or
+  Gumbel keys on top of ``log(p)`` in a stable descending sort (without);
+- normal draws: ``sqrt(2) erfinv(u)`` of a uniform ``u`` on
+  ``[nextafter(-1, 0), 1)``, with ``erfinv`` evaluated by the polynomials
+  XLA's host compiler uses (:func:`_erfinv`, :func:`_log1p`, :func:`_log`):
+  float32 draws are within 2 ulp of the JAX package's, nearly all bitwise
+  equal, float64 within 3.  The Gumbel keys go through the same ``_log``.
 
 On a CUDA device the hash of a draw is one launch of the hand-written kernel
 ``csrc/threefry.cu`` (which also writes float32 uniforms directly); it
@@ -19,19 +31,22 @@ launches or raises, and ``THREEFRY_LAUNCHES`` counts its launches.  On the
 CPU, and only there, the plain version runs: torch has little support for
 uint32, so the hash runs on int32 tensors holding the words' bits (additions
 wrap modulo 2^32 as unsigned ones do, and right shifts are masked to act as
-logical ones).  The two are bitwise equal.
+logical ones).  The two are bitwise equal.  Key splits are hashed on the
+host, as key derivation is.
 """
 
 from __future__ import annotations
 
+import builtins
 import ctypes
+import math
 import os
 from typing import Optional, Tuple
 
 import numpy as np
 import torch
 
-from . import _build, types
+from . import _build, arithmetics, types
 from .devices import sanitize_device
 from .dndarray import DNDarray
 from .stride_tricks import sanitize_axis, sanitize_shape
@@ -39,9 +54,33 @@ from .stride_tricks import sanitize_axis, sanitize_shape
 #: launches of the CUDA threefry kernel in this process (the plain version adds nothing)
 THREEFRY_LAUNCHES = 0
 
-__all__ = ["default_seed", "get_state", "normal", "rand", "randn", "seed", "set_state", "standard_normal"]
+__all__ = [
+    "bytes",
+    "choice",
+    "default_seed",
+    "get_state",
+    "normal",
+    "permutation",
+    "rand",
+    "randint",
+    "randn",
+    "random",
+    "random_integer",
+    "random_integers",
+    "random_sample",
+    "randperm",
+    "ranf",
+    "sample",
+    "seed",
+    "set_state",
+    "shuffle",
+    "standard_normal",
+    "uniform",
+]
 
 _M32 = 0xFFFFFFFF
+_M64 = (1 << 64) - 1
+_SIGN64 = 1 << 63
 _ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
 _KS_PARITY = 0x1BD11BDA
 
@@ -81,6 +120,12 @@ def _i32(v: int) -> int:
     """The int32 value that holds the bits of the 32-bit word ``v``."""
     v &= _M32
     return v - (1 << 32) if v >> 31 else v
+
+
+def _i64(v: int) -> int:
+    """The int64 value that holds the bits of the 64-bit word ``v``."""
+    v &= _M64
+    return v - (1 << 64) if v >> 63 else v
 
 
 def _rotl(x: torch.Tensor, r: int) -> torch.Tensor:
@@ -208,9 +253,106 @@ def _uniform(key: Tuple[int, int], shape, dtype, device: torch.device, lo: float
     else:
         raise ValueError(f"rand draws float32 or float64, got {dtype.__name__}")
     if (lo, hi) != (0.0, 1.0):
+        # scaled and shifted by one fused multiply-add, as XLA contracts it
         lo_t = torch.tensor(lo, dtype=floats.dtype, device=device)
-        floats = floats * (torch.tensor(hi, dtype=floats.dtype, device=device) - lo_t) + lo_t
-    return torch.clamp(floats, min=lo).reshape(shape)
+        span = torch.tensor(hi, dtype=floats.dtype, device=device) - lo_t
+        fma = _fma32 if dtype is types.float32 else _fma64
+        floats = torch.maximum(fma(floats, span.expand_as(floats), lo_t), lo_t)
+    return floats.reshape(shape)
+
+
+def _split(key: Tuple[int, int]) -> Tuple[Tuple[int, int], Tuple[int, int]]:
+    """``jax.random.split(key)`` (``_threefry_split_foldlike``): the two new
+    keys are the hash words of counters 0 and 1 under ``key``, hashed on the
+    host."""
+    b0, b1 = _random_bits_plain(key, 2, torch.device("cpu"))
+    return (int(b0[0]) & _M32, int(b1[0]) & _M32), (int(b0[1]) & _M32, int(b1[1]) & _M32)
+
+
+def _bits32(key: Tuple[int, int], n: int, device: torch.device) -> torch.Tensor:
+    """JAX's 32 random bits of counters 0..n-1, ``w0 ^ w1``, as int32
+    holding the bits."""
+    b0, b1 = _random_bits(key, n, device)
+    return b0 ^ b1
+
+
+def _bits64(key: Tuple[int, int], n: int, device: torch.device) -> torch.Tensor:
+    """JAX's 64 random bits of counters 0..n-1, ``(w0 << 32) | w1``, as
+    int64 holding the bits."""
+    b0, b1 = _random_bits(key, n, device)
+    return (b0.to(torch.int64) << 32) | (b1.to(torch.int64) & _M32)
+
+
+def _rem(a: int, s: int) -> int:
+    """XLA's unsigned remainder of host words: ``a mod s``, and ``a`` where
+    ``s`` is 0."""
+    return a % s if s else a
+
+
+def _urem64(a: torch.Tensor, s: int) -> torch.Tensor:
+    """XLA's unsigned remainder of the 64-bit words held in the int64 tensor
+    ``a`` by the host word ``s`` (``a`` itself where ``s`` is 0).  torch has
+    no unsigned 64-bit remainder, so: a divisor of 2^63 or more is subtracted
+    at most once (a < 2^64 <= 2 s), compared as unsigned by flipping both
+    sign bits; a smaller one divides the low 63 bits, and a word with its top
+    bit set adds 2^63 mod s, reduced once more (every step within int64)."""
+    if s == 0:
+        return a
+    if s >= _SIGN64:
+        return torch.where((a ^ _i64(_SIGN64)) >= _i64(s ^ _SIGN64), a - _i64(s), a)
+    low = torch.remainder(a & (_SIGN64 - 1), s)
+    top = low - (s - _SIGN64 % s)  # low + (2^63 mod s) - s, in (-s, s)
+    return torch.where(a < 0, torch.where(top < 0, top + s, top), low)
+
+
+def _randint(key: Tuple[int, int], shape, low: int, high: int, dtype, device: torch.device) -> torch.Tensor:
+    """``jax.random.randint(key, shape, low, high, dtype)`` for int32 and
+    int64 (``_randint``): the high bits from the first half of the split
+    key, the low bits from the second, folded into the span modulo 2^nbits.
+    The span and its multiplier are host words; the bits are tensors holding
+    unsigned words (int64 for both widths)."""
+    nbits = 64 if dtype is types.int64 else 32
+    dmin, dmax = -(1 << (nbits - 1)), (1 << (nbits - 1)) - 1
+    mask = (1 << nbits) - 1
+    if not -(1 << 63) <= low < 1 << 63 or not -(1 << 63) <= high < 1 << 63:
+        raise OverflowError(f"randint bounds must be int64 values, got {low} and {high}")
+    out_of_range = high > dmax
+    low, high = min(max(low, dmin), dmax), min(max(high, dmin), dmax)
+    span = 1 if high <= low else (high - low) & mask
+    if out_of_range and high > low:
+        span = (span + 1) & mask  # may wrap to 0: the remainders then do nothing
+    multiplier = _rem((_rem(1 << (nbits // 2), span) ** 2) & mask, span)
+    k1, k2 = _split(key)
+    n = math.prod(shape)
+    if nbits == 64:
+        hi_bits, lo_bits = _bits64(k1, n, device), _bits64(k2, n, device)
+        offset = _urem64(_urem64(hi_bits, span) * multiplier + _urem64(lo_bits, span), span)  # int64 wraps
+        return (offset + _i64(low)).reshape(shape)
+    hi_bits = _bits32(k1, n, device).to(torch.int64) & _M32
+    lo_bits = _bits32(k2, n, device).to(torch.int64) & _M32
+    rem = (lambda t: torch.remainder(t, span)) if span else (lambda t: t)
+    offset = rem((rem(hi_bits) * multiplier + rem(lo_bits)) & _M32)
+    return (((offset + low) & _M32) ^ (1 << 31)).sub(1 << 31).to(torch.int32).reshape(shape)
+
+
+def _shuffle_rounds(n: int) -> int:
+    """JAX's round count for shuffling n items, in float64 as JAX computes
+    it: 0 at n = 1, 1 up to 1625, 2 from 1626, 3 from 2642246."""
+    return int(np.ceil(3 * np.log(max(1, n)) / np.log(np.iinfo(np.uint32).max)))
+
+
+def _shuffle_perm(key: Tuple[int, int], n: int, device: torch.device) -> torch.Tensor:
+    """The permutation ``jax.random.permutation(key, n)`` applies
+    (``_shuffle``): :func:`_shuffle_rounds` rounds, each a stable sort of
+    the positions by 32-bit keys from a fresh split of the key, the keys
+    compared as unsigned (their sign bit flipped, so that int32 order is
+    uint32 order).  int64 indices."""
+    perm = torch.arange(n, dtype=torch.int64, device=device)
+    for _ in range(_shuffle_rounds(n)):
+        key, subkey = _split(key)
+        sort_keys = _bits32(subkey, n, device) ^ _i32(1 << 31)
+        perm = perm[torch.sort(sort_keys, stable=True).indices]
+    return perm
 
 
 # XLA's erf_inv (M. Giles, "Approximating the erfinv function"): w =
@@ -260,11 +402,48 @@ _LOG1P_Q = (1.0, 1.5062909083469192043167e1, 8.3047565967967209469434e1, 2.21762
             3.0909872225312059774938e2, 2.1642788614495947685003e2, 6.0118660497603843919306e1)
 
 
+def _two_sum(a: torch.Tensor, b: torch.Tensor):
+    """``(s, t)`` with ``s = a + b`` rounded and ``s + t`` exactly ``a + b``
+    (Knuth's TwoSum)."""
+    s = a + b
+    bb = s - a
+    return s, (a - (s - bb)) + (b - bb)
+
+
+def _round_to_odd(s: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+    """``s + t`` (a pair from :func:`_two_sum`) rounded to odd: ``s`` where
+    the sum is exact or ``s``'s last bit is set, else the neighbour of ``s``
+    toward ``t``, whose last bit is."""
+    even = (s.view(torch.int64 if s.dtype == torch.float64 else torch.int32) & 1) == 0
+    return torch.where((t != 0) & even, torch.nextafter(s, t * float("inf")), s)
+
+
 def _fma32(a: torch.Tensor, b: torch.Tensor, c) -> torch.Tensor:
     """``a * b + c`` in float32 as one fused multiply-add, as XLA's compiler
-    emits it: taken in float64, where the product is exact, and rounded once
-    to float32 (a double rounding that rarely differs from the fused one)."""
-    return (a.double() * b.double() + (c.double() if torch.is_tensor(c) else c)).float()
+    emits it: the product is exact in float64, the sum is rounded to odd
+    there, and rounding that to float32 rounds the exact value once (53 bits
+    hold 24 + 2)."""
+    c = c.double() if torch.is_tensor(c) else torch.full_like(a, c, dtype=torch.float64)
+    return _round_to_odd(*_two_sum(a.double() * b.double(), c)).float()
+
+
+def _veltkamp(a: torch.Tensor):
+    """``a`` split into two halves of 26 bits each, ``hi + lo == a``."""
+    big = a * 134217729.0  # 2^27 + 1
+    hi = big - (big - a)
+    return hi, a - hi
+
+
+def _fma64(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """``a * b + c`` in float64 as one fused multiply-add (Boldo and
+    Melquiond's emulation): the exact product ``uh + ul`` (Dekker), ``c + uh
+    = th + tl`` exactly, then ``th + RO(tl + ul)`` rounded once."""
+    uh = a * b
+    ah, al = _veltkamp(a)
+    bh, bl = _veltkamp(b)
+    ul = ((ah * bh - uh) + ah * bl + al * bh) + al * bl
+    th, tl = _two_sum(c.expand_as(uh), uh)
+    return th + _round_to_odd(*_two_sum(tl, ul))
 
 
 def _horner(x: torch.Tensor, coefs) -> torch.Tensor:
@@ -380,3 +559,156 @@ def normal(mean=0.0, std=1.0, shape=None, dtype=types.float32, split=None, devic
     mean_t = mean._dense() if isinstance(mean, DNDarray) else torch.as_tensor(mean)
     data = _normal(_next_key(), shape, dtype, dev) * std_t.to(dev) + mean_t.to(dev)
     return DNDarray.from_dense(data, sanitize_axis(data.shape, split), device, comm)
+
+
+def _gumbel(key: Tuple[int, int], n: int, dtype, device: torch.device) -> torch.Tensor:
+    """``jax.random.gumbel(key, (n,), dtype)`` in its default mode ("low"):
+    ``-log(-log(u))`` of a uniform ``u`` on [tiny, 1), through :func:`_log`."""
+    tiny = float(np.finfo(np.float32 if dtype is types.float32 else np.float64).tiny)
+    return -_log(-_log(_uniform(key, (n,), dtype, device, tiny, 1.0)))
+
+
+def randint(low, high=None, size=None, dtype=None, split=None, device=None, comm=None) -> DNDarray:
+    """Random integers in [low, high); int64 unless ``dtype`` is int32."""
+    if high is None:
+        low, high = 0, low
+    if low >= high:
+        raise ValueError("low >= high")
+    if size is None:
+        size = (1,)
+    shape = sanitize_shape(size)
+    dtype = types.canonical_heat_type(types.int64 if dtype is None else dtype)
+    if dtype not in (types.int64, types.int32):
+        raise ValueError(f"Unsupported dtype for randint, got {dtype}")
+    device = sanitize_device(device)
+    data = _randint(_next_key(), shape, int(low), int(high), dtype, device.torch_device)
+    return DNDarray.from_dense(data, sanitize_axis(shape, split), device, comm)
+
+
+random_integer = randint
+
+
+def random_integers(low, high=None, size=None, split=None, device=None, comm=None) -> DNDarray:
+    """Random integers in the closed interval [low, high] (``low`` 1 when
+    ``high`` is not given)."""
+    if high is None:
+        low, high = 1, low
+    return randint(low, int(high) + 1, size=size, split=split, device=device, comm=comm)
+
+
+def uniform(low=0.0, high=1.0, size=None, dtype=types.float32, split=None, device=None, comm=None) -> DNDarray:
+    """Uniform samples on [low, high)."""
+    shape = sanitize_shape((1,) if size is None else size)
+    dtype = types.canonical_heat_type(dtype)
+    device = sanitize_device(device)
+    data = _uniform(_next_key(), shape, dtype, device.torch_device, float(low), float(high))
+    return DNDarray.from_dense(data, sanitize_axis(shape, split), device, comm)
+
+
+def random_sample(shape=None, dtype=types.float32, split=None, device=None, comm=None) -> DNDarray:
+    """Uniform samples on [0, 1)."""
+    return rand(*sanitize_shape((1,) if shape is None else shape), dtype=dtype, split=split, device=device, comm=comm)
+
+
+random = random_sample
+ranf = random_sample
+sample = random_sample
+
+
+def _as_tensor(a, device: torch.device) -> torch.Tensor:
+    """A DNDarray's global data, a tensor, or array-like data, as a tensor
+    on ``device``."""
+    if isinstance(a, DNDarray):
+        return a._dense().to(device)
+    if torch.is_tensor(a):
+        return a.to(device)
+    return torch.as_tensor(np.asarray(a), device=device)
+
+
+def permutation(x, split=None, device=None, comm=None) -> DNDarray:
+    """A permutation of ``range(x)`` (int64), or a copy of ``x`` with its
+    rows permuted.  A DNDarray's copy keeps its split, device and comm
+    unless they are given."""
+    key = _next_key()
+    if isinstance(x, DNDarray):
+        device = x.device if device is None else sanitize_device(device)
+        comm = x.comm if comm is None else comm
+        split = x.split if split is None else split
+    else:
+        device = sanitize_device(device)
+    dev = device.torch_device
+    if not isinstance(x, DNDarray) and np.ndim(x) == 0:
+        if not np.issubdtype(np.asarray(x).dtype, np.integer):
+            raise TypeError("x must be an integer or at least 1-dimensional")
+        data = _shuffle_perm(key, int(x), dev)
+    else:
+        data = _as_tensor(x, dev)
+        data = data[_shuffle_perm(key, data.shape[0], dev)]
+    return DNDarray.from_dense(data, sanitize_axis(data.shape, split), device, comm)
+
+
+def randperm(n: int, dtype=None, split=None, device=None, comm=None) -> DNDarray:
+    """A random permutation of ``range(n)``, int64 unless ``dtype`` is given."""
+    if not isinstance(n, int):
+        raise TypeError(f"n must be an integer, got {type(n)}")
+    dtype = types.canonical_heat_type(types.int64 if dtype is None else dtype)
+    device = sanitize_device(device)
+    data = _shuffle_perm(_next_key(), n, device.torch_device).to(dtype.torch_type())
+    return DNDarray.from_dense(data, sanitize_axis(data.shape, split), device, comm)
+
+
+def shuffle(x) -> None:
+    """Shuffle a DNDarray in place along its first axis."""
+    if not isinstance(x, DNDarray):
+        raise TypeError(f"x must be a DNDarray, got {type(x)}")
+    dense = x._dense()
+    x._replace_local(dense[_shuffle_perm(_next_key(), x.shape[0], dense.device)])
+
+
+def choice(a, size=None, replace: bool = True, p=None, split=None, device=None, comm=None) -> DNDarray:
+    """A random sample from the rows of ``a``, or from ``range(a)`` (int64),
+    as ``jax.random.choice`` draws it; ``size=None`` gives a 0-d DNDarray."""
+    device = sanitize_device(device)
+    dev = device.torch_device
+    pool = _as_tensor(a, dev)
+    if pool.ndim == 0:  # an int: its range
+        pool = torch.arange(int(pool), device=dev)
+    shape = () if size is None else sanitize_shape(size)
+    probs = None if p is None else _as_tensor(p, dev)
+    key = _next_key()
+    n_in, n_draws = pool.shape[0], math.prod(shape)
+    if n_draws == 0:
+        data = torch.zeros(shape, dtype=pool.dtype, device=dev)
+        return DNDarray.from_dense(data, sanitize_axis(data.shape, split), device, comm)
+    if n_in <= 0:
+        raise ValueError("a must be greater than 0 unless no samples are taken")
+    if not replace and n_draws > n_in:
+        raise ValueError(f"Cannot take a larger sample (size {n_draws}) than population (size {n_in}) when "
+                         "'replace=False'")
+    if probs is None:
+        if replace:
+            ind = _randint(key, shape, 0, n_in, types.int64, dev)
+        else:
+            ind = _shuffle_perm(key, n_in, dev)[:n_draws]
+    else:
+        if probs.dtype not in (torch.float32, torch.float64):
+            probs = probs.to(torch.float64)
+        if tuple(probs.shape) != (n_in,):
+            raise ValueError("p must be None or a 1D vector with the same size as a.shape[axis]. "
+                             f"p has shape {tuple(probs.shape)} and a.shape[axis] is {n_in}.")
+        dtype = types.canonical_heat_type(probs.dtype)
+        if replace:
+            cuml = arithmetics._ordered_cumsum(probs)
+            r = cuml[-1] * (1 - _uniform(key, shape, dtype, dev))
+            ind = torch.searchsorted(cuml, r.reshape(-1))
+        else:
+            g = _gumbel(key, n_in, dtype, dev) + _log(probs)
+            ind = torch.sort(g, descending=True, stable=True).indices[:n_draws]  # top_k: ties to the lower index
+    data = pool[ind.reshape(-1)].reshape(shape + tuple(pool.shape[1:]))
+    return DNDarray.from_dense(data, sanitize_axis(data.shape, split), device, comm)
+
+
+def bytes(length: int) -> builtins.bytes:
+    """``length`` random bytes: ``randint(0, 256)`` as int32, one byte each."""
+    bits = _randint(_next_key(), (int(length),), 0, 256, types.int32, sanitize_device(None).torch_device)
+    return builtins.bytes(bits.cpu().numpy().astype(np.uint8).tobytes())

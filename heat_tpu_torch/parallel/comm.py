@@ -193,11 +193,30 @@ class Communication:
         once as a source and once as a destination.  Differentiable: the
         gradient goes back by the ppermute with every pair reversed (a
         rank that sent nothing gets a zero gradient)."""
-        if self.size == 1:
-            return x
-        self._check_joined()
         perm = tuple((int(s), int(d)) for s, d in perm)
+        if self.size == 1:
+            return x if (0, 0) in perm else torch.zeros_like(x)
+        self._check_joined()
         return _PPermute.apply(x, self, perm)
+
+    def pscan(self, x: torch.Tensor, inclusive: bool = True) -> torch.Tensor:
+        """Prefix sum of ``x`` over the ranks, rank 0 first: log2(size)
+        rounds of :meth:`ppermute` (ranks outside a round receive zeros, the
+        additive identity).  The exclusive scan is the previous rank's
+        inclusive one, zero at rank 0."""
+        n = self.size
+        acc = x
+        shift = 1
+        while shift < n:
+            acc = acc + self.ppermute(acc, [(i, i + shift) for i in range(n - shift)])
+            shift *= 2
+        if inclusive:
+            return acc
+        return self.ppermute(acc, [(i, i + 1) for i in range(n - 1)])
+
+    def exscan(self, x: torch.Tensor) -> torch.Tensor:
+        """Exclusive prefix sum over the ranks (zero at rank 0)."""
+        return self.pscan(x, inclusive=False)
 
     def _ppermute(self, x: torch.Tensor, perm: Sequence[Tuple[int, int]]) -> torch.Tensor:
         """The exchange itself, outside autograd."""

@@ -168,6 +168,45 @@ np.savez(
 dist.destroy_process_group()
 """
 
+# one world for the seeded sampling path: kmeans++ inits for seeds 0-5 (all
+# gathers recorded: there must be none) and one fit, permutations split over
+# the uneven rows, and the prefix sums of per-rank values
+_SAMPLING_MAIN = _RANK_HEAD + r"""
+gathered = []
+_all_gather = ht.Communication.all_gather
+
+
+def recording_all_gather(self, x, axis=0):
+    gathered.append(tuple(x.shape))
+    return _all_gather(self, x, axis)
+
+
+ht.Communication.all_gather = recording_all_gather
+saved = {}
+x = ht.array(arrays["x"], split=0)
+for seed in range(6):
+    km = ht.cluster.KMeans(n_clusters=8, init="kmeans++", random_state=seed)
+    km._initialize_cluster_centers(x)
+    saved[f"init{seed}"] = km.cluster_centers_.larray.numpy()
+    saved[f"state{seed}"] = np.asarray(ht.random.get_state()[2])
+saved["init_gathers"] = np.asarray(len(gathered))
+km = ht.cluster.KMeans(n_clusters=8, init="kmeans++", random_state=4, max_iter=30).fit(x)
+saved.update(centers=km.cluster_centers_.numpy(), labels=km.labels_.numpy(), inertia=np.asarray(km.inertia_),
+             n_iter=np.asarray(km.n_iter_), predict=km.predict(ht.array(arrays["fresh"], split=0)).numpy())
+ht.random.seed(9)
+perm = ht.random.permutation(1003, split=0)
+rows = ht.random.permutation(x)
+saved.update(perm=perm.larray.numpy(), perm_split=np.asarray(perm.split), rows=rows.larray.numpy(),
+             rows_split=np.asarray(rows.split), rows_lshape_map=rows.lshape_map, state=np.asarray(ht.random.get_state()[2]))
+comm = ht.get_comm()
+v = torch.tensor([1.5 * (rank + 1), -float(rank * rank), 0.25])
+counts = torch.tensor([(rank * 7) % 5 + 1], dtype=torch.int64)
+saved.update(pscan=comm.pscan(v).numpy(), exscan=comm.exscan(v).numpy(), ipscan=comm.pscan(counts).numpy(),
+             iexscan=comm.exscan(counts).numpy())
+np.savez(out, **saved)
+dist.destroy_process_group()
+"""
+
 # one world for the training path: gradients of sum(attention * g) by the
 # rank's chunk of q, k and v (the cross-rank terms ride back through
 # ring_shift's and all_to_all's backward) and of a psum; then three
@@ -517,3 +556,67 @@ def test_data_parallel_schedules_in_a_gloo_world_of_three(training_world):
         assert int(got["forward_split"]) == 0
         np.testing.assert_allclose(got["forward_local"], want_forward[4 * r:4 * r + 4], atol=1e-5, rtol=0)
         np.testing.assert_allclose(got["forward_whole"], want_forward, atol=1e-5, rtol=0)
+
+
+@pytest.fixture(scope="module")
+def sampling_world(tmp_path_factory):
+    """The points, the reference's 3-device Communication and every rank's
+    results of _SAMPLING_MAIN."""
+    x = _blobs(1003, 16, 8, 5)  # 1003 = 3 * 335 - 2: rank 2 holds padding
+    fresh = _blobs(301, 16, 8, 6)
+    ranks = _run_world(tmp_path_factory.mktemp("sampling"), _SAMPLING_MAIN, x=x, fresh=fresh)
+    return (x, fresh), hj.Communication(jax.devices()[:WORLD]), ranks
+
+
+def test_kmeanspp_and_permutation_in_a_gloo_world_of_three(sampling_world):
+    """kmeans++ over uneven rows picks the reference's rows for seeds 0-5
+    without gathering the points (psum, exscan, pmin and the row fetch), and
+    fits as the reference does; a split permutation keeps each rank's chunk
+    of the reference's draw."""
+    (x, fresh), ref_comm, ranks = sampling_world
+    ref_x = hj.array(x, split=0, comm=ref_comm)
+    for seed in range(6):
+        ref = hj.cluster.KMeans(n_clusters=8, init="kmeans++", random_state=seed)
+        ref._initialize_cluster_centers(ref_x)
+        for got in ranks:
+            np.testing.assert_array_equal(got[f"init{seed}"], ref._cluster_centers.numpy(), err_msg=f"seed {seed}")
+            assert int(got[f"state{seed}"]) == hj.random.get_state()[2] == 8
+    ref = hj.cluster.KMeans(n_clusters=8, init="kmeans++", random_state=4, max_iter=30).fit(ref_x)
+    want_predict = ref.predict(hj.array(fresh, split=0, comm=ref_comm)).numpy()
+    hj.random.seed(9)
+    want_perm = hj.random.permutation(1003, split=0, comm=ref_comm)
+    want_rows = hj.random.permutation(ref_x)
+    for r, got in enumerate(ranks):
+        assert int(got["init_gathers"]) == 0
+        assert int(got["n_iter"]) == ref.n_iter_
+        np.testing.assert_allclose(got["centers"], ref.cluster_centers_.numpy(), atol=5e-5)
+        np.testing.assert_array_equal(got["labels"], ref.labels_.numpy())
+        np.testing.assert_allclose(float(got["inertia"]), ref.inertia_, rtol=1e-4)
+        np.testing.assert_array_equal(got["predict"], want_predict)
+        lo, lshape, _ = ref_comm.chunk((1003,), 0, rank=r)
+        assert int(got["perm_split"]) == int(got["rows_split"]) == 0
+        np.testing.assert_array_equal(got["perm"], want_perm.numpy()[lo:lo + lshape[0]])
+        np.testing.assert_array_equal(got["rows"], want_rows.numpy()[lo:lo + lshape[0]])
+        np.testing.assert_array_equal(got["rows_lshape_map"], want_rows.lshape_map)
+        assert int(got["state"]) == hj.random.get_state()[2]
+
+
+def test_prefix_sums_in_a_gloo_world_of_three(sampling_world):
+    """pscan and exscan against the reference's Communication.pscan/exscan
+    on 3 devices (log2 rounds of ppermute; zero at rank 0 when exclusive)."""
+    from jax.sharding import PartitionSpec as P
+
+    from heat_tpu.core._compat import shard_map
+
+    _, ref_comm, ranks = sampling_world
+    values = np.concatenate([[1.5 * (r + 1), -float(r * r), 0.25] for r in range(WORLD)]).astype(np.float32)
+    counts = np.asarray([(r * 7) % 5 + 1 for r in range(WORLD)], dtype=np.int64)
+    spec = P(ref_comm.axis_name)
+    for arr, inclusive, key in ((values, True, "pscan"), (values, False, "exscan"), (counts, True, "ipscan"),
+                                (counts, False, "iexscan")):
+        scan = jax.jit(shard_map(lambda v, inc=inclusive: ref_comm.pscan(v, inclusive=inc), mesh=ref_comm.mesh,
+                                 in_specs=(spec,), out_specs=spec))
+        want = np.asarray(scan(jnp.asarray(arr))).reshape(WORLD, -1)
+        for r, got in enumerate(ranks):
+            assert got[key].dtype == want.dtype
+            np.testing.assert_array_equal(got[key], want[r], err_msg=f"{key} on rank {r}")

@@ -929,3 +929,133 @@ def test_array_of_a_card_array_moves_to_the_asked_device(card, split):
     assert back.larray_padded.device.type == "cuda" and back.dtype is ht.float64 and back.split == split
     np.testing.assert_array_equal(back.numpy(), x.astype(np.float64))
     assert ht.array(a, device="gpu") is a
+
+
+# the rest of the seeded draws and the kmeans++ init on the card
+
+from heat_tpu_torch.cluster import _kcluster  # noqa: E402
+
+
+def _as_device(d):
+    return torch.device("cuda", torch.cuda.current_device()) if d == "gpu" else torch.device("cpu")
+
+
+_POOL = np.random.default_rng(9).standard_normal((5000, 3)).astype(np.float32)
+_P = np.random.default_rng(10).random(5000)
+_P[::7] = 0.0
+_P /= _P.sum()
+_CARD_DRAWS = {  # name: (draw on a device, threefry launches on the card)
+    "randint int64": (lambda d: ht.random.randint(-(2**62) - 3, 2**62 + 2, size=(5000,), device=d), 2),
+    "randint int64 full range": (lambda d: ht.random.randint(-(2**63), 2**63 - 1, size=(5000,), device=d), 2),
+    "randint int32 clipped": (lambda d: ht.random.randint(-(2**31), 2**40, size=(5000,), dtype=ht.int32, device=d), 2),
+    "random_integers": (lambda d: ht.random.random_integers(-3, 3, size=(5000,), device=d), 2),
+    "uniform float32": (lambda d: ht.random.uniform(-3.7, 11.2, (5000,), device=d), 1),
+    "uniform float64": (lambda d: ht.random.uniform(-3.7, 11.2, (5000,), dtype=ht.float64, device=d), 1),
+    "random_sample": (lambda d: ht.random.random_sample((50, 100), device=d), 1),
+    "permutation 1626": (lambda d: ht.random.permutation(1626, device=d), 2),
+    "randperm int32": (lambda d: ht.random.randperm(5000, dtype=ht.int32, device=d), 2),
+    "permutation of rows": (lambda d: ht.random.permutation(ht.array(_POOL, split=0, device=d)), 2),
+    "choice, replace": (lambda d: ht.random.choice(5000, size=(64, 3), device=d), 2),
+    "choice, no replace": (lambda d: ht.random.choice(ht.array(_POOL, device=d), size=100, replace=False,
+                                                      device=d), 2),
+    "choice, p, replace": (lambda d: ht.random.choice(5000, size=300, p=_P, device=d), 1),
+    "choice, p float32, no replace": (lambda d: ht.random.choice(5000, size=300, p=_P.astype(np.float32),
+                                                                 replace=False, device=d), 1),
+}
+
+
+@pytest.mark.parametrize("name", sorted(_CARD_DRAWS))
+def test_draw_on_the_card_is_bitwise_the_hosts(card, name):
+    draw, launches = _CARD_DRAWS[name]
+    ht.random.seed(12)
+    before = rnd.THREEFRY_LAUNCHES
+    got = draw("gpu")
+    assert rnd.THREEFRY_LAUNCHES - before == launches
+    state = ht.random.get_state()
+    ht.random.seed(12)
+    want = draw("cpu")
+    assert rnd.THREEFRY_LAUNCHES - before == launches and ht.random.get_state() == state
+    assert got.larray_padded.device.type == "cuda" and got.dtype is want.dtype and got.split == want.split
+    g, w = got.larray.cpu(), want.larray
+    if g.is_floating_point():
+        g, w = g.view(torch.uint8), w.view(torch.uint8)
+    assert torch.equal(g, w)
+
+
+def test_shuffle_and_bytes_on_the_card(card):
+    ht.random.seed(13)
+    x = ht.array(_POOL, split=0)
+    before = rnd.THREEFRY_LAUNCHES
+    ht.random.shuffle(x)
+    card_bytes = ht.random.bytes(1003)
+    assert rnd.THREEFRY_LAUNCHES - before == 4  # two sort rounds, randint's two keys
+    assert x.larray_padded.device.type == "cuda"
+    ht.random.seed(13)
+    y = ht.array(_POOL, split=0, device="cpu")
+    ht.random.shuffle(y)
+    ht.use_device("cpu")
+    assert ht.random.bytes(1003) == card_bytes
+    assert torch.equal(x.larray.cpu(), y.larray)
+
+
+def _card_blobs(n, seed):
+    rng = np.random.default_rng(seed)
+    centres = rng.standard_normal((8, 16)) * 6.0
+    return (centres[rng.integers(0, 8, n)] + rng.standard_normal((n, 16))).astype(np.float32)
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_kmeanspp_on_the_card_picks_the_cpus_rows(card, seed):
+    """The init's draws on the card (nine threefry launches at k = 8) pick
+    the CPU path's rows at 20000 points, where each row's share of D^2
+    (about 5e-5) is far above the float32 cumulative sums' resolution; the
+    fit then launches K1 n_iter + 1 times."""
+    x = _card_blobs(20000, seed)
+    before = rnd.THREEFRY_LAUNCHES
+    got = ht.cluster.KMeans(n_clusters=8, init="kmeans++", random_state=seed)
+    got._initialize_cluster_centers(ht.array(x, split=0))
+    assert rnd.THREEFRY_LAUNCHES - before == 9
+    want = ht.cluster.KMeans(n_clusters=8, init="kmeans++", random_state=seed)
+    want._initialize_cluster_centers(ht.array(x, split=0, device="cpu"))
+    assert got._cluster_centers.larray_padded.device.type == "cuda"
+    np.testing.assert_array_equal(got._cluster_centers.numpy(), want._cluster_centers.numpy())
+    lloyd = kernels.LLOYD_LAUNCHES
+    km = ht.cluster.KMeans(n_clusters=8, init="kmeans++", random_state=seed, max_iter=30).fit(ht.array(x, split=0))
+    assert kernels.LLOYD_LAUNCHES - lloyd == km.n_iter_ + 1
+    pts = torch.from_numpy(x).to(card)
+    _, _, _, labels = kernels._lloyd_plain(pts, km.cluster_centers_.larray, x.shape[0], True)
+    assert _near_tie_mismatches(pts, km.cluster_centers_.larray, km.labels_.larray, labels) == 0
+
+
+def test_kmeanspp_round_on_the_card(card):
+    """One round on the card: the running minimum takes the newest centre,
+    the pick is a row index on the card, u = 0 takes row 0 and a u past
+    every cumulative sum the last row."""
+    x = ht.array(_card_blobs(3000, 5), split=0)
+    local = x.larray
+    x2 = (local * local).sum(1)
+    d2 = torch.full_like(x2, float("inf"))
+    d2, pick = _kcluster._kmeanspp_round(x, x2, d2, torch.tensor([17], device=card), 0.0)
+    assert pick.device.type == "cuda" and pick.tolist() == [0]
+    torch.testing.assert_close(d2, ((local - local[17]) ** 2).sum(1), rtol=1e-4, atol=5e-3)
+    assert _kcluster._kmeanspp_round(x, x2, d2, pick, 2.0)[1].tolist() == [2999]
+
+
+def test_prefix_sums_on_the_card(card):
+    comm = ht.get_comm()
+    v = torch.tensor([1.5, -2.0], device=card)
+    assert torch.equal(comm.pscan(v), v) and torch.equal(comm.exscan(v), torch.zeros_like(v))
+
+
+def test_ordered_cumsum_repeats_bitwise_on_the_card(card):
+    """torch.cumsum of a CUDA vector may round differently run to run; the
+    blocked scan that kmeans++ and choice(p=...) use adds in one order."""
+    from heat_tpu_torch.core import arithmetics
+
+    g = torch.Generator(device=card).manual_seed(3)
+    w = torch.rand(1 << 22, device=card, generator=g) / (1 << 22)
+    first = arithmetics._ordered_cumsum(w)
+    for _ in range(5):
+        assert torch.equal(arithmetics._ordered_cumsum(w), first)
+    exact = torch.cumsum(w.double(), 0)
+    assert float(((first.double() - exact).abs() / exact).max()) < 1e-5

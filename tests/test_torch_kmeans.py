@@ -88,10 +88,9 @@ def test_params_and_not_ported_options():
     km.set_params(max_iter=5)
     assert km.max_iter == 5
     x = ht.array(_blobs(50, 4, 3, 0), split=0)
-    with pytest.raises(NotImplementedError):
-        ht.cluster.KMeans(n_clusters=3, init="kmeans++").fit(x)
-    with pytest.raises(NotImplementedError):
-        ht.cluster.KMeans(n_clusters=3, checkpoint_every=2, checkpoint_dir="ckpt")
+    for resumable in ({"checkpoint_every": 2, "checkpoint_dir": "ckpt"}, {"resume_from": "ckpt"}):
+        with pytest.raises(NotImplementedError, match="resumable fits"):
+            ht.cluster.KMeans(n_clusters=3, **resumable)
     with pytest.raises(ValueError):
         ht.cluster.KMeans(n_clusters=3, init=ht.array(np.zeros((2, 4), np.float32))).fit(x)
     with pytest.raises(ValueError):
@@ -100,7 +99,7 @@ def test_params_and_not_ported_options():
     monkeypatch.setenv("HEAT_TPU_PREDICT_DTYPE", "bfloat16")
     try:
         fitted = ht.cluster.KMeans(n_clusters=3, random_state=0).fit(x)
-        with pytest.raises(NotImplementedError):
+        with pytest.raises(NotImplementedError, match="low-precision predict"):
             fitted.predict(x)
     finally:
         monkeypatch.undo()
