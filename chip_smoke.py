@@ -19,6 +19,16 @@ file, it exits non-zero before printing any result):
    syrk, fft_stage, fft_axis, flash_attn, flash_attn_bwd) and their count
    of HMMA (mma.sync) and HGMMA (wgmma) instructions in the built SASS
    (where the toolkit has cuobjdump; none fails the run);
+3a. kernel_check (float64): K1's float64 walk route against its plain
+   version at 2^27 x 16 float64 points (17.2 GB), k = 8, and at ragged
+   shapes: labels bitwise, counts exact, sums and inertia within 1e-12
+   relative, a bitwise repeat, the mixes and shapes it must refuse, and its
+   time beside its bound (one read of x, 5.13 ms) and the float32 walk
+   route's in the same run;
+4a. main_path_f64: KMeans(n_clusters=8, init="random", max_iter=30).fit on
+   those float64 blobs through the entry point: K1 n_iter + 1 launches,
+   labels equal to the plain version's, three predicts (1, 64, 4096 rows),
+   the peak memory; the float64 data is then freed;
 3. rng, threefry_check, kernel_check and lloyd_phases: seeded draws on the
    card bitwise equal to the host's; the threefry kernel bitwise equal to
    the plain hash (both words and the float32 uniform) at n = 1, 65539 and
@@ -53,6 +63,14 @@ file, it exits non-zero before printing any result):
    against the plain version and the walk route, three predicts, the peak
    memory, and the init alone: its centres the rows its draws pick,
    distinct, in every run, its wall time beside its bound and its profile.
+
+6c. array_runtime: the tutorials' calls on the float32 points (x[5],
+   x[:, 3], x[::2], a mask, 2^20 random rows and a write through them,
+   resplit(1), resplit(None), resplit(0), astype to each of the 15 types and
+   back, eye(2^15), linspace(0, 1, 2^27), full, meshgrid, print, allclose,
+   all), each with its wall time and checked against the CPU's result on
+   the first 2^20 rows; the print equal to numpy's string of the edge rows
+   with only those bytes copied to the host.
 
 The KMeans data is then freed, and the hierarchical SVD path follows on a
 2^25 x 128 float32 matrix with a decaying spectrum, made on the card:
@@ -654,6 +672,287 @@ def kmeanspp_path(x, pts, check: dict, smi: str) -> dict:
           "init_share_of_bound": bound[bound_by] / init_ms, "init_profile": profile, "round_steps": steps, "card": smi,
           "phase_seconds": time.perf_counter() - t0 + check["seconds"]})
     return launches
+
+
+F64_FLOPS = 34e12  # float64 outside the tensor cores (NVIDIA's data sheet, H100 SXM)
+
+
+def walk64_registers() -> list:
+    """ptxas's registers and spills of K1's float64 walk kernels, from the
+    build's log."""
+    from heat_tpu_torch.core import _build
+
+    out, entry = [], ""
+    for ln in _build.BUILD_LOGS.get("lloyd", "").splitlines():
+        if "Compiling entry function" in ln or "Function properties" in ln:
+            entry = ln
+        elif ("registers" in ln or "spill" in ln) and "lloyd_walk_kernelIdLi" in entry:
+            out.append(ln.strip())
+    return out
+
+
+def compare_lloyd64(x, c, n_true: int) -> dict:
+    """K1's float64 walk route against its plain version on the same inputs:
+    labels bitwise, counts exact, sums and inertia within 1e-12 relative
+    (max |difference| over max |plain|), and a second launch bitwise equal
+    to the first."""
+    import torch
+    from heat_tpu_torch.core import kernels
+
+    got = kernels.lloyd_partials(x, c, n_true, labels=True)
+    again = kernels.lloyd_partials(x, c, n_true, labels=True)
+    want = kernels._lloyd_plain(x, c, n_true, True)
+    torch.cuda.synchronize()
+    sums, counts, inertia, lab = got
+    ps, pc, pi, pl = want
+    if not torch.equal(lab, pl):
+        raise AssertionError(f"float64 labels differ from the plain version's in {int((lab != pl).sum())} rows")
+    if not torch.equal(counts, pc):
+        raise AssertionError("float64 counts differ from the plain version's")
+    sums_rel = float((sums - ps).abs().max() / ps.abs().max().clamp(min=1e-300))
+    inertia_rel = abs(float(inertia) - float(pi)) / abs(float(pi))
+    if sums_rel > 1e-12 or inertia_rel > 1e-12:
+        raise AssertionError(f"float64 sums {sums_rel}, inertia {inertia_rel} relative from the plain version")
+    if not all(torch.equal(a, b) for a, b in zip(got, again)):
+        raise AssertionError("two float64 launches on the same inputs differ")
+    centres = sums / counts.clamp(min=1)[:, None]
+    err = float((centres - ps / pc.clamp(min=1)[:, None]).abs().max())
+    return {"route": "walk", "dtype": "float64", "rows": x.shape[0], "f": x.shape[1], "k": c.shape[0],
+            "n_true": n_true, "max_abs_err": err, "sums_rel_err": sums_rel, "inertia_rel_err": inertia_rel,
+            "labels_bitwise": True, "bitwise_repeat": True}
+
+
+def lloyd64_path(dev, smi: str) -> dict:
+    """Phases kernel_check (float64) and main_path_f64: K1's float64 walk
+    route against its plain version at the KMeans path's shape in float64
+    (2^27 x 16, 17.2 GB) and at ragged shapes, its time beside the bound
+    and the float32 walk route's in the same run; then KMeans.fit of those
+    float64 points through the entry point, three predicts, the peak
+    memory.  The data is freed at the end.  Returns K1 float64's entry of
+    the kernel summary."""
+    import torch
+    import heat_tpu_torch as ht
+    from heat_tpu_torch.core import kernels
+
+    g = torch.Generator(device=dev).manual_seed(SEED + 64)
+    truth = torch.randn(CLUSTERS, FEATURES, device=dev, generator=g, dtype=torch.float64) * 10.0
+    member = torch.randint(0, CLUSTERS, (ROWS,), device=dev, generator=g)
+    x = torch.randn(ROWS, FEATURES, device=dev, generator=g, dtype=torch.float64)
+    x += truth[member]
+    del member
+    checks = [compare_lloyd64(x, truth, ROWS), compare_lloyd64(x, truth, ROWS - 77)]
+    for rows, f, k, n_true in ((1003, 17, 30, 1000), (1003, 16, 8, 901), (4096, 64, 8, 4000), (777, 4, 3, 777),
+                               (1000, 32, 24, 999), (33, 8, 64, 31), (5, 16, 8, 5)):
+        xs = torch.randn(rows, f, device=dev, generator=g, dtype=torch.float64)
+        checks.append(compare_lloyd64(xs, torch.randn(k, f, device=dev, generator=g, dtype=torch.float64), n_true))
+    flat = torch.randn(1003 * 16 + 1, device=dev, generator=g, dtype=torch.float64)
+    checks.append(compare_lloyd64(flat[1:].view(1003, 16), truth, 1003))  # 8-byte aligned only
+    refused = []
+    for what, call in (("float64 points, float32 centres", lambda: kernels.lloyd_partials(x[:64], truth.float(), 64)),
+                       ("float32 points, float64 centres", lambda: kernels.lloyd_partials(x[:64].float(), truth, 64)),
+                       ("float64 by the tc route", lambda: kernels._lloyd_cuda(x[:64], truth, 64, False, "tc")),
+                       ("float64 at 128 features", lambda: kernels.lloyd_partials(
+                           torch.zeros(64, 128, dtype=torch.float64, device=dev),
+                           torch.zeros(8, 128, dtype=torch.float64, device=dev), 64))):
+        try:
+            call()
+        except (TypeError, ValueError):
+            refused.append(what)
+        else:
+            raise AssertionError(f"K1 took {what}")
+    for c in checks:
+        emit({"phase": "kernel_check", "kernel": "lloyd_step_f64", **c})
+    emit({"phase": "kernel_check", "kernel": "lloyd_step_f64", "refused": refused})
+    del flat
+
+    f64_ms = time_ms(lambda: kernels.lloyd_partials(x, truth, ROWS), reps=20)
+    plain_ms = time_ms(lambda: kernels._lloyd_plain(x, truth, ROWS, False), reps=3, warmup=1)
+    x32, t32 = x.float(), truth.float()
+    walk32_ms = time_ms(lambda: kernels._lloyd_cuda(x32, t32, ROWS, False, "walk"), reps=20)
+    del x32, t32
+    n, f, k = ROWS, FEATURES, CLUSTERS
+    nbytes = 8 * n * f + 8 * k * f + 8 * (k * f + k + 1)  # x and c read once, the sums written once
+    ops = n * (2 * k * f + 2 * f + 3 * k + f)
+    bound = {"bytes": nbytes / HBM_BYTES_PER_S * 1e3, "operations": ops / F64_FLOPS * 1e3}
+    bound_by = max(bound, key=bound.get)
+    emit({"phase": "times", "kernel": "lloyd_step_f64", "route": "walk", "dtype": "float64", "ms": f64_ms,
+          "plain_ms": plain_ms, "float32_walk_route_ms": walk32_ms, "bound_ms": bound[bound_by],
+          "bound_by": bound_by, "share_of_bound": bound[bound_by] / f64_ms, "library_ms": None,
+          "ptxas_float64_walk": walk64_registers(), "card": smi})
+
+    # the float64 main path through the entry points a user calls
+    ht.use_device("gpu")
+    zero_launches()
+    torch.cuda.reset_peak_memory_stats()
+    pts = ht.array(x, split=0)
+    (km, fit_ms) = wall_ms(lambda: ht.cluster.KMeans(n_clusters=CLUSTERS, init="random", random_state=SEED,
+                                                        max_iter=MAX_ITER).fit(pts))
+    n_iter = km.n_iter_
+    launches = kernels.LLOYD_LAUNCHES
+    if launches != n_iter + 1:
+        raise AssertionError(f"the float64 fit launched K1 {launches} times for {n_iter} iterations; n_iter + 1")
+    centres, labels = km.cluster_centers_.larray, km.labels_.larray
+    if (centres.dtype != torch.float64 or km.cluster_centers_.dtype is not ht.float64 or labels.shape != (ROWS,)
+            or not bool(torch.isfinite(centres).all())):
+        raise AssertionError("the float64 fit's centres are not float64, or its labels are misshapen")
+    _, _, plain_inertia, plain_labels = kernels._lloyd_plain(x, centres, ROWS, True)
+    if not torch.equal(labels, plain_labels):
+        raise AssertionError(f"the float64 fit's labels differ from the plain version's in "
+                             f"{int((labels != plain_labels).sum())} rows")
+    inertia_rel = abs(km.inertia_ - float(plain_inertia)) / abs(float(plain_inertia))
+    if inertia_rel > 1e-12:
+        raise AssertionError(f"the float64 fit's inertia is {inertia_rel} from the plain version's")
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    rng = torch.Generator(device="cpu").manual_seed(SEED + 65)
+    requests = []
+    for size in (1, 64, 4096):
+        rows = torch.randint(0, ROWS, (size,), generator=rng).to(dev)
+        pred, ms = wall_ms(lambda: km.predict(ht.array(x[rows], split=0)).larray)
+        if not torch.equal(pred, labels[rows]):
+            raise AssertionError(f"float64 predict on {size} rows disagrees with labels_")
+        requests.append({"rows": size, "wall_ms": ms})
+    emit({"phase": "main_path_f64", "rows": ROWS, "features": FEATURES, "clusters": CLUSTERS, "dtype": "float64",
+          "n_iter": n_iter, "inertia": km.inertia_, "fit_wall_ms": fit_ms, "lloyd_launches": launches,
+          "labels_equal_plain": True, "inertia_rel_err": inertia_rel, "peak_memory_gb": peak_gb,
+          "predict": requests, "card": smi})
+    del x, pts, km, centres, labels, plain_labels, truth, pred
+    torch.cuda.empty_cache()
+    return {"name": "lloyd_step_f64", "route": "cuda", "source": "heat_tpu_torch/csrc/lloyd.cu",
+            "replaces": "heat_tpu/core/kernels.py:121", "launches": launches,
+            "max_abs_err": max(c["max_abs_err"] for c in checks), "ms": f64_ms, "plain_ms": plain_ms,
+            "bound_ms": bound[bound_by], "bound_by": bound_by, "library_ms": None}
+
+
+ARRAY_HEAD = 1 << 20  # rows of the points the CPU recomputes for each call of array_runtime
+
+
+def array_runtime(x, smi: str) -> None:
+    """Phase array_runtime: the tutorials' calls on the float32 KMeans points
+    (2^27 x 16) on the card through the entry points a user calls, each
+    with its wall time and each checked against the port's CPU result on
+    the same rows: the first 2^20 rows of the points go through the same
+    call on the CPU and must give the same bits (a random index key and
+    its write: the indices among those rows)."""
+    import numpy as np
+    import torch
+    import heat_tpu_torch as ht
+    from heat_tpu_torch.core import printing
+
+    ht.use_device("gpu")
+    dev = x.device
+    a = ht.array(x, split=0)
+    head = x[:ARRAY_HEAD].cpu()
+    h = ht.array(head, split=0, device="cpu")
+    calls = []
+
+    def check(name, got, want, head_rows=None):
+        """got (the card's DNDarray) against want (the CPU port's on the
+        head rows): its first rows, or the rows ``head_rows`` of it."""
+        g = got.larray
+        w = want.larray
+        g = g.reshape(-1)[: w.numel()].reshape(w.shape) if head_rows is None else g[head_rows]
+        if g.dtype != w.dtype or not torch.equal(g.cpu(), w):
+            raise AssertionError(f"array_runtime {name}: the card's result differs from the CPU's on the same rows")
+
+    def timed(name, fn, **extra):
+        out, ms = wall_ms(fn)
+        calls.append({"call": name, "wall_ms": ms, **extra})
+        return out
+
+    r = timed("x[5]", lambda: a[5])
+    check("x[5]", r, h[5])
+    r = timed("x[:, 3]", lambda: a[:, 3])
+    check("x[:, 3]", r, h[:, 3])
+    r = timed("x[::2]", lambda: a[::2])
+    calls[-1]["shape"] = list(r.shape)
+    check("x[::2]", r, h[::2])
+    r = timed("x[x[:, 0] > 0]", lambda: a[a[:, 0] > 0])
+    calls[-1]["shape"] = list(r.shape)
+    check("x[x[:, 0] > 0]", r, h[h[:, 0] > 0])
+    # 2^20 draws, duplicates removed (a write through repeated indices has
+    # no defined winner on the card), in a random order
+    cpu_gen = torch.Generator(device="cpu").manual_seed(SEED + 7)
+    idx = torch.unique(torch.randint(0, ROWS, (1 << 20,), generator=cpu_gen))
+    idx = idx[torch.randperm(idx.numel(), generator=cpu_gen)]
+    r = timed("x[idx] (2^20 random rows)", lambda: a[ht.array(idx.to(dev))])
+    mine = torch.nonzero(idx < ARRAY_HEAD)[:, 0]
+    check("x[idx]", r, h[ht.array(idx[mine], device="cpu")], mine.to(dev))
+    if not torch.equal(r.larray, x[idx.to(dev)]):
+        raise AssertionError("array_runtime x[idx]: not the rows x[idx] of the plain tensor")
+    y = ht.array(x, copy=True, split=0)
+    v = torch.arange(idx.numel() * FEATURES, dtype=torch.float32).reshape(-1, FEATURES)
+    timed("x[idx] = v", lambda: y.__setitem__(ht.array(idx.to(dev)), ht.array(v.to(dev))))
+    hy = h.copy()
+    hy[ht.array(idx[mine], device="cpu")] = ht.array(v[mine], device="cpu")
+    check("x[idx] = v", y, hy)
+    if not torch.equal(y.larray[idx.to(dev)], v.to(dev)):
+        raise AssertionError("array_runtime x[idx] = v: the rows idx do not hold v")
+    del y
+    torch.cuda.empty_cache()
+    for axis in (1, None, 0):
+        r = timed(f"resplit({axis})", lambda: a.resplit(axis))
+        if r.split != axis or r.shape != a.shape:
+            raise AssertionError(f"resplit({axis}) gave split {r.split}, shape {r.shape}")
+        check(f"resplit({axis})", r, h.resplit(axis))
+    del r
+    types = ["bool", "int8", "int16", "int32", "int64", "uint8", "uint16", "uint32", "uint64", "float16",
+             "bfloat16", "float32", "float64", "complex64", "complex128"]
+    for name in types:
+        t = getattr(ht, name)
+        there = timed(f"astype({name})", lambda: a.astype(t))
+        back = timed(f"astype({name}).astype(float32)", lambda: there.astype(ht.float32))
+        del there
+        want = h.astype(t).astype(ht.float32)
+        g = back.larray[:ARRAY_HEAD].cpu()
+        exact = torch.ones_like(head, dtype=torch.bool)
+        if name.startswith(("int", "uint")):
+            info = ht.iinfo(t)
+            exact = (head >= info.min) & (head <= info.max)
+        if not torch.equal(g[exact], want.larray[exact]):
+            raise AssertionError(f"astype({name}) and back differs from the CPU's on the same rows")
+        del back
+        torch.cuda.empty_cache()
+    n_eye = 1 << 15
+    e = timed("eye(2^15)", lambda: ht.eye(n_eye, split=0))
+    if float(e.larray.double().sum()) != n_eye or not torch.equal(e.larray[:1024, :1024].cpu(),
+                                                                  ht.eye(1024, device="cpu").larray):
+        raise AssertionError("eye(2^15): not the identity")
+    del e
+    lin = timed("linspace(0, 1, 2^27)", lambda: ht.linspace(0.0, 1.0, ROWS, split=0))
+    if not torch.equal(lin.larray.cpu(), ht.linspace(0.0, 1.0, ROWS, split=0, device="cpu").larray):
+        raise AssertionError("linspace(0, 1, 2^27) differs from the CPU's")
+    del lin
+    full = timed("full((2^27, 16), 2.5)", lambda: ht.full((ROWS, FEATURES), 2.5, split=0))
+    if not bool((full.larray == 2.5).all()):
+        raise AssertionError("full((2^27, 16), 2.5) holds other values")
+    del full
+    gx, gy = timed("meshgrid(arange(2^13), arange(2^14))",
+                   lambda: ht.meshgrid(ht.arange(1 << 13, split=0), ht.arange(1 << 14)))
+    cx, cy = ht.meshgrid(ht.arange(1 << 13, split=0, device="cpu"), ht.arange(1 << 14, device="cpu"))
+    if not (torch.equal(gx.larray.cpu(), cx.larray) and torch.equal(gy.larray.cpu(), cy.larray)):
+        raise AssertionError("meshgrid differs from the CPU's")
+    del gx, gy
+    torch.cuda.empty_cache()
+    text = timed("str(x)", lambda: str(a))
+    fetched = printing.LAST_FETCH_BYTES
+    edge = ht.get_printoptions()["edgeitems"]
+    rows = list(range(edge + 1)) + list(range(ROWS - edge, ROWS))
+    cols = list(range(edge + 1)) + list(range(FEATURES - edge, FEATURES))
+    view = x[rows][:, cols].cpu().numpy()
+    body = np.array2string(view, precision=ht.get_printoptions()["precision"], threshold=0, edgeitems=edge,
+                           separator=", ", prefix="DNDarray(")
+    if text != f"DNDarray({body}, dtype=ht.float32, device=gpu:0, split=0)":
+        raise AssertionError(f"str(x) is not numpy's string of the edge rows:\n{text}")
+    if fetched != view.nbytes:
+        raise AssertionError(f"str(x) copied {fetched} bytes to the host; the edge blocks are {view.nbytes}")
+    print(text, flush=True)
+    same = timed("allclose(x, x)", lambda: ht.allclose(a, a))
+    off = timed("allclose(x, x + 1)", lambda: ht.allclose(a, a + 1.0))
+    every = timed("all(x > -inf)", lambda: bool(ht.all(a > -float("inf"))))
+    if not (same and not off and every):
+        raise AssertionError(f"allclose(x, x) {same}, allclose(x, x + 1) {off}, all(x > -inf) {every}")
+    emit({"phase": "array_runtime", "rows": ROWS, "features": FEATURES, "head_rows_checked_on_cpu": ARRAY_HEAD,
+          "print_bytes_to_host": fetched, "print_bytes_of_x": x.numel() * 4, "calls": calls, "card": smi})
 
 
 def compare_gram(x, n_true: int) -> dict:
@@ -1732,6 +2031,11 @@ def main() -> int:
             raise AssertionError(f"rand({n}) on the card differs from the host's")
     emit({"phase": "rng", "rand_card_equals_host_bitwise": True})
 
+    # 3a.-4a. K1's float64 route against its plain version, then the float64
+    # KMeans path through the entry points (its data freed before the
+    # float32 path's is made)
+    lloyd64 = lloyd64_path(dev, smi)
+
     # data of the main path: Gaussian blobs, well apart, made on the card
     g = torch.Generator(device=dev).manual_seed(SEED)
     truth = torch.randn(CLUSTERS, FEATURES, device=dev, generator=g) * 10.0
@@ -1861,6 +2165,9 @@ def main() -> int:
     if "--kmeans-only" in sys.argv[1:]:
         emit({"partial_run": "--kmeans-only: the phases after the KMeans path were not run"})
         return 0
+
+    # 6c. the array runtime's calls on the same points
+    array_runtime(x, smi)
 
     # the KMeans data is freed before the hSVD path's matrix is made
     del x, pts, km, centres, labels, plain_labels, truth, pred
@@ -2105,7 +2412,7 @@ def main() -> int:
     train_cnn(dev, smi)
 
     threefry["launches"] += rsvd_threefry + rpca_threefry  # the KMeans inits', rsvd's and the randomized PCA's
-    emit({"kernels": [lloyd, threefry, gram, *fft_entries, flash, *flash_bwd]})
+    emit({"kernels": [lloyd, lloyd64, threefry, gram, *fft_entries, flash, *flash_bwd]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": name, "count": torch.cuda.device_count()}})
     return 0
 

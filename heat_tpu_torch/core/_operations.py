@@ -23,18 +23,6 @@ __all__ = []
 _SCALARS = (bool, int, float)
 
 
-def _scalar_tensor(v, like: torch.Tensor) -> torch.Tensor:
-    """A python scalar as a 0-d tensor that promotes with ``like`` as the
-    scalar itself does in the reference: in ``like``'s dtype when of the same
-    kind, an int beside bool data in the reference's default integer type
-    (int32), else in torch's default type of its own kind."""
-    if isinstance(v, float) and like.is_floating_point():
-        return torch.tensor(v, dtype=like.dtype)
-    if isinstance(v, int) and not isinstance(v, bool) and not like.is_floating_point():
-        return torch.tensor(v, dtype=torch.int32 if like.dtype == torch.bool else like.dtype)
-    return torch.tensor(v)
-
-
 def _as_dndarray(v, like: DNDarray) -> DNDarray:
     """A numpy scalar or array as an unsplit DNDarray of its own dtype on
     ``like``'s device and communicator, as the reference's ``_as_dndarray``
@@ -46,38 +34,71 @@ def _as_dndarray(v, like: DNDarray) -> DNDarray:
     return v
 
 
-def __binary_op(operation: Callable, t1, t2) -> DNDarray:
+def _refuse_widened(operation, *dtypes) -> None:
+    """Raise for the types held in a wider dtype (uint16, uint32, uint64)
+    where ``operation`` is not ported for them: their holding dtype would
+    give another type's answer."""
+    for t in dtypes:
+        if t in types._WIDENED:
+            name = getattr(operation, "__name__", "").lstrip("_")
+            name = "this operation" if not name or name.startswith("<") else name
+            raise TypeError(f"{name} is not ported for {t.__name__}")
+
+
+def __binary_op(operation: Callable, t1, t2, widened: Optional[Callable] = None) -> DNDarray:
     """``operation`` element-wise on two operands with numpy broadcasting;
     at least one is a DNDarray, the other may be a python scalar or a numpy
     scalar or array.  Two DNDarrays of different types meet in their
     promoted type (``types.promote_types``), as the reference's do: a 0-d
-    operand widens the result like any other."""
+    operand widens the result like any other.
+
+    Where the operands meet in uint16, uint32 or uint64, ``widened(a, b,
+    t)`` computes on the holding tensors: its result is of type t, or bool
+    where its tensor is bool.  Without it the operation raises for those
+    types."""
     if not isinstance(t1, DNDarray) and not isinstance(t2, DNDarray):
         raise TypeError(f"at least one operand must be a DNDarray, got {type(t1)} and {type(t2)}")
     like = t1 if isinstance(t1, DNDarray) else t2
     t1, t2 = _as_dndarray(t1, like), _as_dndarray(t2, like)
     if isinstance(t1, _SCALARS) or isinstance(t2, _SCALARS):
-        # a python scalar becomes a 0-d tensor, which (like the scalar)
-        # does not widen the array's type within its kind
-        arr = t1 if isinstance(t1, DNDarray) else t2
-        data = arr.larray_padded
-        a = data if t1 is arr else _scalar_tensor(t1, data)
-        b = data if t2 is arr else _scalar_tensor(t2, data)
-        return arr._like(operation(a, b))
+        # a python scalar meets the array as the reference's 0-d array of
+        # its own type (bool, int32, float32): both in the promoted type
+        arr, v = (t1, t2) if isinstance(t1, DNDarray) else (t2, t1)
+        common = types.promote_types(arr.dtype, types.heat_type_of(v))
+        data = types._cast(arr.larray_padded, arr.dtype, common)
+        if common in types._WIDENED:
+            if widened is None:
+                _refuse_widened(operation, common)
+            s = torch.tensor(int(v), dtype=common.torch_type())  # only a bool meets them in their own type
+            out = widened(data, s, common) if t1 is arr else widened(s, data, common)
+            return arr._like(out, dtype=types.bool if out.dtype == torch.bool else common)
+        # a 0-d host tensor: CUDA kernels take it as a scalar argument
+        s = torch.tensor(v, dtype=common.torch_type())
+        return arr._like(operation(data, s) if t1 is arr else operation(s, data))
     if not isinstance(t1, DNDarray) or not isinstance(t2, DNDarray):
         raise TypeError(f"operands must be DNDarrays, numpy or python scalars, got {type(t1)} and {type(t2)}")
     if t1.dtype != t2.dtype:
         common = types.promote_types(t1.dtype, t2.dtype)
         t1, t2 = t1.astype(common), t2.astype(common)
+    wide = t1.dtype if t1.dtype in types._WIDENED else None
+    if wide is not None:
+        if widened is None:
+            _refuse_widened(operation, wide)
+        operation = lambda a, b: widened(a, b, wide)  # noqa: E731
+
+    def wrap(out, gshape, split):
+        dtype = wide if wide is not None and out.dtype != torch.bool else None
+        return t1._like(out, gshape, split, dtype)
+
     gshape = broadcast_shape(t1.gshape, t2.gshape)
     ndim = len(gshape)
     # the split of the result, in the result's axes
     s1 = None if t1.split is None else t1.split + ndim - t1.ndim
     s2 = None if t2.split is None else t2.split + ndim - t2.ndim
     if s1 is None and s2 is None:
-        return t1._like(operation(t1.larray_padded, t2.larray_padded), gshape, None)
+        return wrap(operation(t1.larray_padded, t2.larray_padded), gshape, None)
     if s1 == s2 and t1.gshape[t1.split] == t2.gshape[t2.split]:
-        return t1._like(operation(t1.larray_padded, t2.larray_padded), gshape, s1)
+        return wrap(operation(t1.larray_padded, t2.larray_padded), gshape, s1)
     # one operand split, the other whole and of extent 1 (or absent) along
     # the split axis: the chunks broadcast locally
     split_op, whole = (t1, t2) if s1 is not None else (t2, t1)
@@ -86,17 +107,19 @@ def __binary_op(operation: Callable, t1, t2) -> DNDarray:
     if whole.split is None and (whole_axis < 0 or whole.gshape[whole_axis] == 1):
         a = t1.larray_padded
         b = t2.larray_padded
-        return split_op._like(operation(a, b), gshape, s)
+        return wrap(operation(a, b), gshape, s)
     # general case: work on the dense arrays, keep the first split
-    out = operation(t1._dense(), t2._dense())
-    return DNDarray.from_dense(out, s, t1.device, t1.comm)
+    out = DNDarray.from_dense(operation(t1._dense(), t2._dense()), s, t1.device, t1.comm)
+    return wrap(out.larray_padded, gshape, s)
 
 
 def __local_op(operation: Callable, x: DNDarray, no_cast: bool = False, **kwargs) -> DNDarray:
     """``operation`` on each rank's chunk; integer input is cast to float32
-    first unless ``no_cast``."""
+    first unless ``no_cast``.  Raises for the types held wider (uint16,
+    uint32, uint64)."""
     if not isinstance(x, DNDarray):
         raise TypeError(f"expected x to be a DNDarray, but was {type(x)}")
+    _refuse_widened(operation, x.dtype)
     data = x.larray_padded
     if not no_cast and not types.heat_type_is_inexact(x.dtype):
         data = data.to(torch.float32)
@@ -116,6 +139,7 @@ def __reduce_op(
     all-reduce such as ``comm.psum``) when the split axis is reduced."""
     if not isinstance(x, DNDarray):
         raise TypeError(f"expected x to be a DNDarray, but was {type(x)}")
+    _refuse_widened(partial_op, x.dtype)
     axis = sanitize_axis(x.shape, axis)
     axes = tuple(range(x.ndim)) if axis is None else (axis if isinstance(axis, tuple) else (axis,))
     split = x.split

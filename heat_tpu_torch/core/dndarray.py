@@ -7,11 +7,31 @@ pad-and-mask layout of :mod:`heat_tpu_torch.parallel.comm`: along the split
 axis every rank stores ``ceil(extent / size)`` entries, the true ones first.
 Pad contents are arbitrary; reductions across the split axis mask them
 (:meth:`DNDarray._masked`).  Unsplit arrays are held whole on every rank.
+The heat type is kept beside the tensor: uint16, uint32 and uint64 are held
+in wider signed dtypes (:mod:`.types`).
+
+Indexing follows numpy's rules, and the result's split is the reference's
+(:func:`_exact_out_split`).  The reference indexes a dense global view; here
+a dense view of split data is a gather, so no key gathers the data:
+
+* a basic key on the split axis (an int, a slice of any step, ``None``,
+  ``Ellipsis``) selects each rank's own rows, and one exchange of the
+  selected rows (:meth:`Communication.all_to_all_varying`) brings them to
+  the canonical layout of the result; an int on the split axis is answered
+  by its owner (one broadcast of the selected slice);
+* an advanced key (integer arrays, boolean masks, DNDarray keys) is
+  gathered: every rank knows the whole key, answers for the positions whose
+  rows it owns and sends them to the result's canonical owner in the same
+  one exchange.
+
+``__setitem__`` writes in place into each rank's padded chunk, the part of
+the key that falls into its own rows, as the reference's fast path
+(``_padded_safe_key``) writes into its padded buffer.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -45,6 +65,8 @@ class DNDarray:
         self.__split = split
         self.__device = device
         self.__comm = comm
+        self.__halo_prev = None
+        self.__halo_next = None
 
     # ------------------------------------------------------------------
     # construction
@@ -55,9 +77,11 @@ class DNDarray:
         split: Optional[int],
         device: Optional[Device] = None,
         comm: Optional[Communication] = None,
+        dtype=None,
     ) -> "DNDarray":
         """Wrap a true-shape global tensor: keep this rank's chunk of the
-        canonical layout, padded with zeros, on ``device``."""
+        canonical layout, padded with zeros, on ``device``.  ``dtype`` is
+        the heat type ``arr`` holds (by default its own dtype's)."""
         comm = sanitize_comm(comm)
         device = sanitize_device(device)
         arr = arr.to(device.torch_device)
@@ -65,22 +89,17 @@ class DNDarray:
         split = sanitize_axis(gshape, split)
         if split is not None:
             _, _, slices = comm.chunk(gshape, split)
-            local = arr[slices]
-            per = comm.padded_extent(gshape[split]) // comm.size
-            pad = per - local.shape[split]
-            if pad:
-                widths = list(local.shape)
-                widths[split] = pad
-                local = torch.cat([local, local.new_zeros(widths)], dim=split)
-            arr = local.contiguous()
-        return DNDarray(arr, gshape, types.canonical_heat_type(arr.dtype), split, device, comm)
+            arr = _pad_along(arr[slices], split, comm.padded_extent(gshape[split]) // comm.size).contiguous()
+        dtype = types.canonical_heat_type(arr.dtype) if dtype is None else dtype
+        return DNDarray(arr, gshape, dtype, split, device, comm)
 
-    def _like(self, array: torch.Tensor, gshape=None, split="same") -> "DNDarray":
-        """A DNDarray on this one's device and comm around a local tensor."""
+    def _like(self, array: torch.Tensor, gshape=None, split="same", dtype=None) -> "DNDarray":
+        """A DNDarray on this one's device and comm around a local tensor;
+        its heat type is ``dtype``, by default the tensor dtype's own."""
         return DNDarray(
             array,
             self.__gshape if gshape is None else gshape,
-            types.canonical_heat_type(array.dtype),
+            types.canonical_heat_type(array.dtype) if dtype is None else dtype,
             self.__split if split == "same" else split,
             self.__device,
             self.__comm,
@@ -90,6 +109,12 @@ class DNDarray:
         """Replace the data in place by the true-shape global tensor
         ``dense`` of the same dtype: this rank keeps its chunk of it."""
         self.__array = DNDarray.from_dense(dense, self.__split, self.__device, self.__comm).larray_padded
+
+    def _replace(self, padded: torch.Tensor, dtype=None) -> None:
+        """Replace this rank's padded chunk (same global shape and split)."""
+        self.__array = padded
+        if dtype is not None:
+            self.__dtype = types.canonical_heat_type(dtype)
 
     # ------------------------------------------------------------------
     # padded / local / dense views
@@ -126,7 +151,8 @@ class DNDarray:
         """The true-shape global tensor on every rank (gathers split data)."""
         if self.__split is None or self.__comm.size == 1:
             return self.larray
-        full = self.__comm.all_gather(self.__array, axis=self.__split)
+        full = self.__comm.all_gather(_as_bytes(self.__array), axis=self.__split)
+        full = _from_bytes(full, self.__array.dtype)
         return full.narrow(self.__split, 0, self.__gshape[self.__split])
 
     # ------------------------------------------------------------------
@@ -192,27 +218,302 @@ class DNDarray:
     # ------------------------------------------------------------------
     # conversion
     # ------------------------------------------------------------------
-    def astype(self, dtype) -> "DNDarray":
-        """A copy cast to ``dtype``."""
-        return self._like(self.__array.to(types.canonical_heat_type(dtype).torch_type()))
+    def astype(self, dtype, copy: bool = True) -> "DNDarray":
+        """The array cast to ``dtype`` (in place with ``copy=False``), with
+        the reference's values: integers wrap, floats truncate toward zero."""
+        dtype = types.canonical_heat_type(dtype)
+        cast = types._cast(self.__array, self.__dtype, dtype)
+        if not copy:
+            self.__array, self.__dtype = cast, dtype
+            return self
+        if cast is self.__array:
+            cast = cast.clone()
+        return self._like(cast, dtype=dtype)
 
     def numpy(self) -> np.ndarray:
-        """The full array on the host (a collective when split)."""
-        return self._dense().cpu().numpy()
+        """The full array on the host (a collective when split); bfloat16
+        comes as float32, which numpy has."""
+        dense = self._dense()
+        if dense.dtype == torch.bfloat16:
+            dense = dense.float()
+        return types._from_holding(dense.cpu().numpy(), self.__dtype)
 
     def __array__(self, dtype=None, copy=None) -> np.ndarray:
         """The full array on the host, for ``np.asarray`` (a collective when split)."""
         a = self.numpy()
         return a.astype(dtype) if dtype is not None else a
 
+    def tolist(self) -> list:
+        """The full array as nested python lists."""
+        return self.numpy().tolist()
+
     def item(self):
         """The value of a one-element array."""
         if self.size != 1:
             raise ValueError(f"only one-element arrays can be converted to Python scalars, got shape {self.__gshape}")
-        return self._dense().reshape(()).item()
+        return self.numpy().reshape(()).item()
+
+    def copy(self) -> "DNDarray":
+        """A copy: the same values, split and type in new memory."""
+        return self._like(self.__array.clone(), dtype=self.__dtype)
 
     def __repr__(self) -> str:
-        return f"DNDarray({self.numpy()!r}, dtype=ht.{self.__dtype.__name__}, device={self.__device}, split={self.__split})"
+        override = getattr(type(self), "__repr_override__", None)
+        if override is not None:  # installed by printing.set_string_function
+            return override(self)
+        from . import printing
+
+        return printing.__str__(self)
+
+    def __str__(self) -> str:
+        override = getattr(type(self), "__str_override__", None)
+        if override is not None:
+            return override(self)
+        return self.__repr__()
+
+    # ------------------------------------------------------------------
+    # distribution
+    # ------------------------------------------------------------------
+    def resplit_(self, axis: Optional[int] = None) -> "DNDarray":
+        """Re-split in place along ``axis`` (None: whole on every rank).
+
+        split -> None is one all-gather; None -> split keeps this rank's
+        slice; split -> split is one all-to-all: each rank pads the new axis
+        to the canonical extent, cuts it into one block per rank, and
+        concatenates the blocks it receives along the old axis."""
+        axis = sanitize_axis(self.__gshape, axis)
+        if axis == self.__split:
+            return self
+        self.__array = self._resplit_tensor(axis)
+        self.__split = axis
+        self.__halo_prev = self.__halo_next = None
+        return self
+
+    def resplit(self, axis: Optional[int] = None) -> "DNDarray":
+        """A copy re-split along ``axis``; the same data when it is split so."""
+        axis = sanitize_axis(self.__gshape, axis)
+        if axis == self.__split:
+            return DNDarray(self.__array, self.__gshape, self.__dtype, self.__split, self.__device, self.__comm)
+        return DNDarray(self._resplit_tensor(axis), self.__gshape, self.__dtype, axis, self.__device, self.__comm)
+
+    def _resplit_tensor(self, axis: Optional[int]) -> torch.Tensor:
+        """This rank's padded chunk of the array split along ``axis``."""
+        comm, old = self.__comm, self.__split
+        if axis is None:
+            return self._dense()
+        per = comm.padded_extent(self.__gshape[axis]) // comm.size
+        if old is None or comm.size == 1:
+            whole = self.larray if old is None else self.__array.narrow(old, 0, self.__gshape[old])
+            _, _, slices = comm.chunk(self.__gshape, axis)
+            return _pad_along(whole[slices], axis, per).contiguous()
+        x = _pad_along(self.__array, axis, comm.padded_extent(self.__gshape[axis]))
+        got = comm.all_to_all_varying([_as_bytes(b) for b in torch.tensor_split(x, comm.size, dim=axis)],
+                                      [x.shape[old]] * comm.size, old)
+        full = _from_bytes(torch.cat(got, dim=old), x.dtype)
+        return full.narrow(old, 0, self.__gshape[old]).contiguous()
+
+    def collect_(self, target_rank: int = 0) -> "DNDarray":
+        """The full array onto every rank: ``resplit_(None)``."""
+        return self.resplit_(None)
+
+    # ------------------------------------------------------------------
+    # halos
+    # ------------------------------------------------------------------
+    def get_halo(self, halo_size: int) -> None:
+        """Fetch ``halo_size`` rows along the split axis from each neighbour
+        rank: the previous rank's last true rows (``halo_prev``) and the
+        next rank's first (``halo_next``), each by one ``ppermute`` of the
+        edge rows; None where there is no neighbour."""
+        if not isinstance(halo_size, int):
+            raise TypeError(f"halo_size needs to be an integer, found {type(halo_size)}")
+        if halo_size < 0:
+            raise ValueError(f"halo_size needs to be a non-negative integer, got {halo_size}")
+        self.__halo_prev = self.__halo_next = None
+        if self.__split is None:
+            return
+        s, comm = self.__split, self.__comm
+        smallest = int(self.lshape_map[:, s].min())
+        if halo_size > smallest:
+            raise ValueError(f"halo_size {halo_size} needs to be smaller than the smallest local chunk {smallest}")
+        start, lshape, _ = comm.chunk(self.__gshape, s)
+        stop = start + lshape[s]
+        local = self.larray
+        n = comm.size
+        last = _as_bytes(local.narrow(s, lshape[s] - halo_size, halo_size))
+        first = _as_bytes(local.narrow(s, 0, halo_size))
+        from_prev = comm.ppermute(last, [(i, i + 1) for i in range(n - 1)])
+        from_next = comm.ppermute(first, [(i, i - 1) for i in range(1, n)])
+        if start > 0:
+            self.__halo_prev = _from_bytes(from_prev, local.dtype)
+        if stop < self.__gshape[s]:
+            self.__halo_next = _from_bytes(from_next, local.dtype)
+
+    @property
+    def halo_prev(self) -> Optional[torch.Tensor]:
+        return self.__halo_prev
+
+    @property
+    def halo_next(self) -> Optional[torch.Tensor]:
+        return self.__halo_next
+
+    @property
+    def array_with_halos(self) -> torch.Tensor:
+        """This rank's true chunk between its fetched halos."""
+        pieces = [p for p in (self.__halo_prev, self.larray, self.__halo_next) if p is not None]
+        if len(pieces) == 1:
+            return pieces[0]
+        return torch.cat(pieces, dim=self.__split if self.__split is not None else 0)
+
+    # ------------------------------------------------------------------
+    # indexing
+    # ------------------------------------------------------------------
+    def __getitem__(self, key) -> "DNDarray":
+        key_t, out_split = _convert_key(self, key)
+        comm, split = self.__comm, self.__split
+        if _scalar_bool_key(key_t):
+            # numpy's degenerate advanced case (a new axis of 1 or 0): on
+            # the dense view, as the reference
+            res = self._dense()[_torch_key(key_t, self.__array.device)]
+            return DNDarray.from_dense(res, 0 if res.ndim else None, self.__device, comm, self.__dtype)
+        comps, layout, shape = _index_plan(self.__gshape, key_t, self.__array.device)
+        if split is None or comm.size == 1:
+            res = _apply(self.larray, comps)
+            split_out = out_split if out_split is not None and out_split < res.ndim else None
+            if split is None:
+                return DNDarray(res, res.shape, self.__dtype, None, self.__device, comm)
+            return DNDarray.from_dense(res, split_out, self.__device, comm, self.__dtype)
+        owner_axis = _consumer(comps, split)
+        kind = comps[owner_axis][0]
+        if kind == "int" or (kind == "arr" and comps[owner_axis][1].ndim == 0):
+            res = self._owner_select(comps, owner_axis)
+            return DNDarray(res, res.shape, self.__dtype, None, self.__device, comm)
+        if kind == "slice":
+            local, axis = self._slice_select(comps, owner_axis, layout, shape)
+        else:
+            local, axis = self._advanced_select(comps, owner_axis, layout, shape)
+        out = DNDarray(local, shape, self.__dtype, axis, self.__device, comm)
+        want = out_split if out_split is not None and out_split < len(shape) else None
+        return out if want == axis else out.resplit_(want)
+
+    def _owner_select(self, comps, owner_axis: int) -> torch.Tensor:
+        """An int key on the split axis: its owner selects, one broadcast."""
+        comm, split = self.__comm, self.__split
+        i = int(comps[owner_axis][1])
+        per = comm.padded_extent(self.__gshape[split]) // comm.size
+        owner = i // per
+        local = list(comps)
+        local[owner_axis] = ("int", i - owner * per if comm.rank == owner else 0)
+        res = _apply(self.__array, local).contiguous()
+        return _from_bytes(comm.bcast(_as_bytes(res), owner), res.dtype)
+
+    def _slice_select(self, comps, owner_axis: int, layout, shape) -> Tuple[torch.Tensor, int]:
+        """A slice on the split axis: each rank its own selected rows, then
+        one exchange to the result's canonical layout along the split axis's
+        place in the result."""
+        comm, split = self.__comm, self.__split
+        _, first, count, step = comps[owner_axis]
+        axis = layout.index(("in", split))
+        runs = [_slice_run(first, count, step, *_owned(comm, self.__gshape, split, r)) for r in range(comm.size)]
+        p0, n, lo = runs[comm.rank]
+        local = list(comps)
+        local[owner_axis] = ("slice", first + p0 * step - lo, n, step)
+        mine = _apply(self.__array, local)
+        return _runs_to_canonical(comm, mine, axis, [(p, c) for p, c, _ in runs], shape[axis]), axis
+
+    def _advanced_select(self, comps, owner_axis: int, layout, shape) -> Tuple[torch.Tensor, int]:
+        """An index array on the split axis: every rank answers the
+        positions whose rows it owns; one exchange sends each answer to the
+        result's canonical owner along the index block's first axis."""
+        comm = self.__comm
+        local, block, owners, _ = self._own_positions(comps, owner_axis)
+        axis = layout.index(("adv", 0))
+        mine = _apply(self.__array, local)
+        rest = int(np.prod(block[1:], dtype=np.int64))
+        ranges = [tuple(x * rest for x in _owned(comm, (block[0],), 0, r)) for r in range(comm.size)]
+        got = _positions_to_ranges(comm, mine, axis, owners, ranges)
+        lshape = list(shape)
+        lshape[axis] = comm.chunk((block[0],), 0)[1][0]
+        got = got.reshape(lshape)
+        return _pad_along(got, axis, comm.padded_extent(block[0]) // comm.size).contiguous(), axis
+
+    def _own_positions(self, comps, owner_axis: int):
+        """``(local comps, block, owners, sel)`` of an advanced key on the
+        split axis: the index arrays broadcast to ``block`` and flattened,
+        the rank that holds each position's row (``owners``), this rank's
+        positions (``sel``, increasing) and the key restricted to them in
+        this rank's coordinates."""
+        comm = self.__comm
+        arrays = [i for i, c in enumerate(comps) if c[0] == "arr"]
+        block = torch.broadcast_shapes(*(comps[i][1].shape for i in arrays))
+        flat = {i: comps[i][1].expand(block).reshape(-1) for i in arrays}
+        per = comm.padded_extent(self.__gshape[self.__split]) // comm.size
+        owners = torch.div(flat[owner_axis], per, rounding_mode="floor")
+        sel = torch.nonzero(owners == comm.rank)[:, 0]
+        local = list(comps)
+        for i in arrays:
+            local[i] = ("arr", flat[i][sel] - (comm.rank * per if i == owner_axis else 0))
+        return local, block, owners, sel
+
+    def __setitem__(self, key, value):
+        key_t, _ = _convert_key(self, key)
+        comm, split = self.__comm, self.__split
+        dev = self.__array.device
+        value = _value_tensor(value, self.__dtype, dev)
+        if _scalar_bool_key(key_t):
+            dense = self._dense().clone()
+            dense[_torch_key(key_t, dev)] = value
+            self.__array = DNDarray.from_dense(dense, split, self.__device, comm, self.__dtype).larray_padded
+            return
+        comps, layout, shape = _index_plan(self.__gshape, key_t, dev)
+        value = torch.broadcast_to(value, shape)
+        if split is None or comm.size == 1:
+            _assign(self.__array, comps, layout, value)
+            return
+        owner_axis = _consumer(comps, split)
+        kind = comps[owner_axis][0]
+        per = comm.padded_extent(self.__gshape[split]) // comm.size
+        local = list(comps)
+        if kind == "int" or (kind == "arr" and comps[owner_axis][1].ndim == 0):
+            i = int(comps[owner_axis][1])
+            if i // per == comm.rank:
+                local[owner_axis] = ("int", i - comm.rank * per)
+                _assign(self.__array, local, layout, value)
+            return
+        if kind == "slice":
+            _, first, count, step = comps[owner_axis]
+            lo, hi = _owned(comm, self.__gshape, split, comm.rank)
+            p0, n, _ = _slice_run(first, count, step, lo, hi)
+            if n:
+                local[owner_axis] = ("slice", first + p0 * step - lo, n, step)
+                axis = layout.index(("in", split))
+                _assign(self.__array, local, layout, value.narrow(axis, p0, n))
+            return
+        local, block, _, sel = self._own_positions(comps, owner_axis)
+        if not sel.numel():
+            return
+        axis = layout.index(("adv", 0))
+        nb = len(block)
+        flat_value = value.reshape(shape[:axis] + (-1,) + shape[axis + nb:])
+        _assign(self.__array, local, layout, flat_value.index_select(axis, sel))
+
+    def __len__(self) -> int:
+        if self.ndim == 0:
+            raise TypeError("len() of unsized object")
+        return self.__gshape[0]
+
+    def __iter__(self):
+        for i in range(len(self)):
+            yield self[i]
+
+    def __contains__(self, item) -> bool:
+        """numpy's membership: ``(a == item).any()``; an item that does not
+        compare gives False."""
+        from . import logical, relational
+
+        try:
+            return bool(logical.any(relational.eq(self, item)))
+        except TypeError:
+            return False
 
     # ------------------------------------------------------------------
     # operators
@@ -277,6 +578,42 @@ class DNDarray:
 
         return basics.matmul(self, other)
 
+    def __invert__(self):
+        from . import arithmetics
+
+        return arithmetics.invert(self)
+
+    def __and__(self, other):
+        from . import arithmetics
+
+        return arithmetics.bitwise_and(self, other)
+
+    __rand__ = __and__
+
+    def __or__(self, other):
+        from . import arithmetics
+
+        return arithmetics.bitwise_or(self, other)
+
+    __ror__ = __or__
+
+    def __xor__(self, other):
+        from . import arithmetics
+
+        return arithmetics.bitwise_xor(self, other)
+
+    __rxor__ = __xor__
+
+    def __lshift__(self, other):
+        from . import arithmetics
+
+        return arithmetics.left_shift(self, other)
+
+    def __rshift__(self, other):
+        from . import arithmetics
+
+        return arithmetics.right_shift(self, other)
+
     def __eq__(self, other):
         from . import relational
 
@@ -319,6 +656,19 @@ class DNDarray:
     def __float__(self) -> float:
         return float(self.item())
 
+    def __complex__(self) -> complex:
+        return complex(self.item())
+
+    def all(self, axis=None, out=None, keepdims: bool = False):
+        from . import logical
+
+        return logical.all(self, axis, out, keepdims)
+
+    def any(self, axis=None, out=None, keepdims: bool = False):
+        from . import logical
+
+        return logical.any(self, axis, out, keepdims)
+
     def sum(self, axis=None, keepdims: bool = False):
         from . import arithmetics
 
@@ -343,3 +693,437 @@ class DNDarray:
         from . import statistics
 
         return statistics.argmin(self, axis=axis, keepdims=keepdims)
+
+
+# ----------------------------------------------------------------------
+# layout helpers
+# ----------------------------------------------------------------------
+def _owned(comm, gshape, axis: int, rank: int) -> Tuple[int, int]:
+    """``(lo, hi)``: the global indices along ``axis`` that ``rank`` holds."""
+    lo, lshape, _ = comm.chunk(gshape, axis, rank=rank)
+    return lo, lo + lshape[axis]
+
+
+def _pad_along(x: torch.Tensor, axis: int, extent: int) -> torch.Tensor:
+    """``x`` zero-padded along ``axis`` to ``extent`` entries."""
+    pad = extent - x.shape[axis]
+    if pad <= 0:
+        return x
+    widths = list(x.shape)
+    widths[axis] = pad
+    return torch.cat([x, x.new_zeros(widths)], dim=axis)
+
+
+def _as_bytes(x: torch.Tensor) -> torch.Tensor:
+    """``x`` as bytes, one more trailing axis for each element's bytes (the
+    other axes keep their extents), so that any dtype, bool, bfloat16 and
+    complex included, travels through every backend's collectives."""
+    shape = tuple(x.shape) + (x.element_size(),)
+    if x.numel() == 0:
+        return torch.empty(shape, dtype=torch.uint8, device=x.device)
+    return _flat(x).view(torch.uint8).reshape(shape)
+
+
+def _from_bytes(b: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """Undo :func:`_as_bytes`."""
+    if b.numel() == 0:
+        return torch.empty(tuple(b.shape[:-1]), dtype=dtype, device=b.device)
+    return _flat(b).view(dtype).reshape(tuple(b.shape[:-1]))
+
+
+def _flat(x: torch.Tensor) -> torch.Tensor:
+    """``x``'s elements as a 1-D tensor of stride 1 (a view where ``x`` is
+    contiguous: torch may keep any stride on an axis of length 1)."""
+    x = x.contiguous()
+    return x.as_strided((x.numel(),), (1,))
+
+
+def _runs_to_canonical(comm, mine: torch.Tensor, axis: int, runs, extent: int) -> torch.Tensor:
+    """This rank's padded chunk of a result whose rows along ``axis`` rank
+    r holds as the run ``runs[r] = (first position, count)`` (``mine``):
+    one exchange moves every row to its canonical owner."""
+    per = comm.padded_extent(extent) // comm.size
+    ranges = [(min(d * per, extent), min((d + 1) * per, extent)) for d in range(comm.size)]
+
+    def overlap(run, rng):
+        lo, hi = max(run[0], rng[0]), min(run[0] + run[1], rng[1])
+        return lo, max(0, hi - lo)
+
+    me = comm.rank
+    blocks = []
+    for d in range(comm.size):
+        lo, n = overlap(runs[me], ranges[d])
+        blocks.append(_as_bytes(mine.narrow(axis, lo - runs[me][0] if n else 0, n)))
+    recv = [overlap(runs[s], ranges[me]) for s in range(comm.size)]
+    got = comm.all_to_all_varying(blocks, [n for _, n in recv], axis)
+    pieces = sorted(((lo, g) for (lo, n), g in zip(recv, got) if n), key=lambda p: p[0])
+    rows = [_from_bytes(g, mine.dtype) for _, g in pieces]
+    out = torch.cat(rows, dim=axis) if rows else mine.narrow(axis, 0, 0)
+    return _pad_along(out, axis, per).contiguous()
+
+
+def _positions_to_ranges(comm, mine: torch.Tensor, axis: int, owners: torch.Tensor, ranges) -> torch.Tensor:
+    """Rows along ``axis`` at flat positions: ``owners[p]`` is the rank that
+    holds position p, and ``mine`` holds this rank's positions in increasing
+    order.  One exchange gives this rank the rows of its range
+    ``ranges[rank] = (lo, hi)``, in order."""
+    me = comm.rank
+    mine_pos = torch.nonzero(owners == me)[:, 0]
+    blocks = []
+    for lo, hi in ranges:
+        take = torch.nonzero((mine_pos >= lo) & (mine_pos < hi))[:, 0]
+        blocks.append(_as_bytes(mine.index_select(axis, take)))
+    lo, hi = ranges[me]
+    want = owners[lo:hi]
+    counts = [int((want == s).sum()) for s in range(comm.size)]
+    got = comm.all_to_all_varying(blocks, counts, axis)
+    shape = list(mine.shape)
+    shape[axis] = hi - lo
+    out = mine.new_empty(shape)
+    for s, g in enumerate(got):
+        if counts[s]:
+            out.index_copy_(axis, torch.nonzero(want == s)[:, 0], _from_bytes(g, mine.dtype))
+    return out
+
+
+# ----------------------------------------------------------------------
+# keys
+# ----------------------------------------------------------------------
+def _is_array(k) -> bool:
+    return isinstance(k, (torch.Tensor, np.ndarray))
+
+
+def _is_bool_array(k) -> bool:
+    return _is_array(k) and (k.dtype == torch.bool if isinstance(k, torch.Tensor) else k.dtype == np.bool_)
+
+
+def _convert_key(arr: DNDarray, key):
+    """Normalize an indexing key (DNDarray keys gathered as tensors, lists
+    as numpy arrays) and compute the reference's output split for it."""
+
+    def conv(k):
+        if isinstance(k, DNDarray):
+            d = k._dense()
+            if k.dtype in types._WIDENED:
+                d = types._cast(d, k.dtype, types.int64)
+            return d
+        if isinstance(k, list):
+            return np.asarray(k)
+        return k
+
+    key_t = tuple(conv(k) for k in key) if isinstance(key, tuple) else conv(key)
+    return key_t, _exact_out_split(arr, key_t)
+
+
+def _exact_out_split(arr: DNDarray, key_t) -> Optional[int]:
+    """Where the input's split dimension lands in the indexed output, by the
+    reference's rules (heat_tpu/core/dndarray.py::_exact_out_split): ints
+    remove dims, slices map them through, newaxis inserts, a boolean mask of
+    ndim k consumes k dims, and the advanced block sits at the first
+    advanced key when the advanced keys are adjacent, else at the front.
+    An int on the split dim gives None; an advanced key on it gives the
+    block's position."""
+    split = arr.split
+    if split is None:
+        return None
+    keys = list(key_t) if isinstance(key_t, tuple) else [key_t]
+    norm = []
+    for k in keys:
+        if isinstance(k, (list, tuple)):
+            k = np.asarray(k)
+        if isinstance(k, (bool, np.bool_)) or (_is_bool_array(k) and k.ndim == 0):
+            return 0  # scalar-bool key: degenerate advanced case
+        norm.append(k)
+
+    def consumed(k) -> int:
+        if k is None:
+            return 0
+        if _is_bool_array(k):
+            return int(k.ndim)
+        return 1
+
+    n_explicit = sum(consumed(k) for k in norm if k is not Ellipsis)
+    expanded = []
+    for k in norm:
+        if k is Ellipsis:
+            expanded.extend([slice(None)] * (arr.ndim - n_explicit))
+        else:
+            expanded.append(k)
+    expanded.extend([slice(None)] * (arr.ndim - sum(consumed(k) for k in expanded)))
+
+    adv_positions = [i for i, k in enumerate(expanded) if _is_array(k)]
+    adv_present = bool(adv_positions)
+    if adv_present:
+        ranks = [1 if _is_bool_array(expanded[i]) else int(expanded[i].ndim) for i in adv_positions]
+        nb = max(ranks)
+        contiguous = adv_positions[-1] - adv_positions[0] + 1 == len(adv_positions)
+
+    basic_out = []
+    first_adv_basic_count = None
+    in_dim = 0
+    split_fate = "kept"
+    for k in expanded:
+        if k is None:
+            basic_out.append(("new",))
+            continue
+        if _is_array(k):
+            if first_adv_basic_count is None:
+                first_adv_basic_count = len(basic_out)
+            c = consumed(k)
+            if in_dim <= split < in_dim + c:
+                split_fate = "adv"
+            in_dim += c
+            continue
+        if isinstance(k, slice):
+            basic_out.append(("in", in_dim))
+            in_dim += 1
+            continue
+        if in_dim == split:
+            split_fate = "int"
+        in_dim += 1
+
+    if split_fate == "int":
+        return None
+    if adv_present:
+        insert_at = first_adv_basic_count if contiguous else 0
+        if split_fate == "adv":
+            return insert_at if nb > 0 else None
+        pos = basic_out.index(("in", split))
+        return pos + (nb if pos >= insert_at else 0)
+    return basic_out.index(("in", split))
+
+
+def _scalar_bool_key(key_t) -> bool:
+    keys = key_t if isinstance(key_t, tuple) else (key_t,)
+    return any(isinstance(k, (bool, np.bool_)) or (_is_bool_array(k) and k.ndim == 0) for k in keys)
+
+
+def _torch_key(key_t, device):
+    """The key with numpy arrays as tensors on ``device`` (for torch's own
+    indexing of a dense tensor)."""
+    def conv(k):
+        if isinstance(k, np.ndarray):
+            return torch.from_numpy(k).to(device)
+        if isinstance(k, np.bool_):
+            return bool(k)
+        return k
+
+    return tuple(conv(k) for k in key_t) if isinstance(key_t, tuple) else conv(key_t)
+
+
+def _index_plan(gshape: Tuple[int, ...], key_t, device):
+    """``(comps, layout, shape)`` of a key on an array of ``gshape``.
+
+    ``comps`` has one entry per key component, ``Ellipsis`` and the missing
+    trailing dims expanded and boolean masks replaced by their nonzero
+    index arrays (one per dim they span): ``("none",)``, ``("int", i)``,
+    ``("slice", first, count, step)`` or ``("arr", index tensor)``, indices
+    made non-negative and checked.  ``layout`` names each output dim by
+    numpy's rules: ``("in", d)`` for a sliced input dim, ``("new",)`` for a
+    newaxis and ``("adv", j)`` for dim j of the broadcast index block, which
+    sits at the first advanced component (ints count as advanced when an
+    array is present) if they are adjacent, else in front."""
+    ndim = len(gshape)
+    keys = list(key_t) if isinstance(key_t, tuple) else [key_t]
+
+    def consumed(k) -> int:
+        if k is None:
+            return 0
+        if _is_bool_array(k):
+            return int(k.ndim)
+        return 1
+
+    n_explicit = sum(consumed(k) for k in keys if k is not Ellipsis)
+    if sum(1 for k in keys if k is Ellipsis) > 1:
+        raise IndexError("an index can only have a single ellipsis ('...')")
+    if n_explicit > ndim:
+        raise IndexError(f"too many indices for array: array is {ndim}-dimensional, but {n_explicit} were indexed")
+    expanded = []
+    for k in keys:
+        if k is Ellipsis:
+            expanded.extend([slice(None)] * (ndim - n_explicit))
+        else:
+            expanded.append(k)
+    expanded.extend([slice(None)] * (ndim - sum(consumed(k) for k in expanded)))
+
+    comps = []
+    d = 0
+    for k in expanded:
+        if k is None:
+            comps.append(("none",))
+            continue
+        if isinstance(k, slice):
+            start, stop, step = k.indices(gshape[d])
+            comps.append(("slice", start, len(range(start, stop, step)), step))
+            d += 1
+            continue
+        if _is_array(k):
+            t = torch.from_numpy(np.ascontiguousarray(k).reshape(k.shape)).to(device) if isinstance(k, np.ndarray) \
+                else k.to(device)
+            if t.dtype == torch.bool:
+                if tuple(t.shape) != tuple(gshape[d:d + t.ndim]):
+                    raise IndexError(f"boolean index of shape {tuple(t.shape)} does not match the indexed "
+                                     f"dimensions {tuple(gshape[d:d + t.ndim])}")
+                for idx in torch.nonzero(t).unbind(1):
+                    comps.append(("arr", idx))
+                d += t.ndim
+                continue
+            if t.is_floating_point() or t.is_complex():
+                raise IndexError("arrays used as indices must be of integer (or boolean) type")
+            t = t.to(torch.int64)
+            if t.numel() and (int(t.max()) >= gshape[d] or int(t.min()) < -gshape[d]):
+                raise IndexError(f"index out of bounds for axis {d} with size {gshape[d]}")
+            comps.append(("arr", torch.where(t < 0, t + gshape[d], t)))
+            d += 1
+            continue
+        if isinstance(k, (int, np.integer)) and not isinstance(k, (bool, np.bool_)):
+            i = int(k)
+            if not -gshape[d] <= i < gshape[d]:
+                raise IndexError(f"index {i} is out of bounds for axis {d} with size {gshape[d]}")
+            comps.append(("int", i % gshape[d]))
+            d += 1
+            continue
+        raise IndexError(f"only integers, slices, None, Ellipsis, and integer or boolean arrays are valid "
+                         f"indices, got {type(k).__name__}")
+
+    arrays = [i for i, c in enumerate(comps) if c[0] == "arr"]
+    block = tuple(torch.broadcast_shapes(*(comps[i][1].shape for i in arrays))) if arrays else ()
+    advanced = [i for i, c in enumerate(comps) if c[0] == "arr" or (arrays and c[0] == "int")]
+    adjacent = bool(advanced) and advanced[-1] - advanced[0] + 1 == len(advanced)
+    layout, shape = [], []
+    d = 0
+    for i, c in enumerate(comps):
+        if advanced and i == (advanced[0] if adjacent else -1):
+            layout.extend(("adv", j) for j in range(len(block)))
+            shape.extend(block)
+        if c[0] == "none":
+            layout.append(("new",))
+            shape.append(1)
+            continue
+        if c[0] == "slice":
+            layout.append(("in", d))
+            shape.append(c[2])
+        d += 1
+    if advanced and not adjacent:
+        layout = [("adv", j) for j in range(len(block))] + layout
+        shape = list(block) + shape
+    return comps, layout, tuple(int(s) for s in shape)
+
+
+def _consumer(comps, dim: int) -> int:
+    """The index of the component that consumes input dim ``dim``."""
+    d = 0
+    for i, c in enumerate(comps):
+        if c[0] == "none":
+            continue
+        if d == dim:
+            return i
+        d += 1
+    raise IndexError(f"no component consumes dim {dim}")
+
+
+def _slice_run(first: int, count: int, step: int, lo: int, hi: int) -> Tuple[int, int, int]:
+    """``(p0, n, lo)``: the positions p0 .. p0 + n - 1 of the slice's
+    selection ``first + p * step`` (p < count) that fall in [lo, hi)."""
+    if count == 0 or hi <= lo:
+        return 0, 0, lo
+    if step > 0:
+        p0 = max(0, -(-(lo - first) // step))
+        p1 = min(count, -(-(hi - first) // step))
+    else:
+        s = -step
+        p0 = max(0, -(-(first - hi + 1) // s))
+        p1 = min(count, (first - lo) // s + 1)
+    return p0, max(0, p1 - p0), lo
+
+
+def _slice_view(t: torch.Tensor, dim: int, first: int, count: int, step: int) -> torch.Tensor:
+    """``count`` entries along ``dim`` from ``first`` in steps of ``step``
+    (a negative step walks backwards: taken forward, then flipped)."""
+    if count == 0:
+        return t.narrow(dim, 0, 0)
+    if step > 0:
+        return t.narrow(dim, first, (count - 1) * step + 1)[(slice(None),) * dim + (slice(None, None, step),)]
+    last = first + (count - 1) * step
+    fwd = t.narrow(dim, last, first - last + 1)[(slice(None),) * dim + (slice(None, None, -step),)]
+    return fwd.flip(dim)
+
+
+def _advanced_key(comps):
+    """The torch key of the non-slice components (slices already applied):
+    ints become index arrays broadcast with the others when an array is
+    present, so that torch places the block by numpy's rule."""
+    arrays = [c[1] for c in comps if c[0] == "arr"]
+    block = torch.broadcast_shapes(*(a.shape for a in arrays)) if arrays else None
+    if block is not None and len(block) == 0:
+        # 0-d index arrays only: each takes its dim away, as an int does
+        comps = [("int", int(c[1])) if c[0] == "arr" else c for c in comps]
+        arrays, block = [], None
+    key = []
+    for c in comps:
+        if c[0] == "none":
+            key.append(None)
+        elif c[0] == "slice":
+            key.append(slice(None))
+        elif c[0] == "int":
+            key.append(torch.full(block, c[1], dtype=torch.int64, device=arrays[0].device) if arrays else c[1])
+        else:
+            key.append(c[1])
+    return tuple(key), bool(arrays)
+
+
+def _apply(t: torch.Tensor, comps) -> torch.Tensor:
+    """The key on a local tensor whose dims are the input dims: slices
+    first (views), then ints, newaxes and index arrays in one indexing."""
+    d = 0
+    for c in comps:
+        if c[0] == "none":
+            continue
+        if c[0] == "slice":
+            t = _slice_view(t, d, c[1], c[2], c[3])
+        d += 1
+    key, has_arrays = _advanced_key(comps)
+    res = t[key]
+    return res if has_arrays else res.clone()  # a copy, never a view of the array
+
+
+def _assign(t: torch.Tensor, comps, layout, value: torch.Tensor) -> None:
+    """Write ``value`` (shaped like the key's result on ``t``) in place
+    through the key."""
+    view = t
+    d = 0
+    flips = []
+    for c in comps:
+        if c[0] == "none":
+            continue
+        if c[0] == "slice":
+            first, count, step = c[1], c[2], c[3]
+            if step < 0 and count:
+                first, step = first + (count - 1) * step, -step
+                flips.append(layout.index(("in", d)))
+            view = view.narrow(d, first, (count - 1) * step + 1 if count else 0)
+            if count:
+                view = view[(slice(None),) * d + (slice(None, None, step),)]
+        d += 1
+    if flips:
+        value = value.flip(flips)
+    key, _ = _advanced_key(comps)
+    view[key] = value.to(view.dtype)
+
+
+def _value_tensor(value, dtype, device) -> torch.Tensor:
+    """A value to assign, as a tensor of ``dtype``'s holding type."""
+    if isinstance(value, DNDarray):
+        return types._cast(value._dense(), value.dtype, dtype).to(device)
+    if isinstance(value, torch.Tensor):
+        return types._cast(value.to(device), types.canonical_heat_type(value.dtype), dtype)
+    if isinstance(value, (bool, int, float, complex)) and not isinstance(value, np.generic):
+        if dtype in types._WIDENED and isinstance(value, int) and not isinstance(value, bool):
+            v = value % (1 << 64) if dtype is types.uint64 else value
+            return types._cast(torch.tensor(v - (1 << 64) if v >= 1 << 63 else v, device=device), types.int64, dtype)
+        host = np.asarray(value)
+    else:
+        host = np.asarray(value)
+    src = types.canonical_heat_type(host.dtype)
+    held = np.ascontiguousarray(types._to_holding(host, src)).reshape(host.shape)
+    return types._cast(torch.from_numpy(held).to(device), src, dtype)

@@ -7,10 +7,11 @@ counts, the inertia and, on request, the labels.  The wrapper
 :func:`lloyd_partials` launches it for a CUDA tensor and raises where it
 cannot; for a CPU tensor, and only there, it runs :func:`_lloyd_plain`, the
 same function in plain PyTorch.  :func:`lloyd_update` adds the cross-rank sum
-and the centre update.  The kernel has two routes, chosen by shape in
-:func:`lloyd_route`: ``"tc"`` (per-warp batches, the sums as one-hot products
-on the tensor cores) where it fits, ``"walk"`` (per-block tiles listed by
-cluster) for every other shape the gate takes.
+and the centre update.  The kernel has two routes, chosen by shape and type
+in :func:`lloyd_route`: ``"tc"`` (per-warp batches, the sums as one-hot
+products on the tensor cores) where float32 points fit it, ``"walk"``
+(per-block tiles listed by cluster) for every other float32 shape the gate
+takes and for float64 points.
 
 Sums come back in float64: the kernel accumulates each block's columns in
 f64 and adds the blocks in a fixed order, so a run is bitwise reproducible
@@ -56,6 +57,7 @@ _TC_STAGES = {16: 3, 32: 3, 64: 3, 128: 2}  # batches in a warp's cp.async ring 
 _TC_POINTS = {16: 2, 32: 2, 64: 1, 128: 1}  # points a lane owns at a time by width (tc_points)
 _TC_MAX_TILES = 8  # output tiles of 16 features x 8 clusters the tc route holds (kTcMaxTiles)
 _ROUTES = {"walk": 0, "tc": 1}
+_ELEM_BYTES = {torch.float32: 4, torch.float64: 8}  # the walk route's element types
 _MAX_FEATURES = 128  # widest register tile lloyd.cu instantiates
 _SMEM_LIMIT = 232448  # shared memory one block may use on Hopper (227 KB)
 _PLAIN_ROWS = 1 << 20  # rows per chunk of the plain versions
@@ -83,21 +85,23 @@ def _tc_tiles(f: int, k: int) -> int:
     return (_tc_bucket(f) // 16) * -(-k // 8)
 
 
-def lloyd_route(f: int, k: int, aligned: bool = True) -> str:
-    """The kernel's route for f features and k centres (mirrors
-    ``route_takes`` in lloyd.cu): ``"tc"`` where f is a multiple of 4, the
-    sums fit in at most 8 output tiles of 16 features x 8 clusters and the
-    points are 16-byte aligned; ``"walk"`` otherwise."""
-    if aligned and 1 <= f <= _MAX_FEATURES and f % 4 == 0 and k >= 1 and _tc_tiles(f, k) <= _TC_MAX_TILES:
+def lloyd_route(f: int, k: int, aligned: bool = True, dtype: torch.dtype = torch.float32) -> str:
+    """The kernel's route for f features and k centres of ``dtype`` (mirrors
+    ``route_takes`` in lloyd.cu): ``"tc"`` for float32 where f is a multiple
+    of 4, the sums fit in at most 8 output tiles of 16 features x 8 clusters
+    and the points are 16-byte aligned; ``"walk"`` otherwise, and always for
+    float64 (the tc route's TF32 planes are float32's)."""
+    if (dtype == torch.float32 and aligned and 1 <= f <= _MAX_FEATURES and f % 4 == 0 and k >= 1
+            and _tc_tiles(f, k) <= _TC_MAX_TILES):
         return "tc"
     return "walk"
 
 
-def lloyd_smem_bytes(f: int, k: int, route: Optional[str] = None) -> int:
+def lloyd_smem_bytes(f: int, k: int, route: Optional[str] = None, dtype: torch.dtype = torch.float32) -> int:
     """Shared memory of one kernel block of the route (default: the route
-    :func:`lloyd_route` picks); mirrors ``tc_smem_bytes`` and
-    ``smem_bytes`` in lloyd.cu."""
-    if (route or lloyd_route(f, k)) == "tc":
+    :func:`lloyd_route` picks) for points of ``dtype``; mirrors
+    ``tc_smem_bytes`` and ``smem_bytes<T>`` in lloyd.cu."""
+    if (route or lloyd_route(f, k, dtype=dtype)) == "tc":
         fb = _tc_bucket(f)
         doubles = (_tc_tiles(f, k) * 128 + k + 2) & ~1
         ring = _TC_STAGES[fb] * 32 * _TC_POINTS[fb] * fb
@@ -105,18 +109,22 @@ def lloyd_smem_bytes(f: int, k: int, route: Optional[str] = None) -> int:
     fb = _feature_bucket(f)
     w = k * f + k + 1
     warps = _TILE // 32
-    return 4 * k * fb + 8 * w + 4 * (k + _TILE * (fb + 1) + 2 * warps * k + _TILE + warps)
+    elem = _ELEM_BYTES[dtype]
+    return elem * (k * fb + k + _TILE * (fb + 1) + warps) + 8 * w + 4 * (2 * warps * k + _TILE)
 
 
-def lloyd_unsupported(f: int, k: int) -> Optional[str]:
-    """Why the CUDA kernel cannot take f features and k centres, or None."""
+def lloyd_unsupported(f: int, k: int, dtype: torch.dtype = torch.float32) -> Optional[str]:
+    """Why the CUDA kernel cannot take f features and k centres of
+    ``dtype``, or None."""
+    if dtype not in _ELEM_BYTES:
+        return f"takes float32 or float64, got {dtype}"
     if f < 1 or k < 1:
         return f"needs f >= 1 and k >= 1, got f={f}, k={k}"
     if f > _MAX_FEATURES:
         return f"holds a point in registers up to {_MAX_FEATURES} features, got f={f}"
-    smem = lloyd_smem_bytes(f, k, "walk")  # the walk route takes every shape the tc route does
+    smem = lloyd_smem_bytes(f, k, "walk", dtype)  # the walk route takes every shape the tc route does
     if smem > _SMEM_LIMIT:
-        return f"needs {smem} bytes of shared memory for f={f}, k={k}; a block has {_SMEM_LIMIT}"
+        return f"needs {smem} bytes of shared memory for f={f}, k={k} in {dtype}; a block has {_SMEM_LIMIT}"
     return None
 
 
@@ -175,16 +183,18 @@ def _lloyd_launch(fn, xp: torch.Tensor, centers: torch.Tensor, n_true: int, labe
 def _lloyd_cuda(xp: torch.Tensor, centers: torch.Tensor, n_true: int, labels: bool, route: Optional[str] = None):
     """Launch csrc/lloyd.cu on PyTorch's current stream (no synchronise), by
     the route :func:`lloyd_route` picks or by ``route`` (``"walk"`` takes
-    every shape; ``"tc"`` raises on a shape it does not take)."""
+    every shape; ``"tc"`` raises on a shape it does not take and on float64
+    points)."""
     global LLOYD_LAUNCHES
     f, k = xp.shape[1], centers.shape[0]
-    fits = lloyd_route(f, k, xp.data_ptr() % 16 == 0)
+    fits = lloyd_route(f, k, xp.data_ptr() % 16 == 0, xp.dtype)
     if route is None:
         route = fits
     elif route == "tc" and fits != "tc":
-        raise ValueError(f"the Lloyd kernel's tc route does not take f={f}, k={k} with these points: "
-                         "it needs f a multiple of 4, at most 8 output tiles and 16-byte aligned points")
-    out = _lloyd_launch(_lib().heat_lloyd_step_f32, xp, centers, n_true, labels, route)
+        raise ValueError(f"the Lloyd kernel's tc route does not take f={f}, k={k} with these {xp.dtype} points: "
+                         "it needs float32, f a multiple of 4, at most 8 output tiles and 16-byte aligned points")
+    fn = _lib().heat_lloyd_step_f64 if xp.dtype == torch.float64 else _lib().heat_lloyd_step_f32
+    out = _lloyd_launch(fn, xp, centers, n_true, labels, route)
     LLOYD_LAUNCHES += 1
     return out
 
@@ -203,18 +213,18 @@ def _lloyd_grid(xp: torch.Tensor, k: int, route: str) -> int:
     warps (tc), at most as many as the card holds at once."""
     rows, f = xp.shape
     per_block = _TC_WARPS * 32 * _TC_POINTS[_tc_bucket(f)] if route == "tc" else _TILE
-    return max(1, min(-(-rows // per_block), _resident_blocks(xp.device, f, k, route)))
+    return max(1, min(-(-rows // per_block), _resident_blocks(xp.device, f, k, route, xp.dtype)))
 
 
-def _resident_blocks(dev: torch.device, f: int, k: int, route: str) -> int:
-    """Blocks the card holds at once for (f, k) by the route: the grid of
-    the kernel.  A larger grid would leave blocks queued behind whole
-    grid-stride loops."""
-    key = (dev.index, f, k, route)
+def _resident_blocks(dev: torch.device, f: int, k: int, route: str, dtype: torch.dtype = torch.float32) -> int:
+    """Blocks the card holds at once for (f, k) of ``dtype`` by the route:
+    the grid of the kernel.  A larger grid would leave blocks queued behind
+    whole grid-stride loops."""
+    key = (dev.index, f, k, route, dtype)
     if key not in _RESIDENT:
-        per_sm = _lib().heat_lloyd_blocks_per_sm(f, k, _ROUTES[route])
+        per_sm = _lib().heat_lloyd_blocks_per_sm(f, k, _ROUTES[route], _ELEM_BYTES[dtype])
         if per_sm < 1:
-            raise RuntimeError(f"the CUDA Lloyd kernel's {route} route cannot be resident for f={f}, k={k}")
+            raise RuntimeError(f"the CUDA Lloyd kernel's {route} route cannot be resident for f={f}, k={k}, {dtype}")
         _RESIDENT[key] = per_sm * torch.cuda.get_device_properties(dev).multi_processor_count
     return _RESIDENT[key]
 
@@ -223,10 +233,10 @@ def _lib() -> ctypes.CDLL:
     global _LIB
     if _LIB is None:
         lib = _build.load("lloyd")
-        fn = lib.heat_lloyd_step_f32
-        fn.argtypes = _LLOYD_ARGTYPES
-        fn.restype = ctypes.c_int
-        lib.heat_lloyd_blocks_per_sm.argtypes = [ctypes.c_int64, ctypes.c_int64, ctypes.c_int64]
+        for fn in (lib.heat_lloyd_step_f32, lib.heat_lloyd_step_f64):
+            fn.argtypes = _LLOYD_ARGTYPES
+            fn.restype = ctypes.c_int
+        lib.heat_lloyd_blocks_per_sm.argtypes = [ctypes.c_int64] * 4
         lib.heat_lloyd_blocks_per_sm.restype = ctypes.c_int64
         _LIB = lib
     return _LIB
@@ -263,7 +273,8 @@ def lloyd_phase_cycles(xp: torch.Tensor, centers: torch.Tensor, n_true: int, rou
 def lloyd_partials(xp: torch.Tensor, centers: torch.Tensor, n_true: int, labels: bool = False):
     """One rank's fused Lloyd pass: ``(sums (k, f), counts (k,), inertia ())``
     in float64, plus the int64 labels of all ``xp`` rows (or None).  Rows at
-    or past ``n_true`` add nothing.
+    or past ``n_true`` add nothing.  Points and centres are float32 (the tc
+    or the walk route) or both float64 (the walk route); a mix raises.
 
     A CPU tensor runs the plain version; a CUDA tensor runs the kernel or
     raises."""
@@ -276,11 +287,12 @@ def lloyd_partials(xp: torch.Tensor, centers: torch.Tensor, n_true: int, labels:
         return _lloyd_plain(xp, centers.to(xp.dtype), n_true, labels)
     if xp.device.type != "cuda":
         raise ValueError(f"no Lloyd kernel for device {xp.device}")
-    if xp.dtype != torch.float32 or centers.dtype != torch.float32:
-        raise TypeError(f"the CUDA Lloyd kernel takes float32, got {xp.dtype} points and {centers.dtype} centres")
+    if xp.dtype not in _ELEM_BYTES or centers.dtype != xp.dtype:
+        raise TypeError(f"the CUDA Lloyd kernel takes float32 or float64 points with centres of the same type, "
+                        f"got {xp.dtype} points and {centers.dtype} centres")
     if not xp.is_contiguous():
         raise ValueError("the CUDA Lloyd kernel needs contiguous points")
-    reason = lloyd_unsupported(xp.shape[1], centers.shape[0])
+    reason = lloyd_unsupported(xp.shape[1], centers.shape[0], xp.dtype)
     if reason is not None:
         raise ValueError(f"the CUDA Lloyd kernel {reason}")
     return _lloyd_cuda(xp, centers.contiguous(), n_true, labels)
@@ -291,7 +303,7 @@ def _postprocess(sums: torch.Tensor, counts: torch.Tensor, centers: torch.Tensor
     ``sum((new - old)^2)`` (heat_tpu/core/kernels.py::_postprocess)."""
     mean = sums / torch.clamp(counts, min=1.0)[:, None]
     new = torch.where(counts[:, None] > 0, mean, centers.to(torch.float64)).to(centers.dtype)
-    shift = torch.sum((new.to(torch.float32) - centers.to(torch.float32)) ** 2)
+    shift = torch.sum((new - centers) ** 2).to(torch.float32)
     return new, shift
 
 
@@ -305,7 +317,7 @@ def _lloyd_single(xp: torch.Tensor, centers: torch.Tensor, n_true: int, labels: 
         packed = comm.psum(torch.cat([sums.reshape(-1), counts, inertia.reshape(1)]))
         sums, counts, inertia = packed[: k * f].view(k, f), packed[k * f : k * f + k], packed[k * f + k]
     new, shift = _postprocess(sums, counts, centers)
-    out = (new, shift, inertia.to(torch.float32))
+    out = (new, shift, inertia.to(centers.dtype))
     return out + (lab,) if labels else out
 
 

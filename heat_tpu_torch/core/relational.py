@@ -11,7 +11,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from . import _operations
+from . import _operations, types
 from .dndarray import DNDarray
 
 __all__ = [
@@ -30,9 +30,30 @@ __all__ = [
 ]
 
 
+def _held(op):
+    """A comparison on holding tensors of uint16, uint32 or uint64: equal
+    values hold equal bits."""
+    return lambda a, b, t: op(a, b)
+
+
+_SIGN64 = -(1 << 63)
+
+
+def _ordered(op):
+    """An ordering on holding tensors: uint16 and uint32 values compare as
+    held; uint64's bits compare as unsigned once their top bit is flipped."""
+
+    def cmp(a, b, t):
+        if t is types.uint64:
+            a, b = a ^ _SIGN64, b ^ _SIGN64
+        return op(a, b)
+
+    return cmp
+
+
 def eq(t1, t2) -> DNDarray:
     """Element-wise ``t1 == t2``."""
-    return _operations.__binary_op(torch.eq, t1, t2)
+    return _operations.__binary_op(torch.eq, t1, t2, _held(torch.eq))
 
 
 def equal(t1, t2) -> bool:
@@ -60,7 +81,7 @@ def equal(t1, t2) -> bool:
 
 def ge(t1, t2) -> DNDarray:
     """Element-wise ``t1 >= t2``."""
-    return _operations.__binary_op(torch.ge, t1, t2)
+    return _operations.__binary_op(torch.ge, t1, t2, _ordered(torch.ge))
 
 
 greater_equal = ge
@@ -68,7 +89,7 @@ greater_equal = ge
 
 def gt(t1, t2) -> DNDarray:
     """Element-wise ``t1 > t2``."""
-    return _operations.__binary_op(torch.gt, t1, t2)
+    return _operations.__binary_op(torch.gt, t1, t2, _ordered(torch.gt))
 
 
 greater = gt
@@ -76,7 +97,7 @@ greater = gt
 
 def le(t1, t2) -> DNDarray:
     """Element-wise ``t1 <= t2``."""
-    return _operations.__binary_op(torch.le, t1, t2)
+    return _operations.__binary_op(torch.le, t1, t2, _ordered(torch.le))
 
 
 less_equal = le
@@ -84,7 +105,7 @@ less_equal = le
 
 def lt(t1, t2) -> DNDarray:
     """Element-wise ``t1 < t2``."""
-    return _operations.__binary_op(torch.lt, t1, t2)
+    return _operations.__binary_op(torch.lt, t1, t2, _ordered(torch.lt))
 
 
 less = lt
@@ -92,7 +113,7 @@ less = lt
 
 def ne(t1, t2) -> DNDarray:
     """Element-wise ``t1 != t2``."""
-    return _operations.__binary_op(torch.ne, t1, t2)
+    return _operations.__binary_op(torch.ne, t1, t2, _held(torch.ne))
 
 
 not_equal = ne

@@ -38,10 +38,13 @@
 //     are the one-hot fragments' own (exact integers); the inertia is
 //     summed per lane in f64, then over the lanes in order.  No block
 //     barrier in the loop.
-//   - walk (every other shape the gate takes): one block stages a tile of
-//     256 points, lists them by cluster (warp match, per-warp counts, a warp
-//     scan) and one owner thread per output column adds its cluster's
-//     points in index order.  Five block barriers a tile.
+//   - walk (every other shape the gate takes, and every float64 input): one
+//     block stages a tile of 256 points, lists them by cluster (warp match,
+//     per-warp counts, a warp scan) and one owner thread per output column
+//     adds its cluster's points in index order.  Five block barriers a tile.
+//     It is a template on the element type: for float64 points the
+//     distances, the argmin and the tile are in IEEE f64 (fma chains), and a
+//     read of x is 8 f bytes a point (heat_lloyd_step_f64).
 //
 // Both are deterministic, with no float atomics: every sum is taken in a
 // fixed order into f64 accumulators (warps in warp order, then a second
@@ -387,63 +390,81 @@ lloyd_tc_kernel(const float* __restrict__ x, const float* __restrict__ c, int64_
 constexpr int kTile = 256;  // points per tile == threads per block
 constexpr int kWarps = kTile / 32;
 
-// Shared memory of one walk block, in this order: centres (k, FB) zero past
-// f; acc (f64, k*f sums | k counts | inertia); |c|^2 (k); the x tile (row
-// stride FB + 1 keeps per-thread row reads free of bank conflicts); per-warp
-// cluster counts and list offsets (kWarps, k); the tile's point list grouped
-// by cluster; per-warp inertia sums.
+// The walk route is a template on the element type T of the points and
+// centres: float, or double for float64 points (the tc route's TF32 planes
+// have nothing to offer float64).  T is the type of the distances, the
+// argmin, the staged tile and each tile's column sums; the sums across
+// tiles and blocks are f64 for both.
+//
+// Shared memory of one walk block, in this order: centres (k, FB) of T zero
+// past f; acc (f64, k*f sums | k counts | inertia); |c|^2 (k, T); the x tile
+// (T, row stride FB + 1 keeps per-thread row reads free of bank conflicts);
+// per-warp cluster counts and list offsets (kWarps, k); the tile's point
+// list grouped by cluster; per-warp inertia sums (T).
+template <typename T>
 inline size_t smem_bytes(int fb, int f, int k) {
   const size_t w = (size_t)k * f + k + 1;
-  return 4 * (size_t)k * fb + 8 * w +
-         4 * (k + (size_t)kTile * (fb + 1) + 2 * kWarps * k + kTile + kWarps);
+  return sizeof(T) * ((size_t)k * fb + k + (size_t)kTile * (fb + 1) + kWarps) + 8 * w +
+         4 * (2 * (size_t)kWarps * k + kTile);
 }
 
-template <int FB>
-__global__ void __launch_bounds__(kTile, FB <= 16 ? 3 : FB <= 32 ? 2 : 1)
-lloyd_walk_kernel(const float* __restrict__ x, const float* __restrict__ c,
+// blocks of a walk kernel an SM should hold: a double point takes twice the
+// registers of a float one
+template <typename T, int FB>
+constexpr int walk_min_blocks() {
+  return sizeof(T) == 4 ? (FB <= 16 ? 3 : FB <= 32 ? 2 : 1) : (FB <= 8 ? 3 : FB <= 16 ? 2 : 1);
+}
+
+__device__ __forceinline__ float fma_t(float a, float b, float c) { return fmaf(a, b, c); }
+__device__ __forceinline__ double fma_t(double a, double b, double c) { return fma(a, b, c); }
+
+template <typename T, int FB>
+__global__ void __launch_bounds__(kTile, walk_min_blocks<T, FB>())
+lloyd_walk_kernel(const T* __restrict__ x, const T* __restrict__ c,
                      int64_t rows, int64_t n_true, int f, int k,
                      double* __restrict__ partial, int64_t* __restrict__ labels,
                      unsigned long long* __restrict__ cycles) {
   extern __shared__ float4 smem4[];
   const int kf = k * f;
   const int w = kf + k + 1;  // columns: k*f sums, k counts, 1 inertia
-  float* cs = reinterpret_cast<float*>(smem4);  // 16-byte aligned: float4 reads
+  T* cs = reinterpret_cast<T*>(smem4);  // 16-byte aligned: float4 / double2 reads
   double* acc = reinterpret_cast<double*>(cs + k * FB);
-  float* c2 = reinterpret_cast<float*>(acc + w);
-  float* xs = c2 + k;
+  T* c2 = reinterpret_cast<T*>(acc + w);
+  T* xs = c2 + k;
   int* wcnt = reinterpret_cast<int*>(xs + kTile * (FB + 1));
   int* woff = wcnt + kWarps * k;
   int* plist = woff + kWarps * k;
-  float* wval = reinterpret_cast<float*>(plist + kTile);
+  T* wval = reinterpret_cast<T*>(plist + kTile);  // 8-byte aligned: 4 (2 kWarps k + kTile) bytes of ints
   const int tid = threadIdx.x, lane = tid & 31, wid = tid >> 5;
 
   for (int q = tid; q < w; q += kTile) acc[q] = 0.0;
   for (int e = tid; e < k * FB; e += kTile) {
     const int j = e / FB, d = e - j * FB;
-    cs[e] = d < f ? c[(int64_t)j * f + d] : 0.f;
+    cs[e] = d < f ? c[(int64_t)j * f + d] : T(0);
   }
   __syncthreads();
   for (int j = tid; j < k; j += kTile) {
-    float s = 0.f;
-    for (int d = 0; d < f; ++d) s = fmaf(cs[j * FB + d], cs[j * FB + d], s);
+    T s = 0;
+    for (int d = 0; d < f; ++d) s = fma_t(cs[j * FB + d], cs[j * FB + d], s);
     c2[j] = s;
   }
 
   const int step_r = kTile / f, step_d = kTile % f;  // f <= 128 < kTile
   const int64_t ntiles = (rows + kTile - 1) / kTile;
   // the tile's cnt*f floats are contiguous; each thread loads its share into
-  // registers, all loads in flight together.  Narrow rows are loaded one tile
-  // ahead of the compute; wide ones (FB >= 64) would need too many registers.
-  constexpr bool kPrefetch = FB <= 32;
-  float buf[FB];
+  // registers, all loads in flight together.  Narrow rows (at most 128 bytes)
+  // are loaded one tile ahead of the compute; wide ones would need too many
+  // registers.
+  constexpr bool kPrefetch = FB * sizeof(T) <= 128;
+  T buf[FB];
   auto load_tile = [&](int64_t tt) {
     const int64_t b = tt * kTile;
     const int n = (int)(rows - b < kTile ? rows - b : kTile) * f;
-    const float* src = x + b * f;
+    const T* src = x + b * f;
 #pragma unroll
     for (int i = 0; i < FB; ++i) {
       const int e = tid + i * kTile;
-      buf[i] = e < n ? __ldg(src + e) : 0.f;
+      buf[i] = e < n ? __ldg(src + e) : T(0);
     }
   };
   if (kPrefetch && blockIdx.x < ntiles) load_tile(blockIdx.x);
@@ -476,28 +497,38 @@ lloyd_walk_kernel(const float* __restrict__ x, const float* __restrict__ c,
 
     // nearest centre of this thread's point, from registers
     int mylab = -1;  // -1: no valid point
-    float myval = 0.f;
+    T myval = 0;
     if (tid < cnt) {
-      float xr[FB];
+      T xr[FB];
 #pragma unroll
-      for (int i = 0; i < FB; ++i) xr[i] = i < f ? xs[tid * (FB + 1) + i] : 0.f;
-      float x2 = 0.f;
+      for (int i = 0; i < FB; ++i) xr[i] = i < f ? xs[tid * (FB + 1) + i] : T(0);
+      T x2 = 0;
 #pragma unroll
-      for (int i = 0; i < FB; ++i) x2 = fmaf(xr[i], xr[i], x2);
-      float best = INFINITY;
+      for (int i = 0; i < FB; ++i) x2 = fma_t(xr[i], xr[i], x2);
+      T best = INFINITY;
       int bj = 0;
       for (int j = 0; j < k; ++j) {
-        const float4* cj = reinterpret_cast<const float4*>(cs + j * FB);
-        float dot = 0.f;
+        T dot = 0;
+        if constexpr (sizeof(T) == 4) {
+          const float4* cj = reinterpret_cast<const float4*>(cs + j * FB);
 #pragma unroll
-        for (int i = 0; i < FB / 4; ++i) {
-          const float4 v = cj[i];
-          dot = fmaf(xr[4 * i], v.x, dot);
-          dot = fmaf(xr[4 * i + 1], v.y, dot);
-          dot = fmaf(xr[4 * i + 2], v.z, dot);
-          dot = fmaf(xr[4 * i + 3], v.w, dot);
+          for (int i = 0; i < FB / 4; ++i) {
+            const float4 v = cj[i];
+            dot = fma_t(xr[4 * i], v.x, dot);
+            dot = fma_t(xr[4 * i + 1], v.y, dot);
+            dot = fma_t(xr[4 * i + 2], v.z, dot);
+            dot = fma_t(xr[4 * i + 3], v.w, dot);
+          }
+        } else {
+          const double2* cj = reinterpret_cast<const double2*>(cs + j * FB);
+#pragma unroll
+          for (int i = 0; i < FB / 2; ++i) {
+            const double2 v = cj[i];
+            dot = fma_t(xr[2 * i], v.x, dot);
+            dot = fma_t(xr[2 * i + 1], v.y, dot);
+          }
         }
-        const float h = c2[j] - 2.f * dot;
+        const T h = c2[j] - T(2) * dot;
         if (h < best) {
           best = h;
           bj = j;
@@ -516,7 +547,7 @@ lloyd_walk_kernel(const float* __restrict__ x, const float* __restrict__ c,
     const unsigned peers = __match_any_sync(0xffffffffu, mylab);
     const int rank = __popc(peers & ((1u << lane) - 1u));
     if (mylab >= 0 && rank == 0) wcnt[wid * k + mylab] = __popc(peers);
-    float v = myval;  // warp sum of the inertia terms, in a fixed order
+    T v = myval;  // warp sum of the inertia terms, in a fixed order
 #pragma unroll
     for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(0xffffffffu, v, o);
     if (lane == 0) wval[wid] = v;
@@ -561,13 +592,13 @@ lloyd_walk_kernel(const float* __restrict__ x, const float* __restrict__ c,
       const int j = q / f, dd = q - j * f;
       const int last = (kWarps - 1) * k + j;
       const int s0 = woff[j], s1 = woff[last] + wcnt[last];
-      float s = 0.f;
+      T s = 0;
       for (int i = s0; i < s1; ++i) s += xs[plist[i] * (FB + 1) + dd];
       acc[q] += (double)s;
       if (dd == 0) acc[kf + j] += (double)(s1 - s0);
     }
     if (tid == kTile - 1) {
-      float s = 0.f;
+      T s = 0;
       for (int ww = 0; ww < kWarps; ++ww) s += wval[ww];
       acc[kf + k] += (double)s;
     }
@@ -590,14 +621,22 @@ __global__ void lloyd_reduce_kernel(const double* __restrict__ partial, int64_t 
 
 enum Route { kWalk = 0, kTc = 1 };
 
-template <int FB>
+// float64 tiles of 128 features do not fit in a block's shared memory (the
+// gate in core/kernels.py refuses them): that instantiation is not built
+template <typename T, int FB>
+constexpr bool walk_built() {
+  return sizeof(T) == 4 || FB <= 64;
+}
+
+template <typename T, int FB>
 struct Kernel {
   static void* fn(int route) {
     if (route == kTc) {
-      if constexpr (FB >= 16) return (void*)lloyd_tc_kernel<FB>;
+      if constexpr (FB >= 16 && sizeof(T) == 4) return (void*)lloyd_tc_kernel<FB>;
       return nullptr;
     }
-    return (void*)lloyd_walk_kernel<FB>;
+    if constexpr (walk_built<T, FB>()) return (void*)lloyd_walk_kernel<T, FB>;
+    return nullptr;
   }
 };
 
@@ -607,21 +646,23 @@ int bucket(int64_t f, int route) {
   return f <= 8 ? 8 : f <= 16 ? 16 : f <= 32 ? 32 : f <= 64 ? 64 : 128;
 }
 
+template <typename T>
 size_t route_smem(int route, int fb, int f, int k) {
-  return route == kTc ? tc_smem_bytes(fb, f, k) : smem_bytes(fb, f, k);
+  return route == kTc ? tc_smem_bytes(fb, f, k) : smem_bytes<T>(fb, f, k);
 }
 
-// whether the route takes f features and k centres (x's alignment aside)
-bool route_takes(int route, int64_t f, int64_t k) {
-  if (f < 1 || f > 128 || k < 1) return false;
+// whether the route takes f features and k centres of elem_bytes each (x's
+// alignment aside): walk every shape in float32 and float64, tc float32 only
+bool route_takes(int route, int64_t f, int64_t k, int64_t elem_bytes) {
+  if (f < 1 || f > 128 || k < 1 || (elem_bytes != 4 && elem_bytes != 8)) return false;
   if (route == kWalk) return true;
-  return route == kTc && f % 4 == 0 && tc_tiles(f, k) <= kTcMaxTiles;
+  return route == kTc && elem_bytes == 4 && f % 4 == 0 && tc_tiles(f, k) <= kTcMaxTiles;
 }
 
-template <int FB>
+template <typename T, int FB>
 int blocks_per_sm(int route, int f, int k) {
-  void* fn = Kernel<FB>::fn(route);
-  const size_t smem = route_smem(route, FB, f, k);
+  void* fn = Kernel<T, FB>::fn(route);
+  const size_t smem = route_smem<T>(route, FB, f, k);
   int n = 0;
   if (fn == nullptr ||
       cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem) != cudaSuccess ||
@@ -630,21 +671,39 @@ int blocks_per_sm(int route, int f, int k) {
   return n;
 }
 
-template <int FB>
-cudaError_t launch(int route, const float* x, const float* c, int64_t rows, int64_t n_true, int f, int k,
+template <typename T>
+int blocks_per_sm_of(int route, int64_t f, int64_t k) {
+  const int fi = (int)f, ki = (int)k;
+  switch (bucket(f, route)) {
+    case 8: return blocks_per_sm<T, 8>(route, fi, ki);
+    case 16: return blocks_per_sm<T, 16>(route, fi, ki);
+    case 32: return blocks_per_sm<T, 32>(route, fi, ki);
+    case 64: return blocks_per_sm<T, 64>(route, fi, ki);
+    default: return blocks_per_sm<T, 128>(route, fi, ki);
+  }
+}
+
+template <typename T, int FB>
+cudaError_t launch(int route, const T* x, const T* c, int64_t rows, int64_t n_true, int f, int k,
                    double* partial, int64_t nblocks, double* out, int64_t* labels, unsigned long long* cycles,
                    cudaStream_t stream) {
-  const size_t smem = route_smem(route, FB, f, k);
-  void* fn = Kernel<FB>::fn(route);
+  const size_t smem = route_smem<T>(route, FB, f, k);
+  void* fn = Kernel<T, FB>::fn(route);
   if (fn == nullptr) return cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  if (route == kTc)
-    lloyd_tc_kernel<(FB >= 16 ? FB : 16)><<<(unsigned)nblocks, kTcThreads, smem, stream>>>(
-        x, c, rows, n_true, f, k, partial, labels, cycles);
-  else
-    lloyd_walk_kernel<FB><<<(unsigned)nblocks, kTile, smem, stream>>>(x, c, rows, n_true, f, k, partial, labels,
-                                                                     cycles);
+  if constexpr (sizeof(T) == 4) {
+    if (route == kTc) {
+      lloyd_tc_kernel<(FB >= 16 ? FB : 16)><<<(unsigned)nblocks, kTcThreads, smem, stream>>>(
+          x, c, rows, n_true, f, k, partial, labels, cycles);
+    } else {
+      lloyd_walk_kernel<T, FB><<<(unsigned)nblocks, kTile, smem, stream>>>(x, c, rows, n_true, f, k, partial,
+                                                                          labels, cycles);
+    }
+  } else if constexpr (walk_built<T, FB>()) {
+    lloyd_walk_kernel<T, FB><<<(unsigned)nblocks, kTile, smem, stream>>>(x, c, rows, n_true, f, k, partial, labels,
+                                                                        cycles);
+  }
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   const int w = k * f + k + 1;
@@ -652,14 +711,15 @@ cudaError_t launch(int route, const float* x, const float* c, int64_t rows, int6
   return cudaGetLastError();
 }
 
+template <typename T>
 int step(const void* x, const void* c, int64_t rows, int64_t n_true, int64_t f, int64_t k, void* partial,
          int64_t nblocks, void* out, void* labels, int64_t route, void* stream, void* cycles) {
   const int r = (int)route;
-  if ((r != kWalk && r != kTc) || !route_takes(r, f, k) || nblocks < 1 || rows < 0)
+  if ((r != kWalk && r != kTc) || !route_takes(r, f, k, sizeof(T)) || nblocks < 1 || rows < 0)
     return (int)cudaErrorInvalidValue;
   if (r == kTc && reinterpret_cast<uintptr_t>(x) % 16 != 0) return (int)cudaErrorMisalignedAddress;
-  const float* xp = static_cast<const float*>(x);
-  const float* cp = static_cast<const float*>(c);
+  const T* xp = static_cast<const T*>(x);
+  const T* cp = static_cast<const T*>(c);
   double* pp = static_cast<double*>(partial);
   double* op = static_cast<double*>(out);
   int64_t* lp = static_cast<int64_t*>(labels);
@@ -667,11 +727,11 @@ int step(const void* x, const void* c, int64_t rows, int64_t n_true, int64_t f, 
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int fi = (int)f, ki = (int)k;
   switch (bucket(f, r)) {
-    case 8: return (int)launch<8>(r, xp, cp, rows, n_true, fi, ki, pp, nblocks, op, lp, cy, s);
-    case 16: return (int)launch<16>(r, xp, cp, rows, n_true, fi, ki, pp, nblocks, op, lp, cy, s);
-    case 32: return (int)launch<32>(r, xp, cp, rows, n_true, fi, ki, pp, nblocks, op, lp, cy, s);
-    case 64: return (int)launch<64>(r, xp, cp, rows, n_true, fi, ki, pp, nblocks, op, lp, cy, s);
-    default: return (int)launch<128>(r, xp, cp, rows, n_true, fi, ki, pp, nblocks, op, lp, cy, s);
+    case 8: return (int)launch<T, 8>(r, xp, cp, rows, n_true, fi, ki, pp, nblocks, op, lp, cy, s);
+    case 16: return (int)launch<T, 16>(r, xp, cp, rows, n_true, fi, ki, pp, nblocks, op, lp, cy, s);
+    case 32: return (int)launch<T, 32>(r, xp, cp, rows, n_true, fi, ki, pp, nblocks, op, lp, cy, s);
+    case 64: return (int)launch<T, 64>(r, xp, cp, rows, n_true, fi, ki, pp, nblocks, op, lp, cy, s);
+    default: return (int)launch<T, 128>(r, xp, cp, rows, n_true, fi, ki, pp, nblocks, op, lp, cy, s);
   }
 }
 
@@ -680,19 +740,13 @@ int step(const void* x, const void* c, int64_t rows, int64_t n_true, int64_t f, 
 extern "C" {
 
 // Blocks of the Lloyd kernel's route (0 walk, 1 tc) one SM holds at once for
-// f features and k centres (0 on error or where the route does not take the
-// shape); the grid should not exceed this times the SM count.
-int64_t heat_lloyd_blocks_per_sm(int64_t f, int64_t k, int64_t route) {
+// f features and k centres of elem_bytes each (4: float32, 8: float64; 0 on
+// error or where the route does not take the shape); the grid should not
+// exceed this times the SM count.
+int64_t heat_lloyd_blocks_per_sm(int64_t f, int64_t k, int64_t route, int64_t elem_bytes) {
   const int r = (int)route;
-  if ((r != kWalk && r != kTc) || !route_takes(r, f, k)) return 0;
-  const int fi = (int)f, ki = (int)k;
-  switch (bucket(f, r)) {
-    case 8: return blocks_per_sm<8>(r, fi, ki);
-    case 16: return blocks_per_sm<16>(r, fi, ki);
-    case 32: return blocks_per_sm<32>(r, fi, ki);
-    case 64: return blocks_per_sm<64>(r, fi, ki);
-    default: return blocks_per_sm<128>(r, fi, ki);
-  }
+  if ((r != kWalk && r != kTc) || !route_takes(r, f, k, elem_bytes)) return 0;
+  return elem_bytes == 8 ? blocks_per_sm_of<double>(r, f, k) : blocks_per_sm_of<float>(r, f, k);
 }
 
 // One fused Lloyd step by the route (0 walk, 1 tc; the caller chooses, and a
@@ -704,7 +758,14 @@ int64_t heat_lloyd_blocks_per_sm(int64_t f, int64_t k, int64_t route) {
 // (0 on success).
 int heat_lloyd_step_f32(const void* x, const void* c, int64_t rows, int64_t n_true, int64_t f, int64_t k,
                         void* partial, int64_t nblocks, void* out, void* labels, int64_t route, void* stream) {
-  return step(x, c, rows, n_true, f, k, partial, nblocks, out, labels, route, stream, nullptr);
+  return step<float>(x, c, rows, n_true, f, k, partial, nblocks, out, labels, route, stream, nullptr);
+}
+
+// The same step on f64 points and centres, by the walk route (route 0; the
+// tc route takes float32 only and is refused).
+int heat_lloyd_step_f64(const void* x, const void* c, int64_t rows, int64_t n_true, int64_t f, int64_t k,
+                        void* partial, int64_t nblocks, void* out, void* labels, int64_t route, void* stream) {
+  return step<double>(x, c, rows, n_true, f, k, partial, nblocks, out, labels, route, stream, nullptr);
 }
 
 #ifdef HEAT_LLOYD_PHASES
@@ -713,7 +774,7 @@ int heat_lloyd_step_f32(const void* x, const void* c, int64_t rows, int64_t n_tr
 int heat_lloyd_phases_f32(const void* x, const void* c, int64_t rows, int64_t n_true, int64_t f, int64_t k,
                           void* partial, int64_t nblocks, void* out, void* labels, int64_t route, void* stream,
                           void* cycles) {
-  return step(x, c, rows, n_true, f, k, partial, nblocks, out, labels, route, stream, cycles);
+  return step<float>(x, c, rows, n_true, f, k, partial, nblocks, out, labels, route, stream, cycles);
 }
 #endif
 

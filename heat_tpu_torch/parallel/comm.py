@@ -162,6 +162,43 @@ class Communication:
         dist.all_gather(parts, x.contiguous(), group=self.group)
         return [p.narrow(axis, 0, e) for p, e in zip(parts, extents)]
 
+    def all_to_all_varying(self, blocks: Sequence[torch.Tensor], recv_extents: Sequence[int],
+                           axis: int) -> List[torch.Tensor]:
+        """One exchange of blocks whose extents along ``axis`` vary: this
+        rank sends ``blocks[r]`` to rank r and receives, in rank order, the
+        block rank r sends it, of extent ``recv_extents[r]`` (all else of
+        one shape).  Every block is padded to the largest extent any rank
+        sends (one max all-reduce of a scalar) for one equal-shape
+        all-to-all, then cut back."""
+        blocks = list(blocks)
+        recv_extents = [int(e) for e in recv_extents]
+        if len(blocks) != self.size or len(recv_extents) != self.size:
+            raise ValueError(f"need one block and one extent per rank, got {len(blocks)} and {len(recv_extents)}")
+        if self.size == 1:
+            return [blocks[0].narrow(axis, 0, recv_extents[0])]
+        self._check_joined()
+        top = torch.tensor([max(b.shape[axis] for b in blocks)], dtype=torch.int64, device=blocks[0].device)
+        pad = int(self.pmax(top)[0])
+        send = []
+        for b in blocks:
+            if b.shape[axis] < pad:
+                widths = list(b.shape)
+                widths[axis] = pad - b.shape[axis]
+                b = torch.cat([b, b.new_zeros(widths)], dim=axis)
+            send.append(b.contiguous())
+        got = [torch.empty_like(send[0]) for _ in range(self.size)]
+        dist.all_to_all(got, send, group=self.group)
+        return [g.narrow(axis, 0, e) for g, e in zip(got, recv_extents)]
+
+    def bcast(self, x: torch.Tensor, root: int) -> torch.Tensor:
+        """Rank ``root``'s ``x`` on every rank (of one shape and dtype on
+        all of them); in place, returns ``x``."""
+        if self.size == 1:
+            return x
+        self._check_joined()
+        dist.broadcast(x, src=self._global_rank(root), group=self.group)
+        return x
+
     def all_to_all(self, x: torch.Tensor, split_axis: int, concat_axis: int) -> torch.Tensor:
         """The tiled all-to-all of ``jax.lax.all_to_all(..., tiled=True)``:
         ``x`` is cut into ``size`` equal blocks along ``split_axis``, block r

@@ -620,3 +620,190 @@ def test_prefix_sums_in_a_gloo_world_of_three(sampling_world):
         for r, got in enumerate(ranks):
             assert got[key].dtype == want.dtype
             np.testing.assert_array_equal(got[key], want[r], err_msg=f"{key} on rank {r}")
+
+
+# the array runtime over uneven rows and columns (10 x 7 over 3 ranks: 4, 4,
+# 2 rows, 3, 3, 1 columns): resplits between every pair of splits, stepped,
+# reversed, masked and index-array keys on the split axis, writes across
+# ranks, halos, allclose, factories' chunks, nonzero and printing; every
+# gather recorded during the basic keys
+_RUNTIME_MAIN = _RANK_HEAD + r"""
+saved = {}
+
+
+def save(name, a):
+    saved[name + "/local"] = a.larray.numpy() if a.dtype is not ht.bfloat16 else a.larray.float().numpy()
+    saved[name + "/split"] = np.asarray(-1 if a.split is None else a.split)
+    saved[name + "/lmap"] = a.lshape_map
+    saved[name + "/cd"] = np.asarray(a.counts_displs() if a.split is not None else ((), ()))
+
+
+base = arrays["base"]
+for s in (None, 0, 1):
+    for t in (None, 0, 1):
+        save(f"resplit{s}{t}", ht.array(base, split=s).resplit(t))
+    a = ht.array(base, split=s)
+    a.resplit_(1 if s != 1 else 0)
+    save(f"resplit_{s}", a)
+
+gathers = []
+for name in ("all_gather", "all_gather_varying"):
+    fn = getattr(ht.Communication, name)
+
+    def recording(self, x, *args, _fn=fn, **kw):
+        gathers.append(int(x.numel()))
+        return _fn(self, x, *args, **kw)
+
+    setattr(ht.Communication, name, recording)
+for split in (0, 1):
+    a = ht.array(base, split=split)
+    for i, key in enumerate(BASIC):
+        save(f"basic{split}_{i}", a[key])
+saved["basic_gathered"] = np.asarray(sum(gathers))
+for split in (0, 1):
+    a = ht.array(base, split=split)
+    for i, key in enumerate(ADVANCED):
+        save(f"adv{split}_{i}", a[key])
+    mask = ht.array(base[:, 0] > 0, split=0)
+    save(f"dmask{split}", a[mask])
+    for i, (key, value) in enumerate(SETS):
+        b = ht.array(base, split=split)
+        b[key] = value
+        save(f"set{split}_{i}", b)
+    b = ht.array(base, split=split)
+    b[1:9:3] = ht.array(np.full((3, 7), -1.0, np.float32), split=0)
+    save(f"setd{split}", b)
+
+h = ht.array(base, split=0)
+h.get_halo(2)
+saved["halo_prev"] = h.halo_prev.numpy() if h.halo_prev is not None else np.zeros((0,))
+saved["halo_next"] = h.halo_next.numpy() if h.halo_next is not None else np.zeros((0,))
+saved["with_halos"] = h.array_with_halos.numpy()
+a = ht.array(base, split=0)
+saved["close"] = np.asarray([ht.allclose(a, a), ht.allclose(a, a + 1e-3), ht.allclose(a, ht.array(base, split=1)),
+                             ht.allclose(a, base), bool(ht.all(a > -100)), bool(ht.any(a > 100))])
+save("arange", ht.arange(10, split=0))
+save("linspace", ht.linspace(-1.0, 2.0, 10, split=0))
+save("eye0", ht.eye((10, 7), split=0))
+save("eye1", ht.eye((10, 7), split=1))
+save("full", ht.full((10, 7), 2.5, split=1))
+save("fromfunction", ht.fromfunction(lambda i, j: i * 7 + j, (10, 7), split=1))
+save("chunks", ht.array(np.arange(2 + rank, dtype=np.int64) + 10 * rank, is_split=0))
+for split in (0, 1):
+    save(f"nonzero{split}", ht.nonzero(ht.array(base > 0.5, split=split)))
+saved["str"] = np.asarray(str(ht.array(arrays["big"], split=0)))
+saved["str_small"] = np.asarray(str(ht.array(base, split=1)))
+x = ht.array(arrays["x64"], split=0)
+km = ht.cluster.KMeans(n_clusters=8, init="random", random_state=0, max_iter=30).fit(x)
+saved.update(centers=km.cluster_centers_.numpy(), labels=km.labels_.numpy(), inertia=np.asarray(km.inertia_),
+             n_iter=np.asarray(km.n_iter_), centers_dtype=np.asarray(km.cluster_centers_.dtype.__name__))
+np.savez(out, **saved)
+dist.destroy_process_group()
+"""
+
+_RUNTIME_KEYS = r"""
+BASIC = [slice(1, 9, 3), slice(None, None, -1), slice(8, 0, -3), 5, -1, (slice(None), 2), (Ellipsis, slice(6, 0, -2)),
+         (None, slice(2, 7)), (slice(3, 3),), (slice(None), None, 1), (2, slice(None, None, 2))]
+ADVANCED = [np.array([9, 0, 4, 4, 7]), np.arange(10) % 3 == 1, (slice(None), np.array([6, 0, 3])),
+            (np.array([[1, 8], [3, 3]]), slice(1, 5)), (np.array([2, 5, 9]), np.array([0, 6, 3])),
+            (slice(None), np.arange(7) % 2 == 0), (0, slice(None), None)]
+SETS = [(slice(1, 9, 3), 7.5), (np.array([9, 0, 4]), -3.0), (np.arange(10) % 4 == 0, 1.25),
+        ((slice(None), slice(6, 0, -2)), 0.5), ((5, slice(None)), np.arange(7, dtype=np.float32)),
+        ((slice(None), 3), np.arange(10, dtype=np.float32))]
+"""
+
+
+@pytest.fixture(scope="module")
+def runtime_world(tmp_path_factory):
+    rng = np.random.default_rng(13)
+    arrays = dict(base=rng.standard_normal((10, 7)).astype(np.float32),
+                  big=rng.standard_normal((1001, 5)).astype(np.float32),
+                  x64=_blobs(1003, 16, 8, 3).astype(np.float64))
+    script = _RANK_HEAD + _RUNTIME_KEYS + _RUNTIME_MAIN[len(_RANK_HEAD):]
+    ranks = _run_world(tmp_path_factory.mktemp("runtime"), script, **arrays)
+    ns = {"np": np}
+    exec(_RUNTIME_KEYS, ns)
+    return arrays, ns, hj.Communication(jax.devices()[:WORLD]), ranks
+
+
+def _same_layout(got, r, name, want, comm):
+    """Rank r's saved chunk of ``name`` is its chunk of the reference's."""
+    split = want.split
+    assert int(got[name + "/split"]) == (-1 if split is None else split), name
+    np.testing.assert_array_equal(got[name + "/lmap"], want.lshape_map, err_msg=name)
+    full = np.asarray(want.numpy())
+    if split is not None:
+        assert tuple(got[name + "/cd"][0]) == want.counts_displs()[0], name
+        full = full[comm.chunk(want.shape, split, rank=r)[2]]
+    assert got[name + "/local"].dtype == full.dtype, name
+    np.testing.assert_array_equal(got[name + "/local"], full, err_msg=name)
+
+
+def test_resplit_and_indexing_in_a_gloo_world_of_three(runtime_world):
+    """resplit between every pair of splits, the keys on the split axis and
+    the writes across ranks: each rank's chunk, lshape_map and counts_displs
+    are the reference's on 3 devices; the basic keys gathered nothing."""
+    arrays, ns, comm, ranks = runtime_world
+    base = arrays["base"]
+    for r, got in enumerate(ranks):
+        for s in (None, 0, 1):
+            for t in (None, 0, 1):
+                _same_layout(got, r, f"resplit{s}{t}", hj.array(base, split=s, comm=comm).resplit(t), comm)
+            _same_layout(got, r, f"resplit_{s}", hj.array(base, split=s, comm=comm).resplit(1 if s != 1 else 0), comm)
+        assert int(got["basic_gathered"]) == 0
+        for split in (0, 1):
+            ref = hj.array(base, split=split, comm=comm)
+            for i, key in enumerate(ns["BASIC"]):
+                _same_layout(got, r, f"basic{split}_{i}", ref[key], comm)
+            for i, key in enumerate(ns["ADVANCED"]):
+                _same_layout(got, r, f"adv{split}_{i}", ref[key], comm)
+            _same_layout(got, r, f"dmask{split}", ref[hj.array(base[:, 0] > 0, split=0, comm=comm)], comm)
+            for i, (key, value) in enumerate(ns["SETS"]):
+                b = hj.array(base, split=split, comm=comm)
+                b[key] = value
+                _same_layout(got, r, f"set{split}_{i}", b, comm)
+            b = hj.array(base, split=split, comm=comm)
+            b[1:9:3] = hj.array(np.full((3, 7), -1.0, np.float32), split=0, comm=comm)
+            _same_layout(got, r, f"setd{split}", b, comm)
+
+
+def test_halos_allclose_factories_and_printing_in_a_gloo_world_of_three(runtime_world):
+    arrays, _, comm, ranks = runtime_world
+    base = arrays["base"]
+    ref = hj.array(base, split=0, comm=comm)
+    lo = [comm.chunk(base.shape, 0, rank=r)[0] for r in range(WORLD)] + [10]
+    for r, got in enumerate(ranks):
+        want_prev = base[lo[r] - 2:lo[r]] if r > 0 else np.zeros((0,))
+        want_next = base[lo[r + 1]:lo[r + 1] + 2] if lo[r + 1] < 10 else np.zeros((0,))
+        np.testing.assert_array_equal(got["halo_prev"], want_prev)
+        np.testing.assert_array_equal(got["halo_next"], want_next)
+        np.testing.assert_array_equal(got["with_halos"], base[max(lo[r] - 2, 0):min(lo[r + 1] + 2, 10)])
+        assert got["close"].tolist() == [hj.allclose(ref, ref), hj.allclose(ref, ref + 1e-3),
+                                         hj.allclose(ref, hj.array(base, split=1, comm=comm)), hj.allclose(ref, base),
+                                         bool(hj.all(ref > -100)), bool(hj.any(ref > 100))]
+        _same_layout(got, r, "arange", hj.arange(10, split=0, comm=comm), comm)
+        _same_layout(got, r, "linspace", hj.linspace(-1.0, 2.0, 10, split=0, comm=comm), comm)
+        _same_layout(got, r, "eye0", hj.eye((10, 7), split=0, comm=comm), comm)
+        _same_layout(got, r, "eye1", hj.eye((10, 7), split=1, comm=comm), comm)
+        _same_layout(got, r, "full", hj.full((10, 7), 2.5, split=1, comm=comm), comm)
+        _same_layout(got, r, "fromfunction", hj.fromfunction(lambda i, j: i * 7 + j, (10, 7), split=1, comm=comm),
+                     comm)
+        chunks = np.concatenate([np.arange(2 + q, dtype=np.int64) + 10 * q for q in range(WORLD)])
+        _same_layout(got, r, "chunks", hj.array(chunks, split=0, comm=comm), comm)
+        for split in (0, 1):
+            _same_layout(got, r, f"nonzero{split}", hj.nonzero(hj.array(base > 0.5, split=split, comm=comm)), comm)
+        assert str(got["str"]) == str(hj.array(arrays["big"], split=0, comm=comm))
+        assert str(got["str_small"]) == str(hj.array(base, split=1, comm=comm))
+
+
+def test_float64_kmeans_in_a_gloo_world_of_three(runtime_world):
+    """A float64 fit over uneven rows: the reference's XLA step on 3
+    devices; labels bitwise, centres atol 1e-12, inertia rtol 1e-12."""
+    arrays, _, comm, ranks = runtime_world
+    ref = hj.cluster.KMeans(n_clusters=8, init="random", random_state=0, max_iter=30).fit(
+        hj.array(arrays["x64"], split=0, comm=comm))
+    for got in ranks:
+        assert str(got["centers_dtype"]) == "float64" and int(got["n_iter"]) == ref.n_iter_
+        np.testing.assert_allclose(got["centers"], ref.cluster_centers_.numpy(), rtol=0, atol=1e-12)
+        np.testing.assert_array_equal(got["labels"], ref.labels_.numpy())
+        np.testing.assert_allclose(float(got["inertia"]), ref.inertia_, rtol=1e-12)

@@ -63,8 +63,10 @@ def test_kernel_matches_plain(card, rows, f, k, n_true):
 
 def test_kernel_refuses_what_it_cannot_take(card):
     x = torch.randn(64, 16, device=card)
+    with pytest.raises(TypeError):  # float64 points take float64 centres (K1's float64 route)
+        kernels.lloyd_partials(x.double(), torch.randn(4, 16, device=card), 64)
     with pytest.raises(TypeError):
-        kernels.lloyd_partials(x.double(), torch.randn(4, 16, device=card, dtype=torch.float64), 64)
+        kernels.lloyd_partials(x.half(), torch.randn(4, 16, device=card, dtype=torch.float16), 64)
     with pytest.raises(ValueError, match="contiguous"):
         kernels.lloyd_partials(torch.randn(16, 64, device=card).T, torch.randn(4, 16, device=card), 64)
     with pytest.raises(ValueError, match="features"):
@@ -1059,3 +1061,76 @@ def test_ordered_cumsum_repeats_bitwise_on_the_card(card):
         assert torch.equal(arithmetics._ordered_cumsum(w), first)
     exact = torch.cumsum(w.double(), 0)
     assert float(((first.double() - exact).abs() / exact).max()) < 1e-5
+
+
+# K1's float64 walk route and the array runtime on the card
+
+
+@pytest.mark.parametrize("rows,f,k,n_true", [(1003, 16, 8, 1003), (1003, 17, 30, 1000), (4096, 64, 8, 4000),
+                                             (777, 4, 3, 777), (33, 8, 64, 31)])
+def test_float64_kernel_matches_plain(card, rows, f, k, n_true):
+    """Labels bitwise, counts exact, sums and inertia within 1e-12 of the
+    plain version; one launch, by the walk route."""
+    g = torch.Generator(device=card).manual_seed(rows + f + k)
+    x = torch.randn(rows, f, device=card, generator=g, dtype=torch.float64)
+    c = torch.randn(k, f, device=card, generator=g, dtype=torch.float64)
+    assert kernels.lloyd_route(f, k, True, torch.float64) == "walk"
+    before = kernels.LLOYD_LAUNCHES
+    sums, counts, inertia, lab = kernels.lloyd_partials(x, c, n_true, labels=True)
+    assert kernels.LLOYD_LAUNCHES == before + 1
+    ps, pc, pi, pl = kernels._lloyd_plain(x, c, n_true, True)
+    assert torch.equal(lab, pl) and torch.equal(counts, pc)
+    assert float((sums - ps).abs().max()) <= 1e-12 * float(ps.abs().max())
+    assert abs(float(inertia) - float(pi)) <= 1e-12 * abs(float(pi))
+
+
+def test_float64_kernel_refuses_mixes(card):
+    x = torch.zeros(64, 16, device=card, dtype=torch.float64)
+    with pytest.raises(TypeError):
+        kernels.lloyd_partials(x, torch.zeros(8, 16, device=card), 64)
+    with pytest.raises(TypeError):
+        kernels.lloyd_partials(x.float(), torch.zeros(8, 16, device=card, dtype=torch.float64), 64)
+    with pytest.raises(ValueError):
+        kernels._lloyd_cuda(x, x[:8], 64, False, "tc")
+
+
+def test_float64_kmeans_on_the_card_matches_cpu(card):
+    rng = np.random.default_rng(4)
+    centres = rng.standard_normal((8, 16)) * 6.0
+    x = centres[rng.integers(0, 8, 5000)] + rng.standard_normal((5000, 16))
+    before = kernels.LLOYD_LAUNCHES
+    got = ht.cluster.KMeans(n_clusters=8, init="random", random_state=0, max_iter=30).fit(ht.array(x, split=0))
+    assert kernels.LLOYD_LAUNCHES - before == got.n_iter_ + 1
+    want = ht.cluster.KMeans(n_clusters=8, init="random", random_state=0, max_iter=30).fit(
+        ht.array(x, split=0, device="cpu"))
+    assert got.cluster_centers_.dtype is ht.float64 and got.n_iter_ == want.n_iter_
+    np.testing.assert_array_equal(got.labels_.numpy(), want.labels_.numpy())
+    np.testing.assert_allclose(got.cluster_centers_.numpy(), want.cluster_centers_.numpy(), rtol=0, atol=1e-12)
+
+
+def test_runtime_on_the_card_matches_cpu(card):
+    """Indexing, writes, resplits, casts and printing on the card give the
+    CPU's results, bitwise."""
+    rng = np.random.default_rng(8)
+    base = rng.standard_normal((37, 11)).astype(np.float32)
+    idx = np.array([36, 0, 5, 5, 17])
+    for split in (None, 0, 1):
+        a, h = ht.array(base, split=split), ht.array(base, split=split, device="cpu")
+        assert a.larray_padded.is_cuda
+        for key in (5, (slice(None), 3), slice(None, None, -3), base[:, 0] > 0, idx, (idx, slice(2, 9)), (None, 4)):
+            got, want = a[key], h[key]
+            assert got.split == want.split and got.shape == want.shape
+            assert torch.equal(got.larray.cpu(), want.larray)
+        a[3:30:4] = 1.5
+        h[3:30:4] = 1.5
+        a[idx[:3]] = ht.array(np.ones((3, 11), np.float32))
+        h[idx[:3]] = ht.array(np.ones((3, 11), np.float32), device="cpu")
+        assert torch.equal(a.larray.cpu(), h.larray)
+        for t in (None, 0, 1):
+            assert torch.equal(a.resplit(t).larray.cpu(), h.resplit(t).larray)
+        for name in ("int8", "uint16", "uint64", "float16", "bfloat16", "float64", "complex64", "bool"):
+            dt = getattr(ht, name)
+            assert torch.equal(a.astype(dt).astype(ht.float32).larray.cpu()[a.larray.cpu() >= 0],
+                               h.astype(dt).astype(ht.float32).larray[h.larray >= 0]), name
+        assert str(a).replace("gpu:0", "cpu:0") == str(h)
+        assert ht.allclose(a, h.numpy()) and bool(ht.all(a == a))

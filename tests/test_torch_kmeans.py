@@ -3,10 +3,13 @@ KMeans fit, predict.
 
 The reference fit runs both its default XLA loop and its Pallas kernel path
 (the kernel is opt-in there, switched on as tests/test_kernels.py does).
-Centres atol 5e-5, labels bitwise, inertia rtol 1e-4, equal n_iter_."""
+Centres atol 5e-5, labels bitwise, inertia rtol 1e-4, equal n_iter_.
+Float64 points (the reference's XLA step, the port's plain version): centres
+atol 1e-12, labels bitwise, inertia rtol 1e-12."""
 
 import numpy as np
 import pytest
+import torch
 
 import heat_tpu as hj
 import heat_tpu_torch as ht
@@ -103,3 +106,52 @@ def test_params_and_not_ported_options():
             fitted.predict(x)
     finally:
         monkeypatch.undo()
+
+
+# float64 points: the reference fits them by its XLA Lloyd step (its Pallas
+# kernel takes float32 only); the port's plain version takes float64 on the
+# CPU, as K1's float64 walk route does on the card
+CASES_F64 = [(1003, 16, 8, 0), (517, 8, 5, 1), (700, 17, 12, 2)]
+
+
+@pytest.mark.parametrize("split", [None, 0])
+@pytest.mark.parametrize("n,f,k,seed", CASES_F64)
+def test_float64_fit_matches_reference(n, f, k, seed, split):
+    """Labels bitwise, centres atol 1e-12, inertia rtol 1e-12, the same
+    n_iter_, everything back in float64."""
+    x = _blobs(n, f, k, seed).astype(np.float64) * 1.5 + 0.25
+    want = hj.cluster.KMeans(n_clusters=k, init="random", random_state=seed, max_iter=30).fit(hj.array(x, split=split))
+    got = ht.cluster.KMeans(n_clusters=k, init="random", random_state=seed, max_iter=30).fit(ht.array(x, split=split))
+    assert got._inertia.dtype == torch.float64  # before inertia_ reads it to the host
+    assert got.n_iter_ == want.n_iter_
+    assert got.cluster_centers_.dtype is ht.float64 and got.labels_.split == split
+    np.testing.assert_allclose(got.cluster_centers_.numpy(), want.cluster_centers_.numpy(), rtol=0, atol=1e-12)
+    np.testing.assert_array_equal(got.labels_.numpy(), want.labels_.numpy())
+    np.testing.assert_allclose(got.inertia_, want.inertia_, rtol=1e-12)
+    fresh = _blobs(300, f, k, seed + 100).astype(np.float64)
+    np.testing.assert_array_equal(got.predict(ht.array(fresh, split=0)).numpy(),
+                                  want.predict(hj.array(fresh, split=0)).numpy())
+
+
+def test_integer_points_fit_in_float32():
+    """The reference's rule: integer points are cast to float32."""
+    x = np.rint(_blobs(400, 8, 4, 5) * 4).astype(np.int64)
+    want = hj.cluster.KMeans(n_clusters=4, init="random", random_state=1, max_iter=20).fit(hj.array(x, split=0))
+    got = ht.cluster.KMeans(n_clusters=4, init="random", random_state=1, max_iter=20).fit(ht.array(x, split=0))
+    assert got.cluster_centers_.dtype is ht.float32
+    _assert_same_fit(got, want)
+
+
+def test_float64_gate():
+    """float64 goes by the walk route (16 x 8 fits in shared memory; 128
+    features do not), float32 keeps the tc route; the CPU plain version
+    takes either."""
+    assert kernels.lloyd_route(16, 8, dtype=torch.float64) == "walk"
+    assert kernels.lloyd_route(16, 8, dtype=torch.float32) == "tc"
+    assert kernels.lloyd_smem_bytes(16, 8, "walk", torch.float64) > kernels.lloyd_smem_bytes(16, 8, "walk")
+    assert kernels.lloyd_unsupported(16, 8, torch.float64) is None
+    assert "shared memory" in kernels.lloyd_unsupported(128, 8, torch.float64)
+    assert "float32 or float64" in kernels.lloyd_unsupported(16, 8, torch.float16)
+    x = torch.from_numpy(_blobs(100, 16, 8, 0).astype(np.float64))
+    sums, counts, inertia, labels = kernels.lloyd_partials(x, x[:8].clone(), 97, labels=True)
+    assert sums.dtype == torch.float64 and int(counts.sum()) == 97 and labels.shape == (100,)

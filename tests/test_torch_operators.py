@@ -254,7 +254,7 @@ def test_asarray_matches_reference(dtype, split):
 def test_array_of_a_dndarray_matches_reference(dtype, split):
     """``ht.array`` of a DNDarray: the same array back when nothing is to
     change, a cast copy with the split kept for another dtype; another
-    split raises until resplit is ported (the reference resplits)."""
+    split resplits, as the reference does."""
     x = _data(dtype)
     a, r = ht.array(x, split=split), hj.array(x, split=split)
     assert ht.array(a) is a and hj.array(r) is r
@@ -263,9 +263,7 @@ def test_array_of_a_dndarray_matches_reference(dtype, split):
     for target in (ht.float64, ht.int64, ht.bool):
         _same(ht.array(a, dtype=target), hj.array(r, dtype=getattr(hj, target.__name__)))
     other = 1 if split != 1 else 0
-    with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
-        ht.array(a, split=other)
-    assert hj.array(r, split=other).split == other
+    _same(ht.array(a, split=other), hj.array(r, split=other))
 
 
 @pytest.mark.parametrize("split", SPLITS)
