@@ -71,6 +71,19 @@ file, it exits non-zero before printing any result):
    all), each with its wall time and checked against the CPU's result on
    the first 2^20 rows; the print equal to numpy's string of the edge rows
    with only those bytes copied to the host.
+6d. ops: the NumPy surface on the same points.  A user's
+   standardize-then-cluster path: (x - mean(x, 0)) / std(x, 0) within
+   1e-5 of float64, KMeans(n_clusters=8).fit on it (K1 n_iter + 1 launches,
+   counted into lloyd_step's; labels against the plain version by the
+   near-tie rule, inertia within 1e-4), predict and bincount of the labels
+   (equal to torch.bincount); then exp, log, sqrt, sin, tanh (rtol 3e-5,
+   atol 1e-6 of float64), abs, floor, round(x, 2), clip, % and // 0.5, diff
+   (bitwise the CPU's on the first 2^20 rows), cumsum along both axes,
+   prod, var and std (within stated bounds of float64, bitwise in a second
+   run), argmax/argmin (equal to the plain argument), histogram of a column
+   (counts equal to the plain binning), cov, dot, outer, tril/triu of
+   2^15 x 2^15, the norms, redistribute_ and balance_; each call's first
+   and warm wall time beside its byte bound, and the peak memory.
 
 The KMeans data is then freed, and the hierarchical SVD path follows on a
 2^25 x 128 float32 matrix with a decaying spectrum, made on the card:
@@ -661,7 +674,7 @@ def kmeanspp_path(x, pts, check: dict, smi: str) -> dict:
     w = torch.rand(ROWS, device=x.device, generator=torch.Generator(device=x.device).manual_seed(SEED)) / ROWS
     steps = {"row_dots_ms": time_ms(lambda: _kcluster._row_dots(x, c), reps=10),
              "gemv_ms": time_ms(lambda: x @ c, reps=10),
-             "ordered_cumsum_ms": time_ms(lambda: arithmetics._ordered_cumsum(w), reps=10),
+             "blocked_cumsum_ms": time_ms(lambda: arithmetics._CUMSUM(w, 0), reps=10),
              "torch_cumsum_ms": time_ms(lambda: torch.cumsum(w, 0), reps=10)}
     del w
     emit({"phase": "kmeanspp", "rows": ROWS, "features": FEATURES, "clusters": CLUSTERS, "picks_2^20": check,
@@ -953,6 +966,242 @@ def array_runtime(x, smi: str) -> None:
         raise AssertionError(f"allclose(x, x) {same}, allclose(x, x + 1) {off}, all(x > -inf) {every}")
     emit({"phase": "array_runtime", "rows": ROWS, "features": FEATURES, "head_rows_checked_on_cpu": ARRAY_HEAD,
           "print_bytes_to_host": fetched, "print_bytes_of_x": x.numel() * 4, "calls": calls, "card": smi})
+
+
+OPS_CHUNK = 1 << 24  # rows of a float64 check at a time
+
+
+def _worst(fn, rows: int) -> float:
+    """The largest of ``fn(lo, hi)`` over row chunks of OPS_CHUNK."""
+    return max(fn(lo, min(lo + OPS_CHUNK, rows)) for lo in range(0, max(rows, 1), OPS_CHUNK))
+
+
+def ops_phase(x, smi: str) -> int:
+    """Phase ops: the NumPy surface on the float32 KMeans points (2^27 x 16)
+    through the entry points a user calls.  First a user's
+    standardize-then-cluster path: ``(x - mean(x, 0)) / std(x, 0)``, then
+    ``KMeans(n_clusters=8).fit`` on it (K1), ``predict`` and ``bincount`` of
+    the labels.  Then the calls of the element-wise, scan, reduction,
+    statistics and linalg modules, each timed by wall time beside its byte
+    bound (each input read once, each output written once at 3.35 TB/s) and
+    checked: exact ops bitwise the CPU port's on the first 2^20 rows,
+    transcendentals within rtol 3e-5, atol 1e-6 of float64 on the card,
+    reductions and scans within their stated bounds of float64 and bitwise
+    in a second run, integer results equal to the plain computation in
+    float64/int64.  Returns the K1 launches of its fit."""
+    import torch
+    import heat_tpu_torch as ht
+    from heat_tpu_torch.core import kernels
+
+    ht.use_device("gpu")
+    rows, feats = x.shape
+    a = ht.array(x, split=0)
+    head = x[:ARRAY_HEAD].cpu()
+    h = ht.array(head, split=0, device="cpu")
+    calls = []
+    torch.cuda.reset_peak_memory_stats()
+    f32 = 4
+
+    def timed(name, fn, nbytes, repeat=False, **extra):
+        """The call's wall time, first (with torch's lazy loading and
+        compiling of the kernels it runs) and warm (a second call), beside
+        its byte bound; with ``repeat`` the second result must be the
+        first's, bitwise."""
+        out, ms = wall_ms(fn)
+        again, warm = wall_ms(fn)
+        calls.append({"call": name, "wall_ms": ms, "warm_ms": warm, "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+                      **extra})
+        if repeat:
+            if not torch.equal(out.larray, again.larray):
+                raise AssertionError(f"ops {name}: a second run differs")
+            note(bitwise_repeat=True)
+        del again
+        return out
+
+    def note(**kw):
+        calls[-1].update(kw)
+
+    def exact(got, want):
+        """got (the card's DNDarray) bitwise want (the CPU port's on the head
+        rows) on its first elements."""
+        g, w = got.larray, want.larray
+        g = g.reshape(-1)[: w.numel()].reshape(w.shape)
+        if g.dtype != w.dtype or not torch.equal(g.cpu(), w):
+            raise AssertionError(f"ops {calls[-1]['call']}: the card's result differs from the CPU's on the same rows")
+        note(check="bitwise the CPU's")
+
+    def transcendental(got, fn64):
+        """got within rtol 3e-5, atol 1e-6 of fn64 of x in float64."""
+        g = got.larray
+
+        def excess(lo, hi):
+            w = fn64(x[lo:hi].double())
+            return float(((g[lo:hi].double() - w).abs() - (1e-6 + 3e-5 * w.abs())).max())
+
+        worst = _worst(excess, rows)
+        if worst > 0:
+            raise AssertionError(f"ops {calls[-1]['call']}: beyond rtol 3e-5, atol 1e-6 of float64 by {worst}")
+        note(check="rtol 3e-5, atol 1e-6 of float64")
+
+    def within(err, bound, what):
+        note(err=err, err_bound=bound, err_of=what)
+        if not err <= bound:
+            raise AssertionError(f"ops {calls[-1]['call']}: {what} {err} beyond {bound}")
+
+    # the path: standardize, then cluster, predict and count
+    zero_launches()
+    xs = timed("standardize (x - mean(x, 0)) / std(x, 0)", lambda: (a - ht.mean(a, axis=0)) / ht.std(a, axis=0),
+               3 * rows * feats * f32)
+    x64m = x.double().mean(0)
+    var64_0 = sum(((x[lo:lo + OPS_CHUNK].double() - x64m) ** 2).sum(0) for lo in range(0, rows, OPS_CHUNK)) / rows
+    x64s = var64_0.sqrt()
+
+    def std_excess(lo, hi):
+        w = (x[lo:hi].double() - x64m) / x64s
+        return float(((xs.larray[lo:hi].double() - w).abs() - (1e-5 + 1e-5 * w.abs())).max())
+
+    if _worst(std_excess, rows) > 0:
+        raise AssertionError("ops standardize: beyond rtol 1e-5, atol 1e-5 of float64")
+    note(check="rtol 1e-5, atol 1e-5 of float64")
+    km, fit_ms = wall_ms(lambda: ht.cluster.KMeans(n_clusters=CLUSTERS, init="random", random_state=SEED,
+                                                   max_iter=MAX_ITER).fit(xs))
+    launches = kernels.LLOYD_LAUNCHES
+    if launches < km.n_iter_ + 1:
+        raise AssertionError(f"the standardized fit launched K1 {launches} times for {km.n_iter_} iterations")
+    centres, labels = km.cluster_centers_.larray, km.labels_.larray
+    if centres.shape != (CLUSTERS, FEATURES) or labels.shape != (rows,) or not bool(torch.isfinite(centres).all()):
+        raise AssertionError("the standardized fit's centres or labels have the wrong shape or are not finite")
+    _, _, plain_inertia, plain_labels = kernels._lloyd_plain(xs.larray, centres, rows, True)
+    relabelled = near_tie_mismatches(xs.larray, centres, labels, plain_labels)
+    if abs(km.inertia_ - float(plain_inertia)) > 1e-4 * abs(float(plain_inertia)):
+        raise AssertionError(f"standardized fit inertia {km.inertia_} against {float(plain_inertia)}")
+    del plain_labels
+    calls.append({"call": "KMeans(n_clusters=8).fit(standardized)", "wall_ms": fit_ms, "n_iter": km.n_iter_,
+                  "lloyd_launches": launches, "labels_vs_plain_near_ties": relabelled})
+    pred = timed("predict(standardized)", lambda: km.predict(xs), rows * feats * f32 + rows * 8)
+    # predict's distances and K1's differ in rounding: labels agree but at near-ties
+    note(labels_vs_fit_near_ties=near_tie_mismatches(xs.larray, centres, pred.larray, labels))
+    counts = timed("bincount(labels)", lambda: ht.bincount(pred), rows * 8)
+    if not torch.equal(counts.larray, torch.bincount(pred.larray)):
+        raise AssertionError("bincount of the labels differs from torch.bincount")
+    note(counts=counts.larray.tolist())
+    del xs, km, pred, counts, labels, centres
+    torch.cuda.empty_cache()
+    n_el = rows * feats
+
+    # transcendentals
+    for name, fn, fn64 in (("exp", ht.exp, torch.exp),
+                           ("log(abs(x) + 1)", lambda t: ht.log(ht.abs(t) + 1), lambda t: torch.log(t.abs() + 1)),
+                           ("sqrt(abs(x))", lambda t: ht.sqrt(ht.abs(t)), lambda t: torch.sqrt(t.abs())),
+                           ("sin", ht.sin, torch.sin), ("tanh", ht.tanh, torch.tanh)):
+        r = timed(name, lambda: fn(a), 2 * n_el * f32)
+        transcendental(r, fn64)
+        del r
+    # exact element-wise ops
+    for name, fn in (("abs", ht.abs), ("floor", ht.floor), ("round(x, 2)", lambda t: ht.round(t, 2)),
+                     ("clip(x, -1, 1)", lambda t: ht.clip(t, -1, 1)), ("x % 0.5", lambda t: t % 0.5),
+                     ("x // 0.5", lambda t: t // 0.5)):
+        r = timed(name, lambda: fn(a), 2 * n_el * f32)
+        exact(r, fn(h))
+        del r
+    r = timed("diff(x, axis=0)", lambda: ht.diff(a, axis=0), 2 * n_el * f32)
+    exact(r, ht.diff(h, axis=0))
+    del r
+    torch.cuda.empty_cache()
+
+    # scans and reductions against float64, and repeated
+    cs0 = timed("cumsum(x, 0) (the split axis)", lambda: ht.cumsum(a, 0), 2 * n_el * f32, repeat=True)
+    err = 0.0
+    for c in range(feats):
+        col = x[:, c].double()
+        err = max(err, float(((cs0.larray[:, c].double() - torch.cumsum(col, 0)).abs()
+                              / torch.cumsum(col.abs(), 0).clamp(min=1e-30)).max()))
+        del col
+    within(err, 1e-4, "max |error| over the running sum of |x|")
+    del cs0
+    cs1 = timed("cumsum(x, 1)", lambda: ht.cumsum(a, 1), 2 * n_el * f32, repeat=True)
+    within(_worst(lambda lo, hi: float(((cs1.larray[lo:hi].double() - torch.cumsum(x[lo:hi].double(), 1)).abs()
+                                        / torch.cumsum(x[lo:hi].double().abs(), 1).clamp(min=1e-30)).max()), rows),
+           1e-6, "max |error| over the running sum of |x|")
+    del cs1
+    pr = timed("prod(x, 1)", lambda: ht.prod(a, 1), n_el * f32 + rows * f32, repeat=True)
+    within(_worst(lambda lo, hi: float(((pr.larray[lo:hi].double() - x[lo:hi].double().prod(1)).abs()
+                                        / x[lo:hi].double().prod(1).abs().clamp(min=1e-300)).max()), rows),
+           4e-6, "max relative error")
+    del pr
+    torch.cuda.empty_cache()
+    mean_all = x64m.mean()
+    var64_all = sum(float(((x[lo:lo + OPS_CHUNK].double() - mean_all) ** 2).sum())
+                    for lo in range(0, rows, OPS_CHUNK)) / (rows * feats)
+    for name, fn, want in (("var(x, 0)", lambda: ht.var(a, 0), var64_0),
+                           ("std(x, 0)", lambda: ht.std(a, 0), var64_0.sqrt()),
+                           ("var(x)", lambda: ht.var(a), torch.tensor(var64_all, dtype=torch.float64)),
+                           ("std(x)", lambda: ht.std(a), torch.tensor(var64_all, dtype=torch.float64).sqrt())):
+        r = timed(name, fn, 2 * n_el * f32, repeat=True)
+        within(float(((r.larray.double() - want.to(r.larray.device)).abs() / want.abs()).max()), 1e-5,
+               "max relative error")
+        del r
+    for name, fn, axis in (("argmax(x, 0)", ht.argmax, 0), ("argmin(x, 0)", ht.argmin, 0),
+                           ("argmax(x)", ht.argmax, None), ("argmin(x)", ht.argmin, None)):
+        r = timed(name, lambda: fn(a, axis), n_el * f32)
+        plain = (torch.argmax if fn is ht.argmax else torch.argmin)(x if axis is not None else x.reshape(-1),
+                                                                      *((axis,) if axis is not None else ()))
+        if not torch.equal(r.larray.reshape(plain.shape), plain):
+            raise AssertionError(f"ops {name}: not the plain argument")
+        note(check="equal to the plain computation")
+        del r, plain
+    col0 = timed("x[:, 0]", lambda: a[:, 0], rows * f32 * 2)
+    hist, edges = timed("histogram(x[:, 0], bins=64)", lambda: ht.histogram(col0, bins=64), rows * f32)
+    e64 = edges.larray.double()
+    idx = torch.searchsorted(e64, x[:, 0].double().contiguous(), right=True)
+    idx = torch.where(x[:, 0].double() == e64[-1], torch.full_like(idx, 64), idx)
+    plain = torch.bincount(idx, minlength=66)[1:65]
+    if not torch.equal(hist.larray.to(torch.int64), plain) or not torch.equal(
+            edges.larray.cpu(), ht.histogram(ht.array(x[:, 0].cpu(), device="cpu"), bins=64)[1].larray):
+        raise AssertionError("ops histogram: counts or edges differ from the plain computation")
+    note(check="counts equal to the plain computation, edges bitwise the CPU's")
+    cv = timed("cov(x, rowvar=False)", lambda: ht.cov(a, rowvar=False), n_el * f32, repeat=True)
+    centred_gram = sum((x[lo:lo + OPS_CHUNK].double() - x64m).T @ (x[lo:lo + OPS_CHUNK].double() - x64m)
+                       for lo in range(0, rows, OPS_CHUNK)) / (rows - 1)
+    within(float((cv.larray.double() - centred_gram).abs().max() / centred_gram.abs().max()), 3e-5,
+           "max |error| over max |cov|")
+    del cv
+    col1 = a[:, 1]
+    d = timed("dot(x[:, 0], x[:, 1])", lambda: ht.dot(col0, col1), 2 * rows * f32, repeat=True)
+    prods = x[:, 0].double() * x[:, 1].double()
+    within(abs(float(d.larray) - float(prods.sum())) / float(prods.abs().sum()), 1e-6,
+           "|error| over the sum of |products|")
+    del d, prods
+    u, v = a[: 1 << 14, 0], a[: 1 << 14, 1]
+    o = timed("outer(2^14, 2^14)", lambda: ht.outer(u, v), (1 << 28) * f32 + (1 << 15) * f32)
+    hu, hv = ht.array(head[:64, 0], device="cpu"), ht.array(x[: 1 << 14, 1].cpu(), device="cpu")
+    exact(o, ht.outer(hu, hv))
+    del o, col0, col1, u, v
+    torch.cuda.empty_cache()
+    side = 1 << 15
+    m = ht.array(x.reshape(-1)[: side * side].reshape(side, side), split=0)
+    hm = ht.array(x.reshape(-1)[: 32 * side].reshape(32, side).cpu(), split=0, device="cpu")
+    for name, fn in (("tril(2^15 x 2^15)", lambda t: ht.tril(t)), ("triu(2^15 x 2^15, 1)", lambda t: ht.triu(t, 1))):
+        r = timed(name, lambda: fn(m), 2 * side * side * f32)
+        exact(r, fn(hm))
+        del r
+    del m
+    torch.cuda.empty_cache()
+    total = float(sum(float((x[lo:lo + OPS_CHUNK].double() ** 2).sum()) for lo in range(0, rows, OPS_CHUNK)))
+    for name, fn in (("vector_norm(x)", lambda: ht.vector_norm(a)), ("matrix_norm(x)", lambda: ht.matrix_norm(a))):
+        r = timed(name, fn, n_el * f32, repeat=True)
+        within(abs(float(r.larray) - total ** 0.5) / total ** 0.5, 1e-6, "relative error")
+        del r
+    rd = ht.array(x, split=0)
+    target = rd.lshape_map
+    timed("redistribute_ (the canonical target on one card)", lambda: rd.redistribute_(target_map=target), 0)
+    timed("balance_", lambda: rd.balance_(), 0)
+    if not (rd.is_balanced() and rd.larray.data_ptr() == x.data_ptr() and (rd.lshape_map == target).all()):
+        raise AssertionError("ops redistribute_/balance_: not a no-op on one card")
+    note(check="no data moved, balanced")
+    emit({"phase": "ops", "rows": rows, "features": feats, "head_rows_checked_on_cpu": ARRAY_HEAD, "calls": calls,
+          "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9, "card": smi})
+    return launches
 
 
 def compare_gram(x, n_true: int) -> dict:
@@ -2168,6 +2417,10 @@ def main() -> int:
 
     # 6c. the array runtime's calls on the same points
     array_runtime(x, smi)
+
+    # 6d. the NumPy surface on the same points: standardize, then cluster
+    # (K1 launched on the ops' output), then the ops' calls
+    lloyd["launches"] += ops_phase(x, smi)
 
     # the KMeans data is freed before the hSVD path's matrix is made
     del x, pts, km, centres, labels, plain_labels, truth, pred

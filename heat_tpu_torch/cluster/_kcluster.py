@@ -146,11 +146,11 @@ def _kmeanspp_round(x: DNDarray, x2: torch.Tensor, d2: torch.Tensor, newest: tor
     a running minimum ``d2`` that takes the ``newest`` centre's column (a
     minimum is exact, so this equals the minimum over all columns), clipped
     at 0 and divided by its sum (one psum).  The cumulative sum runs over
-    the local rows in a fixed order (:func:`arithmetics._ordered_cumsum`:
-    the same picks in every run), offset by the exscan of the ranks'
-    totals; the pick is
-    the first global row whose cumulative sum is at least ``u`` (a pmin of
-    the ranks' candidates), the last row where there is none, as the
+    the local rows in a fixed order (``arithmetics._CUMSUM``, on the card
+    :func:`arithmetics._blocked_scan`: the same picks in every run),
+    offset by the exscan of the ranks' totals; the pick is the first
+    global row whose cumulative sum is at least ``u`` (a pmin of the
+    ranks' candidates), the last row where there is none, as the
     reference's ``clip(searchsorted(cumsum, u), 0, n - 1)``."""
     local, comm, n = x.larray, x.comm, x.shape[0]
     offset = comm.chunk(x.shape, x.split)[0] if x.split == 0 else 0
@@ -158,7 +158,7 @@ def _kmeanspp_round(x: DNDarray, x2: torch.Tensor, d2: torch.Tensor, newest: tor
     d2 = torch.minimum(d2, torch.add(x2 + (c * c).sum(), _row_dots(local, c), alpha=-2.0))
     w = torch.clamp(d2, min=0.0)
     total = comm.psum(w.sum().reshape(1))
-    cum = arithmetics._ordered_cumsum(w / torch.clamp(total, min=1e-30))
+    cum = arithmetics._CUMSUM(w / torch.clamp(total, min=1e-30), 0)
     carry = cum[-1:] if cum.numel() else torch.zeros(1, dtype=cum.dtype, device=cum.device)
     hits = (cum + comm.exscan(carry)) >= u
     none = torch.tensor([n], dtype=torch.int64, device=cum.device)

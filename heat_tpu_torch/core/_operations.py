@@ -1,10 +1,21 @@
-"""Generic wrappers behind the element-wise and reducing operations
-(counterpart of heat_tpu/core/_operations.py).
+"""Generic wrappers behind the element-wise, reducing and scanning
+operations (counterpart of heat_tpu/core/_operations.py).
 
 Element-wise work runs on each rank's padded chunk; the padding carries
-arbitrary values through it.  A reduction sets the padding to the
-operation's neutral element first and, when it reduces the split axis,
-combines the ranks' partial results with one all-reduce.
+arbitrary values through it.  Operands of different layouts are brought
+to the result's layout first: an unsplit operand gives each rank its own
+rows, an operand split along another axis is resplit (one all-to-all);
+split data is never gathered, except an operand split along an axis it
+broadcasts.  A reduction sets the padding to the operation's neutral
+element first and, when it reduces the split axis, combines the ranks'
+partial results with one all-reduce.  A scan along the split axis is a
+local scan of the masked chunk, an exclusive scan of each rank's last
+slice over the ranks, and a local combine.
+
+Shape-preserving results (element-wise, scans) adopt the ragged layout of
+their first operand of the same shape and split
+(:meth:`DNDarray._propagate_layout_from`); reductions come back balanced;
+``out=`` keeps ``out``'s own layout.
 """
 
 from __future__ import annotations
@@ -15,19 +26,21 @@ import numpy as np
 import torch
 
 from . import types
-from .dndarray import DNDarray
+from .dndarray import DNDarray, _pad_along
+from .sanitation import store_out
 from .stride_tricks import broadcast_shape, sanitize_axis
 
 __all__ = []
 
-_SCALARS = (bool, int, float)
+_SCALARS = (bool, int, float, complex)
 
 
 def _as_dndarray(v, like: DNDarray) -> DNDarray:
-    """A numpy scalar or array as an unsplit DNDarray of its own dtype on
-    ``like``'s device and communicator, as the reference's ``_as_dndarray``
-    makes it; anything else is returned as it is."""
-    if isinstance(v, (np.generic, np.ndarray)):
+    """A numpy scalar or array, or a list or tuple, as an unsplit DNDarray
+    of its own dtype on ``like``'s device and communicator, as the
+    reference's ``_as_dndarray`` makes it; anything else is returned as it
+    is."""
+    if isinstance(v, (np.generic, np.ndarray, list, tuple)):
         from . import factories
 
         return factories.array(v, device=like.device, comm=like.comm)
@@ -45,7 +58,40 @@ def _refuse_widened(operation, *dtypes) -> None:
             raise TypeError(f"{name} is not ported for {t.__name__}")
 
 
-def __binary_op(operation: Callable, t1, t2, widened: Optional[Callable] = None) -> DNDarray:
+def _out_split_binary(t1: DNDarray, t2: DNDarray, gshape) -> Optional[int]:
+    """The result's split where the layouts differ: the first operand whose
+    split lands on an axis of the result it does not broadcast along."""
+    nd = len(gshape)
+    for t in (t1, t2):
+        if t.split is not None:
+            cand = t.split + nd - t.ndim
+            if t.shape[t.split] == gshape[cand] and gshape[cand] != 1:
+                return cand
+    return None
+
+
+def _aligned(t: DNDarray, gshape, split: Optional[int]) -> torch.Tensor:
+    """``t``'s tensor on this rank that broadcasts against this rank's
+    padded chunk of a result of ``gshape`` split along ``split``: its own
+    padded chunk where it is split so; its rows of that chunk where it is
+    whole (no communication); resplit (one all-to-all) where it is split
+    along another axis; whole where it broadcasts along ``split``."""
+    if split is None:
+        return t._dense()
+    a = split - (len(gshape) - t.ndim)
+    if a < 0 or t.shape[a] == 1:
+        return t._dense()
+    if t.split == a:
+        return t.larray_padded
+    if t.split is None:
+        comm = t.comm
+        lo, lshape, _ = comm.chunk(t.shape, a)
+        return _pad_along(t.larray.narrow(a, lo, lshape[a]), a, comm.padded_extent(t.shape[a]) // comm.size)
+    return t.resplit(a).larray_padded
+
+
+def __binary_op(operation: Callable, t1, t2, out: Optional[DNDarray] = None, where=True,
+                widened: Optional[Callable] = None) -> DNDarray:
     """``operation`` element-wise on two operands with numpy broadcasting;
     at least one is a DNDarray, the other may be a python scalar or a numpy
     scalar or array.  Two DNDarrays of different types meet in their
@@ -55,14 +101,37 @@ def __binary_op(operation: Callable, t1, t2, widened: Optional[Callable] = None)
     Where the operands meet in uint16, uint32 or uint64, ``widened(a, b,
     t)`` computes on the holding tensors: its result is of type t, or bool
     where its tensor is bool.  Without it the operation raises for those
-    types."""
+    types.  ``where`` (broadcast to the result) keeps the result where it
+    is true and ``out``'s value (0 without ``out``) elsewhere; ``out``
+    receives the result."""
+    res = _binary(operation, t1, t2, widened)
+    if where is not True and where is not None:
+        cond = _as_dndarray(where, res)
+        if not isinstance(cond, DNDarray):
+            from . import factories
+
+            cond = factories.array(where, device=res.device, comm=res.comm)
+        keep = _aligned(cond, res.shape, res.split).to(torch.bool)
+        data = res.larray_padded
+        if out is not None:
+            base = types._cast(_aligned(out, res.shape, res.split), out.dtype, res.dtype)
+        else:
+            base = torch.zeros((), dtype=data.dtype, device=data.device)
+        res = res._like(torch.where(keep, data, base.to(data.device)), dtype=res.dtype)
+    if out is not None:
+        return store_out(res, out)
+    return res._propagate_layout_from(t1, t2)
+
+
+def _binary(operation: Callable, t1, t2, widened: Optional[Callable]) -> DNDarray:
     if not isinstance(t1, DNDarray) and not isinstance(t2, DNDarray):
         raise TypeError(f"at least one operand must be a DNDarray, got {type(t1)} and {type(t2)}")
     like = t1 if isinstance(t1, DNDarray) else t2
     t1, t2 = _as_dndarray(t1, like), _as_dndarray(t2, like)
     if isinstance(t1, _SCALARS) or isinstance(t2, _SCALARS):
         # a python scalar meets the array as the reference's 0-d array of
-        # its own type (bool, int32, float32): both in the promoted type
+        # its own type (bool, int32, float32, complex64): both in the
+        # promoted type
         arr, v = (t1, t2) if isinstance(t1, DNDarray) else (t2, t1)
         common = types.promote_types(arr.dtype, types.heat_type_of(v))
         data = types._cast(arr.larray_padded, arr.dtype, common)
@@ -91,29 +160,19 @@ def __binary_op(operation: Callable, t1, t2, widened: Optional[Callable] = None)
         return t1._like(out, gshape, split, dtype)
 
     gshape = broadcast_shape(t1.gshape, t2.gshape)
-    ndim = len(gshape)
-    # the split of the result, in the result's axes
-    s1 = None if t1.split is None else t1.split + ndim - t1.ndim
-    s2 = None if t2.split is None else t2.split + ndim - t2.ndim
-    if s1 is None and s2 is None:
-        return wrap(operation(t1.larray_padded, t2.larray_padded), gshape, None)
-    if s1 == s2 and t1.gshape[t1.split] == t2.gshape[t2.split]:
-        return wrap(operation(t1.larray_padded, t2.larray_padded), gshape, s1)
-    # one operand split, the other whole and of extent 1 (or absent) along
-    # the split axis: the chunks broadcast locally
-    split_op, whole = (t1, t2) if s1 is not None else (t2, t1)
-    s = s1 if s1 is not None else s2
-    whole_axis = s - (ndim - whole.ndim)
-    if whole.split is None and (whole_axis < 0 or whole.gshape[whole_axis] == 1):
-        a = t1.larray_padded
-        b = t2.larray_padded
-        return wrap(operation(a, b), gshape, s)
-    # general case: work on the dense arrays, keep the first split
-    out = DNDarray.from_dense(operation(t1._dense(), t2._dense()), s, t1.device, t1.comm)
-    return wrap(out.larray_padded, gshape, s)
+    if t1.shape == t2.shape == gshape and t1.split == t2.split:
+        return wrap(operation(t1.larray_padded, t2.larray_padded), gshape, t1.split)
+    for carrier, other in ((t1, t2), (t2, t1)):
+        # a 0-d operand broadcasts against the other's padded chunk
+        if other.ndim == 0 and carrier.shape == gshape and (carrier.split is None
+                                                            or carrier.shape[carrier.split] != 1):
+            return wrap(operation(t1.larray_padded, t2.larray_padded), gshape, carrier.split)
+    split = _out_split_binary(t1, t2, gshape)
+    return wrap(operation(_aligned(t1, gshape, split), _aligned(t2, gshape, split)), gshape, split)
 
 
-def __local_op(operation: Callable, x: DNDarray, no_cast: bool = False, **kwargs) -> DNDarray:
+def __local_op(operation: Callable, x: DNDarray, out: Optional[DNDarray] = None, no_cast: bool = False,
+               **kwargs) -> DNDarray:
     """``operation`` on each rank's chunk; integer input is cast to float32
     first unless ``no_cast``.  Raises for the types held wider (uint16,
     uint32, uint64)."""
@@ -123,7 +182,29 @@ def __local_op(operation: Callable, x: DNDarray, no_cast: bool = False, **kwargs
     data = x.larray_padded
     if not no_cast and not types.heat_type_is_inexact(x.dtype):
         data = data.to(torch.float32)
-    return x._like(operation(data, **kwargs))
+    res = x._like(operation(data, **kwargs))
+    if out is not None:
+        return store_out(res, out)
+    return res._propagate_layout_from(x)
+
+
+def _axes(x: DNDarray, axis):
+    """``(axis, axes)``: the sanitized axis and the tuple of reduced axes."""
+    axis = sanitize_axis(x.shape, axis)
+    axes = tuple(range(x.ndim)) if axis is None else (axis if isinstance(axis, tuple) else (axis,))
+    return axis, axes
+
+
+def _reduced_shape(gshape, axes, keepdims: bool):
+    return tuple(1 if d in axes else s for d, s in enumerate(gshape) if keepdims or d not in axes)
+
+
+def _reduced_split(split: Optional[int], axes, keepdims: bool) -> Optional[int]:
+    """The split of a reduction's result: None where the split axis is
+    reduced, else the split axis's place in the result."""
+    if split is None or split in axes:
+        return None
+    return split if keepdims else split - sum(1 for a in axes if a < split)
 
 
 def __reduce_op(
@@ -133,6 +214,7 @@ def __reduce_op(
     neutral,
     axis=None,
     keepdims: bool = False,
+    out: Optional[DNDarray] = None,
 ) -> DNDarray:
     """Reduce ``x`` over ``axis`` (all axes when None): ``partial_op(tensor,
     dims, keepdim)`` on the masked chunk, then ``reduction`` (an in-place
@@ -140,15 +222,42 @@ def __reduce_op(
     if not isinstance(x, DNDarray):
         raise TypeError(f"expected x to be a DNDarray, but was {type(x)}")
     _refuse_widened(partial_op, x.dtype)
-    axis = sanitize_axis(x.shape, axis)
-    axes = tuple(range(x.ndim)) if axis is None else (axis if isinstance(axis, tuple) else (axis,))
+    axis, axes = _axes(x, axis)
     split = x.split
     data = x._masked(neutral) if split in axes else x.larray_padded
     local = partial_op(data, axes, keepdims) if axes else data
-    gshape = tuple(1 if d in axes else s for d, s in enumerate(x.gshape) if keepdims or d not in axes)
-    if split is None:
-        return x._like(local, gshape, None)
-    if split in axes:
-        return x._like(reduction(local.contiguous()), gshape, None)
-    out_split = split if keepdims else split - sum(1 for a in axes if a < split)
-    return x._like(local, gshape, out_split)
+    gshape = _reduced_shape(x.gshape, axes, keepdims)
+    if split is not None and split in axes:
+        local = reduction(local.contiguous())
+    res = x._like(local, gshape, _reduced_split(split, axes, keepdims))
+    return res if out is None else store_out(res, out)
+
+
+def __cum_op(x: DNDarray, axis, scan: Callable, combine: Callable, neutral, out: Optional[DNDarray] = None,
+             dtype=None, natural=None) -> DNDarray:
+    """A scan along ``axis``: ``scan(tensor, axis)`` on each rank's chunk;
+    along the split axis the padding is set to ``neutral`` first, then each
+    rank combines (``combine(prefix, scanned)``) its scan with
+    ``comm.exscan`` of the ranks' last slices before it.  The result is
+    cast to the scan's ``natural`` type (an integer scan wraps in its own
+    type), then to ``dtype``, as the reference casts after the scan."""
+    if not isinstance(x, DNDarray):
+        raise TypeError(f"expected x to be a DNDarray, but was {type(x)}")
+    _refuse_widened(scan, x.dtype)
+    axis = sanitize_axis(x.shape, axis)
+    if axis is None:
+        raise NotImplementedError("cumulative ops over flattened arrays: pass an int axis")
+    if x.split == axis and x.larray_padded.shape[axis] and x.comm.size > 1:
+        local = scan(x._masked(neutral), axis)
+        last = local.narrow(axis, local.shape[axis] - 1, 1).contiguous()
+        local = combine(x.comm.exscan(last, combine, neutral), local)
+    else:
+        local = scan(x.larray_padded, axis)
+    res = x._like(local)
+    if natural is not None:
+        res = res.astype(natural, copy=False)
+    if dtype is not None:
+        res = res.astype(dtype, copy=False)
+    if out is not None:
+        return store_out(res, out)
+    return res._propagate_layout_from(x)

@@ -36,7 +36,7 @@ from typing import List, Optional, Tuple
 import numpy as np
 import torch
 
-from ..parallel.comm import Communication, sanitize_comm
+from ..parallel.comm import Communication, _as_bytes, _from_bytes, sanitize_comm
 from . import types
 from .devices import Device, sanitize_device
 from .stride_tricks import sanitize_axis
@@ -67,6 +67,8 @@ class DNDarray:
         self.__comm = comm
         self.__halo_prev = None
         self.__halo_next = None
+        self.__target_map = None
+        self.__ragged_buffer = None
 
     # ------------------------------------------------------------------
     # construction
@@ -107,12 +109,18 @@ class DNDarray:
 
     def _replace_local(self, dense: torch.Tensor) -> None:
         """Replace the data in place by the true-shape global tensor
-        ``dense`` of the same dtype: this rank keeps its chunk of it."""
+        ``dense`` of the same dtype: this rank keeps its chunk of it.  An
+        active ragged layout is dropped."""
         self.__array = DNDarray.from_dense(dense, self.__split, self.__device, self.__comm).larray_padded
+        self.__target_map = self.__ragged_buffer = None
 
     def _replace(self, padded: torch.Tensor, dtype=None) -> None:
-        """Replace this rank's padded chunk (same global shape and split)."""
+        """Replace this rank's padded chunk (same global shape and split).
+        New values keep an active ragged layout (``out=`` and in-place
+        operations keep the target's distribution) and drop its placed
+        rows."""
         self.__array = padded
+        self.__ragged_buffer = None
         if dtype is not None:
             self.__dtype = types.canonical_heat_type(dtype)
 
@@ -205,15 +213,42 @@ class DNDarray:
 
     @property
     def lshape_map(self) -> np.ndarray:
-        """(comm.size, ndim) true local shapes per rank: pure metadata."""
+        """(comm.size, ndim) true local shapes per rank: pure metadata.  It
+        reports an active ragged ``redistribute_`` target."""
+        if self.__target_map is not None:
+            return self.__target_map.copy()
         return self.__comm.lshape_map(self.__gshape, self.__split)
 
+    def create_lshape_map(self, force_check: bool = False) -> np.ndarray:
+        """The (comm.size, ndim) local-shape map: metadata, no communication
+        (the layout follows from the global shape, the split, the world and
+        an active target map)."""
+        return self.lshape_map
+
     def counts_displs(self) -> Tuple[Tuple[int, ...], Tuple[int, ...]]:
-        """(counts, displacements) along the split axis per rank."""
+        """(counts, displacements) along the split axis per rank (those of
+        an active ragged target)."""
         if self.__split is None:
             raise ValueError("Non-distributed DNDarray has no counts and displacements")
+        if self.__target_map is not None:
+            counts = tuple(int(c) for c in self.__target_map[:, self.__split])
+            return counts, tuple(int(d) for d in np.cumsum((0,) + counts[:-1]))
         counts, displs, _ = self.__comm.counts_displs_shape(self.__gshape, self.__split)
         return tuple(int(c) for c in counts), tuple(int(d) for d in displs)
+
+    @property
+    def balanced(self) -> bool:
+        """False while a ragged ``redistribute_`` target is active."""
+        return self.__target_map is None
+
+    def is_balanced(self, force_check: bool = False) -> bool:
+        """False only while a ragged ``redistribute_`` target is active: the
+        compute layout is always the canonical one."""
+        return self.__target_map is None
+
+    def is_distributed(self) -> bool:
+        """Whether the data lies on more than one rank."""
+        return self.__split is not None and self.__comm.size > 1
 
     # ------------------------------------------------------------------
     # conversion
@@ -225,6 +260,7 @@ class DNDarray:
         cast = types._cast(self.__array, self.__dtype, dtype)
         if not copy:
             self.__array, self.__dtype = cast, dtype
+            self.__ragged_buffer = None
             return self
         if cast is self.__array:
             cast = cast.clone()
@@ -287,6 +323,7 @@ class DNDarray:
         self.__array = self._resplit_tensor(axis)
         self.__split = axis
         self.__halo_prev = self.__halo_next = None
+        self.__target_map = self.__ragged_buffer = None
         return self
 
     def resplit(self, axis: Optional[int] = None) -> "DNDarray":
@@ -317,6 +354,140 @@ class DNDarray:
         return self.resplit_(None)
 
     # ------------------------------------------------------------------
+    # ragged layouts: a target map over the canonical compute layout
+    # ------------------------------------------------------------------
+    def balance_(self) -> "DNDarray":
+        """Back to the canonical (balanced) distribution: drops a ragged
+        ``redistribute_`` target.  The canonical chunks never moved, so no
+        data moves."""
+        self.__target_map = self.__ragged_buffer = None
+        return self
+
+    @staticmethod
+    def _as_host_int_map(m, name: str) -> np.ndarray:
+        """A map argument (DNDarray, tensor, numpy or list) as a host int64
+        array; TypeError for anything that is not numeric."""
+        if isinstance(m, DNDarray):
+            m = m.numpy()
+        elif isinstance(m, torch.Tensor):
+            m = m.detach().cpu().numpy()
+        arr = np.asarray(m)
+        if not np.issubdtype(arr.dtype, np.number):
+            raise TypeError(f"{name} must be an integer array, got {arr.dtype}")
+        return arr.astype(np.int64)
+
+    def redistribute_(self, lshape_map=None, target_map=None) -> "DNDarray":
+        """Give the array the layout ``target_map`` ((comm.size, ndim): each
+        rank's rows along the split axis; only its split column counts).
+
+        The canonical padded chunks stay the compute layout; the target is
+        metadata that ``lshape_map``, ``counts_displs`` and
+        ``__partitioned__`` report, and the rows of each rank's target
+        block reach that rank only when ``__partitioned__`` reads them (one
+        exchange).  No target balances; a canonical target is a no-op that
+        drops any ragged layout; an unsplit array stays as it is."""
+        ndim = max(self.ndim, 1)
+        size = self.__comm.size
+        if lshape_map is not None:
+            lm = self._as_host_int_map(lshape_map, "lshape_map")
+            if lm.shape != (size, ndim):
+                raise ValueError(f"lshape_map must have shape ({size}, {self.ndim}), got {lm.shape}")
+        if target_map is None:
+            return self.balance_()
+        tm = self._as_host_int_map(target_map, "target_map")
+        if tm.shape != (size, ndim):
+            raise ValueError(f"target_map must have shape ({size}, {self.ndim}), got {tm.shape}")
+        if self.__split is None:
+            return self
+        extent = self.__gshape[self.__split]
+        counts = tm[:, self.__split]
+        if (counts < 0).any() or int(counts.sum()) != extent:
+            raise ValueError(f"target_map must distribute all {extent} rows of axis {self.__split}, got counts "
+                             f"{counts.tolist()}")
+        canonical = self.__comm.lshape_map(self.__gshape, self.__split)
+        if (counts == canonical[:, self.__split]).all():
+            return self.balance_()
+        full = np.tile(np.asarray(self.__gshape, np.int64), (size, 1))
+        full[:, self.__split] = counts
+        self.__target_map = full
+        self.__ragged_buffer = None
+        return self
+
+    @property
+    def _active_target_map(self) -> Optional[np.ndarray]:
+        """The ragged target map, or None when the array is balanced."""
+        return self.__target_map
+
+    def _propagate_layout_from(self, *sources) -> "DNDarray":
+        """Adopt the layout of the first source of this result's global shape
+        and split (the lhs operand first): its ragged target, or its
+        balance.  Shape-changing results have no such source and stay
+        balanced."""
+        for src in sources:
+            if not isinstance(src, DNDarray) or src.split != self.__split or src.shape != self.__gshape:
+                continue
+            tm = src._active_target_map
+            if tm is not None:
+                self.__target_map = tm.copy()
+                self.__ragged_buffer = None
+            return self
+        return self
+
+    @property
+    def _ragged_layout(self):
+        """``(target map, this rank's target rows)`` while a ragged target is
+        active, else None.  The rows are placed on first use by one
+        exchange from the canonical chunks (a collective: every rank asks)
+        and kept until the values or the layout change."""
+        if self.__target_map is None:
+            return None
+        if self.__ragged_buffer is None:
+            comm, s = self.__comm, self.__split
+            counts = self.__target_map[:, s]
+            starts = np.concatenate([[0], np.cumsum(counts)])
+            runs = [_owned(comm, self.__gshape, s, r) for r in range(comm.size)]
+            ranges = [(int(starts[r]), int(starts[r + 1])) for r in range(comm.size)]
+            self.__ragged_buffer = _move_rows(comm, self.larray, s, [(lo, hi - lo) for lo, hi in runs], ranges)
+        return self.__target_map, self.__ragged_buffer
+
+    def create_partition_interface(self) -> dict:
+        """The ``__partitioned__`` dict: start, shape and location of every
+        rank's partition (the ragged target's where one is active) and the
+        data of this rank's own, as a tensor.  Placing a ragged target's
+        rows is a collective: every rank builds the dict."""
+        lmap = self.lshape_map
+        starts = np.zeros_like(lmap)
+        if self.__split is not None:
+            starts[1:, self.__split] = np.cumsum(lmap[:-1, self.__split])
+        layout = self._ragged_layout
+        mine = layout[1] if layout is not None else self.larray
+        rest = (0,) * max(self.ndim - 1, 0)
+        partitions = {}
+        for r in range(self.__comm.size):
+            partitions[(r,) + rest] = {
+                "start": tuple(int(v) for v in starts[r]),
+                "shape": tuple(int(v) for v in lmap[r]),
+                "data": mine if r == self.__comm.rank or self.__split is None else None,
+                "location": [r],
+                "dtype": np.dtype(types.numpy_type(self.__dtype)),
+            }
+        grid = [1] * max(self.ndim, 1)
+        if self.__split is not None:
+            grid[self.__split] = self.__comm.size
+        return {
+            "shape": self.__gshape,
+            "partition_tiling": tuple(grid),
+            "partitions": partitions,
+            "locals": [(self.__comm.rank,) + rest],
+            "get": lambda h: h() if callable(h) else h,
+        }
+
+    @property
+    def __partitioned__(self) -> dict:
+        """The partition interface (:meth:`create_partition_interface`)."""
+        return self.create_partition_interface()
+
+    # ------------------------------------------------------------------
     # halos
     # ------------------------------------------------------------------
     def get_halo(self, halo_size: int) -> None:
@@ -332,7 +503,7 @@ class DNDarray:
         if self.__split is None:
             return
         s, comm = self.__split, self.__comm
-        smallest = int(self.lshape_map[:, s].min())
+        smallest = int(comm.lshape_map(self.__gshape, s)[:, s].min())  # the canonical chunks, whatever the target
         if halo_size > smallest:
             raise ValueError(f"halo_size {halo_size} needs to be smaller than the smallest local chunk {smallest}")
         start, lshape, _ = comm.chunk(self.__gshape, s)
@@ -455,6 +626,7 @@ class DNDarray:
         return local, block, owners, sel
 
     def __setitem__(self, key, value):
+        self.__ragged_buffer = None  # new values: a ragged target's rows are placed again
         key_t, _ = _convert_key(self, key)
         comm, split = self.__comm, self.__split
         dev = self.__array.device
@@ -568,10 +740,51 @@ class DNDarray:
 
         return arithmetics.pow(other, self)
 
+    def __floordiv__(self, other):
+        from . import arithmetics
+
+        return arithmetics.floordiv(self, other)
+
+    def __rfloordiv__(self, other):
+        from . import arithmetics
+
+        return arithmetics.floordiv(other, self)
+
+    def __mod__(self, other):
+        from . import arithmetics
+
+        return arithmetics.mod(self, other)
+
+    def __rmod__(self, other):
+        from . import arithmetics
+
+        return arithmetics.mod(other, self)
+
+    def __divmod__(self, other):
+        """``(self // other, self % other)`` element-wise."""
+        from . import arithmetics
+
+        return arithmetics.divmod(self, other)
+
+    def __rdivmod__(self, other):
+        from . import arithmetics
+
+        return arithmetics.divmod(other, self)
+
     def __neg__(self):
         from . import arithmetics
 
         return arithmetics.neg(self)
+
+    def __pos__(self):
+        from . import arithmetics
+
+        return arithmetics.pos(self)
+
+    def __abs__(self):
+        from . import rounding
+
+        return rounding.abs(self)
 
     def __matmul__(self, other):
         from .linalg import basics
@@ -659,6 +872,87 @@ class DNDarray:
     def __complex__(self) -> complex:
         return complex(self.item())
 
+    # in-place operators: the result stored back, cast to this array's type
+    def __iadd__(self, other):
+        from . import arithmetics
+
+        return arithmetics._inplace(self, arithmetics.add(self, other))
+
+    def __isub__(self, other):
+        from . import arithmetics
+
+        return arithmetics._inplace(self, arithmetics.sub(self, other))
+
+    def __imul__(self, other):
+        from . import arithmetics
+
+        return arithmetics._inplace(self, arithmetics.mul(self, other))
+
+    def __itruediv__(self, other):
+        from . import arithmetics
+
+        return arithmetics._inplace(self, arithmetics.div(self, other))
+
+    def __ifloordiv__(self, other):
+        from . import arithmetics
+
+        return arithmetics._inplace(self, arithmetics.floordiv(self, other))
+
+    def __imod__(self, other):
+        from . import arithmetics
+
+        return arithmetics._inplace(self, arithmetics.mod(self, other))
+
+    def __ipow__(self, other):
+        from . import arithmetics
+
+        return arithmetics._inplace(self, arithmetics.pow(self, other))
+
+    def __iand__(self, other):
+        from . import arithmetics
+
+        return arithmetics.bitwise_and_(self, other)
+
+    def __ior__(self, other):
+        from . import arithmetics
+
+        return arithmetics.bitwise_or_(self, other)
+
+    def __ixor__(self, other):
+        from . import arithmetics
+
+        return arithmetics.bitwise_xor_(self, other)
+
+    def __ilshift__(self, other):
+        from . import arithmetics
+
+        return arithmetics.left_shift_(self, other)
+
+    def __irshift__(self, other):
+        from . import arithmetics
+
+        return arithmetics.right_shift_(self, other)
+
+    # ------------------------------------------------------------------
+    # methods of the operations
+    # ------------------------------------------------------------------
+    @property
+    def real(self) -> "DNDarray":
+        from . import complex_math
+
+        return complex_math.real(self)
+
+    @property
+    def imag(self) -> "DNDarray":
+        from . import complex_math
+
+        return complex_math.imag(self)
+
+    def abs(self, out=None, dtype=None):
+        from . import rounding
+
+        return rounding.abs(self, out, dtype)
+
     def all(self, axis=None, out=None, keepdims: bool = False):
         from . import logical
 
@@ -669,30 +963,135 @@ class DNDarray:
 
         return logical.any(self, axis, out, keepdims)
 
-    def sum(self, axis=None, keepdims: bool = False):
+    def argmax(self, axis=None, out=None, **kwargs):
+        from . import statistics
+
+        return statistics.argmax(self, axis, out, **kwargs)
+
+    def argmin(self, axis=None, out=None, **kwargs):
+        from . import statistics
+
+        return statistics.argmin(self, axis, out, **kwargs)
+
+    def ceil(self, out=None):
+        from . import rounding
+
+        return rounding.ceil(self, out)
+
+    def clip(self, min=None, max=None, out=None):
+        from . import rounding
+
+        return rounding.clip(self, min, max, out)
+
+    def cos(self, out=None):
+        from . import trigonometrics
+
+        return trigonometrics.cos(self, out)
+
+    def cumprod(self, axis, dtype=None, out=None):
         from . import arithmetics
 
-        return arithmetics.sum(self, axis=axis, keepdims=keepdims)
+        return arithmetics.cumprod(self, axis, dtype, out)
+
+    def cumsum(self, axis, dtype=None, out=None):
+        from . import arithmetics
+
+        return arithmetics.cumsum(self, axis, dtype, out)
+
+    def exp(self, out=None):
+        from . import exponential
+
+        return exponential.exp(self, out)
+
+    def floor(self, out=None):
+        from . import rounding
+
+        return rounding.floor(self, out)
+
+    def log(self, out=None):
+        from . import exponential
+
+        return exponential.log(self, out)
+
+    def max(self, axis=None, out=None, keepdims: bool = False):
+        from . import statistics
+
+        return statistics.max(self, axis, out, keepdims)
 
     def mean(self, axis=None, keepdims: bool = False):
         from . import statistics
 
-        return statistics.mean(self, axis=axis, keepdims=keepdims)
+        return statistics.mean(self, axis, keepdims=keepdims)
 
-    def min(self, axis=None, keepdims: bool = False):
+    def median(self, axis=None, keepdims: bool = False):
         from . import statistics
 
-        return statistics.min(self, axis=axis, keepdims=keepdims)
+        return statistics.median(self, axis, keepdims)
 
-    def max(self, axis=None, keepdims: bool = False):
+    def min(self, axis=None, out=None, keepdims: bool = False):
         from . import statistics
 
-        return statistics.max(self, axis=axis, keepdims=keepdims)
+        return statistics.min(self, axis, out, keepdims)
 
-    def argmin(self, axis=None, keepdims: bool = False):
+    def prod(self, axis=None, out=None, keepdims: bool = False):
+        from . import arithmetics
+
+        return arithmetics.prod(self, axis, out, keepdims)
+
+    def round(self, decimals: int = 0, out=None, dtype=None):
+        from . import rounding
+
+        return rounding.round(self, decimals, out, dtype)
+
+    def sin(self, out=None):
+        from . import trigonometrics
+
+        return trigonometrics.sin(self, out)
+
+    def sqrt(self, out=None):
+        from . import exponential
+
+        return exponential.sqrt(self, out)
+
+    def std(self, axis=None, ddof: int = 0, **kwargs):
         from . import statistics
 
-        return statistics.argmin(self, axis=axis, keepdims=keepdims)
+        return statistics.std(self, axis, ddof=ddof, **kwargs)
+
+    def sum(self, axis=None, out=None, keepdims: bool = False):
+        from . import arithmetics
+
+        return arithmetics.sum(self, axis, out, keepdims)
+
+    def tan(self, out=None):
+        from . import trigonometrics
+
+        return trigonometrics.tan(self, out)
+
+    def transpose(self, axes=None):
+        from .linalg import basics
+
+        return basics.transpose(self, axes)
+
+    def tril(self, k: int = 0):
+        from .linalg import basics
+
+        return basics.tril(self, k)
+
+    def triu(self, k: int = 0):
+        from .linalg import basics
+
+        return basics.triu(self, k)
+
+    def trunc(self, out=None):
+        from . import rounding
+
+        return rounding.trunc(self, out)
+
+    def var(self, axis=None, ddof: int = 0, **kwargs):
+        from . import statistics
+
+        return statistics.var(self, axis, ddof=ddof, **kwargs)
 
 
 # ----------------------------------------------------------------------
@@ -714,36 +1113,20 @@ def _pad_along(x: torch.Tensor, axis: int, extent: int) -> torch.Tensor:
     return torch.cat([x, x.new_zeros(widths)], dim=axis)
 
 
-def _as_bytes(x: torch.Tensor) -> torch.Tensor:
-    """``x`` as bytes, one more trailing axis for each element's bytes (the
-    other axes keep their extents), so that any dtype, bool, bfloat16 and
-    complex included, travels through every backend's collectives."""
-    shape = tuple(x.shape) + (x.element_size(),)
-    if x.numel() == 0:
-        return torch.empty(shape, dtype=torch.uint8, device=x.device)
-    return _flat(x).view(torch.uint8).reshape(shape)
-
-
-def _from_bytes(b: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
-    """Undo :func:`_as_bytes`."""
-    if b.numel() == 0:
-        return torch.empty(tuple(b.shape[:-1]), dtype=dtype, device=b.device)
-    return _flat(b).view(dtype).reshape(tuple(b.shape[:-1]))
-
-
-def _flat(x: torch.Tensor) -> torch.Tensor:
-    """``x``'s elements as a 1-D tensor of stride 1 (a view where ``x`` is
-    contiguous: torch may keep any stride on an axis of length 1)."""
-    x = x.contiguous()
-    return x.as_strided((x.numel(),), (1,))
-
-
 def _runs_to_canonical(comm, mine: torch.Tensor, axis: int, runs, extent: int) -> torch.Tensor:
     """This rank's padded chunk of a result whose rows along ``axis`` rank
     r holds as the run ``runs[r] = (first position, count)`` (``mine``):
     one exchange moves every row to its canonical owner."""
     per = comm.padded_extent(extent) // comm.size
     ranges = [(min(d * per, extent), min((d + 1) * per, extent)) for d in range(comm.size)]
+    return _pad_along(_move_rows(comm, mine, axis, runs, ranges), axis, per).contiguous()
+
+
+def _move_rows(comm, mine: torch.Tensor, axis: int, runs, ranges) -> torch.Tensor:
+    """Rows along ``axis`` that rank r holds as the run ``runs[r] = (first
+    position, count)`` (``mine``: this rank's) go to the rank whose range
+    ``ranges[d] = (lo, hi)`` covers them, by one exchange: this rank's rows
+    of its own range, in order."""
 
     def overlap(run, rng):
         lo, hi = max(run[0], rng[0]), min(run[0] + run[1], rng[1])
@@ -758,8 +1141,7 @@ def _runs_to_canonical(comm, mine: torch.Tensor, axis: int, runs, extent: int) -
     got = comm.all_to_all_varying(blocks, [n for _, n in recv], axis)
     pieces = sorted(((lo, g) for (lo, n), g in zip(recv, got) if n), key=lambda p: p[0])
     rows = [_from_bytes(g, mine.dtype) for _, g in pieces]
-    out = torch.cat(rows, dim=axis) if rows else mine.narrow(axis, 0, 0)
-    return _pad_along(out, axis, per).contiguous()
+    return torch.cat(rows, dim=axis) if rows else mine.narrow(axis, 0, 0)
 
 
 def _positions_to_ranges(comm, mine: torch.Tensor, axis: int, owners: torch.Tensor, ranges) -> torch.Tensor:

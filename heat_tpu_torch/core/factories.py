@@ -32,6 +32,8 @@ __all__ = [
     "eye",
     "frombuffer",
     "fromfunction",
+    "from_partition_dict",
+    "from_partitioned",
     "fromiter",
     "fromstring",
     "full",
@@ -114,7 +116,7 @@ def array(obj, dtype=None, copy: Optional[bool] = None, ndmin: int = 0, order: s
     if isinstance(obj, DNDarray):
         if comm is not None and sanitize_comm(comm) is not obj.comm:
             raise NotImplementedError("ht.array of a DNDarray onto another communication needs reshard_, "
-                                      "not ported yet (ROADMAP Queue 1 item 4b)")
+                                      "not ported yet (ROADMAP Queue 1 item 15)")
         if device is not None and sanitize_device(device) != obj.device:
             device = sanitize_device(device)
             obj = DNDarray(obj.larray_padded.to(device.torch_device), obj.gshape, obj.dtype, obj.split, device,
@@ -438,3 +440,47 @@ def fromstring(string: str, dtype=types.float32, count: int = -1, sep: str = " "
         raise ValueError("binary-mode fromstring is not supported; use frombuffer")
     arr = np.fromstring(string, dtype=_np_type(dtype), count=count, sep=sep)
     return array(arr, dtype=dtype, split=split, device=device, comm=comm)
+
+
+def from_partitioned(x, comm=None) -> DNDarray:
+    """A DNDarray from an object with the ``__partitioned__`` interface."""
+    return from_partition_dict(x.__partitioned__, comm=comm)
+
+
+def from_partition_dict(parts: dict, comm=None) -> DNDarray:
+    """A DNDarray from a ``__partitioned__`` dict.  Split along the axis
+    its tiling cuts.  Where every partition carries its data the array is
+    their concatenation; where each rank holds only its own (the dicts of
+    DNDarrays over several ranks), each rank's partitions are its chunk,
+    in rank order (``array(..., is_split=...)``: one exchange to the
+    canonical layout).  The result is balanced."""
+    comm = sanitize_comm(comm)
+    shape = tuple(parts["shape"])
+    tiling = tuple(parts.get("partition_tiling", (1,) * len(shape)))
+    cut = [i for i, t in enumerate(tiling) if t > 1]
+    split = cut[0] if cut else None
+    getter = parts.get("get")
+    pieces = []
+    for key in sorted(parts["partitions"].keys()):
+        data = parts["partitions"][key]["data"]
+        if callable(data):
+            data = data()
+        elif data is not None and callable(getter):
+            data = getter(data)
+        pieces.append((key, data))
+
+    def as_tensor(d):
+        return d if isinstance(d, torch.Tensor) else torch.from_numpy(np.ascontiguousarray(d))
+
+    if all(d is not None for _, d in pieces):
+        if split is None:
+            return array(as_tensor(pieces[0][1]), comm=comm)
+        whole = torch.cat([as_tensor(d).cpu() for _, d in pieces if np.prod(np.shape(d)) > 0], dim=split)
+        return array(whole, split=split, comm=comm)
+    if split is None:
+        raise ValueError("an unsplit partition dict carries no data")
+    mine = [as_tensor(d) for _, d in pieces if d is not None]
+    if not mine:
+        raise ValueError("no partition of this rank carries data")
+    local = torch.cat(mine, dim=split) if len(mine) > 1 else mine[0]
+    return array(local, is_split=split, comm=comm)

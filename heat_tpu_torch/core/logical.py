@@ -99,7 +99,7 @@ def isclose(x, y, rtol: float = 1e-05, atol: float = 1e-08, equal_nan: bool = Fa
     def close_widened(a, b, t):
         return close(types._cast(a, t, types.float64), types._cast(b, t, types.float64))
 
-    return _operations.__binary_op(close, x, y, close_widened)
+    return _operations.__binary_op(close, x, y, widened=close_widened)
 
 
 def allclose(x, y, rtol: float = 1e-05, atol: float = 1e-08, equal_nan: bool = False) -> bool:
@@ -166,14 +166,14 @@ def _logical(op):
 
 def logical_and(t1, t2) -> DNDarray:
     """Element-wise logical AND."""
-    return _operations.__binary_op(torch.logical_and, t1, t2, _logical(torch.logical_and))
+    return _operations.__binary_op(torch.logical_and, t1, t2, widened=_logical(torch.logical_and))
 
 
 def logical_or(t1, t2) -> DNDarray:
     """Element-wise logical OR."""
-    return _operations.__binary_op(torch.logical_or, t1, t2, _logical(torch.logical_or))
+    return _operations.__binary_op(torch.logical_or, t1, t2, widened=_logical(torch.logical_or))
 
 
 def logical_xor(t1, t2) -> DNDarray:
     """Element-wise logical XOR."""
-    return _operations.__binary_op(torch.logical_xor, t1, t2, _logical(torch.logical_xor))
+    return _operations.__binary_op(torch.logical_xor, t1, t2, widened=_logical(torch.logical_xor))

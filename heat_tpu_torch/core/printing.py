@@ -124,7 +124,7 @@ def _edge_view(x) -> np.ndarray:
     longer than ``2 edge`` the edge blocks (and one elided index).  Each
     rank takes its own rows of the edge blocks; they meet in one
     all-gather of those few rows."""
-    from .dndarray import _as_bytes, _from_bytes
+    from ..parallel.comm import _as_bytes, _from_bytes
 
     edge = int(__PRINT_OPTIONS["edgeitems"])
     picks = [_edge_index(n, edge) for n in x.shape]

@@ -698,7 +698,7 @@ def choice(a, size=None, replace: bool = True, p=None, split=None, device=None, 
                              f"p has shape {tuple(probs.shape)} and a.shape[axis] is {n_in}.")
         dtype = types.canonical_heat_type(probs.dtype)
         if replace:
-            cuml = arithmetics._ordered_cumsum(probs)
+            cuml = arithmetics._CUMSUM(probs, 0)
             r = cuml[-1] * (1 - _uniform(key, shape, dtype, dev))
             ind = torch.searchsorted(cuml, r.reshape(-1))
         else:

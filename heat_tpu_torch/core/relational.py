@@ -53,7 +53,7 @@ def _ordered(op):
 
 def eq(t1, t2) -> DNDarray:
     """Element-wise ``t1 == t2``."""
-    return _operations.__binary_op(torch.eq, t1, t2, _held(torch.eq))
+    return _operations.__binary_op(torch.eq, t1, t2, widened=_held(torch.eq))
 
 
 def equal(t1, t2) -> bool:
@@ -81,7 +81,7 @@ def equal(t1, t2) -> bool:
 
 def ge(t1, t2) -> DNDarray:
     """Element-wise ``t1 >= t2``."""
-    return _operations.__binary_op(torch.ge, t1, t2, _ordered(torch.ge))
+    return _operations.__binary_op(torch.ge, t1, t2, widened=_ordered(torch.ge))
 
 
 greater_equal = ge
@@ -89,7 +89,7 @@ greater_equal = ge
 
 def gt(t1, t2) -> DNDarray:
     """Element-wise ``t1 > t2``."""
-    return _operations.__binary_op(torch.gt, t1, t2, _ordered(torch.gt))
+    return _operations.__binary_op(torch.gt, t1, t2, widened=_ordered(torch.gt))
 
 
 greater = gt
@@ -97,7 +97,7 @@ greater = gt
 
 def le(t1, t2) -> DNDarray:
     """Element-wise ``t1 <= t2``."""
-    return _operations.__binary_op(torch.le, t1, t2, _ordered(torch.le))
+    return _operations.__binary_op(torch.le, t1, t2, widened=_ordered(torch.le))
 
 
 less_equal = le
@@ -105,7 +105,7 @@ less_equal = le
 
 def lt(t1, t2) -> DNDarray:
     """Element-wise ``t1 < t2``."""
-    return _operations.__binary_op(torch.lt, t1, t2, _ordered(torch.lt))
+    return _operations.__binary_op(torch.lt, t1, t2, widened=_ordered(torch.lt))
 
 
 less = lt
@@ -113,7 +113,7 @@ less = lt
 
 def ne(t1, t2) -> DNDarray:
     """Element-wise ``t1 != t2``."""
-    return _operations.__binary_op(torch.ne, t1, t2, _held(torch.ne))
+    return _operations.__binary_op(torch.ne, t1, t2, widened=_held(torch.ne))
 
 
 not_equal = ne

@@ -1,40 +1,155 @@
-"""Statistical reductions (counterpart of heat_tpu/core/statistics.py)."""
+"""Statistical operations (counterpart of heat_tpu/core/statistics.py).
+
+Nothing here gathers split data.  Reductions over the split axis are a
+local partial plus one all-reduce; ``var``, ``std``, ``skew`` and
+``kurtosis`` take the reference's passes (the mean by one all-reduce, then
+the central moment by another); an arg-reduction across the split axis has
+each rank take its own (value, global index) and one all-gather of those
+pairs pick the winner (the smallest index on ties, the first NaN first);
+``cov`` is a local centred product plus one all-reduce; ``bincount`` and the
+histograms count locally between one all-reduce of the range and one of
+the counts.  Weighted counts add in a fixed order (a sort and an ordered
+scan): the card's atomic float adds would round differently from run to
+run.
+"""
 
 from __future__ import annotations
 
+import builtins
+
+import numpy as np
 import torch
 
+from ..parallel.comm import _as_bytes, _from_bytes
 from . import _operations, arithmetics, types
+from .arithmetics import _CUMSUM, _to_inexact
 from .dndarray import DNDarray
+from .linalg.basics import full_f32_matmul
 from .stride_tricks import sanitize_axis
 
-__all__ = ["argmin", "max", "mean", "min"]
+__all__ = [
+    "argmax",
+    "argmin",
+    "average",
+    "bincount",
+    "bucketize",
+    "cov",
+    "digitize",
+    "histc",
+    "histogram",
+    "kurtosis",
+    "max",
+    "maximum",
+    "mean",
+    "median",
+    "min",
+    "minimum",
+    "percentile",
+    "skew",
+    "std",
+    "var",
+]
 
 
-def argmin(x: DNDarray, axis=None, keepdims: bool = False) -> DNDarray:
-    """Index of the minimum along ``axis`` (of the flattened array when
-    None); ties go to the first index.  Along any axis but the split one
-    each rank works on its own chunk.  Bool input is taken as 0 and 1 (torch
-    has no bool argmin)."""
+# ----------------------------------------------------------------------
+# arg-reductions: local (value, global index), one all-gather of the pairs
+# ----------------------------------------------------------------------
+def _beats(v, i, nan, best_v, best_i, best_nan, largest: bool):
+    """Where the candidate (v, i) beats the best so far: a NaN beats any
+    number, the earlier of two NaNs wins, else the smaller (larger) value,
+    and on ties the smaller index."""
+    better = v > best_v if largest else v < best_v
+    number = ~nan & ~best_nan & (better | ((v == best_v) & (i < best_i)))
+    return (nan & ~best_nan) | (nan & best_nan & (i < best_i)) | number
+
+
+def _pick(values, index, valid, comm, largest: bool):
+    """The winning global index over the ranks' candidates (``values``,
+    ``index``, ``valid`` of one shape on every rank): one all-gather of
+    each rank's bytes, then the same pick on every rank."""
+    if comm.size == 1:
+        return index
+    packed = torch.cat([_as_bytes(values), _as_bytes(index), _as_bytes(valid)], dim=-1).unsqueeze(0)
+    got = comm.all_gather(packed.contiguous(), axis=0)
+    nv, ni = values.element_size(), index.element_size()
+    cand = [(_from_bytes(g[..., :nv].clone(), values.dtype), _from_bytes(g[..., nv:nv + ni].clone(), index.dtype),
+             _from_bytes(g[..., nv + ni:].clone(), valid.dtype)) for g in got.unbind(0)]
+    best_v, best_i, best_ok = cand[0]
+    best_nan = torch.isnan(best_v) if best_v.is_floating_point() else torch.zeros_like(best_ok)
+    for v, i, ok in cand[1:]:
+        nan = torch.isnan(v) if v.is_floating_point() else torch.zeros_like(ok)
+        take = ok & (~best_ok | _beats(v, i, nan, best_v, best_i, best_nan, largest))
+        best_v, best_i = torch.where(take, v, best_v), torch.where(take, i, best_i)
+        best_nan, best_ok = torch.where(take, nan, best_nan), best_ok | ok
+    return best_i
+
+
+def _arg(x: DNDarray, axis, keepdims: bool, largest: bool) -> DNDarray:
+    """The index of the largest (smallest) value along ``axis``, or of the
+    flattened array when None: the first on ties, the first NaN where
+    there is one.  Int64, as the reference's."""
     if not isinstance(x, DNDarray):
         raise TypeError(f"expected x to be a DNDarray, but was {type(x)}")
+    _operations._refuse_widened(argmax if largest else argmin, x.dtype)
     axis = sanitize_axis(x.shape, axis)
     if isinstance(axis, tuple):
-        raise TypeError("argmin takes one axis or None")
+        raise TypeError(f"{'argmax' if largest else 'argmin'} takes one axis or None")
+    pick = torch.argmax if largest else torch.argmin
+    split, comm = x.split, x.comm
 
-    def _argmin(t):
-        return torch.argmin(t.to(torch.uint8) if t.dtype == torch.bool else t, dim=axis, keepdim=keepdims)
+    def counted(t):  # torch has no bool argmax: 0 and 1
+        return t.to(torch.uint8) if t.dtype == torch.bool else t
 
-    if axis is not None and axis != x.split:
-        local = _argmin(x.larray_padded)
-        gshape = tuple(1 if d == axis else s for d, s in enumerate(x.gshape) if keepdims or d != axis)
-        split = x.split if x.split is None or keepdims or x.split < axis else x.split - 1
-        return x._like(local, gshape, split)
-    # across the split axis: the global array decides (gathered)
-    res = _argmin(x._dense())
-    return DNDarray.from_dense(res, None, x.device, x.comm)
+    if axis is not None and axis != split:
+        local = pick(counted(x.larray_padded), dim=axis, keepdim=keepdims)
+        gshape = _operations._reduced_shape(x.gshape, (axis,), keepdims)
+        return x._like(local, gshape, _operations._reduced_split(split, (axis,), keepdims))
+    # the padding can never win: the neutral value, after every true row
+    masked = counted(x.larray_padded if split is None else x._masked(_min_neutral(x) if largest else _max_neutral(x)))
+    valid = torch.tensor(x.larray.numel() > 0, device=masked.device)
+    if axis is None:
+        flat = masked.reshape(-1)
+        if flat.numel() == 0:
+            raise ValueError("attempt to get argmax/argmin of an empty sequence")
+        i = pick(flat)
+        value = flat[i]
+        if split is not None:
+            coords = list(np.unravel_index(int(i), tuple(masked.shape)))
+            coords[split] += comm.chunk(x.shape, split)[0]
+            i = torch.tensor(int(np.ravel_multi_index(tuple(coords), x.gshape)), device=masked.device)
+        best = _pick(value.reshape(1), i.reshape(1).to(torch.int64), valid.reshape(1), comm, largest)[0]
+        shape = (1,) * x.ndim if keepdims else ()
+        return x._like(best.reshape(shape), shape, None)
+    # across the split axis
+    local = pick(masked, dim=axis, keepdim=True)
+    value = torch.gather(masked, axis, local)
+    local = local + comm.chunk(x.shape, split)[0]
+    best = _pick(value.contiguous(), local.contiguous(), valid.expand(local.shape).contiguous(), comm, largest)
+    if not keepdims:
+        best = best.squeeze(axis)
+    return x._like(best, _operations._reduced_shape(x.gshape, (axis,), keepdims), None)
 
 
+def _to_out(res: DNDarray, out):
+    return res if out is None else _operations.store_out(res, out)
+
+
+def argmax(x, axis=None, out=None, keepdims: bool = False, **kwargs) -> DNDarray:
+    """The index of the maximum along ``axis`` (of the flattened array when
+    None); the first on ties, the first NaN where there is one.  Across the
+    split axis each rank offers its own winner and one all-gather of the
+    (value, index) pairs decides."""
+    return _to_out(_arg(x, axis, keepdims, True), out)
+
+
+def argmin(x, axis=None, out=None, keepdims: bool = False, **kwargs) -> DNDarray:
+    """The index of the minimum along ``axis``, as :func:`argmax` picks."""
+    return _to_out(_arg(x, axis, keepdims, False), out)
+
+
+# ----------------------------------------------------------------------
+# min, max, mean and the element-wise extremes
+# ----------------------------------------------------------------------
 def _min_neutral(x: DNDarray):
     if types.heat_type_is_exact(x.dtype):
         return types.iinfo(x.dtype).min if x.dtype is not types.bool else False
@@ -55,23 +170,447 @@ def _amax(t, dims, keep):
     return torch.amax(t, dim=dims, keepdim=keep)
 
 
-def min(x: DNDarray, axis=None, keepdims: bool = False) -> DNDarray:
+def min(x, axis=None, out=None, keepdims: bool = False) -> DNDarray:
     """Minimum over ``axis`` (all axes when None)."""
-    return _operations.__reduce_op(x, _amin, x.comm.pmin, _max_neutral(x), axis, keepdims)
+    return _operations.__reduce_op(x, _amin, x.comm.pmin, _max_neutral(x), axis, keepdims, out)
 
 
-def max(x: DNDarray, axis=None, keepdims: bool = False) -> DNDarray:
+def max(x, axis=None, out=None, keepdims: bool = False) -> DNDarray:
     """Maximum over ``axis`` (all axes when None)."""
-    return _operations.__reduce_op(x, _amax, x.comm.pmax, _min_neutral(x), axis, keepdims)
+    return _operations.__reduce_op(x, _amax, x.comm.pmax, _min_neutral(x), axis, keepdims, out)
 
 
-def mean(x: DNDarray, axis=None, keepdims: bool = False) -> DNDarray:
+def maximum(x1, x2, out=None) -> DNDarray:
+    """The element-wise maximum (NaN where either is NaN)."""
+    return _operations.__binary_op(torch.maximum, x1, x2, out)
+
+
+def minimum(x1, x2, out=None) -> DNDarray:
+    """The element-wise minimum (NaN where either is NaN)."""
+    return _operations.__binary_op(torch.minimum, x1, x2, out)
+
+
+def _axis_count(x: DNDarray, axis) -> float:
+    """The number of elements each reduction over ``axis`` takes."""
+    _, axes = _operations._axes(x, axis)
+    n = 1.0
+    for a in axes:
+        n *= x.shape[a]
+    return n
+
+
+def mean(x, axis=None, keepdims: bool = False) -> DNDarray:
     """Arithmetic mean: the masked sum over the TRUE element count."""
     if not types.heat_type_is_inexact(x.dtype):
         x = x.astype(types.float32)
-    axis = sanitize_axis(x.shape, axis)
-    axes = tuple(range(x.ndim)) if axis is None else (axis if isinstance(axis, tuple) else (axis,))
-    n = 1
-    for a in axes:
-        n *= x.shape[a]
-    return arithmetics.sum(x, axis=axis, keepdims=keepdims) / n
+    return arithmetics.sum(x, axis=axis, keepdims=keepdims) / _axis_count(x, axis)
+
+
+def average(x, axis=None, weights=None, returned: bool = False):
+    """The (weighted) average over ``axis``; with ``returned`` also the sum
+    of the weights (the element count without weights)."""
+    from . import factories
+
+    if weights is None:
+        result = mean(x, axis)
+        if returned:
+            cnt = int(_axis_count(x, axis))
+            return result, factories.full(result.shape, cnt, dtype=types.float32, split=result.split,
+                                          device=x.device, comm=x.comm)
+        return result
+    if not isinstance(weights, DNDarray):
+        weights = factories.array(weights, device=x.device, comm=x.comm)
+    if axis is None:
+        if weights.shape != x.shape:
+            raise TypeError("Axis must be specified when shapes of x and weights differ.")
+        wsum = arithmetics.sum(weights)
+        result = arithmetics.sum(arithmetics.mul(x, weights)) / wsum
+    else:
+        axis = sanitize_axis(x.shape, axis)
+        if weights.ndim == 1 and weights.shape[0] == x.shape[axis]:
+            shape = [1] * x.ndim
+            shape[axis] = weights.shape[0]
+            weights = DNDarray.from_dense(weights._dense().reshape(shape), None, x.device, x.comm, weights.dtype)
+        wsum = arithmetics.sum(weights, axis=axis)
+        result = arithmetics.sum(arithmetics.mul(x, weights), axis=axis) / wsum
+    if returned:
+        if wsum.shape != result.shape:
+            # broadcast as the reference's broadcast_to: a whole sum stays whole
+            if wsum.split is None:
+                local = torch.broadcast_to(wsum.larray_padded, result.shape).clone()
+                wsum = result._like(local, result.shape, None, wsum.dtype)
+            else:
+                local = _operations._aligned(wsum, result.shape, result.split)
+                wsum = result._like(torch.broadcast_to(local, result.larray_padded.shape).clone(), dtype=wsum.dtype)
+        return result, wsum
+    return result
+
+
+# ----------------------------------------------------------------------
+# moments: the reference's passes, each one all-reduce
+# ----------------------------------------------------------------------
+def _moment_input(x: DNDarray) -> DNDarray:
+    if not isinstance(x, DNDarray):
+        raise TypeError(f"expected x to be a DNDarray, but was {type(x)}")
+    _operations._refuse_widened(var, x.dtype)
+    return x if types.heat_type_is_inexact(x.dtype) else x.astype(types.float32)
+
+
+def _centred_sum(x: DNDarray, axis, keepdims: bool, power: int) -> DNDarray:
+    """The sum over ``axis`` of ``|x - mean|**power`` (the mean by one
+    all-reduce, this sum by another where the split axis is reduced)."""
+    axis, axes = _operations._axes(x, axis)
+    mu = arithmetics.sum(x, axis=axis, keepdims=True) / _axis_count(x, axis)
+    centred = x.larray_padded - _operations._aligned(mu, x.shape, x.split)
+    if centred.is_complex():
+        dev = (centred * centred.conj()).real if power == 2 else centred.abs() ** power
+    else:
+        dev = centred * centred if power == 2 else centred ** power
+    d = x._like(dev)
+    return arithmetics.sum(d, axis=axis, keepdims=keepdims)
+
+
+def var(x, axis=None, ddof: int = 0, keepdims: bool = False, **kwargs) -> DNDarray:
+    """The variance over ``axis``: the mean, then the sum of the squared
+    deviations over ``n - ddof`` (two passes, one all-reduce each where the
+    split axis is reduced)."""
+    if kwargs:
+        raise TypeError(f"var() got unexpected keyword arguments {sorted(kwargs)}")
+    if not isinstance(ddof, int):
+        raise ValueError(f"ddof must be integer, is {type(ddof)}")
+    if ddof < 0:
+        raise ValueError(f"Expected ddof >= 0, got {ddof}")
+    x = _moment_input(x)
+    return _centred_sum(x, axis, keepdims, 2) / (_axis_count(x, axis) - ddof)
+
+
+def std(x, axis=None, ddof: int = 0, keepdims: bool = False, **kwargs) -> DNDarray:
+    """The standard deviation: the square root of :func:`var`."""
+    from . import exponential
+
+    return exponential.sqrt(var(x, axis, ddof=ddof, keepdims=keepdims, **kwargs))
+
+
+def _central_moment(x: DNDarray, p: int, axis) -> DNDarray:
+    return _centred_sum(x, axis, False, p) / _axis_count(x, axis)
+
+
+def skew(x, axis=None, unbiased: bool = True) -> DNDarray:
+    """The skewness: the third central moment over the variance ** 1.5,
+    with the unbiased correction by default."""
+    x = _moment_input(x)
+    m3 = _central_moment(x, 3, axis)
+    v = var(x, axis, ddof=0)
+    g1 = m3._like(m3.larray_padded / v.larray_padded ** 1.5)
+    if unbiased:
+        n = _axis_count(x, axis)
+        g1 = g1._like(g1.larray_padded * np.sqrt(n * (n - 1)) / (n - 2))
+    return g1
+
+
+def kurtosis(x, axis=None, unbiased: bool = True, Fisher: bool = True) -> DNDarray:
+    """The kurtosis: the fourth central moment over the squared variance,
+    with the unbiased correction and Fisher's -3 by default."""
+    x = _moment_input(x)
+    m4 = _central_moment(x, 4, axis)
+    v = var(x, axis, ddof=0)
+    g2 = m4 / (v * v)
+    if unbiased:
+        n = _axis_count(x, axis)
+        k = ((n - 1) / ((n - 2) * (n - 3))) * ((n + 1) * g2.larray_padded - 3 * (n - 1)) + 3
+        g2 = g2._like(k)
+    if Fisher:
+        g2 = g2 - 3.0
+    return g2
+
+
+def percentile(x, q, axis=None, out=None, interpolation: str = "linear", keepdims: bool = False,
+               sketched: bool = False, sketch_size=None):
+    """Not ported yet: it rides the distributed sample sort (ROADMAP Queue 1
+    item 11)."""
+    raise NotImplementedError("percentile rides the distributed sample sort, not ported yet (ROADMAP Queue 1 "
+                              "item 11)")
+
+
+def median(x, axis=None, keepdims: bool = False):
+    """Not ported yet: the 50th percentile (ROADMAP Queue 1 item 11)."""
+    raise NotImplementedError("median rides the distributed sample sort, not ported yet (ROADMAP Queue 1 item 11)")
+
+
+# ----------------------------------------------------------------------
+# covariance
+# ----------------------------------------------------------------------
+def _observations(a: DNDarray, rowvar: bool):
+    """``(local, n, split)``: this rank's observations of ``a`` as an
+    observations by variables tensor (a 1-D ``a`` is one variable), its
+    padding zeroed, the number of observations, and whether they are split
+    over the ranks (an array split along its variables is resplit along
+    its observations: one all-to-all)."""
+    if a.ndim == 1:
+        local = a._masked(0) if a.split is not None else a.larray_padded
+        return local.reshape(-1, 1), a.shape[0], a.split is not None
+    obs = 1 if rowvar or a.shape[0] == 1 else 0
+    if a.split is not None and a.split != obs:
+        a = a.resplit(obs)
+    local = a._masked(0) if a.split is not None else a.larray_padded
+    return (local if obs == 0 else local.T), a.shape[obs], a.split is not None
+
+
+_GRAM_BLOCK = 1 << 16  # observations a partial product of cov takes
+
+
+def _gram(c: torch.Tensor) -> torch.Tensor:
+    """``c^T conj(c)`` of observations by variables ``c`` (contiguous), in
+    full float32: over many observations one product of each block of 2^16
+    rows, then the blocks' products added by one reduction, so that no
+    accumulation runs over all of them (one product over 2^27 observations
+    of 16 variables lost 7e-5 of the largest entry on an NVIDIA H100 80GB
+    HBM3 at 700 W)."""
+    n, p = c.shape
+    with full_f32_matmul():
+        if n <= _GRAM_BLOCK:
+            return c.T @ c.conj()
+        nb = -(-n // _GRAM_BLOCK)
+        if nb * _GRAM_BLOCK != n:
+            c = torch.nn.functional.pad(c, (0, 0, 0, nb * _GRAM_BLOCK - n))
+        blocks = c.view(nb, _GRAM_BLOCK, p)
+        return torch.bmm(blocks.transpose(1, 2), blocks.conj()).sum(0)
+
+
+def cov(m, y=None, rowvar: bool = True, bias: bool = False, ddof=None) -> DNDarray:
+    """The covariance matrix of the variables (rows where ``rowvar``):
+    each rank centres its own observations by the means (one all-reduce)
+    and multiplies them; one all-reduce adds the products."""
+    if not isinstance(m, DNDarray):
+        raise TypeError(f"m must be a DNDarray, got {type(m)}")
+    if m.ndim > 2:
+        raise ValueError("m has more than 2 dimensions")
+    if ddof is not None and not isinstance(ddof, int):
+        raise TypeError("ddof must be integer")
+    _operations._refuse_widened(cov, m.dtype)
+    comm = m.comm
+    xs, n, split = _observations(m, rowvar)
+    parts = [xs]
+    common = m.dtype
+    if y is not None:
+        if not isinstance(y, DNDarray):
+            from . import factories
+
+            y = factories.array(y, device=m.device, comm=comm)
+        ys, ny, ysplit = _observations(y, rowvar)
+        if ny != n:
+            raise ValueError(f"m and y have {n} and {ny} observations")
+        if ysplit != split:
+            raise NotImplementedError("cov of m and y split otherwise along their observations is not ported")
+        parts.append(ys)
+        common = types.promote_types(m.dtype, y.dtype)
+    dt = common.torch_type() if types.heat_type_is_inexact(common) else (
+        torch.float64 if common is types.int64 else torch.float32)
+    x = torch.cat([p.to(dt) for p in parts], dim=1) if len(parts) > 1 else parts[0].to(dt)
+    if ddof is None:
+        ddof = 1 if not bias else 0
+    sums = x.sum(0, keepdim=True)
+    if split:
+        sums = comm.psum(sums.contiguous())
+    centred = (x - sums / n).contiguous()
+    if split:
+        lo, lshape, _ = comm.chunk((n,), 0)
+        centred[lshape[0]:] = 0  # the padding's deviations add nothing
+    prod = _gram(centred)
+    if split:
+        prod = comm.psum(prod.contiguous())
+    res = (prod / (n - ddof)).squeeze()
+    out_split = 0 if m.split is not None and res.ndim > 0 else None
+    return DNDarray.from_dense(res, out_split, m.device, comm)
+
+
+# ----------------------------------------------------------------------
+# counting: local counts, one all-reduce
+# ----------------------------------------------------------------------
+def _weighted_counts(idx: torch.Tensor, w: torch.Tensor, length: int) -> torch.Tensor:
+    """The sum of ``w`` per index in [0, length), in a fixed order: the
+    weights sorted by index (stably), one prefix sum (float64 for floats,
+    int64 for integers; on the card the fixed-order blocked scan of
+    :func:`arithmetics._blocked_scan`), and differences at the index
+    boundaries.  No atomic adds."""
+    acc = torch.float64 if (w.is_floating_point() or w.is_complex()) else torch.int64
+    if w.is_complex():
+        acc = torch.complex128
+    order = torch.argsort(idx, stable=True)
+    pre = _CUMSUM(w[order].to(acc), 0) if w.numel() else w.new_zeros(0, dtype=acc)
+    counts = torch.bincount(idx, minlength=length)[:length]
+    ends = torch.cumsum(counts, 0)
+    total = torch.cat([pre.new_zeros(1), pre])
+    return total[ends] - total[ends - counts]
+
+
+def bincount(x, weights=None, minlength: int = 0) -> DNDarray:
+    """The number of occurrences of each value in [0, max(x)] (negative
+    values counted as 0, as JAX's ``bincount`` clips them), or the sum of
+    their ``weights``; at least ``minlength`` bins.  One all-reduce of the
+    local maximum, local counts, one all-reduce of the counts."""
+    if not isinstance(x, DNDarray):
+        raise TypeError(f"expected x to be a DNDarray, but was {type(x)}")
+    if x.ndim != 1:
+        raise ValueError("bincount requires a 1-D input")
+    comm = x.comm
+    local = x.larray.to(torch.int64).clamp(min=0)
+    top = local.max().reshape(1) if local.numel() else torch.full((1,), -1, dtype=torch.int64, device=local.device)
+    if x.split is not None:
+        top = comm.pmax(top.contiguous())
+    length = builtins.max(int(top[0]) + 1, minlength) if x.size else minlength
+    if weights is None:
+        counts = torch.bincount(local, minlength=length)
+    else:
+        if not isinstance(weights, DNDarray):
+            from . import factories
+
+            weights = factories.array(weights, device=x.device, comm=comm)
+        w = _operations._aligned(weights, x.shape, x.split)
+        w = w.narrow(0, 0, local.shape[0]) if x.split is not None else w
+        counts = types._cast(_weighted_counts(local, w, length), types.canonical_heat_type(
+            torch.complex128 if w.is_complex() else torch.float64 if w.is_floating_point() else torch.int64),
+            weights.dtype)
+    if x.split is not None:
+        counts = comm.psum(counts.contiguous())
+    return DNDarray.from_dense(counts, x.split, x.device, comm)
+
+
+def _global_range(a: DNDarray):
+    """``(min, max)`` of the whole array as host floats: one all-reduce
+    each (padding masked)."""
+    lo = _operations.__reduce_op(a, _amin, a.comm.pmin, _max_neutral(a), None)
+    hi = _operations.__reduce_op(a, _amax, a.comm.pmax, _min_neutral(a), None)
+    return lo.larray_padded, hi.larray_padded
+
+
+def _edges(lo: torch.Tensor, hi: torch.Tensor, bins: int, dt, a: DNDarray) -> torch.Tensor:
+    """JAX's bin edges: ``linspace(lo, hi, bins + 1)`` computed in ``dt``
+    as XLA compiles it (``lo (1 - i r) + i (hi r)``, ``r = 1 / bins``, the
+    last sum one fused multiply-add), the range widened by 0.5 on each
+    side where it is empty.  XLA's vectorizer fuses a few samples
+    otherwise: those lie within one rounding of the reference's."""
+    from .random import _fma32, _fma64
+
+    lo, hi = lo.to(dt).cpu(), hi.to(dt).cpu()
+    if bool(hi - lo == 0):
+        lo, hi = lo - 0.5, hi + 0.5
+    i = torch.arange(bins + 1, dtype=dt)
+    r = torch.tensor(1.0, dtype=dt) / torch.tensor(float(bins), dtype=dt)
+    fma = _fma32 if dt == torch.float32 else _fma64
+    edges = fma(i, (hi * r).expand_as(i).contiguous(), lo * (1 - i * r))
+    edges[-1] = hi
+    return edges.to(a.larray_padded.device)
+
+
+def _hist_counts(values: torch.Tensor, w, edges: torch.Tensor, a: DNDarray, split: bool) -> torch.Tensor:
+    """Counts (or weight sums) of ``values`` in the bins between ``edges``,
+    as JAX bins them: right-open bins, the last closed, values outside
+    dropped; one all-reduce where the data are split."""
+    nb = edges.numel() - 1
+    v = values.reshape(-1).contiguous().to(edges.dtype)
+    idx = torch.searchsorted(edges, v, right=True)
+    idx = torch.where(v == edges[-1], torch.full_like(idx, nb), idx)
+    if w is None:
+        counts = torch.bincount(idx, minlength=nb + 2)[1:nb + 1].to(edges.dtype)
+    else:
+        counts = _weighted_counts(idx, w.reshape(-1), nb + 2)[1:nb + 1]
+    if split:
+        counts = a.comm.psum(counts.contiguous())
+    return counts
+
+
+def histogram(a, bins=10, range=None, weights=None, density=None):
+    """``(hist, bin_edges)`` as JAX's ``histogram``: ``bins`` equal bins
+    over ``range`` (by default the data's, one all-reduce each for its ends)
+    or the given edges; local counts, one all-reduce."""
+    if not isinstance(a, DNDarray):
+        raise TypeError(f"expected a to be a DNDarray, but was {type(a)}")
+    _operations._refuse_widened(histogram, a.dtype)
+    dt = _to_inexact(torch.zeros((), dtype=a.larray_padded.dtype)).dtype
+    if isinstance(bins, DNDarray) or np.ndim(bins) == 1:
+        edges = bins._dense() if isinstance(bins, DNDarray) else torch.as_tensor(np.ascontiguousarray(bins))
+        edges = edges.to(dt).to(a.larray_padded.device)  # in the data's inexact type, as JAX casts them
+    else:
+        if range is not None:
+            lo, hi = torch.tensor(range[0], dtype=dt), torch.tensor(range[1], dtype=dt)
+        elif a.size == 0:
+            lo, hi = torch.tensor(0.0, dtype=dt), torch.tensor(1.0, dtype=dt)
+        else:
+            lo, hi = _global_range(a)
+        edges = _edges(lo, hi, int(bins), dt, a)
+    w = None
+    if weights is not None:
+        if not isinstance(weights, DNDarray):
+            from . import factories
+
+            weights = factories.array(weights, device=a.device, comm=a.comm)
+        w = _operations._aligned(weights, a.shape, a.split)
+        w = w.narrow(a.split, 0, a.lshape[a.split]) if a.split is not None else w
+    counts = _hist_counts(a.larray, w, edges, a, a.split is not None)
+    if w is not None:
+        counts = types._cast(counts, types.canonical_heat_type(counts.dtype),
+                             types.canonical_heat_type(torch.promote_types(w.dtype, edges.dtype)))
+    if density:
+        width = torch.diff(edges)
+        counts = counts / (counts.sum() * width)
+    return (DNDarray.from_dense(counts, None, a.device, a.comm),
+            DNDarray.from_dense(edges, None, a.device, a.comm))
+
+
+def histc(input, bins: int = 100, min: float = 0.0, max: float = 0.0, out=None) -> DNDarray:
+    """Counts in ``bins`` equal bins over [min, max] (the data's range where
+    both are 0), values outside ignored, in the input's type."""
+    if not isinstance(input, DNDarray):
+        raise TypeError(f"expected input to be a DNDarray, but was {type(input)}")
+    _operations._refuse_widened(histc, input.dtype)
+    dt = _to_inexact(torch.zeros((), dtype=input.larray_padded.dtype)).dtype
+    values = input.larray
+    if min == 0.0 and max == 0.0:
+        lo, hi = _global_range(input)
+        lo, hi = torch.tensor(float(lo), dtype=dt), torch.tensor(float(hi), dtype=dt)
+    else:
+        lo, hi = torch.tensor(float(min), dtype=dt), torch.tensor(float(max), dtype=dt)
+        keep = (values >= min) & (values <= max)
+        values = values[keep]
+    edges = _edges(lo, hi, int(bins), dt, input)
+    counts = _hist_counts(values, None, edges, input, input.split is not None)
+    res = DNDarray.from_dense(types._cast(counts, types.canonical_heat_type(counts.dtype), input.dtype), None,
+                              input.device, input.comm, input.dtype)
+    return _to_out(res, out)
+
+
+def _sorted_search(bins: torch.Tensor, x: torch.Tensor, right: bool) -> torch.Tensor:
+    return torch.searchsorted(bins.contiguous(), x.contiguous(), right=right)
+
+
+def digitize(x, bins, right: bool = False) -> DNDarray:
+    """The bin of each value, numpy's rule (increasing or decreasing
+    ``bins``), int32 as the reference's; the bins whole on every rank."""
+    if not isinstance(x, DNDarray):
+        raise TypeError(f"expected x to be a DNDarray, but was {type(x)}")
+    b = bins._dense() if isinstance(bins, DNDarray) else torch.as_tensor(np.ascontiguousarray(bins))
+    data = x.larray_padded
+    rt = torch.promote_types(data.dtype, b.dtype)
+    b, data = b.to(rt).to(data.device), data.to(rt)
+    if b.numel() == 0:
+        return x._like(torch.zeros_like(data, dtype=torch.int32))._propagate_layout_from(x)
+    side = not right
+    inc = _sorted_search(b, data, side)
+    dec = b.numel() - _sorted_search(b.flip(0), data, side)
+    res = torch.where(b[-1] >= b[0], inc, dec).to(torch.int32)
+    return x._like(res)._propagate_layout_from(x)
+
+
+def bucketize(input, boundaries, out_int32: bool = False, right: bool = False, out=None) -> DNDarray:
+    """The bucket of each value in the sorted ``boundaries`` (whole on every
+    rank), as the reference's: ``right=False`` places a value equal to a
+    boundary after it."""
+    if not isinstance(input, DNDarray):
+        raise TypeError(f"expected input to be a DNDarray, but was {type(input)}")
+    b = boundaries._dense() if isinstance(boundaries, DNDarray) else torch.as_tensor(np.ascontiguousarray(boundaries))
+    data = input.larray_padded
+    rt = torch.promote_types(data.dtype, b.dtype)
+    res = _sorted_search(b.to(rt).to(data.device), data.to(rt), not right)
+    res = input._like(res.to(torch.int32 if out_int32 else torch.int64))._propagate_layout_from(input)
+    return _to_out(res, out)

@@ -133,6 +133,10 @@ class Communication:
     def pmax(self, x: torch.Tensor) -> torch.Tensor:
         return self._reduce(x, dist.ReduceOp.MAX)
 
+    def pprod(self, x: torch.Tensor) -> torch.Tensor:
+        """Product of ``x`` over all ranks, in place; returns ``x``."""
+        return self._reduce(x, dist.ReduceOp.PRODUCT)
+
     def all_gather(self, x: torch.Tensor, axis: int = 0) -> torch.Tensor:
         """Every rank's ``x`` (all of one shape), concatenated along ``axis``
         in rank order."""
@@ -236,24 +240,34 @@ class Communication:
         self._check_joined()
         return _PPermute.apply(x, self, perm)
 
-    def pscan(self, x: torch.Tensor, inclusive: bool = True) -> torch.Tensor:
-        """Prefix sum of ``x`` over the ranks, rank 0 first: log2(size)
-        rounds of :meth:`ppermute` (ranks outside a round receive zeros, the
-        additive identity).  The exclusive scan is the previous rank's
-        inclusive one, zero at rank 0."""
+    def pscan(self, x: torch.Tensor, inclusive: bool = True, combine=torch.add, neutral=0) -> torch.Tensor:
+        """Prefix scan of ``x`` over the ranks, rank 0 first, with
+        ``combine(earlier, later)`` (a sum by default): log2(size) rounds of
+        :meth:`ppermute`, in each of which a rank combines what the rank
+        ``shift`` below it sends.  The exclusive scan is the previous rank's
+        inclusive one, ``neutral`` at rank 0.  ``x`` travels as bytes, so
+        any dtype goes; the scan is not differentiable."""
         n = self.size
-        acc = x
-        shift = 1
+        if n == 1:
+            return x if inclusive else torch.full_like(x, neutral)
+
+        def shifted(t, shift):
+            return _from_bytes(self.ppermute(_as_bytes(t), [(i, i + shift) for i in range(n - shift)]), t.dtype)
+
+        acc, shift = x, 1
         while shift < n:
-            acc = acc + self.ppermute(acc, [(i, i + shift) for i in range(n - shift)])
+            got = shifted(acc, shift)
+            if self.rank >= shift:
+                acc = combine(got, acc)
             shift *= 2
         if inclusive:
             return acc
-        return self.ppermute(acc, [(i, i + 1) for i in range(n - 1)])
+        prev = shifted(acc, 1)
+        return prev if self.rank > 0 else torch.full_like(x, neutral)
 
-    def exscan(self, x: torch.Tensor) -> torch.Tensor:
-        """Exclusive prefix sum over the ranks (zero at rank 0)."""
-        return self.pscan(x, inclusive=False)
+    def exscan(self, x: torch.Tensor, combine=torch.add, neutral=0) -> torch.Tensor:
+        """Exclusive prefix scan over the ranks (``neutral`` at rank 0)."""
+        return self.pscan(x, False, combine, neutral)
 
     def _ppermute(self, x: torch.Tensor, perm: Sequence[Tuple[int, int]]) -> torch.Tensor:
         """The exchange itself, outside autograd."""
@@ -352,3 +366,27 @@ def use_comm(comm: Optional[Communication] = None) -> None:
     """Set the default communication."""
     global __default_comm
     __default_comm = sanitize_comm(comm)
+
+
+def _as_bytes(x: torch.Tensor) -> torch.Tensor:
+    """``x`` as bytes, one more trailing axis for each element's bytes (the
+    other axes keep their extents), so that any dtype, bool, bfloat16 and
+    complex included, travels through every backend's collectives."""
+    shape = tuple(x.shape) + (x.element_size(),)
+    if x.numel() == 0:
+        return torch.empty(shape, dtype=torch.uint8, device=x.device)
+    return _flat(x).view(torch.uint8).reshape(shape)
+
+
+def _from_bytes(b: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """Undo :func:`_as_bytes`."""
+    if b.numel() == 0:
+        return torch.empty(tuple(b.shape[:-1]), dtype=dtype, device=b.device)
+    return _flat(b).view(dtype).reshape(tuple(b.shape[:-1]))
+
+
+def _flat(x: torch.Tensor) -> torch.Tensor:
+    """``x``'s elements as a 1-D tensor of stride 1 (a view where ``x`` is
+    contiguous: torch may keep any stride on an axis of length 1)."""
+    x = x.contiguous()
+    return x.as_strided((x.numel(),), (1,))

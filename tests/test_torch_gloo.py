@@ -807,3 +807,207 @@ def test_float64_kmeans_in_a_gloo_world_of_three(runtime_world):
         np.testing.assert_allclose(got["centers"], ref.cluster_centers_.numpy(), rtol=0, atol=1e-12)
         np.testing.assert_array_equal(got["labels"], ref.labels_.numpy())
         np.testing.assert_allclose(float(got["inertia"]), ref.inertia_, rtol=1e-12)
+
+
+# the ops over uneven rows and columns (10 x 7 over 3 ranks): scans and
+# differences along the split axis, arg-reductions with ties and NaN on
+# different ranks, var, histogram, bincount, cov, matmul of split 1 by split
+# 0, and the ragged layer (a skewed target, __partitioned__, the round trip
+# through from_partition_dict, an op and a reduction on the ragged array);
+# every gather recorded while the ops run
+_OPS_MAIN = _RANK_HEAD + r"""
+saved = {}
+gathered = {}
+phase = [None]
+
+
+def save(name, a):
+    saved[name + "/local"] = a.larray.numpy()
+    saved[name + "/split"] = np.asarray(-1 if a.split is None else a.split)
+    saved[name + "/lmap"] = a.lshape_map
+    saved[name + "/cd"] = np.asarray(a.counts_displs() if a.split is not None else ((), ()))
+
+
+for fname in ("all_gather", "all_gather_varying"):
+    fn = getattr(ht.Communication, fname)
+
+    def recording(self, x, *args, _fn=fn, **kw):
+        if phase[0] is not None:
+            gathered[phase[0]] = gathered.get(phase[0], 0) + int(x.numel())
+        return _fn(self, x, *args, **kw)
+
+    setattr(ht.Communication, fname, recording)
+
+
+def run(name, fn):
+    phase[0] = name
+    gathered.setdefault(name, 0)
+    try:
+        return fn()
+    finally:
+        phase[0] = None
+
+
+base, ties, labels, weights = arrays["base"], arrays["ties"], arrays["labels"], arrays["weights"]
+for split in (0, 1):
+    a = ht.array(base, split=split)
+    save(f"cumsum{split}", run(f"cumsum{split}", lambda: ht.cumsum(a, split)))
+    save(f"cumprod{split}", run(f"cumprod{split}", lambda: ht.cumprod(a, split)))
+    save(f"diff{split}", run(f"diff{split}", lambda: ht.diff(a, axis=split)))
+    save(f"diff3_{split}", run(f"diff3_{split}", lambda: ht.diff(a, n=3, axis=split)))
+    save(f"var{split}", run(f"var{split}", lambda: ht.var(a, axis=split)))
+    save(f"varall{split}", run(f"varall{split}", lambda: ht.var(a)))
+    save(f"unwrap{split}", run(f"unwrap{split}", lambda: ht.unwrap(a, axis=split)))
+    save(f"gradient{split}", run(f"gradient{split}", lambda: ht.gradient(a, axis=split)))
+    t = ht.array(ties, split=split)
+    for name in ("argmax", "argmin"):
+        save(f"{name}{split}", run(f"{name}{split}", lambda: getattr(ht, name)(t, axis=split)))
+        save(f"{name}all{split}", run(f"{name}all{split}", lambda: getattr(ht, name)(t)))
+    h, e = run(f"histogram{split}", lambda: ht.histogram(a, bins=5))
+    save(f"histogram{split}", h)
+    save(f"edges{split}", e)
+    save(f"cov{split}", run(f"cov{split}", lambda: ht.cov(a, rowvar=False)))
+    save(f"covrows{split}", run(f"covrows{split}", lambda: ht.cov(a)))
+x = ht.array(labels, split=0)
+w = ht.array(weights, split=0)
+save("bincount", run("bincount", lambda: ht.bincount(x)))
+save("bincount_w", run("bincount_w", lambda: ht.bincount(x, weights=w)))
+A = ht.array(base, split=1)
+B = ht.array(arrays["rhs"], split=0)
+save("matmul10", run("matmul10", lambda: A @ B))
+
+# the ragged layer
+target = np.array([[1, 7], [7, 7], [2, 7]], np.int64)
+r = ht.array(base, split=0)
+r.redistribute_(target_map=target)
+saved["ragged_lmap"] = r.lshape_map
+saved["ragged_cd"] = np.asarray(r.counts_displs())
+parts = run("partitioned", lambda: r.__partitioned__)
+mine = parts["partitions"][(rank, 0)]
+saved["part_data"] = np.asarray(parts["get"](mine["data"]))
+saved["part_start"] = np.asarray(mine["start"])
+saved["part_shape"] = np.asarray(mine["shape"])
+saved["others_none"] = np.asarray(all(p["data"] is None for k, p in parts["partitions"].items() if k[0] != rank))
+rebuilt = run("rebuilt", lambda: ht.from_partition_dict(parts))
+save("rebuilt", rebuilt)
+shifted = r + 1.0
+saved["op_lmap"] = shifted.lshape_map
+saved["op_rows"] = run("op_rows", lambda: shifted._ragged_layout[1]).numpy()
+total = ht.sum(r, axis=0)
+saved["reduced_balanced"] = np.asarray(total.is_balanced())
+save("reduced", total)
+r[0, 0] = -5.0  # a write: the placed rows are placed again
+saved["written_rows"] = r._ragged_layout[1].numpy()
+r.balance_()
+saved["balanced_again"] = np.asarray(r.is_balanced())
+saved["gathered_names"] = np.asarray(list(gathered))
+saved["gathered_counts"] = np.asarray([gathered[k] for k in gathered])
+np.savez(out, **saved)
+dist.destroy_process_group()
+"""
+
+
+@pytest.fixture(scope="module")
+def ops_world(tmp_path_factory):
+    rng = np.random.default_rng(21)
+    base = rng.standard_normal((10, 7)).astype(np.float32) * 2
+    ties = np.round(rng.standard_normal((10, 7)), 0).astype(np.float32)
+    ties[[1, 6], 2] = 9.0  # the largest twice, on ranks 0 and 1
+    ties[[3, 8], 4] = -9.0  # the smallest twice, on ranks 0 and 2
+    ties[7, 5] = ties[9, 5] = np.nan  # NaN on rank 1 and on rank 2
+    ties[2, 6] = np.nan
+    arrays = dict(base=base, ties=ties, labels=rng.integers(0, 6, 41).astype(np.int64),
+                  weights=rng.standard_normal(41).astype(np.float32), rhs=rng.standard_normal((7, 5)).astype(np.float32))
+    ranks = _run_world(tmp_path_factory.mktemp("ops"), _OPS_MAIN, **arrays)
+    return arrays, hj.Communication(jax.devices()[:WORLD]), ranks
+
+
+def _close_layout(got, r, name, want, comm, rtol=3e-5, atol=1e-6):
+    """Rank r's saved chunk of ``name`` is its chunk of the reference's
+    (same split, lshape_map and counts), the values within the bounds."""
+    split = want.split
+    assert int(got[name + "/split"]) == (-1 if split is None else split), name
+    np.testing.assert_array_equal(got[name + "/lmap"], want.lshape_map, err_msg=name)
+    full = np.asarray(want.numpy())
+    if split is not None:
+        assert tuple(got[name + "/cd"][0]) == want.counts_displs()[0], name
+        full = full[comm.chunk(want.shape, split, rank=r)[2]]
+    assert got[name + "/local"].dtype == full.dtype, name
+    np.testing.assert_allclose(got[name + "/local"], full, rtol=rtol, atol=atol, err_msg=name)
+
+
+def test_ops_along_the_split_axis_in_a_gloo_world_of_three(ops_world):
+    """Scans, differences, var, the arg-reductions (ties and NaN across
+    ranks), histogram, bincount, cov and split-1-by-split-0 matmul on 3
+    ranks: each rank's chunk is its chunk of the reference's on 3 devices,
+    and nothing gathered the data (an arg-reduction gathers only the
+    ranks' (value, index) pairs of its result)."""
+    arrays, comm, ranks = ops_world
+    base, ties = arrays["base"], arrays["ties"]
+    for r, got in enumerate(ranks):
+        gathered = dict(zip(got["gathered_names"].tolist(), got["gathered_counts"].tolist()))
+        for split in (0, 1):
+            a = hj.array(base, split=split, comm=comm)
+            _close_layout(got, r, f"cumsum{split}", hj.cumsum(a, split), comm)
+            _close_layout(got, r, f"cumprod{split}", hj.cumprod(a, split), comm, rtol=1e-4)
+            _close_layout(got, r, f"diff{split}", hj.diff(a, axis=split), comm)
+            _close_layout(got, r, f"diff3_{split}", hj.diff(a, n=3, axis=split), comm)
+            _close_layout(got, r, f"var{split}", hj.var(a, axis=split), comm)
+            _close_layout(got, r, f"varall{split}", hj.var(a), comm)
+            _close_layout(got, r, f"unwrap{split}", hj.unwrap(a, axis=split), comm)
+            _close_layout(got, r, f"gradient{split}", hj.gradient(a, axis=split), comm)
+            t = hj.array(ties, split=split, comm=comm)
+            for name in ("argmax", "argmin"):
+                _same_layout(got, r, f"{name}{split}", getattr(hj, name)(t, axis=split), comm)
+                _same_layout(got, r, f"{name}all{split}", getattr(hj, name)(t), comm)
+                # each rank offers the bytes of one (value, index, valid)
+                # triple per position of the result, and receives them from
+                # the 3 ranks: the collective's result, no rows
+                n_out = ties.shape[1 - split]
+                assert gathered[f"{name}{split}"] == n_out * (4 + 8 + 1)
+                assert gathered[f"{name}all{split}"] == 4 + 8 + 1
+            want_h, want_e = hj.histogram(a, bins=5)
+            _close_layout(got, r, f"edges{split}", want_e, comm)
+            np.testing.assert_array_equal(got[f"histogram{split}/local"],
+                                          hj.histogram(a, bins=got[f"edges{split}/local"])[0].numpy())
+            _close_layout(got, r, f"cov{split}", hj.cov(a, rowvar=False), comm)
+            _close_layout(got, r, f"covrows{split}", hj.cov(a), comm)
+        x = hj.array(arrays["labels"], split=0, comm=comm)
+        _same_layout(got, r, "bincount", hj.bincount(x), comm)
+        _close_layout(got, r, "bincount_w", hj.bincount(x, weights=hj.array(arrays["weights"], split=0, comm=comm)),
+                      comm)
+        _close_layout(got, r, "matmul10", hj.matmul(hj.array(base, split=1, comm=comm),
+                                                    hj.array(arrays["rhs"], split=0, comm=comm)), comm)
+        for name, count in gathered.items():
+            if not name.startswith("arg") and name != "rebuilt":
+                assert count == 0, f"{name} gathered {count} elements on rank {r}"
+        assert gathered["rebuilt"] == 2  # from_partition_dict: each rank's local shape, no rows
+
+
+def test_ragged_layer_in_a_gloo_world_of_three(ops_world):
+    """redistribute_ to a skewed map (1, 7, 2 rows), then __partitioned__:
+    each rank receives its target rows (one exchange, no gather), the other
+    partitions carry no data on it; from_partition_dict rebuilds the
+    balanced array; an op keeps the ragged layout and its rows, a reduction
+    comes back balanced, a write places the rows again."""
+    arrays, comm, ranks = ops_world
+    base = arrays["base"]
+    starts = [0, 1, 8, 10]
+    for r, got in enumerate(ranks):
+        assert got["ragged_lmap"][:, 0].tolist() == [1, 7, 2]
+        assert got["ragged_cd"].tolist() == [[1, 7, 2], [0, 1, 8]]
+        np.testing.assert_array_equal(got["part_data"], base[starts[r]:starts[r + 1]])
+        assert tuple(got["part_start"]) == (starts[r], 0) and tuple(got["part_shape"]) == (starts[r + 1] - starts[r], 7)
+        assert bool(got["others_none"])
+        _same_layout(got, r, "rebuilt", hj.array(base, split=0, comm=comm), comm)
+        assert got["op_lmap"][:, 0].tolist() == [1, 7, 2]
+        np.testing.assert_array_equal(got["op_rows"], base[starts[r]:starts[r + 1]] + 1.0)
+        assert bool(got["reduced_balanced"])
+        _close_layout(got, r, "reduced", hj.sum(hj.array(base, split=0, comm=comm), axis=0), comm)
+        want_written = base[starts[r]:starts[r + 1]].copy()
+        if r == 0:
+            want_written[0, 0] = -5.0
+        np.testing.assert_array_equal(got["written_rows"], want_written)
+        assert bool(got["balanced_again"])
+        gathered = dict(zip(got["gathered_names"].tolist(), got["gathered_counts"].tolist()))
+        assert gathered["partitioned"] == 0 and gathered["op_rows"] == 0

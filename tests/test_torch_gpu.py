@@ -1051,14 +1051,15 @@ def test_prefix_sums_on_the_card(card):
 
 def test_ordered_cumsum_repeats_bitwise_on_the_card(card):
     """torch.cumsum of a CUDA vector may round differently run to run; the
-    blocked scan that kmeans++ and choice(p=...) use adds in one order."""
+    blocked scan that kmeans++, choice(p=...) and the weighted counts use
+    (``arithmetics._CUMSUM`` on the card) adds in one order."""
     from heat_tpu_torch.core import arithmetics
 
     g = torch.Generator(device=card).manual_seed(3)
     w = torch.rand(1 << 22, device=card, generator=g) / (1 << 22)
-    first = arithmetics._ordered_cumsum(w)
+    first = arithmetics._CUMSUM(w, 0)
     for _ in range(5):
-        assert torch.equal(arithmetics._ordered_cumsum(w), first)
+        assert torch.equal(arithmetics._CUMSUM(w, 0), first)
     exact = torch.cumsum(w.double(), 0)
     assert float(((first.double() - exact).abs() / exact).max()) < 1e-5
 
@@ -1134,3 +1135,139 @@ def test_runtime_on_the_card_matches_cpu(card):
                                h.astype(dt).astype(ht.float32).larray[h.larray >= 0]), name
         assert str(a).replace("gpu:0", "cpu:0") == str(h)
         assert ht.allclose(a, h.numpy()) and bool(ht.all(a == a))
+
+
+# ----------------------------------------------------------------------
+# the NumPy ops on the card (exponential, rounding, trigonometrics,
+# complex_math, arithmetics, statistics, linalg basics)
+# ----------------------------------------------------------------------
+_EXACT_OPS = [
+    ("abs", ht.abs), ("floor", ht.floor), ("ceil", ht.ceil), ("trunc", ht.trunc), ("rint", ht.rint),
+    ("round(x, 2)", lambda t: ht.round(t, 2)), ("round(x, -1)", lambda t: ht.round(t, -1)),
+    ("clip", lambda t: ht.clip(t, -1, 1)), ("mod", lambda t: t % 0.5), ("floordiv", lambda t: t // 0.5),
+    ("fmod", lambda t: ht.fmod(t, 0.7)), ("neg", lambda t: -t), ("diff0", lambda t: ht.diff(t, axis=0)),
+    ("diff1", lambda t: ht.diff(t, n=2, axis=1)), ("tril", lambda t: ht.tril(t, 1)), ("triu", lambda t: ht.triu(t, -2)),
+    ("maximum", lambda t: ht.maximum(t, 0.25)), ("sign", ht.sign), ("square", ht.square),
+    ("transpose", lambda t: t.T), ("heaviside", lambda t: ht.heaviside(t, 0.5)), ("copysign", lambda t: ht.copysign(1.0, t)),
+]
+
+
+@pytest.mark.parametrize("name,op", _EXACT_OPS)
+def test_exact_ops_on_the_card_are_the_cpus(card, name, op):
+    rng = np.random.default_rng(len(name))
+    base = (rng.standard_normal((1003, 7)) * 3).astype(np.float32)
+    base[5, 2] = 2.675
+    for split in (None, 0, 1):
+        got, want = op(ht.array(base, split=split)), op(ht.array(base, split=split, device="cpu"))
+        assert got.larray_padded.is_cuda and got.split == want.split and got.dtype is want.dtype
+        assert torch.equal(got.larray.cpu(), want.larray), name
+
+
+def test_integer_division_by_zero_on_the_card_is_the_references(card):
+    for dt in (np.int8, np.int32, np.int64):
+        a = ht.array(np.array([5, -5, 0, 7, -7], dt), split=0)
+        assert (a // 0).numpy().tolist() == [-2, -2, -1, -2, -2]
+        assert (a % 0).numpy().tolist() == [0] * 5
+        assert ht.fmod(a, 0).numpy().tolist() == [0] * 5
+        lo, m1 = ht.array(np.array([np.iinfo(dt).min], dt)), ht.array(np.array([-1], dt))
+        assert (lo // m1).numpy().tolist() == [np.iinfo(dt).min] and (lo % m1).numpy().tolist() == [0]
+        q, m = divmod(a, ht.array(np.array([0, 2, 0, -2, 3], dt), split=0))
+        assert q.numpy().tolist() == [-2, -3, -1, -4, -3] and m.numpy().tolist() == [0, 1, 0, -1, 2]
+    u = ht.array(np.array([5, 0, 7], np.uint8))
+    assert (u // ht.array(np.zeros(3, np.uint8))).numpy().tolist() == [255, 255, 255]
+
+
+def test_round_and_nan_arguments_on_the_card_are_the_references(card):
+    assert ht.round(ht.array(np.float32([2.675])), 2).numpy()[0] == np.float32(2.6799998)
+    v = ht.array(np.array([1.0, np.nan, 3.0, np.nan], np.float32), split=0)
+    assert int(ht.argmax(v)) == 1 and int(ht.argmin(v)) == 1
+    m = ht.array(np.array([[1.0, 5.0], [np.nan, 2.0], [3.0, np.nan]], np.float32), split=0)
+    assert ht.argmax(m, 0).numpy().tolist() == [1, 2] and ht.argmin(m, 1).numpy().tolist() == [0, 0, 1]
+
+
+def test_transcendentals_on_the_card_are_within_the_references_bound(card):
+    rng = np.random.default_rng(3)
+    base = (rng.standard_normal((4099, 5)) * 3).astype(np.float32)
+    x64 = torch.from_numpy(base.astype(np.float64))
+    for op, op64 in ((ht.exp, torch.exp), (ht.sin, torch.sin), (ht.tanh, torch.tanh), (ht.arctan, torch.atan),
+                     (lambda t: ht.log(ht.abs(t) + 1), lambda t: torch.log(t.abs() + 1)),
+                     (lambda t: ht.sqrt(ht.abs(t)), lambda t: torch.sqrt(t.abs())),
+                     (lambda t: ht.arctan2(t, 2.0), lambda t: torch.atan2(t, torch.tensor(2.0, dtype=t.dtype)))):
+        got = op(ht.array(base, split=0)).larray.cpu().double()
+        np.testing.assert_allclose(got.numpy(), op64(x64).numpy(), rtol=3e-5, atol=1e-6)
+
+
+def test_scans_and_reductions_on_the_card_repeat_bitwise(card):
+    rng = np.random.default_rng(4)
+    big = torch.from_numpy(rng.standard_normal((1 << 20, 4)).astype(np.float32)).to(card)
+    vec = torch.from_numpy(rng.standard_normal(3 << 20).astype(np.float32)).to(card)
+    a, v = ht.array(big, split=0), ht.array(vec, split=0)
+    labels = ht.array(torch.from_numpy(rng.integers(0, 9, 1 << 20)).to(card), split=0)
+    weights = ht.array(torch.from_numpy(rng.standard_normal(1 << 20).astype(np.float32)).to(card), split=0)
+    calls = [lambda: ht.cumsum(a, 0), lambda: ht.cumsum(a, 1), lambda: ht.cumsum(v, 0), lambda: ht.cumprod(a, 1),
+             lambda: ht.sum(a, 0), lambda: ht.sum(a), lambda: ht.prod(a, 1), lambda: ht.var(a, 0), lambda: ht.std(a),
+             lambda: ht.cov(a, rowvar=False), lambda: ht.vector_norm(a), lambda: ht.matrix_norm(a),
+             lambda: ht.dot(v, v), lambda: ht.bincount(labels, weights=weights),
+             lambda: ht.histogram(a, bins=17, weights=ht.abs(a))[0], lambda: ht.nansum(a, 0), lambda: ht.mean(a, 0)]
+    for i, call in enumerate(calls):
+        first = call().larray
+        for _ in range(3):
+            assert torch.equal(call().larray, first), i
+    # and within the float64 bound of the blocked scan
+    want = torch.cumsum(vec.double(), 0)
+    got = ht.cumsum(v, 0).larray.double()
+    assert float(((got - want).abs() / torch.cumsum(vec.double().abs(), 0)).max()) < 1e-5
+
+
+def test_statistics_on_the_card_match_cpu(card):
+    rng = np.random.default_rng(5)
+    base = (rng.standard_normal((2001, 6)) * 2).astype(np.float32)
+    base[7, 3] = np.nan
+    labels = rng.integers(0, 12, 2001)
+    for split in (None, 0, 1):
+        a, h = ht.array(base, split=split), ht.array(base, split=split, device="cpu")
+        for name, op in (("argmax", lambda t: ht.argmax(t, 0)), ("argmin", lambda t: ht.argmin(t)),
+                         ("argmax1", lambda t: ht.argmax(t, 1)), ("nanargmax", lambda t: ht.argmax(ht.nan_to_num(t)))):
+            assert torch.equal(op(a).larray.cpu(), op(h).larray), name
+        clean = ht.nan_to_num(a), ht.nan_to_num(h)
+        for op in (lambda t: ht.histogram(t, bins=9)[0], lambda t: ht.var(t, 1), lambda t: ht.cov(t),
+                   lambda t: ht.histc(t, bins=5)):
+            np.testing.assert_allclose(op(clean[0]).larray.cpu().numpy(), op(clean[1]).larray.numpy(), rtol=1e-5,
+                                       atol=1e-5)
+    lab, labh = ht.array(labels, split=0), ht.array(labels, split=0, device="cpu")
+    assert torch.equal(ht.bincount(lab).larray.cpu(), ht.bincount(labh).larray)
+    assert torch.equal(ht.bincount(lab).larray.cpu(), torch.bincount(torch.from_numpy(labels)))
+
+
+def test_linalg_on_the_card_matches_cpu(card):
+    rng = np.random.default_rng(6)
+    a = rng.standard_normal((97, 33)).astype(np.float32)
+    b = rng.standard_normal((33, 21)).astype(np.float32)
+    for sa in (None, 0, 1):
+        for sb in (None, 0, 1):
+            got = ht.matmul(ht.array(a, split=sa), ht.array(b, split=sb))
+            want = ht.matmul(ht.array(a, split=sa, device="cpu"), ht.array(b, split=sb, device="cpu"))
+            assert got.split == want.split
+            np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-5, atol=1e-5)
+    ia = rng.integers(-5, 5, (9, 7)).astype(np.int32)
+    ib = rng.integers(-5, 5, (7, 4)).astype(np.int32)
+    assert np.array_equal(ht.matmul(ht.array(ia), ht.array(ib)).numpy(), ia @ ib)
+    assert ht.trace(ht.array(a, split=0)) == pytest.approx(float(np.trace(a)), rel=1e-5)
+    np.testing.assert_array_equal(ht.outer(ht.array(a[:, 0], split=0), ht.array(b[0])).numpy(), np.outer(a[:, 0], b[0]))
+    assert float(ht.norm(ht.array(a, split=1))) == pytest.approx(float(np.linalg.norm(a)), rel=1e-6)
+
+
+def test_integer_matmul_beyond_one_temporary_on_the_card(card):
+    """An int32 product of 3072 x 3072 matrices: its products all at once
+    would take 116 GB, more than the card holds, so it runs in blocks.
+    Exact (the sums stay below 2^53, so float64 gives them exactly) and
+    wrapping where the sums leave int32."""
+    g = torch.Generator(device=card).manual_seed(11)
+    a = torch.randint(-8, 8, (3072, 3072), device=card, generator=g, dtype=torch.int32)
+    b = torch.randint(-8, 8, (3072, 3072), device=card, generator=g, dtype=torch.int32)
+    got = ht.matmul(ht.array(a, split=0), ht.array(b))
+    assert got.dtype is ht.int32 and got.split == 0
+    assert torch.equal(got.larray, (a.double() @ b.double()).to(torch.int32))
+    big = torch.randint(1 << 16, 1 << 20, (4, 3072), device=card, generator=g, dtype=torch.int32)
+    wrapped = ht.matmul(ht.array(big), ht.array(big.T.contiguous())).larray
+    assert torch.equal(wrapped.cpu(), (big.cpu().long() @ big.T.cpu().long()).to(torch.int32))

@@ -139,24 +139,25 @@ def test_scans_in_a_world_of_one():
 
 @pytest.mark.parametrize("n", [0, 1, 1003, 4096, 4097, 20000])
 def test_ordered_cumsum(n):
-    """Blocks of 4096 scanned row by row, each offset by the float32 sum of
-    the blocks before it (added on the host in order): within float32
-    rounding of the float64 cumulative sum, equal to it block by block, and
-    equal to torch.cumsum within the first block."""
+    """The fixed-order scan that kmeans++ and choice(p=...) run on the card
+    (``arithmetics._blocked_scan``, called here on CPU tensors): blocks of
+    4096 scanned row by row, each offset by torch's scan of the totals of
+    the blocks before it; within float32 rounding of the float64
+    cumulative sum, equal to torch.cumsum within the first block."""
     from heat_tpu_torch.core import arithmetics
 
     w = torch.from_numpy(np.random.default_rng(n).random(n).astype(np.float32))
-    got = arithmetics._ordered_cumsum(w)
+    got = arithmetics._blocked_scan(w, 0, torch.cumsum, torch.add, 0)
     assert got.dtype == torch.float32 and got.shape == (n,)
     exact = np.cumsum(w.numpy().astype(np.float64))
     np.testing.assert_allclose(got.numpy(), exact, rtol=2e-6)
     head = min(n, 4096)
     assert torch.equal(got[:head], torch.cumsum(w[:head], 0))
     blocks = [torch.cumsum(w[i:i + 4096], 0) for i in range(0, n, 4096)]
-    offset = np.float32(0)
+    offsets = torch.cumsum(torch.stack([b[-1] for b in blocks]), 0) if blocks else None
     for i, block in enumerate(blocks):
-        assert torch.equal(got[i * 4096:(i + 1) * 4096], block + offset)
-        offset = np.float32(offset + block[-1].numpy())
+        expect = block if i == 0 else offsets[i - 1] + block
+        assert torch.equal(got[i * 4096:(i + 1) * 4096], expect)
 
 
 @pytest.mark.parametrize("n,f", [(0, 16), (1, 16), (1003, 16), (1024, 16), (700, 8), (77, 5), (33, 128), (9, 200)])
