@@ -192,6 +192,28 @@ Then the training path, first at the same attention configuration:
     parameters (within 1e-5), then an epoch of 16 steps, steps/s, the loss
     falling.
 
+The training data is then freed, and the distances path follows (no
+kernel of the port: plain torch, cuBLAS for the cross terms):
+
+23. distances: cdist (direct and expanded), manhattan and rbf of 2^16 x 16
+    against 2^14 x 16 float32 points (4.3 GB results, the broadcast forms
+    in blocks), cdist of 2^15 points with themselves, cdist_topk and
+    KNeighborsClassifier(5) of 2^15 queries against 2^20 x 16 training
+    rows from create_clusters (and one block of its merge: the int64-key
+    selection beside a float32 topk and a stable sort), each with its
+    first and warm wall time, its
+    error against float64 truth on the card, the memory it took beyond
+    its inputs and its bound (the result written once or its float32
+    operations); KNN's accuracy and its votes against a float64 vote
+    (every difference a near-tie of the k-th distance); KMedians and
+    KMedoids (4 clusters, ++ inits) on benchmarks/cb/cluster.py's
+    spherical data at 2^27 x 3 rows: fit wall time, n_iter_, host syncs
+    per iteration and one update's wall time, one more KMedians update against each cluster's median
+    by torch.sort, each medoid a member row least in city-block sum to its
+    members' mean in float64; the norm_sym Laplacian of 2^15 spherical
+    points (diagonal 1, symmetric within 1e-5); the phase's peak memory
+    under 60 GB.
+
 The line before the last is the kernel summary, the last line
 ``{"ok": true, "device": {...}}``.
 """
@@ -2201,6 +2223,317 @@ def train_cnn(dev, smi: str) -> None:
           "phase_seconds": time.perf_counter() - t0})
 
 
+# the distances path (phase distances): the spatial module's calls at the
+# cells' sizes, then the estimators on them
+DIST_ROWS = 1 << 16  # X: 2^16 x 16 against Y: 2^14 x 16, each result 4.3 GB
+DIST_COLS = 1 << 14
+DIST_FEATURES = 16
+DIST_SELF_ROWS = 1 << 15  # cdist(X') of 2^15 rows: 4.3 GB
+KNN_TRAIN = 1 << 20
+KNN_QUERIES = 1 << 15
+KNN_K = 5
+KNN_CLUSTERS = 8
+# benchmarks/cb/cluster.py:15-40: 4 spherical clusters of 5000 points in 3-D,
+# their rows scaled to the KMeans cell's 2^27 to fill the card
+SPHERE_PER_CLUSTER = 1 << 25
+LAPLACIAN_ROWS = 1 << 15
+DIST_PEAK_BYTES = 60e9
+
+
+def distance_bound(n: int, m: int, f: int, ops_per_feature: int, ops_per_pair: int, out_bytes: int = 4) -> dict:
+    """The least time of a call on n x m pairs of f features: its result
+    written once and its inputs read once at the HBM rate, or its float32
+    operations on the CUDA cores, whichever is larger."""
+    b = {"bytes": (out_bytes * n * m + 4 * (n + m) * f) / HBM_BYTES_PER_S * 1e3,
+         "operations": n * m * (f * ops_per_feature + ops_per_pair) / F32_FLOPS * 1e3}
+    by = max(b, key=b.get)
+    return {"bound_ms": b[by], "bound_by": by}
+
+
+def restart_peak(peaks: list) -> None:
+    """Keep the peak memory since the last restart in ``peaks``, then
+    restart the count."""
+    import torch
+
+    peaks.append(torch.cuda.max_memory_allocated())
+    torch.cuda.reset_peak_memory_stats()
+
+
+def timed_call(fn, name: str, bound: dict, smi: str, peaks: list):
+    """``fn``'s result and a record of its first and warm wall time, the
+    memory it took beyond what was allocated before it, and its bound."""
+    import torch
+
+    first, first_ms = wall_ms(fn)
+    del first
+    torch.cuda.empty_cache()
+    before = torch.cuda.memory_allocated()
+    restart_peak(peaks)
+    out, warm_ms = wall_ms(fn)
+    extra = torch.cuda.max_memory_allocated() - before
+    return out, {"call": name, "first_ms": first_ms, "warm_ms": warm_ms, "extra_peak_gb": extra / 1e9, **bound,
+                 "share_of_bound": bound["bound_ms"] / warm_ms, "card": smi}
+
+
+def count_syncs(fn):
+    """``(fn's result, the host synchronisations it made)``, counted by
+    torch's sync debug mode."""
+    import warnings
+
+    import torch
+
+    with warnings.catch_warnings(record=True) as seen:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return out, sum("synchroniz" in str(w.message) for w in seen)
+
+
+def nearest64(q, t, kk: int, block: int = 1 << 14):
+    """The kk nearest rows of t to each row of q in float64 on the card, by
+    blocks of t: ``(distances ascending, indices)``."""
+    import torch
+
+    q64 = q.double()
+    qq = (q64 * q64).sum(1, keepdim=True)
+    vals = torch.full((q.shape[0], kk), float("inf"), dtype=torch.float64, device=q.device)
+    idx = torch.zeros((q.shape[0], kk), dtype=torch.int64, device=q.device)
+    for j in range(0, t.shape[0], block):
+        tb = t[j:j + block].double()
+        d2 = torch.addmm(qq + (tb * tb).sum(1)[None, :], q64, tb.T, alpha=-2.0)
+        v, p = torch.topk(torch.cat([vals, d2], 1), kk, dim=1, largest=False)
+        idx = torch.where(p < kk, idx.gather(1, p.clamp(max=kk - 1)), p - kk + j)
+        vals = v
+        del d2
+    return vals.clamp(min=0).sqrt(), idx
+
+
+def distances_phase(dev, smi: str) -> int:
+    """Phase distances: cdist (direct and expanded), manhattan and rbf of
+    2^16 x 16 against 2^14 x 16 points, cdist of 2^15 points with
+    themselves, cdist_topk and KNN of 2^15 queries against 2^20 training
+    rows, KMedians and KMedoids on benchmarks/cb/cluster.py's spherical
+    data at 2^27 rows, and the Laplacian of 2^15 spherical points; each
+    call's first and warm wall time, its error against float64 truth on the
+    card, the memory it took and its bound.  Returns the threefry launches
+    (the data's draws and the ++ inits)."""
+    import numpy as np
+    import torch
+
+    import heat_tpu_torch as ht
+    from heat_tpu_torch.cluster import _kcluster, kmedians, kmedoids
+    from heat_tpu_torch.core import kernels
+    from heat_tpu_torch.core import random as rnd
+
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    peaks: list = []
+    restart_peak(peaks)
+    zero_launches()
+    g = torch.Generator(device=dev).manual_seed(SEED + 15)
+    f = DIST_FEATURES
+
+    # cdist, manhattan and rbf: each result 4.3 GB, held to float64 truth by blocks of X's rows
+    x = torch.randn(DIST_ROWS, f, device=dev, generator=g)
+    y = torch.randn(DIST_COLS, f, device=dev, generator=g)
+    X, Y = ht.array(x, split=0), ht.array(y, split=0)
+    sigma = 4.0
+    n, m = DIST_ROWS, DIST_COLS
+    calls = {
+        "cdist": (lambda: ht.spatial.cdist(X, Y), distance_bound(n, m, f, 3, 1)),
+        "cdist_expanded": (lambda: ht.spatial.cdist(X, Y, quadratic_expansion=True), distance_bound(n, m, f, 2, 4)),
+        "manhattan": (lambda: ht.spatial.manhattan(X, Y), distance_bound(n, m, f, 3, 0)),
+        "rbf": (lambda: ht.spatial.rbf(X, Y, sigma=sigma), distance_bound(n, m, f, 2, 5)),
+    }
+    results, records = {}, []
+    for name, (fn, b) in calls.items():
+        out, rec = timed_call(fn, name, b, smi, peaks)
+        if out.shape != (n, m) or out.split != 0 or out.larray.device != x.device:
+            raise AssertionError(f"{name}: shape {out.shape}, split {out.split}, on {out.larray.device}")
+        results[name], rec["rows"], rec["cols"] = out.larray, n, m
+        records.append(rec)
+    err = {name: [0.0, 0.0] for name in results}  # max |got - truth| and max |got - truth| / (1 + |truth|)
+    y64 = y.double()
+    for i in range(0, n, 256):
+        diff = x[i:i + 256].double()[:, None, :] - y64[None, :, :]
+        d2 = (diff * diff).sum(-1)
+        truth = {"cdist": d2.sqrt(), "manhattan": diff.abs_().sum(-1), "rbf": torch.exp(-d2 / (2 * sigma * sigma))}
+        truth["cdist_expanded"] = truth["cdist"]
+        del diff
+        for name, t in truth.items():
+            e = (results[name][i:i + 256].double() - t).abs_()
+            err[name][0] = max(err[name][0], float(e.max()))
+            err[name][1] = max(err[name][1], float((e / (1.0 + t.abs())).max()))
+    for rec in records:
+        rec["max_abs_err"], rec["max_rel_err"] = err[rec["call"]]
+        limit = 1e-5 if rec["call"] == "cdist" else 1e-4  # the CPU tests' bounds against the reference
+        if rec["max_rel_err"] > limit:
+            raise AssertionError(f"{rec['call']}: {rec['max_rel_err']} from float64 (bound {limit})")
+    del results, X, Y, y64
+    torch.cuda.empty_cache()
+    xs = torch.randn(DIST_SELF_ROWS, f, device=dev, generator=g)
+    XS = ht.array(xs, split=0)
+    out, rec = timed_call(lambda: ht.spatial.cdist(XS), "cdist_self",
+                          distance_bound(DIST_SELF_ROWS, DIST_SELF_ROWS, f, 3, 1), smi, peaks)
+    worst = 0.0
+    for i in range(0, DIST_SELF_ROWS, 256):
+        diff = xs[i:i + 256].double()[:, None, :] - xs.double()[None, :, :]
+        t = (diff * diff).sum(-1).sqrt()
+        worst = max(worst, float(((out.larray[i:i + 256].double() - t).abs() / (1.0 + t)).max()))
+    if worst > 1e-5 or out.shape != (DIST_SELF_ROWS, DIST_SELF_ROWS) or bool((out.larray.diagonal() != 0).any()):
+        raise AssertionError(f"cdist(X'): {worst} from float64, or a non-zero diagonal")
+    rec.update(rows=DIST_SELF_ROWS, cols=DIST_SELF_ROWS, max_rel_err=worst)
+    records.append(rec)
+    del out, XS, xs, x, y
+    torch.cuda.empty_cache()
+
+    # cdist_topk and KNN: create_clusters' blobs, their labels by the clusters' counts
+    rng = np.random.default_rng(SEED + 15)
+    means = rng.standard_normal((KNN_CLUSTERS, f)).astype(np.float32)
+    stds = np.ones(KNN_CLUSTERS, np.float32)
+    train = ht.utils.data.create_clusters(KNN_TRAIN, f, KNN_CLUSTERS, means, stds, device="gpu", random_state=3)
+    queries = ht.utils.data.create_clusters(KNN_QUERIES, f, KNN_CLUSTERS, means, stds, device="gpu", random_state=4)
+    train_labels = torch.arange(KNN_CLUSTERS, device=dev).repeat_interleave(KNN_TRAIN // KNN_CLUSTERS)
+    query_labels = torch.arange(KNN_CLUSTERS, device=dev).repeat_interleave(KNN_QUERIES // KNN_CLUSTERS)
+    q, t = queries.larray, train.larray
+    want_d, want_i = nearest64(q, t, KNN_K + 1)
+    topk_bound = distance_bound(KNN_QUERIES, KNN_TRAIN, f, 2, 4, out_bytes=0)
+    (vals, idx), rec = timed_call(lambda: ht.spatial.cdist_topk(queries, train, KNN_K), "cdist_topk", topk_bound, smi, peaks)
+    chosen = (q.double()[:, None, :] - t.double()[idx.larray.long()]).pow(2).sum(-1).sqrt()  # the port's picks in float64
+    gap = (chosen - want_d[:, :KNN_K]).abs() / (1.0 + want_d[:, :KNN_K])
+    val_err = float(((vals.larray.double() - want_d[:, :KNN_K]).abs() / (1.0 + want_d[:, :KNN_K])).max())
+    if float(gap.max()) > 1e-5 or val_err > 1e-4 or vals.shape != (KNN_QUERIES, KNN_K) or idx.dtype is not ht.int32:
+        raise AssertionError(f"cdist_topk: picks {float(gap.max())} from the float64 k nearest, values {val_err}")
+    rec.update(rows=KNN_QUERIES, cols=KNN_TRAIN, k=KNN_K, max_rel_err=val_err,
+               indices_not_float64s=int((idx.larray.long() != want_i[:, :KNN_K]).sum()),
+               picks_max_rel_gap=float(gap.max()))
+    records.append(rec)
+    # one block of the merge's candidates: the int64-key selection beside a
+    # float32 topk (no tie order) and a stable sort, the two it stands between
+    from heat_tpu_torch.spatial import distance
+
+    cols = distance._BLOCK_ELEMENTS // KNN_QUERIES
+    cand = torch.rand(KNN_QUERIES, cols, device=dev, generator=g)
+    records.append({"call": "topk_block", "rows": KNN_QUERIES, "cols": cols, "k": KNN_K,
+                    "key64_topk_ms": time_ms(lambda: distance._smallest(cand, KNN_K), reps=5, warmup=1),
+                    "f32_topk_ms": time_ms(lambda: torch.topk(cand, KNN_K, dim=1, largest=False), reps=5, warmup=1),
+                    "stable_sort_ms": time_ms(lambda: torch.sort(cand, dim=1, stable=True), reps=5, warmup=1),
+                    "card": smi})
+    del cand
+    knn = ht.classification.KNeighborsClassifier(n_neighbors=KNN_K).fit(train, ht.array(train_labels, split=0))
+    pred, rec = timed_call(lambda: knn.predict(queries), "knn_predict", topk_bound, smi, peaks)
+    votes64 = torch.nn.functional.one_hot(train_labels[want_i[:, :KNN_K]], KNN_CLUSTERS).sum(1).argmax(1)
+    differ = torch.nonzero(pred.larray != votes64)[:, 0]
+    kth, next_ = want_d[differ, KNN_K - 1], want_d[differ, KNN_K]
+    if not bool(((next_ - kth) <= 1e-5 * (1.0 + next_)).all()):
+        raise AssertionError(f"KNN: {differ.numel()} votes differ from float64's, not all at a near-tie of the k-th")
+    accuracy = float((pred.larray == query_labels).double().mean())
+    if pred.dtype is not ht.int64 or pred.split != 0 or accuracy < 0.9:
+        raise AssertionError(f"KNN: {pred.dtype}, split {pred.split}, accuracy {accuracy}")
+    rec.update(rows=KNN_QUERIES, train_rows=KNN_TRAIN, k=KNN_K, accuracy=accuracy,
+               votes_not_float64s=int(differ.numel()))
+    records.append(rec)
+    del train, queries, knn, pred, vals, idx, want_d, want_i, chosen, gap, q, t
+    torch.cuda.empty_cache()
+    for r in records:
+        emit({"phase": "distances", **r})
+
+    # KMedians and KMedoids on benchmarks/cb/cluster.py's data at 2^27 rows
+    t0 = time.perf_counter()
+    data = ht.utils.data.spherical.create_spherical_dataset(
+        num_samples_cluster=SPHERE_PER_CLUSTER, radius=1.0, offset=4.0, dtype=ht.float32, random_state=1, device="gpu")
+    torch.cuda.synchronize()
+    make_s = time.perf_counter() - t0
+    pts = data.larray
+    for name, init in (("KMedians", "kmedians++"), ("KMedoids", "kmedoids++")):
+        torch.cuda.synchronize()
+        restart_peak(peaks)
+        t0 = time.perf_counter()
+        est, syncs = count_syncs(lambda: getattr(ht.cluster, name)(n_clusters=4, init=init).fit(data))
+        n_iter = est.n_iter_
+        torch.cuda.synchronize()
+        fit_ms = (time.perf_counter() - t0) * 1e3
+        peak = torch.cuda.max_memory_allocated()
+        c = est.cluster_centers_.larray
+        # an iteration is one update and one host read of the shift
+        update = ((lambda: kmedians._medians(data, kmedians._ordered(pts), c)) if name == "KMedians"
+                  else (lambda: kmedoids._medoids(data, c)))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, update_syncs = count_syncs(update)
+        torch.cuda.synchronize()
+        update_ms = (time.perf_counter() - t0) * 1e3
+        members, counts, _ = _kcluster._members(data, c)
+        labels = est.labels_.larray
+        if not torch.equal(labels, members.to(torch.int64).argmax(0)):
+            raise AssertionError(f"{name}: labels_ are not the nearest centres of the fit's centres")
+        check = {}
+        if name == "KMedians":
+            # one more update from the fit's centres is each centre's members' exact median
+            again = kmedians._medians(data, kmedians._ordered(pts), c)
+            for j in range(4):
+                s = torch.sort(pts[members[j]], dim=0).values
+                med = (s[(s.shape[0] - 1) // 2] + s[s.shape[0] // 2]) * 0.5
+                if not torch.equal(med, again[j]):
+                    raise AssertionError(f"KMedians: centre {j}'s update {again[j].tolist()}, the sorted median "
+                                         f"{med.tolist()}")
+            check = {"update_is_sorted_median": True, "centres_fixed_point": bool(torch.equal(again, c))}
+        else:
+            # each centre a member row whose city-block sum to its members' mean is least, in float64
+            worst = 0.0
+            for j in range(4):
+                rows = pts[members[j]].double()
+                mean = rows.mean(0)
+                dm = (rows - mean).abs().sum(1)
+                mine = float((c[j].double() - mean).abs().sum())
+                worst = max(worst, (mine - float(dm.min())) / (1.0 + float(dm.min())))
+                if not bool((pts[members[j]] == c[j]).all(1).any()):
+                    raise AssertionError(f"KMedoids: centre {j} is not a row of its members")
+            if worst > 1e-5:
+                raise AssertionError(f"KMedoids: a centre's city-block sum to the mean is {worst} above the least")
+            check = {"centres_are_member_rows": True, "medoid_excess_rel": worst}
+        emit({"phase": "distances", "call": f"{name}.fit", "config": "benchmarks/cb/cluster.py:15-40", "rows": pts.shape[0],
+              "features": 3, "clusters": 4, "init": init, "n_iter": n_iter, "fit_wall_ms": fit_ms,
+              "update_wall_ms": update_ms, "host_syncs": syncs,
+              "host_syncs_per_iteration": update_syncs + 1,
+              "counts": counts.tolist(), "inertia": est.inertia_, "peak_gb": peak / 1e9, **check,
+              "data_make_s": make_s, "card": smi})
+        del est, members, labels
+        torch.cuda.empty_cache()
+    del data, pts
+    torch.cuda.empty_cache()
+
+    # the Laplacian of 2^15 spherical points: diagonal 1, symmetric within 1e-5 (tests/test_ml.py:164-173)
+    lap_pts = ht.utils.data.spherical.create_spherical_dataset(LAPLACIAN_ROWS // 4, random_state=2, device="gpu")
+    lap = ht.graph.Laplacian(lambda z: ht.spatial.rbf(z, sigma=1.0), definition="norm_sym")
+    L, rec = timed_call(lambda: lap.construct(lap_pts), "laplacian",
+                        distance_bound(LAPLACIAN_ROWS, LAPLACIAN_ROWS, 3, 2, 9), smi, peaks)
+    Ll = L.larray
+    diag_err = float((Ll.diagonal() - 1.0).abs().max())
+    asym, b = 0.0, 4096
+    for i in range(0, LAPLACIAN_ROWS, b):
+        for j in range(i, LAPLACIAN_ROWS, b):
+            asym = max(asym, float((Ll[i:i + b, j:j + b] - Ll[j:j + b, i:i + b].T).abs().max()))
+    if diag_err > 1e-5 or asym > 1e-5 or L.shape != (LAPLACIAN_ROWS, LAPLACIAN_ROWS) or not bool(torch.isfinite(Ll).all()):
+        raise AssertionError(f"Laplacian: diagonal {diag_err} from 1, asymmetry {asym}")
+    emit({"phase": "distances", **rec, "rows": LAPLACIAN_ROWS, "diag_err": diag_err, "asymmetry": asym})
+    del L, Ll, lap_pts
+    torch.cuda.empty_cache()
+
+    threefry = rnd.THREEFRY_LAUNCHES
+    others = kernels.LLOYD_LAUNCHES + kernels.GRAM_LAUNCHES + sum(fft_launches().values())
+    restart_peak(peaks)
+    peak = max(peaks)
+    if others or threefry < 1 or peak > DIST_PEAK_BYTES:
+        raise AssertionError(f"distances: {others} launches of K1-K6, threefry {threefry}, peak {peak / 1e9} GB")
+    emit({"phase": "distances", "threefry_launches": threefry, "phase_peak_gb": peak / 1e9,
+          "phase_seconds": time.perf_counter() - t_phase, "card": smi})
+    return threefry
+
+
 def tensor_core_report(build) -> dict:
     """ptxas's report (registers, spills) of the six tensor-core kernels,
     and their count of tensor-core instructions in the built SASS -- HMMA
@@ -2663,6 +2996,9 @@ def main() -> int:
         if "cuda_core_route" in e:
             e["cuda_core_route"]["launches"] = bwd_launches[f"{e['name'].rsplit('_', 1)[1]}_cuda_core"]
     train_cnn(dev, smi)
+
+    # 23. the distances path and the estimators on it (threefry draws the data and the ++ inits)
+    threefry["launches"] += distances_phase(dev, smi)
 
     threefry["launches"] += rsvd_threefry + rpca_threefry  # the KMeans inits', rsvd's and the randomized PCA's
     emit({"kernels": [lloyd, lloyd64, threefry, gram, *fft_entries, flash, *flash_bwd]})

@@ -16,6 +16,8 @@ from .core import devices, kernels, linalg, random, types
 
 from . import spatial
 from . import cluster
+from . import classification
+from . import graph
 from . import decomposition
 from . import fft
 from . import nn

@@ -2,5 +2,7 @@
 
 from ._kcluster import _KCluster
 from .kmeans import KMeans
+from .kmedians import KMedians
+from .kmedoids import KMedoids
 
-__all__ = ["KMeans"]
+__all__ = ["KMeans", "KMedians", "KMedoids"]

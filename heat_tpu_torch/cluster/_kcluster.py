@@ -1,9 +1,12 @@
 """Shared k-clustering base (counterpart of heat_tpu/cluster/_kcluster.py).
 
 Ported here: ``init="random"``, kmeans++ (``"kmeans++"``,
-``"probability_based"``, ``"++"``) and an explicit array of centres, the
-nearest-centre assignment and ``predict``.  The checkpoint/resume options
-and the low-precision predict scope are not ported yet and raise.
+``"probability_based"``, ``"++"``; KMedians' and KMedoids' ``"kmedians++"``
+and ``"kmedoids++"`` map to it) and an explicit array of centres, the
+nearest-centre assignment with the fit's inertia, ``predict``, and the
+per-cluster member statistics KMedians and KMedoids share
+(:func:`_members`).  The checkpoint/resume options are not ported yet and
+raise, as does KMeans' low-precision predict scope.
 """
 
 from __future__ import annotations
@@ -14,8 +17,9 @@ import torch
 
 from ..core import random as ht_random
 from ..core import arithmetics, statistics, types
-from ..core.base import BaseEstimator, ClusteringMixin, lazy_scalar_property, low_precision_predict_requested
+from ..core.base import BaseEstimator, ClusteringMixin, lazy_scalar_property
 from ..core.dndarray import DNDarray
+from ..spatial import distance
 
 __all__ = ["_KCluster"]
 
@@ -92,18 +96,46 @@ class _KCluster(BaseEstimator, ClusteringMixin):
             raise ValueError(f'init needs to be one of "random", ht.DNDarray or "kmeans++", but was {self.init}')
         self._cluster_centers = DNDarray.from_dense(centers, None, x.device, x.comm)
 
-    def _assign_to_cluster(self, x: DNDarray) -> DNDarray:
-        """Label each sample with its nearest centre."""
+    def _assign_to_cluster(self, x: DNDarray, eval_functional_value: bool = False) -> DNDarray:
+        """Label each sample with its nearest centre (the first on ties);
+        with ``eval_functional_value`` also keep the inertia, the sum of
+        the squared distances to it in the estimator's metric, as a lazy
+        0-d value."""
         distances = self._metric(x, self._cluster_centers)
+        if eval_functional_value:
+            self._inertia = arithmetics.sum(statistics.min(distances, axis=1) ** 2).larray
         return statistics.argmin(distances, axis=1)
 
     def predict(self, x: DNDarray) -> DNDarray:
         """Nearest learned centre for each sample, in native float32."""
         if not isinstance(x, DNDarray):
             raise ValueError(f"input needs to be a DNDarray, but was {type(x)}")
-        if low_precision_predict_requested():
-            raise NotImplementedError("low-precision predict (HEAT_TPU_PREDICT_DTYPE) is not ported yet")
         return self._assign_to_cluster(x)
+
+
+def _fit_input(x: DNDarray) -> DNDarray:
+    """The checks of a fit's input; integer points become float32.  Points
+    split along columns raise, as the reference's distances do."""
+    if not isinstance(x, DNDarray):
+        raise ValueError(f"input needs to be a DNDarray, but was {type(x)}")
+    if x.ndim != 2:
+        raise ValueError(f"input needs to be 2D, but was {x.ndim}D")
+    if x.split not in (None, 0):
+        raise NotImplementedError(f"Splittings other than 0 or None currently not supported, got {x.split}")
+    return x if types.heat_type_is_inexact(x.dtype) else x.astype(types.float32)
+
+
+def _members(x: DNDarray, centers: torch.Tensor):
+    """One assignment on this rank's true rows of x: ``(members, counts,
+    reduce)``.  ``members`` is the (k, rows) truth of which centre is each
+    row's nearest in city-block distance (the first on ties); ``counts`` the
+    global member count of each centre; ``reduce`` sums a tensor over the
+    ranks where x is split over several, else returns it."""
+    local = x.larray
+    reduce = x.comm.psum if x.is_distributed() else (lambda t: t)
+    labels = distance._pairwise("manhattan", local, centers).argmin(1)
+    members = labels[None, :] == torch.arange(centers.shape[0], device=local.device)[:, None]
+    return members, reduce(members.sum(1)), reduce
 
 
 def _global_rows(x: DNDarray, idx: torch.Tensor) -> torch.Tensor:

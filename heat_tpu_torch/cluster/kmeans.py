@@ -12,6 +12,7 @@ from __future__ import annotations
 from typing import Optional, Union
 
 from ..core import kernels, types
+from ..core.base import low_precision_predict_requested
 from ..core.dndarray import DNDarray
 from ..spatial import distance
 from ._kcluster import _KCluster
@@ -72,3 +73,11 @@ class KMeans(_KCluster):
         self._inertia = inertia
         self._labels = x._like(labels, (x.shape[0],), x.split)
         return self
+
+    def predict(self, x: DNDarray) -> DNDarray:
+        """Nearest learned centre for each sample, in native float32.  The
+        low-precision predict scope (``HEAT_TPU_PREDICT_DTYPE``), which the
+        reference gives KMeans alone, is not ported yet and raises."""
+        if isinstance(x, DNDarray) and low_precision_predict_requested():
+            raise NotImplementedError("low-precision predict (HEAT_TPU_PREDICT_DTYPE) is not ported yet")
+        return super().predict(x)

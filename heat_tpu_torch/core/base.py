@@ -8,6 +8,7 @@ from typing import Dict, List, Optional
 
 __all__ = [
     "BaseEstimator",
+    "ClassificationMixin",
     "ClusteringMixin",
     "TransformMixin",
     "lazy_scalar_property",
@@ -95,6 +96,20 @@ class ClusteringMixin:
     def fit_predict(self, x):
         self.fit(x)
         return self.predict(x)
+
+
+class ClassificationMixin:
+    """fit / predict protocol of classifiers."""
+
+    def fit(self, x, y):
+        raise NotImplementedError()
+
+    def fit_predict(self, x, y):
+        self.fit(x, y)
+        return self.predict(x)
+
+    def predict(self, x):
+        raise NotImplementedError()
 
 
 class TransformMixin:

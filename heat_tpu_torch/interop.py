@@ -3,8 +3,8 @@
 :func:`from_reference_state` takes the document that heat_tpu's
 ``serving.model_io.export_state`` writes, ``{"kind", "params", "state"}``,
 with its array leaves already turned into numpy arrays, and returns the
-port's fitted estimator, ready to ``predict`` (KMeans) or ``transform``
-(PCA).  :func:`from_reference_array` takes a result of heat_tpu (for example
+port's fitted estimator, ready to ``predict`` (KMeans, KMedians, KMedoids,
+KNeighborsClassifier) or ``transform`` (PCA).  :func:`from_reference_array` takes a result of heat_tpu (for example
 a spectrum, which heat_tpu may hold as two real planes) as numpy and returns
 the port's DNDarray of it, complex where it is complex.
 :func:`params_from_reference` takes a flax parameter tree of the JAX
@@ -19,7 +19,8 @@ from typing import Any, Dict
 import numpy as np
 import torch
 
-from .cluster import KMeans
+from .classification import KNeighborsClassifier
+from .cluster import KMeans, KMedians, KMedoids
 from .core import factories
 from .decomposition import PCA
 
@@ -41,8 +42,13 @@ def from_reference_array(value, split=None, device=None, comm=None):
     return factories.array(np.asarray(value), split=split, device=device, comm=comm)
 
 
-def _kmeans_state(est: KMeans, state: Dict[str, Any], device, comm) -> None:
+def _kcluster_state(est, state: Dict[str, Any], device, comm) -> None:
     est._cluster_centers = factories.array(np.asarray(state["cluster_centers"]), device=device, comm=comm)
+
+
+def _knn_state(est: KNeighborsClassifier, state: Dict[str, Any], device, comm) -> None:
+    est.x = factories.array(np.asarray(state["x"]), device=device, comm=comm)
+    est.y = factories.array(np.asarray(state["y"]), device=device, comm=comm)
 
 
 _PCA_ARRAYS = {
@@ -61,11 +67,18 @@ def _pca_state(est: PCA, state: Dict[str, Any], device, comm) -> None:
     est.n_components_ = int(state["n_components"])
 
 
-_KINDS = {"KMeans": (KMeans, _kmeans_state), "PCA": (PCA, _pca_state)}
+_KINDS = {
+    "KMeans": (KMeans, _kcluster_state),
+    "KMedians": (KMedians, _kcluster_state),
+    "KMedoids": (KMedoids, _kcluster_state),
+    "KNeighborsClassifier": (KNeighborsClassifier, _knn_state),
+    "PCA": (PCA, _pca_state),
+}
 
 
 def from_reference_state(doc: Dict[str, Any], device=None, comm=None):
-    """A fitted port estimator from a heat_tpu model document (KMeans or PCA)."""
+    """A fitted port estimator from a heat_tpu model document (KMeans,
+    KMedians, KMedoids, KNeighborsClassifier or PCA)."""
     try:
         kind, params, state = doc["kind"], doc["params"], doc["state"]
     except (TypeError, KeyError):

@@ -1011,3 +1011,141 @@ def test_ragged_layer_in_a_gloo_world_of_three(ops_world):
         assert bool(got["balanced_again"])
         gathered = dict(zip(got["gathered_names"].tolist(), got["gathered_counts"].tolist()))
         assert gathered["partitioned"] == 0 and gathered["op_rows"] == 0
+
+
+_DISTANCES_MAIN = _RANK_HEAD + r"""
+saved = {}
+gathered = {}
+phase = [None]
+
+
+def save(name, a):
+    saved[name + "/local"] = a.larray.numpy()
+    saved[name + "/split"] = np.asarray(-1 if a.split is None else a.split)
+    saved[name + "/lmap"] = a.lshape_map
+    saved[name + "/cd"] = np.asarray(a.counts_displs() if a.split is not None else ((), ()))
+
+
+for fname in ("all_gather", "all_gather_varying"):
+    fn = getattr(ht.Communication, fname)
+
+    def recording(self, x, *args, _fn=fn, **kw):
+        if phase[0] is not None:
+            gathered[phase[0]] = gathered.get(phase[0], 0) + int(x.numel())
+        return _fn(self, x, *args, **kw)
+
+    setattr(ht.Communication, fname, recording)
+
+
+def run(name, fn):
+    phase[0] = name
+    gathered.setdefault(name, 0)
+    try:
+        return fn()
+    finally:
+        phase[0] = None
+
+
+X, Y = ht.array(arrays["x"], split=0), ht.array(arrays["y"], split=0)
+Xi = ht.array(arrays["xi"], split=0)
+save("cdist", run("cdist", lambda: ht.spatial.cdist(X, Y)))
+save("cdist_expanded", run("cdist_expanded", lambda: ht.spatial.cdist(X, Y, quadratic_expansion=True)))
+save("cdist_self", run("cdist_self", lambda: ht.spatial.cdist(X)))
+save("cdist_int", run("cdist_int", lambda: ht.spatial.cdist(Xi, ht.array(arrays["yi"], split=0))))
+save("manhattan", run("manhattan", lambda: ht.spatial.manhattan(X, Y)))
+save("manhattan_self", run("manhattan_self", lambda: ht.spatial.manhattan(X)))
+save("rbf", run("rbf", lambda: ht.spatial.rbf(X, Y, sigma=1.5)))
+save("rbf_self", run("rbf_self", lambda: ht.spatial.rbf(X, sigma=1.5)))
+v, i = run("topk", lambda: ht.spatial.cdist_topk(X, Y, 4))
+save("topk_vals", v)
+save("topk_idx", i)
+T = ht.array(arrays["train"], split=0)
+knn = ht.classification.KNeighborsClassifier(n_neighbors=5).fit(T, ht.array(arrays["train_labels"], split=0))
+save("knn", run("knn", lambda: knn.predict(ht.array(arrays["queries"], split=0))))
+P = ht.array(arrays["pts"], split=0)
+for name in ("KMedians", "KMedoids"):
+    init = "kmedians++" if name == "KMedians" else "kmedoids++"
+    est = run(name, lambda: getattr(ht.cluster, name)(n_clusters=3, init=init, random_state=1).fit(P))
+    saved[name + "/centers"] = est.cluster_centers_.larray.numpy()
+    saved[name + "/n_iter"] = np.asarray(est.n_iter_)
+    saved[name + "/inertia"] = np.asarray(est.inertia_)
+    save(name + "/labels", est.labels_)
+lap = ht.graph.Laplacian(lambda z: ht.spatial.rbf(z, sigma=1.0), definition="norm_sym")
+save("laplacian", run("laplacian", lambda: lap.construct(ht.array(arrays["pts"][:20], split=0))))
+saved["gathered_names"] = np.asarray(list(gathered))
+saved["gathered_counts"] = np.asarray([gathered[k] for k in gathered])
+np.savez(out, **saved)
+dist.destroy_process_group()
+"""
+
+
+@pytest.fixture(scope="module")
+def distances_world(tmp_path_factory):
+    """Uneven rows (37 of X, 29 of Y: rank 2 holds padding of both), Y
+    rows repeated in another rank's block (the ring's tie order), KNN
+    blobs, and the 3 blobs of tests/test_ml.py cut to 119 rows."""
+    rng = np.random.default_rng(31)
+    x = rng.standard_normal((37, 5)).astype(np.float32)
+    y = rng.standard_normal((29, 5)).astype(np.float32)
+    y[[12, 25]] = y[3]  # the same row in each rank's block
+    train = _blobs(301, 6, 4, 32)
+    labels = np.argmin(((train[:, None, :] - train[None, :4, :]) ** 2).sum(-1), 1)  # any labelling
+    c = np.array([[0.0, 0.0], [6.0, 6.0], [0.0, 7.0]], dtype=np.float32)
+    pts_rng = np.random.default_rng(0)
+    pts = np.concatenate([pts_rng.normal(c[i], 0.4, size=(40, 2)) for i in range(3)]).astype(np.float32)
+    pts = pts[pts_rng.permutation(len(pts))][:119]
+    arrays = dict(x=x, y=y, xi=rng.integers(-9, 10, (37, 5)).astype(np.int32),
+                  yi=rng.integers(-9, 10, (29, 5)).astype(np.int32), train=train, train_labels=labels.astype(np.int64),
+                  queries=_blobs(53, 6, 4, 33), pts=pts)
+    ranks = _run_world(tmp_path_factory.mktemp("distances"), _DISTANCES_MAIN, **arrays)
+    return arrays, hj.Communication(jax.devices()[:WORLD]), ranks
+
+
+def test_distances_and_their_estimators_in_a_gloo_world_of_three(distances_world):
+    """The ring's cdist (both forms, Y split 0 and Y None, int32 input),
+    manhattan and rbf, the ring-fused cdist_topk (indices equal, ties in
+    the ring's visit order), KNN predict and the KMedians and KMedoids fits
+    on 3 ranks: each rank's chunk is its chunk of the reference's on 3
+    devices, and none gathers a row of X, Y, the labels or the points; the
+    Laplacian gathers only its degree vector."""
+    arrays, comm, ranks = distances_world
+    X, Y = hj.array(arrays["x"], split=0, comm=comm), hj.array(arrays["y"], split=0, comm=comm)
+    want = {
+        "cdist": hj.spatial.cdist(X, Y),
+        "cdist_expanded": hj.spatial.cdist(X, Y, quadratic_expansion=True),
+        "cdist_self": hj.spatial.cdist(X),
+        "cdist_int": hj.spatial.cdist(hj.array(arrays["xi"], split=0, comm=comm),
+                                      hj.array(arrays["yi"], split=0, comm=comm)),
+        "manhattan": hj.spatial.manhattan(X, Y),
+        "manhattan_self": hj.spatial.manhattan(X),
+        "rbf": hj.spatial.rbf(X, Y, sigma=1.5),
+        "rbf_self": hj.spatial.rbf(X, sigma=1.5),
+    }
+    vals, idx = hj.spatial.cdist_topk(X, Y, 4)
+    knn = hj.classification.KNeighborsClassifier(n_neighbors=5).fit(
+        hj.array(arrays["train"], split=0, comm=comm), hj.array(arrays["train_labels"], split=0, comm=comm))
+    predicted = knn.predict(hj.array(arrays["queries"], split=0, comm=comm))
+    P = hj.array(arrays["pts"], split=0, comm=comm)
+    fits = {"KMedians": hj.cluster.KMedians(n_clusters=3, init="kmedians++", random_state=1).fit(P),
+            "KMedoids": hj.cluster.KMedoids(n_clusters=3, init="kmedoids++", random_state=1).fit(P)}
+    lap = hj.graph.Laplacian(lambda z: hj.spatial.rbf(z, sigma=1.0), definition="norm_sym").construct(
+        hj.array(arrays["pts"][:20], split=0, comm=comm))
+    assert len(np.unique(idx.numpy()[:, 0])) < idx.shape[0]  # some rows tie between ranks' blocks
+    for r, got in enumerate(ranks):
+        gathered = dict(zip(got["gathered_names"].tolist(), got["gathered_counts"].tolist()))
+        for name, w in want.items():
+            rtol, atol = (1e-5, 1e-9) if name in ("cdist", "cdist_self") else (1e-4, 1e-4)
+            _close_layout(got, r, name, w, comm, rtol=rtol, atol=atol)
+        _close_layout(got, r, "topk_vals", vals, comm, rtol=1e-4, atol=1e-4)
+        _same_layout(got, r, "topk_idx", idx, comm)
+        _same_layout(got, r, "knn", predicted, comm)
+        for name, fit in fits.items():
+            assert int(got[name + "/n_iter"]) == fit.n_iter_
+            np.testing.assert_array_equal(got[name + "/centers"], fit.cluster_centers_.numpy())
+            np.testing.assert_allclose(float(got[name + "/inertia"]), fit.inertia_, rtol=1e-5)
+            _same_layout(got, r, name + "/labels", fit.labels_, comm)
+        # the rbf under it rounds its cross term otherwise than XLA's dot (up
+        # to 1.2e-6 apart here): held to the reference test's 1e-5
+        _close_layout(got, r, "laplacian", lap, comm, rtol=0, atol=1e-5)
+        assert gathered.pop("laplacian") == 7  # this rank's degrees (20 rows padded to 21)
+        assert all(count == 0 for count in gathered.values()), gathered

@@ -1271,3 +1271,81 @@ def test_integer_matmul_beyond_one_temporary_on_the_card(card):
     big = torch.randint(1 << 16, 1 << 20, (4, 3072), device=card, generator=g, dtype=torch.int32)
     wrapped = ht.matmul(ht.array(big), ht.array(big.T.contiguous())).larray
     assert torch.equal(wrapped.cpu(), (big.cpu().long() @ big.T.cpu().long()).to(torch.int32))
+
+
+def _distance_points(seed):
+    rng = np.random.default_rng(seed)
+    centres = rng.standard_normal((4, 6)) * 5.0
+    lab = rng.integers(0, 4, 1003)
+    x = (centres[lab] + rng.standard_normal((1003, 6))).astype(np.float32)
+    q = (centres[rng.integers(0, 4, 301)] + 1.5 * rng.standard_normal((301, 6))).astype(np.float32)
+    return x, lab, q
+
+
+def test_distances_on_the_card_match_cpu(card, monkeypatch):
+    """cdist (both forms, Y and no Y), manhattan and rbf on the card against
+    the CPU's: the broadcast forms within 1e-5, the expanded ones within the
+    CPU tests' 1e-4 (two float32 evaluations of |x|^2 + |y|^2 - 2 x.y differ
+    by up to 2e-5 of 1 + d on these points); blocks as small as the budget
+    allows change nothing."""
+    x, _, q = _distance_points(0)
+    for split in (None, 0):
+        X, Xh = ht.array(q, split=split), ht.array(q, split=split, device="cpu")
+        Y, Yh = ht.array(x), ht.array(x, device="cpu")
+        for name, call, tol in (("direct", lambda a, b: ht.spatial.cdist(a, b), 1e-5),
+                                ("expanded", lambda a, b: ht.spatial.cdist(a, b, quadratic_expansion=True), 1e-4),
+                                ("manhattan", lambda a, b: ht.spatial.manhattan(a, b), 1e-5),
+                                ("rbf", lambda a, b: ht.spatial.rbf(a, b, sigma=3.0), 1e-4)):
+            got, want = call(X, Y), call(Xh, Yh)
+            assert got.larray.is_cuda and got.split == want.split
+            np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=tol, atol=tol, err_msg=name)
+        mine = ht.spatial.cdist(X).numpy()
+        np.testing.assert_allclose(mine, ht.spatial.cdist(Xh).numpy(), rtol=1e-5, atol=1e-5)
+    monkeypatch.setattr(ht.spatial.distance, "_BLOCK_ELEMENTS", 6 * 64)
+    small = ht.spatial.manhattan(ht.array(q, split=0), ht.array(x)).numpy()
+    np.testing.assert_allclose(small, ht.spatial.manhattan(ht.array(q, split=0, device="cpu"),
+                                                           ht.array(x, device="cpu")).numpy(), rtol=1e-5, atol=1e-5)
+
+
+def test_topk_and_knn_on_the_card_match_cpu(card):
+    """cdist_topk's indices on the card equal the CPU's but at near-ties of
+    the distances (within 1e-5), its values within 1e-5; KNN votes equal
+    (the blobs keep every query's k-th neighbour clear of the next)."""
+    x, lab, q = _distance_points(1)
+    y = x.copy()
+    y[[10, 500, 900]] = y[3]  # exact ties: the lower row on both
+    vals, idx = ht.spatial.cdist_topk(ht.array(q, split=0), ht.array(y), 7)
+    hv, hi = ht.spatial.cdist_topk(ht.array(q, split=0, device="cpu"), ht.array(y, device="cpu"), 7)
+    np.testing.assert_allclose(vals.numpy(), hv.numpy(), rtol=1e-5, atol=1e-5)
+    got, want = idx.numpy(), hi.numpy()
+    d = np.sqrt(((q[:, None, :].astype(np.float64) - y[None].astype(np.float64)) ** 2).sum(-1))
+    for r, c in zip(*np.nonzero(got != want)):
+        assert abs(d[r, got[r, c]] - d[r, want[r, c]]) <= 1e-5 * (1 + d[r, want[r, c]])
+    knn = ht.classification.KNeighborsClassifier(5).fit(ht.array(x, split=0), ht.array(lab, split=0))
+    knn_h = ht.classification.KNeighborsClassifier(5).fit(ht.array(x, split=0, device="cpu"),
+                                                          ht.array(lab, split=0, device="cpu"))
+    assert torch.equal(knn.predict(ht.array(q, split=0)).larray.cpu(), knn_h.predict(ht.array(q, split=0, device="cpu")).larray)
+
+
+@pytest.mark.parametrize("name", ["KMedians", "KMedoids"])
+def test_kmedians_and_kmedoids_on_the_card_match_cpu(card, name):
+    x, _, _ = _distance_points(2)
+    init = "kmedians++" if name == "KMedians" else "kmedoids++"
+    got = getattr(ht.cluster, name)(n_clusters=4, init=init, random_state=3).fit(ht.array(x, split=0))
+    want = getattr(ht.cluster, name)(n_clusters=4, init=init, random_state=3).fit(ht.array(x, split=0, device="cpu"))
+    assert got.n_iter_ == want.n_iter_
+    assert torch.equal(got.labels_.larray.cpu(), want.labels_.larray)
+    assert torch.equal(got.cluster_centers_.larray.cpu(), want.cluster_centers_.larray)
+    assert got.inertia_ == pytest.approx(want.inertia_, rel=1e-5)
+
+
+def test_laplacian_and_spherical_data_on_the_card_match_cpu(card):
+    """The spherical points bitwise the CPU's; the Laplacians within rtol
+    1e-4 (their rbf's expanded form rounds on the card otherwise, about
+    5e-6 of a degree sum)."""
+    pts = ht.utils.data.spherical.create_spherical_dataset(100, random_state=5)
+    host = ht.utils.data.spherical.create_spherical_dataset(100, random_state=5, device="cpu")
+    assert pts.larray.is_cuda and torch.equal(pts.larray.cpu(), host.larray)
+    for definition in ("simple", "norm_sym"):
+        lap = ht.graph.Laplacian(lambda z: ht.spatial.rbf(z, sigma=1.0), definition=definition)
+        np.testing.assert_allclose(lap.construct(pts).numpy(), lap.construct(host).numpy(), rtol=1e-4, atol=1e-6)
