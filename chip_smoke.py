@@ -214,6 +214,31 @@ kernel of the port: plain torch, cuBLAS for the cross terms):
     points (diagonal 1, symmetric within 1e-5); the phase's peak memory
     under 60 GB.
 
+The distances data is then freed, and the linalg path follows (no kernel
+of the port: the JAX package runs its linalg in plain XLA, the port in
+cuSOLVER and cuBLAS through torch.linalg, IEEE float32 throughout):
+
+24. linalg: qr, svd and PCA(n_components=10, svd_solver="full").fit of a
+    2^22 x 128 float32 matrix (2 GiB); cholesky, det, slogdet, solve, inv
+    and lanczos (m = 64) of an SPD 16384^2 float32 matrix (1 GiB,
+    eigenvalues within 1 +- 0.1); cg on a backward-Euler step of the 1-D
+    heat equation, (I + 3e4 L) x = b over 4096 points (condition number
+    1.2e5: the reference's stop test holds for most of len(b) float32
+    steps); each through the entry point a user calls, with its first and warm wall time beside its bound (bytes at the
+    HBM rate or float32 operations on the CUDA cores), held within the
+    reference tests' float32 bound of 1e-4 (tests/test_linalg.py:46, :113)
+    on the card by a float64 residual (||QR - A|| / ||A||, the SVD's,
+    ||L L^T - S|| / ||S||, ||S inv - I|| / ||I|| and lanczos' three-term
+    recurrence in the Frobenius norm; Q^T Q, U^T U and V^T V against I;
+    S against float64; solve's relative residual; cg's within float32
+    CG's attainable sqrt(steps) u |A| |x| / |b|) and at a head size (4096
+    rows, the leading 512^2 block) against the port on the CPU; log|det|
+    (det and slogdet) within about three times what cuSOLVER's float32
+    getrf reads on an H100 (4e-3 at 16384, 1.2e-3 at the head; the CPU's
+    LAPACK within 1e-4), at the head also with its rows rolled by one
+    (every pivot a row swap, the sign -1); MAGMA's getrf on the same
+    matrices is timed and read beside it (a library reading only).
+
 The line before the last is the kernel summary, the last line
 ``{"ok": true, "device": {...}}``.
 """
@@ -2534,6 +2559,322 @@ def distances_phase(dev, smi: str) -> int:
     return threefry
 
 
+# the linalg path (tutorial 5 at the sizes a user factors on one card): a
+# tall 2^22 x 128 float32 matrix (2 GiB, the hSVD width), an SPD 16384^2
+# float32 matrix (1 GiB), CG on a backward-Euler step of the 1-D heat
+# equation, (I + tau L) x = b with L = tridiag(-1, 2, -1), 4096 points
+LINALG_ROWS = 1 << 22
+LINALG_COLS = 128
+SPD_N = 16384
+LANCZOS_M = 64
+CG_N = 4096
+CG_TAU = 3e4  # condition number 1 + 4 tau: the float32 stop test holds after most of len(b) steps
+# log|det| of the near-identity SPD matrix by float32 LU, held within about
+# three times what cuSOLVER's getrf reads on an H100 (1.37e-3 at 16384,
+# 3.9e-4 at the head's 512; PERF.md, linalg); the CPU's LAPACK reads
+# 7.0e-6 at the head
+LU_LOG_BOUND = 4e-3
+LU_HEAD_LOG_BOUND = 1.2e-3
+LU_HEAD_LOG_BOUND_CPU = 1e-4
+LINALG_HEAD_ROWS = 4096  # rows of the tall matrix held against the CPU
+LINALG_HEAD_N = 512  # leading block of the SPD matrix held against the CPU
+
+
+def linalg_bound(nbytes: float, flops: float) -> dict:
+    """The least time of a float32 factorization: its inputs read and its
+    outputs written once at the HBM rate, or its float32 operations on the
+    CUDA cores (no TF32 enters these paths), whichever is larger."""
+    b = {"bytes": nbytes / HBM_BYTES_PER_S * 1e3, "operations": flops / F32_FLOPS * 1e3}
+    by = max(b, key=b.get)
+    return {"bound_ms": b[by], "bound_by": by}
+
+
+def _rel_max(x, y) -> float:
+    """max |x - y| over max |y|."""
+    return float((x - y).abs().max() / y.abs().max())
+
+
+def _rel_fro(x, y) -> float:
+    """||x - y|| over ||y||, Frobenius."""
+    import torch
+
+    return float(torch.linalg.vector_norm(x - y) / torch.linalg.vector_norm(y))
+
+
+def linalg_phase(dev, smi: str) -> int:
+    """Phase linalg: qr, svd and PCA(svd_solver="full").fit of a 2^22 x 128
+    float32 matrix; cholesky, det, slogdet, solve, inv and lanczos (m = 64)
+    of an SPD 16384^2 float32 matrix; cg on a 4096-point heat-equation
+    step; each through the entry point a user calls, its first and warm
+    wall time beside its bound, each result held on the card by a float64
+    residual and, at a head size, against the port on the CPU.  det and
+    slogdet are also held at the head with its rows rolled by one (an odd
+    permutation: every pivot needs a row swap and the sign is -1), and
+    beside MAGMA's getrf on the same matrix.  No kernel of the port runs
+    here (the JAX package's linalg has none); returns the threefry
+    launches of the timed lanczos calls (their start vectors)."""
+    import numpy as np
+    import torch
+
+    import heat_tpu_torch as ht
+    from heat_tpu_torch.core import kernels
+    from heat_tpu_torch.core import random as rnd
+
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    peaks: list = []
+    restart_peak(peaks)
+    zero_launches()
+    g = torch.Generator(device=dev).manual_seed(SEED + 16)
+    m, n, hm = LINALG_ROWS, LINALG_COLS, LINALG_HEAD_ROWS
+    a = torch.randn(m, n, device=dev, generator=g) * torch.linspace(10.0, 1.0, n, device=dev) + 0.5
+    A = ht.array(a, split=0)
+    a64 = a.double()
+    head, head_cpu = ht.array(a[:hm], split=0), ht.array(a[:hm].cpu(), split=0, device="cpu")
+    records = []
+
+    def record(rec, **checks):
+        records.append({**rec, **checks})
+        emit({"phase": "linalg", **rec, **checks})
+
+    # qr: Householder QR and Q formed, 4 m n^2 - 4 n^3 / 3 flops
+    (q, r), rec = timed_call(lambda: ht.linalg.qr(A), "qr", linalg_bound(8 * m * n + 4 * n * n,
+                                                                            4 * m * n * n - 4 * n ** 3 / 3),
+                             smi, peaks)
+    q64, r64 = q.larray.double(), r.larray.double()
+    qr_res, qr_max = _rel_fro(q64 @ r64, a64), _rel_max(q64 @ r64, a64)
+    orth = float((q64.T @ q64 - torch.eye(n, dtype=torch.float64, device=dev)).abs().max())
+    below = float(r.larray.tril(-1).abs().max())
+    hq, hr = ht.linalg.qr(head)
+    cq, cr = ht.linalg.qr(head_cpu)
+    sign = torch.sign(torch.diagonal(hr.larray).cpu()) * torch.sign(torch.diagonal(cr.larray))
+    head_err = max(_rel_max(hr.larray.cpu() * sign[:, None], cr.larray), _rel_max(hq.larray.cpu() * sign, cq.larray))
+    if qr_res > 1e-4 or orth > 1e-4 or below != 0.0 or head_err > 1e-4 or (q.split, r.split) != (0, None):
+        raise AssertionError(f"qr: |QR - A| {qr_res}, |Q^T Q - I| {orth}, below R's diagonal {below}, "
+                             f"head against the CPU {head_err}")
+    record(rec, qr_residual=qr_res, qr_max_abs_over_max=qr_max, q_orthonormality_err=orth, head_vs_cpu=head_err)
+    del q, r, q64, r64
+    torch.cuda.empty_cache()
+
+    # svd through the QR, then U = Q u_r (2 m n^2 more flops)
+    (u, s, v), rec = timed_call(lambda: ht.linalg.svd(A), "svd", linalg_bound(8 * m * n + 4 * n * (n + 1),
+                                                                                6 * m * n * n), smi, peaks)
+    u64, s64, v64 = u.larray.double(), s.larray.double(), v.larray.double()
+    svd_res = _rel_fro((u64 * s64) @ v64.T, a64)
+    orth = float((u64.T @ u64 - torch.eye(n, dtype=torch.float64, device=dev)).abs().max())
+    gram = a64.T @ a64
+    truth = torch.sqrt(torch.linalg.eigvalsh(gram).flip(0))
+    s_err = float(((s64 - truth) / truth).abs().max())
+    s_head = float(((ht.linalg.svd(head, compute_uv=False).larray.cpu() - ht.linalg.svd(head_cpu, compute_uv=False)
+                     .larray) / ht.linalg.svd(head_cpu, compute_uv=False).larray).abs().max())
+    if svd_res > 1e-4 or orth > 1e-4 or s_err > 1e-4 or s_head > 1e-4:
+        raise AssertionError(f"svd: |U S V^T - A| {svd_res}, |U^T U - I| {orth}, S against float64 {s_err}, "
+                             f"head against the CPU {s_head}")
+    record(rec, svd_residual=svd_res, u_orthonormality_err=orth, s_rel_err=s_err, head_vs_cpu=s_head)
+    del u, s, v, u64, s64, v64, gram
+    torch.cuda.empty_cache()
+
+    # PCA(svd_solver="full"): the mean, the centred copy, then the svd
+    (pca), rec = timed_call(lambda: ht.decomposition.PCA(n_components=10, svd_solver="full").fit(A), "pca_full",
+                            linalg_bound(16 * m * n, 6 * m * n * n), smi, peaks)
+    centred = a64 - a64.mean(0)
+    w, vecs = torch.linalg.eigh(centred.T @ centred / (m - 1))
+    w, vecs = w.flip(0)[:10], vecs.flip(1)[:, :10]
+    del centred
+    comps = pca.components_.larray.double()
+    ev_err = float(((pca.explained_variance_.larray.double() - w) / w).abs().max())
+    align = float((comps @ vecs).diagonal().abs().min())
+    c_orth = float((comps @ comps.T - torch.eye(10, dtype=torch.float64, device=dev)).abs().max())
+    # at the head the sample's eigenvalue gaps are as small as its rounding
+    # moves the components, so the head holds the spectrum
+    hp = ht.decomposition.PCA(n_components=10, svd_solver="full").fit(head).explained_variance_.larray.cpu()
+    cp = ht.decomposition.PCA(n_components=10, svd_solver="full").fit(head_cpu).explained_variance_.larray
+    pca_head = float(((hp - cp) / cp).abs().max())
+    if ev_err > 1e-4 or align < 1 - 1e-4 or c_orth > 1e-4 or pca_head > 1e-4:
+        raise AssertionError(f"pca_full: variance {ev_err}, alignment {align}, orthonormality {c_orth}, "
+                             f"head against the CPU {pca_head}")
+    record(rec, explained_variance_rel_err=ev_err, min_alignment=align, components_orthonormality_err=c_orth,
+           head_vs_cpu=pca_head)
+    del pca, comps, A, a, a64, head, head_cpu
+    torch.cuda.empty_cache()
+
+    # the SPD matrix: I + c (B + B^T) / 2, B uniform in (-1, 1), c = sqrt(240) / N:
+    # its eigenvalues within 1 +- 0.1, log det about -20 (finite in float32)
+    N, hn = SPD_N, LINALG_HEAD_N
+    spd = torch.rand(N, N, device=dev, generator=g) * 2 - 1
+    spd = (spd + spd.T) * (float(np.sqrt(240.0)) / N / 2)
+    spd.diagonal().add_(1.0)
+    S = ht.array(spd, split=0)
+    s64 = spd.double()
+    eye64 = torch.eye(N, dtype=torch.float64, device=dev)
+    sh, sh_cpu = ht.array(spd[:hn, :hn].contiguous(), split=0), ht.array(spd[:hn, :hn].cpu(), split=0, device="cpu")
+    sign64, logdet64 = torch.linalg.slogdet(s64)
+
+    L, rec = timed_call(lambda: ht.linalg.cholesky(S), "cholesky", linalg_bound(8 * N * N, N ** 3 / 3), smi, peaks)
+    l64 = L.larray.double()
+    chol_res = _rel_fro(l64 @ l64.T, s64)
+    chol_head = _rel_max(ht.linalg.cholesky(sh).larray.cpu(), ht.linalg.cholesky(sh_cpu).larray)
+    if chol_res > 1e-4 or chol_head > 1e-4 or float(L.larray.triu(1).abs().max()) != 0.0:
+        raise AssertionError(f"cholesky: |L L^T - S| {chol_res}, head against the CPU {chol_head}")
+    record(rec, cholesky_residual=chol_res, head_vs_cpu=chol_head)
+    del L, l64
+    torch.cuda.empty_cache()
+
+    lu_flops = 2 * N ** 3 / 3
+    # the head, and the head with its rows rolled by one: partial pivoting
+    # swaps a row at every column, and the n - 1 swaps make the sign -1
+    rolled = torch.roll(spd[:hn, :hn], 1, 0)
+    heads = {"head": (sh, sh_cpu), "rolled": (ht.array(rolled, split=0), ht.array(rolled.cpu(), split=0, device="cpu"))}
+    truth = {key: tuple(float(v) for v in torch.linalg.slogdet(pair[0].larray.double())) for key, pair in heads.items()}
+
+    def head_errs(sign_log):
+        """|log|det| - float64's| of the port on the card and on the CPU at
+        both heads (inf where the sign is not float64's)."""
+        errs = {}
+        for key, pair in heads.items():
+            sign64_h, log64_h = truth[key]
+            for where, mat in zip(("card", "cpu"), pair):
+                sgn, log = sign_log(mat)
+                errs[f"{key}_{where}"] = abs(log - log64_h) if sgn == sign64_h else float("inf")
+        return errs
+
+    def heads_hold(errs) -> bool:
+        return max(errs["head_card"], errs["rolled_card"]) <= LU_HEAD_LOG_BOUND and \
+            max(errs["head_cpu"], errs["rolled_cpu"]) <= LU_HEAD_LOG_BOUND_CPU
+
+    def det_sign_log(mat):
+        v = float(ht.linalg.det(mat))
+        return float(np.sign(v)), float(np.log(abs(v))) if v != 0 else -float("inf")
+
+    def slogdet_sign_log(mat):
+        sgn, log = ht.linalg.slogdet(mat)
+        return float(sgn), float(log)
+
+    d, rec = timed_call(lambda: ht.linalg.det(S), "det", linalg_bound(4 * N * N, lu_flops), smi, peaks)
+    det = float(d)
+    det_err = abs(np.log(abs(det)) - float(logdet64)) if det != 0 else float("inf")
+    det_heads = head_errs(det_sign_log)
+    if not np.isfinite(det) or np.sign(det) != float(sign64) or det_err > LU_LOG_BOUND or not heads_hold(det_heads):
+        raise AssertionError(f"det {det} against float64 log|det| {float(logdet64)} (sign {float(sign64)}), "
+                             f"heads: {det_heads} from float64")
+    record(rec, det=det, logdet_float64=float(logdet64), log_abs_err=det_err, log_bound=LU_LOG_BOUND,
+           **{f"{k}_log_abs_err": v for k, v in det_heads.items()}, head_log_bound=LU_HEAD_LOG_BOUND,
+           head_log_bound_cpu=LU_HEAD_LOG_BOUND_CPU, rolled_sign_float64=truth["rolled"][0])
+
+    (sl_sign, sl_log), rec = timed_call(lambda: ht.linalg.slogdet(S), "slogdet", linalg_bound(4 * N * N, lu_flops),
+                                        smi, peaks)
+    sl_err = abs(float(sl_log) - float(logdet64))
+    sl_heads = head_errs(slogdet_sign_log)
+    if float(sl_sign) != float(sign64) or sl_err > LU_LOG_BOUND or not heads_hold(sl_heads):
+        raise AssertionError(f"slogdet: {float(sl_log)} against {float(logdet64)}, heads: {sl_heads} from float64")
+    record(rec, logabsdet=float(sl_log), abs_err=sl_err, **{f"{k}_abs_err": v for k, v in sl_heads.items()})
+
+    # MAGMA's getrf on the same matrices, beside cuSOLVER's (the port's
+    # route through torch.linalg): a library reading, used nowhere in the port
+    before = torch.backends.cuda.preferred_linalg_library()
+    torch.backends.cuda.preferred_linalg_library("magma")
+    try:
+        (mg_sign, mg_log), rec = timed_call(lambda: torch.linalg.slogdet(spd), "slogdet_magma",
+                                            linalg_bound(4 * N * N, lu_flops), smi, peaks)
+        mg_heads = {key: abs(float(torch.linalg.slogdet(pair[0].larray)[1]) - truth[key][1])
+                    for key, pair in heads.items()}
+        mg_signs = {key: float(torch.linalg.slogdet(pair[0].larray)[0]) == truth[key][0] for key, pair in heads.items()}
+    finally:
+        torch.backends.cuda.preferred_linalg_library(before)
+    emit({"phase": "linalg", **rec, "library": "torch.linalg.slogdet under preferred_linalg_library('magma')",
+          "abs_err": abs(float(mg_log) - float(logdet64)), "sign_right": float(mg_sign) == float(sign64),
+          **{f"{k}_abs_err": v for k, v in mg_heads.items()}, "head_signs_right": mg_signs})
+
+    b = torch.randn(N, device=dev, generator=g)
+    B = ht.array(b, split=0)
+    x, rec = timed_call(lambda: ht.linalg.solve(S, B), "solve", linalg_bound(4 * N * N + 8 * N, lu_flops + 2 * N * N),
+                        smi, peaks)
+    b64 = b.double()
+    solve_res = float(torch.linalg.vector_norm(s64 @ x.larray.double() - b64) / torch.linalg.vector_norm(b64))
+    bh = ht.array(b[:hn], split=0)
+    solve_head = _rel_max(ht.linalg.solve(sh, bh).larray.cpu(), ht.linalg.solve(sh_cpu, ht.array(b[:hn].cpu(),
+                                                                                               device="cpu")).larray)
+    if solve_res > 1e-4 or solve_head > 1e-4:
+        raise AssertionError(f"solve: |S x - b| / |b| {solve_res}, head against the CPU {solve_head}")
+    record(rec, solve_residual=solve_res, head_vs_cpu=solve_head)
+    del x
+
+    inv, rec = timed_call(lambda: ht.linalg.inv(S), "inv", linalg_bound(8 * N * N, 2 * N ** 3), smi, peaks)
+    inv_res = _rel_fro(s64 @ inv.larray.double(), eye64)
+    inv_head = _rel_max(ht.linalg.inv(sh).larray.cpu(), ht.linalg.inv(sh_cpu).larray)
+    if inv_res > 1e-4 or inv_head > 1e-4:
+        raise AssertionError(f"inv: |S inv - I| {inv_res}, head against the CPU {inv_head}")
+    record(rec, inv_residual=inv_res, head_vs_cpu=inv_head)
+    del inv
+    torch.cuda.empty_cache()
+
+    # lanczos: m matrix-vector products and the reorthogonalisations
+    def lanczos():
+        ht.random.seed(SEED)
+        return ht.linalg.lanczos(S, LANCZOS_M)
+
+    threefry_before = rnd.THREEFRY_LAUNCHES
+    (V, T), rec = timed_call(lanczos, "lanczos", linalg_bound(LANCZOS_M * 4 * N * N, LANCZOS_M * 2 * N * N), smi,
+                             peaks)
+    lanczos_draws = rnd.THREEFRY_LAUNCHES - threefry_before
+    v64, t64 = V.larray.double(), T.larray.double()
+    k = LANCZOS_M - 1
+    rel_res = _rel_fro(s64 @ v64[:, :k], v64 @ t64[:, :k])  # A V_k = V T[:, :k], the three-term recurrence
+    v_orth = float((v64.T @ v64 - torch.eye(LANCZOS_M, dtype=torch.float64, device=dev)).abs().max())
+    ht.random.seed(SEED)
+    t_card = ht.linalg.lanczos(sh, 32)[1].larray.cpu()
+    ht.random.seed(SEED)
+    t_head = float((t_card - ht.linalg.lanczos(sh_cpu, 32)[1].larray).abs().max())
+    if rel_res > 1e-4 or v_orth > 1e-4 or t_head > 1e-4 or lanczos_draws != 2:
+        raise AssertionError(f"lanczos: |S V - V T| {rel_res}, |V^T V - I| {v_orth}, head T against the CPU "
+                             f"{t_head}, threefry launches {lanczos_draws} (one a call)")
+    record(rec, recurrence_residual=rel_res, v_orthonormality_err=v_orth, head_t_vs_cpu=t_head,
+           threefry_launches=lanczos_draws)
+    del V, T, v64, t64
+
+    # cg on (I + tau L) x = b: the reference's stop test (sqrt(rs) >= 1e-10)
+    # holds for most of len(b) float32 steps, so the timed call runs the
+    # loop that reads the test only every 16 steps; the up to 15 steps after
+    # the test fails run frozen and are not in the bound
+    from heat_tpu_torch.core.linalg import solver
+
+    nc, tau = CG_N, CG_TAU
+    lap = torch.eye(nc, device=dev) * (1 + 2 * tau)
+    lap.diagonal(1).fill_(-tau)
+    lap.diagonal(-1).fill_(-tau)
+    c4, b4 = ht.array(lap, split=0), ht.array(b[:nc], split=0)
+    ht.linalg.cg(c4, b4, ht.zeros(nc, split=0))
+    steps = solver.CG_STEPS  # the steps this data needs: one read of the matrix each
+    x4, rec = timed_call(lambda: ht.linalg.cg(c4, b4, ht.zeros(nc, split=0)), "cg",
+                         linalg_bound(steps * 4 * nc * nc, steps * 2 * nc * nc), smi, peaks)
+    x64, b64c = x4.larray.double(), b64[:nc]
+    cg_res = float(torch.linalg.vector_norm(lap.double() @ x64 - b64c) / torch.linalg.vector_norm(b64c))
+    # float32 CG's attainable residual: sqrt(steps) u |A| |x| / |b| (the
+    # roundings of each step add up as a random walk; an H100 reads about
+    # a sixth of it, PERF.md), |A| = 1 + 2 tau (1 + cos(pi / (n + 1)))
+    a_norm = 1 + 2 * tau * (1 + np.cos(np.pi / (nc + 1)))
+    cg_bound = steps ** 0.5 * 2.0 ** -24 * a_norm * float(torch.linalg.vector_norm(x64) / torch.linalg.vector_norm(b64c))
+    cg_head = _rel_max(ht.linalg.cg(sh, bh, ht.zeros(hn, split=0)).larray.cpu(),
+                       ht.linalg.cg(sh_cpu, ht.array(b[:hn].cpu(), split=0, device="cpu"),
+                                    ht.zeros(hn, split=0, device="cpu")).larray)
+    if cg_res > cg_bound or steps < nc // 2 or cg_head > 1e-4:
+        raise AssertionError(f"cg: |A x - b| / |b| {cg_res} (bound {cg_bound}) in {steps} steps of at most {nc}, "
+                             f"head against the CPU {cg_head}")
+    record(rec, cg_residual=cg_res, cg_residual_bound=cg_bound, head_vs_cpu=cg_head, steps=steps, max_steps=nc,
+           condition_number=1 + 4 * tau)
+    del S, spd, s64, eye64, lap, c4, b4, x4, x64
+    torch.cuda.empty_cache()
+
+    others = kernels.LLOYD_LAUNCHES + kernels.GRAM_LAUNCHES + sum(fft_launches().values())
+    restart_peak(peaks)
+    if others:
+        raise AssertionError(f"linalg: {others} launches of K1-K6, where the path runs no kernel")
+    emit({"phase": "linalg", "calls": len(records), "threefry_launches": lanczos_draws,
+          "threefry_launches_of_checks": rnd.THREEFRY_LAUNCHES - lanczos_draws, "phase_peak_gb": max(peaks) / 1e9,
+          "phase_seconds": time.perf_counter() - t_phase, "card": smi})
+    return lanczos_draws
+
+
 def tensor_core_report(build) -> dict:
     """ptxas's report (registers, spills) of the six tensor-core kernels,
     and their count of tensor-core instructions in the built SASS -- HMMA
@@ -2999,6 +3340,9 @@ def main() -> int:
 
     # 23. the distances path and the estimators on it (threefry draws the data and the ++ inits)
     threefry["launches"] += distances_phase(dev, smi)
+
+    # 24. the linalg path (no kernel; threefry draws lanczos' start vectors)
+    threefry["launches"] += linalg_phase(dev, smi)
 
     threefry["launches"] += rsvd_threefry + rpca_threefry  # the KMeans inits', rsvd's and the randomized PCA's
     emit({"kernels": [lloyd, lloyd64, threefry, gram, *fft_entries, flash, *flash_bwd]})

@@ -7,8 +7,10 @@ the caller asks for the CPU (``device="cpu"`` or ``use_device("cpu")``).
 This package imports nothing of JAX or of heat_tpu.
 """
 
+from .version import __version__
+
 from . import parallel
-from .parallel import Communication, WORLD, get_comm, sanitize_comm, use_comm
+from .parallel import Communication, SELF, WORLD, get_comm, sanitize_comm, use_comm
 
 from . import core
 from .core import *

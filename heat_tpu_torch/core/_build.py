@@ -2,7 +2,11 @@
 
 Each ``heat_tpu_torch/csrc/<name>.cu`` is compiled by ``nvcc`` for ``sm_90a``
 into a shared library with a plain C interface, at first use, into
-``build/heat_tpu_torch/`` at the root of the checkout.  The library's file
+:data:`BUILD_DIR`: ``build/heat_tpu_torch/`` at the root of the checkout
+when the package sits in one, a per-user cache when it is installed
+(``$XDG_CACHE_HOME/heat_tpu_torch``, by default ``~/.cache/heat_tpu_torch``),
+and the directory ``$HEAT_TPU_TORCH_BUILD_DIR`` names in either case.  The
+library's file
 name carries a hash of the source, of every ``csrc/*.cu`` it includes (as
 ``csrc/lloyd_phases.cu`` includes ``lloyd.cu``), of every header
 ``csrc/*.cuh`` and of the flags, so an edited source or header builds anew
@@ -23,7 +27,22 @@ from typing import Dict, Iterable
 __all__ = ["CSRC", "BUILD_DIR", "NVCC_FLAGS", "build_all", "load"]
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
-BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "heat_tpu_torch"
+
+
+def _build_dir(environ=os.environ, root: Path = Path(__file__).resolve().parents[2]) -> Path:
+    """Where the libraries are built: the override variable's directory; in
+    a checkout (``root`` holds ``pyproject.toml`` beside the package) its
+    ``build/heat_tpu_torch``; else the per-user cache."""
+    override = environ.get("HEAT_TPU_TORCH_BUILD_DIR")
+    if override:
+        return Path(override)
+    if (root / "pyproject.toml").is_file() and (root / "heat_tpu_torch").is_dir():
+        return root / "build" / "heat_tpu_torch"
+    cache = environ.get("XDG_CACHE_HOME") or os.path.join(os.path.expanduser("~"), ".cache")
+    return Path(cache) / "heat_tpu_torch"
+
+
+BUILD_DIR = _build_dir()
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",

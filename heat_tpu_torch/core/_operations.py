@@ -58,6 +58,25 @@ def _refuse_widened(operation, *dtypes) -> None:
             raise TypeError(f"{name} is not ported for {t.__name__}")
 
 
+def _refuse_complex(name: str, exc, *operands) -> None:
+    """Raise ``exc`` (the reference's exception type for ``name``) where an
+    operand is complex: the reference refuses complex operands there."""
+    for t in operands:
+        try:
+            t_type = types.heat_type_of(t)
+        except TypeError:  # not an operand (a bound left as None)
+            continue
+        if types.heat_type_is_complexfloating(t_type):
+            raise exc(f"{name} does not accept complex operands, got {t_type.__name__}")
+
+
+def _lex_greater(a: torch.Tensor, b: torch.Tensor, strict: bool = True) -> torch.Tensor:
+    """Complex ``a > b`` (``>=`` unless ``strict``) in lexicographic order,
+    the real parts first, as XLA orders complex numbers."""
+    tie = a.imag > b.imag if strict else a.imag >= b.imag
+    return (a.real > b.real) | ((a.real == b.real) & tie)
+
+
 def _out_split_binary(t1: DNDarray, t2: DNDarray, gshape) -> Optional[int]:
     """The result's split where the layouts differ: the first operand whose
     split lands on an axis of the result it does not broadcast along."""

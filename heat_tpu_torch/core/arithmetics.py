@@ -135,10 +135,28 @@ true_divide = div
 
 def _power(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """``a ** b``; two bools meet in int32, the reference's type (torch has
-    no bool power)."""
-    if torch.result_type(a, b) == torch.bool:
-        return torch.pow(a.to(torch.int32), b.to(torch.int32))
-    return torch.pow(a, b)
+    no bool power).  Integers take :func:`_int_power`."""
+    rt = torch.result_type(a, b)
+    if rt == torch.bool:
+        rt = torch.int32
+    if rt.is_floating_point or rt.is_complex:
+        return torch.pow(a, b)
+    a, b = _paired(a.to(rt), b.to(rt))
+    return _int_power(a, b)
+
+
+def _int_power(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Integer ``a ** b`` as JAX computes it: binary exponentiation over the
+    exponent's six lowest bits, wrapping in the operands' width (so a
+    negative exponent gives ``a ** (b mod 64)``: ``3 ** -1`` is ``3 ** 63``
+    wrapped), and 0 where ``a`` is 0 and ``b`` is not."""
+    acc = torch.where((a == 0) & (b != 0), torch.zeros_like(a), torch.ones_like(a))
+    acc, a = torch.broadcast_tensors(acc, a)
+    for _ in range(6):
+        acc = torch.where((b & 1) != 0, acc * a, acc)
+        a = a * a
+        b = b >> 1  # only the low six bits are read: the shift's sign fill never reaches them
+    return acc
 
 
 def pow(t1, t2, out=None, where=True) -> DNDarray:
@@ -234,6 +252,7 @@ def _fmod(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 def floordiv(t1, t2, out=None, where=True) -> DNDarray:
     """Element-wise floor division ``t1 // t2``."""
+    _operations._refuse_complex("floordiv", TypeError, t1, t2)
     return _operations.__binary_op(_floor_divide, t1, t2, out, where)
 
 
@@ -242,6 +261,7 @@ floor_divide = floordiv
 
 def mod(t1, t2, out=None, where=True) -> DNDarray:
     """Element-wise remainder with the divisor's sign, ``t1 % t2``."""
+    _operations._refuse_complex("mod", TypeError, t1, t2)
     return _operations.__binary_op(_remainder, t1, t2, out, where)
 
 
@@ -250,6 +270,7 @@ remainder = mod
 
 def fmod(t1, t2, out=None, where=True) -> DNDarray:
     """Element-wise remainder with the dividend's sign (C's ``fmod``)."""
+    _operations._refuse_complex("fmod", TypeError, t1, t2)
     return _operations.__binary_op(_fmod, t1, t2, out, where)
 
 
@@ -264,6 +285,7 @@ def divmod(t1, t2, out1=None, out2=None, out=None, where=True):
 
 def copysign(t1, t2, out=None, where=True) -> DNDarray:
     """The magnitude of ``t1`` with the sign of ``t2``."""
+    _operations._refuse_complex("copysign", TypeError, t1, t2)
     return _operations.__binary_op(_inexact(torch.copysign), t1, t2, out, where)
 
 
@@ -272,6 +294,7 @@ def hypot(t1, t2, out=None, where=True) -> DNDarray:
     for t in (t1, t2):
         if isinstance(t, DNDarray) and types.heat_type_is_exact(t.dtype) or isinstance(t, int):
             raise TypeError("hypot is only supported for floating point types")
+    _operations._refuse_complex("hypot", ValueError, t1, t2)
     return _operations.__binary_op(torch.hypot, t1, t2, out, where)
 
 
@@ -306,6 +329,7 @@ def _heaviside(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 def heaviside(t1, t2, out=None, where=True) -> DNDarray:
     """The Heaviside step function of ``t1``, ``t2`` where ``t1`` is 0."""
+    _operations._refuse_complex("heaviside", TypeError, t1, t2)
     return _operations.__binary_op(_heaviside, t1, t2, out, where)
 
 
@@ -835,6 +859,17 @@ def invert(t, out=None) -> DNDarray:
 bitwise_not = invert
 
 
+def _bool_as_int32(op):
+    """``op`` with two bools met in int32, the reference's type (torch does
+    not shift bools)."""
+    def shifted(a, b):
+        if torch.result_type(a, b) == torch.bool:
+            a, b = a.to(torch.int32), b.to(torch.int32)
+        return op(a, b)
+
+    return shifted
+
+
 def _shift_left(a: torch.Tensor, b: torch.Tensor, t) -> torch.Tensor:
     out = torch.bitwise_left_shift(a, b)
     return out & _WIDTH_MASK[t] if t in _WIDTH_MASK else out
@@ -855,14 +890,14 @@ def _shift_right(a: torch.Tensor, b: torch.Tensor, t) -> torch.Tensor:
 def left_shift(t1, t2, out=None, where=True) -> DNDarray:
     """Element-wise ``t1 << t2``."""
     _check_int_or_bool(t1, t2, "left_shift")
-    return _operations.__binary_op(torch.bitwise_left_shift, t1, t2, out, where, _shift_left)
+    return _operations.__binary_op(_bool_as_int32(torch.bitwise_left_shift), t1, t2, out, where, _shift_left)
 
 
 def right_shift(t1, t2, out=None, where=True) -> DNDarray:
     """Element-wise ``t1 >> t2`` (arithmetic for signed, logical for
     unsigned types)."""
     _check_int_or_bool(t1, t2, "right_shift")
-    return _operations.__binary_op(torch.bitwise_right_shift, t1, t2, out, where, _shift_right)
+    return _operations.__binary_op(_bool_as_int32(torch.bitwise_right_shift), t1, t2, out, where, _shift_right)
 
 
 def _inplace(t1, result: DNDarray) -> DNDarray:

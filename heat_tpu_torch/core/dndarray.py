@@ -44,6 +44,21 @@ from .stride_tricks import sanitize_axis
 __all__ = ["DNDarray"]
 
 
+class LocalIndex:
+    """The local-index proxy of :attr:`DNDarray.lloc`: indexes this rank's
+    chunk of the true array (a torch tensor), and writes into it in place."""
+
+    def __init__(self, arr: "DNDarray"):
+        self.__arr = arr
+
+    def __getitem__(self, key):
+        return self.__arr.larray[key]
+
+    def __setitem__(self, key, value):
+        local = self.__arr.larray
+        local[key] = torch.as_tensor(value, dtype=local.dtype, device=local.device)
+
+
 class DNDarray:
     """Distributed N-dimensional array.
 
@@ -194,6 +209,67 @@ class DNDarray:
     def size(self) -> int:
         """Number of true elements."""
         return int(np.prod(self.__gshape, dtype=np.int64)) if self.__gshape else 1
+
+    @property
+    def gnumel(self) -> int:
+        """Number of true elements of the global array."""
+        return self.size
+
+    @property
+    def itemsize(self) -> int:
+        """Bytes of one element of the array's type (not of its holding dtype)."""
+        return types._itemsize(self.__dtype)
+
+    @property
+    def gnbytes(self) -> int:
+        """Bytes of the global array's true elements."""
+        return self.size * self.itemsize
+
+    @property
+    def nbytes(self) -> int:
+        return self.gnbytes
+
+    @property
+    def lnumel(self) -> int:
+        """Number of true elements of this rank's chunk."""
+        return int(np.prod(self.lshape, dtype=np.int64)) if self.lshape else 1
+
+    @property
+    def lnbytes(self) -> int:
+        return self.lnumel * self.itemsize
+
+    @property
+    def stride(self) -> Tuple[int, ...]:
+        """Element strides of the dense row-major global array."""
+        st, acc = [], 1
+        for s in reversed(self.__gshape):
+            st.append(acc)
+            acc *= s
+        return tuple(reversed(st))
+
+    @property
+    def strides(self) -> Tuple[int, ...]:
+        """Byte strides of the dense row-major global array."""
+        return tuple(s * self.itemsize for s in self.stride)
+
+    @property
+    def lloc(self) -> LocalIndex:
+        """Indexing into this rank's chunk of the true array."""
+        return LocalIndex(self)
+
+    @property
+    def flat(self):
+        """An iterator over the global array's elements in row-major order
+        (a collective when split)."""
+        return iter(self.numpy().ravel())
+
+    def cpu(self) -> "DNDarray":
+        """The array on the host: itself where it lies there already."""
+        from .devices import cpu
+
+        if self.__device.device_type == "cpu":
+            return self
+        return DNDarray(self.__array.cpu(), self.__gshape, self.__dtype, self.__split, cpu, self.__comm)
 
     @property
     def split(self) -> Optional[int]:

@@ -101,6 +101,7 @@ def _cbrt(a: torch.Tensor) -> torch.Tensor:
 
 def cbrt(x, out=None) -> DNDarray:
     """The real cube root."""
+    _operations._refuse_complex("cbrt", TypeError, x)
     return _operations.__local_op(_cbrt, x, out)
 
 
@@ -118,6 +119,7 @@ def frexp(x, out=None):
     if not isinstance(x, DNDarray):
         raise TypeError(f"expected x to be a DNDarray, but was {type(x)}")
     _operations._refuse_widened(frexp, x.dtype)
+    _operations._refuse_complex("frexp", TypeError, x)
     data = x.larray_padded
     if not types.heat_type_is_inexact(x.dtype):
         data = data.to(torch.float32)

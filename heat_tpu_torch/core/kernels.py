@@ -7,11 +7,13 @@ counts, the inertia and, on request, the labels.  The wrapper
 :func:`lloyd_partials` launches it for a CUDA tensor and raises where it
 cannot; for a CPU tensor, and only there, it runs :func:`_lloyd_plain`, the
 same function in plain PyTorch.  :func:`lloyd_update` adds the cross-rank sum
-and the centre update.  The kernel has two routes, chosen by shape and type
-in :func:`lloyd_route`: ``"tc"`` (per-warp batches, the sums as one-hot
-products on the tensor cores) where float32 points fit it, ``"walk"``
-(per-block tiles listed by cluster) for every other float32 shape the gate
-takes and for float64 points.
+and the centre update; on the card it runs the plain version itself where
+:func:`lloyd_route` answers ``"plain"`` (a shape or type the kernel refuses).
+The kernel has two routes, chosen by shape and type in :func:`lloyd_route`:
+``"tc"`` (per-warp batches, the sums as one-hot products on the tensor
+cores) where float32 points fit it, ``"walk"`` (per-block tiles listed by
+cluster) for every other float32 shape the gate takes and for float64
+points.
 
 Sums come back in float64: the kernel accumulates each block's columns in
 f64 and adds the blocks in a fixed order, so a run is bitwise reproducible
@@ -38,6 +40,7 @@ from .linalg.basics import full_f32_matmul
 __all__ = [
     "GRAM_LAUNCHES",
     "LLOYD_LAUNCHES",
+    "LLOYD_PLAIN_STEPS",
     "gram_partials",
     "gram_unsupported",
     "lloyd_partials",
@@ -48,6 +51,8 @@ __all__ = [
 
 #: launches of the CUDA Lloyd kernel in this process (the plain version adds nothing)
 LLOYD_LAUNCHES = 0
+#: Lloyd steps on the card that took the plain route (shapes the kernel refuses)
+LLOYD_PLAIN_STEPS = 0
 #: launches of the CUDA Gram kernel in this process (the plain version adds nothing)
 GRAM_LAUNCHES = 0
 
@@ -86,11 +91,17 @@ def _tc_tiles(f: int, k: int) -> int:
 
 
 def lloyd_route(f: int, k: int, aligned: bool = True, dtype: torch.dtype = torch.float32) -> str:
-    """The kernel's route for f features and k centres of ``dtype`` (mirrors
-    ``route_takes`` in lloyd.cu): ``"tc"`` for float32 where f is a multiple
-    of 4, the sums fit in at most 8 output tiles of 16 features x 8 clusters
-    and the points are 16-byte aligned; ``"walk"`` otherwise, and always for
-    float64 (the tc route's TF32 planes are float32's)."""
+    """The route of a Lloyd step for f features and k centres of ``dtype``
+    on the card (mirrors ``route_takes`` in lloyd.cu): ``"tc"`` for float32
+    where f is a multiple of 4, the sums fit in at most 8 output tiles of 16
+    features x 8 clusters and the points are 16-byte aligned; ``"walk"``
+    for every other shape the kernel takes, and always for float64 (the tc
+    route's TF32 planes are float32's); ``"plain"`` where
+    :func:`lloyd_unsupported` refuses the shape or type: the plain version
+    runs on the card, as the JAX package takes XLA's step where its kernel's
+    gate refuses."""
+    if lloyd_unsupported(f, k, dtype) is not None:
+        return "plain"
     if (dtype == torch.float32 and aligned and 1 <= f <= _MAX_FEATURES and f % 4 == 0 and k >= 1
             and _tc_tiles(f, k) <= _TC_MAX_TILES):
         return "tc"
@@ -309,9 +320,15 @@ def _postprocess(sums: torch.Tensor, counts: torch.Tensor, centers: torch.Tensor
 
 def _lloyd_single(xp: torch.Tensor, centers: torch.Tensor, n_true: int, labels: bool = False, comm=None):
     """One Lloyd step on one chunk: ``(new_centers, shift, inertia[,
-    labels])``.  With ``comm``, the partial sums are added over its ranks
+    labels])``, by the kernel, or on the card by the plain version where
+    :func:`lloyd_route` says ``"plain"``.  With ``comm``, the partial sums are added over its ranks
     (one all-reduce of k*f + k + 1 values) before the centres move."""
-    sums, counts, inertia, lab = lloyd_partials(xp, centers, n_true, labels)
+    if xp.is_cuda and lloyd_route(xp.shape[1], centers.shape[0], dtype=xp.dtype) == "plain":
+        global LLOYD_PLAIN_STEPS
+        sums, counts, inertia, lab = _lloyd_plain(xp, centers.to(xp.dtype), int(n_true), labels)
+        LLOYD_PLAIN_STEPS += 1
+    else:
+        sums, counts, inertia, lab = lloyd_partials(xp, centers, n_true, labels)
     if comm is not None and comm.size > 1:
         k, f = centers.shape
         packed = comm.psum(torch.cat([sums.reshape(-1), counts, inertia.reshape(1)]))

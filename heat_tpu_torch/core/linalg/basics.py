@@ -231,7 +231,9 @@ def vecdot(x1: DNDarray, x2: DNDarray, axis: Optional[int] = None, keepdims: boo
 
     prod = arithmetics.mul(complex_math.conjugate(x1), x2)
     ax = sanitize_axis(prod.shape, -1 if axis is None else axis)
-    res = arithmetics.sum(prod, axis=ax, keepdims=keepdims)
+    # the sum in the operands' promoted type, as the reference's: integers
+    # wrap in their own width, a bool product is the truth of any term
+    res = arithmetics.sum(prod, axis=ax, keepdims=keepdims).astype(prod.dtype, copy=False)
     # the reference keeps the first operand's split where the result has
     # that axis, the reduced one included
     return _with_split(res, x1.split if x1.split is not None and x1.split < res.ndim else None)
@@ -246,6 +248,14 @@ def _with_split(res: DNDarray, split: Optional[int]) -> DNDarray:
     return res.resplit(split)
 
 
+def _flattened(t: DNDarray) -> DNDarray:
+    """A 1-D view of ``t`` (row-major), split where ``t`` was: a split N-D
+    operand is gathered and cut again as a vector."""
+    if t.ndim == 1:
+        return t
+    return DNDarray.from_dense(t._dense().reshape(-1), None if t.split is None else 0, t.device, t.comm, t.dtype)
+
+
 def outer(a: DNDarray, b: DNDarray, out: Optional[DNDarray] = None, split: Optional[int] = None) -> DNDarray:
     """The outer product of two vectors (flattened), split along 0 where
     either is split, or along ``split``: each rank multiplies its own
@@ -254,8 +264,8 @@ def outer(a: DNDarray, b: DNDarray, out: Optional[DNDarray] = None, split: Optio
     sanitize_in(b)
     if split is None:
         split = 0 if (a.split is not None or b.split is not None) else None
-    if a.ndim != 1 or b.ndim != 1:
-        raise NotImplementedError("outer of arrays of more than one dimension is not ported")
+    # N-D operands are flattened, as numpy's outer does
+    a, b = _flattened(a), _flattened(b)
     promoted = types.promote_types(a.dtype, b.dtype)
     a, b = a.astype(promoted), b.astype(promoted)
     gshape = (a.shape[0], b.shape[0])
@@ -410,14 +420,36 @@ def triu(m: DNDarray, k: int = 0) -> DNDarray:
     return _tri(m, k, False)
 
 
+def _square_input(a: DNDarray) -> DNDarray:
+    sanitize_in(a)
+    if a.ndim < 2 or a.shape[-1] != a.shape[-2]:
+        raise RuntimeError("Last two dimensions of the array must be square")
+    return a if types.heat_type_is_inexact(a.dtype) else a.astype(types.float32)
+
+
 def det(a: DNDarray) -> DNDarray:
-    """Not ported yet: it runs on the distributed LU (ROADMAP Queue 1 item 9b)."""
-    raise NotImplementedError("det runs on the distributed LU, not ported yet (ROADMAP Queue 1 item 9b)")
+    """The determinant: a split square matrix on more than one rank by the
+    distributed LU with partial pivoting (the rows stay split); a batch or
+    a whole matrix by ``torch.linalg.det``."""
+    a = _square_input(a)
+    from .factorizations import det_dist, supports_dist_factor
+
+    if supports_dist_factor(a):
+        return det_dist(a)
+    split = a.split if a.split is not None and a.split < max(a.ndim - 2, 0) else None
+    return DNDarray.from_dense(torch.linalg.det(a._dense()), split, a.device, a.comm)
 
 
 def inv(a: DNDarray) -> DNDarray:
-    """Not ported yet: it runs on the distributed LU (ROADMAP Queue 1 item 9b)."""
-    raise NotImplementedError("inv runs on the distributed LU, not ported yet (ROADMAP Queue 1 item 9b)")
+    """The inverse: a split square matrix on more than one rank by the
+    distributed LU and blocked substitution against the split identity; a
+    batch or a whole matrix by ``torch.linalg.inv``."""
+    a = _square_input(a)
+    from .factorizations import inv_dist, supports_dist_factor
+
+    if supports_dist_factor(a):
+        return inv_dist(a)
+    return DNDarray.from_dense(torch.linalg.inv(a._dense()), a.split, a.device, a.comm)
 
 
 # ----------------------------------------------------------------------

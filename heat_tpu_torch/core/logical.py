@@ -142,16 +142,19 @@ def isnan(x, out=None) -> DNDarray:
 
 def isneginf(x, out=None) -> DNDarray:
     """Element-wise: True where ``x`` is -inf."""
+    _operations._refuse_complex("isneginf", ValueError, x)
     return _test(x, torch.isneginf, False, out)
 
 
 def isposinf(x, out=None) -> DNDarray:
     """Element-wise: True where ``x`` is +inf."""
+    _operations._refuse_complex("isposinf", ValueError, x)
     return _test(x, torch.isposinf, False, out)
 
 
 def signbit(x, out=None) -> DNDarray:
     """Element-wise: True where the sign bit is set (never for unsigned)."""
+    _operations._refuse_complex("signbit", ValueError, x)
     return _test(x, torch.signbit, False, out)
 
 

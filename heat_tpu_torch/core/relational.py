@@ -51,6 +51,18 @@ def _ordered(op):
     return cmp
 
 
+def _lexicographic(op, complex_op):
+    """``op``, or ``complex_op`` where an operand is complex (torch does not
+    order complex numbers; the reference compares them lexicographically)."""
+    return lambda a, b: complex_op(a, b) if a.is_complex() or b.is_complex() else op(a, b)
+
+
+_lt = _lexicographic(torch.lt, lambda a, b: _operations._lex_greater(b, a))
+_le = _lexicographic(torch.le, lambda a, b: _operations._lex_greater(b, a, strict=False))
+_gt = _lexicographic(torch.gt, lambda a, b: _operations._lex_greater(a, b))
+_ge = _lexicographic(torch.ge, lambda a, b: _operations._lex_greater(a, b, strict=False))
+
+
 def eq(t1, t2) -> DNDarray:
     """Element-wise ``t1 == t2``."""
     return _operations.__binary_op(torch.eq, t1, t2, widened=_held(torch.eq))
@@ -81,7 +93,7 @@ def equal(t1, t2) -> bool:
 
 def ge(t1, t2) -> DNDarray:
     """Element-wise ``t1 >= t2``."""
-    return _operations.__binary_op(torch.ge, t1, t2, widened=_ordered(torch.ge))
+    return _operations.__binary_op(_ge, t1, t2, widened=_ordered(torch.ge))
 
 
 greater_equal = ge
@@ -89,7 +101,7 @@ greater_equal = ge
 
 def gt(t1, t2) -> DNDarray:
     """Element-wise ``t1 > t2``."""
-    return _operations.__binary_op(torch.gt, t1, t2, widened=_ordered(torch.gt))
+    return _operations.__binary_op(_gt, t1, t2, widened=_ordered(torch.gt))
 
 
 greater = gt
@@ -97,7 +109,7 @@ greater = gt
 
 def le(t1, t2) -> DNDarray:
     """Element-wise ``t1 <= t2``."""
-    return _operations.__binary_op(torch.le, t1, t2, widened=_ordered(torch.le))
+    return _operations.__binary_op(_le, t1, t2, widened=_ordered(torch.le))
 
 
 less_equal = le
@@ -105,7 +117,7 @@ less_equal = le
 
 def lt(t1, t2) -> DNDarray:
     """Element-wise ``t1 < t2``."""
-    return _operations.__binary_op(torch.lt, t1, t2, widened=_ordered(torch.lt))
+    return _operations.__binary_op(_lt, t1, t2, widened=_ordered(torch.lt))
 
 
 less = lt

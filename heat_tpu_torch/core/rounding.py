@@ -60,6 +60,7 @@ absolute = abs
 
 def ceil(x, out=None) -> DNDarray:
     """The ceiling."""
+    _operations._refuse_complex("ceil", TypeError, x)
     return _operations.__local_op(torch.ceil, x, out)
 
 
@@ -69,6 +70,7 @@ def clip(x, min=None, max=None, out=None) -> DNDarray:
     on integers gives float64)."""
     if min is None and max is None:
         raise ValueError("either min or max must be set")
+    _operations._refuse_complex("clip", ValueError, x, min, max)
     if not isinstance(x, DNDarray):
         raise TypeError(f"expected x to be a DNDarray, but was {type(x)}")
     common = types.result_type(x, *(b for b in (min, max) if b is not None))
@@ -97,11 +99,13 @@ def clip(x, min=None, max=None, out=None) -> DNDarray:
 
 def fabs(x, out=None) -> DNDarray:
     """The absolute value as a float."""
+    _operations._refuse_complex("fabs", TypeError, x)
     return _operations.__local_op(torch.abs, x, out)
 
 
 def floor(x, out=None) -> DNDarray:
     """The floor."""
+    _operations._refuse_complex("floor", TypeError, x)
     return _operations.__local_op(torch.floor, x, out)
 
 
@@ -116,6 +120,7 @@ def modf(x, out=None):
     """``(fractional part, integral part)``, two arrays of ``x``'s split."""
     if not isinstance(x, DNDarray):
         raise TypeError(f"expected x to be a DNDarray, but was {type(x)}")
+    _operations._refuse_complex("modf", TypeError, x)
     if out is not None and (not isinstance(out, tuple) or len(out) != 2):
         raise TypeError("expected out to be None or a tuple of two DNDarrays")
     outs = (None, None) if out is None else out
@@ -160,13 +165,21 @@ def round(x, decimals: int = 0, out=None, dtype=None) -> DNDarray:
 around = round
 
 
+def _rint(a: torch.Tensor) -> torch.Tensor:
+    """Round half to even; a complex value's parts each."""
+    if a.is_complex():
+        return torch.complex(torch.round(a.real), torch.round(a.imag))
+    return torch.round(a)
+
+
 def rint(x, out=None) -> DNDarray:
     """Round half to even to an integral value, in a floating type."""
-    return _operations.__local_op(torch.round, x, out)
+    return _operations.__local_op(_rint, x, out)
 
 
 def trunc(x, out=None) -> DNDarray:
     """Round toward zero."""
+    _operations._refuse_complex("trunc", TypeError, x)
     return _operations.__local_op(torch.trunc, x, out)
 
 

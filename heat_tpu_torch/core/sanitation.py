@@ -10,6 +10,7 @@ from . import types
 from .dndarray import DNDarray
 
 __all__ = [
+    "sanitize_distribution",
     "sanitize_in",
     "sanitize_in_nd_realfloating",
     "sanitize_in_tensor",
@@ -38,6 +39,19 @@ def sanitize_sequence(seq) -> list:
     if isinstance(seq, tuple):
         return list(seq)
     raise TypeError(f"seq must be a list or a tuple, got {type(seq)}")
+
+
+def sanitize_distribution(*args: DNDarray, target: DNDarray, diff_map=None):
+    """Each of ``args`` laid out as ``target``: an array of ``target``'s
+    shape and another split is resplit (one all-to-all); the canonical
+    layout follows from the split, so nothing else moves."""
+    out = []
+    for a in args:
+        sanitize_in(a)
+        if a.split != target.split and a.shape == target.shape:
+            a = a.resplit(target.split)
+        out.append(a)
+    return out[0] if len(out) == 1 else tuple(out)
 
 
 def sanitize_in(x) -> None:

@@ -23,7 +23,7 @@ import torch
 from ..parallel.comm import _as_bytes, _from_bytes
 from . import _operations, arithmetics, types
 from .arithmetics import _CUMSUM, _to_inexact
-from .dndarray import DNDarray
+from .dndarray import DNDarray, _pad_along
 from .linalg.basics import full_f32_matmul
 from .stride_tricks import sanitize_axis
 
@@ -91,6 +91,7 @@ def _arg(x: DNDarray, axis, keepdims: bool, largest: bool) -> DNDarray:
     if not isinstance(x, DNDarray):
         raise TypeError(f"expected x to be a DNDarray, but was {type(x)}")
     _operations._refuse_widened(argmax if largest else argmin, x.dtype)
+    _operations._refuse_complex("argmax" if largest else "argmin", TypeError, x)
     axis = sanitize_axis(x.shape, axis)
     if isinstance(axis, tuple):
         raise TypeError(f"{'argmax' if largest else 'argmin'} takes one axis or None")
@@ -162,32 +163,78 @@ def _max_neutral(x: DNDarray):
     return float("inf")
 
 
+def _lex_extreme(t: torch.Tensor, dims, keep: bool, largest: bool) -> torch.Tensor:
+    """The largest (smallest) complex value over ``dims`` in lexicographic
+    order: the extreme real part, then among its ties the extreme imaginary
+    part."""
+    pick = torch.amax if largest else torch.amin
+    re = pick(t.real, dim=dims, keepdim=True)
+    beyond = -float("inf") if largest else float("inf")
+    im = pick(torch.where(t.real == re, t.imag, beyond), dim=dims, keepdim=True)
+    out = torch.complex(re, im)
+    return out if keep else out.squeeze(dims)
+
+
 def _amin(t, dims, keep):
+    if t.is_complex():
+        return _lex_extreme(t, dims, keep, False)
     return torch.amin(t, dim=dims, keepdim=keep)
 
 
 def _amax(t, dims, keep):
+    if t.is_complex():
+        return _lex_extreme(t, dims, keep, True)
     return torch.amax(t, dim=dims, keepdim=keep)
 
 
+def _across_ranks(x: DNDarray, largest: bool):
+    """The all-reduce of a max (min) over the ranks; complex partials, which
+    no backend orders, are gathered and compared lexicographically."""
+    comm = x.comm
+    if not types.heat_type_is_complexfloating(x.dtype):
+        return comm.pmax if largest else comm.pmin
+
+    def reduce(local: torch.Tensor) -> torch.Tensor:
+        parts = _from_bytes(comm.all_gather(_as_bytes(local[None]), axis=0), local.dtype)
+        return _lex_extreme(parts, (0,), False, largest)
+
+    return reduce
+
+
 def min(x, axis=None, out=None, keepdims: bool = False) -> DNDarray:
-    """Minimum over ``axis`` (all axes when None)."""
-    return _operations.__reduce_op(x, _amin, x.comm.pmin, _max_neutral(x), axis, keepdims, out)
+    """Minimum over ``axis`` (all axes when None); complex values in
+    lexicographic order."""
+    return _operations.__reduce_op(x, _amin, _across_ranks(x, False), _max_neutral(x), axis, keepdims, out)
 
 
 def max(x, axis=None, out=None, keepdims: bool = False) -> DNDarray:
-    """Maximum over ``axis`` (all axes when None)."""
-    return _operations.__reduce_op(x, _amax, x.comm.pmax, _min_neutral(x), axis, keepdims, out)
+    """Maximum over ``axis`` (all axes when None); complex values in
+    lexicographic order."""
+    return _operations.__reduce_op(x, _amax, _across_ranks(x, True), _min_neutral(x), axis, keepdims, out)
+
+
+def _maximum(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    if a.is_complex() or b.is_complex():
+        return torch.where(_operations._lex_greater(a, b), a, b)
+    return torch.maximum(a, b)
+
+
+def _minimum(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    if a.is_complex() or b.is_complex():
+        return torch.where(_operations._lex_greater(b, a), a, b)
+    return torch.minimum(a, b)
 
 
 def maximum(x1, x2, out=None) -> DNDarray:
-    """The element-wise maximum (NaN where either is NaN)."""
-    return _operations.__binary_op(torch.maximum, x1, x2, out)
+    """The element-wise maximum (NaN where either is NaN; complex values in
+    lexicographic order)."""
+    return _operations.__binary_op(_maximum, x1, x2, out)
 
 
 def minimum(x1, x2, out=None) -> DNDarray:
-    """The element-wise minimum (NaN where either is NaN)."""
-    return _operations.__binary_op(torch.minimum, x1, x2, out)
+    """The element-wise minimum (NaN where either is NaN; complex values in
+    lexicographic order)."""
+    return _operations.__binary_op(_minimum, x1, x2, out)
 
 
 def _axis_count(x: DNDarray, axis) -> float:
@@ -262,8 +309,8 @@ def _centred_sum(x: DNDarray, axis, keepdims: bool, power: int) -> DNDarray:
     axis, axes = _operations._axes(x, axis)
     mu = arithmetics.sum(x, axis=axis, keepdims=True) / _axis_count(x, axis)
     centred = x.larray_padded - _operations._aligned(mu, x.shape, x.split)
-    if centred.is_complex():
-        dev = (centred * centred.conj()).real if power == 2 else centred.abs() ** power
+    if centred.is_complex() and power == 2:
+        dev = (centred * centred.conj()).real
     else:
         dev = centred * centred if power == 2 else centred ** power
     d = x._like(dev)
@@ -303,8 +350,11 @@ def skew(x, axis=None, unbiased: bool = True) -> DNDarray:
     v = var(x, axis, ddof=0)
     g1 = m3._like(m3.larray_padded / v.larray_padded ** 1.5)
     if unbiased:
+        # the reference's correction is a numpy float64: the result widens
+        # to float64 (complex128)
         n = _axis_count(x, axis)
-        g1 = g1._like(g1.larray_padded * np.sqrt(n * (n - 1)) / (n - 2))
+        wide = torch.complex128 if g1.larray_padded.is_complex() else torch.float64
+        g1 = g1._like(g1.larray_padded.to(wide) * float(np.sqrt(n * (n - 1))) / (n - 2))
     return g1
 
 
@@ -356,6 +406,13 @@ def _observations(a: DNDarray, rowvar: bool):
     return (local if obs == 0 else local.T), a.shape[obs], a.split is not None
 
 
+def _own_rows(obs: torch.Tensor, comm) -> torch.Tensor:
+    """This rank's rows of whole observations, cut and zero-padded as a
+    chunk of the canonical layout."""
+    lo, lshape, _ = comm.chunk(tuple(obs.shape), 0)
+    return _pad_along(obs.narrow(0, lo, lshape[0]), 0, comm.padded_extent(obs.shape[0]) // comm.size)
+
+
 _GRAM_BLOCK = 1 << 16  # observations a partial product of cov takes
 
 
@@ -401,7 +458,13 @@ def cov(m, y=None, rowvar: bool = True, bias: bool = False, ddof=None) -> DNDarr
         if ny != n:
             raise ValueError(f"m and y have {n} and {ny} observations")
         if ysplit != split:
-            raise NotImplementedError("cov of m and y split otherwise along their observations is not ported")
+            # the one whose observations are whole gives each rank its own
+            # rows of them (no communication)
+            if split:
+                ys = _own_rows(ys, comm)
+            else:
+                xs = parts[0] = _own_rows(xs, comm)
+                split = True
         parts.append(ys)
         common = types.promote_types(m.dtype, y.dtype)
     dt = common.torch_type() if types.heat_type_is_inexact(common) else (

@@ -6,7 +6,7 @@ from typing import List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 
-__all__ = ["broadcast_shape", "sanitize_axis", "sanitize_shape"]
+__all__ = ["broadcast_shape", "broadcast_shapes", "sanitize_axis", "sanitize_shape", "sanitize_slice"]
 
 
 def broadcast_shape(shape_a: Sequence[int], shape_b: Sequence[int]) -> Tuple[int, ...]:
@@ -15,6 +15,14 @@ def broadcast_shape(shape_a: Sequence[int], shape_b: Sequence[int]) -> Tuple[int
         return tuple(np.broadcast_shapes(tuple(shape_a), tuple(shape_b)))
     except ValueError:
         raise ValueError(f"operands could not be broadcast, input shapes {tuple(shape_a)} {tuple(shape_b)}") from None
+
+
+def broadcast_shapes(*shapes: Sequence[int]) -> Tuple[int, ...]:
+    """NumPy-broadcast result shape of any number of shapes."""
+    try:
+        return tuple(np.broadcast_shapes(*[tuple(s) for s in shapes]))
+    except ValueError:
+        raise ValueError(f"operands could not be broadcast, input shapes {shapes}") from None
 
 
 def sanitize_axis(
@@ -55,3 +63,10 @@ def sanitize_shape(shape: Union[int, Sequence[int]], lval: int = 0) -> Tuple[int
         if s < lval:
             raise ValueError(f"negative dimensions are not allowed, got {shape}")
     return shape
+
+
+def sanitize_slice(s: slice, max_dim: int) -> slice:
+    """``s`` with its Nones and negative bounds resolved against ``max_dim``."""
+    if not isinstance(s, slice):
+        raise TypeError("can only be applied to slice objects")
+    return slice(*s.indices(max_dim))

@@ -86,9 +86,23 @@ def arctan(x, out=None) -> DNDarray:
 atan = arctan
 
 
+def _atan2(y: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """``atan2``; of complex operands XLA's ``-i log((x + iy) / sqrt(x^2 + y^2))``."""
+    if y.is_complex() or x.is_complex():
+        y, x = torch.broadcast_tensors(*(t.to(torch.result_type(y, x)) for t in (y, x)))
+        return -1j * torch.log((x + 1j * y) / torch.sqrt(x * x + y * y))
+    return torch.atan2(y, x)
+
+
+def _scaled(factor: float):
+    """Multiplication by ``factor`` in the operand's own type (torch's
+    deg2rad and rad2deg refuse complex operands)."""
+    return lambda a: a * torch.tensor(factor, dtype=a.dtype)
+
+
 def arctan2(t1, t2) -> DNDarray:
     """The angle of the point ``(t2, t1)``, by quadrant."""
-    return _operations.__binary_op(_inexact(torch.atan2), t1, t2)
+    return _operations.__binary_op(_inexact(_atan2), t1, t2)
 
 
 atan2 = arctan2
@@ -114,7 +128,7 @@ def cosh(x, out=None) -> DNDarray:
 
 def deg2rad(x, out=None) -> DNDarray:
     """Degrees to radians."""
-    return _operations.__local_op(torch.deg2rad, x, out)
+    return _operations.__local_op(_scaled(math.pi / 180), x, out)
 
 
 radians = deg2rad
@@ -122,7 +136,7 @@ radians = deg2rad
 
 def rad2deg(x, out=None) -> DNDarray:
     """Radians to degrees."""
-    return _operations.__local_op(torch.rad2deg, x, out)
+    return _operations.__local_op(_scaled(180 / math.pi), x, out)
 
 
 degrees = rad2deg
@@ -155,6 +169,7 @@ def sinc(x, out=None) -> DNDarray:
 
 def i0(x, out=None) -> DNDarray:
     """The modified Bessel function of the first kind, of order 0."""
+    _operations._refuse_complex("i0", ValueError, x)
     return _operations.__local_op(torch.i0, x, out)
 
 

@@ -578,6 +578,11 @@ def numpy_type(t) -> Any:
     return np.float32 if t is bfloat16 else _NUMPY[t]
 
 
+def _itemsize(t) -> int:
+    """Bytes of one element of type ``t`` (not of its holding dtype)."""
+    return 2 if t is bfloat16 else np.dtype(_NUMPY[t]).itemsize
+
+
 def _to_holding(data: np.ndarray, t) -> np.ndarray:
     """A numpy array of type ``t`` as its holding dtype's numpy array."""
     if t is uint64:

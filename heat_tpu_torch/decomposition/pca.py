@@ -22,6 +22,7 @@ from ..core import statistics
 from ..core.base import BaseEstimator, TransformMixin, lazy_scalar_property, low_precision_predict_requested
 from ..core.dndarray import DNDarray
 from ..core.linalg import basics, svdtools
+from ..core.linalg.svd import svd as _exact_svd
 
 __all__ = ["PCA"]
 
@@ -89,8 +90,6 @@ class PCA(BaseEstimator, TransformMixin):
             raise ValueError(f"X must be 2D, got {X.ndim}D")
         if y is not None:
             raise ValueError("PCA is an unsupervised transform; y must be None")
-        if self.svd_solver == "full":
-            raise NotImplementedError("svd_solver='full' needs qr and svd, not ported yet (ROADMAP Queue 1 item 9b)")
         n, f = X.shape
         mean = statistics.mean(X, axis=0)
         self.mean_ = mean
@@ -106,6 +105,21 @@ class PCA(BaseEstimator, TransformMixin):
         else:
             k, rtol = (min(self.n_components, rank_cap) if self.n_components else rank_cap), None
 
+        if self.svd_solver == "full":
+            # the exact SVD (TS-QR over row-split samples): every component
+            # up to k, the variance ratio over the spectrum's own total
+            U, S, V = _exact_svd(centered)
+            s = S._dense()
+            kk = k if k is not None else rank_cap
+            self.components_ = DNDarray.from_dense(V._dense()[:, :kk].T, None, X.device, X.comm)
+            self.singular_values_ = DNDarray.from_dense(s[:kk], None, X.device, X.comm)
+            ev = s**2 / max(n - 1, 1)
+            self.explained_variance_ = DNDarray.from_dense(ev[:kk], None, X.device, X.comm)
+            ratio = ev / torch.clamp(torch.sum(ev), min=1e-30)
+            self.explained_variance_ratio_ = DNDarray.from_dense(ratio[:kk], None, X.device, X.comm)
+            self._tevr = torch.sum(ratio[:kk])
+            self.n_components_ = kk
+            return self
         if self.svd_solver == "randomized":
             if k is None:
                 raise ValueError("randomized solver requires an integer n_components")

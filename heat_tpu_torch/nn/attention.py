@@ -36,12 +36,31 @@ __all__ = ["scaled_dot_product_attention", "ring_attention", "ulysses_attention"
 _NEG_INF = -1e30
 
 
+#: local attentions that the flash gate sent to the einsum path (a card
+#: shape :func:`_flash.flash_unsupported` refuses)
+EINSUM_ROUTES = 0
+
+
+def _flash_route(q) -> str:
+    """``"flash"`` or ``"einsum"`` for a local attention of (seq, heads,
+    head_dim) tensors like ``q``: on the card the kernel takes float32 (the
+    operands are cast to it) at the shapes :func:`_flash.flash_unsupported`
+    admits; the CPU runs the kernel's plain version at every shape."""
+    if q.device.type == "cuda" and _flash.flash_unsupported(*q.shape, torch.float32) is not None:
+        return "einsum"
+    return "flash"
+
+
 def _local_flash(q, k, v, scale, causal, n_true):
     """Full-sequence attention of (seq, heads, head_dim) tensors through the
-    flash kernel; padded tail positions (>= n_true) are isolated as their own
-    segment, so real tokens never attend padding.  On the card the kernel
-    runs or this raises: there is no other path."""
-    return _flash.flash_attention(q, k, v, scale, causal, n_true)
+    flash kernel, in float32 as the JAX package casts for it, the result in
+    q's dtype; padded tail positions (>= n_true) are isolated as their own
+    segment, so real tokens never attend padding.  The caller runs it where
+    :func:`_flash_route` chooses ``"flash"``."""
+    if q.dtype == k.dtype == v.dtype == torch.float32:
+        return _flash.flash_attention(q, k, v, scale, causal, n_true)
+    out = _flash.flash_attention(q.float(), k.float(), v.float(), scale, causal, n_true)
+    return out.to(q.dtype)
 
 
 def _block_attn_update(o, m, l, q, k, v, q_off, k_off, scale, causal, n_true):
@@ -149,12 +168,15 @@ def _ulysses_body(q, k, v, *, comm, scale, causal, n_true, use_flash):
     kg = comm.all_to_all(k, split_axis=1, concat_axis=0)
     vg = comm.all_to_all(v, split_axis=1, concat_axis=0)
     seq = qg.shape[0]
-    if use_flash:
+    if use_flash and _flash_route(qg) == "flash":
         # each rank now holds the FULL sequence for h/p heads, the shape
         # the flash kernel takes; the (h/p, seq, seq) scores of the einsum
         # path are never formed
         og = _local_flash(qg, kg, vg, scale, causal, n_true)
     else:
+        if use_flash:
+            global EINSUM_ROUTES
+            EINSUM_ROUTES += 1
         with full_f32_matmul():
             scores = torch.einsum("qhd,khd->hqk", qg.float(), kg.float()).mul_(scale)
         k_pos = torch.arange(seq, device=q.device)
@@ -241,8 +263,10 @@ def scaled_dot_product_attention(
     if q.split is None:
         qd, kd, vd = q._dense(), k._dense(), v._dense()
         if method == "flash":
-            out = _local_flash(qd, kd, vd, scale, causal, seq)
-            return DNDarray.from_dense(out, None, q.device, q.comm)
+            if _flash_route(qd) == "flash":
+                return DNDarray.from_dense(_local_flash(qd, kd, vd, scale, causal, seq), None, q.device, q.comm)
+            global EINSUM_ROUTES
+            EINSUM_ROUTES += 1
         wide = torch.promote_types(torch.float32, kd.dtype)
         with full_f32_matmul():
             scores = torch.einsum("qhd,khd->hqk", qd.to(wide), kd.to(wide)).mul_(scale)

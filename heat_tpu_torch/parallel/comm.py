@@ -20,7 +20,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-__all__ = ["Communication", "WORLD", "get_comm", "sanitize_comm", "use_comm"]
+__all__ = ["Communication", "SELF", "WORLD", "get_comm", "sanitize_comm", "use_comm"]
 
 
 class Communication:
@@ -344,6 +344,8 @@ class _PPermute(torch.autograd.Function):
 
 
 WORLD = Communication()
+#: this rank alone: a world of one, whatever the process group
+SELF = Communication(size=1, rank=0)
 
 __default_comm = WORLD
 

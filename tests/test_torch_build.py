@@ -1,7 +1,15 @@
 """heat_tpu_torch/core/_build.py without nvcc: a library's file name
 follows its source, every header beside it and the flags, so an edited
-header builds anew."""
+header builds anew; a built library is loaded again without nvcc; the
+build directory is the checkout's, a per-user cache when installed, or the
+one ``HEAT_TPU_TORCH_BUILD_DIR`` names."""
 
+from pathlib import Path
+
+import pytest
+
+import heat_tpu as hj
+import heat_tpu_torch as ht
 from heat_tpu_torch.core import _build
 
 
@@ -41,3 +49,42 @@ def test_target_name_follows_an_included_source(tmp_path, monkeypatch):
 def test_the_stamped_lloyd_build_includes_lloyd_cu():
     text = (_build.CSRC / "lloyd_phases.cu").read_text()
     assert _build._INCLUDED_CU.findall(text.encode()) == [b"lloyd.cu"]
+
+
+def test_build_dir_checkout_cache_and_override(tmp_path):
+    checkout = tmp_path / "repo"
+    (checkout / "heat_tpu_torch").mkdir(parents=True)
+    (checkout / "pyproject.toml").write_text("")
+    assert _build._build_dir({}, checkout) == checkout / "build" / "heat_tpu_torch"
+    site = tmp_path / "site-packages"
+    (site / "heat_tpu_torch").mkdir(parents=True)
+    assert _build._build_dir({"XDG_CACHE_HOME": str(tmp_path / "cache")}, site) == tmp_path / "cache" / "heat_tpu_torch"
+    assert _build._build_dir({}, site) == Path("~/.cache/heat_tpu_torch").expanduser()
+    mine = str(tmp_path / "mine")
+    for root in (checkout, site):
+        assert _build._build_dir({"HEAT_TPU_TORCH_BUILD_DIR": mine}, root) == Path(mine)
+    # this checkout builds into its own build/ (listed in .gitignore)
+    repo = Path(__file__).resolve().parents[1]
+    assert _build._build_dir({}, repo) == repo / "build" / "heat_tpu_torch"
+
+
+def test_a_built_library_is_reused_without_nvcc(tmp_path, monkeypatch):
+    (tmp_path / "k.cu").write_text("// a kernel\n")
+    monkeypatch.setattr(_build, "CSRC", tmp_path)
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
+    target = _build._target("k")
+    target.parent.mkdir()
+    target.write_bytes(b"built")
+
+    def no_nvcc():
+        raise AssertionError("nvcc must not run for a library that is built")
+
+    monkeypatch.setattr(_build, "_nvcc", no_nvcc)
+    assert _build.build_all(["k"]) == {"k": target}
+    (tmp_path / "k.cu").write_text("// a kernel, edited\n")
+    with pytest.raises(AssertionError, match="must not run"):
+        _build.build_all(["k"])  # an edited source builds anew
+
+
+def test_version_is_the_reference_version():
+    assert ht.__version__ == hj.__version__

@@ -13,6 +13,7 @@ test's temporary directory (no TCP port).  The test waits at most 60 s for
 them, then kills them and fails."""
 
 import os
+import re
 import subprocess
 import sys
 import time
@@ -30,6 +31,11 @@ pytestmark = pytest.mark.multiprocess
 WORLD = 3
 DEADLINE_S = 60.0
 REPO = Path(__file__).resolve().parents[1]
+# numpy's print options as a fresh process has them, the state of the gloo
+# ranks: the reference's set_printoptions mirrors its options into numpy's
+# and leaves them there, so a test run earlier in this process can change
+# how the reference prints
+_NP_PRINT_FRESH = np.get_printoptions()
 
 _RANK_HEAD = r"""
 import sys
@@ -792,8 +798,9 @@ def test_halos_allclose_factories_and_printing_in_a_gloo_world_of_three(runtime_
         _same_layout(got, r, "chunks", hj.array(chunks, split=0, comm=comm), comm)
         for split in (0, 1):
             _same_layout(got, r, f"nonzero{split}", hj.nonzero(hj.array(base > 0.5, split=split, comm=comm)), comm)
-        assert str(got["str"]) == str(hj.array(arrays["big"], split=0, comm=comm))
-        assert str(got["str_small"]) == str(hj.array(base, split=1, comm=comm))
+        with np.printoptions(**_NP_PRINT_FRESH):
+            assert str(got["str"]) == str(hj.array(arrays["big"], split=0, comm=comm))
+            assert str(got["str_small"]) == str(hj.array(base, split=1, comm=comm))
 
 
 def test_float64_kmeans_in_a_gloo_world_of_three(runtime_world):
@@ -1149,3 +1156,185 @@ def test_distances_and_their_estimators_in_a_gloo_world_of_three(distances_world
         _close_layout(got, r, "laplacian", lap, comm, rtol=0, atol=1e-5)
         assert gathered.pop("laplacian") == 7  # this rank's degrees (20 rows padded to 21)
         assert all(count == 0 for count in gathered.values()), gathered
+
+
+_LINALG_MAIN = _RANK_HEAD + r"""
+saved = {}
+largest = {}
+phase = [None]
+
+
+def save(name, a):
+    saved[name + "/local"] = a.larray.numpy()
+    saved[name + "/split"] = np.asarray(-1 if a.split is None else a.split)
+    saved[name + "/lmap"] = a.lshape_map
+    saved[name + "/cd"] = np.asarray(a.counts_displs() if a.split is not None else ((), ()))
+
+
+# the largest tensor any collective of a phase hands a rank: a gather's
+# result, a sum's or a broadcast's operand
+for fname, factor in (("all_gather", 3), ("all_gather_varying", 3), ("psum", 1), ("bcast", 1)):
+    fn = getattr(ht.Communication, fname)
+
+    def recording(self, x, *args, _fn=fn, _factor=factor, **kw):
+        if phase[0] is not None:
+            largest[phase[0]] = max(largest.get(phase[0], 0), _factor * int(x.numel()))
+        return _fn(self, x, *args, **kw)
+
+    setattr(ht.Communication, fname, recording)
+
+
+def run(name, fn):
+    phase[0] = name
+    largest.setdefault(name, 0)
+    try:
+        return fn()
+    finally:
+        phase[0] = None
+
+
+for name in ("tall", "tall32"):
+    q, r = run("tsqr_" + name, lambda: ht.linalg.qr(ht.array(arrays[name], split=0)))
+    save("tsqr_" + name + "/Q", q)
+    saved["tsqr_" + name + "/R"] = r.numpy()
+for name in ("wide", "narrow"):
+    q, r = run("bgs_" + name, lambda: ht.linalg.qr(ht.array(arrays[name], split=1)))
+    save("bgs_" + name + "/Q", q)
+    save("bgs_" + name + "/R", r)
+u, s, v = run("svd", lambda: ht.linalg.svd(ht.array(arrays["tall"], split=0)))
+save("svd/U", u)
+saved["svd/S"], saved["svd/V"] = s.numpy(), v.numpy()
+x, resid, rank, sv = run("lstsq", lambda: ht.linalg.lstsq(ht.array(arrays["tall"], split=0),
+                                                          ht.array(arrays["rhs"], split=0)))
+saved["lstsq/x"] = x.numpy()
+saved["lstsq/rank"] = np.asarray(int(rank))
+pca = run("pca", lambda: ht.decomposition.PCA(n_components=3, svd_solver="full").fit(ht.array(arrays["tall"], split=0)))
+saved["pca/components"] = pca.components_.numpy()
+saved["pca/sv"] = pca.singular_values_.numpy()
+for n in (7, 10):
+    for split in (0, 1):
+        key = f"{n}_{split}"
+        spd = ht.array(arrays[f"spd{n}"], split=split)
+        save("chol" + key, run("chol" + key, lambda: ht.linalg.cholesky(spd)))
+        g = ht.array(arrays[f"gen{n}"], split=split)
+        saved["det" + key] = np.asarray(float(run("det" + key, lambda: ht.linalg.det(g))))
+        save("inv" + key, run("inv" + key, lambda: ht.linalg.inv(g)))
+        save("solve" + key, run("solve" + key, lambda: ht.linalg.solve(g, ht.array(arrays[f"b{n}"], split=0))))
+        save("solvev" + key, run("solvev" + key, lambda: ht.linalg.solve(g, ht.array(arrays[f"b{n}"][:, 0]))))
+    saved[f"det_swapped{n}"] = np.asarray(float(ht.linalg.det(ht.array(arrays[f"swapped{n}"], split=0))))
+    saved[f"det_zero_row{n}"] = np.asarray(float(ht.linalg.det(ht.array(arrays[f"zero_row{n}"], split=0))))
+saved["det_ties"] = np.asarray(float(ht.linalg.det(ht.array(arrays["ties"], split=0))))
+saved["largest_names"] = np.asarray(list(largest))
+saved["largest_sizes"] = np.asarray([largest[k] for k in largest])
+np.savez(out, **saved)
+dist.destroy_process_group()
+"""
+
+
+@pytest.fixture(scope="module")
+def linalg_world(tmp_path_factory):
+    """Ragged extents on 3 ranks: TS-QR of 37 x 5 (rank 2 holds 2 padding
+    rows), block Gram-Schmidt of 23 x 10 and 13 x 4 (rank 2 holds padding
+    columns, of 13 x 4 nothing else), the factorizations at n = 7 and 10
+    (n_pad 9 and 12: the identity on the padded diagonal)."""
+    rng = np.random.default_rng(41)
+    arrays = dict(tall=rng.standard_normal((37, 5)), tall32=rng.standard_normal((64, 8)).astype(np.float32),
+                  wide=rng.standard_normal((23, 10)), narrow=rng.standard_normal((13, 4)),
+                  rhs=rng.standard_normal(37))
+    for n in (7, 10):
+        a = rng.standard_normal((n, n))
+        arrays[f"spd{n}"] = a @ a.T + n * np.eye(n)
+        arrays[f"gen{n}"] = rng.standard_normal((n, n)) + 2 * np.eye(n)
+        arrays[f"b{n}"] = rng.standard_normal((n, 3))
+        arrays[f"swapped{n}"] = arrays[f"gen{n}"][[1, 0] + list(range(2, n))]
+        arrays[f"zero_row{n}"] = arrays[f"gen{n}"].copy()
+        arrays[f"zero_row{n}"][n - 2] = 0.0
+    # equal pivot candidates in every panel column: the first maximal row wins
+    arrays["ties"] = np.array([[1, 2, 0, 1, 3, 0, 1], [-1, 0, 3, 2, 1, 1, 0], [1, -2, 1, 0, 2, 2, 1],
+                               [-1, 1, 2, 5, 0, 1, 1], [1, 2, -3, 1, 1, 0, 2], [-1, 0, 1, 1, 3, 1, 1],
+                               [1, 1, 1, -2, 1, 3, 0]], dtype=np.float64)
+    ranks = _run_world(tmp_path_factory.mktemp("linalg"), _LINALG_MAIN, **arrays)
+    return arrays, hj.Communication(jax.devices()[:WORLD]), ranks
+
+
+def _gathered_local(ranks, name):
+    return np.concatenate([got[name + "/local"] for got in ranks], axis=int(ranks[0][name + "/split"]))
+
+
+def test_linalg_in_a_gloo_world_of_three(linalg_world):
+    """TS-QR, block Gram-Schmidt, the TS-QR svd, lstsq and full PCA, and
+    the distributed Cholesky, LU determinant (a row swap, a zero row,
+    pivot ties), inverse and solve at ragged extents on 3 ranks, against the
+    reference on 3 devices: each rank's chunk is its chunk of the
+    reference's (split and lshape_map), the values within the reference
+    tests' float64 bounds (QR 1e-10, factorizations rtol 1e-8), and no
+    collective hands a rank a tensor as large as the matrix."""
+    arrays, comm, ranks = linalg_world
+    for name, tol in (("tall", 1e-10), ("tall32", 1e-4)):
+        a = arrays[name]
+        want = hj.qr(hj.array(a, split=0, comm=comm))
+        q = _gathered_local(ranks, f"tsqr_{name}/Q")
+        for got in ranks:
+            _same_layout_meta(got, f"tsqr_{name}/Q", want.Q)
+            np.testing.assert_allclose(np.abs(got[f"tsqr_{name}/R"]), np.abs(want.R.numpy()), rtol=tol, atol=tol)
+        np.testing.assert_allclose(q @ ranks[0][f"tsqr_{name}/R"], a, rtol=tol, atol=tol)
+        np.testing.assert_allclose(q.T @ q, np.eye(a.shape[1]), atol=tol)
+    for name in ("wide", "narrow"):
+        a = arrays[name]
+        want = hj.qr(hj.array(a, split=1, comm=comm))
+        q, r = _gathered_local(ranks, f"bgs_{name}/Q"), _gathered_local(ranks, f"bgs_{name}/R")
+        for got in ranks:
+            _same_layout_meta(got, f"bgs_{name}/Q", want.Q)
+            _same_layout_meta(got, f"bgs_{name}/R", want.R)
+        np.testing.assert_allclose(q @ r, a, atol=1e-10)
+        np.testing.assert_allclose(q.T @ q, np.eye(a.shape[1]), atol=1e-10)
+        np.testing.assert_allclose(np.tril(r, -1), 0.0, atol=1e-10)
+        np.testing.assert_allclose(np.abs(r), np.abs(want.R.numpy()), atol=1e-10)
+    tall = hj.array(arrays["tall"], split=0, comm=comm)
+    ws = hj.svd(tall)
+    u = _gathered_local(ranks, "svd/U")
+    np.testing.assert_allclose(u @ np.diag(ranks[0]["svd/S"]) @ ranks[0]["svd/V"].T, arrays["tall"], atol=1e-10)
+    np.testing.assert_allclose(ranks[0]["svd/S"], ws.S.numpy(), rtol=1e-10)
+    wx = hj.linalg.lstsq(tall, hj.array(arrays["rhs"], split=0, comm=comm))
+    wp = hj.decomposition.PCA(n_components=3, svd_solver="full").fit(tall)
+    for got in ranks:
+        np.testing.assert_allclose(got["lstsq/x"], wx[0].numpy(), rtol=1e-8)
+        assert int(got["lstsq/rank"]) == 5
+        np.testing.assert_allclose(got["pca/sv"], wp.singular_values_.numpy(), rtol=1e-10)
+        np.testing.assert_allclose(np.abs(got["pca/components"]), np.abs(wp.components_.numpy()), atol=1e-10)
+    for n in (7, 10):
+        for split in (0, 1):
+            key = f"{n}_{split}"
+            spd = hj.array(arrays[f"spd{n}"], split=split, comm=comm)
+            g = hj.array(arrays[f"gen{n}"], split=split, comm=comm)
+            b = hj.array(arrays[f"b{n}"], split=0, comm=comm)
+            for r, got in enumerate(ranks):
+                _close_layout(got, r, "chol" + key, hj.linalg.cholesky(spd), comm, rtol=1e-8, atol=1e-8)
+                np.testing.assert_allclose(float(got["det" + key]), float(hj.linalg.det(g)), rtol=1e-8)
+                _close_layout(got, r, "inv" + key, hj.linalg.inv(g), comm, rtol=1e-8, atol=1e-9)
+                _close_layout(got, r, "solve" + key, hj.linalg.solve(g, b), comm, rtol=1e-8, atol=1e-9)
+            np.testing.assert_allclose(_gathered_local(ranks, "chol" + key), np.linalg.cholesky(arrays[f"spd{n}"]),
+                                       rtol=1e-8, atol=1e-8)
+            xv = np.concatenate([got["solvev" + key + "/local"] for got in ranks])
+            np.testing.assert_allclose(xv, np.linalg.solve(arrays[f"gen{n}"], arrays[f"b{n}"][:, 0]), rtol=1e-8,
+                                       atol=1e-9)
+        want_det = np.linalg.det(arrays[f"gen{n}"])
+        for got in ranks:
+            np.testing.assert_allclose(float(got[f"det_swapped{n}"]), -want_det, rtol=1e-8)
+            assert float(got[f"det_zero_row{n}"]) == 0.0
+    want_ties = float(hj.linalg.det(hj.array(arrays["ties"], split=0, comm=comm)))
+    for got in ranks:
+        assert np.sign(float(got["det_ties"])) == np.sign(want_ties) == np.sign(np.linalg.det(arrays["ties"]))
+        np.testing.assert_allclose(float(got["det_ties"]), want_ties, rtol=1e-10)
+        sizes = dict(zip(got["largest_names"].tolist(), got["largest_sizes"].tolist()))
+        for name, size in sizes.items():
+            n = re.fullmatch(r"[a-z]+(\d+)_[01]", name)
+            whole = int(n.group(1)) ** 2 if n is not None else {"tsqr_tall": 37 * 5, "tsqr_tall32": 64 * 8, "bgs_wide": 23 * 10,
+                                                   "bgs_narrow": 13 * 4, "svd": 37 * 5, "lstsq": 37 * 5,
+                                                   "pca": 37 * 5}[name]
+            assert size < whole, f"{name} handed a rank {size} elements of a {whole}-element matrix"
+
+
+def _same_layout_meta(got, name, want):
+    assert int(got[name + "/split"]) == (-1 if want.split is None else want.split), name
+    np.testing.assert_array_equal(got[name + "/lmap"], want.lshape_map, err_msg=name)

@@ -1349,3 +1349,108 @@ def test_laplacian_and_spherical_data_on_the_card_match_cpu(card):
     for definition in ("simple", "norm_sym"):
         lap = ht.graph.Laplacian(lambda z: ht.spatial.rbf(z, sigma=1.0), definition=definition)
         np.testing.assert_allclose(lap.construct(pts).numpy(), lap.construct(host).numpy(), rtol=1e-4, atol=1e-6)
+
+
+def test_kmeans_at_widths_the_kernel_refuses_takes_the_plain_route(card):
+    """F15: f = 200 float32 and f = 100 float64 exceed K1's register tile;
+    lloyd_route answers "plain" and the fit runs the plain version on the
+    card (no K1 launch), as the CPU does."""
+    from heat_tpu_torch.core import kernels as k
+
+    rng = np.random.default_rng(11)
+    for f, dtype in ((200, np.float32), (100, np.float64)):
+        centres = (rng.standard_normal((4, f)) * 6.0).astype(dtype)
+        x = (centres[rng.integers(0, 4, 3001)] + rng.standard_normal((3001, f))).astype(dtype)
+        assert k.lloyd_route(f, 4, dtype=torch.float32 if dtype == np.float32 else torch.float64) == "plain"
+        before, plain_before = k.LLOYD_LAUNCHES, k.LLOYD_PLAIN_STEPS
+        got = ht.cluster.KMeans(n_clusters=4, init=ht.array(centres), max_iter=20).fit(ht.array(x, split=0))
+        assert k.LLOYD_LAUNCHES == before and k.LLOYD_PLAIN_STEPS - plain_before == got.n_iter_ + 1
+        assert got.labels_.larray.is_cuda
+        want = ht.cluster.KMeans(n_clusters=4, init=ht.array(centres, device="cpu"), max_iter=20).fit(
+            ht.array(x, split=0, device="cpu"))
+        assert got.n_iter_ == want.n_iter_
+        np.testing.assert_array_equal(got.labels_.numpy(), want.labels_.numpy())
+        np.testing.assert_allclose(got.cluster_centers_.numpy(), want.cluster_centers_.numpy(), atol=1e-4)
+        np.testing.assert_array_equal(got.predict(ht.array(x[:500], split=0)).numpy(), want.labels_.numpy()[:500])
+    with pytest.raises(ValueError, match="features"):  # the wrapper itself still refuses
+        k.lloyd_partials(torch.randn(64, 200, device=card), torch.randn(4, 200, device=card), 64)
+
+
+def test_flash_attention_at_refused_shapes_takes_the_einsum_route(card):
+    """F15: d = 512 is past K7's gate: the gate sends the local attention
+    to the einsum path (counted), without a K7 launch; float64 is cast to
+    float32 for K7, which launches.  Both against the port on the CPU."""
+    from heat_tpu_torch.nn import attention as att
+
+    rng = np.random.default_rng(8)
+    cases = [((96, 4, 512), np.float32, 0), ((96, 4, 64), np.float64, 1)]
+    for shape, dtype, k7 in cases:
+        qkv = [rng.standard_normal(shape).astype(dtype) for _ in range(3)]
+        for split in (None, 0):
+            before, einsum_before = _flash.FLASH_LAUNCHES, att.EINSUM_ROUTES
+            got = ht.nn.scaled_dot_product_attention(*(ht.array(x, split=split) for x in qkv), causal=True,
+                                                     method="flash")
+            assert _flash.FLASH_LAUNCHES - before == k7 and att.EINSUM_ROUTES - einsum_before == 1 - k7
+            assert got.dtype.__name__ == np.dtype(dtype).name and got.larray_padded.is_cuda
+            want = ht.nn.scaled_dot_product_attention(*(ht.array(x, split=split, device="cpu") for x in qkv),
+                                                      causal=True, method="flash")
+            np.testing.assert_allclose(got.numpy(), want.numpy(), atol=1e-5, rtol=0)
+
+
+def test_linalg_on_the_card_matches_cpu(card):
+    """qr, svd, the extras, the solvers and the full PCA on the card (cuSOLVER
+    and cuBLAS through torch.linalg) against the port on the CPU: float64
+    within the reference tests' 1e-8, float32 within 1e-4."""
+    rng = np.random.default_rng(12)
+    tall = rng.standard_normal((300, 12))
+    sq = rng.standard_normal((40, 40))
+    spd = sq @ sq.T + 40 * np.eye(40)
+    b = rng.standard_normal((40, 3))
+
+    def both(fn, *arrays, split=0):
+        return (fn(*(ht.array(a, split=split) for a in arrays)), fn(*(ht.array(a, split=split, device="cpu")
+                                                                      for a in arrays)))
+
+    for split in (None, 0, 1):
+        (gq, gr), (cq, cr) = both(ht.linalg.qr, tall, split=split)
+        assert gq.larray_padded.is_cuda and (gq.split, gr.split) == (cq.split, cr.split)
+        s = np.sign(np.diag(gr.numpy())) * np.sign(np.diag(cr.numpy()))
+        np.testing.assert_allclose(gr.numpy() * s[:, None], cr.numpy(), rtol=1e-8, atol=1e-10)
+        np.testing.assert_allclose(gq.numpy() * s, cq.numpy(), rtol=1e-8, atol=1e-10)
+        gs, cs = both(lambda a: ht.linalg.svd(a, compute_uv=False), tall, split=split)
+        np.testing.assert_allclose(gs.numpy(), cs.numpy(), rtol=1e-10)
+    for name in ("cholesky", "inv", "det"):
+        g, c = both(getattr(ht.linalg, name), spd)
+        np.testing.assert_allclose(g.numpy(), c.numpy(), rtol=1e-8, atol=1e-10)
+    g, c = both(ht.linalg.solve, spd, b)
+    np.testing.assert_allclose(g.numpy(), c.numpy(), rtol=1e-8, atol=1e-10)
+    for name in ("slogdet", "eigh"):
+        for gg, cc in zip(*both(getattr(ht.linalg, name), spd, split=None)):
+            got, want = gg.numpy(), cc.numpy()
+            if got.ndim == 2:
+                got = got * np.sign(np.sum(got * want, axis=0))
+            np.testing.assert_allclose(got, want, rtol=1e-8, atol=1e-10)
+    gw, cw = both(ht.linalg.eigvals, sq, split=None)
+    np.testing.assert_allclose(np.sort_complex(gw.numpy()), np.sort_complex(cw.numpy()), rtol=1e-8)
+    assert gw.larray.is_cuda  # on the operand's device, not the host's
+    for gg, cc in zip(*both(ht.linalg.lstsq, tall, tall[:, 0])):
+        np.testing.assert_allclose(gg.numpy(), cc.numpy(), rtol=1e-8, atol=1e-10)
+    g, c = both(ht.linalg.pinv, tall)
+    np.testing.assert_allclose(g.numpy(), c.numpy(), rtol=1e-8, atol=1e-10)
+    g, c = both(lambda a, v: ht.linalg.cg(a, v, ht.zeros(40, dtype=ht.float64, device=a.device)), spd, b[:, 0])
+    np.testing.assert_allclose(g.numpy(), c.numpy(), rtol=1e-8, atol=1e-10)
+    g, c = both(ht.linalg.solve_triangular, np.triu(sq) + 8 * np.eye(40), b)
+    np.testing.assert_allclose(g.numpy(), c.numpy(), rtol=1e-8, atol=1e-10)
+    s32 = spd.astype(np.float32)
+    ht.random.seed(3)
+    gv, gt = ht.linalg.lanczos(ht.array(s32, split=0), 10)
+    ht.random.seed(3)
+    cv, ct = ht.linalg.lanczos(ht.array(s32, split=0, device="cpu"), 10)
+    assert gv.larray.is_cuda
+    np.testing.assert_allclose(gt.numpy(), ct.numpy(), rtol=1e-4, atol=1e-4)
+    x32 = (tall @ rng.standard_normal((12, 12))).astype(np.float32)
+    gp = ht.decomposition.PCA(n_components=4, svd_solver="full").fit(ht.array(x32, split=0))
+    cp = ht.decomposition.PCA(n_components=4, svd_solver="full").fit(ht.array(x32, split=0, device="cpu"))
+    gc, cc = gp.components_.numpy(), cp.components_.numpy()
+    np.testing.assert_allclose(gc * np.sign(np.sum(gc * cc, axis=1))[:, None], cc, atol=1e-4)
+    np.testing.assert_allclose(gp.explained_variance_.numpy(), cp.explained_variance_.numpy(), rtol=1e-4)
