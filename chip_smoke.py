@@ -85,6 +85,17 @@ file, it exits non-zero before printing any result):
    2^15 x 2^15, the norms, redistribute_ and balance_; each call's first
    and warm wall time beside its byte bound, and the peak memory.
 
+6e. manipulations: on the same points, ``sort`` of 2^26 x 16 along axis 0
+   and of a 2^27 column with NaNs and zeros of both signs (bitwise
+   ``torch.sort(stable=True)``), ``percentile`` and ``median(x, axis=0)`` of
+   2^31 elements (bitwise ``torch.kthvalue``'s order statistics),
+   ``topk``, ``unique`` of the fit's labels, ``reshape``, ``concatenate``,
+   ``pad``, ``roll``, ``flip`` (each bitwise its torch counterpart) and
+   three scalers (against float64), each call's first and warm wall time
+   beside its byte bound;
+6f. io: 2^24 x 16 (1 GiB) through .npy (and HDF5 where h5py is installed)
+   and 2^20 x 4 through CSV, round trips bitwise, sidecars verified.
+
 The KMeans data is then freed, and the hierarchical SVD path follows on a
 2^25 x 128 float32 matrix with a decaying spectrum, made on the card:
 
@@ -246,6 +257,7 @@ The line before the last is the kernel summary, the last line
 from __future__ import annotations
 
 import json
+import os
 import subprocess
 import sys
 import time
@@ -1249,6 +1261,261 @@ def ops_phase(x, smi: str) -> int:
     emit({"phase": "ops", "rows": rows, "features": feats, "head_rows_checked_on_cpu": ARRAY_HEAD, "calls": calls,
           "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9, "card": smi})
     return launches
+
+
+SORT_PEAK_BYTES = 60e9  # the points, the sorted values, the indices and torch.sort's workspace must fit
+SORT_WORKSPACE = 6  # torch.sort along axis 0: a transposed copy and its sorted keys and int64 indices, in bytes of x
+IO_ROWS = 1 << 24  # 2^24 x 16 float32: 1 GiB through HDF5 and .npy
+CSV_ROWS = 1 << 20  # tutorial 4's width (4 columns), its rows scaled to 2^20
+TOPK_K = 1024
+
+
+def manipulations_phase(x, labels, smi: str) -> None:
+    """Phase manipulations: the sort and its statistics, the row moves and
+    the scalers on the float32 KMeans points (2^27 x 16) through the entry
+    points a user calls, on one card (the world of one: every sort and
+    quantile runs on the card's own rows).  Each call's first and warm wall
+    time, the memory it took beyond what was allocated before it, and its
+    bound (each input read once, each output written once at 3.35 TB/s).
+    Checks: sort's values and int64 indices bitwise ``torch.sort(stable=
+    True)`` column by column; a 1-D sort of a 2^27 column with NaNs and
+    zeros of both signs planted, bitwise; percentile(col, [25, 50, 75])
+    "lower" and "higher" bitwise ``torch.kthvalue``, "linear" within the
+    float32 rounding of its two order statistics; median(x, axis=0) of 2^31
+    elements (past ``torch.quantile``'s 2^24) bitwise the float64 midpoint of
+    the two kthvalues; topk(col, 1024) of a column with ties in the
+    lowest-index-first order; unique of the fit's labels; reshape,
+    concatenate, pad, roll and flip along axis 0 bitwise their torch
+    counterparts; StandardScaler, MinMaxScaler and RobustScaler against
+    float64 statistics on the card."""
+    import torch
+    import heat_tpu_torch as ht
+
+    ht.use_device("gpu")
+    rows, feats = x.shape
+    pts = ht.array(x, split=0)
+    peaks, calls = [], []
+    n4 = 4 * rows * feats
+
+    def bound(nbytes):
+        return {"bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes", "bytes": nbytes}
+
+    def timed(fn, name, nbytes):
+        out, rec = timed_call(fn, name, bound(nbytes), smi, peaks)
+        calls.append(rec)
+        return out
+
+    # sort along axis 0: every column sorted on the card
+    sort_rows = rows if x.nbytes * (4 + SORT_WORKSPACE) <= SORT_PEAK_BYTES else rows // 2
+    part = ht.array(x[:sort_rows], split=0)
+    v, i = timed(lambda: ht.sort(part, axis=0), f"sort(x[:{sort_rows}], axis=0)", 16 * sort_rows * feats)
+    for j in range(feats):
+        want = torch.sort(x[:sort_rows, j], stable=True)
+        if not (torch.equal(v.larray[:, j].view(torch.int32), want.values.view(torch.int32))
+                and torch.equal(i.larray[:, j], want.indices)):
+            raise AssertionError(f"sort: column {j} differs from torch.sort(stable=True)")
+        del want
+    calls[-1].update(rows=sort_rows, check="values and indices bitwise torch.sort(stable=True), column by column")
+    del v, i, part
+    torch.cuda.empty_cache()
+
+    # a 1-D sort with NaNs and both zeros planted
+    col = x[:, 0].clone()
+    col[::1000] = float("nan")
+    col[1::997] = -0.0
+    col[2::991] = 0.0
+    c = ht.array(col, split=0)
+    v, i = timed(lambda: ht.sort(c), "sort(col) with NaNs and both zeros", 16 * rows)
+    want = torch.sort(col, stable=True)
+    if not (torch.equal(v.larray.view(torch.int32), want.values.view(torch.int32))
+            and torch.equal(i.larray, want.indices)):
+        raise AssertionError("sort of the planted column differs from torch.sort(stable=True)")
+    calls[-1]["check"] = "values and indices bitwise torch.sort(stable=True)"
+    del v, i, want, c, col
+
+    # percentiles of a clean column, each order statistic against kthvalue
+    col = x[:, 1].contiguous()
+    c = ht.array(col, split=0)
+    q = torch.tensor([25.0, 50.0, 75.0], dtype=torch.float64)
+    pos = q / 100.0 * (rows - 1)
+    lo, hi = torch.floor(pos).long(), torch.ceil(pos).long()
+    kth_lo = torch.stack([torch.kthvalue(col, int(k) + 1).values for k in lo])
+    kth_hi = torch.stack([torch.kthvalue(col, int(k) + 1).values for k in hi])
+    for method in ("linear", "lower", "higher"):
+        got = timed(lambda: ht.percentile(c, [25, 50, 75], interpolation=method),
+                    f"percentile(col, [25, 50, 75], {method})", 4 * rows).larray
+        if method == "lower" and not torch.equal(got.view(torch.int32), kth_lo.view(torch.int32)):
+            raise AssertionError("percentile lower differs from torch.kthvalue")
+        if method == "higher" and not torch.equal(got.view(torch.int32), kth_hi.view(torch.int32)):
+            raise AssertionError("percentile higher differs from torch.kthvalue")
+        if method == "linear":  # interpolated in float64, rounded once to float32
+            w = (pos - lo.double()).to(col.device)
+            ref = (kth_lo.double() * (1 - w) + kth_hi.double() * w).float()
+            if not torch.equal(got.view(torch.int32), ref.view(torch.int32)):
+                raise AssertionError("percentile linear differs from the float32 rounding of kthvalue's interpolation")
+        calls[-1]["check"] = {"lower": "bitwise torch.kthvalue", "higher": "bitwise torch.kthvalue",
+                              "linear": "bitwise the float32 rounding of the float64 interpolation of two "
+                                        "torch.kthvalue"}[method]
+    del c, col, kth_lo, kth_hi
+
+    # the median of every column: 2^31 elements
+    med = timed(lambda: ht.median(pts, axis=0), f"median(x, axis=0) of {rows * feats} elements", n4).larray
+    half = (rows - 1) / 2.0
+    for j in range(feats):
+        a = torch.kthvalue(x[:, j], int(half) + 1).values.double()
+        b = torch.kthvalue(x[:, j], int(half) + 2).values.double()
+        if med[j].view(torch.int32) != (a * 0.5 + b * 0.5).float().view(torch.int32):
+            raise AssertionError(f"median of column {j} is not the midpoint of its two middle kthvalues")
+    calls[-1]["check"] = "bitwise the float64 midpoint of the two middle torch.kthvalue, cast to float32"
+
+    # top-k of a column with ties: the larger values first, the lower index first among equals
+    col = torch.round(x[:, 2] * 4) / 4
+    c = ht.array(col, split=0)
+    tv, ti = timed(lambda: ht.topk(c, TOPK_K), f"topk(col, {TOPK_K}) with ties", 4 * rows)
+    key = col.view(torch.int32)
+    key = torch.bitwise_xor(key, (key >> 31) & 0x7FFFFFFF)
+    want = torch.sort(key, descending=True, stable=True).indices[:TOPK_K]
+    if not (torch.equal(ti.larray, want) and torch.equal(tv.larray, col[want])):
+        raise AssertionError("topk: not the lowest-index-first order of the largest values")
+    calls[-1].update(check="indices bitwise a stable descending sort of the total-order keys",
+                     ties_in_result=int(TOPK_K - torch.unique(tv.larray).numel()))
+    del c, col, key, want, tv, ti
+
+    # unique of the fit's labels
+    u = timed(lambda: ht.unique(labels), "unique(labels_)", 8 * rows)
+    if not torch.equal(u.larray, torch.unique(labels.larray)):
+        raise AssertionError("unique of the labels differs from torch.unique")
+    calls[-1]["check"] = "equal to torch.unique"
+
+    # rows moved along axis 0, each against its torch counterpart in chunks
+    chunk = 1 << 24
+
+    def same_rows(got, fn_want, extent):
+        for s in range(0, extent, chunk):
+            if not torch.equal(got[s:s + chunk], fn_want(s, min(s + chunk, extent))):
+                raise AssertionError(f"{calls[-1]['call']}: rows {s}.. differ from the torch counterpart")
+        calls[-1]["check"] = "bitwise its torch counterpart"
+
+    r = timed(lambda: ht.reshape(pts, (rows * feats // 64, 64)), "reshape to (2^25, 64)", 2 * n4)
+    if not torch.equal(r.larray, x.reshape(-1, 64)):
+        raise AssertionError("reshape differs from torch.reshape")
+    calls[-1]["check"] = "bitwise torch.reshape"
+    del r
+    def catted(a, b):  # rows a..b of torch.cat([x, x])
+        return torch.cat([x[a:min(b, rows)], x[max(a, rows) - rows:max(b - rows, 0)]])
+
+    r = timed(lambda: ht.concatenate([pts, pts], axis=0), "concatenate([x, x], 0)", 4 * n4)
+    same_rows(r.larray, catted, 2 * rows)
+    del r
+    torch.cuda.empty_cache()
+    r = timed(lambda: ht.pad(pts, ((3, 5), (0, 0))), "pad(x, ((3, 5), (0, 0)))", 2 * n4)
+    padded = lambda a, b: torch.nn.functional.pad(x[max(a - 3, 0):min(b - 3, rows)],  # noqa: E731
+                                                  (0, 0, max(3 - a, 0), max(b - 3 - rows, 0)))
+    same_rows(r.larray, padded, rows + 8)
+    del r
+    torch.cuda.empty_cache()
+    shift = 12345
+    r = timed(lambda: ht.roll(pts, shift, 0), f"roll(x, {shift}, 0)", 2 * n4)
+    same_rows(r.larray, lambda a, b: x[(torch.arange(a, b, device=x.device) - shift) % rows], rows)  # torch.roll's rows
+    del r
+    torch.cuda.empty_cache()
+    r = timed(lambda: ht.flip(pts, 0), "flip(x, 0)", 2 * n4)
+    same_rows(r.larray, lambda a, b: torch.flip(x[rows - b:rows - a], [0]), rows)
+    del r
+    torch.cuda.empty_cache()
+
+    # the scalers, against float64 statistics of the points on the card
+    stats = {"mean": [], "var": [], "min": [], "max": [], "median": [], "q25": [], "q75": []}
+    for j in range(feats):
+        c64 = x[:, j].double()
+        stats["mean"].append(c64.mean())
+        stats["var"].append(c64.var(unbiased=False))
+        stats["min"].append(c64.min())
+        stats["max"].append(c64.max())
+        del c64
+    stats = {k: torch.stack(v) for k, v in stats.items() if v}
+    head = x[:ARRAY_HEAD].double()
+    scalers = (("StandardScaler", lambda s: (s.mean_.larray.double(), s.var_.larray.double()),
+                lambda: ((head - stats["mean"]) / stats["var"].sqrt(), [stats["mean"], stats["var"]]), (1e-5, 1e-4)),
+               ("MinMaxScaler", lambda s: (s.data_min_.larray.double(), s.data_max_.larray.double()),
+                lambda: ((head - stats["min"]) / (stats["max"] - stats["min"]), [stats["min"], stats["max"]]),
+                (0.0, 1e-6)),
+               ("RobustScaler", None, None, None))
+    for name, fitted, truth, tol in scalers:
+        est = getattr(ht.preprocessing, name)()
+        out = timed(lambda: est.fit_transform(pts), f"{name}().fit_transform(x)", 3 * n4)
+        if truth is not None:
+            want, want_stats = truth()
+            err = float((out.larray[:ARRAY_HEAD].double() - want).abs().max())
+            stat_err = max(float(((g - w).abs() / (1 + w.abs())).max()) for g, w in zip(fitted(est), want_stats))
+            if not (stat_err <= tol[0] and err <= tol[1]):
+                raise AssertionError(f"{name}: statistics {stat_err}, transform {err} from float64 (bounds {tol})")
+            calls[-1].update(stat_rel_err_vs_float64=stat_err, max_abs_err_vs_float64=err, err_bounds=list(tol))
+        else:
+            if not torch.equal(est.center_.larray, med):
+                raise AssertionError("RobustScaler's centre differs from median(x, axis=0)")
+            q = torch.stack([torch.kthvalue(x[:, j], k + 1).values for j in range(feats)
+                             for k in (int(0.25 * (rows - 1)), int(0.25 * (rows - 1)) + 1,
+                                       int(0.75 * (rows - 1)), int(0.75 * (rows - 1)) + 1)]).double().view(feats, 4)
+            w25, w75 = 0.25 * (rows - 1) % 1, 0.75 * (rows - 1) % 1
+            iqr = ((q[:, 2] * (1 - w75) + q[:, 3] * w75).float() - (q[:, 0] * (1 - w25) + q[:, 1] * w25).float())
+            if not torch.equal(est.iqr_.larray, iqr):
+                raise AssertionError("RobustScaler's IQR differs from the kthvalue quantiles")
+            want = (head - med.double()) / iqr.double()
+            err = float((out.larray[:ARRAY_HEAD].double() - want).abs().max())
+            if not err <= 1e-5:
+                raise AssertionError(f"RobustScaler: transform {err} from float64")
+            calls[-1].update(check="centre and IQR bitwise the kthvalue quantiles", max_abs_err_vs_float64=err)
+        del out, est
+        torch.cuda.empty_cache()
+    for rec in calls:
+        emit({"phase": "manipulations", **rec})
+
+
+def io_phase(x, smi: str) -> None:
+    """Phase io: 2^24 x 16 float32 points from the card (1 GiB) through
+    save_hdf5/load_hdf5 and save/load of .npy, and 2^20 x 4 through
+    save_csv/load_csv (tutorial 4's width), each round trip bitwise and its
+    CRC32 sidecar verified, with the wall time and rate of each; in a
+    temporary directory, deleted afterwards."""
+    import shutil
+    import tempfile
+
+    import torch
+    import heat_tpu_torch as ht
+    from heat_tpu_torch.core import io as htio
+
+    ht.use_device("gpu")
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_io_")
+    try:
+        big = ht.array(x[:IO_ROWS].contiguous(), split=0)
+        small = ht.array(x[:CSV_ROWS, :4].contiguous(), split=0)
+        formats = [("npy", big, lambda d, p: ht.save(d, p), lambda p: ht.load(p, split=0)),
+                   ("csv", small, lambda d, p: ht.save_csv(d, p), lambda p: ht.load_csv(p, split=0))]
+        if ht.supports_hdf5():
+            formats.insert(0, ("hdf5", big, lambda d, p: ht.save_hdf5(d, p, "x"),
+                               lambda p: ht.load_hdf5(p, "x", split=0)))
+        else:  # save_hdf5 raises without h5py, as the reference's does
+            emit({"phase": "io", "format": "hdf5", "measured": False,
+                  "reason": "h5py is not installed on this machine (ht.supports_hdf5() is False)", "card": smi})
+        for name, data, save, load in formats:
+            path = os.path.join(tmp, "x." + {"hdf5": "h5"}.get(name, name))
+            _, save_ms = wall_ms(lambda: save(data, path))
+            back, load_ms = wall_ms(lambda: load(path))
+            if htio.verify_checksum(path) is not True:
+                raise AssertionError(f"io {name}: the sidecar is missing or does not verify")
+            if back.shape != data.shape or not back.larray.is_cuda or not torch.equal(back.larray, data.larray):
+                raise AssertionError(f"io {name}: the round trip is not bitwise")
+            gb = data.larray.numel() * 4 / 1e9
+            emit({"phase": "io", "format": name, "shape": list(data.shape), "array_gb": gb,
+                  "file_gb": os.path.getsize(path) / 1e9, "save_s": save_ms / 1e3, "load_s": load_ms / 1e3,
+                  "save_gb_per_s": gb / (save_ms / 1e3), "load_gb_per_s": gb / (load_ms / 1e3),
+                  "check": "round trip bitwise, CRC32 sidecar verified", "card": smi})
+            os.remove(path)
+            os.remove(path + ".crc32")
+            del back
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
 
 
 def compare_gram(x, n_true: int) -> dict:
@@ -3095,6 +3362,11 @@ def main() -> int:
     # 6d. the NumPy surface on the same points: standardize, then cluster
     # (K1 launched on the ops' output), then the ops' calls
     lloyd["launches"] += ops_phase(x, smi)
+
+    # 6e.-6f. the sort, its statistics, the row moves and the scalers on the
+    # same points; then io of their first rows
+    manipulations_phase(x, km.labels_, smi)
+    io_phase(x, smi)
 
     # the KMeans data is freed before the hSVD path's matrix is made
     del x, pts, km, centres, labels, plain_labels, truth, pred

@@ -14,13 +14,14 @@ from .parallel import Communication, SELF, WORLD, get_comm, sanitize_comm, use_c
 
 from . import core
 from .core import *
-from .core import devices, kernels, linalg, random, types
+from .core import devices, io, kernels, linalg, random, types
 
 from . import spatial
 from . import cluster
 from . import classification
 from . import graph
 from . import decomposition
+from . import preprocessing
 from . import fft
 from . import nn
 from . import optim

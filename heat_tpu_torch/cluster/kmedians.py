@@ -24,34 +24,12 @@ from typing import Optional, Union
 import numpy as np
 import torch
 
+from ..core._keys import _from_ordered, _ordered
 from ..core.dndarray import DNDarray
 from ..spatial import distance
 from ._kcluster import _KCluster, _fit_input, _members
 
 __all__ = ["KMedians"]
-
-_KEY_TYPES = {torch.float16: torch.int16, torch.bfloat16: torch.int16, torch.float32: torch.int32,
-              torch.float64: torch.int64}
-
-
-def _ordered(x: torch.Tensor) -> torch.Tensor:
-    """The values of x as signed integers of their width in the values'
-    order (a float's bits, the magnitude bits flipped where it is negative);
-    NaN last of all."""
-    kind = _KEY_TYPES[x.dtype]
-    bits = x.view(kind)
-    top = torch.iinfo(kind).max
-    key = torch.bitwise_xor(bits, (bits >> (bits.element_size() * 8 - 1)) & top)
-    return key.masked_fill_(torch.isnan(x), top)
-
-
-def _from_ordered(key: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
-    """The values whose :func:`_ordered` keys are ``key`` (int64 holding
-    keys of ``dtype``'s width)."""
-    kind = _KEY_TYPES[dtype]
-    key = key.to(kind)
-    return torch.bitwise_xor(key, (key >> (key.element_size() * 8 - 1)) & torch.iinfo(kind).max).view(dtype)
-
 
 def _order_statistics(keys, ranks: torch.Tensor, reduce) -> torch.Tensor:
     """The keys of the order statistics ``ranks`` (k, f, s; 0-based) of each

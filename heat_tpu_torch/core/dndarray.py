@@ -1079,6 +1079,31 @@ class DNDarray:
 
         return exponential.exp(self, out)
 
+    def expand_dims(self, axis):
+        from . import manipulations
+
+        return manipulations.expand_dims(self, axis)
+
+    def fill_diagonal(self, value) -> "DNDarray":
+        """Write ``value`` on the main diagonal of a 2-D array, in place: each
+        rank writes the diagonal entries of its own rows."""
+        if self.ndim != 2:
+            raise ValueError("fill_diagonal requires a 2-D array")
+        n = min(self.__gshape)
+        self.__ragged_buffer = None
+        lo, hi = (0, n) if self.__split is None else _owned(self.__comm, self.__gshape, self.__split, self.__comm.rank)
+        i = torch.arange(max(lo, 0), min(hi, n), device=self.__array.device)
+        if i.numel():
+            v = _value_tensor(value, self.__dtype, self.__array.device)
+            rows, cols = (i - lo, i) if self.__split == 0 else ((i, i - lo) if self.__split == 1 else (i, i))
+            self.__array[rows, cols] = v.to(self.__array.dtype)
+        return self
+
+    def flatten(self):
+        from . import manipulations
+
+        return manipulations.flatten(self)
+
     def floor(self, out=None):
         from . import rounding
 
@@ -1114,6 +1139,18 @@ class DNDarray:
 
         return arithmetics.prod(self, axis, out, keepdims)
 
+    def ravel(self):
+        from . import manipulations
+
+        return manipulations.ravel(self)
+
+    def reshape(self, *shape, new_split=None):
+        from . import manipulations
+
+        if len(shape) == 1 and isinstance(shape[0], (tuple, list)):
+            shape = tuple(shape[0])
+        return manipulations.reshape(self, shape, new_split=new_split)
+
     def round(self, decimals: int = 0, out=None, dtype=None):
         from . import rounding
 
@@ -1128,6 +1165,11 @@ class DNDarray:
         from . import exponential
 
         return exponential.sqrt(self, out)
+
+    def squeeze(self, axis=None):
+        from . import manipulations
+
+        return manipulations.squeeze(self, axis)
 
     def std(self, axis=None, ddof: int = 0, **kwargs):
         from . import statistics
@@ -1163,6 +1205,11 @@ class DNDarray:
         from . import rounding
 
         return rounding.trunc(self, out)
+
+    def unique(self, sorted: bool = False, return_inverse: bool = False, axis=None):
+        from . import manipulations
+
+        return manipulations.unique(self, sorted, return_inverse, axis)
 
     def var(self, axis=None, ddof: int = 0, **kwargs):
         from . import statistics

@@ -374,17 +374,203 @@ def kurtosis(x, axis=None, unbiased: bool = True, Fisher: bool = True) -> DNDarr
     return g2
 
 
+_METHODS = ("linear", "lower", "higher", "midpoint", "nearest")
+
+
+def _percentile_sorted_1d(x: DNDarray, q, interpolation: str):
+    """The reference's sorted route for a large 1-D split array: the sample
+    sort, then the 2 len(q) order statistics by one small all-gather
+    (:func:`sample_sort.select_global_ranks`), integers in float64, numpy's
+    interpolation and NaN propagation.  None where the gate declines."""
+    from .sample_sort import sample_sort_1d, select_global_ranks, supports_sample_sort
+
+    xf = x if types.heat_type_is_inexact(x.dtype) else x.astype(types.float64)
+    if not supports_sample_sort(xf, 0, False):
+        return None
+    v, _ = sample_sort_1d(xf)
+    n = x.shape[0]
+    q_np = np.atleast_1d(np.asarray(q, np.float64))
+    pos = q_np / 100.0 * (n - 1)
+    lo = np.floor(pos).astype(np.int64)
+    hi = np.ceil(pos).astype(np.int64)
+    sel = select_global_ranks(v, np.concatenate([lo, hi]))
+    has_nan = x.comm.psum(torch.isnan(xf._masked(0.0)).any().to(torch.int64).reshape(1)) > 0
+    lo_v = torch.where(has_nan, torch.nan, sel[: len(q_np)])
+    hi_v = torch.where(has_nan, torch.nan, sel[len(q_np):])
+    frac = torch.as_tensor(pos - lo, dtype=sel.dtype, device=sel.device)
+    if interpolation == "linear":
+        res = lo_v + frac * (hi_v - lo_v)
+    elif interpolation == "lower":
+        res = lo_v
+    elif interpolation == "higher":
+        res = hi_v
+    elif interpolation == "midpoint":
+        res = 0.5 * (lo_v + hi_v)
+    elif interpolation == "nearest":
+        near = np.rint(pos).astype(np.int64)
+        res = torch.where(torch.as_tensor(near == lo, device=sel.device), lo_v, hi_v)
+    else:
+        raise ValueError(f"unknown interpolation {interpolation!r}")
+    if np.ndim(q) == 0:
+        res = res[0]
+    return DNDarray(res, tuple(res.shape), xf.dtype, None, x.device, x.comm)
+
+
+def _interpolate(low: torch.Tensor, high: torch.Tensor, hw: torch.Tensor, method: str) -> torch.Tensor:
+    """``jnp.quantile``'s result from the low and high order statistics (q
+    along dim 0) and the high weights ``hw`` (float64, one per q): "linear"
+    in float64, "nearest" low where ``hw <= 0.5``, all in the values'
+    type."""
+    w = hw.reshape((-1,) + (1,) * (low.ndim - 1))
+    if method == "linear":
+        res = low.to(torch.float64) * (1.0 - w) + high.to(torch.float64) * w
+    elif method == "lower":
+        res = low
+    elif method == "higher":
+        res = high
+    elif method == "nearest":
+        res = torch.where(w <= 0.5, low, high)
+    else:
+        res = (low + high) * 0.5
+    return res.to(low.dtype)
+
+
+def _ranks(q: torch.Tensor, n: int):
+    """``(low, high, high weight)`` positions of the quantiles ``q`` (float64
+    fractions) among n sorted values, jnp.quantile's."""
+    qq = q * (n - 1)
+    low, high = torch.floor(qq), torch.ceil(qq)
+    hw = qq - low
+    return low.clamp(0, n - 1).to(torch.int64), high.clamp(0, n - 1).to(torch.int64), hw
+
+
+_QUANTILE_BLOCK = 1 << 27  # elements a local quantile sorts at a time
+
+
+def _quantile_local(t: torch.Tensor, q: torch.Tensor, axes, method: str) -> torch.Tensor:
+    """``jnp.quantile`` of a whole tensor over ``axes`` (a tuple; None: all),
+    q along the result's first dim: a reduction with a NaN gives NaN.  The
+    reduced values of each kept position are a column, sorted a block of
+    columns at a time (at most ``_QUANTILE_BLOCK`` elements)."""
+    if axes is None:
+        t = t.reshape(-1, 1)
+    else:
+        keep = [d for d in range(t.ndim) if d not in axes]
+        t = t.permute(list(axes) + keep).reshape((-1,) + tuple(t.shape[d] for d in keep))
+    n = t.shape[0]
+    flat = t.reshape(n, -1)
+    low, high, hw = _ranks(q, n)
+    step = builtins.max(1, _QUANTILE_BLOCK // builtins.max(n, 1))
+    lows, highs = [], []
+    for c0 in range(0, flat.shape[1], step):
+        block = flat[:, c0:c0 + step]
+        s = torch.sort(block, dim=0).values  # NaN last
+        lo, hi = s[low], s[high]
+        if block.is_floating_point():
+            nan = torch.isnan(block).any(0)
+            lo, hi = torch.where(nan, torch.nan, lo), torch.where(nan, torch.nan, hi)
+        lows.append(lo)
+        highs.append(hi)
+    if not lows:
+        empty = flat.new_zeros((q.numel(), 0))
+        lows, highs = [empty], [empty]
+    res = _interpolate(torch.cat(lows, 1), torch.cat(highs, 1), hw, method)
+    return res.reshape((q.numel(),) + tuple(t.shape[1:]))
+
+
+def _quantile_split_axis(x: DNDarray, q: torch.Tensor, axis: int, method: str) -> torch.Tensor:
+    """``jnp.quantile`` over the split axis without a gather: the columns
+    sorted by the sample sort (a stable argsort's order), then each rank
+    offers the order statistics it owns and one all-gather of 2 len(q)
+    values a column lets every rank pick them."""
+    from .sample_sort import _select_rows, _sorted_along
+
+    s, _ = _sorted_along(x, axis, False, merge_zeros=True)
+    low, high, hw = _ranks(q, x.shape[axis])
+    chunk = s.larray_padded.movedim(axis, 0)
+    sel = _select_rows(x.comm, chunk, torch.cat([low, high]))
+    nan = x.comm.psum(torch.isnan(x._masked(0)).any(axis).to(torch.int64)) > 0
+    sel = torch.where(nan, torch.nan, sel)
+    return _interpolate(sel[: q.numel()], sel[q.numel():], hw, method)
+
+
+def _quantile(x: DNDarray, q, axis, method: str, keepdims: bool) -> DNDarray:
+    """The dense route (``jnp.percentile``'s values), without a gather: an
+    array split along a reduced axis is sorted by the sample sort (one
+    reduced axis) or flattened first (all axes), or resplit along an axis it
+    keeps; a reduction that keeps the split axis runs on each rank's rows,
+    and its result is put together on every rank."""
+    if method not in _METHODS:
+        raise ValueError("method can only be 'linear', 'lower', 'higher', 'midpoint', or 'nearest'")
+    if types.heat_type_is_complexfloating(x.dtype):
+        raise ValueError("quantile does not support complex input, as the operation is poorly defined.")
+    if not types.heat_type_is_inexact(x.dtype):
+        x = x.astype(types.float32)
+    q_np = np.asarray(q, np.float64)
+    qt = torch.as_tensor(q_np.reshape(-1) / 100.0, dtype=torch.float64, device=x.larray_padded.device)
+    axes = None if axis is None else (axis if isinstance(axis, tuple) else (axis,))
+    shape = list(x.shape)
+    kept = [d for d in range(x.ndim) if axes is not None and d not in axes]
+    out_shape = [1 if (axes is None or d in axes) else shape[d] for d in range(x.ndim)] if keepdims else \
+        [shape[d] for d in kept]
+    split, comm = x.split, x.comm
+    if split is None or comm.size == 1 or (axes is not None and split not in axes):
+        res = _quantile_local(x.larray, qt, axes, method)
+        if split is not None and comm.size > 1:
+            at = 1 + kept.index(split)  # the split axis's place in (q, kept...)
+            res = _pad_along(res, at, comm.padded_extent(shape[split]) // comm.size)
+            res = DNDarray(res.contiguous(), (qt.numel(),) + tuple(shape[d] for d in kept), x.dtype, at, x.device,
+                           comm)._dense()
+    elif axes is None or len(axes) == x.ndim:
+        from .manipulations import flatten
+
+        res = _quantile_split_axis(flatten(x), qt, 0, method)
+    elif len(axes) == 1:
+        res = _quantile_split_axis(x, qt, split, method)
+    else:
+        return _quantile(x.resplit(kept[0]), q, axis, method, keepdims)
+    res = res.reshape(tuple(q_np.shape) + tuple(out_shape))
+    return DNDarray(res.contiguous(), tuple(res.shape), x.dtype, None, x.device, comm)
+
+
 def percentile(x, q, axis=None, out=None, interpolation: str = "linear", keepdims: bool = False,
-               sketched: bool = False, sketch_size=None):
-    """Not ported yet: it rides the distributed sample sort (ROADMAP Queue 1
-    item 11)."""
-    raise NotImplementedError("percentile rides the distributed sample sort, not ported yet (ROADMAP Queue 1 "
-                              "item 11)")
+               sketched: bool = False, sketch_size=None) -> DNDarray:
+    """The q-th percentiles along ``axis``, on every rank.
+
+    A large 1-D split array takes the reference's sorted route (the sample
+    sort and a selection of ranks, numpy's values); every other call gives
+    ``jnp.percentile``'s values, with no gather of the array
+    (:func:`_quantile`).  ``sketched=True`` first draws ``sketch_size``
+    samples along the axis (the reference's draw, ``random.randint``)."""
+    q_chk = np.asarray(q, dtype=np.float64)
+    if not np.all((q_chk >= 0.0) & (q_chk <= 100.0)):
+        raise ValueError("Percentiles must be in the range [0, 100]")
+    axis_s = sanitize_axis(x.shape, axis)
+    if not sketched and out is None and x.ndim == 1 and axis_s in (None, 0):
+        res = _percentile_sorted_1d(x, q, interpolation)
+        if res is not None:
+            if keepdims:
+                t = res.larray_padded
+                res = res._like(t.reshape(tuple(t.shape) + (1,) if t.ndim else (1,)), split=None,
+                                gshape=tuple(t.shape) + (1,) if t.ndim else (1,))
+            return res
+    if sketched:
+        from . import random as ht_random
+        from .manipulations import flatten
+
+        n = x.size if axis_s is None else x.shape[axis_s]
+        size = builtins.min(sketch_size or builtins.max(int(np.sqrt(n)) * 32, 1024), n)
+        if size < n:
+            xf = x if types.heat_type_is_inexact(x.dtype) else x.astype(types.float32)
+            idx = ht_random.randint(0, n, size=(size,), comm=x.comm, device=x.device)._dense()
+            x = flatten(xf)[idx] if axis_s is None else xf[(slice(None),) * axis_s + (idx,)]
+    return _to_out(_quantile(x, q, axis_s, interpolation, keepdims), out)
 
 
-def median(x, axis=None, keepdims: bool = False):
-    """Not ported yet: the 50th percentile (ROADMAP Queue 1 item 11)."""
-    raise NotImplementedError("median rides the distributed sample sort, not ported yet (ROADMAP Queue 1 item 11)")
+def median(x, axis=None, keepdims: bool = False) -> DNDarray:
+    """The median: the 50th percentile (a large 1-D split array rides the
+    sample sort, as the reference's does)."""
+    return percentile(x, 50.0, axis=axis, keepdims=keepdims)
 
 
 # ----------------------------------------------------------------------

@@ -4,7 +4,9 @@
 ``serving.model_io.export_state`` writes, ``{"kind", "params", "state"}``,
 with its array leaves already turned into numpy arrays, and returns the
 port's fitted estimator, ready to ``predict`` (KMeans, KMedians, KMedoids,
-KNeighborsClassifier) or ``transform`` (PCA).  :func:`from_reference_array` takes a result of heat_tpu (for example
+KNeighborsClassifier) or ``transform`` (PCA, and the five scalers, whose
+state is their fitted attributes by name: ``mean_``, ``var_``,
+``data_min_``, ``scale_`` ...).  :func:`from_reference_array` takes a result of heat_tpu (for example
 a spectrum, which heat_tpu may hold as two real planes) as numpy and returns
 the port's DNDarray of it, complex where it is complex.
 :func:`params_from_reference` takes a flax parameter tree of the JAX
@@ -23,6 +25,7 @@ from .classification import KNeighborsClassifier
 from .cluster import KMeans, KMedians, KMedoids
 from .core import factories
 from .decomposition import PCA
+from .preprocessing import MaxAbsScaler, MinMaxScaler, Normalizer, RobustScaler, StandardScaler
 
 __all__ = ["from_reference_array", "from_reference_state", "params_from_reference"]
 
@@ -67,18 +70,35 @@ def _pca_state(est: PCA, state: Dict[str, Any], device, comm) -> None:
     est.n_components_ = int(state["n_components"])
 
 
+_SCALER_ARRAYS = {
+    "StandardScaler": ("mean_", "var_"),
+    "MinMaxScaler": ("data_min_", "data_max_", "scale_", "min_"),
+    "Normalizer": (),
+    "MaxAbsScaler": ("max_abs_", "scale_"),
+    "RobustScaler": ("center_", "iqr_"),
+}
+
+
+def _scaler_state(est, state: Dict[str, Any], device, comm) -> None:
+    for attr in _SCALER_ARRAYS[type(est).__name__]:
+        value = state.get(attr)
+        setattr(est, attr, None if value is None else factories.array(np.asarray(value), device=device, comm=comm))
+
+
 _KINDS = {
     "KMeans": (KMeans, _kcluster_state),
     "KMedians": (KMedians, _kcluster_state),
     "KMedoids": (KMedoids, _kcluster_state),
     "KNeighborsClassifier": (KNeighborsClassifier, _knn_state),
     "PCA": (PCA, _pca_state),
+    **{cls.__name__: (cls, _scaler_state)
+       for cls in (StandardScaler, MinMaxScaler, Normalizer, MaxAbsScaler, RobustScaler)},
 }
 
 
 def from_reference_state(doc: Dict[str, Any], device=None, comm=None):
     """A fitted port estimator from a heat_tpu model document (KMeans,
-    KMedians, KMedoids, KNeighborsClassifier or PCA)."""
+    KMedians, KMedoids, KNeighborsClassifier, PCA or one of the scalers)."""
     try:
         kind, params, state = doc["kind"], doc["params"], doc["state"]
     except (TypeError, KeyError):

@@ -1454,3 +1454,103 @@ def test_linalg_on_the_card_matches_cpu(card):
     gc, cc = gp.components_.numpy(), cp.components_.numpy()
     np.testing.assert_allclose(gc * np.sign(np.sum(gc * cc, axis=1))[:, None], cc, atol=1e-4)
     np.testing.assert_allclose(gp.explained_variance_.numpy(), cp.explained_variance_.numpy(), rtol=1e-4)
+
+
+# ----------------------------------------------------------------------
+# manipulations, the sort and its statistics, io and the scalers on the card
+# ----------------------------------------------------------------------
+def _pair(a, split=0):
+    """``a`` on the card and on the host, split alike."""
+    return ht.array(a, split=split, device="gpu"), ht.array(a, split=split, device="cpu")
+
+
+def _bitwise(got, want):
+    g, w = got.numpy(), want.numpy()
+    assert got.split == want.split and got.dtype == want.dtype and g.shape == w.shape
+    np.testing.assert_array_equal(g.view(np.uint8), w.view(np.uint8))
+
+
+SORT_DTYPES = ["float32", "float64", "int32", "int64"]
+
+
+@pytest.mark.parametrize("dtype", SORT_DTYPES)
+def test_sort_on_the_card_is_the_hosts(card, dtype):
+    rng = np.random.default_rng(60)
+    x = (rng.integers(-40, 40, (4099, 5)) * 0.5).astype(dtype)
+    if dtype.startswith("float"):
+        x[::13, 0], x[3::17, 1], x[5::19, 2], x[7::23, 3] = np.nan, -0.0, 0.0, -np.nan
+    for axis in (0, 1):
+        for desc in (False, True):
+            g, c = _pair(x)
+            got, want = ht.sort(g, axis=axis, descending=desc), ht.sort(c, axis=axis, descending=desc)
+            _bitwise(got[1], want[1])
+            _bitwise(got[0], want[0])
+
+
+@pytest.mark.parametrize("method", ["linear", "lower", "higher", "midpoint", "nearest"])
+def test_percentile_on_the_card_is_the_hosts(card, method):
+    rng = np.random.default_rng(61)
+    x = rng.standard_normal((5003, 4)).astype(np.float32)
+    for axis in (None, 0, 1):
+        g, c = _pair(x)
+        got = ht.percentile(g, [0, 12.5, 50, 99], axis=axis, interpolation=method)
+        want = ht.percentile(c, [0, 12.5, 50, 99], axis=axis, interpolation=method)
+        np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=3e-5, atol=1e-6)
+    g, c = _pair(x)
+    np.testing.assert_array_equal(ht.median(g, axis=0).numpy(), ht.median(c, axis=0).numpy())
+
+
+def test_topk_and_unique_on_the_card_are_the_hosts(card):
+    rng = np.random.default_rng(62)
+    x = rng.integers(0, 50, 10007).astype(np.float32)
+    x[::101] = np.nan
+    g, c = _pair(x)
+    for largest in (True, False):
+        got, want = ht.topk(g, 64, largest=largest), ht.topk(c, 64, largest=largest)
+        _bitwise(got[1], want[1])
+        _bitwise(got[0], want[0])
+    _bitwise(ht.unique(g), ht.unique(c))
+    gi, ci = _pair(rng.integers(0, 9, (300, 3)).astype(np.int64))
+    _bitwise(ht.unique(gi), ht.unique(ci))
+    got, want = ht.unique(gi, return_inverse=True), ht.unique(ci, return_inverse=True)
+    _bitwise(got[1], want[1])
+
+
+def test_row_moves_on_the_card_are_the_hosts(card):
+    rng = np.random.default_rng(63)
+    x = rng.standard_normal((1001, 6)).astype(np.float32)
+    calls = (lambda m, a: m.reshape(a, (3003, 2)), lambda m, a: m.flatten(a),
+             lambda m, a: m.concatenate([a, a], 0), lambda m, a: m.pad(a, ((2, 3), (1, 0)), mode="reflect"),
+             lambda m, a: m.pad(a, 4, constant_values=1.5), lambda m, a: m.roll(a, 17, 0),
+             lambda m, a: m.flip(a, 0), lambda m, a: m.unfold(a, 0, 5, 2), lambda m, a: m.tile(a, (2, 2)),
+             lambda m, a: m.repeat(a, 3, 0), lambda m, a: m.diagonal(a, 1), lambda m, a: m.stack([a, a], 1))
+    for call in calls:
+        g, c = _pair(x)
+        got, want = call(ht, g), call(ht, c)
+        assert got.larray_padded.is_cuda
+        _bitwise(got, want)
+
+
+@pytest.mark.parametrize("ext", [".h5", ".npy", ".csv"])
+def test_io_round_trips_through_the_card(card, tmp_path, ext):
+    if ext == ".h5" and not ht.supports_hdf5():
+        pytest.skip("needs h5py")
+    x = np.random.default_rng(64).standard_normal((777, 4)).astype(np.float32)
+    path = str(tmp_path / f"x{ext}")
+    args = ("x",) if ext == ".h5" else ()
+    g, c = _pair(x)
+    ht.save(g, path, *args)
+    back = ht.load(path, *args, split=0, device="gpu")
+    assert back.larray_padded.is_cuda
+    _bitwise(back, c)
+    ht.save(c, str(tmp_path / f"y{ext}"), *args)
+    assert (tmp_path / f"x{ext}").read_bytes() == (tmp_path / f"y{ext}").read_bytes() or ext == ".h5"
+
+
+def test_scalers_on_the_card_match_the_hosts(card):
+    x = np.random.default_rng(65).standard_normal((2049, 5)).astype(np.float32)
+    for name in ("StandardScaler", "MinMaxScaler", "Normalizer", "MaxAbsScaler", "RobustScaler"):
+        g, c = _pair(x)
+        got = getattr(ht.preprocessing, name)().fit_transform(g)
+        want = getattr(ht.preprocessing, name)().fit_transform(c)
+        np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-5, atol=1e-6)

@@ -3,7 +3,7 @@ NaN, keepdims, ``out=``), min, max, mean, maximum, minimum, average, var,
 std, skew, kurtosis, cov, bincount, histogram, histc, digitize and
 bucketize, over the splits None/0/1 and the types each takes; integer
 results bitwise, float results within the reference's own bounds.
-percentile and median raise, naming the queue item they wait for."""
+percentile and median (the sort's route) in test_torch_sort_percentile.py."""
 
 import numpy as np
 import pytest
@@ -220,7 +220,8 @@ def test_digitize_bucketize_match_reference():
 
 
 def test_percentile_and_median_wait_for_the_sort():
-    p = ht.array(np.arange(10.0), split=0)
-    for call in (lambda: ht.percentile(p, 50), lambda: ht.median(p), lambda: p.median()):
-        with pytest.raises(NotImplementedError, match="item 11"):
-            call()
+    """percentile and median ride the sort now: the reference's values."""
+    p, r = ht.array(np.arange(10.0), split=0), hj.array(np.arange(10.0), split=0)
+    same(ht.percentile(p, 50), hj.percentile(r, 50))
+    same(ht.median(p), hj.median(r))
+    same(p.median(), r.median())

@@ -1,4 +1,4 @@
-"""The reference's tutorials 1-3 and 5 (tutorials/local) run through the port.
+"""The reference's tutorials 1-5 (tutorials/local) run through the port.
 
 Each notebook's code cells run with ``import heat_tpu as ht`` read as
 ``import heat_tpu_torch as ht`` (on the CPU), and every line they print is
@@ -15,7 +15,10 @@ Tutorial 5 prints the residuals of factorizations, rounding noise that two
 correct LAPACK builds (MKL under torch, XLA's own under JAX) do not share:
 its lines are held to the same text with every number within rtol 1e-5 and
 atol 1e-4, the bound of the reference's own QR test
-(tests/test_linalg.py:46), instead of the same digits.
+(tests/test_linalg.py:46), instead of the same digits.  Tutorial 4 prints
+``float(ht.mean(xs))`` and ``float(ht.std(xs))`` of standardized data, sums
+whose rounding follows the order of the additions: held to the same text
+and atol 1e-6 (its mean is of order 1e-9, its std 1).
 
 Tutorial 3's cell that prints ``a.larray_padded.sharding`` is skipped: a
 ``jax.sharding`` object has no counterpart in the port (a rank's buffer is
@@ -35,9 +38,10 @@ import heat_tpu as hj
 import heat_tpu_torch as ht
 
 TUTORIALS = Path(__file__).resolve().parents[1] / "tutorials" / "local"
-NOTEBOOKS = ["1_intro.ipynb", "2_basics.ipynb", "3_internals.ipynb", "5_matrix_factorizations.ipynb"]
+NOTEBOOKS = ["1_intro.ipynb", "2_basics.ipynb", "3_internals.ipynb", "4_loading_preprocessing.ipynb",
+             "5_matrix_factorizations.ipynb"]
 # notebooks whose numbers are compared within (rtol, atol), not digit by digit
-NUMERIC = {"5_matrix_factorizations.ipynb": (1e-5, 1e-4)}
+NUMERIC = {"4_loading_preprocessing.ipynb": (1e-6, 1e-6), "5_matrix_factorizations.ipynb": (1e-5, 1e-4)}
 _NUMBER = re.compile(r"[-+]?(?:\d+\.?\d*|\.\d+)(?:[eE][-+]?\d+)?|[-+]?inf|nan")
 # cells with no counterpart in the port, by the text they print
 SKIP = {"print(a.larray_padded.sharding)": "a jax.sharding object has no counterpart in the port"}
