@@ -95,6 +95,20 @@ file, it exits non-zero before printing any result):
    beside its byte bound;
 6f. io: 2^24 x 16 (1 GiB) through .npy (and HDF5 where h5py is installed)
    and 2^20 x 4 through CSV, round trips bitwise, sidecars verified.
+6g. ml_rest: GaussianNB (fit, partial_fit in two halves, predict,
+   predict_proba) and BatchParallelKMeans(8) on the points and their true
+   labels, BatchParallelKMedians on the first 2^24 rows, Lasso(lam=0.01) on
+   the first 2^25 rows (y = x w + 0.5 + noise; its sweeps and host syncs),
+   Spectral(8, gamma=0.5, n_lanczos=300) on 2^15 of the points scaled by
+   1/8 (K1 n_iter + 1 and threefry launches, device time by step), each
+   call's first and warm wall time beside its byte bound, each estimator
+   also fitted on a head on the card and on the host, the phase's peak
+   memory under 60 GB;
+6h. napi_signal: a sweep of napi's exports on the points or one of their
+   columns (first and warm wall time beside the byte bound; the card's
+   result at 2^16 rows against the host's), then convolve of a 2^27
+   float32 signal with a 1025-tap kernel in the three modes within 1e-5 of
+   float64 (and, beside it, with cuDNN's TF32 allowed).
 
 The KMeans data is then freed, and the hierarchical SVD path follows on a
 2^25 x 128 float32 matrix with a decaying spectrum, made on the card:
@@ -1516,6 +1530,424 @@ def io_phase(x, smi: str) -> None:
             del back
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
+
+
+ML_HEAD = 1 << 16  # rows each estimator also fits on the card and on the host
+KMEDIANS_ROWS = 1 << 24  # each update sorts every cluster's members feature by feature
+LASSO_ROWS = 1 << 25  # a sweep reads the 17 columns' data 17 times
+SPECTRAL_ROWS = 1 << 15  # the Laplacian cell's size: a 4.3 GB L
+SPECTRAL_SCALE = 0.125  # at their own scale every similarity between clusters underflows to 0
+SPECTRAL_HEAD = 1 << 12  # points the host's Spectral fits beside the card's
+ML_PEAK_BYTES = 60e9
+
+
+def _agreement(a, b, k: int) -> float:
+    """The share of labels a and b (int tensors) agree on, under the best
+    matching of a's clusters to b's (each of a's to the b label it meets most)."""
+    import torch
+
+    a, b = a.long().cpu(), b.long().cpu()
+    table = torch.zeros((k, k), dtype=torch.int64).index_put_((a, b), torch.ones_like(a), accumulate=True)
+    return float(table.max(1).values.sum()) / a.numel()
+
+
+def lloyd_fixed_point(points, centres, labels, medians: bool, block: int = 1 << 22) -> float:
+    """How far a converged fit is from a fixed point of its own step, in
+    float64 on the card: the labels must be each row's nearest centre but
+    for near-ties (``near_tie_mismatches``), and the largest distance of a
+    centre from its members' mean (median: the mean of the two middle
+    values, feature by feature) is returned.  The fits stop once the
+    squared movement of a step is at most 1e-4, so 1e-2 bounds it."""
+    import torch
+
+    c64 = centres.double()
+    want = torch.cat([torch.addmm((c64 * c64).sum(1)[None, :], points[i:i + block].double(), c64.T, alpha=-2.0)
+                      .argmin(1) for i in range(0, points.shape[0], block)])
+    near_tie_mismatches(points, centres, labels.long(), want)
+    worst = 0.0
+    for j in range(centres.shape[0]):
+        members = points[labels == j].double()
+        if members.shape[0] == 0:
+            continue
+        if medians:
+            s = torch.sort(members, dim=0).values
+            m = members.shape[0]
+            centre = 0.5 * (s[(m - 1) // 2] + s[m // 2])
+        else:
+            centre = members.mean(0)
+        worst = max(worst, float((centre - c64[j]).abs().max()))
+    return worst
+
+
+def ml_rest_phase(x, member, smi: str) -> dict:
+    """Phase ml_rest: GaussianNB (fit, partial_fit in two halves, predict,
+    predict_proba) and BatchParallelKMeans(8, random_state=1) on the 2^27 x
+    16 points with their 8 true labels, BatchParallelKMedians on the first
+    2^24 rows, Lasso(lam=0.01) on the first 2^25 rows with y = x w + 0.5 +
+    noise, Spectral(8, gamma=0.5, n_lanczos=300) on 2^15 of the points
+    scaled by 1/8.  Each call's first and warm wall time beside its byte
+    bound (x read once per pass at 3.35 TB/s); Lasso's sweeps and host
+    syncs; K1's and threefry's launches during Spectral and its device time
+    by step (the profiler labels spectral.laplacian, .lanczos, .eigh,
+    .kmeans); the phase's peak memory under 60 GB.  Each estimator also fits
+    the first 2^16 rows (Spectral: 2^12 points) on the card and on the host:
+    the results agree within the CPU tests' bounds, labels bitwise but for
+    near-ties.  Returns ``{"lloyd_step": K1 launches, "threefry": ...}`` of
+    the Spectral fit."""
+    import torch
+    import heat_tpu_torch as ht
+    from heat_tpu_torch.core import kernels
+    from heat_tpu_torch.core import random as rnd
+    from heat_tpu_torch.regression import lasso as lasso_mod
+
+    ht.use_device("gpu")
+    rows, feats = x.shape
+    xb = 4 * rows * feats
+    t_phase = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    calls = []
+
+    def timed(name, fn, passes, rows_read: int = rows, **extra):
+        """``fn``'s result and its first and warm wall time beside the
+        bound of ``passes`` reads of ``rows_read`` rows of x (a callable
+        ``passes`` is asked after the warm call)."""
+        out, first = wall_ms(fn)
+        del out
+        out, warm = wall_ms(fn)
+        if callable(passes):
+            passes = passes()
+            extra["passes"] = passes
+        bound = passes * 4 * rows_read * feats / HBM_BYTES_PER_S * 1e3
+        calls.append({"call": name, "first_ms": first, "warm_ms": warm, "bound_ms": bound, "bound_by": "bytes",
+                      "share_of_bound": bound / warm, **extra})
+        return out
+
+    def head_pair(a):
+        return ht.array(a[:ML_HEAD], split=0), ht.array(a[:ML_HEAD].cpu(), split=0, device="cpu")
+
+    labels = member.to(torch.int32)
+    X, Y = ht.array(x, split=0), ht.array(labels, split=0)
+
+    # GaussianNB: the mean pass, then the centred moments (2 passes); predict 1 pass
+    nb = timed("GaussianNB.fit", lambda: ht.naive_bayes.GaussianNB().fit(X, Y), 2)
+    half = rows // 2
+
+    def two_halves():
+        est = ht.naive_bayes.GaussianNB()
+        est.partial_fit(ht.array(x[:half], split=0), ht.array(labels[:half], split=0))
+        return est.partial_fit(ht.array(x[half:], split=0), ht.array(labels[half:], split=0))
+
+    nb2 = timed("GaussianNB.partial_fit (two halves)", two_halves, 2)
+    pred = timed("GaussianNB.predict", lambda: nb.predict(X), 1)
+    proba = timed("GaussianNB.predict_proba", lambda: nb.predict_proba(X), 1)
+    theta_err = float((nb.theta_.larray - nb2.theta_.larray).abs().max())
+    accuracy = float((pred.larray == labels).double().mean())
+    proba_sum_err = float((proba.larray.double().sum(1) - 1.0).abs().max())
+    if theta_err > 1e-4 or accuracy < 0.99 or proba_sum_err > 1e-5 or proba.shape != (rows, CLUSTERS):
+        raise AssertionError(f"GaussianNB: two halves' theta {theta_err} from the fit's, accuracy {accuracy}, "
+                             f"probability sums {proba_sum_err} from 1")
+    del pred, proba, nb2
+    hx, cx = head_pair(x)
+    hy, cy = head_pair(labels)
+    g, c = ht.naive_bayes.GaussianNB().fit(hx, hy), ht.naive_bayes.GaussianNB().fit(cx, cy)
+    # the reference's moments subtract E[xc]^2 from E[xc^2] (xc: x less its
+    # global mean): each is a float32 sum of terms up to the scale below, and
+    # the card and the host add them in other orders (1e-3 apart relative to
+    # a variance of 1 at this head, measured): theta is held to 1e-5 of |x|, var to 1e-4 of E[xc^2]
+    xc = hx.larray.double() - hx.larray.double().mean(0)
+    scale = {"theta_": float(hx.larray.abs().max()), "var_": float((xc * xc).mean(0).max())}
+    nb_head = {a: float((getattr(g, a).larray.cpu() - getattr(c, a).larray).abs().max()) / scale[a]
+               for a in ("theta_", "var_")}
+    nb_head["predict_mismatches"] = int((g.predict(hx).larray.cpu() != c.predict(cx).larray).sum())
+    nb_head["proba_max_abs_err"] = float((g.predict_proba(hx).larray.cpu() - c.predict_proba(cx).larray).abs().max())
+    if nb_head["theta_"] > 1e-5 or nb_head["var_"] > 1e-4 or nb_head["proba_max_abs_err"] > 1e-5 or \
+            nb_head["predict_mismatches"] > 0 or not torch.equal(g.class_count_.larray.cpu(), c.class_count_.larray):
+        raise AssertionError(f"GaussianNB at the head (theta and var relative to their scales): {nb_head}")
+    del xc
+    del nb, g, c
+
+    # BatchParallelKMeans: one batch on one card (k-means++ then Lloyd); a
+    # pass of x per k-means++ round and per assignment (each Lloyd iteration
+    # and the labels), counted at the assignment
+    from heat_tpu_torch.cluster import batchparallelclustering as bpc
+
+    assignments, real_nearest = [0], bpc._nearest
+
+    def counting(points, centres):
+        assignments[0] += 1
+        return real_nearest(points, centres)
+
+    def passes_per_fit():
+        n_fit, assignments[0] = assignments[0] // 2, 0  # timed ran the fit twice
+        return CLUSTERS - 1 + n_fit
+
+    bpc._nearest = counting
+    try:
+        bp = timed("BatchParallelKMeans.fit", lambda: ht.cluster.BatchParallelKMeans(
+            n_clusters=CLUSTERS, random_state=1).fit(X), passes_per_fit)
+    finally:
+        bpc._nearest = real_nearest
+    bp_agree = _agreement(bp.labels_.larray, labels, CLUSTERS)
+    g = ht.cluster.BatchParallelKMeans(n_clusters=CLUSTERS, random_state=1).fit(hx)
+    c = ht.cluster.BatchParallelKMeans(n_clusters=CLUSTERS, random_state=1).fit(cx)
+    bp_head = {"centre_max_abs_err": float((g.cluster_centers_.larray.cpu() - c.cluster_centers_.larray).abs().max()),
+               "near_ties": near_tie_mismatches(hx.larray, g.cluster_centers_.larray, g.labels_.larray.long(),
+                                                c.labels_.larray.to(hx.larray.device).long())}
+    bp_fixed = lloyd_fixed_point(x, bp.cluster_centers_.larray, bp.labels_.larray, medians=False)
+    if bp_fixed > 1e-2 or bp_head["centre_max_abs_err"] > 5e-5:
+        raise AssertionError(f"BatchParallelKMeans: centres {bp_fixed} from their members' mean, head {bp_head}")
+    del bp, g, c
+
+    km_rows = KMEDIANS_ROWS
+    XM = ht.array(x[:km_rows], split=0)
+    bpc._nearest = counting
+    try:
+        bpm = timed("BatchParallelKMedians.fit", lambda: ht.cluster.BatchParallelKMedians(
+            n_clusters=CLUSTERS, random_state=1).fit(XM), passes_per_fit, km_rows,
+            rows_note=f"first {km_rows} rows")
+    finally:
+        bpc._nearest = real_nearest
+    bpm_agree = _agreement(bpm.labels_.larray, labels[:km_rows], CLUSTERS)
+    g = ht.cluster.BatchParallelKMedians(n_clusters=CLUSTERS, random_state=1).fit(hx)
+    c = ht.cluster.BatchParallelKMedians(n_clusters=CLUSTERS, random_state=1).fit(cx)
+    bpm_err = float((g.cluster_centers_.larray.cpu() - c.cluster_centers_.larray).abs().max())
+    near_tie_mismatches(hx.larray, g.cluster_centers_.larray, g.labels_.larray.long(),
+                        c.labels_.larray.to(hx.larray.device).long())
+    bpm_fixed = lloyd_fixed_point(x[:km_rows], bpm.cluster_centers_.larray, bpm.labels_.larray, medians=True)
+    if bpm_fixed > 1e-2 or bpm_err > 5e-5:
+        raise AssertionError(f"BatchParallelKMedians: centres {bpm_fixed} from their members' median, head centres "
+                             f"{bpm_err}")
+    del bpm, XM, g, c
+
+    # Lasso on 2^25 standard normal rows of the cell's width: y = x w + 0.5 +
+    # noise, w with zeros.  On the cell's own rows (8 blobs) the features
+    # share the blobs' structure and coordinate descent takes about 900
+    # sweeps (measured on the host at 2^16 rows); max_iter=100 stops it
+    # mid-course, where a 1e-7 change of x moves theta by 2e-5
+    gen = torch.Generator(device=x.device).manual_seed(SEED + 5)
+    w = torch.randn(feats, device=x.device, generator=gen)
+    w[::4] = 0.0
+    xl = torch.randn(LASSO_ROWS, feats, device=x.device, generator=gen)
+    yl = xl @ w + 0.5 + 0.01 * torch.randn(LASSO_ROWS, device=x.device, generator=gen)
+    XL, YL = ht.array(xl, split=0), ht.array(yl, split=0)
+    las, lasso_syncs = count_syncs(lambda: ht.regression.Lasso(lam=0.01).fit(XL, YL))
+    sweeps, reads = las.n_iter, lasso_mod.STOP_TEST_READS
+    las = timed("Lasso.fit", lambda: ht.regression.Lasso(lam=0.01).fit(XL, YL), sweeps * (feats + 1), LASSO_ROWS,
+                sweeps=sweeps, stop_test_reads=reads, host_syncs=lasso_syncs,
+                one_read_a_sweep_ms=sweeps * 4 * LASSO_ROWS * feats / HBM_BYTES_PER_S * 1e3)
+    yhat = timed("Lasso.predict", lambda: las.predict(XL), 1, LASSO_ROWS)
+    coef_err = float((las.coef_.larray.reshape(-1) - w).abs().max())
+    fit_err = float((yhat.larray.reshape(-1) - yl).pow(2).mean().sqrt())
+    hl, cl = head_pair(yl)
+    g = ht.regression.Lasso(lam=0.01).fit(head_pair(xl)[0], hl)
+    c = ht.regression.Lasso(lam=0.01).fit(head_pair(xl)[1], cl)
+    lasso_head = float((g.theta.larray.cpu() - c.theta.larray).abs().max())
+    if coef_err > 1e-3 or fit_err > 0.02 or lasso_head > 1e-5 or g.n_iter != c.n_iter:
+        raise AssertionError(f"Lasso: coefficients {coef_err} from w, RMS residual {fit_err} (noise 0.01), head theta "
+                             f"{lasso_head}, n_iter {g.n_iter} against {c.n_iter}")
+    del XL, YL, yl, yhat, las, g, c, xl
+    torch.cuda.empty_cache()
+
+    # Spectral on 2^15 scaled points: K1 and threefry launches, device time by step
+    pts = x[:SPECTRAL_ROWS] * SPECTRAL_SCALE
+    S = ht.array(pts, split=0)
+
+    def spectral():
+        ht.random.seed(SEED + 6)
+        return ht.cluster.Spectral(n_clusters=CLUSTERS, gamma=0.5, n_lanczos=300).fit(S)
+
+    zero_launches()
+    sp, first_ms = wall_ms(spectral)
+    k1, tf = kernels.LLOYD_LAUNCHES, rnd.THREEFRY_LAUNCHES
+    if k1 != sp._cluster.n_iter_ + 1 or tf < 1 or other_launches() != k1 + tf:
+        raise AssertionError(f"Spectral launched K1 {k1} times for {sp._cluster.n_iter_} iterations, threefry {tf}, "
+                             f"{other_launches()} kernels in all")
+    sp_agree = _agreement(sp.labels_.larray, labels[:SPECTRAL_ROWS], CLUSTERS)
+    _, warm_ms = wall_ms(lambda: spectral().labels_)
+    split = profile_fit(lambda: spectral().labels_,
+                        labels=("spectral.laplacian", "spectral.lanczos", "spectral.eigh", "spectral.kmeans"))
+    hs, cs = (ht.array(pts[:SPECTRAL_HEAD], split=0), ht.array(pts[:SPECTRAL_HEAD].cpu(), split=0, device="cpu"))
+    ht.random.seed(SEED + 7)
+    g = ht.cluster.Spectral(n_clusters=CLUSTERS, gamma=0.5, n_lanczos=300).fit_predict(hs)
+    ht.random.seed(SEED + 7)
+    c = ht.cluster.Spectral(n_clusters=CLUSTERS, gamma=0.5, n_lanczos=300).fit_predict(cs)
+    sp_head = _agreement(g.larray, c.larray, CLUSTERS)
+    if sp_head < 0.99 or not 0 <= int(sp.labels_.larray.min()) <= int(sp.labels_.larray.max()) < CLUSTERS:
+        raise AssertionError(f"Spectral: the head's labels {sp_head} the host's (up to their numbering)")
+    lap_bytes = 4 * SPECTRAL_ROWS * SPECTRAL_ROWS
+    calls.append({"call": "Spectral.fit", "first_ms": first_ms, "warm_ms": warm_ms,
+                  "bound_ms": 301 * lap_bytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+                  "bound_note": "L written once and read once a Lanczos step", "k1_launches": k1,
+                  "threefry_launches": tf, "labels_agree_truth": sp_agree, "head_agree_host": sp_head,
+                  "profile": split})
+    del sp, S, pts
+    torch.cuda.empty_cache()
+    peak = torch.cuda.max_memory_allocated()
+    if peak > ML_PEAK_BYTES:
+        raise AssertionError(f"ml_rest took {peak / 1e9} GB at its peak")
+    emit({"phase": "ml_rest", "calls": calls, "gaussian_nb": {"accuracy": accuracy, "two_halves_theta_err": theta_err,
+          "head": nb_head},
+          "batch_parallel_kmeans": {"labels_agree_truth": bp_agree, "centres_from_members_mean": bp_fixed,
+                                    "head": bp_head},
+          "batch_parallel_kmedians": {"labels_agree_truth": bpm_agree, "centres_from_members_median": bpm_fixed,
+                                      "head_centre_err": bpm_err},
+          "lasso": {"sweeps": sweeps, "stop_test_reads": reads, "host_syncs": lasso_syncs, "coef_err": coef_err,
+                    "head_theta_err": lasso_head},
+          "phase_peak_gb": peak / 1e9, "phase_seconds": time.perf_counter() - t_phase, "card": smi})
+    return {"lloyd_step": k1, "threefry": tf}
+
+
+CONV_N = 1 << 27
+CONV_TAPS = 1025
+NAPI_HEAD = 1 << 16  # rows each napi call also runs on the host
+
+
+def napi_signal_phase(x, smi: str) -> None:
+    """Phase napi_signal: a sweep of napi's exports on the KMeans points (or
+    one of their columns), each call's first and warm wall time beside its
+    byte bound (its inputs read once, its outputs written once), each also
+    run on the first 2^16 rows on the card and on the host (integers,
+    indices and bools bitwise, floats within rtol 1e-4, atol 1e-5); then
+    ``convolve`` of a 2^27 float32 signal with a 1025-tap kernel in the
+    three modes, within 1e-5 (relative to the largest value) of the float64
+    convolution on the card, beside the same convolution with cuDNN's TF32
+    allowed (the port turns it off) and its bound."""
+    import torch
+    import heat_tpu_torch as ht
+
+    ht.use_device("gpu")
+    rows, feats = x.shape
+    f4 = 4
+    t_phase = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    col0, col1 = x[:, 0].contiguous(), x[:, 1].contiguous()
+    srt = torch.sort(col1[: 1 << 20]).values
+    wv = torch.linspace(-1.0, 1.0, feats, device=x.device)
+    n, nb = rows, rows * f4
+    # (name, call on (m, points, column, other column, sorted, weights), bytes read and written)
+    sweep = [
+        ("argsort", lambda m, a, c, d, s, w: m.argsort(c), nb + 8 * n),
+        ("argsort_desc", lambda m, a, c, d, s, w: m.argsort(c, descending=True), nb + 8 * n),
+        ("partition", lambda m, a, c, d, s, w: m.partition(c, 1000), 2 * nb),
+        ("lexsort", lambda m, a, c, d, s, w: m.lexsort((c, d)), 2 * nb + 8 * n),
+        ("searchsorted", lambda m, a, c, d, s, w: m.searchsorted(s, c), nb + f4 * n),
+        ("sort_complex", lambda m, a, c, d, s, w: m.sort_complex(c), nb + 8 * n),
+        ("nanmax", lambda m, a, c, d, s, w: m.nanmax(a, axis=0), feats * nb),
+        ("nanmean", lambda m, a, c, d, s, w: m.nanmean(a, axis=0), feats * nb),
+        ("nanvar", lambda m, a, c, d, s, w: m.nanvar(a, axis=0), feats * nb),
+        ("nanstd", lambda m, a, c, d, s, w: m.nanstd(a, axis=0, ddof=1), feats * nb),
+        ("nanargmax", lambda m, a, c, d, s, w: m.nanargmax(a, axis=0), feats * nb),
+        ("nanmedian", lambda m, a, c, d, s, w: m.nanmedian(c), nb),
+        ("quantile", lambda m, a, c, d, s, w: m.quantile(c, [0.1, 0.5, 0.9]), nb),
+        ("nanpercentile", lambda m, a, c, d, s, w: m.nanpercentile(a, 75.0, axis=0), feats * nb),
+        ("ptp", lambda m, a, c, d, s, w: m.ptp(a, axis=0), feats * nb),
+        ("amax", lambda m, a, c, d, s, w: m.amax(a, axis=0), feats * nb),
+        ("count_nonzero", lambda m, a, c, d, s, w: m.count_nonzero(a > 0, axis=0), feats * nb),
+        ("corrcoef", lambda m, a, c, d, s, w: m.corrcoef(a, rowvar=False), feats * nb),
+        ("histogram2d", lambda m, a, c, d, s, w: m.histogram2d(c, d, bins=32), 2 * nb),
+        ("histogram_bin_edges", lambda m, a, c, d, s, w: m.histogram_bin_edges(c, bins=64), nb),
+        ("append", lambda m, a, c, d, s, w: m.append(c, d), 4 * nb),
+        ("delete", lambda m, a, c, d, s, w: m.delete(c, slice(0, None, 3)), nb + nb * 2 // 3),
+        ("resize", lambda m, a, c, d, s, w: m.resize(c, (2, n)), 3 * nb),
+        ("array_split", lambda m, a, c, d, s, w: m.array_split(a, 4), 0),  # views: no bytes move
+        ("dstack", lambda m, a, c, d, s, w: m.dstack([c, d]), 4 * nb),
+        ("flatnonzero", lambda m, a, c, d, s, w: m.flatnonzero(c > 0), nb + 4 * n),
+        ("extract", lambda m, a, c, d, s, w: m.extract(c > 0, c), nb + nb // 2),
+        ("fmax", lambda m, a, c, d, s, w: m.fmax(a, 0.0), 2 * feats * nb),
+        ("inner", lambda m, a, c, d, s, w: m.inner(c, d), 2 * nb),
+        ("tensordot", lambda m, a, c, d, s, w: m.tensordot(a, w, axes=1), feats * nb + nb),
+        ("einsum", lambda m, a, c, d, s, w: m.einsum("ij,j->i", a, w), feats * nb + nb),
+        ("vander", lambda m, a, c, d, s, w: m.vander(c, 4), nb + 4 * nb),
+        ("correlate", lambda m, a, c, d, s, w: m.correlate(c, d[:64]), 2 * nb),
+        ("packbits", lambda m, a, c, d, s, w: m.packbits(c > 0), nb + n // 8),
+        ("array_equal", lambda m, a, c, d, s, w: m.array_equal(a, a), 2 * feats * nb),
+    ]
+    a = ht.array(x, split=0)
+    c, d = ht.array(col0, split=0), ht.array(col1, split=0)
+    s, w = ht.array(srt), ht.array(wv)
+    hd = (ht.array(x[:NAPI_HEAD], split=0), ht.array(col0[:NAPI_HEAD], split=0), ht.array(col1[:NAPI_HEAD], split=0),
+          s, w)
+    hc = tuple(ht.array(t.larray.cpu(), split=t.split, device="cpu") for t in hd)
+    records = []
+    for name, call, nbytes in sweep:
+        out, first = wall_ms(lambda: call(ht, a, c, d, s, w))
+        del out
+        out, warm = wall_ms(lambda: call(ht, a, c, d, s, w))
+        del out
+        got, want = call(ht, *hd), call(ht, *hc)
+        err = _napi_mismatch(got, want)
+        if err is not None:
+            raise AssertionError(f"napi {name} on the card differs from the host at the head: {err}")
+        bound = nbytes / HBM_BYTES_PER_S * 1e3
+        records.append({"call": name, "first_ms": first, "warm_ms": warm, "bound_ms": bound, "bound_by": "bytes",
+                        "share_of_bound": bound / warm})
+    emit({"phase": "napi_signal", "calls": records, "head_rows": NAPI_HEAD, "card": smi})
+    del a, c, d, s, w, hd, hc, col0, col1
+    torch.cuda.empty_cache()
+
+    gen = torch.Generator(device=x.device).manual_seed(SEED + 8)
+    sig = torch.randn(CONV_N, device=x.device, generator=gen)
+    ker = torch.randn(CONV_TAPS, device=x.device, generator=gen)
+    S, K = ht.array(sig, split=0), ht.array(ker)
+    conv = []
+    for mode in ("full", "same", "valid"):
+        out, first = wall_ms(lambda: ht.convolve(S, K, mode=mode))
+        del out
+        out, warm = wall_ms(lambda: ht.convolve(S, K, mode=mode))
+        got = out.larray
+        pad = {"full": CONV_TAPS - 1, "same": CONV_TAPS // 2, "valid": 0}[mode]
+        sp = torch.nn.functional.pad(sig.double(), (pad, pad))
+        want = torch.nn.functional.conv1d(sp[None, None], ker.double().flip(0)[None, None])[0, 0]
+        scale = float(want.abs().max())
+        err = float((got.double() - want).abs().max()) / scale
+        prev = torch.backends.cudnn.allow_tf32
+        torch.backends.cudnn.allow_tf32 = True
+        try:
+            tf32 = torch.nn.functional.conv1d(torch.nn.functional.pad(sig, (pad, pad))[None, None],
+                                              ker.flip(0)[None, None])[0, 0]
+        finally:
+            torch.backends.cudnn.allow_tf32 = prev
+        tf32_err = float((tf32.double() - want).abs().max()) / scale
+        if out.shape != (want.shape[0],) or out.split != 0 or err > 1e-5:
+            raise AssertionError(f"convolve {mode}: {err} from float64 (1e-5), shape {out.shape}, split {out.split}")
+        n_out = want.shape[0]
+        b = {"bytes": 4 * (CONV_N + CONV_TAPS + n_out) / HBM_BYTES_PER_S * 1e3,
+             "operations": 2.0 * n_out * CONV_TAPS / F32_FLOPS * 1e3}
+        by = max(b, key=b.get)
+        conv.append({"mode": mode, "first_ms": first, "warm_ms": warm, "rel_err_vs_float64": err,
+                     "tf32_rel_err_vs_float64": tf32_err, "bound_ms": b[by], "bound_by": by,
+                     "share_of_bound": b[by] / warm})
+        del out, got, want, sp, tf32
+        torch.cuda.empty_cache()
+    peak = torch.cuda.max_memory_allocated()
+    emit({"phase": "napi_signal", "convolve": conv, "signal": CONV_N, "taps": CONV_TAPS, "phase_peak_gb": peak / 1e9,
+          "phase_seconds": time.perf_counter() - t_phase, "card": smi})
+    del sig, ker, S, K
+    torch.cuda.empty_cache()
+
+
+def _napi_mismatch(got, want):
+    """None where a napi result on the card is the host's (integers, indices
+    and bools bitwise, floats within rtol 1e-4, atol 1e-5: float32 sums of
+    2^16 terms in the card's order and the host's), else what differs."""
+    import numpy as np
+    import heat_tpu_torch as ht
+
+    if isinstance(want, (tuple, list)):
+        for g, w in zip(got, want):
+            err = _napi_mismatch(g, w)
+            if err is not None:
+                return err
+        return None
+    if not isinstance(want, ht.DNDarray):
+        return None if np.allclose(np.asarray(got), np.asarray(want), rtol=1e-4, atol=1e-5) else (got, want)
+    if got.split != want.split or got.dtype != want.dtype or got.shape != want.shape:
+        return (got.split, want.split, got.dtype, want.dtype, got.shape, want.shape)
+    g, w = got.numpy(), want.numpy()
+    if g.dtype.kind in "biu":
+        return None if np.array_equal(g, w) else "values"
+    ok = np.allclose(g, w, rtol=1e-4, atol=1e-5, equal_nan=True)
+    return None if ok else float(np.nanmax(np.abs(g.astype(np.float64) - w)))
 
 
 def compare_gram(x, n_true: int) -> dict:
@@ -3367,6 +3799,18 @@ def main() -> int:
     # same points; then io of their first rows
     manipulations_phase(x, km.labels_, smi)
     io_phase(x, smi)
+
+    # 6g.-6h. the rest of the ML layer on the same points and their true
+    # labels (drawn again from the seeded generator), then napi and convolve
+    g_truth = torch.Generator(device=dev).manual_seed(SEED)
+    torch.randn(CLUSTERS, FEATURES, device=dev, generator=g_truth)
+    member = torch.randint(0, CLUSTERS, (ROWS,), device=dev, generator=g_truth)
+    ml_launches = ml_rest_phase(x, member, smi)
+    lloyd["launches"] += ml_launches["lloyd_step"]
+    threefry["launches"] += ml_launches["threefry"]
+    del member
+    torch.cuda.empty_cache()
+    napi_signal_phase(x, smi)
 
     # the KMeans data is freed before the hSVD path's matrix is made
     del x, pts, km, centres, labels, plain_labels, truth, pred

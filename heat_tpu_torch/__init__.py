@@ -19,6 +19,8 @@ from .core import devices, io, kernels, linalg, random, types
 from . import spatial
 from . import cluster
 from . import classification
+from . import naive_bayes
+from . import regression
 from . import graph
 from . import decomposition
 from . import preprocessing

@@ -17,7 +17,7 @@ import torch
 
 from ..core import random as ht_random
 from ..core import arithmetics, statistics, types
-from ..core.base import BaseEstimator, ClusteringMixin, lazy_scalar_property
+from ..core.base import BaseEstimator, ClusteringMixin, lazy_scalar_property, validate_resume_params
 from ..core.dndarray import DNDarray
 from ..spatial import distance
 
@@ -39,8 +39,7 @@ class _KCluster(BaseEstimator, ClusteringMixin):
         checkpoint_dir: Optional[str] = None,
         resume_from: Optional[str] = None,
     ):
-        if checkpoint_every is not None or checkpoint_dir is not None or resume_from is not None:
-            raise NotImplementedError("resumable fits (checkpoint_every, checkpoint_dir, resume_from) are not ported yet")
+        validate_resume_params(checkpoint_every, checkpoint_dir, resume_from)
         self.n_clusters = n_clusters
         self.init = init
         self.max_iter = max_iter

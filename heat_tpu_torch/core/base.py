@@ -10,9 +10,16 @@ __all__ = [
     "BaseEstimator",
     "ClassificationMixin",
     "ClusteringMixin",
+    "RegressionMixin",
     "TransformMixin",
+    "is_classifier",
+    "is_estimator",
+    "is_clusterer",
+    "is_regressor",
+    "is_transformer",
     "lazy_scalar_property",
     "low_precision_predict_requested",
+    "validate_resume_params",
 ]
 
 _NATIVE_PREDICT = ("", "0", "off", "float32", "f32", "native")
@@ -22,6 +29,38 @@ def low_precision_predict_requested() -> bool:
     """True where ``HEAT_TPU_PREDICT_DTYPE`` asks predict and transform for a
     low-precision compute type (not ported yet: callers raise)."""
     return os.environ.get("HEAT_TPU_PREDICT_DTYPE", "").strip().lower() not in _NATIVE_PREDICT
+
+
+def _sample_rows(x, *aligned):
+    """``(rows, [entries], reduce)`` for an estimator's sums over samples:
+    where x is split along its rows over several ranks, this rank's rows of
+    x, each ``aligned`` array's entries (flattened) for those rows and the
+    all-reduce of a sum; else the whole arrays and the identity.  An
+    aligned None stays None."""
+    if x.split == 0 and x.comm.size > 1:
+        lo, rows = x.comm.chunk(x.shape, 0)[0], x.lshape[0]
+
+        def mine(v):
+            if v is None:
+                return None
+            if v.split == 0 and v.shape[0] == x.shape[0]:  # the same canonical rows
+                return v.larray.reshape(-1)
+            return v._dense().reshape(-1)[lo:lo + rows]
+
+        return x.larray, [mine(v) for v in aligned], x.comm.psum
+    return x._dense(), [None if v is None else v._dense().reshape(-1) for v in aligned], (lambda t: t)
+
+
+def validate_resume_params(
+    checkpoint_every: Optional[int],
+    checkpoint_dir: Optional[str],
+    resume_from: Optional[str],
+) -> None:
+    """The constructors' check of the resumable-fit parameters: any of them
+    raises, since resumable fits are not ported yet (ROADMAP Queue 1 item
+    15)."""
+    if checkpoint_every is not None or checkpoint_dir is not None or resume_from is not None:
+        raise NotImplementedError("resumable fits (checkpoint_every, checkpoint_dir, resume_from) are not ported yet")
 
 
 def lazy_scalar_property(attr: str, kind: type = float, doc: Optional[str] = None) -> property:
@@ -123,3 +162,42 @@ class TransformMixin:
 
     def transform(self, x):
         raise NotImplementedError()
+
+
+class RegressionMixin:
+    """fit / predict protocol of regressors."""
+
+    def fit(self, x, y):
+        raise NotImplementedError()
+
+    def fit_predict(self, x, y):
+        self.fit(x, y)
+        return self.predict(x)
+
+    def predict(self, x):
+        raise NotImplementedError()
+
+
+def is_classifier(estimator) -> bool:
+    """True for classifiers."""
+    return isinstance(estimator, ClassificationMixin)
+
+
+def is_estimator(estimator) -> bool:
+    """True for estimators."""
+    return isinstance(estimator, BaseEstimator)
+
+
+def is_clusterer(estimator) -> bool:
+    """True for clusterers."""
+    return isinstance(estimator, ClusteringMixin)
+
+
+def is_regressor(estimator) -> bool:
+    """True for regressors."""
+    return isinstance(estimator, RegressionMixin)
+
+
+def is_transformer(estimator) -> bool:
+    """True for transformers."""
+    return isinstance(estimator, TransformMixin)

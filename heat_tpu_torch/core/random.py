@@ -261,12 +261,11 @@ def _uniform(key: Tuple[int, int], shape, dtype, device: torch.device, lo: float
     return floats.reshape(shape)
 
 
-def _split(key: Tuple[int, int]) -> Tuple[Tuple[int, int], Tuple[int, int]]:
-    """``jax.random.split(key)`` (``_threefry_split_foldlike``): the two new
-    keys are the hash words of counters 0 and 1 under ``key``, hashed on the
-    host."""
-    b0, b1 = _random_bits_plain(key, 2, torch.device("cpu"))
-    return (int(b0[0]) & _M32, int(b1[0]) & _M32), (int(b0[1]) & _M32, int(b1[1]) & _M32)
+def _split(key: Tuple[int, int], num: int = 2) -> Tuple[Tuple[int, int], ...]:
+    """``jax.random.split(key, num)`` (``_threefry_split_foldlike``): new key
+    i is the hash words of counter i under ``key``, hashed on the host."""
+    b0, b1 = _random_bits_plain(key, num, torch.device("cpu"))
+    return tuple((int(b0[i]) & _M32, int(b1[i]) & _M32) for i in range(num))
 
 
 def _bits32(key: Tuple[int, int], n: int, device: torch.device) -> torch.Tensor:

@@ -733,7 +733,7 @@ def _global_range(a: DNDarray):
     return lo.larray_padded, hi.larray_padded
 
 
-def _edges(lo: torch.Tensor, hi: torch.Tensor, bins: int, dt, a: DNDarray) -> torch.Tensor:
+def _edges(lo: torch.Tensor, hi: torch.Tensor, bins: int, dt, device: torch.device) -> torch.Tensor:
     """JAX's bin edges: ``linspace(lo, hi, bins + 1)`` computed in ``dt``
     as XLA compiles it (``lo (1 - i r) + i (hi r)``, ``r = 1 / bins``, the
     last sum one fused multiply-add), the range widened by 0.5 on each
@@ -749,7 +749,7 @@ def _edges(lo: torch.Tensor, hi: torch.Tensor, bins: int, dt, a: DNDarray) -> to
     fma = _fma32 if dt == torch.float32 else _fma64
     edges = fma(i, (hi * r).expand_as(i).contiguous(), lo * (1 - i * r))
     edges[-1] = hi
-    return edges.to(a.larray_padded.device)
+    return edges.to(device)
 
 
 def _hist_counts(values: torch.Tensor, w, edges: torch.Tensor, a: DNDarray, split: bool) -> torch.Tensor:
@@ -787,7 +787,7 @@ def histogram(a, bins=10, range=None, weights=None, density=None):
             lo, hi = torch.tensor(0.0, dtype=dt), torch.tensor(1.0, dtype=dt)
         else:
             lo, hi = _global_range(a)
-        edges = _edges(lo, hi, int(bins), dt, a)
+        edges = _edges(lo, hi, int(bins), dt, a.larray_padded.device)
     w = None
     if weights is not None:
         if not isinstance(weights, DNDarray):
@@ -822,7 +822,7 @@ def histc(input, bins: int = 100, min: float = 0.0, max: float = 0.0, out=None) 
         lo, hi = torch.tensor(float(min), dtype=dt), torch.tensor(float(max), dtype=dt)
         keep = (values >= min) & (values <= max)
         values = values[keep]
-    edges = _edges(lo, hi, int(bins), dt, input)
+    edges = _edges(lo, hi, int(bins), dt, input.larray_padded.device)
     counts = _hist_counts(values, None, edges, input, input.split is not None)
     res = DNDarray.from_dense(types._cast(counts, types.canonical_heat_type(counts.dtype), input.dtype), None,
                               input.device, input.comm, input.dtype)

@@ -4,9 +4,12 @@
 ``serving.model_io.export_state`` writes, ``{"kind", "params", "state"}``,
 with its array leaves already turned into numpy arrays, and returns the
 port's fitted estimator, ready to ``predict`` (KMeans, KMedians, KMedoids,
-KNeighborsClassifier) or ``transform`` (PCA, and the five scalers, whose
-state is their fitted attributes by name: ``mean_``, ``var_``,
-``data_min_``, ``scale_`` ...).  :func:`from_reference_array` takes a result of heat_tpu (for example
+KNeighborsClassifier, Lasso, whose state is ``theta``) or ``transform``
+(PCA).  The five scalers, GaussianNB and the two batch-parallel clusterers,
+which that writer does not take, come as documents of the same form whose
+state is their fitted attributes by name (``mean_``, ``var_``, ``scale_``
+...; ``classes_``, ``theta_``, ``class_count_`` ...; ``cluster_centers``).
+:func:`from_reference_array` takes a result of heat_tpu (for example
 a spectrum, which heat_tpu may hold as two real planes) as numpy and returns
 the port's DNDarray of it, complex where it is complex.
 :func:`params_from_reference` takes a flax parameter tree of the JAX
@@ -22,10 +25,12 @@ import numpy as np
 import torch
 
 from .classification import KNeighborsClassifier
-from .cluster import KMeans, KMedians, KMedoids
+from .cluster import BatchParallelKMeans, BatchParallelKMedians, KMeans, KMedians, KMedoids
 from .core import factories
 from .decomposition import PCA
+from .naive_bayes import GaussianNB
 from .preprocessing import MaxAbsScaler, MinMaxScaler, Normalizer, RobustScaler, StandardScaler
+from .regression import Lasso
 
 __all__ = ["from_reference_array", "from_reference_state", "params_from_reference"]
 
@@ -85,12 +90,30 @@ def _scaler_state(est, state: Dict[str, Any], device, comm) -> None:
         setattr(est, attr, None if value is None else factories.array(np.asarray(value), device=device, comm=comm))
 
 
+_GNB_ARRAYS = ("classes_", "theta_", "var_", "class_count_", "class_prior_")
+
+
+def _gnb_state(est: GaussianNB, state: Dict[str, Any], device, comm) -> None:
+    for attr in _GNB_ARRAYS:
+        setattr(est, attr, factories.array(np.asarray(state[attr]), device=device, comm=comm))
+    est._epsilon = est._eps_applied = torch.tensor(float(state["epsilon_"]), dtype=est.var_.larray.dtype,
+                                                   device=est.var_.larray.device)
+
+
+def _lasso_state(est: Lasso, state: Dict[str, Any], device, comm) -> None:
+    est._theta = factories.array(np.asarray(state["theta"]).reshape(-1, 1), device=device, comm=comm)
+
+
 _KINDS = {
     "KMeans": (KMeans, _kcluster_state),
     "KMedians": (KMedians, _kcluster_state),
     "KMedoids": (KMedoids, _kcluster_state),
     "KNeighborsClassifier": (KNeighborsClassifier, _knn_state),
     "PCA": (PCA, _pca_state),
+    "Lasso": (Lasso, _lasso_state),
+    "GaussianNB": (GaussianNB, _gnb_state),
+    "BatchParallelKMeans": (BatchParallelKMeans, _kcluster_state),
+    "BatchParallelKMedians": (BatchParallelKMedians, _kcluster_state),
     **{cls.__name__: (cls, _scaler_state)
        for cls in (StandardScaler, MinMaxScaler, Normalizer, MaxAbsScaler, RobustScaler)},
 }
@@ -98,7 +121,8 @@ _KINDS = {
 
 def from_reference_state(doc: Dict[str, Any], device=None, comm=None):
     """A fitted port estimator from a heat_tpu model document (KMeans,
-    KMedians, KMedoids, KNeighborsClassifier, PCA or one of the scalers)."""
+    KMedians, KMedoids, KNeighborsClassifier, PCA, Lasso, GaussianNB, the
+    batch-parallel clusterers or one of the scalers)."""
     try:
         kind, params, state = doc["kind"], doc["params"], doc["state"]
     except (TypeError, KeyError):

@@ -1554,3 +1554,123 @@ def test_scalers_on_the_card_match_the_hosts(card):
         got = getattr(ht.preprocessing, name)().fit_transform(g)
         want = getattr(ht.preprocessing, name)().fit_transform(c)
         np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-5, atol=1e-6)
+
+
+# ---- the rest of the ML layer, napi and signal -------------------------------
+
+from torch_napi_cases import ONE  # noqa: E402
+
+
+def _close(got, want, rtol=3e-5, atol=1e-6):
+    """One result on the card against the host's: split, type and shape,
+    integers, bools and indices bitwise, floats within (rtol, atol)."""
+    if isinstance(want, (tuple, list)):
+        for g, w in zip(got, want):
+            _close(g, w, rtol, atol)
+        return
+    if not isinstance(want, ht.DNDarray):
+        np.testing.assert_allclose(np.asarray(got), np.asarray(want), rtol=rtol)
+        return
+    assert got.split == want.split and got.dtype == want.dtype and got.shape == want.shape
+    assert got.larray_padded.is_cuda
+    g, w = got.numpy(), want.numpy()
+    if g.dtype.kind in "biu":
+        np.testing.assert_array_equal(g, w)
+    else:
+        np.testing.assert_allclose(g, w, rtol=rtol, atol=atol)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "float64", "int32"])
+def test_napi_on_the_card_is_the_hosts(card, dtype):
+    rng = np.random.default_rng(70)
+    a = (rng.standard_normal((7, 5)) * 2 if dtype != "int32" else rng.integers(-9, 10, (7, 5))).astype(dtype)
+    a[3] = a[1]
+    if dtype != "int32":
+        a[0, 1] = np.nan
+        a[2, 2], a[5, 2] = 0.0, -0.0
+    for name, call in ONE.items():
+        if not name.startswith("nan") and dtype != "int32":
+            a_use = np.nan_to_num(a)
+        else:
+            a_use = a
+        g, c = _pair(a_use)
+        try:
+            want = call(ht, c)
+        except Exception as e:
+            with pytest.raises(type(e)):
+                call(ht, g)
+            continue
+        _close(call(ht, g), want)
+
+
+def test_convolve_on_the_card_is_ieee_float32(card):
+    """Within 1e-5 (relative to the largest value) of float64, the bound
+    a TF32 product (10 mantissa bits) would miss."""
+    rng = np.random.default_rng(71)
+    sig = rng.standard_normal(1 << 16).astype(np.float32)
+    ker = rng.standard_normal(1025).astype(np.float32)
+    for mode in ("full", "same", "valid"):
+        got = ht.convolve(ht.array(sig, split=0, device="gpu"), ht.array(ker, device="gpu"), mode=mode)
+        assert got.larray_padded.is_cuda and got.dtype == ht.float32
+        want = np.convolve(sig.astype(np.float64), ker.astype(np.float64), mode=mode)
+        assert np.abs(got.numpy() - want).max() <= 1e-5 * np.abs(want).max()
+    ints = rng.integers(-9, 10, 999).astype(np.int32)
+    g, c = _pair(ints)
+    _bitwise(ht.convolve(g, ht.array([1, -2, 3], device="gpu"), mode="same"),
+             ht.convolve(c, ht.array([1, -2, 3], device="cpu"), mode="same"))
+
+
+@pytest.mark.parametrize("cls", ["BatchParallelKMeans", "BatchParallelKMedians"])
+def test_batch_parallel_on_the_card_is_the_hosts(card, cls):
+    rng = np.random.default_rng(72)
+    centres = rng.standard_normal((5, 6)) * 8.0
+    x = (centres[rng.integers(0, 5, 20011)] + rng.standard_normal((20011, 6))).astype(np.float32)
+    g, c = _pair(x)
+    got = getattr(ht.cluster, cls)(n_clusters=5, random_state=3).fit(g)
+    want = getattr(ht.cluster, cls)(n_clusters=5, random_state=3).fit(c)
+    np.testing.assert_allclose(got.cluster_centers_.numpy(), want.cluster_centers_.numpy(), atol=5e-5)
+    assert got.labels_.larray_padded.is_cuda
+    _near_tie_mismatches(torch.from_numpy(x), want.cluster_centers_.larray, got.labels_.larray.cpu().long(),
+                         want.labels_.larray.long())
+
+
+def test_gaussian_nb_and_lasso_on_the_card_are_the_hosts(card):
+    rng = np.random.default_rng(73)
+    y = rng.integers(0, 4, 30001)
+    x = (rng.standard_normal((30001, 8)) * (1 + y[:, None]) + y[:, None]).astype(np.float32)
+    gx, cx = _pair(x)
+    gy, cy = _pair(y.astype(np.int32))
+    got, want = ht.naive_bayes.GaussianNB().fit(gx, gy), ht.naive_bayes.GaussianNB().fit(cx, cy)
+    for attr in ("theta_", "var_"):
+        np.testing.assert_allclose(getattr(got, attr).numpy(), getattr(want, attr).numpy(), rtol=1e-5, atol=1e-6)
+    np.testing.assert_array_equal(got.class_count_.numpy(), want.class_count_.numpy())
+    np.testing.assert_array_equal(got.predict(gx).numpy(), want.predict(cx).numpy())
+    np.testing.assert_allclose(got.predict_proba(gx).numpy(), want.predict_proba(cx).numpy(), atol=1e-5)
+    w = rng.standard_normal(8).astype(np.float32)
+    w[[2, 5]] = 0.0
+    ly = (x @ w + 0.5 + 0.01 * rng.standard_normal(30001)).astype(np.float32)
+    gl, cl = _pair(ly)
+    got = ht.regression.Lasso(lam=0.01, max_iter=30).fit(gx, gl)
+    want = ht.regression.Lasso(lam=0.01, max_iter=30).fit(cx, cl)
+    np.testing.assert_allclose(got.theta.numpy(), want.theta.numpy(), atol=1e-5)
+    assert got.n_iter == want.n_iter
+    np.testing.assert_allclose(got.predict(gx).numpy(), want.predict(cx).numpy(), rtol=1e-5, atol=1e-5)
+
+
+def test_spectral_on_the_card_is_the_hosts(card):
+    from heat_tpu_torch.core import random as rnd
+
+    rng = np.random.default_rng(74)
+    blobs = np.concatenate([rng.normal(-4, 0.6, (300, 2)), rng.normal(0, 0.6, (300, 2)),
+                            rng.normal(4, 0.6, (300, 2))]).astype(np.float32)
+    x = rng.permutation(blobs)
+    g, c = _pair(x)
+    ht.random.seed(1)
+    kernels.LLOYD_LAUNCHES = rnd.THREEFRY_LAUNCHES = 0
+    got = ht.cluster.Spectral(n_clusters=3, gamma=0.5, n_lanczos=40)
+    labels = got.fit_predict(g)
+    assert kernels.LLOYD_LAUNCHES == got._cluster.n_iter_ + 1 and rnd.THREEFRY_LAUNCHES >= 1
+    ht.random.seed(1)
+    want = ht.cluster.Spectral(n_clusters=3, gamma=0.5, n_lanczos=40).fit_predict(c)
+    assert labels.larray_padded.is_cuda
+    np.testing.assert_array_equal(labels.numpy(), want.numpy())

@@ -37,10 +37,39 @@ def test_kmeans_state_predicts_bitwise(init):
 
 
 def test_other_kinds_and_bad_documents_raise():
-    with pytest.raises(NotImplementedError, match="Lasso"):
-        ht.interop.from_reference_state({"kind": "Lasso", "params": {}, "state": {}})
+    with pytest.raises(NotImplementedError, match="Spectral"):
+        ht.interop.from_reference_state({"kind": "Spectral", "params": {}, "state": {}})
     with pytest.raises(ValueError):
         ht.interop.from_reference_state({"state": {}})
+
+
+@pytest.mark.parametrize("lam", [0.1, 5.0])
+def test_lasso_state_predicts_bitwise(lam):
+    rng = np.random.default_rng(6)
+    x = rng.standard_normal((300, 7)).astype(np.float32)
+    y = (x @ rng.standard_normal(7) + 1.5).astype(np.float32)
+    ref = hj.regression.Lasso(lam=lam, max_iter=30).fit(hj.array(x, split=0), hj.array(y, split=0))
+    est = ht.interop.from_reference_state(_numpy_leaves(export_state(ref)))
+    assert isinstance(est, ht.regression.Lasso) and est.lam == lam and est.max_iter == 30
+    np.testing.assert_array_equal(est.theta.numpy(), np.asarray(ref.theta.numpy()))
+    fresh = rng.standard_normal((77, 7)).astype(np.float32)
+    np.testing.assert_array_equal(est.predict(ht.array(fresh, split=0)).numpy(),
+                                  np.asarray(ref.predict(hj.array(fresh, split=0)).numpy()))
+
+
+@pytest.mark.parametrize("kind", ["BatchParallelKMeans", "BatchParallelKMedians"])
+def test_batch_parallel_state_predicts_bitwise(kind):
+    rng = np.random.default_rng(7)
+    centres = rng.standard_normal((4, 5)) * 5.0
+    x = (centres[rng.integers(0, 4, 500)] + rng.standard_normal((500, 5))).astype(np.float32)
+    ref = getattr(hj.cluster, kind)(n_clusters=4, random_state=2).fit(hj.array(x, split=0))
+    doc = {"kind": kind, "params": ref.get_params(),
+           "state": {"cluster_centers": np.asarray(ref.cluster_centers_.numpy())}}
+    est = ht.interop.from_reference_state(doc)
+    assert isinstance(est, getattr(ht.cluster, kind)) and est.n_clusters == 4
+    fresh = (centres[rng.integers(0, 4, 129)] + rng.standard_normal((129, 5))).astype(np.float32)
+    np.testing.assert_array_equal(est.predict(ht.array(fresh, split=0)).numpy(),
+                                  np.asarray(ref.predict(hj.array(fresh, split=0)).numpy()))
 
 
 @pytest.mark.parametrize("n_components", [3, 0.99])

@@ -1,4 +1,4 @@
-"""The reference's tutorials 1-5 (tutorials/local) run through the port.
+"""The reference's tutorials 1-6 (tutorials/local) run through the port.
 
 Each notebook's code cells run with ``import heat_tpu as ht`` read as
 ``import heat_tpu_torch as ht`` (on the CPU), and every line they print is
@@ -18,7 +18,11 @@ atol 1e-4, the bound of the reference's own QR test
 (tests/test_linalg.py:46), instead of the same digits.  Tutorial 4 prints
 ``float(ht.mean(xs))`` and ``float(ht.std(xs))`` of standardized data, sums
 whose rounding follows the order of the additions: held to the same text
-and atol 1e-6 (its mean is of order 1e-9, its std 1).
+and atol 1e-6 (its mean is of order 1e-9, its std 1).  Tutorial 6 prints
+KMeans' centres, whose per-cluster sums round in each package's order of
+additions (one float32 ulp apart): held to the same text and atol 5e-5,
+the bound the port's KMeans parity holds centres to; its labels, shapes
+and iteration count are integers, equal.
 
 Tutorial 3's cell that prints ``a.larray_padded.sharding`` is skipped: a
 ``jax.sharding`` object has no counterpart in the port (a rank's buffer is
@@ -39,9 +43,10 @@ import heat_tpu_torch as ht
 
 TUTORIALS = Path(__file__).resolve().parents[1] / "tutorials" / "local"
 NOTEBOOKS = ["1_intro.ipynb", "2_basics.ipynb", "3_internals.ipynb", "4_loading_preprocessing.ipynb",
-             "5_matrix_factorizations.ipynb"]
+             "5_matrix_factorizations.ipynb", "6_clustering.ipynb"]
 # notebooks whose numbers are compared within (rtol, atol), not digit by digit
-NUMERIC = {"4_loading_preprocessing.ipynb": (1e-6, 1e-6), "5_matrix_factorizations.ipynb": (1e-5, 1e-4)}
+NUMERIC = {"4_loading_preprocessing.ipynb": (1e-6, 1e-6), "5_matrix_factorizations.ipynb": (1e-5, 1e-4),
+           "6_clustering.ipynb": (0.0, 5e-5)}
 _NUMBER = re.compile(r"[-+]?(?:\d+\.?\d*|\.\d+)(?:[eE][-+]?\d+)?|[-+]?inf|nan")
 # cells with no counterpart in the port, by the text they print
 SKIP = {"print(a.larray_padded.sharding)": "a jax.sharding object has no counterpart in the port"}
