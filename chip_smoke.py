@@ -264,6 +264,37 @@ cuSOLVER and cuBLAS through torch.linalg, IEEE float32 throughout):
     (every pivot a row swap, the sign -1); MAGMA's getrf on the same
     matrices is timed and read beside it (a library reading only).
 
+The linalg data is then freed, and the sparse layer follows (the JAX
+package's runs in plain XLA and reaches no Pallas kernel; the port's
+products run its CSR SpMM kernel, csrc/csr_spmm.cu, added because
+cuSPARSE's SpMM is not bitwise repeatable on the card):
+
+25. sparse_check: at 2^18 x 2^18, 16 entries a row drawn on the card,
+    every op's indptr and indices bitwise scipy's on the host (stored
+    zeros as the reference keeps them: a + (-a) keeps a's pattern), the
+    element-wise values bitwise, the products and sums within 1e-5 of
+    float64;
+26. csr_spmm_check: the kernel against its plain version at the main
+    path's shapes (2^24 rows, 2^28 entries, 32 columns and one) and at
+    ragged ones (empty rows, rows past a warp, widths 3, 33, 65, float64,
+    int32 and int64, a row stride past the width, accumulating), within
+    1e-6 of the plain
+    sum's largest magnitude (1e-14 in float64), bitwise repeats, the
+    inputs it refuses, its time beside its plain version's, its bound and
+    cuSPARSE's SpMM (``torch.sparse.mm``);
+27. sparse: a graph of 2^24 nodes of degree 16 (A and B, 2^28 nnz, built
+    by ``sparse_csr_matrix`` from torch sparse COO tensors on the card,
+    split 0) and X of 2^24 x 32: construction, ``A @ X``, ``A @ x``,
+    ``A + B``, ``A * B``, ``A * 2.0``, ``A + 1.0``, the three sums, ``A.T
+    @ X``, ``X.T @ A``, ``to_sparse_csc``, ``todense`` of 2^15 x 2^15, the
+    ring SpGEMM of a 2^20 x 2^20 matrix with itself and the dense-route
+    SpGEMM of 4096 x 4096 at density 0.05; each call's first and warm
+    wall time, its extra memory and its byte bound, both runs bitwise
+    equal; 4096 sampled rows and columns of each result against the host
+    (element-wise ops bitwise scipy's, products and sums within 1e-5 of
+    float64), the kernel's launches on the path, the phase's peak under
+    60 GB.
+
 The line before the last is the kernel summary, the last line
 ``{"ok": true, "device": {...}}``.
 """
@@ -2047,8 +2078,11 @@ def zero_launches() -> None:
     from heat_tpu_torch.fft import _axis_pass, _leading
     from heat_tpu_torch.nn import _flash
 
+    from heat_tpu_torch.sparse import _planes
+
     kernels.LLOYD_LAUNCHES = kernels.GRAM_LAUNCHES = 0
     rnd.THREEFRY_LAUNCHES = 0
+    _planes.CSR_SPMM_LAUNCHES = 0
     _leading.FFT_STAGE_LAUNCHES = _leading.FFT_PAIR_LAUNCHES = _leading.FFT_EXT_LAUNCHES = 0
     _axis_pass.FFT_AXIS_LAUNCHES = 0
     _flash.FLASH_LAUNCHES = 0
@@ -2061,8 +2095,10 @@ def other_launches() -> int:
     zeroed."""
     from heat_tpu_torch.core import kernels
     from heat_tpu_torch.core import random as rnd
+    from heat_tpu_torch.sparse import _planes
 
-    return kernels.LLOYD_LAUNCHES + kernels.GRAM_LAUNCHES + rnd.THREEFRY_LAUNCHES + sum(fft_launches().values())
+    return (kernels.LLOYD_LAUNCHES + kernels.GRAM_LAUNCHES + rnd.THREEFRY_LAUNCHES + sum(fft_launches().values())
+            + _planes.CSR_SPMM_LAUNCHES)
 
 
 def compare_fft(kernel, plain, label: str) -> dict:
@@ -3574,6 +3610,596 @@ def linalg_phase(dev, smi: str) -> int:
     return lanczos_draws
 
 
+# a graph of 16.7 M nodes of degree 16 (a PageRank-size adjacency), 2^28 nnz,
+# 3.2 GB of planes a matrix
+SPARSE_ROWS = 1 << 24
+SPARSE_DEGREE = 16
+SPARSE_X_COLS = 32  # X of 2^24 x 32 float32, split 0: 2.1 GB
+SPARSE_CHECK_ROWS = 1 << 18  # every op's pattern held bitwise against scipy's at this size
+SPARSE_SAMPLE = 4096  # rows (and columns) of each full-size result recomputed in float64 on the host
+SPARSE_DENSE_N = 1 << 15  # todense of 2^15 x 2^15: 4.3 GB
+SPGEMM_ROWS = 1 << 20  # S @ S of 2^20 x 2^20, 16 a row: the ring route, about 2^28 nnz out
+SPGEMM_DENSE_N = 4096  # the dense route: 4096 x 4096 at density 0.05
+SPGEMM_DENSE_DENSITY = 0.05
+SPARSE_PEAK_BYTES = 60e9
+
+
+def random_graph(n: int, degree: int, dev, g, density: float = 0.0):
+    """A seeded n x n float32 torch sparse COO tensor on the card: ``degree``
+    columns a row drawn uniformly (duplicates left in, for the factory to
+    merge), or each entry present with probability ``density``; values
+    uniform in [0.5, 1.5), so that no sum cancels."""
+    import torch
+
+    if density:
+        mask = torch.rand(n, n, device=dev, generator=g) < density
+        rows, cols = torch.nonzero(mask, as_tuple=True)
+        del mask
+    else:
+        rows = torch.arange(n, device=dev).repeat_interleave(degree)
+        cols = torch.randint(0, n, (n * degree,), device=dev, generator=g)
+    vals = torch.rand(rows.numel(), device=dev, generator=g) + 0.5
+    return torch.sparse_coo_tensor(torch.stack([rows, cols]), vals, (n, n))
+
+
+def host_csr(coo, rows=None):
+    """The scipy CSR matrix (duplicates summed, indices sorted) of a torch
+    COO tensor, or of its rows ``rows`` (a sorted tensor on the card: only
+    their entries come to the host)."""
+    import scipy.sparse as sp
+    import torch
+
+    idx, vals = coo._indices(), coo._values()
+    shape = tuple(coo.shape)
+    if rows is not None:
+        keep = torch.isin(idx[0], rows)
+        idx, vals = torch.stack([torch.searchsorted(rows, idx[0][keep]), idx[1][keep]]), vals[keep]
+        shape = (rows.numel(), shape[1])
+    idx, vals = idx.cpu().numpy(), vals.cpu().numpy()
+    out = sp.coo_matrix((vals, (idx[0], idx[1])), shape=shape).tocsr()
+    out.sort_indices()
+    return out
+
+
+def digest(*tensors) -> list:
+    """Bitwise fingerprints of tensors: the sum of each one's bits as
+    integers, weighted by position (equal bits give equal sums)."""
+    import torch
+
+    out = []
+    for t in tensors:
+        t = t.contiguous().reshape(-1)
+        bits = t.view(torch.int64 if t.element_size() == 8 else torch.int32).to(torch.int64)
+        w = torch.arange(bits.numel(), device=t.device) % 1000003 + 1
+        out.append((int(bits.numel()), int((bits * w).sum()), int(bits.sum())))
+    return out
+
+
+def fingerprint(res) -> list:
+    """A result's fingerprints: a sparse matrix's planes and counts, a dense
+    array's chunk."""
+    if hasattr(res, "_comp"):
+        return [res._lnnz_host] + digest(res._comp, res._other, res._val)
+    return digest(res.larray_padded)
+
+
+def sparse_twice(fn, name: str, nbytes, smi: str, peaks: list, **extra):
+    """``fn``'s warm result and a record of its first and warm wall time,
+    the memory it took beyond what was allocated before it and its byte
+    bound (``nbytes``, or a function of the result giving them); fails
+    unless both runs give the same bits and the result lies on the card."""
+    import torch
+
+    first, first_ms = wall_ms(fn)
+    first_bits = fingerprint(first)
+    del first
+    torch.cuda.empty_cache()
+    before = torch.cuda.memory_allocated()
+    restart_peak(peaks)
+    out, warm_ms = wall_ms(fn)
+    extra_gb = (torch.cuda.max_memory_allocated() - before) / 1e9
+    if fingerprint(out) != first_bits:
+        raise AssertionError(f"sparse {name}: a second run gave other bits")
+    planes = (out._comp, out._other, out._val) if hasattr(out, "_comp") else (out.larray_padded,)
+    if not all(p.is_cuda for p in planes):
+        raise AssertionError(f"sparse {name}: the result is not on the card")
+    bound_ms = (nbytes(out) if callable(nbytes) else nbytes) / HBM_BYTES_PER_S * 1e3
+    return out, {"phase": "sparse", "call": name, "first_ms": first_ms, "warm_ms": warm_ms, "extra_peak_gb": extra_gb,
+                 "bound_ms": bound_ms, "bound_by": "bytes", "share_of_bound": bound_ms / warm_ms,
+                 "repeat_bitwise": True, **extra, "card": smi}
+
+
+def planes_csr(m):
+    """A CSR matrix's planes on one card as scipy CSR on the host (stored
+    zeros kept; the planes of a CSC matrix read as its transpose)."""
+    import numpy as np
+    import scipy.sparse as sp
+
+    n = m._n
+    shape = m.shape if m._compressed_axis == 0 else m.shape[::-1]
+    return sp.csr_matrix((m._val[:n].cpu().numpy(), m._other[:n].cpu().numpy(),
+                          m.lindptr[: shape[0] + 1].cpu().numpy().astype(np.int64)), shape=shape)
+
+
+def sampled_rows(m, rows):
+    """The rows ``rows`` (a sorted int64 tensor on the card) of a CSR
+    matrix on one card: (row position, column, value) of their stored
+    entries, on the host."""
+    import torch
+
+    ptr = m.lindptr
+    starts, counts = ptr[rows], ptr[rows + 1] - ptr[rows]
+    which = torch.repeat_interleave(torch.arange(rows.numel(), device=rows.device), counts)
+    pos = starts[which] + torch.arange(which.numel(), device=rows.device) - (torch.cumsum(counts, 0) - counts)[which]
+    return which.cpu().numpy(), m._other[pos].cpu().numpy(), m._val[pos].cpu().numpy()
+
+
+def same_rows(got, want, name: str, exact: bool = True, rtol: float = 0.0) -> None:
+    """Two (position, column, value) samples: the same pattern in the same
+    order, values bitwise or within ``rtol``."""
+    import numpy as np
+
+    if not (np.array_equal(got[0], want[0]) and np.array_equal(got[1], want[1])):
+        raise AssertionError(f"sparse {name}: the sampled rows' pattern differs")
+    if exact and got[2].tobytes() != want[2].tobytes():
+        raise AssertionError(f"sparse {name}: the sampled rows' values differ in their bits")
+    if not exact:
+        err = float(np.max(np.abs(got[2] - want[2]) / np.abs(want[2]))) if len(want[2]) else 0.0
+        if err > rtol:
+            raise AssertionError(f"sparse {name}: sampled values {err} from float64 (bound {rtol})")
+
+
+def scipy_rows(s, rows):
+    """The same sample of a scipy CSR matrix's rows."""
+    import numpy as np
+
+    sub = s[rows]
+    return (np.repeat(np.arange(len(rows)), np.diff(sub.indptr)), sub.indices.astype(np.int32), sub.data)
+
+
+def sparse_pattern_check(dev, g, smi: str) -> dict:
+    """Every op at 2^18 x 2^18 (16 a row, the full size's construction):
+    its indptr and indices bitwise scipy's on the host, stored zeros as the
+    reference keeps them (scipy drops them: a + (-a) keeps a's pattern),
+    the values of the exact ops bitwise, the products' within 1e-5 of
+    float64."""
+    import numpy as np
+    import scipy.sparse as sp
+    import torch
+
+    import heat_tpu_torch as ht
+
+    n = SPARSE_CHECK_ROWS
+    coo_a, coo_b = (random_graph(n, SPARSE_DEGREE, dev, g) for _ in range(2))
+    a, b = host_csr(coo_a), host_csr(coo_b)
+    A, B = (ht.sparse.sparse_csr_matrix(c, split=0) for c in (coo_a, coo_b))
+    x = torch.rand(n, SPARSE_X_COLS, device=dev, generator=g)
+    x64 = x.cpu().double().numpy()
+    checked = []
+
+    def pattern(got, want, name, values=True):
+        want.sort_indices()
+        g_ = planes_csr(got)
+        if not (np.array_equal(g_.indptr, want.indptr) and np.array_equal(g_.indices, want.indices)):
+            raise AssertionError(f"sparse check {name}: indptr/indices differ from scipy's")
+        if values and g_.data.tobytes() != want.data.astype(np.float32).tobytes():
+            raise AssertionError(f"sparse check {name}: values differ from scipy's in their bits")
+        if not (np.array_equal(got.indptr.cpu().numpy(), want.indptr) and
+                np.array_equal(got.indices.cpu().numpy(), want.indices)):
+            raise AssertionError(f"sparse check {name}: the global accessors differ from scipy's")
+        checked.append(name)
+
+    pattern(A, a, "construct")
+    pattern(A + B, a + b, "add")
+    pattern(A * B, a.multiply(b).tocsr(), "mul")
+    pattern(A * 2.0, a * np.float32(2.0), "mul_scalar")
+    plus = a.copy()
+    plus.data = plus.data + np.float32(1.0)
+    pattern(A + 1.0, plus, "add_scalar")
+    zero = A + A * (-1.0)
+    pattern(zero, a, "a + (-a)", values=False)
+    if zero._val[: zero._n].abs().max() != 0:
+        raise AssertionError("sparse check a + (-a): a stored value is not 0")
+    pattern(A.T, a, "T")  # the CSC A.T, compressed along A's rows, holds A's CSR planes
+    csc = ht.sparse.to_sparse_csc(A)
+    want_csc = a.tocsc()  # a CSC's pointers and indices, read as its transpose's CSR
+    pattern(csc, sp.csr_matrix((want_csc.data, want_csc.indices, want_csc.indptr), shape=a.shape[::-1]),
+            "to_sparse_csc")
+    pattern(ht.sparse.to_sparse_csr(csc), a, "to_sparse_csr")
+    s = (a.astype(np.float64) @ a.astype(np.float64)).tocsr()
+    s.sort_indices()
+    prod = A @ A
+    pattern(prod, s, "spgemm", values=False)
+    got = planes_csr(prod)
+    spgemm_err = float(np.max(np.abs(got.data - s.data) / np.abs(s.data)))
+    a64 = a.astype(np.float64)
+    spmm_err = float(np.max(np.abs((A @ ht.array(x, split=0)).larray.cpu().numpy() - a64 @ x64) /
+                            np.maximum(np.abs(a64 @ x64), 1e-30)))
+    csc_err = float(np.max(np.abs((A.T @ ht.array(x, split=0)).larray.cpu().numpy() - a64.T @ x64) /
+                           np.maximum(np.abs(a64.T @ x64), 1e-30)))
+    sums = [float(np.max(np.abs(A.sum(axis=ax).larray.cpu().numpy() - np.asarray(a64.sum(axis=ax)).ravel()) /
+                         np.maximum(np.abs(np.asarray(a64.sum(axis=ax)).ravel()), 1e-30))) for ax in (0, 1)]
+    worst = max(spgemm_err, spmm_err, csc_err, *sums)
+    if worst > 1e-5:
+        raise AssertionError(f"sparse check: products and sums {worst} from float64 (spgemm {spgemm_err}, "
+                             f"spmm {spmm_err}, csc {csc_err}, sums {sums})")
+    rec = {"phase": "sparse_check", "rows": n, "nnz": A.gnnz, "patterns_bitwise_scipy": checked,
+           "spgemm_max_rel_err": spgemm_err, "spmm_max_rel_err": spmm_err, "csc_spmm_max_rel_err": csc_err,
+           "sum_max_rel_err": sums, "card": smi}
+    emit(rec)
+    return rec
+
+
+def csr_spmm_check(A, x, dev, g, smi: str) -> dict:
+    """Phase csr_spmm_check: the CSR SpMM kernel against its plain version
+    on the card at the main path's shapes (A's 2^24 rows and 2^28 entries
+    times X's 32 columns, and times one column; the CSR of A^T, rows of
+    Poisson(16) lengths, times X, as A.T @ X runs it; the dense-route
+    SpGEMM's 4096 x 4096 matrix of density 0.05 times its dense self, width
+    4096) and at ragged ones (empty rows, rows longer than a warp, widths
+    3, 33 and 65, float64, x with a row stride past its width, accumulating
+    into out, int32 and int64, and every other value type the port stores:
+    float16, bfloat16, complex64, complex128, int8, uint8, int16, bool):
+    max |kernel - plain| over max |plain| at most 1e-6 (float32; 1e-14
+    float64: the two add each row's products in other orders, the kernel
+    in fused multiply-adds; integers and bool exactly); for float16,
+    bfloat16 and the complex types each element within (2 len + 8) u S of
+    the plain one, S the row's sum of |w||x| (and |out|) and u the type's
+    unit roundoff: each is within (len + 4) u S of the exact sum, the bound
+    of a recursive sum of len products (the plain version adds in the type
+    itself); a
+    second launch bitwise equal to the first; the types and strides it
+    refuses; its time beside its plain version's, its bound and cuSPARSE's
+    SpMM on the same CSR, and how many distinct results cuSPARSE gives in
+    8 runs on A and on the CSR of A^T (the reason the kernel exists).
+    Returns its kernel entry (launches filled in by the main path)."""
+    import torch
+
+    import heat_tpu_torch as ht
+    from heat_tpu_torch.sparse import _planes
+
+    def compare(ptr, col, w, xx, label, out=None, tol=1e-6):
+        base = None if out is None else out.clone()
+        got = _planes.csr_spmm(ptr, col, w, xx, None if out is None else out.clone())
+        again = _planes.csr_spmm(ptr, col, w, xx, None if out is None else out.clone())
+        want = _planes._csr_spmm_plain(ptr, col, w, xx, torch.zeros_like(got) if base is None else base.clone())
+        torch.cuda.synchronize()
+        wide = torch.complex128 if got.is_complex() else torch.float64
+        diff = (got.to(wide) - want.to(wide)).abs()
+        err = float(diff.max())
+        if tol == "rows":  # (2 len + 8) u S a row, S = sum |w||x| (plus |out|)
+            u = (torch.finfo(got.real.dtype).eps if got.is_complex() else torch.finfo(got.dtype).eps) / 2
+            s_row = _planes._csr_spmm_plain(ptr, col, w.abs().double(), xx.abs().double(),
+                                            torch.zeros(got.shape, dtype=torch.float64, device=dev))
+            if base is not None:
+                s_row += base.abs().double()
+            bound = (2 * torch.diff(ptr).double()[:, None] + 8) * u * s_row
+            rel = float((diff / bound.clamp_min(1e-300)).max())
+            ok = rel <= 1.0
+        else:
+            rel = err / max(float(want.to(wide).abs().max()), 1e-300)
+            ok = rel <= tol
+        if not ok or not torch.equal(got, again):
+            raise AssertionError(f"csr_spmm {label}: {rel} from its plain version (bound {tol}), "
+                                 f"repeat bitwise {torch.equal(got, again)}")
+        return {"case": label, "rel_err": rel, "max_abs_err": err, "bitwise_repeat": True}
+
+    n, k = A.shape[0], x.shape[1]
+    ptr, col, w = A.lindptr, A._other[: A._n], A._val[: A._n]
+    checks = [compare(ptr, col, w, x, f"{n} rows, {A._n} entries, width {k}"),
+              compare(ptr, col, w, x[:, :1].contiguous(), f"{n} rows, width 1")]
+    # the CSR of A^T (A.T @ X's operand) and the dense-route SpGEMM's E times dense E
+    perm = A._by_other()
+    other_sorted = A._other[: A._n][perm]
+    ptr_t = torch.searchsorted(other_sorted, torch.arange(x.shape[0] + 1, dtype=other_sorted.dtype, device=dev))
+    col_t, w_t = A._comp[: A._n][perm].contiguous(), w[perm].contiguous()
+    del other_sorted
+    checks.append(compare(ptr_t, col_t, w_t, x, f"CSR of A^T, {x.shape[0]} rows, width {k}"))
+    del ptr_t, col_t, w_t
+    g_e = torch.Generator(device=dev).manual_seed(SEED + 20)
+    coo_e = random_graph(SPGEMM_DENSE_N, 0, dev, g_e, density=SPGEMM_DENSE_DENSITY)
+    E = ht.sparse.sparse_csr_matrix(coo_e, split=0)
+    checks.append(compare(E.lindptr, E._other[: E._n], E._val[: E._n], coo_e.to_dense(),
+                          f"dense route, {SPGEMM_DENSE_N} rows, {E._n} entries, width {SPGEMM_DENSE_N}"))
+    del E, coo_e
+    torch.cuda.empty_cache()
+    # ragged: rows of 0 to 200 entries, some past a warp
+    lengths = torch.randint(0, 200, (3001,), device=dev, generator=g)
+    lengths[::7] = 0
+    rp = torch.cat([torch.zeros(1, dtype=torch.int64, device=dev), torch.cumsum(lengths, 0)])
+    nnz = int(rp[-1])
+    rc = torch.randint(0, 517, (nnz,), device=dev, generator=g, dtype=torch.int32)
+    for width, dt in ((1, torch.float32), (3, torch.float32), (33, torch.float32), (65, torch.float64),
+                      (32, torch.float64), (1, torch.int64), (32, torch.int32)):
+        if dt.is_floating_point:
+            rw = torch.randn(nnz, device=dev, generator=g, dtype=dt)
+            rx = torch.randn(517, width, device=dev, generator=g, dtype=dt)
+        else:  # integer sums are exact
+            rw = torch.randint(-9, 10, (nnz,), device=dev, generator=g, dtype=dt)
+            rx = torch.randint(-9, 10, (517, width), device=dev, generator=g, dtype=dt)
+        tol = {torch.float32: 1e-6, torch.float64: 1e-14}.get(dt, 0.0)
+        checks.append(compare(rp, rc, rw, rx, f"ragged rows, width {width}, {dt}", tol=tol))
+    for width, dt in ((32, torch.float16), (1, torch.float16), (33, torch.bfloat16), (32, torch.complex64),
+                      (1, torch.complex128), (32, torch.int8), (1, torch.uint8), (33, torch.int16),
+                      (32, torch.bool), (1, torch.bool)):
+        if dt.is_floating_point or dt.is_complex:
+            rw = torch.randn(nnz, device=dev, generator=g, dtype=dt)
+            rx = torch.randn(517, width, device=dev, generator=g, dtype=dt)
+            base = torch.randn(3001, width, device=dev, generator=g, dtype=dt)
+            tol = "rows"
+        else:  # wrapped integer sums, bool's OR of ANDs: exact
+            hi = 2 if dt == torch.bool else 200
+            rw = torch.randint(0, hi, (nnz,), device=dev, generator=g).to(dt)
+            rx = torch.randint(0, hi, (517, width), device=dev, generator=g).to(dt)
+            base = torch.randint(0, hi, (3001, width), device=dev, generator=g).to(dt)
+            tol = 0.0
+        checks.append(compare(rp, rc, rw, rx, f"ragged rows, width {width}, {dt}", tol=tol))
+        checks.append(compare(rp, rc, rw, rx, f"ragged rows, width {width}, {dt}, accumulating", out=base, tol=tol))
+    wide = torch.randn(517, 48, device=dev, generator=g)
+    rw = torch.randn(nnz, device=dev, generator=g)
+    checks.append(compare(rp, rc, rw, wide[:, :40], "x with row stride 48, width 40"))
+    checks.append(compare(rp, rc, rw, wide[:, :40], "accumulating into out",
+                          out=torch.randn(3001, 40, device=dev, generator=g)))
+    for c in checks:
+        emit({"phase": "kernel_check", "kernel": "csr_spmm", **c})
+    refused = []
+    for what, call in (("float16 values for float32 x", lambda: _planes.csr_spmm(rp, rc, rw.half(), wide)),
+                       ("x of column stride 2", lambda: _planes.csr_spmm(rp, rc, rw, wide[:, ::2])),
+                       ("int64 columns", lambda: _planes.csr_spmm(rp, rc.long(), rw, wide))):
+        try:
+            call()
+        except (TypeError, ValueError):
+            refused.append(what)
+        else:
+            raise AssertionError(f"csr_spmm took {what}")
+
+    ms = time_ms(lambda: _planes.csr_spmm(ptr, col, w, x), reps=10)
+    ms1 = time_ms(lambda: _planes.csr_spmm(ptr, col, w, x[:, :1].contiguous()), reps=10)
+    plain_ms = time_ms(lambda: _planes._csr_spmm_plain(ptr, col, w, x, torch.zeros(n, k, device=dev)), reps=2,
+                       warmup=1)
+    csr = torch.sparse_csr_tensor(ptr.to(torch.int32), col, w, size=(n, x.shape[0]))
+    library_ms = time_ms(lambda: torch.sparse.mm(csr, x), reps=10)
+    # is cuSPARSE's SpMM bitwise repeatable, on A (16 entries a row) and on
+    # the CSR of A^T (the CSC route's: rows of Poisson(16) lengths)?
+    distinct = {"A": len({str(digest(torch.sparse.mm(csr, x))) for _ in range(8)})}
+    other_sorted = A._other[: A._n][perm]
+    csr_t = torch.sparse_csr_tensor(torch.searchsorted(other_sorted, torch.arange(
+        x.shape[0] + 1, dtype=other_sorted.dtype, device=dev)).to(torch.int32), A._comp[: A._n][perm], w[perm],
+        size=(x.shape[0], n))
+    distinct["A^T"] = len({str(digest(torch.sparse.mm(csr_t, x))) for _ in range(8)})
+    del csr, csr_t, other_sorted
+    nbytes = 8 * (n + 1) + 8 * A._n + 4 * x.numel() + 4 * n * k
+    bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    emit({"phase": "kernel_check", "kernel": "csr_spmm", "rows": n, "entries": A._n, "width": k, "ms": ms,
+          "ms_width_1": ms1, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": "bytes",
+          "share_of_bound": bound_ms / ms, "gather_bound_ms": 4 * k * A._n / HBM_BYTES_PER_S * 1e3,
+          "library_ms": library_ms, "library_call": "torch.sparse.mm (cuSPARSE), float32",
+          "library_distinct_results_in_8_runs": distinct, "refused": refused, "card": smi})
+    return {"name": "csr_spmm", "route": "cuda", "source": "heat_tpu_torch/csrc/csr_spmm.cu",
+            "replaces": "heat_tpu/sparse/_planes.py:493",
+            "note": "not a TPU kernel: the JAX package's SpMM is XLA's gather and segment_sum",
+            "launches": None, "max_abs_err": max(c["max_abs_err"] for c in checks[:2]), "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": "bytes", "library_ms": library_ms}
+
+
+def sparse_phase(dev, smi: str) -> dict:
+    """Phase sparse: the sparse layer at a graph of 2^24 nodes of degree 16
+    (A and B, 2^28 nnz each, built by sparse_csr_matrix from torch sparse
+    COO tensors on the card, split 0) and X of 2^24 x 32 float32 split 0:
+    construction, A @ X and A @ x, A + B, A * B, A * 2.0, A + 1.0, the
+    three sums, A.T @ X (the CSC route), X.T @ A, to_sparse_csc(A), todense
+    of a 2^15 x 2^15 matrix, the ring SpGEMM of a 2^20 x 2^20 matrix with
+    itself and the dense-route SpGEMM of a 4096 x 4096 matrix of density
+    0.05.  Each call's first and warm wall time, the memory it took beyond
+    what was allocated before it and its byte bound (planes, X and the
+    result each read or written once at the HBM rate; the SpMMs also with
+    the rows of X their entries gather); both runs bitwise equal.  Patterns
+    are held bitwise against scipy's at 2^18 x 2^18
+    (sparse_pattern_check); at full size, 4096 sampled rows (and columns)
+    of each result against the host: the element-wise ops bitwise scipy's,
+    the products and sums within 1e-5 of float64, the conversion's round
+    trip bitwise.  No kernel of the port runs here (the JAX package's
+    sparse layer reaches no Pallas kernel)."""
+    import numpy as np
+    import scipy.sparse as sp
+    import torch
+
+    import heat_tpu_torch as ht
+    from heat_tpu_torch.sparse import _planes
+
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    peaks: list = []
+    restart_peak(peaks)
+    g = torch.Generator(device=dev).manual_seed(SEED + 19)
+    sparse_pattern_check(dev, g, smi)
+    torch.cuda.empty_cache()
+    restart_peak(peaks)
+    records = []
+
+    def record(r, **checks):
+        r.update(checks)
+        records.append(r)
+        emit(r)
+
+    n, k, ns = SPARSE_ROWS, SPARSE_X_COLS, SPARSE_SAMPLE
+    coo_a = random_graph(n, SPARSE_DEGREE, dev, g)
+    coo_b = random_graph(n, SPARSE_DEGREE, dev, g)
+    drawn = coo_a._nnz()
+    A, rec = sparse_twice(lambda: ht.sparse.sparse_csr_matrix(coo_a, split=0), "construct",
+                          lambda out: 20 * drawn + 12 * out.gnnz, smi, peaks, drawn=drawn)
+    B = ht.sparse.sparse_csr_matrix(coo_b, split=0)
+    nnz, nnz_b = A.gnnz, B.gnnz
+    # 4096 sampled rows and columns; the draws' entries in them come to the host
+    rows = torch.sort(torch.randperm(n, device=dev, generator=g)[:ns]).values
+    cols = torch.sort(torch.randperm(n, device=dev, generator=g)[:ns]).values
+    host_a, host_b = host_csr(coo_a, rows), host_csr(coo_b, rows)
+    host_at = host_csr(torch.sparse_coo_tensor(coo_a._indices().flip(0), coo_a._values(), (n, n)), cols)
+    del coo_a, coo_b
+    torch.cuda.empty_cache()
+    same_rows(sampled_rows(A, rows), scipy_rows(host_a, np.arange(ns)), "construct")
+    record(rec, nnz=nnz, sampled_rows_bitwise_scipy=True)
+
+    x = torch.rand(n, k, device=dev, generator=g)
+    X = ht.array(x, split=0)
+    csr_entry = csr_spmm_check(A, x, dev, g, smi)
+    torch.cuda.empty_cache()
+    restart_peak(peaks)
+    _planes.CSR_SPMM_LAUNCHES = 0  # the path's launches from here on
+    spmm_bytes = 12 * nnz + 8 * n * k  # the planes and X read, the result written
+    gather = {"gather_bound_ms": 4 * k * nnz / HBM_BYTES_PER_S * 1e3}  # one row of X for each entry
+    host_rows = sp.csr_matrix(host_a, dtype=np.float64)
+    host_cols = sp.csr_matrix(host_at, dtype=np.float64)
+    x_rows = x[torch.from_numpy(host_rows.indices.astype(np.int64)).to(dev)].cpu().double().numpy()
+    x_cols = x[torch.from_numpy(host_cols.indices.astype(np.int64)).to(dev)].cpu().double().numpy()
+
+    def row_products(h, xr):
+        """Each sampled row's products with X in float64 (xr: X's rows of
+        the row's entries, in entry order)."""
+        out = np.zeros((h.shape[0], xr.shape[1]))
+        np.add.at(out, np.repeat(np.arange(h.shape[0]), np.diff(h.indptr)), h.data[:, None] * xr)
+        return out
+
+    want_rows, want_cols = row_products(host_rows, x_rows), row_products(host_cols, x_cols)
+
+    def rel(got, want):
+        return float(np.max(np.abs(got - want) / np.maximum(np.abs(want), 1e-30)))
+
+    # A @ X through the entry point, beside cuSPARSE's SpMM on the same CSR (a library reading only)
+    Y, rec = sparse_twice(lambda: A @ X, "A @ X", spmm_bytes, smi, peaks, **gather)
+    csr = A.larray
+    library_ms = time_ms(lambda: torch.sparse.mm(csr, x), reps=3, warmup=1)
+    del csr
+    err = rel(Y.larray[rows].cpu().double().numpy(), want_rows)
+    if err > 1e-5 or Y.split != 0:
+        raise AssertionError(f"sparse A @ X: sampled rows {err} from float64 (bound 1e-5), split {Y.split}")
+    record(rec, max_rel_err=err, library_ms=library_ms, library_call="torch.sparse.mm (cuSPARSE)")
+    del Y
+    torch.cuda.empty_cache()
+
+    v = ht.array(x[:, 0].contiguous(), split=0)
+    y, rec = sparse_twice(lambda: A @ v, "A @ x", 12 * nnz + 8 * n, smi, peaks,
+                          gather_bound_ms=4 * nnz / HBM_BYTES_PER_S * 1e3)
+    err = rel(y.larray[rows].cpu().double().numpy(), want_rows[:, 0])
+    if err > 1e-5 or y.shape != (n,):
+        raise AssertionError(f"sparse A @ x: sampled rows {err} from float64, shape {y.shape}")
+    record(rec, max_rel_err=err)
+    del y, v
+
+    # element-wise and scalar ops: the sampled rows bitwise scipy's
+    plus = host_a.copy()
+    plus.data = plus.data + np.float32(1.0)
+    for name, fn, host, nbytes in (
+            ("A + B", lambda: A + B, host_a + host_b, lambda out: 12 * (nnz + nnz_b + out.gnnz)),
+            ("A * B", lambda: A * B, host_a.multiply(host_b), lambda out: 12 * (nnz + nnz_b + out.gnnz)),
+            ("A * 2.0", lambda: A * 2.0, host_a * np.float32(2.0), 8 * nnz),  # the values read and written
+            ("A + 1.0", lambda: A + 1.0, plus, 12 * nnz)):  # the row plane read too
+        host = sp.csr_matrix(host)
+        host.sort_indices()
+        out, rec = sparse_twice(fn, name, nbytes, smi, peaks)
+        same_rows(sampled_rows(out, rows), scipy_rows(host, np.arange(ns)), name)
+        record(rec, nnz_out=out.gnnz, sampled_rows_bitwise_scipy=True)
+        del out
+        torch.cuda.empty_cache()
+    del B
+
+    # the sums: the sampled rows' and columns' against float64
+    total64 = float(A._val[: A._n].double().sum())
+    for axis, nbytes in ((None, 4 * nnz), (1, 8 * nnz + 4 * n), (0, 8 * nnz + 4 * n)):
+        s, rec = sparse_twice(lambda: A.sum(axis=axis), f"A.sum(axis={axis})", nbytes, smi, peaks)
+        if axis is None:
+            err = abs(float(s.larray) - total64) / total64
+        elif axis == 1:
+            err = rel(s.larray[rows].cpu().double().numpy(), np.asarray(host_rows.sum(axis=1)).ravel())
+        else:
+            err = rel(s.larray[cols].cpu().double().numpy(), np.asarray(host_cols.sum(axis=1)).ravel())
+        if err > 1e-5:
+            raise AssertionError(f"sparse A.sum(axis={axis}): {err} from float64")
+        record(rec, max_rel_err=err)
+        del s
+
+    # A.T @ X (the CSC route: no gather of X, one reduce-scatter) and X.T @ A
+    At = A.T
+    if not (At._comp is A._comp and At._other is A._other and At._val is A._val and At.T.shape == A.shape):
+        raise AssertionError("sparse A.T moved data")
+    Z, rec = sparse_twice(lambda: At @ X, "A.T @ X", spmm_bytes, smi, peaks, **gather)
+    err = rel(Z.larray[cols].cpu().double().numpy(), want_cols)
+    if err > 1e-5:
+        raise AssertionError(f"sparse A.T @ X: sampled rows {err} from float64")
+    record(rec, max_rel_err=err)
+    del Z
+    torch.cuda.empty_cache()
+    XT = X.T
+    W, rec = sparse_twice(lambda: XT @ A, "X.T @ A", spmm_bytes, smi, peaks, **gather)
+    err = rel(W.larray[:, cols].cpu().double().numpy().T, want_cols)
+    if err > 1e-5 or W.shape != (k, n):
+        raise AssertionError(f"sparse X.T @ A: sampled columns {err} from float64, shape {W.shape}")
+    record(rec, max_rel_err=err)
+    del W, XT, X, x
+    torch.cuda.empty_cache()
+
+    # the triplet-keeping conversion, and back: A's planes bitwise
+    C, rec = sparse_twice(lambda: ht.sparse.to_sparse_csc(A), "to_sparse_csc(A)", 24 * nnz, smi, peaks)
+    if fingerprint(ht.sparse.to_sparse_csr(C)) != fingerprint(A):
+        raise AssertionError("sparse to_sparse_csr(to_sparse_csc(A)) is not A bitwise")
+    record(rec, round_trip_bitwise=True)
+    del C, A, At
+    torch.cuda.empty_cache()
+
+    # todense of 2^15 x 2^15: the sampled rows bitwise the host's
+    nd = SPARSE_DENSE_N
+    coo_d = random_graph(nd, SPARSE_DEGREE, dev, g)
+    D = ht.sparse.sparse_csr_matrix(coo_d, split=0)
+    dense_rows = torch.sort(torch.randperm(nd, device=dev, generator=g)[:ns]).values
+    host_d = host_csr(coo_d, dense_rows).toarray()
+    dd, rec = sparse_twice(lambda: D.todense(), "todense 2^15", 12 * D.gnnz + 4 * nd * nd, smi, peaks)
+    if dd.larray[dense_rows].cpu().numpy().tobytes() != host_d.tobytes():
+        raise AssertionError("sparse todense: sampled rows differ from the host's")
+    record(rec, sampled_rows_bitwise=True)
+    del dd, D, coo_d
+    torch.cuda.empty_cache()
+
+    # the ring SpGEMM S @ S, 2^20 x 2^20 of 16 a row: sampled rows against float64
+    m = SPGEMM_ROWS
+    coo_s = random_graph(m, SPARSE_DEGREE, dev, g)
+    S = ht.sparse.sparse_csr_matrix(coo_s, split=0)
+    host_s = host_csr(coo_s).astype(np.float64)
+    del coo_s
+    P, rec = sparse_twice(lambda: S @ S, "S @ S (ring)", lambda out: 24 * S.gnnz + 12 * out.gnnz, smi, peaks)
+    srows = torch.sort(torch.randperm(m, device=dev, generator=g)[:ns]).values
+    want_p = sp.csr_matrix(host_s[srows.cpu().numpy()] @ host_s)
+    want_p.sort_indices()
+    same_rows(sampled_rows(P, srows), scipy_rows(want_p, np.arange(ns)), "S @ S", exact=False, rtol=1e-5)
+    record(rec, nnz_in=S.gnnz, nnz_out=P.gnnz)
+    del P, S, host_s
+    torch.cuda.empty_cache()
+
+    # the dense route: 4096 x 4096 at density 0.05, every row against float64
+    ne = SPGEMM_DENSE_N
+    coo_e = random_graph(ne, 0, dev, g, density=SPGEMM_DENSE_DENSITY)
+    E = ht.sparse.sparse_csr_matrix(coo_e, split=0)
+    host_e = host_csr(coo_e).astype(np.float64)
+    PE, rec = sparse_twice(lambda: E @ E, "E @ E (dense route)", lambda out: 24 * E.gnnz + 12 * out.gnnz, smi, peaks)
+    want_e = sp.csr_matrix(host_e @ host_e)
+    want_e.sort_indices()
+    same_rows(sampled_rows(PE, torch.arange(ne, device=dev)), scipy_rows(want_e, np.arange(ne)), "E @ E",
+              exact=False, rtol=1e-5)
+    record(rec, nnz_in=E.gnnz, nnz_out=PE.gnnz)
+    del PE, E, coo_e
+    torch.cuda.empty_cache()
+
+    launches = _planes.CSR_SPMM_LAUNCHES
+    restart_peak(peaks)
+    if max(peaks) > SPARSE_PEAK_BYTES:
+        raise AssertionError(f"sparse: the phase peaked at {max(peaks) / 1e9} GB (bound {SPARSE_PEAK_BYTES / 1e9})")
+    if launches == 0:
+        raise AssertionError("sparse: the path never launched the CSR SpMM kernel")
+    emit({"phase": "sparse", "calls": len(records), "nnz": nnz, "csr_spmm_launches": launches,
+          "phase_peak_gb": max(peaks) / 1e9, "phase_seconds": time.perf_counter() - t_phase, "card": smi})
+    csr_entry["launches"] = launches
+    return csr_entry
+
+
 def tensor_core_report(build) -> dict:
     """ptxas's report (registers, spills) of the six tensor-core kernels,
     and their count of tensor-core instructions in the built SASS -- HMMA
@@ -4060,8 +4686,12 @@ def main() -> int:
     # 24. the linalg path (no kernel; threefry draws lanczos' start vectors)
     threefry["launches"] += linalg_phase(dev, smi)
 
+    # 25. the sparse layer: no TPU kernel (the JAX package's runs in plain
+    # XLA); its products through the CSR SpMM kernel
+    csr_spmm = sparse_phase(dev, smi)
+
     threefry["launches"] += rsvd_threefry + rpca_threefry  # the KMeans inits', rsvd's and the randomized PCA's
-    emit({"kernels": [lloyd, lloyd64, threefry, gram, *fft_entries, flash, *flash_bwd]})
+    emit({"kernels": [lloyd, lloyd64, threefry, gram, *fft_entries, flash, *flash_bwd, csr_spmm]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": name, "count": torch.cuda.device_count()}})
     return 0
 

@@ -25,6 +25,7 @@ from . import graph
 from . import decomposition
 from . import preprocessing
 from . import fft
+from . import sparse
 from . import nn
 from . import optim
 from . import utils

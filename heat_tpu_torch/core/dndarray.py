@@ -865,6 +865,8 @@ class DNDarray:
     def __matmul__(self, other):
         from .linalg import basics
 
+        if not isinstance(other, (DNDarray, np.ndarray, torch.Tensor)) and hasattr(other, "__rmatmul__"):
+            return NotImplemented  # another array type's product (a sparse matrix's): its __rmatmul__
         return basics.matmul(self, other)
 
     def __invert__(self):

@@ -14,7 +14,9 @@ a spectrum, which heat_tpu may hold as two real planes) as numpy and returns
 the port's DNDarray of it, complex where it is complex.
 :func:`params_from_reference` takes a flax parameter tree of the JAX
 package's data-parallel models and returns a ``torch.nn.Module``'s
-parameters by name.
+parameters by name.  :func:`from_reference_sparse` takes a heat_tpu DCSR or
+DCSC matrix as its global ``indptr``, ``indices`` and ``data`` and returns
+the port's sparse matrix of it, stored zeros kept.
 """
 
 from __future__ import annotations
@@ -32,7 +34,7 @@ from .naive_bayes import GaussianNB
 from .preprocessing import MaxAbsScaler, MinMaxScaler, Normalizer, RobustScaler, StandardScaler
 from .regression import Lasso
 
-__all__ = ["from_reference_array", "from_reference_state", "params_from_reference"]
+__all__ = ["from_reference_array", "from_reference_sparse", "from_reference_state", "params_from_reference"]
 
 
 def from_reference_array(value, split=None, device=None, comm=None):
@@ -48,6 +50,25 @@ def from_reference_array(value, split=None, device=None, comm=None):
         value = np.empty(re.shape, np.complex64 if re.dtype == np.float32 else np.complex128)
         value.real, value.imag = re, im
     return factories.array(np.asarray(value), split=split, device=device, comm=comm)
+
+
+def from_reference_sparse(indptr, indices, data, shape, format: str = "csr", split=None, device=None, comm=None):
+    """The port's DCSR (``format="csr"``) or DCSC (``"csc"``) matrix of a
+    reference matrix given as numpy: its global ``indptr``, ``indices`` and
+    ``data`` (``A.indptr``, ``A.indices``, ``A.data``), its shape and its
+    split.  Every stored entry is kept, explicit zeros included."""
+    import scipy.sparse as sp
+
+    from . import sparse
+
+    triplet = (np.asarray(data), np.asarray(indices), np.asarray(indptr))
+    if format == "csr":
+        return sparse.sparse_csr_matrix(sp.csr_matrix(triplet, shape=tuple(shape)), split=split, device=device,
+                                        comm=comm)
+    if format == "csc":
+        return sparse.sparse_csc_matrix(sp.csc_matrix(triplet, shape=tuple(shape)), split=split, device=device,
+                                        comm=comm)
+    raise ValueError(f"format must be 'csr' or 'csc', got {format!r}")
 
 
 def _kcluster_state(est, state: Dict[str, Any], device, comm) -> None:

@@ -194,6 +194,24 @@ class Communication:
         dist.all_to_all(got, send, group=self.group)
         return [g.narrow(axis, 0, e) for g, e in zip(got, recv_extents)]
 
+    def psum_scatter(self, x: torch.Tensor, scatter_dimension: int = 0) -> torch.Tensor:
+        """Reduce-scatter, tiled (``jax.lax.psum_scatter(..., tiled=True)``):
+        the sum of every rank's ``x`` is cut into ``size`` equal blocks
+        along ``scatter_dimension`` and rank r keeps block r.  A complex
+        tensor travels as its real view."""
+        size, d = self.size, scatter_dimension % max(x.ndim, 1)
+        if x.shape[d] % size:
+            raise ValueError(f"psum_scatter: extent {x.shape[d]} of axis {d} is not divisible by {size} ranks")
+        if size == 1:
+            return x
+        self._check_joined()
+        if x.is_complex():
+            return torch.view_as_complex(self.psum_scatter(torch.view_as_real(x), d))
+        send = x.movedim(d, 0).contiguous()
+        out = send.new_empty((send.shape[0] // size,) + tuple(send.shape[1:]))
+        _REDUCE_SCATTER(out, send, op=dist.ReduceOp.SUM, group=self.group)
+        return out.movedim(0, d)
+
     def bcast(self, x: torch.Tensor, root: int) -> torch.Tensor:
         """Rank ``root``'s ``x`` on every rank (of one shape and dtype on
         all of them); in place, returns ``x``."""
@@ -342,6 +360,9 @@ class _PPermute(torch.autograd.Function):
     def backward(ctx, g):
         return ctx.comm._ppermute(g, [(d, s) for s, d in ctx.perm]), None, None
 
+
+# torch 2.13 renames reduce_scatter_tensor; older releases have only the old name
+_REDUCE_SCATTER = getattr(dist, "reduce_scatter_single", None) or dist.reduce_scatter_tensor
 
 WORLD = Communication()
 #: this rank alone: a world of one, whatever the process group

@@ -8,16 +8,14 @@ sequence-parallel attention (the ring of ring_shift, Ulysses' all-to-alls)
 and its gradients across the ranks, and DataParallel's three gradient
 schedules.
 
-The ranks are separate processes that meet through a file store under the
-test's temporary directory (no TCP port).  The test waits at most 60 s for
-them, then kills them and fails."""
+One world of 3 rank processes (tests/torch_world.py) runs every slice of
+the file in turn (one rank script a slice, each in a fresh namespace, the
+state a slice patches put back after it), and each test checks its own
+slice's arrays as soon as that slice is done.  Slice i must be done 60
+(i + 1) s after the world starts, or the world is killed and the test
+fails."""
 
-import os
 import re
-import subprocess
-import sys
-import time
-from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -25,33 +23,17 @@ import numpy as np
 import pytest
 
 import heat_tpu as hj
+from torch_world import WORLD, spawned
 
 pytestmark = pytest.mark.multiprocess
 
-WORLD = 3
-DEADLINE_S = 60.0
-REPO = Path(__file__).resolve().parents[1]
 # numpy's print options as a fresh process has them, the state of the gloo
 # ranks: the reference's set_printoptions mirrors its options into numpy's
 # and leaves them there, so a test run earlier in this process can change
 # how the reference prints
 _NP_PRINT_FRESH = np.get_printoptions()
 
-_RANK_HEAD = r"""
-import sys
-import numpy as np
-import torch
-import torch.distributed as dist
-
-rank, store, data, out = int(sys.argv[1]), sys.argv[2], sys.argv[3], sys.argv[4]
-dist.init_process_group("gloo", init_method="file://" + store, world_size=3, rank=rank)
-import heat_tpu_torch as ht
-
-ht.use_device("cpu")
-arrays = np.load(data)
-"""
-
-_KMEANS_MAIN = _RANK_HEAD + r"""
+_KMEANS_MAIN = r"""
 x = ht.array(arrays["x"], split=0)
 km = ht.cluster.KMeans(n_clusters=8, init="random", random_state=0, max_iter=30).fit(x)
 np.savez(
@@ -64,12 +46,11 @@ np.savez(
     n_iter=np.asarray(km.n_iter_),
     predict=km.predict(ht.array(arrays["fresh"], split=0)).numpy(),
 )
-dist.destroy_process_group()
 """
 
 # every eigh input is recorded: the first of a split=0 fit is the summed Gram
 # matrix, which must be the same bits on every rank
-_HSVD_MAIN = _RANK_HEAD + r"""
+_HSVD_MAIN = r"""
 seen = []
 _eigh = torch.linalg.eigh
 
@@ -118,10 +99,9 @@ np.savez(
     ratio=pca.explained_variance_ratio_.numpy(), tevr=np.asarray(pca.total_explained_variance_ratio_),
     transform=pca.transform(ht.array(arrays["fresh"], split=0)).numpy(),
 )
-dist.destroy_process_group()
 """
 
-_FFT_MAIN = _RANK_HEAD + r"""
+_FFT_MAIN = r"""
 gathered = []
 _all_gather = ht.Communication.all_gather
 
@@ -145,11 +125,10 @@ np.savez(
     gathers=np.asarray(transform_gathers), lshapes=lshapes, splits=np.asarray([spec.split, f1.split, r1.split]),
     spec=spec.numpy(), back=back.numpy(), f1=f1.numpy(), r1=r1.numpy(),
 )
-dist.destroy_process_group()
 """
 
 
-_ATTN_MAIN = _RANK_HEAD + r"""
+_ATTN_MAIN = r"""
 q, k, v = (ht.array(arrays[n], split=0) for n in ("q", "k", "v"))
 ring = ht.nn.scaled_dot_product_attention(q, k, v, causal=True, method="ring")
 q6, k6, v6 = (ht.array(arrays[n], split=0) for n in ("q6", "k6", "v6"))
@@ -171,13 +150,12 @@ np.savez(
     shifted=comm.ring_shift(x).numpy(), back=comm.ring_shift(x, shift=-1).numpy(),
     partial=comm.ppermute(x, [(0, 2), (2, 1)]).numpy(), errors=np.asarray(errors),
 )
-dist.destroy_process_group()
 """
 
 # one world for the seeded sampling path: kmeans++ inits for seeds 0-5 (all
 # gathers recorded: there must be none) and one fit, permutations split over
 # the uneven rows, and the prefix sums of per-rank values
-_SAMPLING_MAIN = _RANK_HEAD + r"""
+_SAMPLING_MAIN = r"""
 gathered = []
 _all_gather = ht.Communication.all_gather
 
@@ -210,7 +188,6 @@ counts = torch.tensor([(rank * 7) % 5 + 1], dtype=torch.int64)
 saved.update(pscan=comm.pscan(v).numpy(), exscan=comm.exscan(v).numpy(), ipscan=comm.pscan(counts).numpy(),
              iexscan=comm.exscan(counts).numpy())
 np.savez(out, **saved)
-dist.destroy_process_group()
 """
 
 # one world for the training path: gradients of sum(attention * g) by the
@@ -218,7 +195,7 @@ dist.destroy_process_group()
 # ring_shift's and all_to_all's backward) and of a psum; then three
 # DataParallels, one per schedule, from the reference's initial parameters,
 # two Adam steps each on batches of 12 rows (4 a rank), and the forward
-_TRAIN_MAIN = _RANK_HEAD + r"""
+_TRAIN_MAIN = r"""
 import os
 import torch.nn.functional as F
 from heat_tpu_torch.interop import params_from_reference
@@ -261,7 +238,6 @@ saved["forward_split"] = np.asarray(split_out.split)
 saved["forward_local"] = split_out.larray.numpy()
 saved["forward_whole"] = dp(torch.from_numpy(arrays["x"][0])).detach().numpy()  # a tensor: whole on every rank
 np.savez(out, **saved)
-dist.destroy_process_group()
 """
 
 
@@ -271,36 +247,14 @@ def _blobs(n, f, k, seed):
     return (centres[rng.integers(0, k, n)] + rng.standard_normal((n, f))).astype(np.float32)
 
 
-def _run_world(tmp_path, script, **arrays):
-    data = tmp_path / "data.npz"
-    np.savez(data, **arrays)
-    env = {**os.environ, "OMP_NUM_THREADS": "1", "PYTHONPATH": str(REPO)}
-    procs = []
-    for r in range(WORLD):
-        cmd = [sys.executable, "-c", script, str(r), str(tmp_path / "store"), str(data), str(tmp_path / f"rank{r}.npz")]
-        log = open(tmp_path / f"rank{r}.log", "w")
-        procs.append((subprocess.Popen(cmd, cwd=REPO, env=env, stdout=log, stderr=subprocess.STDOUT), log))
-    deadline = time.monotonic() + DEADLINE_S
-    try:
-        for p, _ in procs:
-            p.wait(timeout=max(0.1, deadline - time.monotonic()))
-    except subprocess.TimeoutExpired:
-        for p, _ in procs:
-            p.kill()
-        pytest.fail(f"the gloo world of {WORLD} did not finish within {DEADLINE_S} s")
-    finally:
-        for p, log in procs:
-            p.wait()
-            log.close()
-    for r, (p, _) in enumerate(procs):
-        assert p.returncode == 0, (tmp_path / f"rank{r}.log").read_text()
-    return [dict(np.load(tmp_path / f"rank{r}.npz")) for r in range(WORLD)]
+def _kmeans_inputs():
+    return dict(x=_blobs(1003, 16, 8, 0), fresh=_blobs(301, 16, 8, 9)), None  # 1003 = 3 * 335 - 2: rank 2 holds padding
 
 
-def test_kmeans_in_a_gloo_world_of_three(tmp_path):
-    x = _blobs(1003, 16, 8, 0)  # 1003 = 3 * 335 - 2: rank 2 holds padding
-    fresh = _blobs(301, 16, 8, 9)
-    ranks = _run_world(tmp_path, _KMEANS_MAIN, x=x, fresh=fresh)
+def test_kmeans_in_a_gloo_world_of_three(world):
+    arrays, _ = world["kmeans"]
+    x, fresh = arrays["x"], arrays["fresh"]
+    ranks = world.ranks("kmeans")
 
     ref_comm = hj.Communication(jax.devices()[:WORLD])
     ref_x = hj.array(x, split=0, comm=ref_comm)
@@ -329,15 +283,19 @@ def _lowrank(m, n, rank, seed):
     return (a + 0.05 * rng.standard_normal((m, n)) + 2.0).astype(np.float32)
 
 
-@pytest.fixture(scope="module")
-def hsvd_world(tmp_path_factory):
-    """The inputs, the reference's 3-device Communication and every rank's
-    results of _HSVD_MAIN."""
+def _hsvd_inputs():
     rows = _lowrank(1003, 12, 6, 1)  # 1003 = 3 * 335 - 2: rank 2 holds padding
     cols = _lowrank(60, 37, 8, 2)  # 37 columns over 3 ranks: leaves of 13, 13 and 11
-    fresh = _lowrank(29, 12, 6, 3)
-    ranks = _run_world(tmp_path_factory.mktemp("hsvd"), _HSVD_MAIN, rows=rows, cols=cols, fresh=fresh)
-    return (rows, cols, fresh), hj.Communication(jax.devices()[:WORLD]), ranks
+    return dict(rows=rows, cols=cols, fresh=_lowrank(29, 12, 6, 3)), None
+
+
+@pytest.fixture(scope="module")
+def hsvd_world(world):
+    """The inputs, the reference's 3-device Communication and every rank's
+    results of _HSVD_MAIN."""
+    arrays = world["hsvd"][0]
+    return ((arrays["rows"], arrays["cols"], arrays["fresh"]), hj.Communication(jax.devices()[:WORLD]),
+            world.ranks("hsvd"))
 
 
 def test_hsvd_and_pca_in_a_gloo_world_of_three(hsvd_world):
@@ -414,11 +372,17 @@ def test_rsvd_and_randomized_pca_in_a_gloo_world_of_three(hsvd_world):
         np.testing.assert_allclose(got["rpca_transform"] * signs[None, :], want_t, atol=1e-4, err_msg=f"rank {r}")
 
 
-def test_fft_along_the_split_axis_in_a_gloo_world_of_three(tmp_path, monkeypatch):
+def _fft_inputs():
     rng = np.random.default_rng(4)
     cube = rng.standard_normal((10, 7, 8)).astype(np.float32)  # 10 rows over 3 ranks; no partner divides by 3
     sig = (rng.standard_normal((7, 12)) + 1j * rng.standard_normal((7, 12))).astype(np.complex64)
-    ranks = _run_world(tmp_path, _FFT_MAIN, cube=cube, sig=sig)
+    return dict(cube=cube, sig=sig), None
+
+
+def test_fft_along_the_split_axis_in_a_gloo_world_of_three(world, monkeypatch):
+    arrays = world["fft"][0]
+    cube, sig = arrays["cube"], arrays["sig"]
+    ranks = world.ranks("fft")
 
     monkeypatch.setenv("HEAT_TPU_PLANAR", "1")
     ref_comm = hj.Communication(jax.devices()[:WORLD])
@@ -441,11 +405,17 @@ def test_fft_along_the_split_axis_in_a_gloo_world_of_three(tmp_path, monkeypatch
         assert rel(got["back"], cube) < 5e-4
 
 
-def test_attention_in_a_gloo_world_of_three(tmp_path):
+def _attention_inputs():
     rng = np.random.default_rng(5)
     q, k, v = (rng.standard_normal((10, 4, 8)).astype(np.float32) for _ in range(3))  # 10 over 3: padded to 12
     q6, k6, v6 = (rng.standard_normal((11, 6, 4)).astype(np.float32) for _ in range(3))
-    ranks = _run_world(tmp_path, _ATTN_MAIN, q=q, k=k, v=v, q6=q6, k6=k6, v6=v6)
+    return dict(q=q, k=k, v=v, q6=q6, k6=k6, v6=v6), None
+
+
+def test_attention_in_a_gloo_world_of_three(world):
+    arrays = world["attention"][0]
+    q, k, v, q6, k6, v6 = (arrays[n] for n in ("q", "k", "v", "q6", "k6", "v6"))
+    ranks = world.ranks("attention")
 
     ref_comm = hj.Communication(jax.devices()[:WORLD])
 
@@ -478,10 +448,8 @@ def _mlp():
     return MLP()
 
 
-@pytest.fixture(scope="module")
-def training_world(tmp_path_factory):
-    """The inputs, the reference's initial DataParallel (3 devices) and
-    every rank's results of _TRAIN_MAIN."""
+def _training_inputs():
+    """The inputs and the reference's initial DataParallel (3 devices)."""
     import optax
 
     rng = np.random.default_rng(6)
@@ -498,8 +466,15 @@ def training_world(tmp_path_factory):
     arrays = dict(q=q, k=k, v=v, g=g, q6=q6, k6=k6, v6=v6, g6=g6, n_true=np.asarray(n_true), x=x, y=y,
                   k0=tree["Dense_0"]["kernel"], b0=tree["Dense_0"]["bias"], k1=tree["Dense_1"]["kernel"],
                   b1=tree["Dense_1"]["bias"])
-    ranks = _run_world(tmp_path_factory.mktemp("train"), _TRAIN_MAIN, **arrays)
-    return arrays, ref_comm, dp, ranks
+    return arrays, (ref_comm, dp)
+
+
+@pytest.fixture(scope="module")
+def training_world(world):
+    """The inputs, the reference's initial DataParallel (3 devices) and
+    every rank's results of _TRAIN_MAIN."""
+    arrays, (ref_comm, dp) = world["training"]
+    return arrays, ref_comm, dp, world.ranks("training")
 
 
 def test_attention_gradients_in_a_gloo_world_of_three(training_world):
@@ -564,14 +539,16 @@ def test_data_parallel_schedules_in_a_gloo_world_of_three(training_world):
         np.testing.assert_allclose(got["forward_whole"], want_forward, atol=1e-5, rtol=0)
 
 
+def _sampling_inputs():
+    return dict(x=_blobs(1003, 16, 8, 5), fresh=_blobs(301, 16, 8, 6)), None  # 1003 = 3 * 335 - 2: rank 2 holds padding
+
+
 @pytest.fixture(scope="module")
-def sampling_world(tmp_path_factory):
+def sampling_world(world):
     """The points, the reference's 3-device Communication and every rank's
     results of _SAMPLING_MAIN."""
-    x = _blobs(1003, 16, 8, 5)  # 1003 = 3 * 335 - 2: rank 2 holds padding
-    fresh = _blobs(301, 16, 8, 6)
-    ranks = _run_world(tmp_path_factory.mktemp("sampling"), _SAMPLING_MAIN, x=x, fresh=fresh)
-    return (x, fresh), hj.Communication(jax.devices()[:WORLD]), ranks
+    arrays = world["sampling"][0]
+    return (arrays["x"], arrays["fresh"]), hj.Communication(jax.devices()[:WORLD]), world.ranks("sampling")
 
 
 def test_kmeanspp_and_permutation_in_a_gloo_world_of_three(sampling_world):
@@ -633,7 +610,7 @@ def test_prefix_sums_in_a_gloo_world_of_three(sampling_world):
 # reversed, masked and index-array keys on the split axis, writes across
 # ranks, halos, allclose, factories' chunks, nonzero and printing; every
 # gather recorded during the basic keys
-_RUNTIME_MAIN = _RANK_HEAD + r"""
+_RUNTIME_MAIN = r"""
 saved = {}
 
 
@@ -704,7 +681,6 @@ km = ht.cluster.KMeans(n_clusters=8, init="random", random_state=0, max_iter=30)
 saved.update(centers=km.cluster_centers_.numpy(), labels=km.labels_.numpy(), inertia=np.asarray(km.inertia_),
              n_iter=np.asarray(km.n_iter_), centers_dtype=np.asarray(km.cluster_centers_.dtype.__name__))
 np.savez(out, **saved)
-dist.destroy_process_group()
 """
 
 _RUNTIME_KEYS = r"""
@@ -719,17 +695,18 @@ SETS = [(slice(1, 9, 3), 7.5), (np.array([9, 0, 4]), -3.0), (np.arange(10) % 4 =
 """
 
 
-@pytest.fixture(scope="module")
-def runtime_world(tmp_path_factory):
+def _runtime_inputs():
     rng = np.random.default_rng(13)
-    arrays = dict(base=rng.standard_normal((10, 7)).astype(np.float32),
-                  big=rng.standard_normal((1001, 5)).astype(np.float32),
-                  x64=_blobs(1003, 16, 8, 3).astype(np.float64))
-    script = _RANK_HEAD + _RUNTIME_KEYS + _RUNTIME_MAIN[len(_RANK_HEAD):]
-    ranks = _run_world(tmp_path_factory.mktemp("runtime"), script, **arrays)
+    return dict(base=rng.standard_normal((10, 7)).astype(np.float32),
+                big=rng.standard_normal((1001, 5)).astype(np.float32),
+                x64=_blobs(1003, 16, 8, 3).astype(np.float64)), None
+
+
+@pytest.fixture(scope="module")
+def runtime_world(world):
     ns = {"np": np}
     exec(_RUNTIME_KEYS, ns)
-    return arrays, ns, hj.Communication(jax.devices()[:WORLD]), ranks
+    return world["runtime"][0], ns, hj.Communication(jax.devices()[:WORLD]), world.ranks("runtime")
 
 
 def _same_layout(got, r, name, want, comm):
@@ -822,7 +799,7 @@ def test_float64_kmeans_in_a_gloo_world_of_three(runtime_world):
 # 0, and the ragged layer (a skewed target, __partitioned__, the round trip
 # through from_partition_dict, an op and a reduction on the ragged array);
 # every gather recorded while the ops run
-_OPS_MAIN = _RANK_HEAD + r"""
+_OPS_MAIN = r"""
 saved = {}
 gathered = {}
 phase = [None]
@@ -910,12 +887,10 @@ saved["balanced_again"] = np.asarray(r.is_balanced())
 saved["gathered_names"] = np.asarray(list(gathered))
 saved["gathered_counts"] = np.asarray([gathered[k] for k in gathered])
 np.savez(out, **saved)
-dist.destroy_process_group()
 """
 
 
-@pytest.fixture(scope="module")
-def ops_world(tmp_path_factory):
+def _ops_inputs():
     rng = np.random.default_rng(21)
     base = rng.standard_normal((10, 7)).astype(np.float32) * 2
     ties = np.round(rng.standard_normal((10, 7)), 0).astype(np.float32)
@@ -925,8 +900,12 @@ def ops_world(tmp_path_factory):
     ties[2, 6] = np.nan
     arrays = dict(base=base, ties=ties, labels=rng.integers(0, 6, 41).astype(np.int64),
                   weights=rng.standard_normal(41).astype(np.float32), rhs=rng.standard_normal((7, 5)).astype(np.float32))
-    ranks = _run_world(tmp_path_factory.mktemp("ops"), _OPS_MAIN, **arrays)
-    return arrays, hj.Communication(jax.devices()[:WORLD]), ranks
+    return arrays, None
+
+
+@pytest.fixture(scope="module")
+def ops_world(world):
+    return world["ops"][0], hj.Communication(jax.devices()[:WORLD]), world.ranks("ops")
 
 
 def _close_layout(got, r, name, want, comm, rtol=3e-5, atol=1e-6):
@@ -1020,7 +999,7 @@ def test_ragged_layer_in_a_gloo_world_of_three(ops_world):
         assert gathered["partitioned"] == 0 and gathered["op_rows"] == 0
 
 
-_DISTANCES_MAIN = _RANK_HEAD + r"""
+_DISTANCES_MAIN = r"""
 saved = {}
 gathered = {}
 phase = [None]
@@ -1082,12 +1061,10 @@ save("laplacian", run("laplacian", lambda: lap.construct(ht.array(arrays["pts"][
 saved["gathered_names"] = np.asarray(list(gathered))
 saved["gathered_counts"] = np.asarray([gathered[k] for k in gathered])
 np.savez(out, **saved)
-dist.destroy_process_group()
 """
 
 
-@pytest.fixture(scope="module")
-def distances_world(tmp_path_factory):
+def _distances_inputs():
     """Uneven rows (37 of X, 29 of Y: rank 2 holds padding of both), Y
     rows repeated in another rank's block (the ring's tie order), KNN
     blobs, and the 3 blobs of tests/test_ml.py cut to 119 rows."""
@@ -1104,8 +1081,12 @@ def distances_world(tmp_path_factory):
     arrays = dict(x=x, y=y, xi=rng.integers(-9, 10, (37, 5)).astype(np.int32),
                   yi=rng.integers(-9, 10, (29, 5)).astype(np.int32), train=train, train_labels=labels.astype(np.int64),
                   queries=_blobs(53, 6, 4, 33), pts=pts)
-    ranks = _run_world(tmp_path_factory.mktemp("distances"), _DISTANCES_MAIN, **arrays)
-    return arrays, hj.Communication(jax.devices()[:WORLD]), ranks
+    return arrays, None
+
+
+@pytest.fixture(scope="module")
+def distances_world(world):
+    return world["distances"][0], hj.Communication(jax.devices()[:WORLD]), world.ranks("distances")
 
 
 def test_distances_and_their_estimators_in_a_gloo_world_of_three(distances_world):
@@ -1158,7 +1139,7 @@ def test_distances_and_their_estimators_in_a_gloo_world_of_three(distances_world
         assert all(count == 0 for count in gathered.values()), gathered
 
 
-_LINALG_MAIN = _RANK_HEAD + r"""
+_LINALG_MAIN = r"""
 saved = {}
 largest = {}
 phase = [None]
@@ -1227,12 +1208,10 @@ saved["det_ties"] = np.asarray(float(ht.linalg.det(ht.array(arrays["ties"], spli
 saved["largest_names"] = np.asarray(list(largest))
 saved["largest_sizes"] = np.asarray([largest[k] for k in largest])
 np.savez(out, **saved)
-dist.destroy_process_group()
 """
 
 
-@pytest.fixture(scope="module")
-def linalg_world(tmp_path_factory):
+def _linalg_inputs():
     """Ragged extents on 3 ranks: TS-QR of 37 x 5 (rank 2 holds 2 padding
     rows), block Gram-Schmidt of 23 x 10 and 13 x 4 (rank 2 holds padding
     columns, of 13 x 4 nothing else), the factorizations at n = 7 and 10
@@ -1253,8 +1232,37 @@ def linalg_world(tmp_path_factory):
     arrays["ties"] = np.array([[1, 2, 0, 1, 3, 0, 1], [-1, 0, 3, 2, 1, 1, 0], [1, -2, 1, 0, 2, 2, 1],
                                [-1, 1, 2, 5, 0, 1, 1], [1, 2, -3, 1, 1, 0, 2], [-1, 0, 1, 1, 3, 1, 1],
                                [1, 1, 1, -2, 1, 3, 0]], dtype=np.float64)
-    ranks = _run_world(tmp_path_factory.mktemp("linalg"), _LINALG_MAIN, **arrays)
-    return arrays, hj.Communication(jax.devices()[:WORLD]), ranks
+    return arrays, None
+
+
+@pytest.fixture(scope="module")
+def linalg_world(world):
+    return world["linalg"][0], hj.Communication(jax.devices()[:WORLD]), world.ranks("linalg")
+
+
+# each slice: its rank script and the function that makes its inputs (and
+# the reference's objects its tests go on with)
+_SLICES = {
+    "kmeans": (_KMEANS_MAIN, _kmeans_inputs),
+    "hsvd": (_HSVD_MAIN, _hsvd_inputs),
+    "fft": (_FFT_MAIN, _fft_inputs),
+    "attention": (_ATTN_MAIN, _attention_inputs),
+    "training": (_TRAIN_MAIN, _training_inputs),
+    "sampling": (_SAMPLING_MAIN, _sampling_inputs),
+    "runtime": (_RUNTIME_KEYS + _RUNTIME_MAIN, _runtime_inputs),
+    "ops": (_OPS_MAIN, _ops_inputs),
+    "distances": (_DISTANCES_MAIN, _distances_inputs),
+    "linalg": (_LINALG_MAIN, _linalg_inputs),
+}
+
+
+@pytest.fixture(scope="module")
+def world(tmp_path_factory):
+    """One world for the module, its slices run in turn: each slice's
+    inputs, the reference's objects made with them and every rank's
+    results, through :class:`torch_world.World`."""
+    with spawned(tmp_path_factory.mktemp("world"), _SLICES) as w:
+        yield w
 
 
 def _gathered_local(ranks, name):

@@ -13,14 +13,9 @@ count_nonzero gather nothing (a reduction of each rank's rows and one
 all-reduce), the other napi calls gather the dense view as the reference
 reads it.
 
-The ranks meet through a file store under the test's temporary directory;
-the test waits at most 90 s for them, then kills them and fails."""
-
-import os
-import subprocess
-import sys
-import time
-from pathlib import Path
+Each napi case is a test of its own (``test_napi_call_splits_and_chunks_as_the_reference``).
+The rank script is the one slice of a world of 3 rank processes
+(tests/torch_world.py), which must finish it within 90 s."""
 
 import jax
 import numpy as np
@@ -28,28 +23,17 @@ import pytest
 
 import heat_tpu as hj
 from torch_napi_cases import ONE
+from torch_world import WORLD, spawned
 
 pytestmark = pytest.mark.multiprocess
 
-WORLD = 3
 DEADLINE_S = 90.0
-REPO = Path(__file__).resolve().parents[1]
 ROW_LOCAL = ("amax", "amin", "ptp", "count_nonzero")
 
 _MAIN = r"""
-import sys
-import numpy as np
-import torch
-import torch.distributed as dist
-
-rank, store, data, out, tests = int(sys.argv[1]), sys.argv[2], sys.argv[3], sys.argv[4], sys.argv[5]
-dist.init_process_group("gloo", init_method="file://" + store, world_size=3, rank=rank)
-sys.path.insert(0, tests)
-import heat_tpu_torch as ht
 from torch_napi_cases import ONE
 
-ht.use_device("cpu")
-arrays = dict(np.load(data))
+arrays = dict(arrays)
 saved, gathered, phase = {}, {}, [None]
 for fname in ("all_gather", "all_gather_varying"):
     _fn = getattr(ht.Communication, fname)
@@ -133,35 +117,7 @@ saved["predicates"] = np.asarray([getattr(ht, p)(e) for e in (sp, nb, lasso, ht.
 saved["gather_names"] = np.asarray(list(gathered))
 saved["gather_bytes"] = np.asarray([gathered[k] for k in gathered])
 np.savez(out, **saved)
-dist.destroy_process_group()
 """
-
-
-def _run_world(tmp_path, **arrays):
-    data = tmp_path / "data.npz"
-    np.savez(data, **arrays)
-    env = {**os.environ, "OMP_NUM_THREADS": "1", "PYTHONPATH": str(REPO)}
-    procs = []
-    for r in range(WORLD):
-        cmd = [sys.executable, "-c", _MAIN, str(r), str(tmp_path / "store"), str(data), str(tmp_path / f"rank{r}"),
-               str(REPO / "tests")]
-        log = open(tmp_path / f"rank{r}.log", "w")
-        procs.append((subprocess.Popen(cmd, cwd=REPO, env=env, stdout=log, stderr=subprocess.STDOUT), log))
-    deadline = time.monotonic() + DEADLINE_S
-    try:
-        for p, _ in procs:
-            p.wait(timeout=max(0.1, deadline - time.monotonic()))
-    except subprocess.TimeoutExpired:
-        for p, _ in procs:
-            p.kill()
-        pytest.fail(f"the gloo world of {WORLD} did not finish within {DEADLINE_S} s")
-    finally:
-        for p, log in procs:
-            p.wait()
-            log.close()
-    for r, (p, _) in enumerate(procs):
-        assert p.returncode == 0, (tmp_path / f"rank{r}.log").read_text()
-    return [dict(np.load(tmp_path / f"rank{r}.npz")) for r in range(WORLD)]
 
 
 def _napi_input(dtype, nans):
@@ -179,8 +135,7 @@ def _names(key):
     return [n for n in ONE if key == "napi_float32" or n.startswith("nan")]
 
 
-@pytest.fixture(scope="module")
-def world(tmp_path_factory):
+def _inputs():
     rng = np.random.default_rng(71)
     arrays = {"napi_float32": _napi_input("float32", False),
               "napi_nan64": _napi_input("float64", True)}
@@ -200,8 +155,16 @@ def world(tmp_path_factory):
     blobs = np.concatenate([rng.normal(-4, 0.6, (40, 2)), rng.normal(0, 0.6, (40, 2)),
                             rng.normal(4, 0.6, (40, 2))]).astype(np.float32)
     arrays["sp_x"] = rng.permutation(blobs)
-    ranks = _run_world(tmp_path_factory.mktemp("ml_napi"), **arrays)
-    return arrays, hj.Communication(jax.devices()[:WORLD]), ranks
+    return arrays, None
+
+
+@pytest.fixture(scope="module")
+def world(tmp_path_factory):
+    """The inputs, the reference's 3-device Communication and every rank's
+    results."""
+    with spawned(tmp_path_factory.mktemp("ml_napi"), {"ml_napi": (_MAIN, _inputs)}, DEADLINE_S) as w:
+        ranks = w.ranks("ml_napi")
+    return w["ml_napi"][0], hj.Communication(jax.devices()[:WORLD]), ranks
 
 
 def _gathered(ranks, name):
@@ -242,25 +205,35 @@ def _same(ranks, name, want, rtol=None, atol=None):
                                    atol=atol if atol is not None else a, err_msg=name)
 
 
-def test_every_napi_call_splits_and_chunks_as_the_reference(world):
+#: every napi case of tests/torch_napi_cases.py as ``name|key|split``
+CASES = [f"{name}|{key}|{split}" for key in ("napi_float32", "napi_nan64")
+         for split in ((0, 1) if key == "napi_float32" else (0,)) for name in _names(key)]
+
+
+@pytest.mark.parametrize("tag", CASES)
+def test_napi_call_splits_and_chunks_as_the_reference(world, tag):
     arrays, comm, ranks = world
-    checked = 0
-    for key in ("napi_float32", "napi_nan64"):
-        for split in ((0, 1) if key == "napi_float32" else (0,)):
-            x = hj.array(arrays[key], split=split, comm=comm)
-            for name in _names(key):
-                call, tag = ONE[name], f"{name}|{key}|{split}"
-                try:
-                    want = call(hj, x)
-                except Exception as e:
-                    for got in ranks:
-                        assert str(got[tag + "/raises"]) == type(e).__name__, tag
-                    continue
-                products = name.split("_")[0] in ("corrcoef", "inner", "tensordot", "einsum")
-                kw = {"rtol": 1e-10, "atol": 1e-10} if products and key == "napi_nan64" else {}
-                _same(ranks, tag, want, **kw)
-                checked += 1
-    assert checked > 200
+    name, key, split = tag.split("|")
+    x = hj.array(arrays[key], split=int(split), comm=comm)
+    try:
+        want = ONE[name](hj, x)
+    except Exception as e:
+        for got in ranks:
+            assert str(got[tag + "/raises"]) == type(e).__name__, tag
+        return
+    products = name.split("_")[0] in ("corrcoef", "inner", "tensordot", "einsum")
+    kw = {"rtol": 1e-10, "atol": 1e-10} if products and key == "napi_nan64" else {}
+    _same(ranks, tag, want, **kw)
+
+
+def test_every_napi_call_splits_and_chunks_as_the_reference(world):
+    """Every case ran on every rank (each is held against the reference by
+    test_napi_call_splits_and_chunks_as_the_reference), and more than 200
+    of them gave a result."""
+    _, _, ranks = world
+    for got in ranks:
+        assert all(tag in got or tag + "/0" in got or tag + "/raises" in got for tag in CASES)
+    assert sum(tag + "/raises" not in ranks[0] for tag in CASES) > 200
 
 
 def test_row_local_calls_gather_nothing_and_the_rest_gather(world):

@@ -15,13 +15,12 @@ tensor as large as its share of the array, but for the gathers of the
 reference's own algorithms (the sample sort's p^2 samples, top-k's p k
 candidates, unique's distinct values) and the CSV writer's.
 
-The ranks meet through a file store under the test's temporary directory;
-the test waits at most 60 s for them, then kills them and fails."""
+Each of the 28 sorts is a test of its own
+(``test_sample_sort_case_is_the_references_bitwise``).  The rank script is
+the one slice of a world of 3 rank processes (tests/torch_world.py), which
+must finish it within 60 s."""
 
 import os
-import subprocess
-import sys
-import time
 from pathlib import Path
 
 import jax
@@ -30,27 +29,17 @@ import pytest
 
 import heat_tpu as hj
 from heat_tpu.core import sample_sort as ref_sort
+from torch_world import WORLD, spawned
 
 pytestmark = pytest.mark.multiprocess
 
-WORLD = 3
-DEADLINE_S = 60.0
-REPO = Path(__file__).resolve().parents[1]
 THRESHOLD = 16
 
 _MAIN = r"""
-import sys
-import numpy as np
-import torch
-import torch.distributed as dist
-
-rank, store, data, out, files = int(sys.argv[1]), sys.argv[2], sys.argv[3], sys.argv[4], sys.argv[5]
-dist.init_process_group("gloo", init_method="file://" + store, world_size=3, rank=rank)
-import heat_tpu_torch as ht
 from heat_tpu_torch.core import sample_sort
 
-ht.use_device("cpu")
-arrays = dict(np.load(data))
+arrays = dict(arrays)
+files = str(arrays.pop("files"))
 sample_sort.SAMPLE_SORT_THRESHOLD = LOWERED
 saved, gathered, sources, phase = {}, {}, {}, [None]
 for fname in ("all_gather", "all_gather_varying"):
@@ -157,35 +146,7 @@ saved["gather_names"] = np.asarray(list(gathered))
 saved["gather_bytes"] = np.asarray([gathered[k] for k in gathered])
 saved["gather_sources"] = np.asarray([sources[k] for k in gathered])
 np.savez(out, **saved)
-dist.destroy_process_group()
 """.replace("LOWERED", str(THRESHOLD))
-
-
-def _run_world(tmp_path, files, **arrays):
-    data = tmp_path / "data.npz"
-    np.savez(data, **arrays)
-    env = {**os.environ, "OMP_NUM_THREADS": "1", "PYTHONPATH": str(REPO)}
-    procs = []
-    for r in range(WORLD):
-        cmd = [sys.executable, "-c", _MAIN, str(r), str(tmp_path / "store"), str(data), str(tmp_path / f"rank{r}"),
-               str(files)]
-        log = open(tmp_path / f"rank{r}.log", "w")
-        procs.append((subprocess.Popen(cmd, cwd=REPO, env=env, stdout=log, stderr=subprocess.STDOUT), log))
-    deadline = time.monotonic() + DEADLINE_S
-    try:
-        for p, _ in procs:
-            p.wait(timeout=max(0.1, deadline - time.monotonic()))
-    except subprocess.TimeoutExpired:
-        for p, _ in procs:
-            p.kill()
-        pytest.fail(f"the gloo world of {WORLD} did not finish within {DEADLINE_S} s")
-    finally:
-        for p, log in procs:
-            p.wait()
-            log.close()
-    for r, (p, _) in enumerate(procs):
-        assert p.returncode == 0, (tmp_path / f"rank{r}.log").read_text()
-    return [dict(np.load(tmp_path / f"rank{r}.npz")) for r in range(WORLD)]
 
 
 def _sort_inputs(rng):
@@ -206,8 +167,9 @@ def _sort_inputs(rng):
     return out
 
 
-@pytest.fixture(scope="module")
-def sort_io_world(tmp_path_factory):
+def _inputs(files):
+    """The arrays, and the reference's files written under ``files`` for the
+    ranks to read."""
     rng = np.random.default_rng(50)
     arrays = _sort_inputs(rng)
     arrays["dense_f"] = arrays["sort_float32_a_0"]
@@ -222,14 +184,21 @@ def sort_io_world(tmp_path_factory):
     arrays["square"] = rng.standard_normal((31, 31))
     arrays["short"] = arrays["vec"][:50]
     comm = hj.Communication(jax.devices()[:WORLD])
-    files = tmp_path_factory.mktemp("files")
     m = hj.array(arrays["mat"], split=0, comm=comm)
     hj.save_hdf5(m, str(files / "ref.h5"), "x")
     hj.save(m, str(files / "ref.npy"))
     hj.save_csv(m, str(files / "ref.csv"))
     hj.save_npy_from_path(m, str(files / "shards"))
     hj.save(hj.array(arrays["mat"], split=1, comm=comm), str(files / "ref_1.npy"))
-    ranks = _run_world(tmp_path_factory.mktemp("sort_io"), files, **arrays)
+    return {**arrays, "files": np.asarray(str(files))}, comm
+
+
+@pytest.fixture(scope="module")
+def sort_io_world(tmp_path_factory):
+    files = tmp_path_factory.mktemp("files")
+    with spawned(tmp_path_factory.mktemp("sort_io"), {"sort_io": (_MAIN, lambda: _inputs(files))}) as w:
+        ranks = w.ranks("sort_io")
+    arrays, comm = w["sort_io"]
     return arrays, comm, ranks, files
 
 
@@ -259,17 +228,27 @@ def _same(ranks, name, want, bitwise=True, rtol=3e-5, atol=1e-6):
         np.testing.assert_allclose(whole, w, rtol=rtol, atol=atol, err_msg=name)
 
 
-def test_sample_sort_is_the_references_bitwise_on_three_ranks(sort_io_world, monkeypatch):
+SORT_KEYS = sorted(_sort_inputs(np.random.default_rng(0)))
+
+
+@pytest.mark.parametrize("key", SORT_KEYS)
+def test_sample_sort_case_is_the_references_bitwise(sort_io_world, monkeypatch, key):
     arrays, comm, ranks, _ = sort_io_world
     monkeypatch.setattr(ref_sort, "SAMPLE_SORT_THRESHOLD", THRESHOLD)
+    _, _, desc, axis = key.rsplit("_", 3)
+    want = hj.sort(hj.array(arrays[key], split=int(axis), comm=comm), axis=int(axis), descending=desc == "d")
+    assert ref_sort.supports_sample_sort(hj.array(arrays[key], split=int(axis), comm=comm), int(axis), False)
+    _same(ranks, key + "/0", want[0])
+    _same(ranks, key + "/1", want[1])
+
+
+def test_sample_sort_is_the_references_bitwise_on_three_ranks(sort_io_world, monkeypatch):
+    """The 28 sample sorts (each held by
+    test_sample_sort_case_is_the_references_bitwise) and the sorts below
+    the threshold."""
+    arrays, comm, ranks, _ = sort_io_world
     keys = sorted(k for k in arrays if k.startswith("sort_"))
-    assert len(keys) == 28
-    for key in keys:
-        _, _, desc, axis = key.rsplit("_", 3)
-        want = hj.sort(hj.array(arrays[key], split=int(axis), comm=comm), axis=int(axis), descending=desc == "d")
-        assert ref_sort.supports_sample_sort(hj.array(arrays[key], split=int(axis), comm=comm), int(axis), False)
-        _same(ranks, key + "/0", want[0])
-        _same(ranks, key + "/1", want[1])
+    assert len(keys) == 28 and keys == SORT_KEYS
     for key, desc in (("dense_f", False), ("dense_i", True)):
         monkeypatch.setattr(ref_sort, "SAMPLE_SORT_THRESHOLD", 1 << 17)
         want = hj.sort(hj.array(arrays[key], split=0, comm=comm), axis=0, descending=desc)

@@ -1,7 +1,8 @@
 """The port's CUDA kernels on the card (the Lloyd step, the Gram matrix, the
 FFT kernels and flash attention),
 held against their plain PyTorch versions at small shapes (chip_smoke.py
-does the same at full size).
+does the same at full size), and the port's other paths on the card (the
+sparse layer among them) against the port on the CPU.
 
 Marked ``gpu``: run on a machine with a CUDA card by
 ``python -m pytest -m gpu tests/test_torch_gpu.py``; elsewhere every test
@@ -1674,3 +1675,146 @@ def test_spectral_on_the_card_is_the_hosts(card):
     want = ht.cluster.Spectral(n_clusters=3, gamma=0.5, n_lanczos=40).fit_predict(c)
     assert labels.larray_padded.is_cuda
     np.testing.assert_array_equal(labels.numpy(), want.numpy())
+
+
+def _sparse_ops(device, fmt, split, dtype):
+    """Every sparse op of one matrix pair on ``device``: name -> the
+    result's host arrays (a sparse result's global planes, a dense one's
+    values)."""
+    import scipy.sparse as sp
+
+    rng = np.random.default_rng(90)
+    mats = []
+    for seed in (1, 2):
+        m = sp.random(57, 41, density=0.15, random_state=seed, format="csr")
+        m.data = (m.data + 0.5).astype(dtype) if dtype != "int32" else rng.integers(1, 9, m.nnz).astype(dtype)
+        mats.append(m)
+    make = ht.sparse.sparse_csr_matrix if fmt == "csr" else ht.sparse.sparse_csc_matrix
+    a, b = (make(m if fmt == "csr" else m.tocsc(), split=split, device=device) for m in mats)
+    x = rng.integers(-3, 4, (41, 5)).astype(dtype)
+    e = rng.integers(-3, 4, (4, 57)).astype(dtype)
+    s = ht.sparse.sparse_csr_matrix(sp.random(41, 33, density=0.2, random_state=3, format="csr", dtype=dtype),
+                                    split=0, device=device)
+    ops = {"add": a + b, "mul": a * b, "scalar": a * 3 + 1, "T": a.T, "astype": a.astype(ht.float64),
+           "to_csc": ht.sparse.to_sparse_csc(a), "to_csr": ht.sparse.to_sparse_csr(a),
+           "spmm": a @ ht.array(x, split=0, device=device), "spmv": a @ ht.array(x[:, 0].copy(), device=device),
+           "dense_sp": ht.array(e, split=1, device=device) @ a, "todense": a.todense(), "spgemm": a @ s,
+           "sum": a.sum(), "sum0": a.sum(axis=0), "sum1": a.sum(axis=1)}
+    out = {}
+    for name, r in ops.items():
+        if hasattr(r, "_comp"):
+            assert r._val.device.type == ("cuda" if device == "gpu" else "cpu"), name
+            out[name] = [r.indptr.cpu().numpy(), r.indices.cpu().numpy(), r.data.cpu().numpy()]
+        else:
+            assert r.larray_padded.device.type == ("cuda" if device == "gpu" else "cpu"), name
+            out[name] = [r.numpy()]
+    return out
+
+
+@pytest.mark.parametrize("fmt,split", [("csr", None), ("csr", 0), ("csc", None), ("csc", 1)])
+@pytest.mark.parametrize("dtype", ["float32", "float64", "int32"])
+def test_sparse_ops_on_the_card_are_the_hosts(card, fmt, split, dtype):
+    """Every sparse op on the card against the port on the CPU: patterns
+    bitwise, the element-wise ops, conversions and integer products
+    bitwise, the float products and sums within 1e-6 (float32) and 1e-12
+    (float64) of the result's largest magnitude (X and E hold integers of
+    both signs: sums cancel, and the card adds in fused multiply-adds);
+    each op run twice on the card bitwise equal."""
+    got = _sparse_ops("gpu", fmt, split, dtype)
+    again = _sparse_ops("gpu", fmt, split, dtype)
+    want = _sparse_ops("cpu", fmt, split, dtype)
+    for name in want:
+        for g, a, w in zip(got[name], again[name], want[name]):
+            assert g.tobytes() == a.tobytes(), name
+            assert g.dtype == w.dtype and g.shape == w.shape, name
+            if dtype == "int32" or name in ("add", "mul", "scalar", "T", "astype", "to_csc", "to_csr", "todense"):
+                assert g.tobytes() == w.tobytes(), name
+            else:
+                tol = 1e-6 if dtype == "float32" else 1e-12
+                np.testing.assert_allclose(g, w, rtol=tol, atol=tol * float(np.abs(w).max()), err_msg=name)
+
+
+@pytest.mark.parametrize("width,dtype", [(1, torch.float32), (3, torch.float32), (32, torch.float32),
+                                         (33, torch.float64), (65, torch.float32), (1, torch.int64),
+                                         (7, torch.int32), (32, torch.float16), (1, torch.float16),
+                                         (33, torch.bfloat16), (32, torch.complex64), (1, torch.complex128),
+                                         (32, torch.int8), (1, torch.uint8), (7, torch.int16), (32, torch.bool),
+                                         (1, torch.bool)])
+def test_csr_spmm_kernel_matches_plain(card, width, dtype):
+    """The CSR SpMM kernel against its plain version on ragged rows (empty
+    ones, ones past a warp), into a new output and accumulating into one:
+    float32 within 1e-6 and float64 within 1e-14 of the plain sum's max;
+    float16, bfloat16 and complex each element within (2 len + 8) u S of
+    the plain one, S its row's sum of |w||x| (and |out|) and u the type's
+    unit roundoff: each is within (len + 4) u S of the exact sum, the bound
+    of a recursive sum of len products (the plain version adds in the type
+    itself); integers and bool
+    exactly; a second launch bitwise equal, one launch counted each."""
+    from heat_tpu_torch.sparse import _planes
+
+    g = torch.Generator(device=card).manual_seed(width)
+    lengths = torch.randint(0, 100, (701,), device=card, generator=g)
+    lengths[::5] = 0
+    ptr = torch.cat([torch.zeros(1, dtype=torch.int64, device=card), torch.cumsum(lengths, 0)])
+    col = torch.randint(0, 97, (int(ptr[-1]),), device=card, generator=g, dtype=torch.int32)
+
+    def draw(*shape):
+        if dtype.is_floating_point or dtype.is_complex:
+            return torch.randn(*shape, device=card, generator=g, dtype=dtype)
+        if dtype == torch.bool:
+            return torch.randint(0, 2, shape, device=card, generator=g).bool()
+        return torch.randint(-9 if dtype.is_signed else 0, 10, shape, device=card, generator=g).to(dtype)
+
+    w = draw(col.numel())
+    x = draw(97, width + 3)[:, :width]
+    for base in (None, draw(701, width)):
+        before = _planes.CSR_SPMM_LAUNCHES
+        got = _planes.csr_spmm(ptr, col, w, x, None if base is None else base.clone())
+        again = _planes.csr_spmm(ptr, col, w, x, None if base is None else base.clone())
+        assert _planes.CSR_SPMM_LAUNCHES == before + 2
+        want = _planes._csr_spmm_plain(ptr, col, w, x, torch.zeros_like(got) if base is None else base.clone())
+        assert torch.equal(got, again)
+        if dtype in (torch.float32, torch.float64):
+            tol = 1e-6 if dtype == torch.float32 else 1e-14
+            assert float((got - want).abs().max()) <= tol * float(want.abs().max())
+        elif dtype.is_floating_point or dtype.is_complex:
+            wide = torch.complex128 if dtype.is_complex else torch.float64
+            s = _planes._csr_spmm_plain(ptr, col, w.abs().double(), x.abs().double(),
+                                        torch.zeros(got.shape, dtype=torch.float64, device=card))
+            if base is not None:
+                s += base.abs().double()
+            u = torch.finfo(got.real.dtype if dtype.is_complex else dtype).eps / 2
+            bound = (2 * lengths.double()[:, None] + 8) * u * s
+            assert bool(((got.to(wide) - want.to(wide)).abs() <= bound).all())
+        else:
+            assert torch.equal(got, want)
+
+
+def test_csr_spmm_kernel_refuses_what_it_cannot_take(card):
+    from heat_tpu_torch.sparse import _planes
+
+    ptr = torch.tensor([0, 2, 3], device=card)
+    col = torch.tensor([0, 1, 1], dtype=torch.int32, device=card)
+    w = torch.ones(3, device=card)
+    with pytest.raises(TypeError):
+        _planes.csr_spmm(ptr, col, w.half(), torch.ones(2, 2, device=card))  # values of another type than x
+    with pytest.raises(TypeError):
+        _planes.csr_spmm(ptr, col.long(), w, torch.ones(2, 2, device=card))
+    with pytest.raises(ValueError, match="stride"):
+        _planes.csr_spmm(ptr, col, w, torch.ones(2, 4, device=card)[:, ::2])
+
+
+def test_sparse_factories_pack_card_tensors_on_the_card(card):
+    """A dense or sparse torch tensor on the card is packed there: planes
+    on the card, the same matrix as from the host copy."""
+    import scipy.sparse as sp
+
+    m = sp.random(57, 41, density=0.15, random_state=5, format="csr", dtype=np.float32)
+    dense = torch.tensor(m.toarray(), device=card)
+    for source in (dense, dense.to_sparse_coo(), dense.to_sparse_csr()):
+        for make in (ht.sparse.sparse_csr_matrix, ht.sparse.sparse_csc_matrix):
+            got = make(source)
+            assert got._val.is_cuda and got._comp.is_cuda
+            want = make(m)
+            for g, w in ((got.indptr, want.indptr), (got.indices, want.indices), (got.data, want.data)):
+                assert torch.equal(g.cpu(), w.cpu())
