@@ -1305,7 +1305,68 @@ def ops_phase(x, smi: str) -> int:
     note(check="no data moved, balanced")
     emit({"phase": "ops", "rows": rows, "features": feats, "head_rows_checked_on_cpu": ARRAY_HEAD, "calls": calls,
           "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9, "card": smi})
+    unsigned_ops(smi)
     return launches
+
+
+UNSIGNED_N = 1 << 27  # values of each unsigned operand
+
+
+def unsigned_ops(smi: str) -> None:
+    """Phase ops, its unsigned part: uint16, uint32 and uint64 (held in
+    int32, int64 and int64's bits) through the entry points, on 2^27 values
+    drawn over each type's whole range (the top bit set in half of them),
+    each call's result bitwise numpy's on the host, its warm wall time
+    beside its byte bound (each operand read once and the result written
+    once in the type's own width at 3.35 TB/s).  Divisors are not zero and
+    shift counts below the width: numpy's answers there are not the
+    reference's (the CPU tests hold those)."""
+    import numpy as np
+    import torch
+    import heat_tpu_torch as ht
+
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(SEED + 3)
+    calls = []
+    for name in ("uint16", "uint32", "uint64"):
+        t = getattr(np, name)
+        bits = np.iinfo(t).bits
+        a = (rng.integers(0, 2**63, UNSIGNED_N, dtype=np.uint64) << np.uint64(1) | np.uint64(1)) >> np.uint64(64 - bits)
+        b = rng.integers(0, 2**63, UNSIGNED_N, dtype=np.uint64) >> np.uint64(64 - bits) | np.uint64(1)
+        a, b = a.astype(t), b.astype(t)
+        s = (b % t(bits)).astype(t)
+        pa, pb, ps = (ht.array(v, split=0, device="gpu") for v in (a, b, s))
+        w = np.dtype(t).itemsize
+        n = UNSIGNED_N
+        cases = [
+            ("+", lambda: pa + pb, lambda: a + b, 3 * n * w), ("-", lambda: pa - pb, lambda: a - b, 3 * n * w),
+            ("*", lambda: pa * pb, lambda: a * b, 3 * n * w), ("//", lambda: pa // pb, lambda: a // b, 3 * n * w),
+            ("%", lambda: pa % pb, lambda: a % b, 3 * n * w), (">>", lambda: pa >> ps, lambda: a >> s, 3 * n * w),
+            ("<", lambda: pa < pb, lambda: a < b, n * (2 * w + 1)), ("==", lambda: pa == pb, lambda: a == b, n * (2 * w + 1)),
+            ("sum", lambda: ht.sum(pa), lambda: np.sum(a, dtype=np.uint64), n * w),
+            ("cumsum", lambda: ht.cumsum(pa, 0), lambda: np.cumsum(a, dtype=t), 2 * n * w),
+            ("max", lambda: ht.max(pa), lambda: np.max(a), n * w),
+            ("argmax", lambda: ht.argmax(pa), lambda: np.argmax(a), n * w),
+            ("sort", lambda: ht.sort(pa)[0], lambda: np.sort(a), 2 * n * w),
+            ("astype(float32)", lambda: pa.astype(ht.float32), lambda: a.astype(np.float32), n * (w + 4)),
+            ("astype(float64)", lambda: pa.astype(ht.float64), lambda: a.astype(np.float64), n * (w + 8)),
+        ]
+        for op, port, host, nbytes in cases:
+            out, first = wall_ms(port)
+            out, warm = wall_ms(port)
+            want = np.asarray(host())
+            got = out.numpy()
+            if got.dtype != want.dtype and op not in ("argmax",):
+                raise AssertionError(f"ops {name} {op}: type {got.dtype}, numpy's {want.dtype}")
+            if got.shape != want.shape or got.tobytes() != want.astype(got.dtype).tobytes():
+                raise AssertionError(f"ops {name} {op}: the card's result differs from numpy's")
+            calls.append({"type": name, "call": op, "wall_ms": first, "warm_ms": warm,
+                          "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bitwise_numpy": True})
+            del out
+        del pa, pb, ps
+        torch.cuda.empty_cache()
+    emit({"phase": "ops", "unsigned_values": UNSIGNED_N, "unsigned_calls": calls, "card": smi,
+          "phase_seconds": time.perf_counter() - t0})
 
 
 SORT_PEAK_BYTES = 60e9  # the points, the sorted values, the indices and torch.sort's workspace must fit
@@ -2870,38 +2931,14 @@ def train_attention(dev, smi: str) -> dict:
     from heat_tpu_torch.nn import _flash
 
     width, heads = ATTN_HEADS * ATTN_HEAD_DIM, ATTN_HEADS
-
-    class Attention(torch.nn.Module):  # user code: projections around ht.nn.ulysses_attention
-        def __init__(self):
-            super().__init__()
-            self.wq, self.wk, self.wv, self.wo = (torch.nn.Linear(width, width) for _ in range(4))
-
-        def forward(self, x):
-            q, k, v = (f(x).view(x.shape[0], heads, width // heads) for f in (self.wq, self.wk, self.wv))
-            return self.wo(ht.nn.ulysses_attention(q, k, v, causal=True, use_flash=True).reshape(x.shape[0], width))
-
     t0 = time.perf_counter()
     g = torch.Generator(device=dev).manual_seed(ATTN_SEED + 1)
     x = torch.randn(ATTN_SEQ, width, device=dev, generator=g)
     target = torch.randn(ATTN_SEQ, width, device=dev, generator=g)
-    model = Attention().to(dev)
+    model = attention_module(width, heads).to(dev)
     dp = ht.nn.DataParallel(model, optimizer=ht.optim.Adam(model.parameters(), lr=1e-3))
     dp.init(g, x[:64])
-
-    # the first step's gradients by the kernels and by the plain versions
-    loss_k, grads_k = dp.value_and_grad(F.mse_loss, x, target)
-    with _PlainFlash():
-        loss_p, grads_p = dp.value_and_grad(F.mse_loss, x, target)
-    # over all parameters together: the key bias's gradient is zero in exact
-    # arithmetic (a softmax does not see a constant added to a query's
-    # scores), so on its own it compares rounding with rounding
-    names = list(grads_k)
-    grad_rel = grad_err([grads_k[n] for n in names], [grads_p[n] for n in names])
-    grad_abs = {n: float((grads_k[n].double() - grads_p[n].double()).abs().max()) for n in names}
-    if not grad_rel <= 1e-4 or abs(float(loss_k) - float(loss_p)) > 1e-5 * abs(float(loss_p)):
-        raise AssertionError(f"train_attention: the kernels' first step against the plain one: loss {float(loss_k)} "
-                             f"and {float(loss_p)}, gradients {grad_rel} (max abs error over max abs), {grad_abs}")
-    del grads_k, grads_p
+    grad_rel, grad_abs, loss_k = first_step_check(dp, x, target, "train_attention")
 
     zero_launches()
     torch.cuda.synchronize()
@@ -2925,7 +2962,255 @@ def train_attention(dev, smi: str) -> dict:
           "flash_launches": fwd, "flash_bwd_launches": bwd, "card": smi, "phase_seconds": time.perf_counter() - t0})
     del dp, model, x, target
     torch.cuda.empty_cache()
-    return bwd
+    return bwd, step_ms
+
+
+def attention_module(width: int, heads: int):
+    """A user's attention module: projections around
+    ``ht.nn.ulysses_attention`` with flash, causal."""
+    import torch
+    import heat_tpu_torch as ht
+
+    class Attention(torch.nn.Module):  # user code
+        def __init__(self):
+            super().__init__()
+            self.wq, self.wk, self.wv, self.wo = (torch.nn.Linear(width, width) for _ in range(4))
+
+        def forward(self, x):
+            q, k, v = (f(x).view(x.shape[0], heads, width // heads) for f in (self.wq, self.wk, self.wv))
+            return self.wo(ht.nn.ulysses_attention(q, k, v, causal=True, use_flash=True).reshape(x.shape[0], width))
+
+    return Attention()
+
+
+def first_step_check(dp, x, target, phase: str):
+    """The first step's loss and gradients by the kernels against the plain
+    flash path's on the card: ``(gradient error, per-parameter max abs
+    error, loss)``; fails beyond 1e-4 (max abs error over max abs, over all
+    parameters together: the key bias's gradient is zero in exact
+    arithmetic -- a softmax does not see a constant added to a query's
+    scores -- so on its own it compares rounding with rounding)."""
+    import torch.nn.functional as F
+
+    loss_k, grads_k = dp.value_and_grad(F.mse_loss, x, target)
+    with _PlainFlash():
+        loss_p, grads_p = dp.value_and_grad(F.mse_loss, x, target)
+    names = list(grads_k)
+    grad_rel = grad_err([grads_k[n] for n in names], [grads_p[n] for n in names])
+    grad_abs = {n: float((grads_k[n].double() - grads_p[n].double()).abs().max()) for n in names}
+    if not grad_rel <= 1e-4 or abs(float(loss_k) - float(loss_p)) > 1e-5 * abs(float(loss_p)):
+        raise AssertionError(f"{phase}: the kernels' first step against the plain one: loss {float(loss_k)} "
+                             f"and {float(loss_p)}, gradients {grad_rel} (max abs error over max abs), {grad_abs}")
+    return grad_rel, grad_abs, float(loss_k)
+
+
+DASO_STEPS = 7  # global_skip 2, batches_to_wait 1: averages at steps 0, 2, 4, 6, landing at 1, 3, 5; the last one
+# waits for last_batch
+
+
+def train_daso(dev, smi: str, attn_step_ms) -> dict:
+    """Phase train_daso: train_attention's user module at x of (16384, 512)
+    in ``DataParallelMultiGPU`` with ``DASO(Adam)`` on a
+    ``HierarchicalCommunication`` of one node of one card.  The first
+    step's gradients against the plain flash path; then DASO_STEPS steps
+    with global_skip 2 and batches_to_wait 1, where every average that
+    lands is bitwise the bfloat16 round trip of the parameters of the step
+    that scheduled it, and last_batch applies the last.  Returns the steps'
+    launches of K7 and of each backward kernel (one a step each, the tc
+    route)."""
+    import torch
+    import torch.nn.functional as F
+    import heat_tpu_torch as ht
+    from heat_tpu_torch.nn import _flash
+
+    width, heads = ATTN_HEADS * ATTN_HEAD_DIM, ATTN_HEADS
+    t0 = time.perf_counter()
+    g = torch.Generator(device=dev).manual_seed(ATTN_SEED + 1)
+    x = torch.randn(ATTN_SEQ, width, device=dev, generator=g)
+    target = torch.randn(ATTN_SEQ, width, device=dev, generator=g)
+    model = attention_module(width, heads).to(dev)
+    hc = ht.parallel.HierarchicalCommunication()
+    daso = ht.optim.DASO(ht.optim.Adam(model.parameters(), lr=1e-3), total_epochs=1, comm=hc, warmup_epochs=0,
+                         cooldown_epochs=0)
+    dp = ht.nn.DataParallelMultiGPU(model, daso=daso)
+    dp.init(g, x[:64])
+    grad_rel, grad_abs, first_loss = first_step_check(dp, x, target, "train_daso")
+
+    daso.global_skip, daso.batches_to_wait = 2, 1
+    params = [p for p in model.parameters()]
+    zero_launches()
+    torch.cuda.synchronize()
+    losses, step_ms, landed, scheduled = [], [], [], {}
+    for t in range(DASO_STEPS):
+        t1 = time.perf_counter()
+        losses.append(dp.step(F.mse_loss, x, target))
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t1) * 1e3)
+        if t in scheduled:  # the average of step t - 1 landed
+            if not all(torch.equal(p.detach().view(torch.int32), w.view(torch.int32)) for p, w in zip(params, scheduled.pop(t))):
+                raise AssertionError(f"train_daso: the average landed at step {t} is not the bf16 round trip of step "
+                                     f"{t - 1}'s parameters")
+            landed.append(t)
+        if daso._pending is not None and daso._pending[0] == daso.batch:  # scheduled at this step
+            want = [p.detach().to(torch.bfloat16).to(p.dtype) for p in params]
+            if not all(torch.equal(a.view(torch.int32), w.view(torch.int32)) for a, w in zip(daso._pending[1], want)):
+                raise AssertionError(f"train_daso: the average scheduled at step {t} is not the bf16 round trip")
+            scheduled[t + 1] = want
+    fwd, bwd = _flash.FLASH_LAUNCHES, dict(_flash.FLASH_BWD_LAUNCHES)
+    last = scheduled.pop(DASO_STEPS, None)
+    daso.last_batch()
+    if last is None or not all(torch.equal(p.detach().view(torch.int32), w.view(torch.int32)) for p, w in zip(params, last)):
+        raise AssertionError("train_daso: last_batch did not apply the last pending average")
+    n = DASO_STEPS
+    want = {"di": n, "prep": n, "dkv_tc": n, "dq_tc": n, "dkv_cuda_core": 0, "dq_cuda_core": 0}
+    if fwd != n or bwd != want or other_launches():
+        raise AssertionError(f"train_daso: {n} steps launched K7 {fwd} times, the backward kernels {bwd} and "
+                             f"{other_launches()} others; K7 and each backward kernel of the tc route once a step")
+    if landed != [1, 3, 5] or not all(l == l and l < float("inf") for l in losses) or not losses[-1] < losses[0]:
+        raise AssertionError(f"train_daso: averages landed at {landed}, losses {losses}")
+    emit({"phase": "train_daso", "x": [ATTN_SEQ, width], "heads": heads, "causal": True, "grid": [1, 1],
+          "optimizer": "DASO(Adam(1e-3)), global_skip 2, batches_to_wait 1", "loss": "MSE", "losses": losses,
+          "step_wall_ms": step_ms, "train_attention_step_wall_ms": attn_step_ms, "averages_landed_at": landed,
+          "landed_bitwise_bf16_round_trip": True, "last_batch_applied": True,
+          "first_step_grads_rel_err_vs_plain": grad_rel, "first_step_grads_max_abs_err_vs_plain": grad_abs,
+          "first_step_loss": first_loss, "flash_launches": fwd, "flash_bwd_launches": bwd, "card": smi,
+          "phase_seconds": time.perf_counter() - t0})
+    del dp, model, x, target, daso
+    torch.cuda.empty_cache()
+    return {"flash": fwd, **bwd}
+
+
+LOADER_IMAGES = 2048
+LOADER_BATCH = 128
+SHUFFLE_ROWS = 1 << 27  # the KMeans cell's points, 2^27 x 16 float32
+PARTIAL_ROWS = 1 << 24
+PARTIAL_WINDOW = 1 << 20
+
+
+def data_loader(dev, smi: str) -> None:
+    """Phase data_loader: config 4's CNN trained for one epoch on
+    synthetic_mnist(2048) held on the host, through ``Dataset`` with
+    ``vision_transforms.Normalize`` and ``DataLoader(batch_size=128,
+    shuffle=True, prefetch=2)`` (pinned copies on a side stream), in
+    ``DataParallelMultiGPU`` with DASO: every batch on the card bitwise the
+    host's rows of the same permutation, normalized alike.  Then
+    ``dataset_ishuffle``/``dataset_irecv`` of 2^27 x 16 points on the card
+    (a bitwise permutation of the rows, the times to start and to complete)
+    and a ``PartialH5Dataset`` reading 2^24 rows from memory in windows."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+    import heat_tpu_torch as ht
+    from heat_tpu_torch.utils.data import prefetch
+
+    t0 = time.perf_counter()
+    x, y = ht.utils.data.synthetic_mnist(LOADER_IMAGES)
+    xh, yh = x.larray.cpu(), y.larray.cpu()
+    hx, hy = ht.array(xh, split=0, device="cpu"), ht.array(yh, split=0, device="cpu")
+    mean, std = float(xh.mean()), float(xh.std())
+    norm = ht.utils.vision_transforms.Normalize((mean,), (std,))
+    ds = ht.utils.data.Dataset([hx, hy], transforms=[norm, None])
+    loader = ht.utils.data.DataLoader(ds, batch_size=LOADER_BATCH, shuffle=True, prefetch=2)
+
+    model = cnn_module().to(dev)
+    daso = ht.optim.DASO(ht.optim.Adam(model.parameters(), lr=1e-3), total_epochs=1,
+                         comm=ht.parallel.HierarchicalCommunication(), warmup_epochs=0, cooldown_epochs=0)
+    dp = ht.nn.DataParallelMultiGPU(model, daso=daso)
+    dp.init(torch.Generator(device=dev).manual_seed(0), x.larray[:LOADER_BATCH])
+    ht.random.seed(SEED + 5)
+    perm = ht.random.randperm(LOADER_IMAGES, device="cpu").larray
+    ht.random.seed(SEED + 5)
+    prefetch.prefetch_stats(reset=True)
+    torch.cuda.synchronize()
+    losses, t1 = [], time.perf_counter()
+    for i, (xb, yb) in enumerate(loader):
+        idx = perm[i * LOADER_BATCH:(i + 1) * LOADER_BATCH]
+        if xb.larray.device.type != "cuda" or yb.larray.device.type != "cuda":
+            raise AssertionError("data_loader: a batch was not staged on the card")
+        losses.append(dp.step(lambda p, t: F.cross_entropy(p, t.long()), xb, yb))
+        want_x = norm._apply(xh[idx])
+        if not (torch.equal(xb.larray.cpu().view(torch.int32), want_x.view(torch.int32))
+                and torch.equal(yb.larray.cpu(), yh[idx])):
+            raise AssertionError(f"data_loader: batch {i} is not the host's rows of the permutation")
+    torch.cuda.synchronize()
+    epoch_s = time.perf_counter() - t1
+    stats = prefetch.prefetch_stats()
+    if len(losses) != LOADER_IMAGES // LOADER_BATCH or not np.mean(losses[-4:]) < np.mean(losses[:4]):
+        raise AssertionError(f"data_loader: {len(losses)} steps, losses {losses}")
+    loader.close()
+    del dp, model, daso, x, y
+    torch.cuda.empty_cache()
+
+    # the asynchronous shuffle of the KMeans cell's points on the card
+    g = torch.Generator(device=dev).manual_seed(SEED + 6)
+    pts = torch.randn(SHUFFLE_ROWS, FEATURES, device=dev, generator=g)
+    big = ht.utils.data.Dataset(ht.array(pts, split=0))
+    ht.random.seed(SEED + 7)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    ht.utils.data.dataset_ishuffle(big)
+    start_ms = (time.perf_counter() - t2) * 1e3
+    ht.utils.data.dataset_irecv(big)
+    torch.cuda.synchronize()
+    done_ms = (time.perf_counter() - t2) * 1e3
+    ht.random.seed(SEED + 7)
+    order = ht.random.randperm(SHUFFLE_ROWS, device="gpu").larray
+    if not torch.equal(big.arrays[0].larray.view(torch.int32), pts[order].view(torch.int32)):
+        raise AssertionError("data_loader: the shuffled rows are not the permutation's")
+    del big, pts, order
+    torch.cuda.empty_cache()
+
+    # PartialH5Dataset streaming from memory (no h5py needed)
+    src = np.random.default_rng(SEED + 8).standard_normal((PARTIAL_ROWS, FEATURES)).astype(np.float32)
+
+    class InMemory(ht.utils.data.PartialH5Dataset):  # user code: a window reader of its own
+        def __init__(self):
+            self.length, self.load_length = PARTIAL_ROWS, PARTIAL_WINDOW
+            self.transforms, self.dataset_names, self.comm = None, ["data"], None
+
+        def read_window(self, start, stop):
+            return [src[start:stop]]
+
+    prefetch.prefetch_stats(reset=True)
+    t3, pos = time.perf_counter(), 0
+    for w in InMemory():
+        if w.larray.device.type != "cuda" or w.shape[0] != PARTIAL_WINDOW:
+            raise AssertionError("data_loader: a window was not staged on the card whole")
+        if w.larray.cpu().numpy().tobytes() != src[pos:pos + PARTIAL_WINDOW].tobytes():
+            raise AssertionError(f"data_loader: the window at row {pos} differs from its source")
+        pos += PARTIAL_WINDOW
+    stream_s = time.perf_counter() - t3
+    if pos != PARTIAL_ROWS:
+        raise AssertionError(f"data_loader: streamed {pos} rows of {PARTIAL_ROWS}")
+    emit({"phase": "data_loader", "images": LOADER_IMAGES, "batch": LOADER_BATCH, "prefetch": 2,
+          "steps": len(losses), "losses": losses, "epoch_wall_s": epoch_s, "steps_per_s": len(losses) / epoch_s,
+          "prefetch_hits": stats["prefetch_hits"], "prefetch_misses": stats["prefetch_misses"],
+          "batches_bitwise_host_permutation": True, "shuffle_rows": SHUFFLE_ROWS, "shuffle_features": FEATURES,
+          "ishuffle_start_ms": start_ms, "ishuffle_complete_ms": done_ms, "shuffle_bitwise_permutation": True,
+          "partial_rows": PARTIAL_ROWS, "partial_window": PARTIAL_WINDOW, "partial_stream_s": stream_s,
+          "partial_hits": prefetch.prefetch_stats()["prefetch_hits"],
+          "partial_misses": prefetch.prefetch_stats()["prefetch_misses"], "partial_rows_bitwise_in_order": True,
+          "card": smi, "phase_seconds": time.perf_counter() - t0})
+
+
+def cnn_module():
+    """benchmarks/cb/nn.py's CNN (BASELINE config 4) as a user writes it:
+    NHWC in, flattened as flax does."""
+    import torch
+    import torch.nn.functional as F
+
+    class CNN(torch.nn.Module):  # user code
+        def __init__(self):
+            super().__init__()
+            self.conv = torch.nn.Conv2d(1, 16, 3, padding=1)
+            self.dense0 = torch.nn.Linear(14 * 14 * 16, 64)
+            self.dense1 = torch.nn.Linear(64, 10)
+
+        def forward(self, x):
+            t = F.avg_pool2d(F.relu(self.conv(x.permute(0, 3, 1, 2))), 2)
+            return self.dense1(F.relu(self.dense0(t.permute(0, 2, 3, 1).reshape(t.shape[0], -1))))
+
+    return CNN()
 
 
 def train_cnn(dev, smi: str) -> None:
@@ -2938,17 +3223,6 @@ def train_cnn(dev, smi: str) -> None:
     import heat_tpu_torch as ht
     from heat_tpu_torch.nn import _flash
 
-    class CNN(torch.nn.Module):  # user code: benchmarks/cb/nn.py's CNN, NHWC in and flattened as flax does
-        def __init__(self):
-            super().__init__()
-            self.conv = torch.nn.Conv2d(1, 16, 3, padding=1)
-            self.dense0 = torch.nn.Linear(14 * 14 * 16, 64)
-            self.dense1 = torch.nn.Linear(64, 10)
-
-        def forward(self, x):
-            t = F.avg_pool2d(F.relu(self.conv(x.permute(0, 3, 1, 2))), 2)
-            return self.dense1(F.relu(self.dense0(t.permute(0, 2, 3, 1).reshape(t.shape[0], -1))))
-
     def loss_fn(pred, target):
         return F.cross_entropy(pred, target.long())
 
@@ -2958,7 +3232,7 @@ def train_cnn(dev, smi: str) -> None:
     xd, yd = x.larray, y.larray
     if xd.device.type != "cuda":
         raise AssertionError(f"synthetic_mnist made its images on {xd.device}, not the card")
-    model = CNN().to(dev)
+    model = cnn_module().to(dev)
     dp = ht.nn.DataParallel(model, optimizer=ht.optim.Adam(model.parameters(), lr=1e-3))
     dp.init(torch.Generator(device=dev).manual_seed(0), xd[:batch])
     host = copy.deepcopy(model).cpu()
@@ -4673,12 +4947,19 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # 21.-22. the training path through the entry points a user calls
-    bwd_launches = train_attention(dev, smi)
-    for e in flash_bwd:
-        e["launches"] = bwd_launches[e.pop("launch_key")]
-        if "cuda_core_route" in e:
-            e["cuda_core_route"]["launches"] = bwd_launches[f"{e['name'].rsplit('_', 1)[1]}_cuda_core"]
+    bwd_launches, attn_step_ms = train_attention(dev, smi)
     train_cnn(dev, smi)
+
+    # 22a.-22b. hierarchical training (DASO) through the same kernels, then the data tooling
+    daso_launches = train_daso(dev, smi, attn_step_ms)
+    flash["launches"] += daso_launches["flash"]
+    for e in flash_bwd:
+        key = e.pop("launch_key")
+        e["launches"] = bwd_launches[key] + daso_launches[key]
+        if "cuda_core_route" in e:
+            key = f"{e['name'].rsplit('_', 1)[1]}_cuda_core"
+            e["cuda_core_route"]["launches"] = bwd_launches[key] + daso_launches[key]
+    data_loader(dev, smi)
 
     # 23. the distances path and the estimators on it (threefry draws the data and the ++ inits)
     threefry["launches"] += distances_phase(dev, smi)

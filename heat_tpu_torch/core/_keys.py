@@ -58,7 +58,8 @@ def sort_keys(x: torch.Tensor, descending: bool = False, merge_zeros: bool = Fal
     Floats: :func:`_ordered` (with ``merge_zeros`` -0.0 counts as +0.0);
     complex: the real part's key, then the imaginary part's (NaN last in
     each); bool and integers: their values; uint64 held in int64
-    (``unsigned64``): its bits with the sign bit flipped.  ``descending``
+    (``unsigned64``), or in torch's own uint64: its bits with the sign bit
+    flipped.  ``descending``
     takes the NOT of each key."""
     if x.is_complex():
         keys = sort_keys(x.real, merge_zeros=merge_zeros) + sort_keys(x.imag, merge_zeros=merge_zeros)
@@ -66,6 +67,8 @@ def sort_keys(x: torch.Tensor, descending: bool = False, merge_zeros: bool = Fal
         keys = [_ordered(x + 0.0 if merge_zeros else x).to(torch.int64)]
     elif unsigned64:
         keys = [unsigned_keys(x)]
+    elif x.dtype == torch.uint64:  # torch's own uint64: its bits in unsigned order
+        keys = [unsigned_keys(x.view(torch.int64))]
     else:
         keys = [x.to(torch.int64)]
     return [torch.bitwise_not(k) for k in keys] if descending else keys

@@ -47,15 +47,16 @@ def _as_dndarray(v, like: DNDarray) -> DNDarray:
     return v
 
 
-def _refuse_widened(operation, *dtypes) -> None:
-    """Raise for the types held in a wider dtype (uint16, uint32, uint64)
-    where ``operation`` is not ported for them: their holding dtype would
-    give another type's answer."""
-    for t in dtypes:
-        if t in types._WIDENED:
-            name = getattr(operation, "__name__", "").lstrip("_")
-            name = "this operation" if not name or name.startswith("<") else name
-            raise TypeError(f"{name} is not ported for {t.__name__}")
+def _as_float(operation: Callable) -> Callable:
+    """``operation`` on holding tensors of uint16, uint32 or uint64 taken to
+    the float type the reference meets them in (float32, float64 for uint64),
+    each value rounded once: the widened form of every binary operation
+    whose result is inexact."""
+    def op(a: torch.Tensor, b: torch.Tensor, t) -> torch.Tensor:
+        to = types.float64 if t is types.uint64 else types.float32
+        return operation(types._cast(a, t, to), types._cast(b, t, to))
+
+    return op
 
 
 def _refuse_complex(name: str, exc, *operands) -> None:
@@ -118,9 +119,9 @@ def __binary_op(operation: Callable, t1, t2, out: Optional[DNDarray] = None, whe
     operand widens the result like any other.
 
     Where the operands meet in uint16, uint32 or uint64, ``widened(a, b,
-    t)`` computes on the holding tensors: its result is of type t, or bool
-    where its tensor is bool.  Without it the operation raises for those
-    types.  ``where`` (broadcast to the result) keeps the result where it
+    t)`` computes on the holding tensors: its result is of type t where its
+    tensor is t's holding dtype, else of its tensor's own type.  Without it
+    the operands are taken to float (:func:`_as_float`).  ``where`` (broadcast to the result) keeps the result where it
     is true and ``out``'s value (0 without ``out``) elsewhere; ``out``
     receives the result."""
     res = _binary(operation, t1, t2, widened)
@@ -155,11 +156,10 @@ def _binary(operation: Callable, t1, t2, widened: Optional[Callable]) -> DNDarra
         common = types.promote_types(arr.dtype, types.heat_type_of(v))
         data = types._cast(arr.larray_padded, arr.dtype, common)
         if common in types._WIDENED:
-            if widened is None:
-                _refuse_widened(operation, common)
+            widened = widened or _as_float(operation)
             s = torch.tensor(int(v), dtype=common.torch_type())  # only a bool meets them in their own type
             out = widened(data, s, common) if t1 is arr else widened(s, data, common)
-            return arr._like(out, dtype=types.bool if out.dtype == torch.bool else common)
+            return arr._like(out, dtype=common if out.dtype == common.torch_type() else None)
         # a 0-d host tensor: CUDA kernels take it as a scalar argument
         s = torch.tensor(v, dtype=common.torch_type())
         return arr._like(operation(data, s) if t1 is arr else operation(s, data))
@@ -170,12 +170,11 @@ def _binary(operation: Callable, t1, t2, widened: Optional[Callable]) -> DNDarra
         t1, t2 = t1.astype(common), t2.astype(common)
     wide = t1.dtype if t1.dtype in types._WIDENED else None
     if wide is not None:
-        if widened is None:
-            _refuse_widened(operation, wide)
+        widened = widened or _as_float(operation)
         operation = lambda a, b: widened(a, b, wide)  # noqa: E731
 
     def wrap(out, gshape, split):
-        dtype = wide if wide is not None and out.dtype != torch.bool else None
+        dtype = wide if wide is not None and out.dtype == wide.torch_type() else None
         return t1._like(out, gshape, split, dtype)
 
     gshape = broadcast_shape(t1.gshape, t2.gshape)
@@ -191,17 +190,26 @@ def _binary(operation: Callable, t1, t2, widened: Optional[Callable]) -> DNDarra
 
 
 def __local_op(operation: Callable, x: DNDarray, out: Optional[DNDarray] = None, no_cast: bool = False,
-               **kwargs) -> DNDarray:
+               widened: Optional[Callable] = None, **kwargs) -> DNDarray:
     """``operation`` on each rank's chunk; integer input is cast to float32
-    first unless ``no_cast``.  Raises for the types held wider (uint16,
-    uint32, uint64)."""
+    first unless ``no_cast``.  On uint16, uint32 and uint64 (held wider)
+    the cast rounds each value once; without it ``widened(data, t)``, or
+    else ``operation`` itself, runs on the holding tensor, and a result in
+    the holding dtype wraps to t's width (``neg``, ``square``)."""
     if not isinstance(x, DNDarray):
         raise TypeError(f"expected x to be a DNDarray, but was {type(x)}")
-    _refuse_widened(operation, x.dtype)
     data = x.larray_padded
-    if not no_cast and not types.heat_type_is_inexact(x.dtype):
-        data = data.to(torch.float32)
-    res = x._like(operation(data, **kwargs))
+    if x.dtype in types._WIDENED:
+        if not no_cast:
+            res = x._like(operation(types._cast(data, x.dtype, types.float32), **kwargs))
+        else:
+            r = widened(data, x.dtype) if widened is not None else operation(data, **kwargs)
+            held = r.dtype == data.dtype
+            res = x._like(types._wrap(r, x.dtype) if held else r, dtype=x.dtype if held else None)
+    else:
+        if not no_cast and not types.heat_type_is_inexact(x.dtype):
+            data = data.to(torch.float32)
+        res = x._like(operation(data, **kwargs))
     if out is not None:
         return store_out(res, out)
     return res._propagate_layout_from(x)
@@ -237,10 +245,11 @@ def __reduce_op(
 ) -> DNDarray:
     """Reduce ``x`` over ``axis`` (all axes when None): ``partial_op(tensor,
     dims, keepdim)`` on the masked chunk, then ``reduction`` (an in-place
-    all-reduce such as ``comm.psum``) when the split axis is reduced."""
+    all-reduce such as ``comm.psum``) when the split axis is reduced.  On
+    uint16, uint32 and uint64 both work on the holding tensors: the
+    callers pass operations that give the type's own answer there."""
     if not isinstance(x, DNDarray):
         raise TypeError(f"expected x to be a DNDarray, but was {type(x)}")
-    _refuse_widened(partial_op, x.dtype)
     axis, axes = _axes(x, axis)
     split = x.split
     data = x._masked(neutral) if split in axes else x.larray_padded
@@ -259,10 +268,11 @@ def __cum_op(x: DNDarray, axis, scan: Callable, combine: Callable, neutral, out:
     rank combines (``combine(prefix, scanned)``) its scan with
     ``comm.exscan`` of the ranks' last slices before it.  The result is
     cast to the scan's ``natural`` type (an integer scan wraps in its own
-    type), then to ``dtype``, as the reference casts after the scan."""
+    type), then to ``dtype``, as the reference casts after the scan.  On
+    uint16, uint32 and uint64 the holding integers wrap in the holding
+    dtype and the cast to ``natural`` reduces them to the type's width."""
     if not isinstance(x, DNDarray):
         raise TypeError(f"expected x to be a DNDarray, but was {type(x)}")
-    _refuse_widened(scan, x.dtype)
     axis = sanitize_axis(x.shape, axis)
     if axis is None:
         raise NotImplementedError("cumulative ops over flattened arrays: pass an int axis")

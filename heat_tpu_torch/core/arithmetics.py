@@ -86,9 +86,70 @@ def _inexact(op):
     return lambda a, b: op(_to_inexact(a), _to_inexact(b))
 
 
+# ----------------------------------------------------------------------
+# uint16, uint32 and uint64 on their holding tensors (types._WIDENED)
+# ----------------------------------------------------------------------
+def _ring(op):
+    """``+``, ``-``, ``*`` or integer ``**`` on holding tensors: the
+    holding dtype wraps, and the result is reduced to the type's width."""
+    return lambda a, b, t: types._wrap(op(a, b), t)
+
+
+def _unsigned_ge(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a >= b`` of int64 tensors read as uint64."""
+    return (a ^ types._SIGN64) >= (b ^ types._SIGN64)
+
+
+def _udivmod(a: torch.Tensor, b: torch.Tensor, t):
+    """``(a // b, a % b)`` of holding tensors of unsigned type ``t``, with
+    XLA's unsigned answers by zero: the quotient all ones, the remainder 0.
+    uint16 and uint32 are held as they are; uint64's bits divide by a long
+    division step: a divisor at or past 2^63 goes once or not at all, a
+    smaller one divides ``a >> 1`` (no longer negative) signed, the
+    quotient doubled and corrected once."""
+    a, b = torch.broadcast_tensors(*_paired(a, b))
+    zero = b == 0
+    if t is types.uint64:
+        big = b < 0
+        d = torch.where(zero | big, torch.ones_like(b), b)
+        q = torch.bitwise_left_shift(torch.div((a >> 1) & 0x7FFFFFFFFFFFFFFF, d, rounding_mode="floor"), 1)
+        q = q + _unsigned_ge(a - q * d, d).to(q.dtype)
+        q = torch.where(big, _unsigned_ge(a, b).to(q.dtype), q)
+    else:
+        q = torch.div(a, torch.where(zero, torch.ones_like(b), b), rounding_mode="floor")
+    r = torch.where(zero, torch.zeros_like(a), a - q * b)
+    return types._wrap(torch.where(zero, torch.full_like(q, -1), q), t), r
+
+
+def _ugcd(a: torch.Tensor, b: torch.Tensor, t) -> torch.Tensor:
+    """gcd of holding tensors of unsigned type ``t``: torch's on uint16 and
+    uint32 (held non-negative), Euclid's steps with unsigned remainders on
+    uint64 (at most 93 steps in 64 bits), as jnp's loop takes them."""
+    a, b = torch.broadcast_tensors(*_paired(a, b))
+    if t is not types.uint64:
+        return torch.gcd(a, b)
+    while bool((b != 0).any()):
+        r = _udivmod(a, torch.where(b == 0, torch.ones_like(b), b), t)[1]
+        a, b = torch.where(b == 0, a, b), torch.where(b == 0, b, r)
+    return a
+
+
+def _ulcm(a: torch.Tensor, b: torch.Tensor, t) -> torch.Tensor:
+    """jnp's lcm on holding tensors: ``a * (b // gcd)`` wrapped, 0 where
+    the gcd is 0."""
+    a, b = torch.broadcast_tensors(*_paired(a, b))
+    g = _ugcd(a, b, t)
+    out = types._wrap(a * _udivmod(b, g, t)[0], t)
+    return torch.where(g == 0, torch.zeros_like(out), out)
+
+
+def _upower(a: torch.Tensor, b: torch.Tensor, t) -> torch.Tensor:
+    return types._wrap(_int_power(*torch.broadcast_tensors(*_paired(a, b))), t)
+
+
 def add(t1, t2, out=None, where=True) -> DNDarray:
     """Element-wise ``t1 + t2``."""
-    return _operations.__binary_op(torch.add, t1, t2, out, where)
+    return _operations.__binary_op(torch.add, t1, t2, out, where, _ring(torch.add))
 
 
 def _subtract(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -102,7 +163,7 @@ def _subtract(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 def sub(t1, t2, out=None, where=True) -> DNDarray:
     """Element-wise ``t1 - t2``."""
-    return _operations.__binary_op(_subtract, t1, t2, out, where)
+    return _operations.__binary_op(_subtract, t1, t2, out, where, _ring(_subtract))
 
 
 subtract = sub
@@ -110,7 +171,7 @@ subtract = sub
 
 def mul(t1, t2, out=None, where=True) -> DNDarray:
     """Element-wise ``t1 * t2``."""
-    return _operations.__binary_op(torch.mul, t1, t2, out, where)
+    return _operations.__binary_op(torch.mul, t1, t2, out, where, _ring(torch.mul))
 
 
 multiply = mul
@@ -161,7 +222,7 @@ def _int_power(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 def pow(t1, t2, out=None, where=True) -> DNDarray:
     """Element-wise ``t1 ** t2``."""
-    return _operations.__binary_op(_power, t1, t2, out, where)
+    return _operations.__binary_op(_power, t1, t2, out, where, _upower)
 
 
 power = pow
@@ -253,7 +314,7 @@ def _fmod(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 def floordiv(t1, t2, out=None, where=True) -> DNDarray:
     """Element-wise floor division ``t1 // t2``."""
     _operations._refuse_complex("floordiv", TypeError, t1, t2)
-    return _operations.__binary_op(_floor_divide, t1, t2, out, where)
+    return _operations.__binary_op(_floor_divide, t1, t2, out, where, lambda a, b, t: _udivmod(a, b, t)[0])
 
 
 floor_divide = floordiv
@@ -262,7 +323,7 @@ floor_divide = floordiv
 def mod(t1, t2, out=None, where=True) -> DNDarray:
     """Element-wise remainder with the divisor's sign, ``t1 % t2``."""
     _operations._refuse_complex("mod", TypeError, t1, t2)
-    return _operations.__binary_op(_remainder, t1, t2, out, where)
+    return _operations.__binary_op(_remainder, t1, t2, out, where, lambda a, b, t: _udivmod(a, b, t)[1])
 
 
 remainder = mod
@@ -271,7 +332,7 @@ remainder = mod
 def fmod(t1, t2, out=None, where=True) -> DNDarray:
     """Element-wise remainder with the dividend's sign (C's ``fmod``)."""
     _operations._refuse_complex("fmod", TypeError, t1, t2)
-    return _operations.__binary_op(_fmod, t1, t2, out, where)
+    return _operations.__binary_op(_fmod, t1, t2, out, where, lambda a, b, t: _udivmod(a, b, t)[1])
 
 
 def divmod(t1, t2, out1=None, out2=None, out=None, where=True):
@@ -300,22 +361,25 @@ def hypot(t1, t2, out=None, where=True) -> DNDarray:
 
 def _integer_only(t1, t2, name: str) -> None:
     """gcd and lcm take integers; operands that meet in bool raise
-    ValueError, as JAX's do."""
-    _check_int_or_bool(t1, t2, name)
-    if types.promote_types(types.heat_type_of(t1), types.heat_type_of(t2)) is types.bool:
+    ValueError, as JAX's do, and so do integers that meet in a float
+    (uint64 and a python int)."""
+    met = types.promote_types(types.heat_type_of(t1), types.heat_type_of(t2))
+    exact = all(isinstance(t, int) or isinstance(t, DNDarray) and types.heat_type_is_exact(t.dtype) for t in (t1, t2))
+    if met is types.bool or exact and not types.heat_type_is_exact(met):
         raise ValueError(f"Arguments to {name} must be integers.")
+    _check_int_or_bool(t1, t2, name)
 
 
 def gcd(t1, t2, out=None, where=True) -> DNDarray:
     """Element-wise greatest common divisor (non-negative)."""
     _integer_only(t1, t2, "gcd")
-    return _operations.__binary_op(torch.gcd, t1, t2, out, where)
+    return _operations.__binary_op(torch.gcd, t1, t2, out, where, _ugcd)
 
 
 def lcm(t1, t2, out=None, where=True) -> DNDarray:
     """Element-wise least common multiple (non-negative; 0 where either is)."""
     _integer_only(t1, t2, "lcm")
-    return _operations.__binary_op(torch.lcm, t1, t2, out, where)
+    return _operations.__binary_op(torch.lcm, t1, t2, out, where, _ulcm)
 
 
 def _heaviside(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -368,8 +432,9 @@ def nan_to_num(t, nan: float = 0.0, posinf=None, neginf=None, out=None) -> DNDar
 # ----------------------------------------------------------------------
 def _accumulated(dtype):
     """The type of a sum or product: bools and signed integers in int64,
-    uint8 in uint64 (JAX promotes integers to the 64-bit default)."""
-    if dtype is types.uint8:
+    unsigned integers in uint64 (JAX promotes integers to the 64-bit
+    default)."""
+    if issubclass(dtype, types.unsignedinteger):
         return types.uint64
     if types.heat_type_is_exact(dtype):
         return types.int64
@@ -397,6 +462,8 @@ def _reduce(x, partial, reduction, neutral, axis, out, keepdims, nan=None) -> DN
         raise TypeError(f"expected x to be a DNDarray, but was {type(x)}")
     if nan is not None and types.heat_type_is_inexact(x.dtype):
         x = x._like(_nan_as(x.larray_padded, nan), dtype=x.dtype)
+    if x.dtype in (types.uint16, types.uint32):  # summed in uint64, whose bits int64 sums
+        x = x.astype(types.uint64)
     res = _operations.__reduce_op(x, partial, reduction, neutral, axis, keepdims)
     res = res._like(res.larray_padded, dtype=_accumulated(x.dtype))
     return res if out is None else _operations.store_out(res, out)
@@ -651,40 +718,113 @@ def ediff1d(ary, to_end=None, to_begin=None) -> DNDarray:
     return DNDarray(local, (out_extent,), types.canonical_heat_type(local.dtype), 0, ary.device, comm)
 
 
+def _broadcast_along(v, axis: int, ndim: int, like: DNDarray) -> DNDarray:
+    """``v`` (a coordinate vector along ``axis``, or sample points of
+    ``like``'s rank) as a DNDarray of ``ndim`` axes; a vector gets extent 1
+    on every other axis and keeps its split on ``axis``."""
+    if not isinstance(v, DNDarray):
+        v = DNDarray.from_dense(torch.as_tensor(np.asarray(v)), None, like.device, like.comm)
+    if v.ndim != 1 or ndim == 1:
+        return v
+    shape = tuple(v.shape[0] if d == axis else 1 for d in range(ndim))
+    view = [-1 if d == axis else 1 for d in range(ndim)]
+    return v._like(v.larray_padded.reshape(view), shape, None if v.split is None else axis, v.dtype)
+
+
+def _split_along(v: DNDarray, axis: int, like: DNDarray) -> DNDarray:
+    """``v`` split along ``axis``, as ``like`` is: as it is where it is, its
+    own rows where it is whole on every rank (no communication), resplit
+    (one all-to-all) where it is split along another axis."""
+    if v.split == axis:
+        return v
+    if v.split is None:
+        return DNDarray.from_dense(v.larray, axis, like.device, like.comm, v.dtype)
+    return v.resplit(axis)
+
+
+def _neighbours(v: DNDarray, axis: int, dt: torch.dtype):
+    """``(before, local, after)`` of ``v`` split along ``axis``: its true
+    rows in ``dt`` and each one's neighbours along the axis (a halo from
+    the ranks around; a row of its own at the array's ends)."""
+    local = v.larray.to(dt)
+    n = local.shape[axis]
+    prev, nxt = _halos(v, 1)
+    prev = local.narrow(axis, 0, 1) if prev is None else prev.to(dt)
+    nxt = local.narrow(axis, n - 1, 1) if nxt is None else nxt.to(dt)
+    after = torch.cat([local.narrow(axis, 1, n - 1), nxt], dim=axis)
+    before = torch.cat([prev, local.narrow(axis, 0, n - 1)], dim=axis)
+    return before, local, after
+
+
 def _gradient_along(f: DNDarray, axis: int, h, dt: torch.dtype) -> torch.Tensor:
     """The central differences of ``f`` along ``axis`` (one-sided at the
-    edges), divided by the spacing ``h``, in ``dt``, as JAX's ``gradient``
-    computes them; this rank's padded chunk of the result."""
+    edges) as JAX's ``gradient`` computes them: over a scalar spacing
+    ``h``, or over the coordinates ``h`` of the samples along the axis (a
+    vector, the second-order formula of uneven steps); in ``dt``, this
+    rank's padded chunk of the result.  Along the split axis the
+    neighbouring rows of the values and of the coordinates come from one
+    halo each."""
     a = f.larray_padded.to(dt)
     extent = f.shape[axis]
     if extent < 2:
         raise ValueError("Shape of array too small to calculate a numerical gradient, at least (edge_order + 1) "
                          "elements are required.")
+    coords = not isinstance(h, (int, float, np.number))
+    if coords:
+        if int(np.prod(np.shape(h))) != extent or len(np.shape(h)) != 1:
+            raise ValueError("Spacing arrays must have the same length as the dimension along which the gradient "
+                             "is calculated.")
+        hx = _broadcast_along(h, axis, f.ndim, f)
     if f.split != axis:
+        if coords:
+            x = _operations._aligned(hx, f.shape, f.split).to(dt).to(a.device)
+            return _uneven(a.narrow(axis, 0, extent - 2), a.narrow(axis, 1, extent - 2), a.narrow(axis, 2, extent - 2),
+                           x.narrow(axis, 0, extent - 2), x.narrow(axis, 1, extent - 2), x.narrow(axis, 2, extent - 2),
+                           a, x, axis, extent)
         upper = a.narrow(axis, 1, 1) - a.narrow(axis, 0, 1)
         inner = (a.narrow(axis, 2, extent - 2) - a.narrow(axis, 0, extent - 2)) * 0.5
         lower = a.narrow(axis, extent - 1, 1) - a.narrow(axis, extent - 2, 1)
         return torch.cat([upper, inner, lower], dim=axis) / h
-    local = f.larray.to(dt)
-    n = local.shape[axis]
+    n = f.larray.shape[axis]
     if n == 0:
         return a
-    prev, nxt = _halos(f, 1)
-    prev = local.narrow(axis, 0, 1) if prev is None else prev.to(dt)
-    nxt = local.narrow(axis, n - 1, 1) if nxt is None else nxt.to(dt)
-    after = torch.cat([local.narrow(axis, 1, n - 1), nxt], dim=axis)
-    before = torch.cat([prev, local.narrow(axis, 0, n - 1)], dim=axis)
-    g = (after - before) * 0.5
+    before, local, after = _neighbours(f, axis, dt)
     lo = f.comm.chunk(f.shape, axis)[0]
     pos = torch.arange(lo, lo + n, device=local.device).reshape([n if d == axis else 1 for d in range(f.ndim)])
-    g = torch.where(pos == 0, after - local, torch.where(pos == extent - 1, local - before, g)) / h
+    if coords:
+        xb, xl, xa = _neighbours(_split_along(hx, axis, f), axis, dt)
+        g = _central(before, local, after, xb, xl, xa)
+        g = torch.where(pos == 0, (after - local) / (xa - xl), torch.where(pos == extent - 1, (local - before) / (xl - xb), g))
+    else:
+        g = (after - before) * 0.5
+        g = torch.where(pos == 0, after - local, torch.where(pos == extent - 1, local - before, g)) / h
     return torch.cat([g, a.narrow(axis, n, a.shape[axis] - n)], dim=axis)
+
+
+def _central(y0, y1, y2, x0, x1, x2) -> torch.Tensor:
+    """JAX's second-order difference at uneven steps ``x1 - x0`` and
+    ``x2 - x1``, in its order of operations."""
+    dx1, dx2 = x1 - x0, x2 - x1
+    wa = -dx2 / (dx1 * (dx1 + dx2))
+    wb = (dx2 - dx1) / (dx1 * dx2)
+    wc = dx1 / (dx2 * (dx1 + dx2))
+    return wa * y0 + wb * y1 + wc * y2
+
+
+def _uneven(y0, y1, y2, x0, x1, x2, a, x, axis: int, extent: int) -> torch.Tensor:
+    """The whole axis's gradient over coordinates ``x``: the one-sided
+    edges and :func:`_central` inside."""
+    upper = (a.narrow(axis, 1, 1) - a.narrow(axis, 0, 1)) / (x.narrow(axis, 1, 1) - x.narrow(axis, 0, 1))
+    lower = (a.narrow(axis, extent - 1, 1) - a.narrow(axis, extent - 2, 1)) / \
+        (x.narrow(axis, extent - 1, 1) - x.narrow(axis, extent - 2, 1))
+    return torch.cat([upper, _central(y0, y1, y2, x0, x1, x2), lower], dim=axis)
 
 
 def gradient(f, *varargs, axis=None, edge_order: int = 1):
     """The gradient by second-order central differences inside and
-    first-order ones at the edges, with a scalar spacing per axis
-    (``varargs``); one DNDarray per axis (one alone for a single axis).
+    first-order ones at the edges; per axis a scalar spacing or the
+    samples' coordinates along it (a vector as long as the axis), as in
+    ``varargs``; one DNDarray per axis (one alone for a single axis).
     Along the split axis the neighbouring rows come from a halo."""
     if not isinstance(f, DNDarray):
         raise TypeError(f"expected f to be a DNDarray, but was {type(f)}")
@@ -700,9 +840,6 @@ def gradient(f, *varargs, axis=None, edge_order: int = 1):
         spacing = list(varargs)
     else:
         raise TypeError("Invalid number of spacing arguments")
-    for h in spacing:
-        if not isinstance(h, (int, float, np.number)):
-            raise NotImplementedError("gradient: spacing by coordinate arrays is not ported; give scalars")
     # the spacings take part in the type, as JAX promotes them with f
     t = types.result_type(f, *varargs) if varargs else f.dtype
     dt = _to_inexact(torch.zeros((), dtype=t.torch_type())).dtype
@@ -712,44 +849,51 @@ def gradient(f, *varargs, axis=None, edge_order: int = 1):
 
 def trapz(y, x=None, dx: float = 1.0, axis: int = -1) -> DNDarray:
     """The integral along ``axis`` by the trapezoidal rule, with the sample
-    points ``x`` (1-D) or the spacing ``dx``.  Along the split axis each
-    rank sums its own intervals and the one to the next rank's first row
-    (a halo); one all-reduce adds the ranks' sums."""
+    points ``x`` (a vector along the axis, or an array of ``y``'s rank that
+    broadcasts against it) or the spacing ``dx``.  Along the split axis
+    each rank sums its own intervals and the one to the next rank's first
+    row (one halo of ``y`` and, for N-D sample points, one of ``x``); one
+    all-reduce adds the ranks' sums."""
     if not isinstance(y, DNDarray):
         raise TypeError(f"expected y to be a DNDarray, but was {type(y)}")
     ax = sanitize_axis(y.shape, axis)
     data = _to_inexact(y.larray_padded)
-    steps = None
+    steps = xs = None
     if x is not None:
-        xt = x._dense() if isinstance(x, DNDarray) else torch.as_tensor(np.asarray(x))
-        if xt.ndim != 1:
-            raise NotImplementedError("trapz: sample points other than one vector are not ported")
+        xs = _broadcast_along(x, ax, y.ndim, y)
+        if xs.ndim != y.ndim:
+            raise ValueError(f"sample points of {xs.ndim} dimensions for {y.ndim}-dimensional y")
         # y and x meet in their promoted inexact type, as JAX's
-        dt = _to_inexact(torch.zeros((), dtype=torch.promote_types(y.larray_padded.dtype, xt.dtype))).dtype
+        dt = _to_inexact(torch.zeros((), dtype=torch.promote_types(y.larray_padded.dtype,
+                                                                     xs.larray_padded.dtype))).dtype
         data = y.larray_padded.to(dt)
-        steps = torch.diff(xt.to(dt).to(data.device))
-
-    def weighted(pairs, first):
-        if steps is None:
-            return pairs * dx
-        shape = [pairs.shape[ax] if d == ax else 1 for d in range(y.ndim)]
-        return steps[first:first + pairs.shape[ax]].reshape(shape) * pairs
 
     extent = y.shape[ax]
     if y.split != ax:
+        if xs is not None:
+            steps = torch.diff(_operations._aligned(xs, y.shape, y.split).to(data.device).to(data.dtype), dim=ax)
         pairs = data.narrow(ax, 1, max(extent - 1, 0)) + data.narrow(ax, 0, max(extent - 1, 0))
-        res = 0.5 * weighted(pairs, 0).sum(ax)
+        res = 0.5 * (pairs * dx if steps is None else steps * pairs).sum(ax)
         split = None if y.split is None else y.split - (1 if ax < y.split else 0)
         gshape = tuple(s for d, s in enumerate(y.shape) if d != ax)
         return y._like(res, gshape, split)
     comm = y.comm
     lo, lshape, _ = comm.chunk(y.shape, ax)
-    local = y.larray.to(data.dtype)
-    _, nxt = _halos(y, 1)
-    ext = local if nxt is None else torch.cat([local, nxt.to(data.dtype)], dim=ax)
     cnt = max(0, min(lo + lshape[ax], extent - 1) - lo)
+
+    def extended(v: DNDarray) -> torch.Tensor:  # this rank's rows and the next rank's first
+        local = v.larray.to(data.dtype)
+        _, nxt = _halos(v, 1)
+        return local if nxt is None else torch.cat([local, nxt.to(data.dtype)], dim=ax)
+
+    ext = extended(y)
     pairs = ext.narrow(ax, 1, cnt) + ext.narrow(ax, 0, cnt)
-    total = comm.psum(weighted(pairs, lo).sum(ax).contiguous())
+    if xs is None:
+        weighted = pairs * dx
+    else:
+        steps = torch.diff(extended(_split_along(xs, ax, y)), dim=ax).narrow(ax, 0, cnt)
+        weighted = steps.to(pairs.device) * pairs
+    total = comm.psum(weighted.sum(ax).contiguous())
     gshape = tuple(s for d, s in enumerate(y.shape) if d != ax)
     return y._like(0.5 * total, gshape, None)
 

@@ -20,7 +20,10 @@ def angle(x, deg: bool = False, out=None) -> DNDarray:
         r = torch.angle(a if a.is_floating_point() or a.is_complex() else a.to(torch.float64))
         return torch.rad2deg(r) if deg else r
 
-    return _operations.__local_op(op, x, out, no_cast=True)
+    def unsigned(a, t):  # no unsigned value lies below 0
+        return torch.zeros(a.shape, dtype=torch.float64, device=a.device)
+
+    return _operations.__local_op(op, x, out, no_cast=True, widened=unsigned)
 
 
 def conjugate(x, out=None) -> DNDarray:

@@ -98,9 +98,15 @@ class DNDarray:
     ) -> "DNDarray":
         """Wrap a true-shape global tensor: keep this rank's chunk of the
         canonical layout, padded with zeros, on ``device``.  ``dtype`` is
-        the heat type ``arr`` holds (by default its own dtype's)."""
+        the heat type ``arr`` holds (by default its own dtype's).  A tensor
+        of torch's own uint16, uint32 or uint64 is stored in its type's
+        holding dtype."""
         comm = sanitize_comm(comm)
         device = sanitize_device(device)
+        kind = types._TORCH_NAMES.get(arr.dtype)
+        if kind is not None:
+            arr = arr.view(torch.int64) if kind is types.uint64 else arr.to(kind.torch_type())
+            dtype = kind if dtype is None else dtype
         arr = arr.to(device.torch_device)
         gshape = tuple(int(s) for s in arr.shape)
         split = sanitize_axis(gshape, split)

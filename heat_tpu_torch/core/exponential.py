@@ -118,11 +118,10 @@ def frexp(x, out=None):
         raise NotImplementedError("frexp does not support out=")
     if not isinstance(x, DNDarray):
         raise TypeError(f"expected x to be a DNDarray, but was {type(x)}")
-    _operations._refuse_widened(frexp, x.dtype)
     _operations._refuse_complex("frexp", TypeError, x)
     data = x.larray_padded
     if not types.heat_type_is_inexact(x.dtype):
-        data = data.to(torch.float32)
+        data = types._cast(data, x.dtype, types.float32)
     mant, expo = torch.frexp(data)
     return x._like(mant)._propagate_layout_from(x), x._like(expo.to(torch.int32))._propagate_layout_from(x)
 

@@ -2,6 +2,7 @@
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from . import types
@@ -58,10 +59,10 @@ def where(cond: DNDarray, x=None, y=None) -> DNDarray:
     def local(v, dense: bool):
         if isinstance(v, DNDarray):
             return types._cast(v._dense() if dense else v.larray_padded, v.dtype, rt)
+        if rt in types._WIDENED:  # a python int as its unsigned type's holding value
+            return torch.as_tensor(types._to_holding(np.asarray(v).astype(types.numpy_type(rt)), rt), device=dev)
         return torch.as_tensor(v, device=dev).to(rt.torch_type())
 
-    if rt in types._WIDENED:
-        raise TypeError(f"where is not ported for {rt.__name__}")
     aligned = all(not isinstance(v, DNDarray) or (v.shape == cond.shape and v.split == cond.split) for v in (x, y))
     truth = cond.larray_padded if cond.dtype is types.bool else cond.larray_padded != 0
     if aligned:

@@ -1135,6 +1135,12 @@ def unique(a: DNDarray, sorted: bool = False, return_inverse: bool = False, axis
     entry's place among them, whole on every rank as the reference's."""
     from .sample_sort import sample_sort_1d, supports_sample_sort
 
+    if a.dtype is types.uint64:  # uint64's bits sorted as int64 keys of the same order
+        keys = a._like(types._order_key(a.larray_padded, a.dtype), dtype=types.int64)
+        res = unique(keys, sorted, return_inverse, axis)
+        first = res[0] if return_inverse else res
+        first = first._like(types._order_key(first.larray_padded, a.dtype), dtype=a.dtype)
+        return (first, res[1]) if return_inverse else first
     comm = a.comm
     if axis is None and a.ndim == 1 and a.split == 0 and not return_inverse and supports_sample_sort(a, 0, False):
         v, _ = sample_sort_1d(a)

@@ -143,10 +143,7 @@ def _d(x, device: Optional[torch.device] = None):
     of an array-like (numpy's types, as jnp.asarray takes them with x64
     on); python scalars stay python scalars (jnp's weak types)."""
     if isinstance(x, DNDarray):
-        from ._operations import _refuse_widened
-
-        _refuse_widened("this NumPy function", x.dtype)
-        return x._dense()
+        return _native(x._dense(), x.dtype)
     if isinstance(x, _PYTHON_SCALARS):
         return x
     if isinstance(x, torch.Tensor):
@@ -154,6 +151,19 @@ def _d(x, device: Optional[torch.device] = None):
     a = np.asarray(x)
     t = torch.from_numpy(np.array(a, copy=True).reshape(a.shape))
     return t if device is None else t.to(device)
+
+
+_NATIVE = {types.uint16: torch.uint16, types.uint32: torch.uint32, types.uint64: torch.uint64}
+
+
+def _native(t: torch.Tensor, kind) -> torch.Tensor:
+    """A holding tensor of uint16, uint32 or uint64 in torch's own unsigned
+    dtype, so that a function computes on the type's values (torch's
+    kernels for these dtypes answer as numpy's; where torch has none for a
+    function, torch raises); other types as they are."""
+    if kind is types.uint64:
+        return t.view(torch.uint64)
+    return t.to(_NATIVE[kind]) if kind in _NATIVE else t
 
 
 def _as_tensor(x, dtype: Optional[torch.dtype] = None, device: Optional[torch.device] = None) -> torch.Tensor:
@@ -192,7 +202,7 @@ def _result_dtype(*xs) -> torch.dtype:
             elif not types.heat_type_is_complexfloating(strong):
                 strong = types.complex64 if strong in (types.float32, types.float16, types.bfloat16) else \
                     types.complex128
-    return strong.torch_type()
+    return _NATIVE.get(strong) or strong.torch_type()
 
 
 def _promoted(*xs):
@@ -243,7 +253,7 @@ def _rewrap(res: DNDarray, ref) -> DNDarray:
     if res.split == split:
         return res
     if res.split is None:
-        return DNDarray.from_dense(res.larray, split, res.device, res.comm)
+        return DNDarray.from_dense(res.larray, split, res.device, res.comm, res.dtype)
     return res.resplit(split)
 
 
@@ -631,7 +641,8 @@ def _to_inexact_dtype(dt: torch.dtype) -> torch.dtype:
     if dt.is_floating_point or dt.is_complex:
         return dt
     return {torch.bool: torch.float64, torch.int8: torch.float16, torch.uint8: torch.float16,
-            torch.int16: torch.float16, torch.int32: torch.float32}.get(dt, torch.float64)
+            torch.int16: torch.float16, torch.int32: torch.float32, torch.uint16: torch.float32,
+            torch.uint32: torch.float32}.get(dt, torch.float64)
 
 
 def _bin_edges(t: torch.Tensor, bins, range_) -> torch.Tensor:
@@ -1040,7 +1051,9 @@ def correlate(a, v, mode: str = "valid"):
     from .signal import _conv1d_valid
 
     x, y = _promoted(a, v)
-    x, y = _inexact(x), _inexact(y)
+    # 64-bit integers in float64, the others in float32, as jnp promotes them
+    wide = x.dtype in (torch.int64, torch.uint64)
+    x, y = (t.to(torch.float64) if wide else _inexact(t) for t in (x, y))
     if x.ndim != 1 or y.ndim != 1:
         raise ValueError("correlate() only support 1-dimensional inputs.")
     if x.numel() == 0 or y.numel() == 0:

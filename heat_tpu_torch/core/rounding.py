@@ -48,11 +48,21 @@ def _abs(a: torch.Tensor) -> torch.Tensor:
     return a.clone() if a.dtype == torch.bool else torch.abs(a)
 
 
+def _unsigned_identity(a: torch.Tensor, t) -> torch.Tensor:
+    """``|a|`` of unsigned holding values: a copy (uint64's bits too)."""
+    return a.clone()
+
+
+def _unsigned_sign(a: torch.Tensor, t) -> torch.Tensor:
+    """The sign of unsigned holding values: 0 or 1."""
+    return (a != 0).to(a.dtype)
+
+
 def abs(x, out=None, dtype=None) -> DNDarray:
     """The absolute value (the magnitude of complex values); with ``dtype``
     cast to it, with ``out`` stored in it."""
     _check_dtype(dtype)
-    return _finish(_operations.__local_op(_abs, x, no_cast=True), out, dtype)
+    return _finish(_operations.__local_op(_abs, x, no_cast=True, widened=_unsigned_identity), out, dtype)
 
 
 absolute = abs
@@ -74,24 +84,29 @@ def clip(x, min=None, max=None, out=None) -> DNDarray:
     if not isinstance(x, DNDarray):
         raise TypeError(f"expected x to be a DNDarray, but was {type(x)}")
     common = types.result_type(x, *(b for b in (min, max) if b is not None))
-    _operations._refuse_widened(clip, common)
     data = types._cast(x.larray_padded, x.dtype, common)
 
     def bound(b):
-        if b is None or isinstance(b, (builtins.int, builtins.float, builtins.bool)):
+        if b is None:
             return b
+        if isinstance(b, (builtins.int, builtins.float, builtins.bool)):
+            if common not in types._WIDENED:
+                return torch.as_tensor(b, dtype=data.dtype, device=data.device)
+            b = np.asarray(b).astype(types.numpy_type(common))
+            return torch.as_tensor(types._to_holding(b, common), device=data.device)
         if not isinstance(b, DNDarray):
             from . import factories
 
             b = factories.array(b, device=x.device, comm=x.comm)
         return types._cast(_operations._aligned(b, x.shape, x.split), b.dtype, common).to(data.device)
 
-    lo, hi = bound(min), bound(max)
+    # uint64's bits are clamped in the order of their values
+    lo, hi, data = (None if v is None else types._order_key(v, common) for v in (bound(min), bound(max), data))
     if lo is not None:
-        data = torch.maximum(data, torch.as_tensor(lo, dtype=data.dtype, device=data.device))
+        data = torch.maximum(data, lo)
     if hi is not None:
-        data = torch.minimum(data, torch.as_tensor(hi, dtype=data.dtype, device=data.device))
-    res = x._like(data, dtype=common)
+        data = torch.minimum(data, hi)
+    res = x._like(types._order_key(data, common), dtype=common)
     if out is not None:
         return _operations.store_out(res, out)
     return res._propagate_layout_from(x)
@@ -194,7 +209,7 @@ def _sgn(a: torch.Tensor) -> torch.Tensor:
 
 def sgn(x, out=None) -> DNDarray:
     """The sign: -1, 0 or 1, and ``z / |z|`` for complex values."""
-    return _operations.__local_op(_sgn, x, out, no_cast=True)
+    return _operations.__local_op(_sgn, x, out, no_cast=True, widened=_unsigned_sign)
 
 
 def _sign_real(a: torch.Tensor) -> torch.Tensor:
@@ -205,4 +220,4 @@ def _sign_real(a: torch.Tensor) -> torch.Tensor:
 
 def sign(x, out=None) -> DNDarray:
     """The sign; of complex values the sign of the real part."""
-    return _operations.__local_op(_sign_real, x, out, no_cast=True)
+    return _operations.__local_op(_sign_real, x, out, no_cast=True, widened=_unsigned_sign)

@@ -90,7 +90,8 @@ def _arg(x: DNDarray, axis, keepdims: bool, largest: bool) -> DNDarray:
     there is one.  Int64, as the reference's."""
     if not isinstance(x, DNDarray):
         raise TypeError(f"expected x to be a DNDarray, but was {type(x)}")
-    _operations._refuse_widened(argmax if largest else argmin, x.dtype)
+    if x.dtype in types._WIDENED:
+        x = _order_keys(x)
     _operations._refuse_complex("argmax" if largest else "argmin", TypeError, x)
     axis = sanitize_axis(x.shape, axis)
     if isinstance(axis, tuple):
@@ -201,16 +202,38 @@ def _across_ranks(x: DNDarray, largest: bool):
     return reduce
 
 
+def _order_keys(x: DNDarray) -> DNDarray:
+    """A uint16, uint32 or uint64 array as the signed array of its holding
+    dtype whose values order as ``x``'s do (``types._order_key``)."""
+    data = x.larray_padded
+    return x._like(types._order_key(data, x.dtype), dtype=types.canonical_heat_type(data.dtype))
+
+
+def _extreme(x, axis, keepdims: bool, out, largest: bool) -> DNDarray:
+    if isinstance(x, DNDarray) and x.dtype in types._WIDENED:
+        r = _extreme(_order_keys(x), axis, keepdims, None, largest)
+        return _to_out(r._like(types._order_key(r.larray_padded, x.dtype), dtype=x.dtype), out)
+    if largest:
+        return _operations.__reduce_op(x, _amax, _across_ranks(x, True), _min_neutral(x), axis, keepdims, out)
+    return _operations.__reduce_op(x, _amin, _across_ranks(x, False), _max_neutral(x), axis, keepdims, out)
+
+
 def min(x, axis=None, out=None, keepdims: bool = False) -> DNDarray:
     """Minimum over ``axis`` (all axes when None); complex values in
     lexicographic order."""
-    return _operations.__reduce_op(x, _amin, _across_ranks(x, False), _max_neutral(x), axis, keepdims, out)
+    return _extreme(x, axis, keepdims, out, False)
 
 
 def max(x, axis=None, out=None, keepdims: bool = False) -> DNDarray:
     """Maximum over ``axis`` (all axes when None); complex values in
     lexicographic order."""
-    return _operations.__reduce_op(x, _amax, _across_ranks(x, True), _min_neutral(x), axis, keepdims, out)
+    return _extreme(x, axis, keepdims, out, True)
+
+
+def _ordered_pick(op):
+    """The element-wise maximum (minimum) of holding tensors, in the order
+    of their type's values."""
+    return lambda a, b, t: types._order_key(op(types._order_key(a, t), types._order_key(b, t)), t)
 
 
 def _maximum(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -228,13 +251,13 @@ def _minimum(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 def maximum(x1, x2, out=None) -> DNDarray:
     """The element-wise maximum (NaN where either is NaN; complex values in
     lexicographic order)."""
-    return _operations.__binary_op(_maximum, x1, x2, out)
+    return _operations.__binary_op(_maximum, x1, x2, out, widened=_ordered_pick(torch.maximum))
 
 
 def minimum(x1, x2, out=None) -> DNDarray:
     """The element-wise minimum (NaN where either is NaN; complex values in
     lexicographic order)."""
-    return _operations.__binary_op(_minimum, x1, x2, out)
+    return _operations.__binary_op(_minimum, x1, x2, out, widened=_ordered_pick(torch.minimum))
 
 
 def _axis_count(x: DNDarray, axis) -> float:
@@ -299,7 +322,6 @@ def average(x, axis=None, weights=None, returned: bool = False):
 def _moment_input(x: DNDarray) -> DNDarray:
     if not isinstance(x, DNDarray):
         raise TypeError(f"expected x to be a DNDarray, but was {type(x)}")
-    _operations._refuse_widened(var, x.dtype)
     return x if types.heat_type_is_inexact(x.dtype) else x.astype(types.float32)
 
 
@@ -630,10 +652,9 @@ def cov(m, y=None, rowvar: bool = True, bias: bool = False, ddof=None) -> DNDarr
         raise ValueError("m has more than 2 dimensions")
     if ddof is not None and not isinstance(ddof, int):
         raise TypeError("ddof must be integer")
-    _operations._refuse_widened(cov, m.dtype)
     comm = m.comm
     xs, n, split = _observations(m, rowvar)
-    parts = [xs]
+    parts, kinds = [xs], [m.dtype]
     common = m.dtype
     if y is not None:
         if not isinstance(y, DNDarray):
@@ -652,10 +673,12 @@ def cov(m, y=None, rowvar: bool = True, bias: bool = False, ddof=None) -> DNDarr
                 xs = parts[0] = _own_rows(xs, comm)
                 split = True
         parts.append(ys)
+        kinds.append(y.dtype)
         common = types.promote_types(m.dtype, y.dtype)
-    dt = common.torch_type() if types.heat_type_is_inexact(common) else (
-        torch.float64 if common is types.int64 else torch.float32)
-    x = torch.cat([p.to(dt) for p in parts], dim=1) if len(parts) > 1 else parts[0].to(dt)
+    dt = common if types.heat_type_is_inexact(common) else (
+        types.float64 if common in (types.int64, types.uint64) else types.float32)
+    parts = [types._cast(p, k, dt) for p, k in zip(parts, kinds)]
+    x = torch.cat(parts, dim=1) if len(parts) > 1 else parts[0]
     if ddof is None:
         ddof = 1 if not bias else 0
     sums = x.sum(0, keepdim=True)
@@ -737,8 +760,10 @@ def _edges(lo: torch.Tensor, hi: torch.Tensor, bins: int, dt, device: torch.devi
     """JAX's bin edges: ``linspace(lo, hi, bins + 1)`` computed in ``dt``
     as XLA compiles it (``lo (1 - i r) + i (hi r)``, ``r = 1 / bins``, the
     last sum one fused multiply-add), the range widened by 0.5 on each
-    side where it is empty.  XLA's vectorizer fuses a few samples
-    otherwise: those lie within one rounding of the reference's."""
+    side where it is empty.  On the reference's CPU build XLA evaluates
+    edge 1 otherwise for 3 to 33 bins (up to two roundings apart), and
+    longer runs of edges at 255 (float64) and 1000 bins; every other edge
+    of 2 to 128 bins is bitwise the reference's (ROADMAP caveats)."""
     from .random import _fma32, _fma64
 
     lo, hi = lo.to(dt).cpu(), hi.to(dt).cpu()
@@ -769,13 +794,21 @@ def _hist_counts(values: torch.Tensor, w, edges: torch.Tensor, a: DNDarray, spli
     return counts
 
 
+def _inexact_widened(a: DNDarray) -> DNDarray:
+    """uint16 and uint32 in float32, uint64 in float64 (each value rounded
+    once), the types jnp bins them in; other types as they are."""
+    if a.dtype not in types._WIDENED:
+        return a
+    return a.astype(types.float64 if a.dtype is types.uint64 else types.float32)
+
+
 def histogram(a, bins=10, range=None, weights=None, density=None):
     """``(hist, bin_edges)`` as JAX's ``histogram``: ``bins`` equal bins
     over ``range`` (by default the data's, one all-reduce each for its ends)
     or the given edges; local counts, one all-reduce."""
     if not isinstance(a, DNDarray):
         raise TypeError(f"expected a to be a DNDarray, but was {type(a)}")
-    _operations._refuse_widened(histogram, a.dtype)
+    a = _inexact_widened(a)
     dt = _to_inexact(torch.zeros((), dtype=a.larray_padded.dtype)).dtype
     if isinstance(bins, DNDarray) or np.ndim(bins) == 1:
         edges = bins._dense() if isinstance(bins, DNDarray) else torch.as_tensor(np.ascontiguousarray(bins))
@@ -812,7 +845,7 @@ def histc(input, bins: int = 100, min: float = 0.0, max: float = 0.0, out=None) 
     both are 0), values outside ignored, in the input's type."""
     if not isinstance(input, DNDarray):
         raise TypeError(f"expected input to be a DNDarray, but was {type(input)}")
-    _operations._refuse_widened(histc, input.dtype)
+    kind, input = input.dtype, _inexact_widened(input)
     dt = _to_inexact(torch.zeros((), dtype=input.larray_padded.dtype)).dtype
     values = input.larray
     if min == 0.0 and max == 0.0:
@@ -824,8 +857,8 @@ def histc(input, bins: int = 100, min: float = 0.0, max: float = 0.0, out=None) 
         values = values[keep]
     edges = _edges(lo, hi, int(bins), dt, input.larray_padded.device)
     counts = _hist_counts(values, None, edges, input, input.split is not None)
-    res = DNDarray.from_dense(types._cast(counts, types.canonical_heat_type(counts.dtype), input.dtype), None,
-                              input.device, input.comm, input.dtype)
+    res = DNDarray.from_dense(types._cast(counts, types.canonical_heat_type(counts.dtype), kind), None,
+                              input.device, input.comm, kind)
     return _to_out(res, out)
 
 

@@ -12,9 +12,12 @@ have no arithmetic or comparisons of their own:
   negative int64); :func:`_cast` reads them back as unsigned.
 
 A DNDarray keeps its heat type beside its tensor, so the holding dtype never
-shows: ``numpy()`` gives uint16/uint32/uint64 arrays.  An operation that is
-not ported for one of these three raises with the type's name (see
-``_operations``); none answers in the holding type.
+shows: ``numpy()`` gives uint16/uint32/uint64 arrays.  Every operation gives
+these types' own answers: ``+``, ``-``, ``*`` and their reductions and scans
+wrap modulo 2^16, 2^32 or 2^64 (:func:`_wrap`), orderings read uint64's bits
+as unsigned (:func:`_order_key`), a conversion to float rounds once
+(:func:`_u64_as_float`), and ``//`` and ``%`` of uint64 divide unsigned
+(``arithmetics._udivmod``).
 
 Promotion follows the reference, whose lattice is JAX's, not torch's
 (``promote_types(int64, uint64)`` is float64, ``promote_types(int32,
@@ -586,7 +589,7 @@ def _itemsize(t) -> int:
 def _to_holding(data: np.ndarray, t) -> np.ndarray:
     """A numpy array of type ``t`` as its holding dtype's numpy array."""
     if t is uint64:
-        return np.ascontiguousarray(data.astype(np.uint64, copy=False)).view(np.int64)
+        return np.ascontiguousarray(data.astype(np.uint64, copy=False)).view(np.int64).reshape(np.shape(data))
     if t is uint32:
         return data.astype(np.int64)
     if t is uint16:
@@ -596,8 +599,8 @@ def _to_holding(data: np.ndarray, t) -> np.ndarray:
 
 def _from_holding(data: np.ndarray, t) -> np.ndarray:
     """A holding dtype's numpy array read back as type ``t``."""
-    if t is uint64:
-        return np.ascontiguousarray(data).view(np.uint64)
+    if t is uint64:  # np.ascontiguousarray makes a 0-d array 1-d
+        return np.ascontiguousarray(data).view(np.uint64).reshape(np.shape(data))
     if t in (uint16, uint32):
         return data.astype(_NUMPY[t])
     return data
@@ -617,11 +620,35 @@ def _chunked(fn, data: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     return out.reshape(data.shape)
 
 
-def _u64_as_float64(bits: torch.Tensor) -> torch.Tensor:
-    """int64-held uint64 values as float64, rounded once: the high and low
-    32-bit halves, the high one scaled exactly, then one add."""
-    return (torch.bitwise_right_shift(bits, 32) & 0xFFFFFFFF).to(torch.float64) * 4294967296.0 + \
-        (bits & 0xFFFFFFFF).to(torch.float64)
+# the bits of uint16's and uint32's values within their holding dtype
+_WIDTH_MASK = {uint16: 0xFFFF, uint32: 0xFFFFFFFF}
+_SIGN64 = -(1 << 63)
+
+
+def _wrap(data: torch.Tensor, t) -> torch.Tensor:
+    """Holding integers of type ``t`` reduced modulo 2^bits, as ``t``'s own
+    arithmetic wraps: after ``+``, ``-``, ``*`` and their reductions and
+    scans on uint16 (held in int32) and uint32 (int64).  The holding
+    dtype's own wrap-around keeps the low bits right; uint64's bits are
+    int64's, which wrap modulo 2^64 already."""
+    mask = _WIDTH_MASK.get(t)
+    return data & mask if mask is not None else data
+
+
+def _order_key(data: torch.Tensor, t) -> torch.Tensor:
+    """Holding values of type ``t`` as signed integers of the same order:
+    uint16 and uint32 as held, uint64's bits with the top bit flipped (its
+    own inverse, so the same call maps the keys back)."""
+    return data ^ _SIGN64 if t is uint64 else data
+
+
+def _u64_as_float(bits: torch.Tensor, dt: torch.dtype) -> torch.Tensor:
+    """int64-held uint64 values in float dtype ``dt``, rounded once (as a
+    uint64 converts): values below 2^63 convert as they are; the others
+    are halved with the bit shifted out kept as a sticky bit, converted
+    and doubled exactly."""
+    half = (torch.bitwise_right_shift(bits, 1) & 0x7FFFFFFFFFFFFFFF) | (bits & 1)
+    return torch.where(bits < 0, half.to(dt) * 2, bits.to(dt))
 
 
 def _float_as_u64(data: torch.Tensor) -> torch.Tensor:
@@ -639,7 +666,7 @@ def _cast(data: torch.Tensor, frm, to) -> torch.Tensor:
         return data
     dt = to.torch_type()
     if frm is uint64 and not issubclass(to, integer) and to is not bool:
-        return _chunked(lambda c: _u64_as_float64(c).to(dt), data, dt)
+        return _chunked(lambda c: _u64_as_float(c, dt), data, dt)
     if to in _WIDENED:
         if data.dtype.is_complex:
             data = data.real

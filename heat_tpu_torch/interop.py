@@ -17,6 +17,11 @@ package's data-parallel models and returns a ``torch.nn.Module``'s
 parameters by name.  :func:`from_reference_sparse` takes a heat_tpu DCSR or
 DCSC matrix as its global ``indptr``, ``indices`` and ``data`` and returns
 the port's sparse matrix of it, stored zeros kept.
+A ``DASO`` document (``{"kind": "DASO", "params": the constructor's
+keywords, "state": DASO.get_state(), "replicas": the stacked per-node
+parameter tree}``, replicas optional) gives the port's DASO on ``comm`` with
+that schedule state, and sets ``module``'s parameters from node
+``rank // per_node``'s replica.
 """
 
 from __future__ import annotations
@@ -140,14 +145,46 @@ _KINDS = {
 }
 
 
-def from_reference_state(doc: Dict[str, Any], device=None, comm=None):
+def _daso_state(doc: Dict[str, Any], comm, optimizer, module):
+    """The port's DASO from a heat_tpu DASO document; ``module`` takes this
+    rank's node's slice of the stacked replicas where they are given."""
+    from .optim import DASO
+
+    if optimizer is None:
+        raise ValueError("a DASO document needs the local optimizer (a torch.optim.Optimizer over the module)")
+    daso = DASO(optimizer, comm=comm, **doc["params"])
+    daso.set_state(doc["state"])
+    replicas = doc.get("replicas")
+    if replicas is not None:
+        if module is None:
+            raise ValueError("stacked replicas need the module that takes them")
+        node = daso.comm.rank // daso.comm.node_size if daso.hierarchical else 0
+        mine = _tree_map(lambda leaf: np.asarray(leaf)[node], replicas)
+        with torch.no_grad():
+            own = dict(module.named_parameters())
+            for name, value in params_from_reference(mine, module).items():
+                own[name].copy_(value)
+    return daso
+
+
+def _tree_map(fn, tree):
+    if isinstance(tree, dict):
+        return {k: _tree_map(fn, v) for k, v in tree.items()}
+    return fn(tree)
+
+
+def from_reference_state(doc: Dict[str, Any], device=None, comm=None, optimizer=None, module=None):
     """A fitted port estimator from a heat_tpu model document (KMeans,
     KMedians, KMedoids, KNeighborsClassifier, PCA, Lasso, GaussianNB, the
-    batch-parallel clusterers or one of the scalers)."""
+    batch-parallel clusterers or one of the scalers), or the port's DASO
+    from a DASO document (``optimizer`` and ``module`` are the local
+    optimizer and the model it trains)."""
     try:
         kind, params, state = doc["kind"], doc["params"], doc["state"]
     except (TypeError, KeyError):
         raise ValueError("not a model document: it needs kind, params and state") from None
+    if kind == "DASO":
+        return _daso_state(doc, comm, optimizer, module)
     if kind not in _KINDS:
         raise NotImplementedError(f"carrying over a fitted {kind} is not ported yet; supported: {sorted(_KINDS)}")
     cls, restore = _KINDS[kind]

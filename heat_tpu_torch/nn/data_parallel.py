@@ -35,8 +35,12 @@ cache itself, ``test_loss_cache_reuses_closure_free_lambdas``,
 ``test_loss_cache_kwdefaults_and_alternation`` and
 ``test_loss_cache_pins_captured_state`` in tests/test_nn_optim.py, inspect
 ``_programs`` and ``_loss_key`` and have no counterpart.
-``DataParallelMultiGPU`` waits for ``HierarchicalCommunication`` (ROADMAP
-queue 1, items 2 and 14).
+:class:`DataParallelMultiGPU` trains on a
+:class:`~heat_tpu_torch.parallel.HierarchicalCommunication`: each node takes
+a contiguous slab of the batch, split over its ranks; the gradient of the
+node's mean loss is averaged over the node's ranks in rank order, and
+:class:`~heat_tpu_torch.optim.DASO` steps and decides the cross-node
+averages.
 """
 
 from __future__ import annotations
@@ -50,9 +54,9 @@ import torch
 
 from ..core.dndarray import DNDarray
 from ..optim.dp_optimizer import DataParallelOptimizer
-from ..parallel.comm import Communication, sanitize_comm
+from ..parallel.comm import Communication, HierarchicalCommunication, sanitize_comm
 
-__all__ = ["DataParallel", "bucket_partition", "reduce_gradients"]
+__all__ = ["DataParallel", "DataParallelMultiGPU", "bucket_partition", "reduce_gradients"]
 
 #: default collective bucket size for the bucketed schedule, MiB
 DEFAULT_GRAD_BUCKET_MB = 4.0
@@ -289,13 +293,15 @@ class DataParallel(torch.nn.Module):
         return full
 
     # ------------------------------------------------------------------
-    def _loss_and_grads(self, loss_fn: Callable, xl, yl, n_local: int, n: int):
+    def _loss_and_grads(self, loss_fn: Callable, xl, yl, n_local: int, n: int, comm=None):
         """The batch's mean loss and the parameters' gradients, averaged
-        across ranks by this instance's schedule."""
+        across the ranks of ``comm`` (by default this instance's) by this
+        instance's schedule."""
+        comm = self.comm if comm is None else comm
         params = [p for p in self.module.parameters() if p.requires_grad]
         if n_local:
             # the rank's share of the batch's mean: summed over ranks, the mean
-            local = loss_fn(self.module(xl), yl) * (n_local * self.comm.size / n)
+            local = loss_fn(self.module(xl), yl) * (n_local * comm.size / n)
             grads = torch.autograd.grad(local, params, allow_unused=True)
             grads = [torch.zeros_like(p) if g is None else g for p, g in zip(params, grads)]
             local = local.detach().reshape(1)
@@ -304,10 +310,10 @@ class DataParallel(torch.nn.Module):
             local = torch.zeros(1, device=dev)
             grads = [torch.zeros_like(p) for p in params]
         if self.grad_reduction == "implicit":
-            grads = [_mean_over_ranks(g, self.comm) for g in grads]
+            grads = [_mean_over_ranks(g, comm) for g in grads]
         else:
-            grads = reduce_gradients(grads, self.comm, blocking=self.grad_reduction == "fused")
-        return _mean_over_ranks(local, self.comm)[0], params, grads
+            grads = reduce_gradients(grads, comm, blocking=self.grad_reduction == "fused")
+        return _mean_over_ranks(local, comm)[0], params, grads
 
     def value_and_grad(self, loss_fn: Callable, x, y) -> Tuple[torch.Tensor, dict]:
         """The mean loss over the batch and the cross-rank-averaged
@@ -354,3 +360,105 @@ class DataParallel(torch.nn.Module):
         if steps_x != steps_y:
             raise ValueError(f"step axes disagree: xs has {steps_x} batches, ys {steps_y}")
         return self._rows(xs, axis=1), self._rows(ys, axis=1)[0]
+
+
+class DataParallelMultiGPU(DataParallel):
+    """Hierarchical data-parallel training (heat's data_parallel.py:313; the
+    JAX package's heat_tpu/nn/data_parallel.py:497-624): node-local
+    averaging every batch plus :class:`~heat_tpu_torch.optim.DASO`'s
+    skipped, delayed cross-node averages.
+
+    The batch of ``b`` rows is cut into ``n_node`` contiguous slabs (``b``
+    must be divisible by the node count), and each node's slab is split
+    over the node's ranks in the canonical layout.  Each rank holds its
+    node's replica (the module): the gradient of the node's mean loss --
+    the reference's ``vmap`` of ``value_and_grad`` over the node dimension
+    -- is the rank-order mean of the ranks' weighted gradients over the
+    ``'node'`` group (:func:`_mean_over_ranks`), then ``DASO.step``.
+
+    Pass ``daso`` (built on a :class:`HierarchicalCommunication`), or an
+    ``optimizer``, for which a DASO of one epoch without warm-up or
+    cool-down is made.  Without either there is no :meth:`step`.
+    """
+
+    def __init__(self, module: torch.nn.Module, comm: Optional[Communication] = None, optimizer: Any = None,
+                 daso: Any = None):
+        from ..optim.dp_optimizer import DASO
+
+        if daso is not None:
+            # DASO owns the hierarchy: a conflicting comm would split the
+            # batch on one grid and average on another
+            if comm is not None and comm != daso.comm:
+                raise ValueError("pass either comm or daso, not both: the DASO instance's communication defines the "
+                                 "(node x local) grid")
+            if not daso.hierarchical:
+                raise ValueError("DataParallelMultiGPU requires a DASO built on a HierarchicalCommunication (e.g. "
+                                 "DASO(..., comm=HierarchicalCommunication(grid=(n_node, per_node)))); a plain-comm "
+                                 "DASO has no node axis to sync across")
+            comm = daso.comm
+        if not isinstance(comm, HierarchicalCommunication):
+            comm = HierarchicalCommunication(group=None if comm is None else comm.group)
+        if isinstance(optimizer, DataParallelOptimizer):
+            optimizer = optimizer.optimizer
+        super().__init__(module, comm=comm, optimizer=optimizer)
+        if daso is None and optimizer is not None:
+            daso = DASO(local_optimizer=optimizer, total_epochs=1, comm=comm, warmup_epochs=0, cooldown_epochs=0)
+        self.daso = daso
+
+    def _reset_optimizer(self) -> None:
+        super()._reset_optimizer()
+        daso = getattr(self, "daso", None)
+        if daso is not None:
+            daso.local_optimizer.optimizer.state.clear()
+            daso._pending = None
+
+    def _node_rows(self, x) -> Tuple[torch.Tensor, int, int]:
+        """This rank's rows of its node's slab of a batch: ``(rows, their
+        count, the slab's extent)``.  A DNDarray split along the batch whose
+        chunks are the slabs' chunks gives its own (no communication)."""
+        comm = self.comm
+        n_node, per_node = comm.num_nodes, comm.node_size
+        b = x.shape[0]
+        if b % n_node:
+            raise ValueError(f"batch {b} not divisible by {n_node} nodes")
+        slab = b // n_node
+        node, local = divmod(comm.rank, per_node)
+        if isinstance(x, DNDarray) and x.split == 0 and slab % per_node == 0:
+            rows = x.larray  # the canonical chunk is the node slab's chunk
+        else:
+            if isinstance(x, DNDarray):
+                full = x._dense()
+            else:
+                full = x if isinstance(x, torch.Tensor) else torch.tensor(np.asarray(x))
+            part = full.narrow(0, node * slab, slab)
+            rows = part[comm.node_comm.chunk(part.shape, 0, rank=local)[2]]
+        dev = self._device()
+        return (rows if dev is None else rows.to(dev)), rows.shape[0], slab
+
+    def step(self, loss_fn: Callable, x, y) -> float:
+        """One hierarchical step: the node's mean-loss gradient averaged over
+        the node's ranks, then :meth:`DASO.step`.  Returns the mean over the
+        nodes of the nodes' losses, as the reference's."""
+        if self.daso is None:
+            raise RuntimeError("construct DataParallelMultiGPU with an optimizer or a DASO to use step()")
+        xl, n_local, slab = self._node_rows(x)
+        yl = self._node_rows(y)[0]
+        loss, params, grads = self._loss_and_grads(loss_fn, xl, yl, n_local, slab, self.comm.node_comm)
+        for p, g in zip(params, grads):
+            p.grad = g
+        self.daso.step()
+        self.daso.zero_grad()
+        return float(_mean_over_ranks(loss.reshape(1), self.comm.global_comm)[0])
+
+    def train_steps(self, loss_fn: Callable, xs, ys):
+        """Always raises: DASO's skipped and delayed global syncs are
+        decided between steps (call :meth:`step` per batch, or use a plain
+        DataParallel for a stack of steps)."""
+        raise NotImplementedError("train_steps does not drive the DASO hierarchical sync protocol; call step() per "
+                                  "batch (DASO decides syncs between steps), or use a plain DataParallel for "
+                                  "scanned epochs")
+
+    def collect_params(self) -> dict:
+        """This rank's (its node's) parameters by name; after
+        :meth:`DASO.last_batch` every node holds the same."""
+        return self.daso.collect(self.params) if self.daso is not None else self.params

@@ -3,16 +3,16 @@
 heat itself falls through to ``torch.optim`` (its optim/__init__.py:16-31),
 so ``heat_tpu_torch.optim.SGD``, ``Adam``, ``AdamW`` or any other name not
 defined here is torch's own; the JAX package maps the same names to optax.
-Beside them: :class:`DataParallelOptimizer` and
-:class:`DetectMetricPlateau`.  ``DASO`` waits for
-``HierarchicalCommunication`` (ROADMAP queue 1, items 2 and 14).
+Beside them: :class:`DataParallelOptimizer`, :class:`DASO` (hierarchical
+skipped and delayed averaging on a ``HierarchicalCommunication``) and
+:class:`DetectMetricPlateau`.
 """
 
 from . import lr_scheduler
-from .dp_optimizer import DataParallelOptimizer
+from .dp_optimizer import DASO, DataParallelOptimizer
 from .utils import DetectMetricPlateau
 
-__all__ = ["DataParallelOptimizer", "DetectMetricPlateau", "lr_scheduler"]
+__all__ = ["DASO", "DataParallelOptimizer", "DetectMetricPlateau", "lr_scheduler"]
 
 
 def __getattr__(name):

@@ -20,7 +20,12 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-__all__ = ["Communication", "SELF", "WORLD", "get_comm", "sanitize_comm", "use_comm"]
+__all__ = ["Communication", "HierarchicalCommunication", "SELF", "WORLD", "get_comm", "sanitize_comm", "use_comm"]
+
+#: the names of the hierarchical grid's axes: 'global' spans the nodes, 'node'
+#: the ranks within one node (heat_tpu/parallel/comm.py's names)
+GLOBAL_AXIS_NAME = "global"
+NODE_AXIS_NAME = "node"
 
 
 class Communication:
@@ -319,6 +324,24 @@ class Communication:
     def _global_rank(self, rank: int) -> int:
         return rank if self.group is None else dist.get_global_rank(self.group, rank)
 
+    # ------------------------------------------------------------------
+    # sub-communicators (heat_tpu/parallel/comm.py:373-386)
+    # ------------------------------------------------------------------
+    def split(self, color_ranks: Sequence[int], axis_name: Optional[str] = None) -> "Communication":
+        """A flat communication over the ranks ``color_ranks`` of this one
+        (in that order), by ``dist.new_group``: every rank of this
+        communication calls it with the same ranks, members or not (torch's
+        rule for creating a group).  A rank outside the subset gets a
+        communication it may not use.  ``axis_name`` is accepted for the
+        reference's signature (a mesh axis there; a group has none)."""
+        ranks = [int(r) for r in color_ranks]
+        if not all(0 <= r < self.size for r in ranks):
+            raise ValueError(f"ranks {ranks} are not all in a world of {self.size}")
+        if self._size is None and dist.is_initialized() and self.size > 1:
+            return Communication(dist.new_group([self._global_rank(r) for r in ranks]))
+        # a world of one, or a described world: the layout of the subset
+        return Communication(size=len(ranks), rank=ranks.index(self.rank) if self.rank in ranks else 0)
+
 
 class _PSum(torch.autograd.Function):
     """psum out of place; the gradient of every rank's sum is the sum of
@@ -359,6 +382,143 @@ class _PPermute(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         return ctx.comm._ppermute(g, [(d, s) for s, d in ctx.perm]), None, None
+
+
+class HierarchicalCommunication(Communication):
+    """A (n_node, per_node) grid over a group's ranks, nodes contiguous (the
+    counterpart of heat_tpu/parallel/comm.py:611-733, and of heat's DASO
+    pair of a node-local group and a cross-node world): rank ``r`` is the
+    ``r % per_node``-th rank of node ``r // per_node``.  Axis ``'node'``
+    (size ``per_node``) spans the ranks of one node, axis ``'global'``
+    (size ``n_node``) the ranks of one local index across the nodes.
+
+    Every rank builds every node group and every global group, in the same
+    order (``dist.new_group``'s rule), and keeps the two it belongs to as
+    :attr:`node_comm` and :attr:`global_comm`.  Used as a plain
+    :class:`Communication` for split arrays, the flattened grid is the
+    group's own rank order, so chunks, ``lshape_map`` and
+    ``counts_displs_shape`` are the plain communication's; the collectives
+    take an ``axis``: ``'node'``, ``'global'``, or None / both for the
+    whole grid.  ``reshape`` (elastic resume) waits for ROADMAP item 15.
+    """
+
+    def __init__(self, grid: Optional[Tuple[int, int]] = None, group=None,
+                 axis_names: Tuple[str, str] = (GLOBAL_AXIS_NAME, NODE_AXIS_NAME),
+                 size: Optional[int] = None, rank: Optional[int] = None):
+        super().__init__(group, size, rank)
+        n = self.size
+        joined = size is None and dist.is_initialized() and n > 1
+        if grid is None:
+            grid = self.infer_grid(self._hosts() if joined else [""] * n)
+        n_node, per_node = int(grid[0]), int(grid[1])
+        if n_node < 1 or per_node < 1 or n_node * per_node != n:
+            raise ValueError(f"grid {tuple(grid)} does not tile {n} ranks")
+        self._grid = (n_node, per_node)
+        self._axis_names = tuple(axis_names)
+        me = self.rank
+        node, local = divmod(me, per_node)
+        if joined:
+            ranks = [self._global_rank(r) for r in range(n)]
+            nodes = [dist.new_group(ranks[i * per_node:(i + 1) * per_node]) for i in range(n_node)]
+            globals_ = [dist.new_group(ranks[j::per_node]) for j in range(per_node)]
+            self.node_comm = Communication(nodes[node])
+            self.global_comm = Communication(globals_[local])
+        else:
+            self.node_comm = Communication(size=per_node, rank=local)
+            self.global_comm = Communication(size=n_node, rank=node)
+
+    def _hosts(self):
+        """Each rank's host name, in rank order (one all-gather)."""
+        import socket
+
+        out = [None] * self.size
+        dist.all_gather_object(out, socket.gethostname(), group=self.group)
+        return out
+
+    @staticmethod
+    def infer_grid(hosts: Sequence[str]) -> Tuple[int, int]:
+        """``(n_node, per_node)`` for ranks on ``hosts`` (each rank's host, in
+        rank order): one node per host where the hosts hold equal,
+        contiguous runs of ranks; ``(1, n)`` on one host or otherwise."""
+        hosts = list(hosts)
+        n = len(hosts)
+        names = list(dict.fromkeys(hosts))
+        k = len(names)
+        if k > 1 and n % k == 0:
+            per = n // k
+            if all(hosts[i * per:(i + 1) * per] == [names[i]] * per for i in range(k)):
+                return (k, per)
+        return (1, n)
+
+    @property
+    def global_axis(self) -> str:
+        """The axis across the nodes."""
+        return self._axis_names[0]
+
+    @property
+    def node_axis(self) -> str:
+        """The axis across one node's ranks."""
+        return self._axis_names[1]
+
+    @property
+    def num_nodes(self) -> int:
+        return self._grid[0]
+
+    @property
+    def node_size(self) -> int:
+        return self._grid[1]
+
+    @property
+    def node_index(self) -> int:
+        """This rank's node."""
+        return self.rank // self._grid[1]
+
+    def _along(self, axis) -> Communication:
+        """The communication of an axis: the node's, the local index's
+        across the nodes, or the whole grid (None, or both axes)."""
+        if axis is None or (isinstance(axis, (tuple, list)) and set(axis) == set(self._axis_names)):
+            return Communication(self.group, self._size, self._rank)
+        if axis == self.node_axis:
+            return self.node_comm
+        if axis == self.global_axis:
+            return self.global_comm
+        raise ValueError(f"unknown axis {axis!r}; the axes are {self._axis_names}")
+
+    def psum(self, x: torch.Tensor, axis=None) -> torch.Tensor:
+        """Sum over ``axis`` (see :meth:`Communication.psum`)."""
+        return Communication.psum(self._along(axis), x)
+
+    def pmax(self, x: torch.Tensor, axis=None) -> torch.Tensor:
+        return Communication.pmax(self._along(axis), x)
+
+    def pmin(self, x: torch.Tensor, axis=None) -> torch.Tensor:
+        return Communication.pmin(self._along(axis), x)
+
+    def all_gather(self, x: torch.Tensor, axis: int = 0, mesh_axis=None) -> torch.Tensor:
+        """Every rank's ``x`` over ``mesh_axis`` concatenated along ``axis``
+        in rank order."""
+        return Communication.all_gather(self._along(mesh_axis), x, axis)
+
+    def bcast(self, x: torch.Tensor, root: int, axis=None) -> torch.Tensor:
+        """Rank ``root`` (of ``axis``'s communication)'s ``x`` on every rank
+        of that communication."""
+        return Communication.bcast(self._along(axis), x, root)
+
+    def reshape(self, *args, **kwargs):
+        raise NotImplementedError("HierarchicalCommunication.reshape (elastic resume) waits for ROADMAP item 15")
+
+    def __eq__(self, other) -> bool:
+        # the same ranks on another grid is another topology: its node and
+        # global collectives differ
+        return (isinstance(other, HierarchicalCommunication) and other.group is self.group
+                and (other._size, other._rank) == (self._size, self._rank) and other._grid == self._grid
+                and other._axis_names == self._axis_names)
+
+    def __hash__(self) -> int:
+        return hash(("hierarchical", id(self.group), self._size, self._rank, self._grid, self._axis_names))
+
+    def __repr__(self) -> str:
+        return f"HierarchicalCommunication(nodes={self.num_nodes}, per_node={self.node_size}, rank={self.rank})"
 
 
 # torch 2.13 renames reduce_scatter_tensor; older releases have only the old name

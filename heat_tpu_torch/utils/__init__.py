@@ -1,6 +1,6 @@
-"""Utilities (counterpart of heat_tpu/utils): so far the data helpers of
-:mod:`.data` that the data-parallel training path needs."""
+"""Utilities (counterpart of heat_tpu/utils): the data tooling of
+:mod:`.data` and the image transforms of :mod:`.vision_transforms`."""
 
-from . import data
+from . import data, vision_transforms
 
-__all__ = ["data"]
+__all__ = ["data", "vision_transforms"]

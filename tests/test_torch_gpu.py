@@ -1818,3 +1818,90 @@ def test_sparse_factories_pack_card_tensors_on_the_card(card):
             want = make(m)
             for g, w in ((got.indptr, want.indptr), (got.indices, want.indices), (got.data, want.data)):
                 assert torch.equal(g.cpu(), w.cpu())
+
+
+# ----------------------------------------------------------------------
+# the unsigned types' arithmetic and the data tooling on the card
+# ----------------------------------------------------------------------
+def _unsigned(dtype, n, seed):
+    rng = np.random.default_rng(seed)
+    bits = np.iinfo(dtype).bits
+    v = (rng.integers(0, 2**63, n, dtype=np.uint64) << np.uint64(1) | np.uint64(seed & 1)) >> np.uint64(64 - bits)
+    v = v.astype(dtype)
+    v[:5] = [0, 1, np.iinfo(dtype).max, np.iinfo(dtype).max // 2 + 1, np.iinfo(dtype).max // 2]
+    return v
+
+
+UNSIGNED_CALLS = [
+    ("add", lambda m, a, b: a + b), ("sub", lambda m, a, b: a - b), ("mul", lambda m, a, b: a * b),
+    ("floordiv", lambda m, a, b: a // b), ("mod", lambda m, a, b: a % b), ("shift", lambda m, a, b: a >> m.array(b.numpy() % 5, split=0, device=a.device)),
+    ("lt", lambda m, a, b: a < b), ("ge", lambda m, a, b: a >= b), ("maximum", lambda m, a, b: m.maximum(a, b)),
+    ("sum", lambda m, a, b: m.sum(a)), ("prod", lambda m, a, b: m.prod(a)), ("cumsum", lambda m, a, b: m.cumsum(a, 0)),
+    ("max", lambda m, a, b: m.max(a)), ("argmax", lambda m, a, b: m.argmax(a)), ("argmin", lambda m, a, b: m.argmin(a)),
+    ("sort", lambda m, a, b: m.sort(a)[0]), ("unique", lambda m, a, b: m.unique(a)),
+    ("float32", lambda m, a, b: a.astype(m.float32)), ("float64", lambda m, a, b: a.astype(m.float64)),
+    ("sin", lambda m, a, b: m.sin(a)), ("neg", lambda m, a, b: -a), ("gcd", lambda m, a, b: m.gcd(a, b)),
+    ("clip", lambda m, a, b: m.clip(a, 3, 2**15)), ("var", lambda m, a, b: m.var(a)),
+]
+
+
+@pytest.mark.parametrize("dtype", ["uint16", "uint32", "uint64"])
+@pytest.mark.parametrize("name,fn", UNSIGNED_CALLS, ids=[c[0] for c in UNSIGNED_CALLS])
+def test_unsigned_ops_on_the_card_are_the_hosts(card, dtype, name, fn):
+    a, b = _unsigned(dtype, 4099, 1), _unsigned(dtype, 4099, 2)
+    b[b == 0] = 7
+    got = fn(ht, ht.array(a, split=0, device="gpu"), ht.array(b, split=0, device="gpu"))
+    want = fn(ht, ht.array(a, split=0, device="cpu"), ht.array(b, split=0, device="cpu"))
+    assert got.dtype == want.dtype and got.larray.is_cuda
+    if want.numpy().dtype.kind in "biu":
+        assert got.numpy().tobytes() == want.numpy().tobytes()
+    else:
+        np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=3e-5 if name != "float64" else 0, atol=0)
+
+
+def test_prefetch_stages_on_a_side_stream(card):
+    from heat_tpu_torch.utils.data import prefetch
+
+    prefetch.prefetch_stats(reset=True)
+    host = [torch.randn(1 << 16, 8, generator=torch.Generator().manual_seed(i)) for i in range(6)]
+    batches = [(h, ht.array(h, split=0, device="cpu")) for h in host]
+    seen = []
+    for i, (t, d) in enumerate(ht.utils.data.prefetch_to_device(iter(batches), size=2)):
+        assert t.is_cuda and d.larray.is_cuda
+        seen.append((t * 2).sum())  # a read on the default stream, after its wait
+        assert torch.equal(t.cpu(), host[i]) and torch.equal(d.larray.cpu(), host[i])
+    assert prefetch.prefetch_stats() == {"prefetch_hits": 6, "prefetch_misses": 0}
+    torch.cuda.synchronize()
+
+
+def test_ishuffle_on_the_card_is_the_hosts(card):
+    x = np.random.default_rng(3).standard_normal((1000, 4)).astype(np.float32)
+    out = []
+    for dev in ("gpu", "cpu"):
+        ht.random.seed(11)
+        ds = ht.utils.data.Dataset(ht.array(x, split=0, device=dev))
+        ht.utils.data.dataset_ishuffle(ds)
+        ht.utils.data.dataset_irecv(ds)
+        out.append(ds.arrays[0].numpy())
+    assert out[0].tobytes() == out[1].tobytes()
+
+
+def test_daso_step_on_the_card_is_the_hosts(card):
+    import copy
+
+    model = torch.nn.Sequential(torch.nn.Linear(8, 16), torch.nn.ReLU(), torch.nn.Linear(16, 2))
+    host = copy.deepcopy(model)
+    model = model.to(card)
+    X = torch.randn(48, 8, generator=torch.Generator().manual_seed(0))
+    y = (X[:, 0] > 0).long()
+    runs = []
+    for m, dev in ((model, card), (host, torch.device("cpu"))):
+        daso = ht.optim.DASO(ht.optim.SGD(m.parameters(), lr=0.1), total_epochs=1,
+                             comm=ht.parallel.HierarchicalCommunication(), warmup_epochs=0, cooldown_epochs=0)
+        daso.global_skip, daso.batches_to_wait = 2, 1
+        dp = ht.nn.DataParallelMultiGPU(m, daso=daso)
+        runs.append([dp.step(torch.nn.functional.cross_entropy, X.to(dev), y.to(dev)) for _ in range(5)])
+        daso.last_batch()
+    np.testing.assert_allclose(runs[0], runs[1], rtol=1e-5)
+    for p, q in zip(model.parameters(), host.parameters()):
+        np.testing.assert_allclose(p.detach().cpu().numpy(), q.detach().numpy(), atol=1e-5)

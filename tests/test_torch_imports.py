@@ -50,3 +50,36 @@ def test_the_import_pattern_catches_what_it_must():
     for line in ("import heat_tpu_torch as ht", "from heat_tpu_torch.fft import _leading", "from . import fft",
                  "# heat_tpu/fft/_leading.py", "import numpy"):
         assert not _IMPORT.search(line), line
+
+
+_WITHOUT = r"""
+import importlib, importlib.abc, pkgutil, sys
+
+
+class Refuse(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path, target=None):
+        if name.split(".")[0] in ("h5py", "torchvision"):
+            raise ImportError(f"{name} is refused")
+        return None
+
+
+sys.meta_path.insert(0, Refuse())
+import heat_tpu_torch
+heat_tpu_torch.use_device("cpu")
+for info in pkgutil.walk_packages(heat_tpu_torch.__path__, "heat_tpu_torch."):
+    importlib.import_module(info.name)
+x, y = heat_tpu_torch.utils.data.synthetic_mnist(8)
+heat_tpu_torch.utils.data.MNISTDataset("unused")
+print("IMPORTED", sorted(m for m in sys.modules if m.split(".")[0] in ("h5py", "torchvision")))
+"""
+
+
+def test_importing_the_port_needs_no_h5py_and_no_torchvision():
+    """The card's machine has neither: every module imports, and the
+    MNIST fallback runs, with both refused."""
+    out = subprocess.run(
+        [sys.executable, "-c", _WITHOUT], cwd=REPO, capture_output=True, text=True, timeout=120,
+        env={**os.environ, "PYTHONPATH": str(REPO)},
+    )
+    assert out.returncode == 0, out.stderr
+    assert "IMPORTED []" in out.stdout, out.stdout

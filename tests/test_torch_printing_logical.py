@@ -233,10 +233,12 @@ def test_bitwise_refuses_floats_and_unported_ops_raise_for_unsigned():
             fn(a, a)
     with pytest.raises(TypeError):
         ~a
-    u = ht.array(INTS["uint32"])
-    for op in (lambda t: t + t, lambda t: t * t, lambda t: -t, lambda t: t.sum(), lambda t: ht.max(t)):
-        with pytest.raises(TypeError, match="uint32"):
-            op(u)
+    # uint32's arithmetic, once refused by name, is the reference's now
+    u, ur = ht.array(INTS["uint32"]), hj.array(INTS["uint32"])
+    for op in (lambda t: t + t, lambda t: t * t, lambda t: -t, lambda t: t.sum(), lambda t: (ht if t is u else hj).max(t)):
+        got, want = op(u), op(ur)
+        assert got.dtype.__name__ == want.dtype.__name__
+        np.testing.assert_array_equal(got.numpy(), want.numpy())
 
 
 @pytest.mark.parametrize("split", [None, 0, 1])

@@ -1,4 +1,4 @@
-"""One spawned world of 3 CPU ranks (torch.distributed, gloo) for a test
+"""One spawned world of CPU ranks (3 by default; torch.distributed, gloo) for a test
 module of the port: the ranks start once and run the module's slices in
 turn, one rank script a slice, each in a fresh namespace, the state a slice
 patches put back after it; each test checks its own slice's arrays as soon
@@ -50,8 +50,8 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-rank, store, work = int(sys.argv[1]), sys.argv[2], sys.argv[3]
-dist.init_process_group("gloo", init_method="file://" + store, world_size=3, rank=rank)
+rank, store, work, size = int(sys.argv[1]), sys.argv[2], sys.argv[3], int(sys.argv[4])
+dist.init_process_group("gloo", init_method="file://" + store, world_size=size, rank=rank)
 import heat_tpu_torch as ht
 
 ht.use_device("cpu")
@@ -83,14 +83,14 @@ dist.destroy_process_group()
 """
 
 class World:
-    """One world of WORLD rank processes running the module's slices in
-    turn.  The ranks start first; each slice's inputs are made and marked
+    """One world of ``size`` rank processes (WORLD by default) running the
+    module's slices in turn.  The ranks start first; each slice's inputs are made and marked
     ready in order while they start, and :meth:`ranks` waits only for its
     own slice, so a slice's tests run while the world goes on with the
     next.  Slice i must be done ``deadline_s * (i + 1)`` after the start."""
 
-    def __init__(self, tmp_path, slices, deadline_s=DEADLINE_S):
-        self.deadline_s = deadline_s
+    def __init__(self, tmp_path, slices, deadline_s=DEADLINE_S, size=WORLD):
+        self.deadline_s, self.size = deadline_s, size
         self.tmp, self.slices, self.made, self.procs, self.deadlines = tmp_path, slices, {}, [], {}
 
     def start(self) -> None:
@@ -100,8 +100,8 @@ class World:
         t0 = time.monotonic()
         self.deadlines = {name: t0 + self.deadline_s * (i + 1) for i, name in enumerate(self.slices)}
         env = {**os.environ, "OMP_NUM_THREADS": "1", "PYTHONPATH": os.pathsep.join([str(REPO), str(REPO / "tests")])}
-        for r in range(WORLD):
-            cmd = [sys.executable, "-c", _WORLD_MAIN, str(r), str(self.tmp / "store"), str(self.tmp)]
+        for r in range(self.size):
+            cmd = [sys.executable, "-c", _WORLD_MAIN, str(r), str(self.tmp / "store"), str(self.tmp), str(self.size)]
             log = open(self.tmp / f"rank{r}.log", "w")
             self.procs.append((subprocess.Popen(cmd, cwd=REPO, env=env, stdout=log, stderr=subprocess.STDOUT), log))
         try:
@@ -121,7 +121,7 @@ class World:
         """Every rank's saved arrays of the slice ``name``, once it is done
         on every rank; fails with the ranks' tracebacks where it raised,
         with a rank's log where one died, and at the deadline."""
-        done = [self.tmp / f"{name}.rank{r}.done" for r in range(WORLD)]
+        done = [self.tmp / f"{name}.rank{r}.done" for r in range(self.size)]
         while not all(d.exists() for d in done):
             for r, (p, _) in enumerate(self.procs):
                 if p.poll() is not None and not done[r].exists():
@@ -129,13 +129,13 @@ class World:
                                 + (self.tmp / f"rank{r}.log").read_text())
             if time.monotonic() > self.deadlines[name]:
                 self.kill()
-                pytest.fail(f"the gloo world of {WORLD} did not finish slice {name} by its deadline")
+                pytest.fail(f"the gloo world of {self.size} did not finish slice {name} by its deadline")
             time.sleep(0.05)
         errors = [f"rank {r}: " + e.read_text() for r, e in enumerate(
-            self.tmp / f"{name}.rank{r}.err" for r in range(WORLD)) if e.exists()]
+            self.tmp / f"{name}.rank{r}.err" for r in range(self.size)) if e.exists()]
         if errors:
             pytest.fail(f"slice {name} raised on the gloo ranks:\n" + "\n".join(errors))
-        return [dict(np.load(self.tmp / f"{name}.rank{r}.npz")) for r in range(WORLD)]
+        return [dict(np.load(self.tmp / f"{name}.rank{r}.npz")) for r in range(self.size)]
 
     def kill(self) -> None:
         for p, _ in self.procs:
@@ -157,10 +157,10 @@ class World:
 
 
 @contextlib.contextmanager
-def spawned(tmp_path, slices, deadline_s=DEADLINE_S):
-    """A started :class:`World` of ``slices`` under ``tmp_path``, closed
-    (each rank must exit 0) on leaving."""
-    w = World(tmp_path, slices, deadline_s)
+def spawned(tmp_path, slices, deadline_s=DEADLINE_S, size=WORLD):
+    """A started :class:`World` of ``size`` ranks running ``slices`` under
+    ``tmp_path``, closed (each rank must exit 0) on leaving."""
+    w = World(tmp_path, slices, deadline_s, size)
     try:
         w.start()
         yield w
