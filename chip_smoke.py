@@ -109,6 +109,21 @@ file, it exits non-zero before printing any result):
    result at 2^16 rows against the host's), then convolve of a 2^27
    float32 signal with a 1025-tap kernel in the three modes within 1e-5 of
    float64 (and, beside it, with cuDNN's TF32 allowed).
+6i. faults_f17_f23: the calls of the repaired faults F17-F23 on the card
+   at 2^27 values an operand (float16 bin edges, unsigned results and
+   orderings, unsigned products, complex nanmax/fmin/histogram/logaddexp2,
+   ml_dtypes bfloat16 arrays), each bitwise the port's answer on the host
+   (complex logaddexp2 within 1e-5), each call's first and warm wall time
+   beside its byte bound; the refusals raising the host's exception types;
+6j. resilience: KMeans(8, init="random").fit on the points inside
+   telemetry spans under torch.profiler (the spans in the ring, their
+   record_function labels in the profile, K1 n_iter + 1 and threefry 1
+   launches, counted into the kernel summary); a 1 GiB .npy save and load
+   each failing once by an injected transient fault and retried, read back
+   bitwise; the ring SpGEMM of 2^20 x 2^20 (16 a row) aborted by an
+   injected comm.collective fault, then retried by a RetryPolicy to the
+   unfaulted product bitwise; guard_finite on the points and on a copy
+   with one NaN (DivergenceError).
 
 The KMeans data is then freed, and the hierarchical SVD path follows on a
 2^25 x 128 float32 matrix with a decaying spectrum, made on the card:
@@ -303,6 +318,7 @@ from __future__ import annotations
 
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -2016,6 +2032,319 @@ def napi_signal_phase(x, smi: str) -> None:
           "phase_seconds": time.perf_counter() - t_phase, "card": smi})
     del sig, ker, S, K
     torch.cuda.empty_cache()
+
+
+FAULT_N = 1 << 27  # values of each operand of phase faults_f17_f23
+FAULT_ROWS = 1 << 20  # rows of its matrices (FAULT_ROWS x 128 = 2^27 values)
+
+
+def _result_leaves(r) -> list:
+    """The DNDarrays of a result (tuples and lists flattened)."""
+    return [x for part in r for x in _result_leaves(part)] if isinstance(r, (tuple, list)) else [r]
+
+
+def faults_f17_f23_phase(smi: str) -> None:
+    """Phase faults_f17_f23: the calls of faults F17-F23 (ROADMAP queue 3,
+    tests/torch_fault_cases.py) on the card at 2^27 values an operand (a
+    2^20 x 128 matrix where the call takes one), each result bitwise the
+    port's answer on the host for the same numpy inputs (the bin edges too:
+    float16 edges follow XLA's rule exactly), but where the card computes
+    in another order or with other roundings: float sums (``trapz`` of
+    uint64 in float64 within 1e-12 of the largest value; float16 ``var``
+    and ``std``, summed in float32, within one float16 rounding) and
+    complex ``logaddexp2`` (exp and log1p, within the reference's float32
+    bound: 3e-5 relative, 1e-6 absolute); each call's first and warm wall time beside its byte bound
+    (its inputs read once, its outputs written once).  The refusals (F23)
+    raise the host's exception type on the card."""
+    import ml_dtypes
+    import numpy as np
+    import torch
+    import heat_tpu_torch as ht
+
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(SEED + 21)
+    n, rows = FAULT_N, FAULT_ROWS
+    # two draws of 64 random bits a value; the narrower types and the
+    # small integers are their bits, so the host draws little
+    base = rng.integers(0, 2**63, n, dtype=np.uint64) << np.uint64(1) | np.uint64(1)
+    b64 = rng.integers(0, 2**63, n, dtype=np.uint64) << np.uint64(1)
+    u16, u32 = (base >> np.uint64(48)).astype(np.uint16), (base >> np.uint64(32)).astype(np.uint32)
+    u64 = np.where((b64 >> np.uint64(1)) & np.uint64(1) == 1, base, np.uint64(0))  # zeros for nonzero's sake
+    bools = (base >> np.uint64(7)) & np.uint64(1) == 1
+    i8 = ((base >> np.uint64(8)) % np.uint64(19)).astype(np.int8) - np.int8(9)
+    i16 = ((base >> np.uint64(16)) % np.uint64(600)).astype(np.int16).reshape(-1, 2) - np.int16(300)
+    shifts = (base >> np.uint64(24)) % np.uint64(200)
+    f16 = (rng.standard_normal(n, dtype=np.float32) * 2).astype(np.float16)
+    c64 = (rng.standard_normal(n, dtype=np.float32) + 1j * rng.standard_normal(n, dtype=np.float32)).astype(np.complex64)
+    c64b = np.roll(c64, 12345)
+    m32, m64 = u32.reshape(rows, -1), u64.reshape(rows, -1)
+    small32, small64 = u32[:512].reshape(4, 128), base[:512].reshape(4, 128)
+    bf16 = f16.astype(np.float32).astype(ml_dtypes.bfloat16)
+    cases = [
+        ("F17 histogram float16", lambda m, a: m.histogram(a, bins=64), [f16], 2 * n),
+        ("F17 histc float16", lambda m, a: m.histc(a, bins=64), [f16], 2 * n),
+        ("F17 histogram2d float16", lambda m, a: m.histogram2d(a[:, 0], a[:, 1], bins=16), [f16.reshape(-1, 2)], 2 * n),
+        ("F17 histogramdd int16", lambda m, a: m.histogramdd(a, bins=8), [i16], 2 * n),
+        ("F18 diff uint32", lambda m, a: m.diff(a), [u32], 8 * n),
+        ("F18 diff uint64", lambda m, a: m.diff(a), [u64], 16 * n),
+        ("F18 ediff1d uint16", lambda m, a: m.ediff1d(a), [u16], 4 * n),
+        ("F18 outer uint32", lambda m, a, b: m.outer(a, b), [u32[:rows], small32[0]], 4 * n),
+        ("F18 matmul uint64", lambda m, a, b: m.matmul(a, b.T), [m64, small64], 8 * n + 8 * rows * 4),
+        ("F18 vdot uint32", lambda m, a, b: m.vdot(a, b), [u32, u32[::-1].copy()], 8 * n),
+        ("F19 topk uint64", lambda m, a: m.topk(a.reshape((rows, -1)), 8, dim=1), [b64], 8 * n + 16 * rows * 8),
+        ("F19 right_shift uint64", lambda m, a, b: a >> b, [b64, shifts], 24 * n),
+        ("F19 trapz uint64", lambda m, a: m.trapz(a, axis=0), [m64], 8 * n, (1e-12, "max")),
+        ("F19 gradient uint64", lambda m, a: m.gradient(a, axis=0), [m64], 16 * n),
+        ("F20 vdot int8", lambda m, a, b: m.vdot(a, b), [i8, i8[::-1].copy()], 2 * n),
+        ("F20 vdot bool", lambda m, a, b: m.vdot(a, b), [bools, bools[::-1].copy()], 2 * n),
+        ("F20 var float16", lambda m, a: m.var(a, axis=0), [f16.reshape(rows, -1)], 2 * n, (1e-3, 0.0)),
+        ("F20 std float16", lambda m, a: m.std(a), [f16], 2 * n, (1e-3, 0.0)),
+        ("F20 diff prepend int8", lambda m, a: m.diff(a, prepend=0), [i8], 2 * n),
+        ("F21 nanargmax uint32", lambda m, a: m.nanargmax(a), [u32], 4 * n),
+        ("F21 nanargmin uint64", lambda m, a: m.nanargmin(a.reshape((rows, -1)), axis=1), [b64], 8 * n),
+        ("F21 nanargmax bool", lambda m, a: m.nanargmax(a), [bools], n),
+        ("F21 argwhere uint64", lambda m, a: m.argwhere(a), [u64], 8 * n + 8 * int(np.count_nonzero(u64))),
+        ("F21 flatnonzero uint64", lambda m, a: m.flatnonzero(a), [u64], 8 * n + 8 * int(np.count_nonzero(u64))),
+        ("F21 fmax uint64", lambda m, a, b: m.fmax(a, b), [u64, b64], 24 * n),
+        ("F21 fmin complex64", lambda m, a, b: m.fmin(a, b), [c64, c64b], 24 * n),
+        ("F21 inner uint64", lambda m, a, b: m.inner(a, b), [m64, small64], 8 * n + 8 * rows * 4),
+        ("F21 tensordot uint32", lambda m, a, b: m.tensordot(a, b, axes=([1], [1])), [m32, small32],
+         4 * n + 4 * rows * 4),
+        ("F21 histogram_bin_edges uint64", lambda m, a: m.histogram_bin_edges(a, bins=32), [b64], 8 * n),
+        ("F21 nanmax complex64", lambda m, a: m.nanmax(a), [c64], 8 * n),
+        ("F21 nanmin complex64", lambda m, a: m.nanmin(a.reshape((rows, -1)), axis=0), [c64], 8 * n),
+        ("F21 histogram complex64", lambda m, a: m.histogram(a, bins=8), [c64], 8 * n),
+        ("F21 logaddexp2 complex64", lambda m, a, b: m.logaddexp2(a, b), [c64, c64b], 24 * n, (3e-5, 1e-6)),
+        ("F22 array of ml_dtypes bfloat16", lambda m, a: m.array(a, split=0), [bf16], 4 * n),
+    ]
+    calls = []
+    for name, fn, inputs, nbytes, *tol in cases:
+        # the first operand split along 0, the others whole; F22 takes the numpy array itself
+        def operands(device):
+            if name.startswith("F22"):
+                return inputs
+            return [ht.array(a, split=0 if i == 0 else None, device=device) for i, a in enumerate(inputs)]
+
+        card = operands("gpu")
+        ht.use_device("gpu")
+        out, first = wall_ms(lambda: fn(ht, *card))
+        out, warm = wall_ms(lambda: fn(ht, *card))
+        t_host = time.perf_counter()
+        host = operands("cpu")
+        ht.use_device("cpu")
+        want = fn(ht, *host)
+        ht.use_device("gpu")
+        host_s = time.perf_counter() - t_host
+        got_l, want_l = _result_leaves(out), _result_leaves(want)
+        if len(got_l) != len(want_l):
+            raise AssertionError(f"faults {name}: {len(got_l)} results on the card, {len(want_l)} on the host")
+        err = None
+        for g_, w_ in zip(got_l, want_l):
+            if g_.dtype is not w_.dtype or tuple(g_.shape) != tuple(w_.shape) or not g_.larray.is_cuda:
+                raise AssertionError(f"faults {name}: {g_.dtype} {g_.shape} on the card, {w_.dtype} {w_.shape} host")
+            gn, wn = g_.numpy(), w_.numpy()
+            if not tol:
+                if gn.tobytes() != wn.tobytes():
+                    raise AssertionError(f"faults {name}: the card's result differs from the host's")
+                continue
+            rtol, atol = tol[0]
+            if atol == "max":  # within rtol of the largest value
+                rtol, atol = 0.0, rtol * float(np.abs(wn).max())
+            diff = np.abs(gn.astype(np.complex128) - wn.astype(np.complex128))
+            err = max(err or 0.0, float(np.max(diff / (atol + rtol * np.abs(wn) + 1e-300))))
+            if err > 1.0:
+                raise AssertionError(f"faults {name}: the card's result is {err} tolerances from the host's")
+        calls.append({"call": name, "wall_ms": first, "warm_ms": warm, "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+                      "host_s": host_s, **({"bitwise_host": True} if not tol else {"tolerance": list(tol[0]),
+                                                                  "err_in_tolerances": err})})
+        emit({"phase": "faults_f17_f23", **calls[-1], "card": smi})
+        del out, want, card, host
+    refusals = []
+    x2 = ht.array(rng.standard_normal((64, 4)).astype(np.float32), device="gpu")
+    b2 = ht.array(np.sort(rng.standard_normal((2, 3)).astype(np.float32), axis=1), device="gpu")
+    for name, call in (("F23 bucketize 2-d boundaries", lambda: ht.bucketize(x2, b2)),
+                       ("F23 digitize 2-d bins", lambda: ht.digitize(x2, b2)),
+                       ("F23 delete float index", lambda: ht.delete(x2, np.array([0.0, 2.0]), axis=0)),
+                       ("F23 kron bool", lambda: ht.kron(x2 > 0, x2 < 0)),
+                       ("F23 percentile 2-d q", lambda: ht.percentile(x2, np.array([[10.0, 50.0]]))),
+                       ("F23 isnan second positional", lambda: ht.isnan(x2, 1))):
+        try:
+            call()
+        except (TypeError, ValueError) as e:
+            refusals.append({"call": name, "raises": type(e).__name__})
+        else:
+            raise AssertionError(f"faults {name}: the card answered where the reference refuses")
+    emit({"phase": "faults_f17_f23", "values": n, "calls": len(calls), "refusals": refusals,
+          "phase_seconds": time.perf_counter() - t_phase, "card": smi})
+
+
+RES_IO_ROWS = 1 << 24  # 2^24 x 16 float32: 1 GiB through .npy
+RES_SPGEMM_ROWS = 1 << 20  # the ring SpGEMM of phase sparse, S @ S of 2^20 x 2^20, 16 a row
+
+
+def resilience_phase(x, smi: str) -> dict:
+    """Phase resilience: the fault, retry, span and guard layer on the card.
+
+    * KMeans(n_clusters=8, init="random").fit on the KMeans points inside
+      ``telemetry.span`` blocks, under torch.profiler: the spans land in
+      the ring (``spans.recorded``), their ``record_function`` labels in
+      the profile with the device time of the kernels launched under them,
+      and the fit's K1 and threefry launches are counted;
+    * a 1 GiB .npy save and load under a plan that fails the first
+      ``io.write`` and the first ``io.open``: each retried once by the io
+      policy (``retry.*``), the file read back bitwise, its sidecar
+      verified;
+    * the ring SpGEMM S @ S (2^20 x 2^20, 16 entries a row) under a plan
+      that fails its first ``comm.collective`` site: the product aborts
+      with TransientFault, and under the same plan ``RetryPolicy().call``
+      gives the unfaulted product bitwise;
+    * ``guard_finite`` on the points (finite: one host sync) and on a
+      copy of 2^20 rows with one NaN planted (DivergenceError).
+
+    Returns the launches of K1, threefry and csr_spmm the phase made."""
+    import shutil
+    import tempfile
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    import heat_tpu_torch as ht
+    from heat_tpu_torch import resilience, telemetry
+    from heat_tpu_torch.core import kernels
+    from heat_tpu_torch.core import random as rnd
+    from heat_tpu_torch.sparse import _planes
+
+    t_phase = time.perf_counter()
+    ht.use_device("gpu")
+    pts = ht.array(x, split=0)
+    telemetry.reset_all("telemetry")
+    zero_launches()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        with telemetry.span("resilience.kmeans", rows=int(x.shape[0])):
+            with telemetry.span("kmeans.fit"):
+                km = ht.cluster.KMeans(n_clusters=CLUSTERS, init="random", random_state=SEED,
+                                       max_iter=MAX_ITER).fit(pts)
+            with telemetry.span("kmeans.predict"):
+                km.predict(pts[:4096])
+        torch.cuda.synchronize()
+        fit_ms = (time.perf_counter() - t0) * 1e3
+    launches = {"lloyd_step": kernels.LLOYD_LAUNCHES, "threefry": rnd.THREEFRY_LAUNCHES}
+    if launches["lloyd_step"] < km.n_iter_ + 1 or launches["threefry"] != 1:
+        raise AssertionError(f"resilience: the fit under spans launched K1 {launches['lloyd_step']} times for "
+                             f"{km.n_iter_} iterations and threefry {launches['threefry']} times")
+    recorded = [(s.name, s.depth) for s in telemetry.get_spans()]
+    if recorded != [("kmeans.fit", 1), ("kmeans.predict", 1), ("resilience.kmeans", 0)] or \
+            telemetry.snapshot()["spans.recorded"] != 3:
+        raise AssertionError(f"resilience: the spans recorded are {recorded}")
+    # each span's label: its host range, and the device time of the kernels
+    # launched inside it.  A kernel is joined to the runtime call that
+    # launched it (cudaLaunchKernel and the like, whoever called it: K1's
+    # ctypes launches too) by CUPTI's correlation id, and counts for the span
+    # whose range holds that call, however late the card runs it
+    names = ("resilience.kmeans", "kmeans.fit", "kmeans.predict")
+    on_card = torch.autograd.DeviceType.CUDA
+    raw = prof.profiler.kineto_results.events()
+    host = [e for e in raw if e.device_type() != on_card]
+    ranges = {e.name(): (e.start_ns(), e.end_ns()) for e in host if e.name() in names}
+    if set(ranges) != set(names):
+        raise AssertionError(f"resilience: the profile holds the span labels {sorted(ranges)}")
+    calls = {e.correlation_id(): e.start_ns() for e in host if re.match(r"cu(da)?[A-Z]", e.name())}
+    kernels_ = [e for e in raw if e.device_type() == on_card and e.name() not in names
+                and not e.name().startswith(("Memcpy", "Memset"))]
+    launched = [(calls[e.correlation_id()], e) for e in kernels_ if e.correlation_id() in calls]
+    labels = {}
+    for name, (lo, hi) in ranges.items():
+        inside = [e for t, e in launched if lo <= t <= hi]
+        labels[name] = {"host_ms": (hi - lo) / 1e6, "kernel_ms": sum(e.duration_ns() for e in inside) / 1e6,
+                        "kernels": len(inside), "k1_kernels": sum("lloyd" in e.name() for e in inside)}
+    k1 = [e for e in kernels_ if "lloyd" in e.name()]
+    covered = labels["kmeans.fit"]["k1_kernels"] + labels["kmeans.predict"]["k1_kernels"]
+    if len(k1) < launches["lloyd_step"] or covered != len(k1) or \
+            labels["resilience.kmeans"]["kernels"] != len(launched) or len(launched) != len(kernels_):
+        raise AssertionError(f"resilience: {len(k1)} K1 kernels in the profile for {launches['lloyd_step']} "
+                             f"launches, {covered} of them launched under the fit's and predict's spans; "
+                             f"{len(launched)} of {len(kernels_)} kernels joined to a launch, "
+                             f"{labels['resilience.kmeans']['kernels']} under the outer span")
+    seen = set(ranges)
+    emit({"phase": "resilience", "step": "kmeans_under_spans", "fit_and_predict_wall_ms": fit_ms,
+          "n_iter": km.n_iter_, "lloyd_launches": launches["lloyd_step"], "threefry_launches": launches["threefry"],
+          "spans": recorded, "profile_labels": sorted(seen), "by_span": labels, "card": smi})
+    del km
+
+    # 1 GiB through .npy with the first write and the first open failing
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_resilience_")
+    try:
+        path = os.path.join(tmp, "x.npy")
+        data = ht.array(x[:RES_IO_ROWS].contiguous(), split=0)
+        before = resilience.retry_stats()
+        with resilience.fault_plan({"io.write": [0], "io.open": [0]}) as inj:
+            _, save_ms = wall_ms(lambda: ht.save(data, path))
+            back, load_ms = wall_ms(lambda: ht.load(path, split=0))
+        after = resilience.retry_stats()
+        retried = {k: after[k] - before[k] for k in after}
+        if inj.injected != {"io.write": [(0, "transient")], "io.open": [(0, "transient")]} or retried["retries"] != 2:
+            raise AssertionError(f"resilience io: injected {inj.injected}, retries {retried}")
+        if not torch.equal(back.larray, data.larray) or resilience.verify_checksum(path) is not True:
+            raise AssertionError("resilience io: the retried round trip is not bitwise, or its sidecar fails")
+        if sorted(os.listdir(tmp)) != ["x.npy", "x.npy.crc32"]:
+            raise AssertionError(f"resilience io: the failed attempt left {sorted(os.listdir(tmp))}")
+        gb = data.larray.numel() * 4 / 1e9
+        emit({"phase": "resilience", "step": "npy_retried", "array_gb": gb, "save_s": save_ms / 1e3,
+              "load_s": load_ms / 1e3, "injected": {k: len(v) for k, v in inj.injected.items()}, "retry": retried,
+              "check": "round trip bitwise after one retried fault each way, CRC32 sidecar verified",
+              "card": smi})
+        del back, data
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    # the ring SpGEMM failing at its first re-sync, then retried
+    g = torch.Generator(device=x.device).manual_seed(SEED + 23)
+    coo = random_graph(RES_SPGEMM_ROWS, SPARSE_DEGREE, x.device, g)
+    S = ht.sparse.sparse_csr_matrix(coo, split=0)
+    del coo
+    os.environ["HEAT_TPU_SPGEMM_DENSE_DENSITY"] = "1.0"  # the ring route, whatever the estimate
+    try:
+        spmm0 = _planes.CSR_SPMM_LAUNCHES
+        clean, clean_ms = wall_ms(lambda: S @ S)
+        want = fingerprint(clean)
+        del clean
+        plan = {"comm.collective": [0]}
+        with resilience.fault_plan(plan) as inj:
+            try:
+                S @ S
+            except resilience.TransientFault as e:
+                aborted = {"site": e.site, "index": e.index}
+            else:
+                raise AssertionError("resilience spgemm: the injected fault did not abort the product")
+        with resilience.fault_plan(plan) as inj2:
+            again, retry_ms = wall_ms(lambda: resilience.RetryPolicy().call(lambda: S @ S))
+        if fingerprint(again) != want:
+            raise AssertionError("resilience spgemm: the retried product differs from the unfaulted one")
+        spmm = _planes.CSR_SPMM_LAUNCHES - spmm0
+    finally:
+        del os.environ["HEAT_TPU_SPGEMM_DENSE_DENSITY"]
+    emit({"phase": "resilience", "step": "spgemm_ring_retried", "rows": RES_SPGEMM_ROWS, "nnz_in": S.gnnz,
+          "nnz_out": again.gnnz, "clean_ms": clean_ms, "aborted_at": aborted, "retried_ms": retry_ms,
+          "sites_evaluated": inj2.hits, "retried_bitwise_unfaulted": True, "csr_spmm_launches": spmm, "card": smi})
+    del S, again
+    torch.cuda.empty_cache()
+
+    # guard_finite: the points pass, a planted NaN raises
+    _, ok_ms = wall_ms(lambda: resilience.guard_finite(pts))
+    bad = ht.array(x[: 1 << 20].clone(), split=0)
+    bad.larray[12345, 3] = float("nan")
+    try:
+        resilience.guard_finite({"centers": bad}, what="centers", iteration=7)
+    except resilience.DivergenceError as e:
+        caught = {"iteration": e.iteration, "message": str(e)}
+    else:
+        raise AssertionError("resilience: guard_finite passed a tensor with a NaN")
+    emit({"phase": "resilience", "step": "guard_finite", "finite_points_ms": ok_ms,
+          "bound_ms": x.numel() * 4 / HBM_BYTES_PER_S * 1e3, "divergence": caught,
+          "phase_seconds": time.perf_counter() - t_phase, "card": smi})
+    return {**launches, "csr_spmm": spmm}
 
 
 def _napi_mismatch(got, want):
@@ -4712,6 +5041,14 @@ def main() -> int:
     torch.cuda.empty_cache()
     napi_signal_phase(x, smi)
 
+    # 6i.-6j. the repaired faults F17-F23 at 2^27 values, then the fault,
+    # retry, span and guard layer on the same points (K1 and threefry in its
+    # fit, its ring SpGEMM's csr_spmm launches joined to phase sparse's)
+    faults_f17_f23_phase(smi)
+    res_launches = resilience_phase(x, smi)
+    lloyd["launches"] += res_launches["lloyd_step"]
+    threefry["launches"] += res_launches["threefry"]
+
     # the KMeans data is freed before the hSVD path's matrix is made
     del x, pts, km, centres, labels, plain_labels, truth, pred
     torch.cuda.empty_cache()
@@ -4970,6 +5307,7 @@ def main() -> int:
     # 25. the sparse layer: no TPU kernel (the JAX package's runs in plain
     # XLA); its products through the CSR SpMM kernel
     csr_spmm = sparse_phase(dev, smi)
+    csr_spmm["launches"] += res_launches["csr_spmm"]
 
     threefry["launches"] += rsvd_threefry + rpca_threefry  # the KMeans inits', rsvd's and the randomized PCA's
     emit({"kernels": [lloyd, lloyd64, threefry, gram, *fft_entries, flash, *flash_bwd, csr_spmm]})

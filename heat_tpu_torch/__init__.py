@@ -30,3 +30,9 @@ from . import nn
 from . import optim
 from . import utils
 from . import interop
+from . import datasets
+from . import analysis
+from . import resilience
+from . import telemetry
+
+communication = parallel  # the reference's alias of parallel

@@ -47,6 +47,22 @@ def _as_dndarray(v, like: DNDarray) -> DNDarray:
     return v
 
 
+def _holding(x: DNDarray) -> DNDarray:
+    """A uint16, uint32 or uint64 array as the signed array of its holding
+    dtype (the same bits); other arrays as they are."""
+    if x.dtype not in types._WIDENED:
+        return x
+    return x._like(x.larray_padded, dtype=types.canonical_heat_type(x.larray_padded.dtype))
+
+
+def _unsigned(res: DNDarray, kind) -> DNDarray:
+    """A result computed on holding integers (:func:`_holding`) as ``kind``,
+    wrapped to its width; other results as they are."""
+    if kind not in types._WIDENED:
+        return res
+    return res._like(types._wrap(res.larray_padded, kind), dtype=kind)
+
+
 def _as_float(operation: Callable) -> Callable:
     """``operation`` on holding tensors of uint16, uint32 or uint64 taken to
     the float type the reference meets them in (float32, float64 for uint64),

@@ -10,6 +10,8 @@ values on every device: the zeros are masked before torch divides.
 
 from __future__ import annotations
 
+import builtins
+
 import numpy as np
 import torch
 
@@ -78,6 +80,15 @@ def _to_inexact(t: torch.Tensor) -> torch.Tensor:
     if t.is_floating_point() or t.is_complex():
         return t
     return t.to(torch.float64 if t.dtype == torch.int64 else torch.float32)
+
+
+def _inexact_kind(kind):
+    """The heat type of :func:`_to_inexact` for data of heat type ``kind``
+    (the unsigned types by their values: uint64 in float64, uint16 and
+    uint32 in float32)."""
+    if types.heat_type_is_inexact(kind):
+        return kind
+    return types.float64 if kind in (types.int64, types.uint64) else types.float32
 
 
 def _inexact(op):
@@ -626,17 +637,55 @@ def _edge(p, a: DNDarray, axis: int) -> torch.Tensor:
     return t
 
 
+_PY_SCALARS = (builtins.bool, builtins.int, builtins.float, builtins.complex)
+
+
+def _edge_type(t, p):
+    """The type ``diff`` takes an array of type ``t`` and its edge value
+    ``p`` to: a DNDarray's by the lattice, a python scalar's weakly, as jnp
+    concatenates it (an int keeps an integer array's type and takes bool to
+    int64, a float keeps a float array's and takes the others to float64, a
+    complex likewise)."""
+    if isinstance(p, DNDarray):
+        return types.promote_types(p.dtype, t)
+    if isinstance(p, builtins.bool):
+        return t
+    if isinstance(p, builtins.int):
+        return types.int64 if t is types.bool else t
+    if isinstance(p, builtins.float):
+        return t if types.heat_type_is_inexact(t) else types.float64
+    if types.heat_type_is_complexfloating(t):
+        return t
+    return types.complex64 if t in (types.float16, types.bfloat16, types.float32) else types.complex128
+
+
 def diff(a, n: int = 1, axis: int = -1, prepend=None, append=None) -> DNDarray:
     """The n-th discrete difference along ``axis``.  Along the split axis
     each rank differences its own rows and the first ``n`` rows of the next
     rank's (a halo), and one exchange cuts the result to its canonical
-    chunks."""
+    chunks.  Unsigned types difference their holding integers and wrap."""
+    from . import factories
+
     if n < 0:
         raise ValueError(f"diff requires that n be a positive number, got {n}")
     if not isinstance(a, DNDarray):
         raise TypeError(f"'a' must be a DNDarray, got {type(a)}")
     if n == 0:
         return a
+    edges = [p if p is None or isinstance(p, _PY_SCALARS + (DNDarray,)) else
+             factories.array(p, device=a.device, comm=a.comm) for p in (prepend, append)]
+    rt = a.dtype
+    for p in edges:
+        if p is not None:
+            rt = types.promote_types(rt, _edge_type(a.dtype, p))
+    edges = [None if p is None else _operations._holding(
+        (p if isinstance(p, DNDarray) else factories.array(p, device=a.device, comm=a.comm)).astype(rt, copy=False))
+        for p in edges]
+    res = _diff(_operations._holding(a.astype(rt, copy=False)), n, axis, *edges)
+    return _operations._unsigned(res, rt)
+
+
+def _diff(a: DNDarray, n: int, axis: int, prepend, append) -> DNDarray:
     axis = sanitize_axis(a.shape, axis)
     pieces = [None if p is None else _edge(p, a, axis) for p in (prepend, append)]
     if a.split != axis:
@@ -690,7 +739,8 @@ def ediff1d(ary, to_end=None, to_begin=None) -> DNDarray:
     if x.split is None or comm.size == 1:
         d = _subtract(flat[1:], flat[:-1])
         res = torch.cat([p for p in (tb, d, te) if p is not None])
-        return DNDarray.from_dense(res, 0 if ary.split is not None else None, ary.device, comm, None)
+        res = DNDarray.from_dense(res, 0 if ary.split is not None else None, ary.device, comm, None)
+        return _operations._unsigned(res, ary.dtype)
     owned = [_owned(comm, x.shape, 0, r) for r in range(comm.size)]
     spans = [(lo * rest, hi * rest) for lo, hi in owned]
     runs = [(lo, hi - lo) for lo, hi in spans]
@@ -715,7 +765,8 @@ def ediff1d(ary, to_end=None, to_begin=None) -> DNDarray:
     if me == last and te is not None:
         mine = torch.cat([mine, te])
     local = _runs_to_canonical(comm, mine, 0, out_runs, out_extent)
-    return DNDarray(local, (out_extent,), types.canonical_heat_type(local.dtype), 0, ary.device, comm)
+    return _operations._unsigned(DNDarray(local, (out_extent,), types.canonical_heat_type(local.dtype), 0, ary.device,
+                                          comm), ary.dtype)
 
 
 def _broadcast_along(v, axis: int, ndim: int, like: DNDarray) -> DNDarray:
@@ -841,8 +892,10 @@ def gradient(f, *varargs, axis=None, edge_order: int = 1):
     else:
         raise TypeError("Invalid number of spacing arguments")
     # the spacings take part in the type, as JAX promotes them with f
-    t = types.result_type(f, *varargs) if varargs else f.dtype
-    dt = _to_inexact(torch.zeros((), dtype=t.torch_type())).dtype
+    t = _inexact_kind(types.result_type(f, *varargs) if varargs else f.dtype)
+    dt = t.torch_type()
+    if f.dtype in types._WIDENED:  # each value rounded once, by its unsigned value
+        f = f.astype(t)
     outs = [f._like(_gradient_along(f, ax, h, dt))._propagate_layout_from(f) for ax, h in zip(axes, spacing)]
     return outs[0] if len(outs) == 1 else outs
 
@@ -857,6 +910,8 @@ def trapz(y, x=None, dx: float = 1.0, axis: int = -1) -> DNDarray:
     if not isinstance(y, DNDarray):
         raise TypeError(f"expected y to be a DNDarray, but was {type(y)}")
     ax = sanitize_axis(y.shape, axis)
+    if y.dtype in types._WIDENED:  # each value rounded once, by its unsigned value
+        y = y.astype(_inexact_kind(y.dtype if x is None else types.promote_types(y.dtype, types.heat_type_of(x))))
     data = _to_inexact(y.larray_padded)
     steps = xs = None
     if x is not None:
@@ -1022,13 +1077,14 @@ def _shift_left(a: torch.Tensor, b: torch.Tensor, t) -> torch.Tensor:
 def _shift_right(a: torch.Tensor, b: torch.Tensor, t) -> torch.Tensor:
     """Logical right shift of unsigned values: the held uint16 and uint32
     values are not negative; uint64's bits shift arithmetically in int64,
-    so the sign copies are masked off."""
+    so the sign copies are masked off, all of them for a shift of 64 or
+    more (a count at or above 2^63 is held negative)."""
     out = torch.bitwise_right_shift(a, b)
     if t is not types.uint64:
         return out
     b = torch.as_tensor(b, device=out.device).to(torch.int64)
     keep = torch.where(b > 0, torch.bitwise_left_shift(torch.ones_like(b), 64 - b) - 1, torch.full_like(b, -1))
-    return out & keep
+    return out & torch.where((b >= 64) | (b < 0), torch.zeros_like(keep), keep)
 
 
 def left_shift(t1, t2, out=None, where=True) -> DNDarray:

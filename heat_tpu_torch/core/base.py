@@ -58,7 +58,7 @@ def validate_resume_params(
 ) -> None:
     """The constructors' check of the resumable-fit parameters: any of them
     raises, since resumable fits are not ported yet (ROADMAP Queue 1 item
-    15)."""
+    15b)."""
     if checkpoint_every is not None or checkpoint_dir is not None or resume_from is not None:
         raise NotImplementedError("resumable fits (checkpoint_every, checkpoint_dir, resume_from) are not ported yet")
 

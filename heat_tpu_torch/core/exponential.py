@@ -72,9 +72,25 @@ def logaddexp(t1, t2) -> DNDarray:
     return _operations.__binary_op(_inexact(torch.logaddexp), t1, t2)
 
 
+def _logaddexp2(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """torch's ``logaddexp2``, or jnp's formula for complex operands: the
+    lexicographic maximum m, ``m + log1p(exp2(a + b - 2 m)) / ln 2``, the
+    imaginary part wrapped into [-pi / ln 2, pi / ln 2)."""
+    if not (a.is_complex() or b.is_complex()):
+        return torch.logaddexp2(a, b)
+    a, b = torch.broadcast_tensors(a, b)
+    big = torch.where(_operations._lex_greater(b, a), b, a)
+    ln2 = float(np.log(2))
+    out = big + (1 / ln2) * torch.log1p(torch.exp((a + b - big * 2) * ln2))
+    period = float(np.pi / np.log(2))
+    rem = torch.fmod(out.imag + period, 2 * period)
+    rem = torch.where(rem < 0, rem + 2 * period, rem)
+    return torch.complex(out.real, rem - period)
+
+
 def logaddexp2(t1, t2) -> DNDarray:
     """``log2(2 ** t1 + 2 ** t2)``."""
-    return _operations.__binary_op(_inexact(torch.logaddexp2), t1, t2)
+    return _operations.__binary_op(_inexact(_logaddexp2), t1, t2)
 
 
 def sqrt(x, out=None) -> DNDarray:

@@ -116,7 +116,7 @@ def array(obj, dtype=None, copy: Optional[bool] = None, ndmin: int = 0, order: s
     if isinstance(obj, DNDarray):
         if comm is not None and sanitize_comm(comm) is not obj.comm:
             raise NotImplementedError("ht.array of a DNDarray onto another communication needs reshard_, "
-                                      "not ported yet (ROADMAP Queue 1 item 15)")
+                                      "not ported yet (ROADMAP Queue 1 item 15b)")
         if device is not None and sanitize_device(device) != obj.device:
             device = sanitize_device(device)
             obj = DNDarray(obj.larray_padded.to(device.torch_device), obj.gshape, obj.dtype, obj.split, device,
@@ -140,7 +140,9 @@ def array(obj, dtype=None, copy: Optional[bool] = None, ndmin: int = 0, order: s
             host = host.astype(np.int32)
         elif not explicit and host.dtype == np.complex128:
             host = host.astype(np.complex64)
-        src = types.canonical_heat_type(host.dtype)
+        # ml_dtypes' bfloat16 (what the reference's numpy() returns) by its bits
+        bf16 = host.dtype.name == "bfloat16"
+        src = types.bfloat16 if bf16 else types.canonical_heat_type(host.dtype)
         data = None
     shape = tuple(data.shape if host is None else host.shape)
     while len(shape) < ndmin:
@@ -154,8 +156,13 @@ def array(obj, dtype=None, copy: Optional[bool] = None, ndmin: int = 0, order: s
     keep = sanitize_axis(shape, keep)
     if host is not None:
         chunk = host if is_split is not None else _host_chunk(host, keep, comm)
-        chunk = np.ascontiguousarray(types._to_holding(chunk, src)).reshape(chunk.shape)
+        if bf16:
+            chunk = np.ascontiguousarray(chunk).view(np.uint16).reshape(chunk.shape)
+        else:
+            chunk = np.ascontiguousarray(types._to_holding(chunk, src)).reshape(chunk.shape)
         data = torch.from_numpy(chunk if chunk.flags.writeable else chunk.copy())
+        if bf16:
+            data = data.view(torch.bfloat16)
     elif is_split is None and keep is not None:
         data = data[comm.chunk(shape, keep)[2]]
     local = types._cast(data.to(device.torch_device), src, dtype)

@@ -9,29 +9,44 @@ whole array); a directory of .npy shards gets one file per rank, written
 in parallel.  The CSV, text, archive and netCDF writers write the gathered
 array from rank 0, as the reference's do (``data.numpy()``).
 
-Every file is written atomically: into a temporary file beside it, fsynced,
-its CRC32 written to the sidecar ``<path>.crc32`` (8 hex digits and a
-newline) and renamed into place.  Every loader verifies a sidecar where
-there is one (rank 0 reads the file's bytes; all ranks raise
-:class:`ChecksumError` on a mismatch).  ``HEAT_TPU_IO_CHECKSUM=0`` turns
-both off.  The bytes written are the reference's, so a file written by
-either package loads in the other.
+Every file is written atomically (:mod:`heat_tpu_torch.resilience.atomic`):
+into a temporary file beside it, fsynced, its CRC32 written to the sidecar
+``<path>.crc32`` (8 hex digits and a newline) and renamed into place.
+Every loader verifies a sidecar where there is one (rank 0 reads the
+file's bytes; all ranks raise :class:`ChecksumError` on a mismatch).
+``HEAT_TPU_IO_CHECKSUM=0`` turns both off.  Every load and save runs
+under the io retry policy (``resilience.default_io_policy``) and passes
+the ``io.open`` / ``io.write`` fault sites, as the reference's do.  The
+bytes written are the reference's, so a file written by either package
+loads in the other.
 """
 
 from __future__ import annotations
 
 import contextlib
 import csv as _csv
+import functools
 import os
 import shutil
 import uuid
-import zlib
 from typing import List, Optional
 
 import numpy as np
 import torch
 
 from ..parallel.comm import sanitize_comm
+from ..resilience import atomic as _ratomic
+from ..resilience.atomic import (  # re-exported: the names io has always offered
+    SIDECAR_SUFFIX,
+    checksum_path,
+    crc32_file,
+    read_checksum,
+    verify_checksum,
+    write_checksum,
+)
+from ..resilience.errors import ChecksumError, PermanentFault, TransientFault
+from ..resilience.faults import inject as _inject
+from ..resilience.retry import default_io_policy as _io_policy
 from . import types
 from .devices import sanitize_device
 from .dndarray import DNDarray, _pad_along
@@ -96,140 +111,38 @@ except ImportError:  # pragma: no cover
 
 
 # ----------------------------------------------------------------------
-# atomic writes with a CRC32 sidecar (the reference's resilience/atomic.py)
+# resilience: every writer goes through the atomic write-temp-fsync-rename
+# with a CRC32 sidecar (resilience/atomic.py), every load checks the
+# ``io.open`` fault site and the sidecar, and every load and save runs
+# under the io retry policy (transient faults, injected or real, are
+# retried with bounded backoff), as the reference's io does.  Over more
+# than one rank a retry is decided by all ranks together: the file work
+# between two collectives is one rank-local step whose outcome every rank
+# agrees on by one all-reduce (:func:`_together`), so a fault on any rank
+# makes every rank leave at the same point with a failure of the same
+# kind, and the policy retries, or gives up, on all of them at once.  The
+# writers that gather the array (CSV, text, raw, archives, netCDF) gather
+# once and retry only rank 0's write.  A site is evaluated on the ranks
+# that do its work: ``io.open`` on every reading rank; ``io.write`` on
+# every rank at a shared file's commit, on each rank that writes a shard,
+# and on rank 0 alone in the gathering writers.
+# ``HEAT_TPU_IO_CHECKSUM=0`` turns the sidecars off.
 # ----------------------------------------------------------------------
-_CHUNK = 1 << 20
-SIDECAR_SUFFIX = ".crc32"
-
-
-class ChecksumError(OSError):
-    """A file's bytes disagree with its CRC32 sidecar."""
-
-    def __init__(self, path: str, expected: int, actual: int):
-        super().__init__(f"checksum mismatch for {path!r}: sidecar records crc32 {expected:#010x} but the file "
-                         f"hashes to {actual:#010x}; the file is torn or corrupted")
-        self.path, self.expected, self.actual = path, expected, actual
-
-
 def _checksums_enabled() -> bool:
     return os.environ.get("HEAT_TPU_IO_CHECKSUM", "1") != "0"
 
 
-def checksum_path(path: str) -> str:
-    """The sidecar path holding ``path``'s CRC32."""
-    return path + SIDECAR_SUFFIX
+def _retried(fn):
+    """Run the io function under the (env-tunable) default retry policy."""
+
+    @functools.wraps(fn)
+    def wrapper(*args, **kwargs):
+        return _io_policy().call(fn, *args, **kwargs)
+
+    wrapper.__wrapped__ = fn
+    return wrapper
 
 
-def crc32_file(path: str) -> int:
-    """The CRC32 of a file's bytes, read in blocks of 1 MiB."""
-    crc = 0
-    with open(path, "rb") as f:
-        while True:
-            block = f.read(_CHUNK)
-            if not block:
-                break
-            crc = zlib.crc32(block, crc)
-    return crc & 0xFFFFFFFF
-
-
-def _fsync_path(path: str) -> None:
-    fd = os.open(path, os.O_RDONLY)
-    try:
-        os.fsync(fd)
-    finally:
-        os.close(fd)
-
-
-def _fsync_dir(path: str) -> None:
-    # makes the rename durable; a filesystem that refuses to sync a
-    # directory loses durability, not atomicity
-    try:
-        fd = os.open(path, os.O_RDONLY)
-    except OSError:  # pragma: no cover
-        return
-    try:
-        os.fsync(fd)
-    except OSError:  # pragma: no cover
-        pass
-    finally:
-        os.close(fd)
-
-
-def write_checksum(path: str, crc: Optional[int] = None) -> int:
-    """Write (atomically) the CRC32 sidecar of ``path``; returns the crc."""
-    if crc is None:
-        crc = crc32_file(path)
-    side = checksum_path(path)
-    tmp = f"{side}.tmp-{os.getpid()}-{uuid.uuid4().hex[:8]}"
-    with open(tmp, "w") as f:
-        f.write(f"{crc:08x}\n")
-        f.flush()
-        os.fsync(f.fileno())
-    os.replace(tmp, side)
-    return crc
-
-
-def read_checksum(path: str) -> Optional[int]:
-    """The CRC32 the sidecar of ``path`` records, or None without one."""
-    side = checksum_path(path)
-    if not os.path.exists(side):
-        return None
-    with open(side) as f:
-        return int(f.read().strip(), 16)
-
-
-def verify_checksum(path: str) -> Optional[bool]:
-    """True where ``path`` matches its sidecar, None without a sidecar;
-    raises :class:`ChecksumError` on a mismatch."""
-    expected = read_checksum(path)
-    if expected is None:
-        return None
-    actual = crc32_file(path)
-    if actual != expected:
-        raise ChecksumError(path, expected, actual)
-    return True
-
-
-def _temp_name(path: str) -> str:
-    return os.path.join(os.path.dirname(os.path.abspath(path)),
-                        f".{os.path.basename(path)}.tmp-{os.getpid()}-{uuid.uuid4().hex[:8]}")
-
-
-def _commit(tmp: str, path: str) -> None:
-    """Fsync ``tmp``, write its sidecar and rename it over ``path``."""
-    _fsync_path(tmp)
-    crc = crc32_file(tmp) if _checksums_enabled() else None
-    os.replace(tmp, path)
-    if crc is not None:
-        write_checksum(path, crc)
-    _fsync_dir(os.path.dirname(os.path.abspath(path)))
-
-
-@contextlib.contextmanager
-def _atomic_out(path: str, preserve_existing: bool = False):
-    """A temporary path beside ``path`` to write, committed on a clean exit
-    and removed on any failure (the destination stays untouched).
-    ``preserve_existing`` starts the temporary file as a copy of the
-    current one (the append and update modes)."""
-    path = os.fspath(path)
-    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
-    tmp = _temp_name(path)
-    try:
-        if preserve_existing and os.path.exists(path):
-            shutil.copyfile(path, tmp)
-        yield tmp
-        if not os.path.exists(tmp):
-            raise FileNotFoundError(f"the write of {path!r} did not create its temporary file")
-        _commit(tmp, path)
-    except BaseException:
-        with contextlib.suppress(OSError):
-            os.remove(tmp)
-        raise
-
-
-# ----------------------------------------------------------------------
-# ranks working in turn
-# ----------------------------------------------------------------------
 def _agree(comm, device, flag: int) -> int:
     """The sum of every rank's ``flag`` (one all-reduce; the flag itself in
     a world of one)."""
@@ -239,19 +152,61 @@ def _agree(comm, device, flag: int) -> int:
     return int(comm.psum(t)[0])
 
 
-def _checked_read(path: str, comm, device) -> None:
-    """Verify ``path`` against its sidecar: rank 0 reads the bytes, and every
-    rank raises :class:`ChecksumError` on a mismatch."""
-    if not _checksums_enabled():
-        return
-    err = None
-    if comm.rank == 0:
-        try:
-            verify_checksum(path)
-        except ChecksumError as e:
-            err = e
-    if _agree(comm, device, int(err is not None)):
-        raise err if err is not None else ChecksumError(path, read_checksum(path) or 0, 0)
+#: a rank's failure as :func:`_together` adds it up: retryable, a checksum
+#: mismatch, or any other failure that retrying cannot fix
+_TRANSIENT, _CORRUPT, _FATAL = 1, 1 << 16, 1 << 32
+
+
+def _together(comm, device, step=None, path: str = ""):
+    """``step()``, rank-local file work with no collective in it (None does
+    nothing), and its outcome agreed by every rank (:func:`_agree`).  A
+    failing rank raises its own error; every other rank raises one of the
+    same kind, so that the retry policy decides alike on all of them:
+    :class:`PermanentFault` where a rank failed for good,
+    :class:`ChecksumError` (of ``path``) where a file is corrupt,
+    :class:`TransientFault` where every failure is retryable."""
+    err = out = None
+    try:
+        out = step() if step is not None else None
+    except Exception as e:
+        err = e
+    if err is None:
+        flag = 0
+    elif isinstance(err, ChecksumError):
+        flag = _CORRUPT
+    else:
+        flag = _TRANSIENT if _io_policy().is_retryable(err) else _FATAL
+    total = _agree(comm, device, flag)
+    if err is not None:
+        raise err
+    if total >= _FATAL:
+        raise PermanentFault(f"io on {path!r} failed for good on another rank", site="io")
+    if total >= _CORRUPT:
+        raise ChecksumError(path, (read_checksum(path) or 0) if os.path.isfile(path) else 0, 0)
+    if total:
+        raise TransientFault(f"io on {path!r} failed on another rank", site="io")
+    return out
+
+
+def _read(path: str, comm, device, read, check: bool = True):
+    """``read()``, this rank's part of the file at ``path``, after the
+    ``io.open`` fault site and, on rank 0, the file's check against its
+    sidecar (``check``): one step agreed by every rank (:func:`_together`),
+    so that all ranks raise :class:`ChecksumError` on a mismatch."""
+
+    def step():
+        if check:
+            _inject("io.open", path=path)
+            if comm.rank == 0 and _checksums_enabled():
+                verify_checksum(path)
+        return read()
+
+    return _together(comm, device, step, path)
+
+
+def _temp_name(path: str) -> str:
+    return os.path.join(os.path.dirname(os.path.abspath(path)),
+                        f".{os.path.basename(path)}.tmp-{os.getpid()}-{uuid.uuid4().hex[:8]}")
 
 
 def _shared_temp(path: str, comm, device) -> str:
@@ -267,12 +222,58 @@ def _shared_temp(path: str, comm, device) -> str:
     return bytes(buf.cpu().numpy()).rstrip(b"\0").decode()
 
 
-def _in_turns(comm, device, write) -> None:
-    """``write()`` on each rank in rank order, one rank at a time."""
-    for turn in range(comm.size):
-        if comm.rank == turn:
-            write()
-        _agree(comm, device, 0)
+def _commit(tmp: str, path: str) -> None:
+    """Commit ``tmp`` as :func:`resilience.atomic.atomic_write` does:
+    fsync, sidecar, rename over ``path``."""
+    _ratomic._fsync_path(tmp)
+    crc = crc32_file(tmp) if _checksums_enabled() else None
+    os.replace(tmp, path)
+    if crc is not None:
+        write_checksum(path, crc)
+    _ratomic._fsync_dir(os.path.dirname(os.path.abspath(path)))
+
+
+def _shared_write(path: str, comm, device, create, write) -> None:
+    """A file all ranks write: rank 0 ``create(tmp)``s it under one
+    temporary name beside ``path`` (:func:`_shared_temp`), each rank in turn
+    ``write(tmp)``s its own rows, then every rank evaluates the ``io.write``
+    site and rank 0 commits (:func:`_commit`).  Each step is agreed by
+    every rank (:func:`_together`); on a failure on any rank the temporary
+    file is removed and the destination left as it was."""
+    tmp = _shared_temp(path, comm, device)
+    root = comm.rank == 0
+    try:
+        _together(comm, device, (lambda: create(tmp)) if root else None, path)
+        for turn in range(comm.size):
+            _together(comm, device, (lambda: write(tmp)) if comm.rank == turn else None, path)
+        _together(comm, device, lambda: _inject("io.write", path=path), path)
+        _together(comm, device, (lambda: _commit(tmp, path)) if root else None, path)
+    except BaseException:
+        if root:
+            with contextlib.suppress(OSError):
+                os.remove(tmp)
+        raise
+
+
+def _root_write(comm, device, write, path: str) -> None:
+    """Rank 0's ``write()`` of an array every rank has gathered, under the
+    io retry policy on rank 0 alone (the write holds no collective); every
+    rank raises where it failed (:func:`_together`)."""
+    _together(comm, device, (lambda: _io_policy().call(write)) if comm.rank == 0 else None, path)
+
+
+@contextlib.contextmanager
+def _atomic_out(path: str, preserve_existing: bool = False):
+    """Atomic-write scope for one destination file
+    (:func:`resilience.atomic.atomic_write`: the ``io.write`` site, then
+    fsync, sidecar and rename; on any failure the temporary file is
+    removed and the destination untouched).  ``preserve_existing`` starts
+    the temporary file as a copy of the current one (the append and
+    update modes)."""
+    with _ratomic.atomic_write(path, checksum=_checksums_enabled()) as tmp:
+        if preserve_existing and os.path.exists(path):
+            shutil.copyfile(path, tmp)
+        yield tmp
 
 
 def _own_slices(data: DNDarray):
@@ -378,6 +379,7 @@ def save(data: DNDarray, path: str, *args, **kwargs) -> None:
 # ----------------------------------------------------------------------
 # HDF5
 # ----------------------------------------------------------------------
+@_retried
 def load_hdf5(path: str, dataset: str, dtype=types.float32, load_fraction: float = 1.0, split: Optional[int] = None,
               device=None, comm=None) -> DNDarray:
     """An HDF5 dataset, each rank reading the hyperslab of its own rows
@@ -392,18 +394,22 @@ def load_hdf5(path: str, dataset: str, dtype=types.float32, load_fraction: float
     if not isinstance(load_fraction, float) or not (0.0 < load_fraction <= 1.0):
         raise ValueError("load_fraction must be a float in (0., 1.]")
     comm = sanitize_comm(comm)
-    _checked_read(path, comm, device)
     dtype = types.canonical_heat_type(dtype)
-    with h5py.File(path, "r") as handle:
-        data = handle[dataset]
-        gshape = tuple(data.shape)
-        if load_fraction < 1.0 and split is not None:
-            gshape = tuple(int(s * load_fraction) if d == split else s for d, s in enumerate(gshape))
-        split = sanitize_axis(gshape, split)
-        rows = np.asarray(data[comm.chunk(gshape, split)[2]], dtype=_np_type(dtype))
+
+    def read():
+        with h5py.File(path, "r") as handle:
+            data = handle[dataset]
+            gshape = tuple(data.shape)
+            if load_fraction < 1.0 and split is not None:
+                gshape = tuple(int(s * load_fraction) if d == split else s for d, s in enumerate(gshape))
+            axis = sanitize_axis(gshape, split)
+            return np.asarray(data[comm.chunk(gshape, axis)[2]], dtype=_np_type(dtype)), gshape, axis
+
+    rows, gshape, split = _read(path, comm, device, read)
     return _from_rows(rows, gshape, split, dtype, device, comm)
 
 
+@_retried
 def save_hdf5(data: DNDarray, path: str, dataset: str, mode: str = "w", **kwargs) -> None:
     """Write a DNDarray to an HDF5 dataset of its global shape: rank 0
     creates it in a temporary file, then each rank in turn writes its own
@@ -413,31 +419,21 @@ def save_hdf5(data: DNDarray, path: str, dataset: str, mode: str = "w", **kwargs
         raise RuntimeError("h5py is not available")
     if not isinstance(data, DNDarray):
         raise TypeError(f"data must be a DNDarray, not {type(data)}")
-    comm = data.comm
     np_dtype = _np_type(data.dtype)
-    tmp = _shared_temp(path, comm, data.device)
-    if comm.rank == 0:
-        try:
-            if mode not in ("w", "w-", "x") and os.path.exists(path):
-                shutil.copyfile(path, tmp)
-            with h5py.File(tmp, mode) as handle:
-                handle.create_dataset(dataset, shape=data.shape, dtype=np_dtype, **kwargs)
-        except BaseException:
-            with contextlib.suppress(OSError):
-                os.remove(tmp)
-            raise
-    _agree(comm, data.device, 0)
 
-    def write():
+    def create(tmp):
+        if mode not in ("w", "w-", "x") and os.path.exists(path):
+            shutil.copyfile(path, tmp)
+        with h5py.File(tmp, mode) as handle:
+            handle.create_dataset(dataset, shape=data.shape, dtype=np_dtype, **kwargs)
+
+    def write(tmp):
         own = _own_slices(data)
         if own is not None:
             with h5py.File(tmp, "a") as handle:
                 handle[dataset][own[0]] = _host(own[1], data.dtype)
 
-    _in_turns(comm, data.device, write)
-    if comm.rank == 0:
-        _commit(tmp, path)
-    _agree(comm, data.device, 0)
+    _shared_write(path, data.comm, data.device, create, write)
 
 
 # ----------------------------------------------------------------------
@@ -445,6 +441,7 @@ def save_hdf5(data: DNDarray, path: str, dataset: str, mode: str = "w", **kwargs
 # ----------------------------------------------------------------------
 if __NETCDF:
 
+    @_retried
     def load_netcdf(path, variable, dtype=types.float32, split=None, device=None, comm=None, **kwargs):
         """A netCDF variable (netCDF4, or scipy's NetCDF3 reader), each rank
         keeping its own rows."""
@@ -453,22 +450,24 @@ if __NETCDF:
         if not isinstance(variable, str):
             raise TypeError(f"variable must be str, not {type(variable)}")
         comm = sanitize_comm(comm)
-        _checked_read(path, comm, device)
         dtype = types.canonical_heat_type(dtype)
-        if __NETCDF_BACKEND == "netcdf4":
-            with netCDF4.Dataset(path, "r") as handle:
-                var = handle[variable]
-                gshape = tuple(var.shape)
-                split = sanitize_axis(gshape, split)
-                rows = np.asarray(var[comm.chunk(gshape, split)[2]], dtype=_np_type(dtype))
-        else:
+
+        def read():
+            if __NETCDF_BACKEND == "netcdf4":
+                with netCDF4.Dataset(path, "r") as handle:
+                    var = handle[variable]
+                    gshape = tuple(var.shape)
+                    axis = sanitize_axis(gshape, split)
+                    return np.asarray(var[comm.chunk(gshape, axis)[2]], dtype=_np_type(dtype)), gshape, axis
             with _scipy_netcdf(path, "r", mmap=False) as handle:
                 if variable not in handle.variables:
                     raise ValueError(f"variable {variable!r} not found in {path}")
                 var = handle.variables[variable]
                 gshape = tuple(var.shape)
-                split = sanitize_axis(gshape, split)
-                rows = np.array(var[comm.chunk(gshape, split)[2]], dtype=_np_type(dtype))
+                axis = sanitize_axis(gshape, split)
+                return np.array(var[comm.chunk(gshape, axis)[2]], dtype=_np_type(dtype)), gshape, axis
+
+        rows, gshape, split = _read(path, comm, device, read)
         return _from_rows(rows, gshape, split, dtype, device, comm)
 
     def _nc_dim_names(data, dimension_names, variable):
@@ -502,36 +501,39 @@ if __NETCDF:
         values = data.numpy()
         if values.ndim == 0:
             values = values.reshape(1)  # the classic model has no scalars
-        if data.comm.rank != 0:
-            return
         preserve = mode in ("a", "r+")
-        if __NETCDF_BACKEND == "netcdf4":
+
+        def write():
+            if __NETCDF_BACKEND == "netcdf4":
+                with _atomic_out(path, preserve_existing=preserve) as tmp:
+                    with netCDF4.Dataset(tmp, mode) as handle:
+                        if variable in handle.variables:
+                            handle.variables[variable][file_slices] = values
+                        else:
+                            for name, s in zip(dims, values.shape):
+                                if name not in handle.dimensions:
+                                    handle.createDimension(name, None if is_unlimited else s)
+                            var = handle.createVariable(variable, values.dtype, tuple(dims))
+                            var[file_slices] = values
+                return
             with _atomic_out(path, preserve_existing=preserve) as tmp:
-                with netCDF4.Dataset(tmp, mode) as handle:
+                with _scipy_netcdf(tmp, "a" if mode == "r+" else mode) as handle:
                     if variable in handle.variables:
                         handle.variables[variable][file_slices] = values
                     else:
-                        for name, s in zip(dims, values.shape):
+                        for i, (name, s) in enumerate(zip(dims, values.shape)):
                             if name not in handle.dimensions:
-                                handle.createDimension(name, None if is_unlimited else s)
+                                handle.createDimension(name, None if (is_unlimited and i == 0) else s)
                         var = handle.createVariable(variable, values.dtype, tuple(dims))
                         var[file_slices] = values
-            return
-        with _atomic_out(path, preserve_existing=preserve) as tmp:
-            with _scipy_netcdf(tmp, "a" if mode == "r+" else mode) as handle:
-                if variable in handle.variables:
-                    handle.variables[variable][file_slices] = values
-                else:
-                    for i, (name, s) in enumerate(zip(dims, values.shape)):
-                        if name not in handle.dimensions:
-                            handle.createDimension(name, None if (is_unlimited and i == 0) else s)
-                    var = handle.createVariable(variable, values.dtype, tuple(dims))
-                    var[file_slices] = values
+
+        _root_write(data.comm, data.device, write, path)
 
 
 # ----------------------------------------------------------------------
 # CSV
 # ----------------------------------------------------------------------
+@_retried
 def load_csv(path: str, header_lines: int = 0, sep: str = ",", dtype=types.float32, encoding: str = "utf-8",
              split: Optional[int] = None, device=None, comm=None) -> DNDarray:
     """A CSV file of numbers, each field parsed by the numpy type's
@@ -543,11 +545,14 @@ def load_csv(path: str, header_lines: int = 0, sep: str = ",", dtype=types.float
     if not isinstance(header_lines, int):
         raise TypeError(f"header_lines must be int, not {type(header_lines)}")
     comm = sanitize_comm(comm)
-    _checked_read(path, comm, device)
     dtype = types.canonical_heat_type(dtype)
     np_dtype = _np_type(dtype)
-    with open(path, "r", encoding=encoding, newline="") as f:
-        lines = [row for i, row in enumerate(_csv.reader(f, delimiter=sep)) if i >= header_lines and row]
+
+    def read():
+        with open(path, "r", encoding=encoding, newline="") as f:
+            return [row for i, row in enumerate(_csv.reader(f, delimiter=sep)) if i >= header_lines and row]
+
+    lines = _read(path, comm, device, read)
     ncols = len(lines[0]) if lines else 0
     gshape = (len(lines), ncols) if lines else (0,)
     split = sanitize_axis(gshape, split)
@@ -574,7 +579,8 @@ def save_csv(data: DNDarray, path: str, header_lines: Optional[List[str]] = None
     arr = data.numpy()
     if arr.ndim == 1:
         arr = arr[:, None]
-    if data.comm.rank == 0:
+
+    def write():
         with _atomic_out(path) as tmp:
             with open(tmp, "w", encoding=encoding, newline="") as f:
                 if header_lines:
@@ -587,23 +593,29 @@ def save_csv(data: DNDarray, path: str, header_lines: Optional[List[str]] = None
                     else:
                         writer.writerow(row.tolist())
 
+    _root_write(data.comm, data.device, write, path)
+
 
 # ----------------------------------------------------------------------
 # .npy files and directories of shards
 # ----------------------------------------------------------------------
+@_retried
 def _load_npy_file(path: str, dtype=None, split=None, device=None, comm=None) -> DNDarray:
     """A .npy file, memory-mapped: each rank reads its own rows."""
     comm = sanitize_comm(comm)
-    _checked_read(path, comm, device)
-    mm = np.load(path, mmap_mode="r")
-    gshape = tuple(mm.shape)
-    split = sanitize_axis(gshape, split)
-    heat = types.canonical_heat_type(mm.dtype if dtype is None else dtype)
-    rows = np.array(mm[comm.chunk(gshape, split)[2]])
-    del mm
+
+    def read():
+        mm = np.load(path, mmap_mode="r")
+        gshape = tuple(mm.shape)
+        axis = sanitize_axis(gshape, split)
+        return np.array(mm[comm.chunk(gshape, axis)[2]]), gshape, axis
+
+    rows, gshape, split = _read(path, comm, device, read)
+    heat = types.canonical_heat_type(rows.dtype if dtype is None else dtype)
     return _from_rows(rows.astype(_np_type(heat)), gshape, split, heat, device, comm)
 
 
+@_retried
 def load_npy_from_path(path: str, dtype=types.int32, split: int = 0, device=None, comm=None) -> DNDarray:
     """A directory of .npy shards (in file-name order) as one array joined
     along ``split``: each rank reads, memory-mapped, only the parts of the
@@ -614,42 +626,46 @@ def load_npy_from_path(path: str, dtype=types.int32, split: int = 0, device=None
     if not isinstance(split, int) and split is not None:
         raise TypeError(f"split must be an integer or None, not {type(split)}")
     comm = sanitize_comm(comm)
-    files = sorted(f for f in os.listdir(path) if f.endswith(".npy"))
-    if not files:
-        raise ValueError(f"no .npy files found in {path}")
-    shards = [os.path.join(path, f) for f in files]
     dtype = types.canonical_heat_type(dtype)
+
+    def shards():
+        files = sorted(f for f in os.listdir(path) if f.endswith(".npy"))
+        if not files:
+            raise ValueError(f"no .npy files found in {path}")
+        return [os.path.join(path, f) for f in files]
+
     if split is None:
-        _checked_read(shards[0], comm, device)
-        data = np.load(shards[0]).astype(_np_type(dtype))
+        first = _together(comm, device, lambda: shards()[0], path)
+        data = _read(first, comm, device, lambda: np.load(first)).astype(_np_type(dtype))
         return _from_rows(data, data.shape, None, dtype, device, comm)
-    maps = [np.load(s, mmap_mode="r") for s in shards]
-    extents = [m.shape[split] for m in maps]
-    gshape = list(maps[0].shape)
-    gshape[split] = int(np.sum(extents))
-    split = sanitize_axis(gshape, split)
-    lo, lshape, _ = comm.chunk(gshape, split)
-    hi = lo + lshape[split]
-    starts = np.concatenate([[0], np.cumsum(extents)])
-    parts, bad = [], None
-    for s, m, a, b in zip(shards, maps, starts[:-1], starts[1:]):
-        if b <= lo or a >= hi or (a == b and lshape[split] == 0):
-            continue
-        if _checksums_enabled():
-            try:
+
+    def read():
+        paths = shards()
+        maps = [np.load(s, mmap_mode="r") for s in paths]
+        extents = [m.shape[split] for m in maps]
+        gshape = list(maps[0].shape)
+        gshape[split] = int(np.sum(extents))
+        axis = sanitize_axis(gshape, split)
+        lo, lshape, _ = comm.chunk(gshape, axis)
+        hi = lo + lshape[axis]
+        starts = np.concatenate([[0], np.cumsum(extents)])
+        parts = []
+        for s, m, a, b in zip(paths, maps, starts[:-1], starts[1:]):
+            if b <= lo or a >= hi or (a == b and lshape[axis] == 0):
+                continue
+            if _checksums_enabled():
                 verify_checksum(s)
-            except ChecksumError as e:
-                bad = e
-        key = [slice(None)] * len(gshape)
-        key[split] = slice(max(lo, a) - a, min(hi, b) - a)
-        parts.append(np.array(m[tuple(key)]))
-    del maps
-    if _agree(comm, device, int(bad is not None)):
-        raise bad if bad is not None else ChecksumError(path, 0, 0)
-    rows = np.concatenate(parts, axis=split) if parts else np.zeros(tuple(lshape), dtype=_np_type(dtype))
-    return _from_rows(rows.astype(_np_type(dtype)), tuple(gshape), split, dtype, device, comm)
+            key = [slice(None)] * len(gshape)
+            key[axis] = slice(max(lo, a) - a, min(hi, b) - a)
+            parts.append(np.array(m[tuple(key)]))
+        rows = np.concatenate(parts, axis=axis) if parts else np.zeros(tuple(lshape), dtype=_np_type(dtype))
+        return rows, tuple(gshape), axis
+
+    rows, gshape, split = _together(comm, device, read, path)
+    return _from_rows(rows.astype(_np_type(dtype)), gshape, split, dtype, device, comm)
 
 
+@_retried
 def save_npy_from_path(data: DNDarray, path: str) -> None:
     """Write a DNDarray as a directory of .npy shards, one per rank's rows,
     ``part_<offset>.npy`` (offsets zero-padded to 12 digits, so that the
@@ -657,16 +673,21 @@ def save_npy_from_path(data: DNDarray, path: str) -> None:
     sidecar, all ranks at once."""
     if not isinstance(data, DNDarray):
         raise TypeError(f"data must be a DNDarray, not {type(data)}")
-    os.makedirs(path, exist_ok=True)
     own = _own_slices(data)
-    if own is None:
-        return
-    start = own[0][data.split].start if data.split is not None else 0
-    with _atomic_out(os.path.join(path, f"part_{start:012d}.npy")) as tmp:
-        with open(tmp, "wb") as f:
-            np.save(f, _host(own[1], data.dtype))
+
+    def write():
+        os.makedirs(path, exist_ok=True)
+        if own is None:
+            return
+        start = own[0][data.split].start if data.split is not None else 0
+        with _atomic_out(os.path.join(path, f"part_{start:012d}.npy")) as tmp:
+            with open(tmp, "wb") as f:
+                np.save(f, _host(own[1], data.dtype))
+
+    _together(data.comm, data.device, write, path)
 
 
+@_retried
 def _save_npy_file(data: DNDarray, path: str) -> None:
     """``np.save``'s file of the array: rank 0 writes the header, then each
     rank in turn writes its own rows into the memory-mapped file, and rank 0
@@ -677,15 +698,13 @@ def _save_npy_file(data: DNDarray, path: str) -> None:
             with open(tmp, "wb") as f:
                 np.save(f, arr)
         return
-    comm = data.comm
-    tmp = _shared_temp(path, comm, data.device)
     np_dtype = _np_type(data.dtype)
-    if comm.rank == 0:
+
+    def create(tmp):
         os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
         np.lib.format.open_memmap(tmp, mode="w+", dtype=np_dtype, shape=data.shape).flush()
-    _agree(comm, data.device, 0)
 
-    def write():
+    def write(tmp):
         own = _own_slices(data)
         if own is not None and data.size:
             mm = np.lib.format.open_memmap(tmp, mode="r+")
@@ -693,10 +712,7 @@ def _save_npy_file(data: DNDarray, path: str) -> None:
             mm.flush()
             del mm
 
-    _in_turns(comm, data.device, write)
-    if comm.rank == 0:
-        _commit(tmp, path)
-    _agree(comm, data.device, 0)
+    _shared_write(path, data.comm, data.device, create, write)
 
 
 # ----------------------------------------------------------------------
@@ -709,13 +725,13 @@ def _array(arr, dtype, split, device, comm) -> DNDarray:
     return factories.array(arr, dtype=dtype, split=split, device=device, comm=comm)
 
 
+@_retried
 def loadtxt(path: str, dtype=types.float32, comments: str = "#", delimiter=None, skiprows: int = 0, usecols=None,
             split: Optional[int] = None, device=None, comm=None) -> DNDarray:
     """``np.loadtxt``; each rank keeps its own rows."""
     comm = sanitize_comm(comm)
-    _checked_read(path, comm, device)
-    arr = np.loadtxt(path, dtype=_np_type(dtype), comments=comments, delimiter=delimiter, skiprows=skiprows,
-                     usecols=usecols)
+    arr = _read(path, comm, device, lambda: np.loadtxt(
+        path, dtype=_np_type(dtype), comments=comments, delimiter=delimiter, skiprows=skiprows, usecols=usecols))
     return _array(arr, dtype, split, device, comm)
 
 
@@ -723,19 +739,23 @@ def savetxt(path: str, x: DNDarray, fmt: str = "%.18e", delimiter: str = " ", ne
             footer: str = "", comments: str = "# ") -> None:
     """``np.savetxt`` of the gathered array, from rank 0."""
     arr = x.numpy()
-    if x.comm.rank == 0:
+
+    def write():
         with _atomic_out(path) as tmp:
             np.savetxt(tmp, arr, fmt=fmt, delimiter=delimiter, newline=newline, header=header, footer=footer,
                        comments=comments)
 
+    _root_write(x.comm, x.device, write, path)
 
+
+@_retried
 def genfromtxt(path: str, dtype=types.float32, comments: str = "#", delimiter=None, skip_header: int = 0,
                filling_values=None, split: Optional[int] = None, device=None, comm=None) -> DNDarray:
     """``np.genfromtxt`` (missing values filled, NaN by default)."""
     comm = sanitize_comm(comm)
-    _checked_read(path, comm, device)
-    arr = np.genfromtxt(path, dtype=_np_type(dtype), comments=comments, delimiter=delimiter,
-                        skip_header=skip_header, filling_values=filling_values)
+    arr = _read(path, comm, device, lambda: np.genfromtxt(
+        path, dtype=_np_type(dtype), comments=comments, delimiter=delimiter, skip_header=skip_header,
+        filling_values=filling_values))
     return _array(arr, dtype, split, device, comm)
 
 
@@ -748,10 +768,16 @@ def _archive(writer, path: str, args, kwargs) -> None:
     arrays = [a.numpy() if isinstance(a, DNDarray) else a for a in args]
     named = {k: (v.numpy() if isinstance(v, DNDarray) else v) for k, v in kwargs.items()}
     ref = next((a for a in list(args) + list(kwargs.values()) if isinstance(a, DNDarray)), None)
-    if ref is None or ref.comm.rank == 0:
+
+    def write():
         with _atomic_out(_npz_path(path)) as tmp:
             with open(tmp, "wb") as f:
                 writer(f, *arrays, **named)
+
+    if ref is None:
+        _io_policy().call(write)
+    else:
+        _root_write(ref.comm, ref.device, write, path)
 
 
 def savez(path: str, *args, **kwargs) -> None:
@@ -764,29 +790,33 @@ def savez_compressed(path: str, *args, **kwargs) -> None:
     _archive(np.savez_compressed, path, args, kwargs)
 
 
+@_retried
 def fromfile(path: str, dtype=types.float32, count: int = -1, sep: str = "", offset: int = 0,
              split: Optional[int] = None, device=None, comm=None) -> DNDarray:
     """``np.fromfile`` (binary or text)."""
     comm = sanitize_comm(comm)
-    _checked_read(path, comm, device)
-    arr = np.fromfile(path, dtype=_np_type(dtype), count=count, sep=sep, offset=offset)
+    arr = _read(path, comm, device, lambda: np.fromfile(path, dtype=_np_type(dtype), count=count, sep=sep,
+                                                        offset=offset))
     return _array(arr, dtype, split, device, comm)
 
 
 def tofile(x: DNDarray, path: str, sep: str = "", format: str = "%s") -> None:
     """``ndarray.tofile`` of the gathered array (raw or text), from rank 0."""
     arr = x.numpy()
-    if x.comm.rank == 0:
+
+    def write():
         with _atomic_out(path) as tmp:
             arr.tofile(tmp, sep=sep, format=format)
 
+    _root_write(x.comm, x.device, write, path)
 
+
+@_retried
 def fromregex(path: str, regexp, dtype, split: Optional[int] = None, device=None, comm=None) -> DNDarray:
     """``np.fromregex``; a structured result becomes a plain array (its one
     field, or its fields as columns)."""
     comm = sanitize_comm(comm)
-    _checked_read(path, comm, device)
-    arr = np.fromregex(path, regexp, dtype)
+    arr = _read(path, comm, device, lambda: np.fromregex(path, regexp, dtype))
     if arr.dtype.names is not None:
         if len(arr.dtype.names) == 1:
             arr = arr[arr.dtype.names[0]]
@@ -801,9 +831,8 @@ def memmap(path: str, dtype=types.float32, mode: str = "r", offset: int = 0, sha
            split: Optional[int] = None, device=None, comm=None) -> DNDarray:
     """A raw file, memory-mapped: each rank copies its own rows."""
     comm = sanitize_comm(comm)
-    if mode in ("r", "r+", "c"):
-        _checked_read(path, comm, device)
-    mm = np.memmap(path, dtype=_np_type(dtype), mode=mode, offset=offset, shape=shape)
+    mm = _read(path, comm, device, lambda: np.memmap(path, dtype=_np_type(dtype), mode=mode, offset=offset,
+                                                     shape=shape), check=mode in ("r", "r+", "c"))
     return _array(mm, dtype, split, device, comm)
 
 
@@ -816,9 +845,9 @@ def open_memmap(path: str, mode: str = "r", dtype=None, shape=None, split: Optio
     """A .npy file through ``np.lib.format.open_memmap``: each rank copies
     its own rows."""
     comm = sanitize_comm(comm)
-    if mode in ("r", "r+", "c"):
-        _checked_read(path, comm, device)
-    mm = np.lib.format.open_memmap(path, mode=mode, dtype=None if dtype is None else _np_type(dtype), shape=shape)
+    mm = _read(path, comm, device, lambda: np.lib.format.open_memmap(
+        path, mode=mode, dtype=None if dtype is None else _np_type(dtype), shape=shape),
+        check=mode in ("r", "r+", "c"))
     return _array(mm, None, split, device, comm)
 
 
@@ -838,11 +867,15 @@ class DataSource:
         return self._ds.open(path, mode=mode, encoding=encoding, newline=newline)
 
 
+@_retried
 def _load_npz_file(path: str, name: Optional[str] = None, split: Optional[int] = None, device=None,
                    comm=None) -> DNDarray:
     """One array of a .npz archive (its first unless ``name``)."""
     comm = sanitize_comm(comm)
-    _checked_read(path, comm, device)
-    with np.load(path) as z:
-        arr = z[name if name is not None else z.files[0]]
+
+    def read():
+        with np.load(path) as z:
+            return z[name if name is not None else z.files[0]]
+
+    arr = _read(path, comm, device, read)
     return _array(arr, None, split, device, comm)

@@ -23,7 +23,7 @@ from typing import Optional, Sequence
 
 import torch
 
-from .. import types
+from .. import _operations, types
 from ..dndarray import DNDarray, _pad_along
 from ..sanitation import sanitize_in, store_out
 from ..stride_tricks import sanitize_axis
@@ -134,6 +134,9 @@ def matmul(a: DNDarray, b: DNDarray, allow_resplit: bool = False) -> DNDarray:
         a = a.astype(promoted)
     if b.dtype != promoted:
         b = b.astype(promoted)
+    if promoted in types._WIDENED:
+        # the holding integers' product keeps the low bits: wrapped to the width
+        return _operations._unsigned(matmul(_operations._holding(a), _operations._holding(b)), promoted)
     comm = a.comm
     ka, kb = a.ndim - 1, (b.ndim - 2 if b.ndim > 1 else 0)  # the inner axes
     out_ndim = len(torch.broadcast_shapes(a.shape[:-2], b.shape[:-2] if b.ndim > 2 else ())) + \
@@ -219,7 +222,9 @@ def vdot(x1: DNDarray, x2: DNDarray) -> DNDarray:
 
     if x1.shape != x2.shape:
         raise ValueError(f"vdot: shapes {x1.shape} and {x2.shape} differ")
-    return arithmetics.sum(arithmetics.mul(complex_math.conjugate(x1), x2))
+    prod = arithmetics.mul(complex_math.conjugate(x1), x2)
+    # in the operands' promoted type, as vecdot: integers wrap in their width
+    return arithmetics.sum(prod).astype(prod.dtype, copy=False)
 
 
 def vecdot(x1: DNDarray, x2: DNDarray, axis: Optional[int] = None, keepdims: bool = False) -> DNDarray:
@@ -267,7 +272,7 @@ def outer(a: DNDarray, b: DNDarray, out: Optional[DNDarray] = None, split: Optio
     # N-D operands are flattened, as numpy's outer does
     a, b = _flattened(a), _flattened(b)
     promoted = types.promote_types(a.dtype, b.dtype)
-    a, b = a.astype(promoted), b.astype(promoted)
+    a, b = _operations._holding(a.astype(promoted)), _operations._holding(b.astype(promoted))
     gshape = (a.shape[0], b.shape[0])
     if split is None:
         local = torch.outer(a._dense(), b._dense())
@@ -275,7 +280,7 @@ def outer(a: DNDarray, b: DNDarray, out: Optional[DNDarray] = None, split: Optio
         local = torch.outer(a.larray_padded if a.split == 0 else _slice_whole(a, 0, a, 0), b._dense())
     else:
         local = torch.outer(a._dense(), b.larray_padded if b.split == 0 else _slice_whole(b, 0, b, 0))
-    res = a._like(local, gshape, split)
+    res = _operations._unsigned(a._like(local, gshape, split), promoted)
     if out is not None:
         return store_out(res, out)
     return res
@@ -361,7 +366,9 @@ def trace(a: DNDarray, offset: int = 0, axis1: int = 0, axis2: int = 1, dtype=No
         split = None
     else:
         split = None if a.split is None else rest.index(a.split)
-    acc = {types.uint8: types.uint64}.get(a.dtype, types.int64 if types.heat_type_is_exact(a.dtype) else a.dtype)
+    # unsigned sums in uint64 (uint64's held bits wrap modulo 2^64), the others in int64
+    unsigned = a.dtype is types.uint8 or a.dtype in types._WIDENED
+    acc = types.uint64 if unsigned else types.int64 if types.heat_type_is_exact(a.dtype) else a.dtype
     res = _with_split(a._like(s, gshape, split, acc), None)  # whole, as the reference's
     if dtype is not None:
         res = res.astype(dtype)

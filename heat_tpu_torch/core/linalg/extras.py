@@ -17,6 +17,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from .. import types
 from ..dndarray import DNDarray
 from .basics import _mm
 
@@ -40,9 +41,12 @@ __all__ = [
 
 
 def _d(x) -> torch.Tensor:
-    """The dense tensor of an operand, integers and bools as float32."""
+    """The dense tensor of an operand, integers and bools as float32 (the
+    unsigned types by their values)."""
     if isinstance(x, DNDarray):
         d = x._dense()
+        if x.dtype in types._WIDENED:
+            return types._cast(d, x.dtype, types.float32)
     else:
         d = torch.as_tensor(np.asarray(x))
     if not (d.is_floating_point() or d.is_complex()):

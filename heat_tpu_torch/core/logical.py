@@ -125,17 +125,17 @@ def _test(x, op, unsigned_answer, out=None) -> DNDarray:
     return _store(res, out)
 
 
-def isfinite(x, out=None) -> DNDarray:
+def isfinite(x, *, out=None) -> DNDarray:
     """Element-wise: True where ``x`` is finite."""
     return _test(x, torch.isfinite, True, out)
 
 
-def isinf(x, out=None) -> DNDarray:
+def isinf(x, *, out=None) -> DNDarray:
     """Element-wise: True where ``x`` is +-inf."""
     return _test(x, torch.isinf, False, out)
 
 
-def isnan(x, out=None) -> DNDarray:
+def isnan(x, *, out=None) -> DNDarray:
     """Element-wise: True where ``x`` is NaN."""
     return _test(x, torch.isnan, False, out)
 

@@ -990,9 +990,12 @@ def tile(x: DNDarray, reps) -> DNDarray:
 # ----------------------------------------------------------------------
 # top-k
 # ----------------------------------------------------------------------
-def _topk_keys(t: torch.Tensor, largest: bool) -> torch.Tensor:
+def _topk_keys(t: torch.Tensor, largest: bool, kind=None) -> torch.Tensor:
     """``lax.top_k``'s keys: the values (negated for the smallest) in the
-    IEEE total order, as signed integers."""
+    IEEE total order, as signed integers; holding tensors of an unsigned
+    ``kind`` by their values (the negation wraps in the type's width)."""
+    if kind in types._WIDENED:
+        return types._order_key(t if largest else types._wrap(-t, kind), kind)
     if t.dtype == torch.bool:
         if not largest:
             raise TypeError("neg does not accept dtype bool. Accepted dtypes are subtypes of integer, floating, "
@@ -1042,7 +1045,7 @@ def topk(a: DNDarray, k: int, dim: int = -1, largest: bool = True, sorted: bool 
     merge = a.split == dim and comm.size > 1
     if not merge:
         t = a.larray if a.split == dim else _local(a)
-        pos = _topk_select(_topk_keys(t, largest), k, dim)
+        pos = _topk_select(_topk_keys(t, largest, a.dtype), k, dim)
         vals = t.gather(dim, pos)
         if a.split == dim:
             res_v = DNDarray.from_dense(vals, dim, a.device, comm, a.dtype)
@@ -1054,7 +1057,7 @@ def topk(a: DNDarray, k: int, dim: int = -1, largest: bool = True, sorted: bool 
         rows = a.larray.movedim(dim, 0)
         lo = _owned(comm, a.shape, dim, comm.rank)[0]
         kk = builtins.min(k, rows.shape[0])
-        key = _topk_keys(rows, largest).to(torch.int64)
+        key = _topk_keys(rows, largest, a.dtype).to(torch.int64)
         pos = _topk_select(key, kk, 0)
         cand_k = torch.full((k,) + tuple(rows.shape[1:]), torch.iinfo(torch.int64).min, dtype=torch.int64,
                             device=rows.device)

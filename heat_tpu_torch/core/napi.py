@@ -159,11 +159,39 @@ _NATIVE = {types.uint16: torch.uint16, types.uint32: torch.uint32, types.uint64:
 def _native(t: torch.Tensor, kind) -> torch.Tensor:
     """A holding tensor of uint16, uint32 or uint64 in torch's own unsigned
     dtype, so that a function computes on the type's values (torch's
-    kernels for these dtypes answer as numpy's; where torch has none for a
-    function, torch raises); other types as they are."""
+    kernels for these dtypes answer as numpy's).  Orderings, ``nonzero``
+    and products, which torch's CPU kernels lack for these dtypes, go
+    through :func:`_held` and :func:`_exact_keys`; other types as they are."""
     if kind is types.uint64:
         return t.view(torch.uint64)
     return t.to(_NATIVE[kind]) if kind in _NATIVE else t
+
+
+def _held(t: torch.Tensor) -> torch.Tensor:
+    """A tensor of torch's uint16, uint32 or uint64 as its type's holding
+    tensor (the same values; uint64's bits in int64), where torch's kernels
+    cover every type; other tensors as they are."""
+    if t.dtype == torch.uint64:
+        return t.view(torch.int64)
+    return t.to(_HOLDING[t.dtype]) if t.dtype in _HOLDING else t
+
+
+_HOLDING = {torch.uint16: torch.int32, torch.uint32: torch.int64}
+
+
+def _unheld(t: torch.Tensor, like: torch.dtype) -> torch.Tensor:
+    """The inverse of :func:`_held` for a result of dtype ``like``."""
+    if like == torch.uint64:
+        return t.view(torch.uint64)
+    return t.to(like) if like in _HOLDING else t
+
+
+def _exact_keys(t: torch.Tensor) -> torch.Tensor:
+    """Bool and integer values (torch's unsigned types included) as int64
+    keys in the order of the values."""
+    from ._keys import sort_keys
+
+    return sort_keys(t)[0]
 
 
 def _as_tensor(x, dtype: Optional[torch.dtype] = None, device: Optional[torch.device] = None) -> torch.Tensor:
@@ -404,13 +432,18 @@ def _nan_input(a) -> torch.Tensor:
 
 
 def _nan_extreme(a, axis, keepdims: bool, largest: bool):
+    from .statistics import _lex_extreme
+
     t = _nan_input(a)
     dims = _dims(axis, t.ndim)
     nan = torch.isnan(t)
     fill = -math.inf if largest else math.inf
     filled = torch.where(nan, torch.tensor(fill, dtype=t.dtype, device=t.device), t)
-    red = torch.amax if largest else torch.amin
-    res = red(filled, dim=dims, keepdim=keepdims) if dims else filled
+    if t.is_complex():  # jnp orders complex values lexicographically
+        res = _lex_extreme(filled, dims, keepdims, largest) if dims else filled
+    else:
+        red = torch.amax if largest else torch.amin
+        res = red(filled, dim=dims, keepdim=keepdims) if dims else filled
     every = nan.all(dim=dims, keepdim=keepdims) if dims else nan
     return _wrap(torch.where(every, torch.nan, res), a)
 
@@ -431,7 +464,16 @@ def _nansum_count(t: torch.Tensor, dims, keepdims: bool):
     return total, valid.to(torch.int64)
 
 
+def _upcast(t: torch.Tensor) -> torch.Tensor:
+    """float16 and bfloat16 in float32, as jnp computes their statistics
+    (rounded once to the input's type at the end)."""
+    return t.float() if t.dtype in (torch.float16, torch.bfloat16) else t
+
+
 def nanmean(a, axis=None, keepdims=False):
+    """The NaN-free sum over the count.  For float16 jnp sums in float16
+    (XLA's reduce in the input's type); torch sums in float32 and rounds
+    once: about one float16 rounding apart (ROADMAP caveats)."""
     t = _nan_input(a)
     total, count = _nansum_count(t, _dims(axis, t.ndim), keepdims)
     return _wrap(total / count.to(t.dtype), a)
@@ -451,11 +493,13 @@ def _nanvar(t: torch.Tensor, axis, ddof: int, keepdims: bool) -> torch.Tensor:
 
 
 def nanvar(a, axis=None, ddof: int = 0, keepdims=False):
-    return _wrap(_nanvar(_nan_input(a), axis, ddof, keepdims), a)
+    t = _nan_input(a)
+    return _wrap(_nanvar(_upcast(t), axis, ddof, keepdims).to(t.real.dtype), a)
 
 
 def nanstd(a, axis=None, ddof: int = 0, keepdims=False):
-    return _wrap(torch.sqrt(_nanvar(_nan_input(a), axis, ddof, keepdims)), a)
+    t = _nan_input(a)
+    return _wrap(torch.sqrt(_nanvar(_upcast(t), axis, ddof, keepdims).to(t.real.dtype)), a)
 
 
 def _nanarg(a, axis, largest: bool):
@@ -465,8 +509,12 @@ def _nanarg(a, axis, largest: bool):
     if axis is None:
         t, axis = t.reshape(-1), 0
     dim = _dim(axis, t.ndim)
-    if not (t.is_floating_point() or t.is_complex()):
-        return _wrap((t.argmax if largest else t.argmin)(dim=dim), a)
+    if t.is_complex():  # jnp's comparisons take no complex operands
+        raise TypeError(f"gt does not accept dtype {types.canonical_heat_type(t.dtype).__name__} at position 0. "
+                        "Accepted dtypes at position 0 are subtypes of integer, floating, bool.")
+    if not t.is_floating_point():
+        keys = _exact_keys(t)  # bool and the unsigned types by their values' order
+        return _wrap((keys.argmax if largest else keys.argmin)(dim=dim), a)
     nan = torch.isnan(t)
     fill = -math.inf if largest else math.inf
     filled = torch.where(nan, torch.tensor(fill, dtype=t.dtype, device=t.device), t)
@@ -636,25 +684,38 @@ def corrcoef(x, y=None, rowvar: bool = True):
 
 
 def _to_inexact_dtype(dt: torch.dtype) -> torch.dtype:
-    """jax's ``to_inexact_dtype``: floats stay, integers and bool become
-    the float of their width (8 and 16 bits: float16), as under x64."""
+    """jax's ``to_inexact_dtype``: floats stay, bool and the integers of
+    up to 32 bits become float32, the 64-bit ones float64 (as under x64)."""
     if dt.is_floating_point or dt.is_complex:
         return dt
-    return {torch.bool: torch.float64, torch.int8: torch.float16, torch.uint8: torch.float16,
-            torch.int16: torch.float16, torch.int32: torch.float32, torch.uint16: torch.float32,
-            torch.uint32: torch.float32}.get(dt, torch.float64)
+    return torch.float64 if dt in (torch.int64, torch.uint64) else torch.float32
+
+
+def _as_inexact(t: torch.Tensor) -> torch.Tensor:
+    """``t`` in :func:`_to_inexact_dtype` of its type, each value rounded
+    once (uint64 through its int64 bits)."""
+    dt = _to_inexact_dtype(t.dtype)
+    if t.dtype == torch.uint64:
+        return types._u64_as_float(t.view(torch.int64), dt)
+    return t.to(dt)
 
 
 def _bin_edges(t: torch.Tensor, bins, range_) -> torch.Tensor:
     """``jnp.histogram_bin_edges`` of the values ``t`` (any shape)."""
     from .statistics import _edges
 
-    dt = _to_inexact_dtype(t.dtype)
+    t = _as_inexact(t)
+    dt = t.dtype
     if isinstance(bins, str):
         raise NotImplementedError("string values for `bins` not implemented.")
     if np.ndim(bins) == 1:
         return _as_tensor(bins, device=t.device).to(dt)
-    if range_ is None:
+    if range_ is None and t.is_complex():  # jnp orders complex values lexicographically
+        from .statistics import _lex_extreme
+
+        dims = tuple(builtins.range(t.ndim))
+        lo, hi = _lex_extreme(t, dims, False, False), _lex_extreme(t, dims, False, True)
+    elif range_ is None:
         lo, hi = t.min(), t.max()
     else:
         if np.shape(range_) != (2,):
@@ -671,7 +732,9 @@ def _histogramdd(sample: torch.Tensor, bins, range_, weights, density):
     """``jnp.histogramdd``: each dimension's edges, each sample's bin by a
     right-sided search (the last edge closed), a count (or weight sum) over
     the flattened bins with the outliers' bins cut off."""
-    sample = sample.to(_to_inexact_dtype(sample.dtype))
+    from .statistics import _search_right
+
+    sample = _as_inexact(sample)
     if weights is not None:
         dt = torch.promote_types(sample.dtype, _to_inexact_dtype(weights.dtype))
         sample, weights = sample.to(dt), weights.to(dt)
@@ -689,7 +752,7 @@ def _histogramdd(sample: torch.Tensor, bins, range_, weights, density):
     for i in builtins.range(d):
         e = _bin_edges(sample[:, i], per_dim[i], None if range_ is None else range_[i])
         col = sample[:, i].contiguous()
-        b = torch.searchsorted(e.contiguous(), col, right=True)
+        b = _search_right(e.contiguous(), col)
         idx.append(torch.where(col == e[-1], b - 1, b))
         edges.append(e)
     nbins = [e.numel() + 1 for e in edges]
@@ -774,11 +837,24 @@ def _index_obj(obj, n: int, device):
     return t % n
 
 
+def _integral_index(obj) -> bool:
+    """Whether an index array is empty or of an integer or bool type, read
+    from its type alone (no copy of its values)."""
+    if isinstance(obj, DNDarray):
+        return obj.size == 0 or types.heat_type_is_exact(obj.dtype)
+    if isinstance(obj, torch.Tensor):
+        return obj.numel() == 0 or not (obj.is_floating_point() or obj.is_complex())
+    obj = np.asarray(obj)
+    return obj.size == 0 or obj.dtype.kind in "biu"
+
+
 def delete(arr, obj, axis=None):
     t = torch.as_tensor(_d(arr))
     if axis is None:
         t, axis = t.reshape(-1), 0
     dim = _dim(axis, t.ndim)
+    if not isinstance(obj, slice) and not _integral_index(obj):
+        raise ValueError("np.delete(arr, obj): obj must be of an integer or bool type.")
     keep = torch.ones(t.shape[dim], dtype=torch.bool, device=t.device)
     keep[_index_obj(obj, t.shape[dim], t.device)] = False
     return _wrap(t.index_select(dim, torch.nonzero(keep).reshape(-1)), arr)
@@ -880,11 +956,11 @@ def copyto(dst, src, where=True):
 
 
 def argwhere(a):
-    return _wrap(torch.argwhere(torch.as_tensor(_d(a))), a)
+    return _wrap(torch.argwhere(_held(torch.as_tensor(_d(a)))), a)
 
 
 def flatnonzero(a):
-    return _wrap(torch.nonzero(torch.as_tensor(_d(a)).reshape(-1)).reshape(-1), a)
+    return _wrap(torch.nonzero(_held(torch.as_tensor(_d(a))).reshape(-1)).reshape(-1), a)
 
 
 def extract(condition, arr):
@@ -915,15 +991,32 @@ def isrealobj(x) -> builtins.bool:
 # --------------------------------------------------------- elementwise pair
 
 
+def _fpick(x1, x2, largest: bool):
+    """``where(x1 > x2 | isnan(x2), x1, x2)`` (``<`` for the minimum):
+    complex values in lexicographic order, the unsigned types by their
+    values."""
+    from ._operations import _lex_greater
+
+    a, b = _promoted(x1, x2)
+    if a.is_complex():
+        first = _lex_greater(a, b) if largest else _lex_greater(b, a)
+    elif a.is_floating_point():
+        first = a > b if largest else a < b
+    else:
+        ka, kb = _exact_keys(a), _exact_keys(b)
+        first = ka > kb if largest else ka < kb
+    if a.is_floating_point() or a.is_complex():
+        first = first | torch.isnan(b)
+    return _wrap(_unheld(torch.where(first, _held(a), _held(b)), a.dtype), _pick(x1, x2))
+
+
 def fmax(x1, x2):
     """Elementwise maximum ignoring NaNs: ``where(x1 > x2 | isnan(x2), x1, x2)``."""
-    a, b = _promoted(x1, x2)
-    return _wrap(torch.where((a > b) | torch.isnan(b), a, b), _pick(x1, x2))
+    return _fpick(x1, x2, True)
 
 
 def fmin(x1, x2):
-    a, b = _promoted(x1, x2)
-    return _wrap(torch.where((a < b) | torch.isnan(b), a, b), _pick(x1, x2))
+    return _fpick(x1, x2, False)
 
 
 # ------------------------------------------------------------------ linalg
@@ -942,9 +1035,13 @@ def _contract(a: torch.Tensor, b: torch.Tensor, a_axes, b_axes) -> torch.Tensor:
     a_free = [d for d in range(a.ndim) if d not in a_axes]
     b_free = [d for d in range(b.ndim) if d not in b_axes]
     k = math.prod(a.shape[i] for i in a_axes)
-    a2 = a.permute(a_free + a_axes).reshape(-1, k)
-    b2 = b.permute(b_axes + b_free).reshape(k, -1)
-    return _mm(a2, b2).reshape([a.shape[d] for d in a_free] + [b.shape[d] for d in b_free])
+    a2 = _held(a.permute(a_free + a_axes).reshape(-1, k))
+    b2 = _held(b.permute(b_axes + b_free).reshape(k, -1))
+    out = _mm(a2, b2).reshape([a.shape[d] for d in a_free] + [b.shape[d] for d in b_free])
+    if a.dtype in _NATIVE.values():  # the holding integers' product, wrapped to the width
+        kind = types.canonical_heat_type(a.dtype)
+        return _unheld(types._wrap(out, kind), a.dtype)
+    return out
 
 
 def inner(a, b):
@@ -964,6 +1061,9 @@ def tensordot(a, b, axes=2):
 
 def kron(a, b):
     ad, bd = _promoted(a, b)
+    if ad.dtype == torch.bool:  # jnp multiplies no bools
+        raise TypeError("mul does not accept dtype bool at position 0. Accepted dtypes at position 0 are subtypes "
+                        "of integer, floating, complexfloating.")
     return _wrap(torch.kron(ad, bd), _pick(a, b))
 
 

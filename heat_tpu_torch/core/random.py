@@ -426,6 +426,13 @@ def _fma32(a: torch.Tensor, b: torch.Tensor, c) -> torch.Tensor:
     return _round_to_odd(*_two_sum(a.double() * b.double(), c)).float()
 
 
+def _fma16(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """``a * b + c`` in float16 as one fused multiply-add: the product is
+    exact in float64, the sum is rounded to odd there, and rounding that to
+    float16 rounds the exact value once (53 bits hold 11 + 2)."""
+    return _round_to_odd(*_two_sum(a.double() * b.double(), c.double())).half()
+
+
 def _veltkamp(a: torch.Tensor):
     """``a`` split into two halves of 26 bits each, ``hi + lo == a``."""
     big = a * 134217729.0  # 2^27 + 1

@@ -350,6 +350,9 @@ def var(x, axis=None, ddof: int = 0, keepdims: bool = False, **kwargs) -> DNDarr
     if ddof < 0:
         raise ValueError(f"Expected ddof >= 0, got {ddof}")
     x = _moment_input(x)
+    if x.dtype in (types.float16, types.bfloat16):
+        # computed in float32 and rounded once to the input's type, as jnp's
+        return var(x.astype(types.float32), axis, ddof, keepdims).astype(x.dtype)
     return _centred_sum(x, axis, keepdims, 2) / (_axis_count(x, axis) - ddof)
 
 
@@ -567,6 +570,8 @@ def percentile(x, q, axis=None, out=None, interpolation: str = "linear", keepdim
     q_chk = np.asarray(q, dtype=np.float64)
     if not np.all((q_chk >= 0.0) & (q_chk <= 100.0)):
         raise ValueError("Percentiles must be in the range [0, 100]")
+    if q_chk.ndim > 1:
+        raise ValueError(f"q must be have rank <= 1, got shape {q_chk.shape}")
     axis_s = sanitize_axis(x.shape, axis)
     if not sketched and out is None and x.ndim == 1 and axis_s in (None, 0):
         res = _percentile_sorted_1d(x, q, interpolation)
@@ -757,24 +762,61 @@ def _global_range(a: DNDarray):
 
 
 def _edges(lo: torch.Tensor, hi: torch.Tensor, bins: int, dt, device: torch.device) -> torch.Tensor:
-    """JAX's bin edges: ``linspace(lo, hi, bins + 1)`` computed in ``dt``
-    as XLA compiles it (``lo (1 - i r) + i (hi r)``, ``r = 1 / bins``, the
-    last sum one fused multiply-add), the range widened by 0.5 on each
-    side where it is empty.  On the reference's CPU build XLA evaluates
-    edge 1 otherwise for 3 to 33 bins (up to two roundings apart), and
-    longer runs of edges at 255 (float64) and 1000 bins; every other edge
-    of 2 to 128 bins is bitwise the reference's (ROADMAP caveats)."""
-    from .random import _fma32, _fma64
-
+    """JAX's bin edges: ``linspace(lo, hi, bins + 1)`` in ``dt``
+    (:func:`_linspace`), the range widened by 0.5 on each side where it is
+    empty."""
     lo, hi = lo.to(dt).cpu(), hi.to(dt).cpu()
-    if bool(hi - lo == 0):
+    if bool(hi == lo):
         lo, hi = lo - 0.5, hi + 0.5
+    if dt.is_complex:
+        # XLA's complex linspace: s = i r in the parts' type, each part
+        # lo (1 - s) + hi s with every operation rounded (no fused sum, and
+        # hi s not reassociated)
+        i = torch.arange(bins + 1, dtype=lo.real.dtype)
+        s = i * (torch.tensor(1.0, dtype=i.dtype) / torch.tensor(float(bins), dtype=i.dtype))
+        edges = torch.complex(lo.real * (1 - s) + hi.real * s, lo.imag * (1 - s) + hi.imag * s)
+        edges[-1] = hi
+        return edges.to(device)
+    return _linspace(lo, hi, bins).to(device)
+
+
+def _linspace(lo: torch.Tensor, hi: torch.Tensor, bins: int) -> torch.Tensor:
+    """``linspace(lo, hi, bins + 1)`` in the type of ``lo`` as XLA compiles
+    it (``lo (1 - i r) + i (hi r)``, ``r = 1 / bins``, each operation
+    rounded to the type and the last sum one fused multiply-add).  For at
+    most 33 bins XLA's CPU build fuses edge 1 the other way round, ``lo (1
+    - r) + hi r`` with ``lo (1 - r)`` the exact product.  Edges of 2 to 128
+    bins are bitwise the reference's in float16, float32 and float64;
+    longer runs differ at 255 (float64) and 1000 bins (ROADMAP caveats)."""
+    from .random import _fma16, _fma32, _fma64
+
+    dt = lo.dtype
     i = torch.arange(bins + 1, dtype=dt)
     r = torch.tensor(1.0, dtype=dt) / torch.tensor(float(bins), dtype=dt)
-    fma = _fma32 if dt == torch.float32 else _fma64
-    edges = fma(i, (hi * r).expand_as(i).contiguous(), lo * (1 - i * r))
+    fma = {torch.float16: _fma16, torch.float32: _fma32}.get(dt, _fma64)
+    hr = (hi * r).expand_as(i).contiguous()
+    edges = fma(i, hr, lo * (1 - i * r))
+    if 2 <= bins <= 33:
+        edges[1] = fma(lo.reshape(1), (1 - r).reshape(1), hr[:1])[0]
     edges[-1] = hi
-    return edges.to(device)
+    return edges
+
+
+def _search_right(edges: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """``searchsorted(edges, v, side='right')``; complex values as JAX's
+    binary search finds them (its scan: ceil(log2(n + 1)) halvings, each
+    comparing lexicographically), which is its answer also where rounding
+    left the complex edges out of lexicographic order."""
+    if not edges.is_complex():
+        return torch.searchsorted(edges, v, right=True)
+    n = edges.numel()
+    low = torch.zeros(v.shape, dtype=torch.int64, device=v.device)
+    high = torch.full(v.shape, n, dtype=torch.int64, device=v.device)
+    for _ in range(int(np.ceil(np.log2(n + 1)))):
+        mid = (low + high) // 2
+        left = _operations._lex_greater(edges[mid], v)  # v < edges[mid]
+        low, high = torch.where(left, low, mid), torch.where(left, mid, high)
+    return high
 
 
 def _hist_counts(values: torch.Tensor, w, edges: torch.Tensor, a: DNDarray, split: bool) -> torch.Tensor:
@@ -783,7 +825,7 @@ def _hist_counts(values: torch.Tensor, w, edges: torch.Tensor, a: DNDarray, spli
     dropped; one all-reduce where the data are split."""
     nb = edges.numel() - 1
     v = values.reshape(-1).contiguous().to(edges.dtype)
-    idx = torch.searchsorted(edges, v, right=True)
+    idx = _search_right(edges, v)
     idx = torch.where(v == edges[-1], torch.full_like(idx, nb), idx)
     if w is None:
         counts = torch.bincount(idx, minlength=nb + 2)[1:nb + 1].to(edges.dtype)
@@ -872,6 +914,8 @@ def digitize(x, bins, right: bool = False) -> DNDarray:
     if not isinstance(x, DNDarray):
         raise TypeError(f"expected x to be a DNDarray, but was {type(x)}")
     b = bins._dense() if isinstance(bins, DNDarray) else torch.as_tensor(np.ascontiguousarray(bins))
+    if b.ndim != 1:
+        raise ValueError(f"digitize: bins must be a 1-dimensional array; got bins of shape {tuple(b.shape)}")
     data = x.larray_padded
     rt = torch.promote_types(data.dtype, b.dtype)
     b, data = b.to(rt).to(data.device), data.to(rt)
@@ -891,6 +935,8 @@ def bucketize(input, boundaries, out_int32: bool = False, right: bool = False, o
     if not isinstance(input, DNDarray):
         raise TypeError(f"expected input to be a DNDarray, but was {type(input)}")
     b = boundaries._dense() if isinstance(boundaries, DNDarray) else torch.as_tensor(np.ascontiguousarray(boundaries))
+    if b.ndim != 1:
+        raise ValueError("a should be 1-dimensional")
     data = input.larray_padded
     rt = torch.promote_types(data.dtype, b.dtype)
     res = _sorted_search(b.to(rt).to(data.device), data.to(rt), not right)

@@ -54,7 +54,7 @@ class PCA(BaseEstimator, TransformMixin):
         if checkpoint_every is not None or checkpoint_dir is not None or resume_from is not None:
             raise NotImplementedError(
                 "resumable fits (checkpoint_every, checkpoint_dir, resume_from) are not ported yet "
-                "(ROADMAP Queue 1 item 15)"
+                "(ROADMAP Queue 1 item 15b)"
             )
         self.checkpoint_every = checkpoint_every
         self.checkpoint_dir = checkpoint_dir

@@ -14,13 +14,15 @@ the split axis masks the padding with its own neutral element first.
 
 from __future__ import annotations
 
+import os
 from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 import torch.distributed as dist
 
-__all__ = ["Communication", "HierarchicalCommunication", "SELF", "WORLD", "get_comm", "sanitize_comm", "use_comm"]
+__all__ = ["Communication", "HierarchicalCommunication", "SELF", "WORLD", "comm_epoch", "finalize", "get_comm", "init",
+           "is_initialized", "sanitize_comm", "use_comm"]
 
 #: the names of the hierarchical grid's axes: 'global' spans the nodes, 'node'
 #: the ranks within one node (heat_tpu/parallel/comm.py's names)
@@ -399,7 +401,7 @@ class HierarchicalCommunication(Communication):
     group's own rank order, so chunks, ``lshape_map`` and
     ``counts_displs_shape`` are the plain communication's; the collectives
     take an ``axis``: ``'node'``, ``'global'``, or None / both for the
-    whole grid.  ``reshape`` (elastic resume) waits for ROADMAP item 15.
+    whole grid.  ``reshape`` (elastic resume) waits for ROADMAP item 15b.
     """
 
     def __init__(self, grid: Optional[Tuple[int, int]] = None, group=None,
@@ -505,7 +507,7 @@ class HierarchicalCommunication(Communication):
         return Communication.bcast(self._along(axis), x, root)
 
     def reshape(self, *args, **kwargs):
-        raise NotImplementedError("HierarchicalCommunication.reshape (elastic resume) waits for ROADMAP item 15")
+        raise NotImplementedError("HierarchicalCommunication.reshape (elastic resume) waits for ROADMAP item 15b")
 
     def __eq__(self, other) -> bool:
         # the same ranks on another grid is another topology: its node and
@@ -549,6 +551,128 @@ def use_comm(comm: Optional[Communication] = None) -> None:
     """Set the default communication."""
     global __default_comm
     __default_comm = sanitize_comm(comm)
+
+
+# ----------------------------------------------------------------------
+# the process-group bootstrap (heat_tpu/parallel/comm.py:735-860): call
+# ``init`` before any array work on more than one rank
+# ----------------------------------------------------------------------
+_initialized = False
+
+#: bumped whenever init()/finalize() (may have) changed the process
+#: group, as the reference's device-inventory epoch
+_EPOCH = 0
+
+#: the environment variables a launcher (torchrun, a batch script) sets for
+#: ``init_method="env://"``: with all three present a cluster is detected
+_ENV_RENDEZVOUS = ("MASTER_ADDR", "WORLD_SIZE", "RANK")
+
+
+def _detected_cluster() -> bool:
+    """Whether the launcher's environment names a cluster to join: all of
+    :data:`_ENV_RENDEZVOUS` set.  Raises where it names one only in part (a
+    rendezvous variable missing, or an ``srun`` step of several tasks with
+    none of them), rather than leave every process a world of one."""
+    missing = [k for k in _ENV_RENDEZVOUS if k not in os.environ]
+    if not missing:
+        return True
+    tasks = os.environ.get("SLURM_STEP_NUM_TASKS", "1")
+    if len(missing) < len(_ENV_RENDEZVOUS) or (tasks.isdigit() and int(tasks) > 1):
+        raise RuntimeError(f"init(): the launcher's environment names a cluster but not {', '.join(missing)}; "
+                           "set them, or pass the rendezvous to init()")
+    return False
+
+
+def comm_epoch() -> int:
+    """The process group's epoch: bumped by every :func:`init` that joins
+    a group and every :func:`finalize`."""
+    return _EPOCH
+
+
+def _backend() -> str:
+    return "nccl" if torch.cuda.is_available() else "gloo"
+
+
+def init(
+    coordinator_address: Optional[str] = None,
+    num_processes: Optional[int] = None,
+    process_id: Optional[int] = None,
+    local_device_ids=None,
+    **kwargs,
+) -> None:
+    """Join the process group: every rank runs the same program, and after
+    ``init`` the default WORLD communication spans every rank.
+
+    The explicit form gives the rendezvous (``coordinator_address`` as
+    ``host:port`` or a ``tcp://`` / ``file://`` URL), the world size and
+    this rank; ``local_device_ids`` picks this rank's card; other keyword
+    arguments (``backend``, ``timeout``) go to
+    ``torch.distributed.init_process_group``.  With no arguments a cluster
+    is detected from the launcher's environment (``MASTER_ADDR``,
+    ``WORLD_SIZE``, ``RANK``); on a single host with none of that, or with
+    a group already joined, ``init`` is a no-op, as the reference's is.  An
+    environment that names a cluster only in part raises.
+
+    The bootstrap runs under the init retry policy
+    (``resilience.default_init_policy``: bounded exponential backoff,
+    ``HEAT_TPU_INIT_RETRY_*``) behind the ``comm.init`` fault site: a
+    rendezvous that comes up after its workers is retried.  A detected
+    cluster that cannot be reached fails loudly once the policy gives
+    up; it never falls back to a world of one rank."""
+    from ..resilience.faults import inject
+    from ..resilience.retry import default_init_policy
+
+    global _initialized
+    explicit = not (coordinator_address is None and num_processes is None and process_id is None
+                    and local_device_ids is None and not kwargs)
+    if dist.is_initialized() or (not explicit and not _detected_cluster()):
+        _initialized = True  # nothing to detect, or already joined: a no-op
+        return
+    if local_device_ids is not None:
+        ids = [local_device_ids] if isinstance(local_device_ids, int) else list(local_device_ids)
+        torch.cuda.set_device(int(ids[0]))
+    options = dict(kwargs)
+    options.setdefault("backend", _backend())
+    if explicit:
+        url = coordinator_address
+        if url is not None and "://" not in url:
+            url = f"tcp://{url}"
+        options.update(init_method=url or "env://", world_size=num_processes if num_processes is not None else -1,
+                       rank=process_id if process_id is not None else -1)
+    else:
+        options["init_method"] = "env://"
+
+    def _bootstrap() -> None:
+        inject("comm.init")
+        dist.init_process_group(**options)
+
+    default_init_policy().call(_bootstrap)
+    _initialized = True
+    _reset_defaults()
+
+
+def is_initialized() -> bool:
+    """Whether :func:`init` has run (``MPI.Is_initialized``'s analogue)."""
+    return _initialized
+
+
+def finalize() -> None:
+    """Leave the process group (``MPI_Finalize``'s analogue): destroys it
+    where one was joined, bumps the epoch and resets the default
+    communication; safe for repeated ``finalize()`` + ``init()`` cycles."""
+    global _initialized
+    if dist.is_initialized():
+        dist.destroy_process_group()
+    _initialized = False
+    _reset_defaults()
+
+
+def _reset_defaults() -> None:
+    """After the process group (may have) changed: a new epoch, WORLD the
+    default communication again."""
+    global __default_comm, _EPOCH
+    _EPOCH += 1
+    __default_comm = WORLD
 
 
 def _as_bytes(x: torch.Tensor) -> torch.Tensor:

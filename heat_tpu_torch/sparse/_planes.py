@@ -512,6 +512,8 @@ def spgemm_planes(a, n_a: int, b, lnnz_b, chunk_b: int, comp_pad_a: int, n_out: 
     accumulator by :func:`merge_planes` ("add"); B's planes then move one
     rank along the ring (P - 1 sends).  Nothing dense is built.  Returns
     ``(comp, other, val, lnnz, capacity)``."""
+    from ..resilience.faults import inject
+
     P = nshards(dist, comm)
     me = shard_index(dist, comm)
     ac, ao, av = (p[:n_a] for p in a)
@@ -520,6 +522,11 @@ def spgemm_planes(a, n_a: int, b, lnnz_b, chunk_b: int, comp_pad_a: int, n_out: 
     for t in range(P):
         owner = (me + t) % P
         pc, po, pv = spgemm_step(ac, ao, av, bc, bo, bv, lnnz_b[owner], owner, chunk_b, n_out, dtype)
+        # the step's count re-sync is the ring's one collective choke
+        # point, so the comm.collective fault site fires here, as the
+        # reference's does; the loop holds no state of its operands, so a
+        # failed step aborts the product cleanly and a retry recomputes it
+        inject("comm.collective", op="spgemm.nnz_resync", step=t)
         part = finish(pc, po, pv, dist, comm, comp_pad_a)
         if acc is None:
             acc = part

@@ -13,7 +13,7 @@ handed out as it is.
 Counters: a batch that was staged before the consumer asked for it is a
 hit (:data:`PREFETCH_HITS`), one staged on demand a miss
 (:data:`PREFETCH_MISSES`); :func:`prefetch_stats` reads both.  They move
-into ``utils.overlap.overlap_stats`` with ROADMAP item 15.
+into ``utils.overlap.overlap_stats`` with ROADMAP item 15b.
 """
 
 from __future__ import annotations

@@ -193,13 +193,94 @@ def _inputs(files):
     return {**arrays, "files": np.asarray(str(files))}, comm
 
 
+# io under faults on some ranks only: every rank must leave each save or
+# load at the same point and retry, or give up, together (no rank left
+# waiting in a collective the others have passed).  Each case records, on
+# each rank, the retry counters' change and the class of what it raised
+_RETRY = r"""
+import contextlib
+import os
+
+from heat_tpu_torch.resilience import faults, retry
+
+os.environ["HEAT_TPU_RETRY_NO_SLEEP"] = "1"
+files = str(arrays["files"])
+m = ht.array(arrays["mat"], split=0)
+saved = {}
+
+
+def on(ranks, plan):
+    return faults.fault_plan(plan) if rank in ranks else contextlib.nullcontext()
+
+
+@contextlib.contextmanager
+def fails_once(owner, name, ranks):
+    # a real OSError (EIO) from owner.name on the given ranks, once
+    real = getattr(owner, name)
+    left = [int(rank in ranks)]
+
+    def flaky(*args, **kwargs):
+        if left[0]:
+            left[0] = 0
+            raise OSError(5, "Input/output error")
+        return real(*args, **kwargs)
+
+    setattr(owner, name, flaky)
+    try:
+        yield
+    finally:
+        setattr(owner, name, real)
+
+
+def case(name, fn, ctx):
+    before = retry.retry_stats()
+    raised = ""
+    try:
+        with ctx:
+            res = fn()
+        if res is not None:
+            saved[name + "/local"] = res.larray.numpy()
+    except Exception as e:
+        raised = type(e).__name__
+    after = retry.retry_stats()
+    saved[name + "/retries"] = np.asarray(after["retries"] - before["retries"])
+    saved[name + "/gave_up"] = np.asarray(after["gave_up"] - before["gave_up"])
+    saved[name + "/raised"] = np.asarray(raised)
+
+
+out_ = files + "/retry"
+case("csv_fault_rank0", lambda: ht.save_csv(m, out_ + "_a.csv"), on([0], {"io.write": [0]}))
+case("csv_eio_rank0", lambda: ht.save_csv(m, out_ + "_b.csv"), fails_once(os, "replace", [0]))
+case("npy_fault_rank0", lambda: ht.save(m, out_ + "_a.npy"), on([0], {"io.write": [0]}))
+case("npy_eio_rank1", lambda: ht.save(m, out_ + "_b.npy"), fails_once(np.lib.format, "open_memmap", [1]))
+case("h5_fault_rank1", lambda: ht.save_hdf5(m, out_ + ".h5", "x"), on([1], {"io.write": [0]}))
+case("load_fault_rank2", lambda: ht.load(files + "/ref.npy", split=0), on([2], {"io.open": [0]}))
+case("load_eio_rank1", lambda: ht.load(files + "/ref.npy", split=0), fails_once(np, "load", [1]))
+case("csv_load_fault_rank1", lambda: ht.load_csv(files + "/ref.csv", split=0), on([1], {"io.open": [0]}))
+case("load_gives_up_rank1", lambda: ht.load(files + "/ref.npy", split=0), on([1], {"io.open": [0, 1, 2]}))
+case("shards_permanent_rank2", lambda: ht.save_npy_from_path(m, out_ + "_shards"),
+     on([2], {"io.write": [{"at": [0], "kind": "permanent"}]}))
+np.savez(out, **saved)
+"""
+
+
 @pytest.fixture(scope="module")
-def sort_io_world(tmp_path_factory):
+def gloo_world(tmp_path_factory):
+    """The world's slices: the sorts and io, then io under faults."""
     files = tmp_path_factory.mktemp("files")
-    with spawned(tmp_path_factory.mktemp("sort_io"), {"sort_io": (_MAIN, lambda: _inputs(files))}) as w:
-        ranks = w.ranks("sort_io")
+    slices = {"sort_io": (_MAIN, lambda: _inputs(files)),
+              "io_retry": (_RETRY, lambda: ({"mat": np.load(files / "ref.npy"), "files": np.asarray(str(files))},
+                                            None))}
+    with spawned(tmp_path_factory.mktemp("sort_io"), slices) as w:
+        got = {name: w.ranks(name) for name in slices}
+    return w, got, files
+
+
+@pytest.fixture(scope="module")
+def sort_io_world(gloo_world):
+    w, got, files = gloo_world
     arrays, comm = w["sort_io"]
-    return arrays, comm, ranks, files
+    return arrays, comm, got["sort_io"], files
 
 
 def _gathered(ranks, name):
@@ -339,3 +420,53 @@ def test_nothing_the_size_of_the_array_is_gathered(sort_io_world):
         for name, size, source in zip(names, got["gather_bytes"].tolist(), got["gather_sources"].tolist()):
             share = arrays[source].nbytes / WORLD
             assert size < share, f"{name} handed an all-gather {size} bytes of a {share}-byte share of {source}"
+
+
+# case: (what each rank retried, what each rank raised, the file it wrote
+# and the reference's, or the rows it read)
+RETRY_CASES = {
+    "csv_fault_rank0": ([1, 0, 0], "", ("retry_a.csv", "ref.csv")),
+    "csv_eio_rank0": ([1, 0, 0], "", ("retry_b.csv", "ref.csv")),
+    "npy_fault_rank0": ([1, 1, 1], "", ("retry_a.npy", "ref.npy")),
+    "npy_eio_rank1": ([1, 1, 1], "", ("retry_b.npy", "ref.npy")),
+    "h5_fault_rank1": ([1, 1, 1], "", None),
+    "load_fault_rank2": ([1, 1, 1], "", "rows"),
+    "load_eio_rank1": ([1, 1, 1], "", "rows"),
+    "csv_load_fault_rank1": ([1, 1, 1], "", "rows"),
+    "load_gives_up_rank1": ([2, 2, 2], "TransientFault", None),
+    "shards_permanent_rank2": ([0, 0, 0], "PermanentFault", None),
+}
+
+
+@pytest.mark.parametrize("name", sorted(RETRY_CASES))
+def test_io_ranks_retry_or_give_up_together(gloo_world, name):
+    """A fault, injected or a real EIO, on one rank of three: a save or load
+    that holds collectives is retried by every rank together (none is left
+    in a collective: the slice would miss its deadline), the gathering
+    writers retry rank 0's write alone, and a failure that is not retried
+    raises on every rank.  What was written is the reference's bytes; what
+    was read, each rank's own rows."""
+    _, got, files = gloo_world
+    retries, raised, check = RETRY_CASES[name]
+    ranks = got["io_retry"]
+    assert [int(r[name + "/retries"]) for r in ranks] == retries
+    assert [str(r[name + "/raised"]) for r in ranks] == [raised] * WORLD
+    gave_up = [int(r[name + "/gave_up"]) for r in ranks]
+    assert gave_up == ([1] * WORLD if raised == "TransientFault" else [0] * WORLD)
+    if check == "rows":
+        mat = np.load(files / "ref.npy")
+        bounds = np.cumsum([0] + [r[name + "/local"].shape[0] for r in ranks])
+        assert bounds.tolist() == [0, 101, 202, 301]
+        for r, lo, hi in zip(ranks, bounds[:-1], bounds[1:]):
+            np.testing.assert_array_equal(r[name + "/local"][:hi - lo], mat[lo:hi])
+    elif check is not None:
+        mine, theirs = (files / f for f in check)
+        assert mine.read_bytes() == theirs.read_bytes()
+        assert Path(str(mine) + ".crc32").read_bytes() == Path(str(theirs) + ".crc32").read_bytes()
+    if name == "h5_fault_rank1":
+        import h5py
+
+        with h5py.File(files / "retry.h5", "r") as f:
+            np.testing.assert_array_equal(f["x"][...], np.load(files / "ref.npy"))
+    leftovers = [f for f in os.listdir(files) if ".tmp-" in f]
+    assert not leftovers, leftovers

@@ -1905,3 +1905,66 @@ def test_daso_step_on_the_card_is_the_hosts(card):
     np.testing.assert_allclose(runs[0], runs[1], rtol=1e-5)
     for p, q in zip(model.parameters(), host.parameters()):
         np.testing.assert_allclose(p.detach().cpu().numpy(), q.detach().numpy(), atol=1e-5)
+
+
+# ----------------------------------------------------------------------
+# faults F19, F21 and F22: the card's answers are the CPU's
+# ----------------------------------------------------------------------
+def _leaves(r):
+    return [x for part in r for x in _leaves(part)] if isinstance(r, (tuple, list)) else [r]
+
+
+@pytest.mark.parametrize("split", [None, 0])
+@pytest.mark.parametrize("name", __import__("torch_fault_cases").CARD_CASES)
+def test_fault_cases_on_the_card_are_the_hosts(card, name, split):
+    """Bitwise, but for complex ``logaddexp2``, whose exp and log1p on the
+    card round otherwise than on the CPU (within the reference's float32
+    bound, 3e-5 relative and 1e-6 absolute)."""
+    from torch_fault_cases import CASES
+
+    fn, inputs = CASES[name]
+    arrays = inputs()
+    runs = []
+    for dev in ("gpu", "cpu"):
+        ops = [ht.array(a, split=split if i == 0 else None, device=dev) for i, a in enumerate(arrays)]
+        runs.append(_leaves(fn(ht, *ops)))
+    for got, want in zip(*runs):
+        assert got.dtype == want.dtype and got.larray.is_cuda
+        g, w = got.numpy(), want.numpy()
+        if name == "f21_logaddexp2_complex64":
+            np.testing.assert_allclose(g, w, rtol=3e-5, atol=1e-6)
+        else:
+            assert g.tobytes() == w.tobytes(), name
+
+
+def test_array_of_ml_dtypes_bfloat16_on_the_card(card):
+    ml_dtypes = pytest.importorskip("ml_dtypes")
+    a = np.random.default_rng(1).standard_normal((1000, 3)).astype(ml_dtypes.bfloat16)
+    for split in (None, 0, 1):
+        got = ht.array(a, split=split, device="gpu")
+        assert got.dtype is ht.bfloat16 and got.larray.is_cuda
+        assert got.numpy().tobytes() == ht.array(a, split=split, device="cpu").numpy().tobytes()
+
+
+@pytest.mark.parametrize("index", ["int64", "bool", "dndarray", "float32"])
+def test_delete_with_a_card_index_is_the_hosts(card, index):
+    """napi's delete takes a torch index on the card (its type read from its
+    dtype, its values never copied to the host to decide), and refuses a
+    float one as on the CPU."""
+    x = np.arange(24.0, dtype=np.float32).reshape(6, 4)
+    picks = {"int64": np.array([0, 3, -1]), "bool": np.array([True, False, False, True, False, True]),
+             "float32": np.array([1.0], np.float32)}
+    for device, dev in (("gpu", card), ("cpu", torch.device("cpu"))):
+        a = ht.array(x, device=device)
+        obj = ht.array(picks["int64"], device=device) if index == "dndarray" else \
+            torch.as_tensor(picks[index], device=dev)
+        if index == "float32":
+            with pytest.raises(ValueError):
+                ht.napi.delete(a, obj, axis=0)
+            continue
+        got = ht.napi.delete(a, obj, axis=0)
+        if device == "gpu":
+            assert got.larray.is_cuda
+            on_card = got.numpy()
+        else:
+            np.testing.assert_array_equal(got.numpy(), on_card)

@@ -83,3 +83,30 @@ def test_importing_the_port_needs_no_h5py_and_no_torchvision():
     )
     assert out.returncode == 0, out.stderr
     assert "IMPORTED []" in out.stdout, out.stdout
+
+
+_NEW_SUBPACKAGES = r"""
+import importlib, sys
+for name in ("heat_tpu_torch.resilience", "heat_tpu_torch.resilience.faults", "heat_tpu_torch.resilience.retry",
+             "heat_tpu_torch.resilience.atomic", "heat_tpu_torch.resilience.guard", "heat_tpu_torch.telemetry",
+             "heat_tpu_torch.telemetry.metrics", "heat_tpu_torch.telemetry.spans", "heat_tpu_torch.telemetry.tracing",
+             "heat_tpu_torch.telemetry.journal", "heat_tpu_torch.analysis.concurrency", "heat_tpu_torch.analysis.tsan",
+             "heat_tpu_torch.analysis.diagnostics", "heat_tpu_torch.analysis.protocols",
+             "heat_tpu_torch.analysis.conformance", "heat_tpu_torch.datasets"):
+    importlib.import_module(name)
+import heat_tpu_torch as ht
+assert ht.communication is ht.parallel
+bad = sorted(m for m in sys.modules if m == "jax" or m.startswith(("jax.", "jaxlib", "jax_")) or m == "heat_tpu" or m.startswith("heat_tpu."))
+print("BAD", bad)
+"""
+
+
+def test_the_resilience_telemetry_and_analysis_subpackages_load_no_jax():
+    """Each module of the resilience, telemetry and analysis slice, and
+    the datasets, imported on its own in a fresh interpreter."""
+    out = subprocess.run(
+        [sys.executable, "-c", _NEW_SUBPACKAGES], cwd=REPO, capture_output=True, text=True, timeout=120,
+        env={**os.environ, "PYTHONPATH": str(REPO)},
+    )
+    assert out.returncode == 0, out.stderr
+    assert "BAD []" in out.stdout, out.stdout
