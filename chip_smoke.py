@@ -124,6 +124,18 @@ file, it exits non-zero before printing any result):
    injected comm.collective fault, then retried by a RetryPolicy to the
    unfaulted product bitwise; guard_finite on the points and on a copy
    with one NaN (DivergenceError).
+6k. resume: KMeans(8, init="random", max_iter=30).fit on the points, the
+   uninterrupted fit, then with checkpoint_every=2 (synchronous saves, then
+   async ones through pinned memory), stopped by a permanent kmeans.iter
+   fault at its second boundary and resumed, and stopped by the preemption
+   gate at its first boundary and resumed: centres, labels, inertia and
+   n_iter bitwise equal across all of them (K1 and threefry counted into
+   the kernel summary); the fits' wall times (each twice, in turns),
+   ckpt_stall_ms, a step's bytes,
+   one save's and one restore's time; then a ProcessSupervisor world of one
+   on the card (its worker KMeans at 2^24 x 16) killed (exit 137) at its
+   second boundary and relaunched: its final centres bitwise those of a
+   worker never killed, elastic.recovery_ms.
 
 The KMeans data is then freed, and the hierarchical SVD path follows on a
 2^25 x 128 float32 matrix with a decaying spectrum, made on the card:
@@ -136,7 +148,11 @@ The KMeans data is then freed, and the hierarchical SVD path follows on a
    a user calls, one Gram launch per call, singular values, orthonormal U
    and the error estimate against the plain version's;
 9. pca: PCA(n_components=10, svd_solver="hierarchical").fit and transforms
-   of 1, 64 and 4096 rows, checked against the float64 projection;
+   of 1, 64 and 4096 rows, checked against the float64 projection; then
+   (phase resume, step pca) the same fit with stage checkpoints, stopped by a
+   pca.stage fault between its mean and its solve and resumed: components,
+   spectrum and mean bitwise the uninterrupted fit's, K2 once in each of the
+   two (counted into the kernel summary);
 9a. rsvd: linalg.rsvd(A, 10) with power_iter 0 and 1 through the entry
    point: one threefry launch a call (the Gaussian test matrix) and no
    other kernel, S within rtol 1e-4 of the plain spectrum, U orthonormal
@@ -2345,6 +2361,223 @@ def resilience_phase(x, smi: str) -> dict:
           "bound_ms": x.numel() * 4 / HBM_BYTES_PER_S * 1e3, "divergence": caught,
           "phase_seconds": time.perf_counter() - t_phase, "card": smi})
     return {**launches, "csr_spmm": spmm}
+
+
+RESUME_EVERY = 2  # iterations a chunk of the checkpointed KMeans fits
+RESUME_WORKER_ROWS = 1 << 24  # the supervised worker's points (2^24 x 16)
+RESUME_WORKER_DEVICE = "gpu"
+
+
+def _fit_result(km) -> tuple:
+    return (km.cluster_centers_.larray.clone(), km.labels_.larray.clone(), float(km.inertia_), int(km.n_iter_))
+
+
+def _same_fit(got: tuple, want: tuple, what: str) -> None:
+    if not (torch_equal(got[0], want[0]) and torch_equal(got[1], want[1]) and got[2:] == want[2:]):
+        raise AssertionError(f"resume: {what} differs from the uninterrupted fit (n_iter {got[3]} against {want[3]}, "
+                             f"inertia {got[2]} against {want[2]})")
+
+
+def torch_equal(a, b) -> bool:
+    import torch
+
+    return a.shape == b.shape and bool(torch.equal(a, b))
+
+
+def resume_phase(x, smi: str) -> dict:
+    """Phase resume: checkpointed, faulted, preempted and supervised KMeans
+    fits on the card, each bitwise the uninterrupted fit.  Returns the K1
+    and threefry launches of the fits in this process."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    import heat_tpu_torch as ht
+    from heat_tpu_torch import resilience, telemetry
+    from heat_tpu_torch.core import kernels, preempt
+    from heat_tpu_torch.core import random as rnd
+    from heat_tpu_torch.utils import checkpoint, overlap
+
+    t_phase = time.perf_counter()
+    ht.use_device("gpu")
+    pts = ht.array(x, split=0)
+    kw = dict(n_clusters=CLUSTERS, init="random", random_state=SEED, max_iter=MAX_ITER)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_resume_")
+    launches = {"lloyd_step": 0, "threefry": 0}
+    saved_env = os.environ.get("HEAT_TPU_ASYNC_CKPT")
+
+    def fit(**extra):
+        zero_launches()
+        try:
+            km, ms = wall_ms(lambda: ht.cluster.KMeans(**kw, **extra).fit(pts))
+        finally:  # a fit stopped by a fault or the gate launched its kernels too
+            launches["lloyd_step"] += kernels.LLOYD_LAUNCHES
+            launches["threefry"] += rnd.THREEFRY_LAUNCHES
+        return km, ms, kernels.LLOYD_LAUNCHES
+
+    try:
+        km, plain_ms, plain_k1 = fit()
+        want = _fit_result(km)
+        if plain_k1 != want[3] + 1 or want[3] <= 2 * RESUME_EVERY:
+            raise AssertionError(f"resume: the plain fit launched K1 {plain_k1} times in {want[3]} iterations; "
+                                 f"it needs more than {2 * RESUME_EVERY} to be stopped at its second boundary")
+        fits = {"plain": {"wall_ms": [plain_ms, fit()[1]], "lloyd_launches": plain_k1}}
+        # each twice, in turns: the first checkpointed fit of a process pays
+        # the checkpoint path's first use
+        for mode, env in (("sync", "0"), ("async", "1"), ("sync", "0"), ("async", "1")):
+            os.environ["HEAT_TPU_ASYNC_CKPT"] = env
+            overlap.reset_overlap_stats()
+            d = os.path.join(tmp, mode + str(len(fits)))
+            km, ms, k1 = fit(checkpoint_every=RESUME_EVERY, checkpoint_dir=d)
+            _same_fit(_fit_result(km), want, f"the fit with {mode} checkpoints")
+            stats = overlap.overlap_stats()
+            entry = fits.setdefault(mode, {"wall_ms": [], "lloyd_launches": k1, "ckpt_stall_ms": []})
+            entry["wall_ms"].append(ms)
+            entry["ckpt_stall_ms"].append(stats["ckpt_stall_ms"])
+            entry["steps"] = len(checkpoint.Checkpointer(d).all_steps())
+            entry["async_saves"] = stats["async_saves"]
+        # a permanent fault at the second boundary (before its save), then the resume
+        d = os.path.join(tmp, "faulted")
+        with resilience.fault_plan({"kmeans.iter": [{"at": 1, "kind": "permanent"}]}):
+            try:
+                fit(checkpoint_every=RESUME_EVERY, checkpoint_dir=d)
+            except resilience.PermanentFault:
+                pass
+            else:
+                raise AssertionError("resume: the fault plan did not stop the fit")
+        latest = checkpoint.Checkpointer(d).latest_step()
+        km, ms, k1 = fit(checkpoint_every=RESUME_EVERY, checkpoint_dir=d, resume_from=d)
+        _same_fit(_fit_result(km), want, "the fit resumed after a fault")
+        fits["faulted_resumed"] = {"stopped_after_step": latest, "resume_wall_ms": ms, "lloyd_launches": k1}
+        # the preemption gate: a request pending at the first boundary
+        d = os.path.join(tmp, "preempted")
+        gate = preempt.preemption_gate()
+        gate.request("chip_smoke")
+        try:
+            fit(checkpoint_every=RESUME_EVERY, checkpoint_dir=d)
+        except resilience.PreemptedError as e:
+            stopped = e.iteration
+        else:
+            raise AssertionError("resume: the gate did not preempt the fit")
+        finally:
+            gate.clear()
+        km, ms, k1 = fit(checkpoint_every=RESUME_EVERY, checkpoint_dir=d, resume_from=d)
+        _same_fit(_fit_result(km), want, "the fit resumed after a preemption")
+        fits["preempted_resumed"] = {"stopped_at_iteration": stopped, "resume_wall_ms": ms, "lloyd_launches": k1}
+        # one step's size, save and restore
+        ck = checkpoint.Checkpointer(os.path.join(tmp, "one"))
+        state = {"state": km.cluster_centers_.larray, "n_iter": want[3], "shift": 0.0, "converged": True}
+        _, save_ms = wall_ms(lambda: ck.save(1, state))
+        back, restore_ms = wall_ms(lambda: ck.restore(1))
+        if not torch_equal(torch.as_tensor(back["state"]), want[0].cpu()):
+            raise AssertionError("resume: a restored step differs from the centres saved")
+        step_dir = os.path.join(ck.directory, "step_1")
+        step_bytes = sum(os.path.getsize(os.path.join(step_dir, f)) for f in os.listdir(step_dir))
+        emit({"phase": "resume", "step": "kmeans", "rows": int(x.shape[0]), "n_iter": want[3],
+              "checkpoint_every": RESUME_EVERY, "fits": fits, "step_bytes": step_bytes, "save_ms": save_ms,
+              "restore_ms": restore_ms, "bitwise": "centres, labels, inertia, n_iter across all fits", "card": smi})
+    finally:
+        if saved_env is None:
+            os.environ.pop("HEAT_TPU_ASYNC_CKPT", None)
+        else:
+            os.environ["HEAT_TPU_ASYNC_CKPT"] = saved_env
+        shutil.rmtree(tmp, ignore_errors=True)
+    del pts
+    resume_supervised(smi)
+    emit({"phase": "resume", "step": "phase_seconds", "seconds": time.perf_counter() - t_phase, "card": smi})
+    return launches
+
+
+def resume_supervised(smi: str) -> None:
+    """A ProcessSupervisor world of one on the card: its KMeans worker at
+    RESUME_WORKER_ROWS x 16 killed (exit 137) at its second chunk boundary
+    and relaunched; the final centres bitwise those of a worker never
+    killed."""
+    import json
+    import shutil
+    import tempfile
+
+    from heat_tpu_torch.elastic import ProcessSupervisor, kmeans_worker_source
+    from heat_tpu_torch.telemetry import metrics
+    from heat_tpu_torch.utils.checkpoint import Checkpointer
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_elastic_")
+    kill = json.dumps({"plan": {"kmeans.iter": [{"at": 1, "kind": "kill", "exit_code": 137}]}})
+    worker = dict(n=RESUME_WORKER_ROWS, f=FEATURES, k=CLUSTERS, max_iter=MAX_ITER, tol=1e-4, seed=SEED,
+                  random_state=SEED, checkpoint_every=RESUME_EVERY, device=RESUME_WORKER_DEVICE)
+    try:
+        runs = {}
+        for name, plan in (("killed", kill), ("never_killed", "")):
+            d = os.path.join(tmp, name)
+
+            def build(ws, resume, attempt, d=d, plan=plan):
+                src = kmeans_worker_source(d, resume_from=resume, **worker)
+                return [sys.executable, "-c", src], {"HEAT_TPU_FAULT_PLAN": plan if attempt == 0 else ""}
+
+            hist = metrics.histogram("elastic.recovery_ms")
+            t0 = time.perf_counter()
+            out = ProcessSupervisor(build, d, world_size=1, shrink_by=0, poll_s=0.1, attempt_timeout_s=300).run()
+            runs[name] = {"out": out, "seconds": time.perf_counter() - t0, "state": Checkpointer(d).restore(),
+                          "recovery_ms": [s * 1e3 for s in out["recovery_s"]]}
+        killed, clean = runs["killed"], runs["never_killed"]
+        if [a["returncode"] for a in killed["out"]["attempts"]] != [137, 0] or clean["out"]["recoveries"]:
+            raise AssertionError(f"resume: the supervised attempts ended {[a['returncodes'] for a in killed['out']['attempts']]}"
+                                 f"; the clean run recovered {clean['out']['recoveries']} times:\n"
+                                 + killed["out"]["attempts"][-1]["tail"])
+        a, b = killed["state"], clean["state"]
+        if not (a["converged"] == b["converged"] and a["n_iter"] == b["n_iter"]
+                and a["state"].tobytes() == b["state"].tobytes()):
+            raise AssertionError(f"resume: the relaunched worker's centres (n_iter {a['n_iter']}) differ from the "
+                                 f"never-killed worker's (n_iter {b['n_iter']})")
+        emit({"phase": "resume", "step": "process_supervisor", "world_size": 1, "rows": RESUME_WORKER_ROWS,
+              "n_iter": int(a["n_iter"]), "converged": bool(a["converged"]), "killed_run_s": killed["seconds"], "clean_run_s": clean["seconds"],
+              "elastic.recovery_ms": killed["recovery_ms"], "centres_bitwise_never_killed": True, "card": smi})
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def resume_pca(A, smi: str) -> int:
+    """Phase resume, step pca: PCA(n_components=10, svd_solver=
+    "hierarchical") on the hSVD matrix with stage checkpoints, stopped by a
+    pca.stage fault between the mean and the solve, then resumed: bitwise the
+    uninterrupted fit.  Returns K2's launches (one in each fit)."""
+    import shutil
+    import tempfile
+
+    import heat_tpu_torch as ht
+    from heat_tpu_torch import resilience
+    from heat_tpu_torch.core import kernels
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_pca_")
+    try:
+        def fit(**extra):
+            return ht.decomposition.PCA(n_components=HSVD_RANK, svd_solver="hierarchical", **extra).fit(A)
+
+        zero_launches()
+        plain, plain_ms = wall_ms(fit)
+        k2 = kernels.GRAM_LAUNCHES
+        with resilience.fault_plan({"pca.stage": [{"at": 1, "kind": "permanent"}]}):
+            try:
+                fit(checkpoint_every=1, checkpoint_dir=tmp)
+            except resilience.PermanentFault:
+                pass
+            else:
+                raise AssertionError("resume pca: the fault plan did not stop the fit between its stages")
+        stopped = sorted(os.listdir(tmp))
+        zero_launches()
+        resumed, resume_ms = wall_ms(lambda: fit(checkpoint_every=1, checkpoint_dir=tmp, resume_from=tmp))
+        k2_resumed = kernels.GRAM_LAUNCHES
+        same = all(torch_equal(getattr(resumed, a).larray, getattr(plain, a).larray)
+                   for a in ("components_", "singular_values_", "explained_variance_", "mean_"))
+        if stopped != ["step_0"] or not same or k2 != 1 or k2_resumed != 1 or kernels.LLOYD_LAUNCHES:
+            raise AssertionError(f"resume pca: steps {stopped} at the fault, bitwise {same}, K2 {k2} and {k2_resumed}")
+        emit({"phase": "resume", "step": "pca", "rows": int(A.shape[0]), "cols": int(A.shape[1]),
+              "plain_fit_ms": plain_ms, "resumed_fit_ms": resume_ms, "steps_at_fault": stopped,
+              "gram_launches": k2 + k2_resumed, "bitwise": "components, spectrum, mean", "card": smi})
+        return k2 + k2_resumed
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
 
 
 def _napi_mismatch(got, want):
@@ -5049,6 +5282,12 @@ def main() -> int:
     lloyd["launches"] += res_launches["lloyd_step"]
     threefry["launches"] += res_launches["threefry"]
 
+    # 6k. checkpointed, faulted, preempted and supervised fits, bitwise the
+    # uninterrupted one (K1 and threefry in each fit)
+    resume_launches = resume_phase(x, smi)
+    lloyd["launches"] += resume_launches["lloyd_step"]
+    threefry["launches"] += resume_launches["threefry"]
+
     # the KMeans data is freed before the hSVD path's matrix is made
     del x, pts, km, centres, labels, plain_labels, truth, pred
     torch.cuda.empty_cache()
@@ -5135,6 +5374,9 @@ def main() -> int:
           "explained_variance_ratio_sum": ratio_sum, "total_explained_variance_ratio": tevr,
           "transforms": transforms})
     del pca
+
+    # phase resume, step pca: the stage checkpoints at K2's shape
+    pca_resume_launches = resume_pca(A, smi)
 
     # 9a. rsvd through the entry point
     from heat_tpu_torch.core import random as rnd
@@ -5255,6 +5497,7 @@ def main() -> int:
             "replaces": "heat_tpu/core/kernels.py:378", "launches": gram_launches, "max_abs_err": gram_abs_err,
             "ms": gram_ms, "plain_ms": gram_plain_ms, "bound_ms": bound[gram_bound_by], "bound_by": gram_bound_by,
             "library_ms": library_ms}
+    gram["launches"] += pca_resume_launches
 
     # the hSVD data is freed before the FFT path's
     del a, A, S, lam, sq

@@ -34,5 +34,6 @@ from . import datasets
 from . import analysis
 from . import resilience
 from . import telemetry
+from . import elastic
 
 communication = parallel  # the reference's alias of parallel

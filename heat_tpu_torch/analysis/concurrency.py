@@ -11,7 +11,8 @@ to the registered structures against this table.
 The names are the reference's, so a sanitizer finding reads the same in
 both packages; only the port's own locks are registered (the metrics
 registry, the span ring, the trace store, the decision journal, the
-diagnostics ring, the conformance checker and the fault injector).  The
+diagnostics ring, the conformance checker, the fault injector, the
+async checkpoint writer and the preemption gate).  The
 table is a pure literal: it can be read with ``ast.literal_eval``.
 """
 
@@ -75,6 +76,18 @@ LOCK_REGISTRY = {
         'spellings': ('self._lock',),
         'structures': ('resilience.faults.counters',),
         'doc': 'FaultInjector per-site call indices + injected lists: sites may be evaluated from any thread; the lock keeps per-site call order deterministic',
+    },
+    'overlap.async_writer': {
+        'file': 'heat_tpu_torch/utils/overlap.py',
+        'spellings': ('self._error_lock',),
+        'structures': ('overlap.async_writer.state',),
+        'doc': 'AsyncCheckpointer pending-error slot: written by the background writer thread, swapped out by save()/wait()/close() on the fit thread',
+    },
+    'core.preemption': {
+        'file': 'heat_tpu_torch/core/preempt.py',
+        'spellings': ('self._lock',),
+        'structures': ('core.preemption.state',),
+        'doc': 'PreemptionGate pending-yield slot + counters: requested by an operator or a test (the serving admission of the reference is not ported yet), consulted (and its stats mutated) by fit threads at resumable-fit chunk boundaries, cleared when the request is withdrawn',
     },
 }
 

@@ -5,8 +5,11 @@ Ported here: ``init="random"``, kmeans++ (``"kmeans++"``,
 and ``"kmedoids++"`` map to it) and an explicit array of centres, the
 nearest-centre assignment with the fit's inertia, ``predict``, and the
 per-cluster member statistics KMedians and KMedoids share
-(:func:`_members`).  The checkpoint/resume options are not ported yet and
-raise, as does KMeans' low-precision predict scope.
+(:func:`_members`), and the resumable fits: ``checkpoint_every=N`` with
+``checkpoint_dir`` checkpoints the centres every N iterations, and
+``resume_from=dir`` continues a killed fit from its last checkpoint with the
+same iteration sequence (:func:`~heat_tpu_torch.core.base.resumable_fit_loop`).
+KMeans' low-precision predict scope is not ported yet and raises.
 """
 
 from __future__ import annotations
@@ -17,7 +20,8 @@ import torch
 
 from ..core import random as ht_random
 from ..core import arithmetics, statistics, types
-from ..core.base import BaseEstimator, ClusteringMixin, lazy_scalar_property, validate_resume_params
+from ..core.base import (BaseEstimator, ClusteringMixin, lazy_scalar_property, resumable_fit_loop,
+                         validate_resume_params)
 from ..core.dndarray import DNDarray
 from ..spatial import distance
 
@@ -54,6 +58,38 @@ class _KCluster(BaseEstimator, ClusteringMixin):
         self._labels = None
         self._inertia = None
         self._n_iter = None
+
+    def _fit_centers(self, x: DNDarray, run, site: str, converged_when=None):
+        """``(centres, n_iter)`` of the fit's loop ``run(centres, n)`` (at
+        most n iterations from ``centres``: ``(centres, iterations, shift)``)
+        from the initial centres.  With ``checkpoint_every`` or
+        ``resume_from``, in checkpointed chunks
+        (:func:`~heat_tpu_torch.core.base.resumable_fit_loop`, fault site
+        ``site``; ``converged_when`` the loop's own stop test), the centres
+        back as a tensor of x's device and the fit's type."""
+
+        def init_centers():
+            self._initialize_cluster_centers(x)
+            return self._cluster_centers.larray
+
+        if self.checkpoint_every is None and self.resume_from is None:
+            centers, n_iter, _ = run(init_centers(), self.max_iter)
+            return centers, n_iter
+        dtype = x.larray_padded.dtype if types.heat_type_is_inexact(x.dtype) else torch.float32
+        centers, n_iter = resumable_fit_loop(
+            lambda c, n: run(_as_centers(c, x, dtype), n),
+            init_centers,
+            self.max_iter,
+            float(self.tol),
+            checkpoint_every=self.checkpoint_every,
+            checkpoint_dir=self.checkpoint_dir,
+            resume_from=self.resume_from,
+            site=site,
+            what="cluster centers",
+            converged_when=converged_when,
+            comm=x.comm,
+        )
+        return _as_centers(centers, x, dtype), n_iter
 
     @property
     def cluster_centers_(self) -> DNDarray:
@@ -122,6 +158,12 @@ def _fit_input(x: DNDarray) -> DNDarray:
     if x.split not in (None, 0):
         raise NotImplementedError(f"Splittings other than 0 or None currently not supported, got {x.split}")
     return x if types.heat_type_is_inexact(x.dtype) else x.astype(types.float32)
+
+
+def _as_centers(c, x: DNDarray, dtype: torch.dtype) -> torch.Tensor:
+    """Centres as a tensor of x's device and ``dtype``: a restored
+    checkpoint's numpy array is copied there (its bits kept)."""
+    return torch.as_tensor(c).to(device=x.larray_padded.device, dtype=dtype)
 
 
 def _members(x: DNDarray, centers: torch.Tensor):

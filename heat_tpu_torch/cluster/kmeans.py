@@ -4,7 +4,9 @@ Every Lloyd iteration, and the final assignment, is one launch of the fused
 Lloyd kernel (:func:`heat_tpu_torch.core.kernels.lloyd_update`) on each
 rank's chunk of the points, followed by one all-reduce of the small partial
 sums.  The loop runs on the host and reads the centre shift once per
-iteration to test convergence, as the JAX package's kernel path does.
+iteration to test convergence, as the JAX package's kernel path does.  With
+``checkpoint_every`` / ``resume_from`` the same sequence of launches runs in
+checkpointed chunks (``_KCluster._fit_centers``).
 """
 
 from __future__ import annotations
@@ -59,13 +61,17 @@ class KMeans(_KCluster):
             raise ValueError(f"input needs to be 2D, but was {x.ndim}D")
         if not types.heat_type_is_inexact(x.dtype):
             x = x.astype(types.float32)
-        self._initialize_cluster_centers(x)
-        centers = self._cluster_centers.larray
-        for i in range(self.max_iter):
-            centers, shift, _ = kernels.lloyd_update(x, centers)
-            if float(shift) <= self.tol:
-                break
-        self._n_iter = i + 1
+
+        def run(centers, n):
+            shift = float("inf")
+            for i in range(n):
+                centers, shift_t, _ = kernels.lloyd_update(x, centers)
+                shift = float(shift_t)
+                if shift <= self.tol:
+                    return centers, i + 1, shift
+            return centers, n, shift
+
+        centers, self._n_iter = self._fit_centers(x, run, "kmeans.iter")
         self._cluster_centers = DNDarray.from_dense(centers, None, x.device, x.comm)
         # final assignment against the converged centres: labels and
         # inertia from the same kernel, its new centres unused

@@ -100,16 +100,18 @@ class KMedians(_KCluster):
         float32, as the reference's loop does), at most ``max_iter``; then
         one assignment for ``labels_`` and ``inertia_``."""
         x = _fit_input(x)
-        self._initialize_cluster_centers(x)
-        centers = self._cluster_centers.larray
         key = _ordered(x.larray)
         tol = float(np.float32(self.tol))
-        i, shift = 0, float("inf")
-        while i < self.max_iter and shift > tol:
-            new = _medians(x, key, centers)
-            shift = float(torch.sum((new - centers) ** 2).to(torch.float32))
-            centers, i = new, i + 1
-        self._n_iter = i
+
+        def run(centers, n):
+            i, shift = 0, float("inf")
+            while i < n and shift > tol:
+                new = _medians(x, key, centers)
+                shift = float(torch.sum((new - centers) ** 2).to(torch.float32))
+                centers, i = new, i + 1
+            return centers, i, shift
+
+        centers, self._n_iter = self._fit_centers(x, run, "kmedians.iter", converged_when=lambda s, t: s <= tol)
         self._cluster_centers = DNDarray.from_dense(centers, None, x.device, x.comm)
         self._labels = self._assign_to_cluster(x, eval_functional_value=True)
         return self

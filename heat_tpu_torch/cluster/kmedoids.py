@@ -81,14 +81,16 @@ class KMedoids(_KCluster):
         one assignment for ``labels_`` and ``inertia_``.  One host read of
         the shift an iteration."""
         x = _fit_input(x)
-        self._initialize_cluster_centers(x)
-        centers = self._cluster_centers.larray
-        i, shift = 0, float("inf")
-        while i < self.max_iter and shift > 0.0:
-            new = _medoids(x, centers)
-            shift = float(torch.sum(torch.abs(new - centers)).to(torch.float32))
-            centers, i = new, i + 1
-        self._n_iter = i
+
+        def run(centers, n):
+            i, shift = 0, float("inf")
+            while i < n and shift > 0.0:
+                new = _medoids(x, centers)
+                shift = float(torch.sum(torch.abs(new - centers)).to(torch.float32))
+                centers, i = new, i + 1
+            return centers, i, shift
+
+        centers, self._n_iter = self._fit_centers(x, run, "kmedoids.iter")
         self._cluster_centers = DNDarray.from_dense(centers, None, x.device, x.comm)
         self._labels = self._assign_to_cluster(x, eval_functional_value=True)
         return self

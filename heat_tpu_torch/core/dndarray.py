@@ -408,6 +408,48 @@ class DNDarray:
         self.__target_map = self.__ragged_buffer = None
         return self
 
+    def reshard_(self, comm: Optional[Communication] = None) -> "DNDarray":
+        """Move in place onto another communication, keeping the global value
+        and the split: the elastic-resume primitive, after
+        :meth:`Communication.reshape` replaced the world.
+
+        Onto a communication that ``self.comm.reshape`` made, the rows move
+        by one exchange over the old communication, on which every rank is
+        still alive and calls this: a rank that leaves hands over its rows
+        (and keeps none), a rank that stays receives the rows of its new
+        canonical chunk.  An unsplit array stays whole on every rank.  Onto
+        any other communication this rank's chunk is cut from the gathered
+        value.  No-op onto this array's own communication."""
+        comm = sanitize_comm(comm)
+        old = self.__comm
+        if comm is old:
+            return self
+        split, gshape = self.__split, self.__gshape
+        if split is None:
+            pass
+        elif comm._origin is not None and comm._origin[0] is old:
+            ranks = comm._origin[1]
+            new_rank = {r: i for i, r in enumerate(ranks)}
+            runs = [old.chunk(gshape, split, rank=r)[:2] for r in range(old.size)]
+            runs = [(off, lsh[split]) for off, lsh in runs]
+            ranges = []
+            for r in range(old.size):
+                if r in new_rank:
+                    off, lsh, _ = comm.chunk(gshape, split, rank=new_rank[r])
+                    ranges.append((off, off + lsh[split]))
+                else:
+                    ranges.append((gshape[split], gshape[split]))
+            rows = _move_rows(old, self.larray, split, runs, ranges)
+            per = comm.padded_extent(gshape[split]) // comm.size if comm.is_member else 0
+            self.__array = _pad_along(rows, split, per).contiguous()
+        else:
+            dense = self._dense()
+            self.__array = DNDarray.from_dense(dense, split, self.__device, comm, self.__dtype).larray_padded
+        self.__comm = comm
+        self.__halo_prev = self.__halo_next = None
+        self.__target_map = self.__ragged_buffer = None
+        return self
+
     def resplit(self, axis: Optional[int] = None) -> "DNDarray":
         """A copy re-split along ``axis``; the same data when it is split so."""
         axis = sanitize_axis(self.__gshape, axis)

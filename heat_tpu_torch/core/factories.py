@@ -107,16 +107,17 @@ def array(obj, dtype=None, copy: Optional[bool] = None, ndmin: int = 0, order: s
     all-gather of their extents, one exchange to the canonical layout).
     ``copy=True`` always copies; otherwise a tensor already on the device
     may be shared.  ``ndmin`` prepends axes of length 1.  A DNDarray comes
-    back cast when ``dtype`` differs, moved when ``device`` does and
-    resplit when ``split`` does."""
+    back cast when ``dtype`` differs, moved when ``device`` does, resplit
+    when ``split`` does and resharded (a copy, :meth:`DNDarray.reshard_`)
+    when ``comm`` does."""
     if split is not None and is_split is not None:
         raise ValueError("split and is_split are mutually exclusive")
     if order not in ("C", "F"):
         raise ValueError(f"invalid memory layout order, expected 'C' or 'F', got {order!r}")
     if isinstance(obj, DNDarray):
         if comm is not None and sanitize_comm(comm) is not obj.comm:
-            raise NotImplementedError("ht.array of a DNDarray onto another communication needs reshard_, "
-                                      "not ported yet (ROADMAP Queue 1 item 15b)")
+            obj = obj.copy().reshard_(comm)  # a resharded copy
+            copy = False
         if device is not None and sanitize_device(device) != obj.device:
             device = sanitize_device(device)
             obj = DNDarray(obj.larray_padded.to(device.torch_device), obj.gshape, obj.dtype, obj.split, device,

@@ -7,19 +7,24 @@ Ported: ``svd_solver="hierarchical"`` (``hsvd_rank`` for an int
 split along rows gathers nothing of the data's size: the mean, the Gram
 matrix and the total variance are local sums followed by one all-reduce
 each; a randomized fit gathers the centred data, as the reference's does.
-``svd_solver="full"``, the checkpoint parameters and low-precision
+``svd_solver="full"`` is the exact SVD.  With ``checkpoint_every`` and
+``checkpoint_dir`` each of the fit's two stages (the mean, then the solve)
+commits a checkpoint (steps 0 and 1, the JAX package's payloads);
+``resume_from=dir`` skips every stage already done.  Low-precision
 transforms are not ported yet and raise.
 """
 
 from __future__ import annotations
 
+import sys
 from typing import Optional, Union
 
 import torch
 
 from ..core import random as ht_random
 from ..core import statistics
-from ..core.base import BaseEstimator, TransformMixin, lazy_scalar_property, low_precision_predict_requested
+from ..core.base import (BaseEstimator, TransformMixin, lazy_scalar_property, low_precision_predict_requested,
+                         validate_resume_params)
 from ..core.dndarray import DNDarray
 from ..core.linalg import basics, svdtools
 from ..core.linalg.svd import svd as _exact_svd
@@ -51,11 +56,9 @@ class PCA(BaseEstimator, TransformMixin):
             raise ValueError(f"svd_solver must be 'full', 'hierarchical' or 'randomized', got {svd_solver!r}")
         if random_state is not None and not isinstance(random_state, int):
             raise ValueError(f"random_state must be None or int, got {type(random_state)}")
-        if checkpoint_every is not None or checkpoint_dir is not None or resume_from is not None:
-            raise NotImplementedError(
-                "resumable fits (checkpoint_every, checkpoint_dir, resume_from) are not ported yet "
-                "(ROADMAP Queue 1 item 15b)"
-            )
+        validate_resume_params(checkpoint_every, checkpoint_dir, resume_from)
+        # the fit is staged (mean, then the solver), not iterated:
+        # checkpoint_every switches the stage checkpoints on
         self.checkpoint_every = checkpoint_every
         self.checkpoint_dir = checkpoint_dir
         self.resume_from = resume_from
@@ -82,17 +85,105 @@ class PCA(BaseEstimator, TransformMixin):
     # a fit stores a device scalar; the host value is taken on first access
     total_explained_variance_ratio_ = lazy_scalar_property("_tevr", float)
 
+    def _checkpointer(self, comm, for_write: bool):
+        directory = self.checkpoint_dir or self.resume_from
+        if directory is None or (for_write and self.checkpoint_every is None):
+            return None
+        from ..utils.checkpoint import Checkpointer
+        from ..utils.overlap import async_checkpoint_enabled
+
+        ck = Checkpointer(directory, comm=comm)
+        if for_write and async_checkpoint_enabled():
+            # the mean stage's write overlaps the solve; fit() drains the
+            # writer before it returns or raises
+            return ck.as_async()
+        return ck
+
+    def _restore_fitted(self, saved: dict, X: DNDarray) -> None:
+        def as_dnd(a):
+            return DNDarray.from_dense(torch.as_tensor(a), None, X.device, X.comm)
+
+        self.mean_ = as_dnd(saved["mean"])
+        self.components_ = as_dnd(saved["components"])
+        self.singular_values_ = as_dnd(saved["singular_values"])
+        self.explained_variance_ = as_dnd(saved["explained_variance"])
+        self.explained_variance_ratio_ = as_dnd(saved["explained_variance_ratio"])
+        self._tevr = saved["tevr"]
+        self.n_components_ = saved["n_components"]
+
+    def _fitted_payload(self) -> dict:
+        return {
+            "stage": "fitted",
+            "mean": self.mean_._dense(),
+            "components": self.components_._dense(),
+            "singular_values": self.singular_values_._dense(),
+            "explained_variance": self.explained_variance_._dense(),
+            "explained_variance_ratio": self.explained_variance_ratio_._dense(),
+            "tevr": float(self._tevr),
+            "n_components": int(self.n_components_),
+        }
+
     def fit(self, X: DNDarray, y=None) -> "PCA":
-        """Estimate the principal components of ``X`` (samples along rows)."""
+        """Estimate the principal components of ``X`` (samples along rows).
+
+        With ``checkpoint_every`` / ``checkpoint_dir`` the two stages (the
+        column mean, the solve) each commit a checkpoint; ``resume_from=dir``
+        skips every completed stage: a fit killed between the stages resumes
+        with only the solver left, and a fitted checkpoint restores without
+        reading the data.  The stages are deterministic functions of X and
+        the restored state, so a resumed fit equals the uninterrupted one."""
         if not isinstance(X, DNDarray):
             raise TypeError(f"X must be a DNDarray, got {type(X)}")
         if X.ndim != 2:
             raise ValueError(f"X must be 2D, got {X.ndim}D")
         if y is not None:
             raise ValueError("PCA is an unsupervised transform; y must be None")
+        from ..resilience.faults import inject
+        from ..telemetry.spans import span
+
+        writer = self._checkpointer(X.comm, for_write=True)
+        restored_mean = None
+        if self.resume_from is not None:
+            reader = self._checkpointer(X.comm, for_write=False)
+            step = reader.latest_step()
+            if step is not None:
+                saved = reader.restore(step)
+                if saved.get("stage") == "fitted":
+                    self._restore_fitted(saved, X)
+                    return self
+                restored_mean = saved["mean"]
+        # the stage writes are drained on every way out, so that the
+        # checkpoint directory holds a settled set of steps once fit() ends
+        try:
+            if restored_mean is None:
+                inject("pca.stage", stage="mean")
+                with span("pca.stage", stage="mean"):
+                    mean = statistics.mean(X, axis=0)
+                if writer is not None:
+                    writer.save(0, {"stage": "mean", "mean": mean._dense()})
+            else:
+                mean = DNDarray.from_dense(torch.as_tensor(restored_mean), None, X.device, X.comm)
+            self.mean_ = mean
+            inject("pca.stage", stage="solver")
+            with span("pca.stage", stage="solver", solver=self.svd_solver):
+                self._solve(X, mean)
+            if writer is not None:
+                writer.save(1, self._fitted_payload())
+            return self
+        finally:
+            if writer is not None:
+                if sys.exc_info()[0] is None:
+                    writer.close()
+                else:
+                    try:  # the body's exception wins over a writer error
+                        writer.close()
+                    except BaseException:
+                        pass
+
+    def _solve(self, X: DNDarray, mean: DNDarray) -> None:
+        """The solver's stage: components, spectrum and variance ratios of
+        ``X - mean``."""
         n, f = X.shape
-        mean = statistics.mean(X, axis=0)
-        self.mean_ = mean
         centered = X - mean
         if self.random_state is not None:
             ht_random.seed(self.random_state)
@@ -119,7 +210,7 @@ class PCA(BaseEstimator, TransformMixin):
             self.explained_variance_ratio_ = DNDarray.from_dense(ratio[:kk], None, X.device, X.comm)
             self._tevr = torch.sum(ratio[:kk])
             self.n_components_ = kk
-            return self
+            return
         if self.svd_solver == "randomized":
             if k is None:
                 raise ValueError("randomized solver requires an integer n_components")
@@ -142,7 +233,6 @@ class PCA(BaseEstimator, TransformMixin):
         else:
             self._tevr = 1.0 - err**2
             self.n_components_ = int(s.shape[0])
-        return self
 
     def transform(self, X: DNDarray) -> DNDarray:
         """Project ``X`` onto the principal axes."""

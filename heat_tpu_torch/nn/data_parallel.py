@@ -120,7 +120,10 @@ def reduce_gradients(
     in reverse layer order; ``blocking=True``: one flat buffer of the
     whole gradient (per dtype).  Both add the same elements over the same
     ranks in the same order, so the results are bitwise equal.  The
-    buckets issued are added to :data:`GRAD_BUCKETS`."""
+    buckets issued are added to :data:`GRAD_BUCKETS` and to the overlap
+    counter ``grad_buckets``."""
+    from ..utils.overlap import _bump
+
     global GRAD_BUCKETS
     comm = sanitize_comm(comm)
     grads = list(grads)
@@ -129,6 +132,7 @@ def reduce_gradients(
     bound = None if blocking else (_grad_bucket_bytes() if bucket_bytes is None else bucket_bytes)
     buckets = bucket_partition(grads, bound)
     GRAD_BUCKETS += len(buckets)
+    _bump("grad_buckets", len(buckets))
     out: List[Any] = [None] * len(grads)
     for bucket in buckets:
         flat = [grads[i].reshape(-1) for i in bucket]

@@ -45,6 +45,30 @@ class Communication:
         self.group = group
         self._size = size
         self._rank = rank
+        self._retired = False
+        #: ``(parent, ranks)`` of a communication made by :meth:`reshape`:
+        #: its rank i is the parent's rank ``ranks[i]``
+        self._origin = None
+
+    @classmethod
+    def _outside(cls, size: int, **kwargs) -> "Communication":
+        """What a rank that is not a member gets of a new communication of
+        ``size`` ranks: its layout, rank -1 (no chunk of its own) and no
+        collectives."""
+        c = cls(size=size, rank=0, **kwargs)
+        c._rank = -1
+        return c
+
+    @property
+    def is_member(self) -> bool:
+        """Whether this process is one of the communication's ranks."""
+        return self.rank >= 0
+
+    @property
+    def retired(self) -> bool:
+        """True once :meth:`reshape` replaced this communication (it stays
+        usable: its arrays still need it to move)."""
+        return self._retired
 
     @property
     def size(self) -> int:
@@ -85,7 +109,7 @@ class Communication:
         rank = self.rank if rank is None else rank
         extent = shape[split]
         per = self.padded_extent(extent) // self.size
-        start = min(rank * per, extent)
+        start = min(rank * per, extent) if rank >= 0 else extent  # a rank outside holds nothing
         stop = min(start + per, extent)
         lshape = shape[:split] + (stop - start,) + shape[split + 1 :]
         slices = tuple(slice(start, stop) if d == split else slice(0, s) for d, s in enumerate(shape))
@@ -344,6 +368,75 @@ class Communication:
         # a world of one, or a described world: the layout of the subset
         return Communication(size=len(ranks), rank=ranks.index(self.rank) if self.rank in ranks else 0)
 
+    # ------------------------------------------------------------------
+    # elastic reshape (heat_tpu/parallel/comm.py:439-463)
+    # ------------------------------------------------------------------
+    def _surviving_ranks(self, n_devices: Optional[int], devices) -> List[int]:
+        """The ranks of this communication a reshape keeps, in order: the
+        explicit ``devices`` (ranks of this communication), or the first
+        ``n_devices``.  Raises :class:`ReshapeError` for an impossible
+        target."""
+        from ..resilience.errors import ReshapeError
+
+        if devices is not None:
+            ranks = [int(d) for d in devices]
+            missing = [r for r in ranks if not 0 <= r < self.size]
+            if missing or len(set(ranks)) != len(ranks):
+                raise ReshapeError(
+                    f"reshape target names rank(s) {missing or ranks} that are not distinct ranks of this "
+                    f"communication of {self.size}", old_size=self.size, new_size=len(ranks))
+            if not ranks:
+                raise ReshapeError("reshape target is empty", old_size=self.size, new_size=0)
+            return ranks
+        if n_devices is None:
+            raise ReshapeError("reshape needs n_devices or an explicit device list", old_size=self.size)
+        n = int(n_devices)
+        if n < 1:
+            raise ReshapeError(f"reshape target world size must be >= 1, got {n}", old_size=self.size, new_size=n)
+        if n > self.size:
+            raise ReshapeError(
+                f"reshape target world size {n} exceeds the {self.size} ranks of this communication: a larger "
+                "world is a restart (finalize(), then init() with the new WORLD_SIZE)",
+                old_size=self.size, new_size=n)
+        return list(range(n))
+
+    def reshape(self, n_devices: Optional[int] = None, devices=None) -> "Communication":
+        """A new communication over the ranks that stay: the first
+        ``n_devices`` ranks of this one, or its ranks ``devices``.
+
+        The elastic primitive: every rank of this communication calls it,
+        the ranks that leave included; each gets the new communication (a
+        rank that leaves one it is not a member of: ``is_member`` False, no
+        chunk, no collectives).  Live arrays move with
+        :meth:`DNDarray.reshard_` (a row exchange over this communication,
+        on which every rank is still alive), checkpointed state with
+        ``Checkpointer.restore(..., comm=new)``.  This communication is
+        marked retired but stays usable.  A world that lost a process cannot
+        make a group: that loss is recovered by a restart (``finalize()``,
+        then ``init()`` with the new ``WORLD_SIZE``), the process
+        supervisor's path.  Raises :class:`ReshapeError` for an impossible
+        target (empty, larger than this world, ranks it does not have)."""
+        from ..telemetry.spans import span
+
+        ranks = self._surviving_ranks(n_devices, devices)
+        with span("comm.reshape", old=self.size, new=len(ranks)):
+            new = self._reshaped(ranks)
+        new._origin = (self, ranks)
+        self._retired = True
+        return new
+
+    def _joined(self) -> bool:
+        return self._size is None and dist.is_initialized() and self.size > 1
+
+    def _reshaped(self, ranks: List[int]) -> "Communication":
+        if self.rank not in ranks:
+            return Communication._outside(len(ranks))
+        if not self._joined() or len(ranks) == 1:
+            # a described world, a world of one, or a target of one rank:
+            # no process group is needed
+            return Communication(size=len(ranks), rank=ranks.index(self.rank))
+        return Communication(_member_group([self._global_rank(r) for r in ranks]))
+
 
 class _PSum(torch.autograd.Function):
     """psum out of place; the gradient of every rank's sum is the sum of
@@ -401,12 +494,12 @@ class HierarchicalCommunication(Communication):
     group's own rank order, so chunks, ``lshape_map`` and
     ``counts_displs_shape`` are the plain communication's; the collectives
     take an ``axis``: ``'node'``, ``'global'``, or None / both for the
-    whole grid.  ``reshape`` (elastic resume) waits for ROADMAP item 15b.
+    whole grid.  ``reshape`` makes the grid of the ranks that stay.
     """
 
     def __init__(self, grid: Optional[Tuple[int, int]] = None, group=None,
                  axis_names: Tuple[str, str] = (GLOBAL_AXIS_NAME, NODE_AXIS_NAME),
-                 size: Optional[int] = None, rank: Optional[int] = None):
+                 size: Optional[int] = None, rank: Optional[int] = None, _local_groups: bool = False):
         super().__init__(group, size, rank)
         n = self.size
         joined = size is None and dist.is_initialized() and n > 1
@@ -419,7 +512,15 @@ class HierarchicalCommunication(Communication):
         self._axis_names = tuple(axis_names)
         me = self.rank
         node, local = divmod(me, per_node)
-        if joined:
+        if joined and _local_groups:
+            # a reshaped grid: the members alone make their two groups (the
+            # ranks that left make none), every rank in the same order
+            me_node = list(range(node * per_node, (node + 1) * per_node))
+            me_global = list(range(local, n, per_node))
+            self.node_comm, self.global_comm = (
+                Communication(_member_group([self._global_rank(r) for r in members])) if len(members) > 1
+                else Communication(size=1, rank=0) for members in (me_node, me_global))
+        elif joined:
             ranks = [self._global_rank(r) for r in range(n)]
             nodes = [dist.new_group(ranks[i * per_node:(i + 1) * per_node]) for i in range(n_node)]
             globals_ = [dist.new_group(ranks[j::per_node]) for j in range(per_node)]
@@ -506,8 +607,20 @@ class HierarchicalCommunication(Communication):
         of that communication."""
         return Communication.bcast(self._along(axis), x, root)
 
-    def reshape(self, *args, **kwargs):
-        raise NotImplementedError("HierarchicalCommunication.reshape (elastic resume) waits for ROADMAP item 15b")
+    def _reshaped(self, ranks: List[int]) -> "HierarchicalCommunication":
+        """The grid over the ranks that stay (:meth:`Communication.reshape`),
+        re-inferred from their hosts (one all-gather of the host names over
+        this communication), not carried over: a loss usually leaves a
+        partial node."""
+        hosts = self._hosts() if self._joined() else [""] * self.size
+        grid = self.infer_grid([hosts[r] for r in ranks])
+        if self.rank not in ranks:
+            return HierarchicalCommunication._outside(len(ranks), grid=grid, axis_names=self._axis_names)
+        if not self._joined() or len(ranks) == 1:
+            return HierarchicalCommunication(grid, axis_names=self._axis_names, size=len(ranks),
+                                             rank=ranks.index(self.rank))
+        group = _member_group([self._global_rank(r) for r in ranks])
+        return HierarchicalCommunication(grid, group, self._axis_names, _local_groups=True)
 
     def __eq__(self, other) -> bool:
         # the same ranks on another grid is another topology: its node and
@@ -521,6 +634,23 @@ class HierarchicalCommunication(Communication):
 
     def __repr__(self) -> str:
         return f"HierarchicalCommunication(nodes={self.num_nodes}, per_node={self.node_size}, rank={self.rank})"
+
+
+#: process groups made by reshape, by (epoch, global ranks): torch names a
+#: group its members alone make after its ranks and refuses a second one
+_GROUPS = {}
+
+
+def _member_group(global_ranks: List[int]):
+    """The process group over ``global_ranks`` (None for the whole world),
+    made by its members alone (``use_local_synchronization``: the ranks that
+    left take no part) and reused for the same ranks."""
+    if list(global_ranks) == list(range(dist.get_world_size())):
+        return None
+    key = (_EPOCH, tuple(global_ranks))
+    if key not in _GROUPS:
+        _GROUPS[key] = dist.new_group(list(global_ranks), use_local_synchronization=True)
+    return _GROUPS[key]
 
 
 # torch 2.13 renames reduce_scatter_tensor; older releases have only the old name

@@ -8,7 +8,8 @@ is one contiguous row.  Points split along rows stay on their ranks: each
 coordinate's inner product is a local product plus one all-reduce.  The
 stop test ``delta >= tol`` (delta the largest change of a sweep, in
 float32) is read on the host once a sweep; :data:`STOP_TEST_READS` counts
-those reads in the last fit.  ``predict`` evaluates the product as XLA's
+those reads in the last fit (a resumable fit also reads it at each chunk
+boundary).  ``predict`` evaluates the product as XLA's
 compiler does, one fused multiply-add a feature in order, so a model
 carried over from the JAX package predicts its values bitwise.
 """
@@ -19,7 +20,8 @@ from typing import Optional
 
 import torch
 
-from ..core.base import BaseEstimator, RegressionMixin, _sample_rows, lazy_scalar_property, validate_resume_params
+from ..core.base import (BaseEstimator, RegressionMixin, _sample_rows, lazy_scalar_property, resumable_fit_loop,
+                         validate_resume_params)
 from ..core.dndarray import DNDarray
 from ..core.linalg.basics import full_f32_matmul
 
@@ -47,13 +49,15 @@ def _fma_matvec(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 
 
 def _cd_loop(XT: torch.Tensor, yd: torch.Tensor, col_sq: torch.Tensor, lam: torch.Tensor, tol: torch.Tensor,
-             max_iter: int, reduce):
-    """Sweeps of cyclic coordinate descent while ``it < max_iter`` and
-    ``delta >= tol``: ``(theta, sweeps)``."""
+             max_iter: int, reduce, theta0=None):
+    """Sweeps of cyclic coordinate descent from ``theta0`` (zeros by default)
+    while ``it < max_iter`` and ``delta >= tol``: ``(theta, sweeps, delta)``,
+    delta the last sweep's (inf where none ran).  Each stop test read on the
+    host adds one to :data:`STOP_TEST_READS`."""
     global STOP_TEST_READS
     m = XT.shape[0]
-    theta = torch.zeros(m, dtype=XT.dtype, device=XT.device)
-    it, STOP_TEST_READS = 0, 0
+    theta = torch.zeros(m, dtype=XT.dtype, device=XT.device) if theta0 is None else theta0
+    it, delta = 0, float("inf")
     go = max_iter > 0
     with full_f32_matmul():
         while go:
@@ -71,12 +75,14 @@ def _cd_loop(XT: torch.Tensor, yd: torch.Tensor, col_sq: torch.Tensor, lam: torc
                 break
             STOP_TEST_READS += 1
             go = bool(delta >= tol)
-    return theta, it
+    return theta, it, delta
 
 
 class Lasso(BaseEstimator, RegressionMixin):
-    """L1-regularised linear regression by coordinate descent.  The
-    resumable-fit parameters are not ported yet and raise."""
+    """L1-regularised linear regression by coordinate descent.
+    ``checkpoint_every=N`` with ``checkpoint_dir`` checkpoints ``theta``
+    every N sweeps; ``resume_from=dir`` continues a killed fit from its last
+    checkpoint with the same sweep sequence."""
 
     def __init__(
         self,
@@ -133,7 +139,7 @@ class Lasso(BaseEstimator, RegressionMixin):
         return float(torch.sqrt(torch.mean(diff * diff)))
 
     def fit(self, x: DNDarray, y: DNDarray) -> "Lasso":
-        """Coordinate descent from zero."""
+        """Coordinate descent from zero (or from a checkpoint's theta)."""
         if not isinstance(x, DNDarray) or not isinstance(y, DNDarray):
             raise TypeError("x and y need to be DNDarrays")
         if x.ndim != 2:
@@ -146,7 +152,30 @@ class Lasso(BaseEstimator, RegressionMixin):
         col_sq = reduce((XT * XT).sum(1))
         lam = torch.tensor(self._lam, dtype=xd.dtype, device=xd.device)
         tol = torch.tensor(self.tol, dtype=torch.float32, device=xd.device)
-        theta, it = _cd_loop(XT, yd, col_sq, lam, tol, self.max_iter, reduce)
+        global STOP_TEST_READS
+        STOP_TEST_READS = 0
+        if self.checkpoint_every is not None or self.resume_from is not None:
+            # the same sweep sequence in chunks, theta checkpointed (and
+            # guarded) every checkpoint_every sweeps; the sweeps go on while
+            # delta >= tol in float32
+            tol32 = float(tol)
+            theta, it = resumable_fit_loop(
+                lambda th, n: _cd_loop(XT, yd, col_sq, lam, tol, n, reduce,
+                                       torch.as_tensor(th).to(device=XT.device, dtype=XT.dtype)),
+                lambda: torch.zeros(XT.shape[0], dtype=XT.dtype, device=XT.device),
+                self.max_iter,
+                float(self.tol),
+                checkpoint_every=self.checkpoint_every,
+                checkpoint_dir=self.checkpoint_dir,
+                resume_from=self.resume_from,
+                site="lasso.iter",
+                what="theta",
+                converged_when=lambda d, t: d < tol32,
+                comm=x.comm,
+            )
+            theta = torch.as_tensor(theta).to(device=XT.device, dtype=XT.dtype)
+        else:
+            theta, it, _ = _cd_loop(XT, yd, col_sq, lam, tol, self.max_iter, reduce)
         self._n_iter = it
         self._theta = DNDarray.from_dense(theta.reshape(-1, 1), None, x.device, x.comm)
         return self

@@ -22,7 +22,8 @@ plan format, env knobs and counters:
   :class:`DivergenceError` for NaN/Inf divergence in iterative fits,
   carrying the last finite iterate.
 
-Checkpointing and resumable fits build on these (ROADMAP item 15b).
+Checkpointing (:mod:`heat_tpu_torch.utils.checkpoint`) and the resumable
+fits (:func:`heat_tpu_torch.core.base.resumable_fit_loop`) build on these.
 """
 
 from __future__ import annotations

@@ -154,7 +154,7 @@ class PreemptedError(ResilienceError, RuntimeError):
     """A checkpointed batch fit yielded at a chunk boundary.
 
     Deliberate scheduling, not a malfunction: a latency spike (or an
-    operator) asked the ``PreemptionGate`` (ROADMAP item 15b)
+    operator) asked the ``PreemptionGate`` (:mod:`heat_tpu_torch.core.preempt`)
     to reclaim the chips, and the fit paused at the first chunk boundary
     after the request — the point where its checkpoint (committed with
     ``converged=False``) already makes the pause durable.  Re-running

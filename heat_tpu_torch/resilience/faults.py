@@ -6,8 +6,10 @@ preemption and lost collectives; CPU CI sees none of them.  This module
 makes failure a *scriptable, reproducible* scenario: named injection
 points (``faults.inject("io.write", path=...)``) are wired through the
 port's io (``io.open``, ``io.write``), the SpGEMM ring's count re-sync
-(``comm.collective``) and the process-group bootstrap (``comm.init``),
-and a **fault plan** decides, per site and per call index, whether a
+(``comm.collective``), the process-group bootstrap (``comm.init``), the
+checkpoints (``checkpoint.*``), the resumable fits' chunk boundaries
+(``kmeans.iter`` and the like, ``qos.preempt``) and the elastic
+supervisors (``elastic.*``), and a **fault plan** decides, per site and per call index, whether a
 scripted fault fires.  Plans, seeds and site names are the reference's:
 the same plan and seed fire at the same call indices in both packages.
 
@@ -82,9 +84,10 @@ PLAN_ENV = "HEAT_TPU_FAULT_PLAN"
 
 #: Registry of every named injection point, the reference's table (a
 #: plan written for the reference names the same sites).  The port wires
-#: ``comm.init``, ``comm.collective`` (the SpGEMM ring), ``io.open`` and
-#: ``io.write`` so far; the others come with the modules that evaluate
-#: them.  A pure literal.
+#: ``comm.init``, ``comm.collective`` (the SpGEMM ring), ``io.open``,
+#: ``io.write``, the ``checkpoint.*`` sites, the estimators' ``*.iter``
+#: and ``pca.stage``, the ``elastic.*`` sites and ``qos.preempt`` so far;
+#: the others come with the modules that evaluate them.  A pure literal.
 KNOWN_SITES = (
     "comm.init",
     "comm.collective",

@@ -123,12 +123,14 @@ _DOMAIN_PREFIXES = {
     "faults": ("fault.",),
     "retry": ("retry.",),
     "resilience": ("fault.", "retry."),
+    "overlap": ("overlap.",),
     "comm": ("comm.",),
     "fit": ("fit.",),
     "spans": ("spans.",),
     "tracing": ("tracing.",),
+    "checkpoint": ("checkpoint.",),
     "journal": ("journal.",),
-    "telemetry": ("spans.", "tracing.", "fit.", "telemetry.", "journal."),
+    "telemetry": ("spans.", "tracing.", "fit.", "telemetry.", "checkpoint.", "journal."),
 }
 
 

@@ -1,6 +1,11 @@
 """Utilities (counterpart of heat_tpu/utils): the data tooling of
-:mod:`.data` and the image transforms of :mod:`.vision_transforms`."""
+:mod:`.data`, the image transforms of :mod:`.vision_transforms`, and
+checkpoint/resume (:mod:`.checkpoint`) with its background writer
+(:mod:`.overlap`)."""
 
-from . import data, vision_transforms
+from . import checkpoint
+from . import data
+from . import overlap
+from . import vision_transforms
 
-__all__ = ["data", "vision_transforms"]
+__all__ = ["checkpoint", "data", "overlap", "vision_transforms"]

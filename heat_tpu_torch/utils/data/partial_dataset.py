@@ -8,7 +8,7 @@ i, and stages each window as a DNDarray on the default device: split along
 its rows where they tile the ranks, whole on every rank otherwise (the
 reference's split sharding and default placement).  A window that was
 ready when the consumer asked for it is a prefetch hit, else a miss
-(``prefetch.PREFETCH_HITS``/``PREFETCH_MISSES``).  ``h5py`` is imported
+(``prefetch_hits``/``prefetch_misses`` of the overlap counters).  ``h5py`` is imported
 where a file is opened, so that importing the package never needs it: a
 subclass that overrides :meth:`PartialH5Dataset.read_window` (and sets
 ``length``, ``load_length``, ``transforms``, ``dataset_names``, ``comm``)
@@ -25,7 +25,7 @@ from typing import List, Optional
 import numpy as np
 import torch
 
-from . import prefetch
+from ..overlap import _bump
 from ...core.devices import sanitize_device
 from ...core.dndarray import DNDarray
 
@@ -167,10 +167,7 @@ class PartialH5DataLoaderIter:
         if self._windows_queued == 0 or self._thread is None:
             self.close()
             raise StopIteration
-        if self._ready.empty():
-            prefetch.PREFETCH_MISSES += 1
-        else:
-            prefetch.PREFETCH_HITS += 1
+        _bump("prefetch_misses" if self._ready.empty() else "prefetch_hits")
         batch = self._ready.get()
         self._windows_queued -= 1
         if isinstance(batch, BaseException):

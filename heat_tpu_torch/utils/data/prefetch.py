@@ -11,9 +11,9 @@ that the allocator does not reuse its memory early.  On the CPU a batch is
 handed out as it is.
 
 Counters: a batch that was staged before the consumer asked for it is a
-hit (:data:`PREFETCH_HITS`), one staged on demand a miss
-(:data:`PREFETCH_MISSES`); :func:`prefetch_stats` reads both.  They move
-into ``utils.overlap.overlap_stats`` with ROADMAP item 15b.
+``prefetch_hits``, one staged on demand a ``prefetch_misses``, both on the
+shared overlap counters (:func:`heat_tpu_torch.utils.overlap.overlap_stats`);
+:func:`prefetch_stats` reads the two.
 """
 
 from __future__ import annotations
@@ -26,22 +26,21 @@ import torch
 
 from ...core.devices import sanitize_device
 from ...core.dndarray import DNDarray
+from ..overlap import _bump
 
 __all__ = ["prefetch_stats", "prefetch_to_device", "sharding_for_batch"]
 
-#: batches handed out that were staged ahead of the consumer
-PREFETCH_HITS = 0
-#: batches staged on demand (the look-ahead ran dry)
-PREFETCH_MISSES = 0
-
-
 def prefetch_stats(reset: bool = False) -> dict:
-    """``{"prefetch_hits": ..., "prefetch_misses": ...}`` of this process;
-    ``reset`` sets both to 0 after reading them."""
-    global PREFETCH_HITS, PREFETCH_MISSES
-    out = {"prefetch_hits": PREFETCH_HITS, "prefetch_misses": PREFETCH_MISSES}
+    """``{"prefetch_hits": ..., "prefetch_misses": ...}`` of this process,
+    read from the overlap counters; ``reset`` sets both to 0 after reading
+    them."""
+    from ..overlap import _STATS
+
+    names = ("prefetch_hits", "prefetch_misses")
+    out = {n: _STATS[n].value for n in names}
     if reset:
-        PREFETCH_HITS = PREFETCH_MISSES = 0
+        for n in names:
+            _STATS[n].reset()
     return out
 
 
@@ -131,15 +130,14 @@ class _DevicePrefetcher:
         return self
 
     def __next__(self):
-        global PREFETCH_HITS, PREFETCH_MISSES
         if self._buf:
-            PREFETCH_HITS += 1
+            _bump("prefetch_hits")
             staged, done = self._buf.popleft()
         elif self._it is None:
             raise StopIteration
         else:  # the look-ahead ran dry: stage on demand
             staged, done = self._stage(next(self._it))
-            PREFETCH_MISSES += 1
+            _bump("prefetch_misses")
         if done is not None:
             stream = torch.cuda.current_stream(self._device.torch_device)
             stream.wait_event(done)

@@ -50,8 +50,11 @@ def test_hierarchical_comm_of_one():
     assert type(hc.split([0])) is ht.parallel.Communication
     with pytest.raises(ValueError):
         ht.parallel.HierarchicalCommunication(grid=(2, 2))
-    with pytest.raises(NotImplementedError):
-        hc.reshape(1)
+    one = hc.reshape(1)  # the grid of the ranks that stay: still (1, 1)
+    assert isinstance(one, ht.parallel.HierarchicalCommunication) and (one.num_nodes, one.node_size) == (1, 1)
+    assert hc.retired and not one.retired
+    with pytest.raises(ht.resilience.ReshapeError):
+        hc.reshape(2)
     # a described grid of 2 x 3: the layout questions of a world of six
     d = ht.parallel.HierarchicalCommunication(grid=(2, 3), size=6, rank=4)
     assert (d.node_index, d.node_comm.rank, d.global_comm.rank) == (1, 1, 1)

@@ -24,6 +24,17 @@ TILE = 64  # rows a warpgroup owns and rows of a streamed tile, both kernels
 LOG2E = 1.4426950408889634  # the kernels take P as exp2f of a scaled argument (flash_attn_bwd.cu kLog2e)
 
 
+@pytest.fixture(autouse=True)
+def _one_thread():
+    """The emulation is thousands of small products: one thread a test, so
+    that a run with several workers does not oversubscribe the cores (the
+    sums are the same; only their scheduling changes)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _arrays(s, h, d, seed, n=4):
     rng = np.random.default_rng(seed)
     return tuple(rng.standard_normal((s, h, d)).astype(np.float32) for _ in range(n))
@@ -38,35 +49,46 @@ def _bwd_tc_emulated(q, k, v, do, lse, di, scale, causal, n_true, mm):
     (dP - di) in float32; the tile's P^T dO, dS^T Q and dS K
     from zero, added in float32 to the running dV, dK (over query tiles in
     order) and dQ (over key tiles in order).  The products are ``mm``
-    (3xTF32, or one TF32 pass for contrast)."""
+    (3xTF32, or one TF32 pass for contrast).
+
+    The loop runs over the key tiles; each step computes the tiles of every
+    query tile at once, batched along a tile axis, and adds them in the
+    same order as a loop over query tiles would (s a multiple of 64)."""
     s, h, d = q.shape
-    qh, kh, vh, gh = (x.permute(1, 0, 2) for x in (q, k, v, do))  # (h, s, d)
-    dq, dk, dv = (torch.zeros((h, s, d)) for _ in range(3))
+    assert s % TILE == 0, s
+    nt = s // TILE
+    tiled = [x.permute(1, 0, 2).reshape(h, nt, TILE, d) for x in (q, k, v, do)]  # (h, tile, row, d)
+    qh, kh, vh, gh = tiled
+    dq, dk, dv = (torch.zeros((h, nt, TILE, d)) for _ in range(3))
     pos = torch.arange(s)
     zero = torch.zeros(())
     scale2 = torch.tensor(scale * LOG2E, dtype=torch.float32)
-    lse2 = lse * torch.tensor(LOG2E, dtype=torch.float32)
-    for i0 in range(0, s, TILE):
-        i1 = min(s, i0 + TILE)
-        rows = pos[i0:i1]
-        for j0 in range(0, s, TILE):
-            j1 = min(s, j0 + TILE)
-            keys = pos[j0:j1]
-            ok = (keys[None, :] >= n_true) == (rows[:, None] >= n_true)
-            if causal:
-                ok &= keys[None, :] <= rows[:, None]
-            if not bool(ok.any()):
-                continue  # a tile both kernels skip
-            qt, kt, vt, gt = qh[:, i0:i1], kh[:, j0:j1], vh[:, j0:j1], gh[:, i0:i1]
-            # flash_bwd_dkv_tc: the warpgroup of keys j0.. on the query tile i0..
-            pt = torch.where(ok.T, torch.exp2(mm(kt, qt.transpose(1, 2)) * scale2 - lse2[:, None, i0:i1]), zero)
-            dst = pt * (mm(vt, gt.transpose(1, 2)) - di[:, None, i0:i1])
-            dv[:, j0:j1] += mm(pt, gt)
-            dk[:, j0:j1] += mm(dst, qt)
-            # flash_bwd_dq_tc: the warpgroup of queries i0.. on the key tile j0..
-            p = torch.where(ok, torch.exp2(mm(qt, kt.transpose(1, 2)) * scale2 - lse2[:, i0:i1, None]), zero)
-            dq[:, i0:i1] += mm(p * (mm(gt, vt.transpose(1, 2)) - di[:, i0:i1, None]), kt)
-    return tuple(x.permute(1, 0, 2) for x in (dq * scale, dk * scale, dv))
+    lse2 = (lse * torch.tensor(LOG2E, dtype=torch.float32)).reshape(h, nt, TILE)
+    dit = di.reshape(h, nt, TILE)
+    pad = pos >= n_true
+    allowed = pad[:, None] == pad[None, :]  # (query, key)
+    if causal:
+        allowed &= pos[None, :] <= pos[:, None]
+    allowed = allowed.reshape(nt, TILE, nt, TILE)
+    for j in range(nt):
+        ok = allowed[:, :, j]  # (query tile, row, key): every query tile against key tile j
+        live = ok.flatten(1).any(1)  # the query tiles both kernels visit with key tile j
+        if not bool(live.any()):
+            continue
+        kt, vt = kh[:, j, None], vh[:, j, None]  # (h, 1, 64, d), broadcast over the query tiles
+        # flash_bwd_dkv_tc: the warpgroup of keys j, on every query tile
+        pt = torch.where(ok.transpose(1, 2), torch.exp2(mm(kt, qh.transpose(2, 3)) * scale2 - lse2[:, :, None, :]),
+                         zero)
+        dst = pt * (mm(vt, gh.transpose(2, 3)) - dit[:, :, None, :])
+        dv_i, dk_i = mm(pt, gh), mm(dst, qh)
+        for i in torch.nonzero(live)[:, 0].tolist():  # added over the query tiles in order
+            dv[:, j] += dv_i[:, i]
+            dk[:, j] += dk_i[:, i]
+        # flash_bwd_dq_tc: the warpgroup of each query tile, on key tile j
+        p = torch.where(ok, torch.exp2(mm(qh, kt.transpose(2, 3)) * scale2 - lse2[:, :, :, None]), zero)
+        dq_j = mm(p * (mm(gh, vt.transpose(2, 3)) - dit[:, :, :, None]), kt)
+        dq += torch.where(live[None, :, None, None], dq_j, zero)
+    return tuple(x.reshape(h, s, d).permute(1, 0, 2) for x in (dq * scale, dk * scale, dv))
 
 
 def _inputs(q, k, v, g, scale, causal, n_true):

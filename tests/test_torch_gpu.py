@@ -1968,3 +1968,45 @@ def test_delete_with_a_card_index_is_the_hosts(card, index):
             on_card = got.numpy()
         else:
             np.testing.assert_array_equal(got.numpy(), on_card)
+
+
+@pytest.mark.parametrize("async_ckpt", ["1", "0"])
+def test_a_resumed_kmeans_fit_on_the_card_is_bitwise_the_uninterrupted_one(card, tmp_path, monkeypatch, async_ckpt):
+    """KMeans on the card, checkpointed every 2 iterations (async saves
+    through pinned memory, then sync), stopped by a fault at its second
+    boundary and resumed: centres, labels, inertia and n_iter bitwise the
+    uninterrupted fit's, every chunk on K1, the state back on the card.  The
+    fault fires before its boundary's save: the resume starts at step 2."""
+    from heat_tpu_torch import resilience as rz
+
+    monkeypatch.setenv("HEAT_TPU_ASYNC_CKPT", async_ckpt)
+    rng = np.random.default_rng(2)
+    centres = rng.standard_normal((8, 16)) * 3.0
+    x = ht.array((centres[rng.integers(0, 8, 20000)] + rng.standard_normal((20000, 16))).astype(np.float32), split=0)
+    kw = dict(n_clusters=8, init="random", random_state=5, max_iter=30, tol=1e-6)
+    plain = ht.cluster.KMeans(**kw).fit(x)
+    d = str(tmp_path / "ck")
+    with rz.fault_plan({"kmeans.iter": [{"at": 1, "kind": "permanent"}]}):
+        with pytest.raises(rz.PermanentFault):
+            ht.cluster.KMeans(**kw, checkpoint_every=2, checkpoint_dir=d).fit(x)
+    before = kernels.LLOYD_LAUNCHES
+    resumed = ht.cluster.KMeans(**kw, checkpoint_every=2, checkpoint_dir=d, resume_from=d).fit(x)
+    assert kernels.LLOYD_LAUNCHES - before == resumed.n_iter_ - 2 + 1  # from step 2, the last saved
+    assert resumed.cluster_centers_.larray.is_cuda and resumed.n_iter_ == plain.n_iter_
+    assert torch.equal(resumed.cluster_centers_.larray, plain.cluster_centers_.larray)
+    assert torch.equal(resumed.labels_.larray, plain.labels_.larray) and resumed.inertia_ == plain.inertia_
+
+
+def test_a_checkpoint_restores_onto_a_card_communication(card, tmp_path):
+    """DNDarray leaves land on the card, split as written; arrays and
+    bfloat16 come back bitwise."""
+    from heat_tpu_torch.utils.checkpoint import Checkpointer
+
+    a = np.arange(1003 * 5, dtype=np.float32).reshape(1003, 5)
+    bf = torch.linspace(-3, 3, 7, device=card).to(torch.bfloat16)
+    ck = Checkpointer(str(tmp_path / "ck"))
+    ck.save(1, {"x": ht.array(a, split=0), "t": torch.arange(4.0, device=card), "bf": bf})
+    st = ck.restore(comm=ht.get_comm())
+    assert st["x"].larray.is_cuda and st["x"].split == 0 and st["x"].numpy().tobytes() == a.tobytes()
+    assert np.array_equal(st["t"], np.arange(4.0, dtype=np.float32))
+    assert torch.equal(st["bf"], bf.cpu())

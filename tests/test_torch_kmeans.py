@@ -91,9 +91,15 @@ def test_params_and_not_ported_options():
     km.set_params(max_iter=5)
     assert km.max_iter == 5
     x = ht.array(_blobs(50, 4, 3, 0), split=0)
+    # the resumable-fit options are validated as the reference validates them
     for resumable in ({"checkpoint_every": 2, "checkpoint_dir": "ckpt"}, {"resume_from": "ckpt"}):
-        with pytest.raises(NotImplementedError, match="resumable fits"):
-            ht.cluster.KMeans(n_clusters=3, **resumable)
+        assert ht.cluster.KMeans(n_clusters=3, **resumable).get_params()["checkpoint_dir"] == resumable.get(
+            "checkpoint_dir")
+    for bad, match in (({"checkpoint_every": 0, "checkpoint_dir": "ckpt"}, "positive int"),
+                       ({"checkpoint_every": 2}, "requires checkpoint_dir")):
+        for m in (ht, hj):
+            with pytest.raises(ValueError, match=match):
+                m.cluster.KMeans(n_clusters=3, **bad)
     with pytest.raises(ValueError):
         ht.cluster.KMeans(n_clusters=3, init=ht.array(np.zeros((2, 4), np.float32))).fit(x)
     with pytest.raises(ValueError):

@@ -136,8 +136,9 @@ def test_predict_stays_native_under_a_low_precision_request(blobs, name, monkeyp
 
 def test_checkpoint_options_and_bad_input_raise():
     for cls in (ht.cluster.KMedians, ht.cluster.KMedoids):
-        with pytest.raises(NotImplementedError):
-            cls(n_clusters=2, checkpoint_every=1, checkpoint_dir="unused")
+        with pytest.raises(ValueError, match="positive int"):
+            cls(n_clusters=2, checkpoint_every=1.5, checkpoint_dir="unused")
+        assert cls(n_clusters=2, checkpoint_every=1, checkpoint_dir="unused").checkpoint_every == 1
         with pytest.raises(ValueError):
             cls(n_clusters=2).fit(np.zeros((4, 2)))
         with pytest.raises(ValueError):

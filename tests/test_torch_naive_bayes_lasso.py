@@ -177,8 +177,10 @@ def test_lasso_stop_rules_helpers_and_refusals():
             m.regression.Lasso().fit(m.array(x[:, 0]), m.array(y))
     for resumable in ({"checkpoint_every": 2, "checkpoint_dir": "ckpt"}, {"resume_from": "ckpt"},
                       {"checkpoint_dir": "ckpt"}):
-        with pytest.raises(NotImplementedError, match="resumable fits"):
-            ht.regression.Lasso(**resumable)
+        assert ht.regression.Lasso(**resumable).get_params()["resume_from"] == resumable.get("resume_from")
+    for m in (ht, hj):
+        with pytest.raises(ValueError, match="requires checkpoint_dir"):
+            m.regression.Lasso(checkpoint_every=2)
 
 
 def test_regression_mixin_and_predicates_match_reference():

@@ -268,10 +268,13 @@ def test_array_of_a_dndarray_matches_reference(dtype, split):
 
 @pytest.mark.parametrize("split", SPLITS)
 def test_array_of_a_dndarray_on_its_device_and_comm(split):
-    """The same array back when ``device`` and ``comm`` are its own; another
-    communication raises until reshard_ is ported (Queue 1 item 15)."""
+    """The same array back when ``device`` and ``comm`` are its own; onto
+    another communication a resharded copy (its chunk of the new layout)."""
     a = ht.array(_data(np.float32), split=split)
     assert ht.array(a, device="cpu") is a and ht.array(a, device=ht.devices.cpu, comm=a.comm) is a
     assert ht.array(a, device="cpu", dtype=ht.float64).larray_padded.device.type == "cpu"
-    with pytest.raises(NotImplementedError, match="Queue 1 item 15"):
-        ht.array(a, comm=ht.Communication(size=3, rank=0))
+    three = ht.Communication(size=3, rank=0)
+    b = ht.array(a, comm=three)
+    assert b is not a and b.comm is three and a.comm is not three and b.split == a.split
+    _, lshape, slices = three.chunk(a.shape, split)
+    assert b.lshape == lshape and np.array_equal(b.larray.numpy(), _data(np.float32)[slices])

@@ -234,6 +234,10 @@ def test_redistribute_on_one_rank_is_canonical():
 
 
 def test_widened_reshard_waits_for_item_15():
+    """Item 15b came: onto a (described) world of 3 the array is a resharded
+    copy holding rank 0's canonical chunk."""
     a = ht.array(np.arange(6), split=0)
-    with pytest.raises(NotImplementedError, match="item 15"):
-        ht.array(a, comm=Communication(size=3, rank=0))
+    three = Communication(size=3, rank=0)
+    b = ht.array(a, comm=three)
+    assert b.comm is three and a.comm is not three and b.lshape == (2,)
+    np.testing.assert_array_equal(b.larray.numpy(), np.arange(2))

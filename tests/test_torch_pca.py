@@ -85,10 +85,11 @@ def test_params_and_not_ported_options(monkeypatch):
     assert ht.decomposition.PCA(n_components=2, svd_solver="full").fit(x).n_components_ == 2
     with pytest.raises(ValueError, match="randomized solver requires an integer n_components"):
         ht.decomposition.PCA(n_components=0.5, svd_solver="randomized").fit(x)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 15"):
-        ht.decomposition.PCA(n_components=2, checkpoint_every=1, checkpoint_dir="ckpt")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 15"):
-        ht.decomposition.PCA(resume_from="ckpt")
+    # the stage checkpoints are accepted and validated as the reference's
+    assert ht.decomposition.PCA(n_components=2, checkpoint_every=1, checkpoint_dir="ckpt").checkpoint_every == 1
+    assert ht.decomposition.PCA(resume_from="ckpt").resume_from == "ckpt"
+    with pytest.raises(ValueError, match="positive int"):
+        ht.decomposition.PCA(n_components=2, checkpoint_every=0, checkpoint_dir="ckpt")
     with pytest.raises(NotImplementedError):
         ht.decomposition.PCA(whiten=True)
     with pytest.raises(ValueError):
