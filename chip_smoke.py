@@ -136,6 +136,18 @@ file, it exits non-zero before printing any result):
    on the card (its worker KMeans at 2^24 x 16) killed (exit 137) at its
    second boundary and relaunched: its final centres bitwise those of a
    worker never killed, elastic.recovery_ms.
+6l. dispatch: KMeans(8, init="random").fit on the points after
+   dispatch.reset_stats(), its external_dispatches equal to its K1
+   launches (n_iter + 1, counted into the kernel summary); ht.jit of
+   tanh(x @ w) - mean(x, axis=0) with a 16 x 16 w, bitwise the eager
+   pipeline, one external dispatch a call; meter_costs() around x @ w,
+   2 * 2^27 * 16 * 16 flops; ht.vmap row sums against x.sum(1) (1e-6 of
+   1 + |sum|); the built libraries saved into an empty armed artifact
+   cache, then a process with no nvcc on PATH, an empty
+   HEAT_TPU_TORCH_BUILD_DIR, HEAT_TPU_AOT_CACHE set and HEAT_TPU_AOT_SAVE=0
+   loading every library from it (aot.hits one a library, no miss, error or
+   stale artifact) and launching K1 once against its plain version; the
+   warm start's seconds beside the build phase's nvcc seconds.
 
 The KMeans data is then freed, and the hierarchical SVD path follows on a
 2^25 x 128 float32 matrix with a decaying spectrum, made on the card:
@@ -2535,6 +2547,173 @@ def resume_supervised(smi: str) -> None:
               "elastic.recovery_ms": killed["recovery_ms"], "centres_bitwise_never_killed": True, "card": smi})
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
+
+
+#: what a replica without the CUDA toolkit runs: every library of csrc from
+#: the armed artifact cache (read-only), then K1 once against its plain
+#: version (a check launch: not counted into the kernel summary)
+WARM_START_CHILD = r"""
+import json, shutil, sys, time
+t0 = time.perf_counter()
+import torch
+import heat_tpu_torch as ht
+from heat_tpu_torch.core import _build, aot_cache, kernels
+import_s = time.perf_counter() - t0
+if shutil.which("nvcc") is not None:
+    sys.exit("warm start: nvcc is on PATH")
+names = sorted(p.stem for p in _build.CSRC.glob("*.cu"))
+t1 = time.perf_counter()
+targets = _build.build_all(names)
+load_s = time.perf_counter() - t1
+if _build.BUILD_LOGS:
+    sys.exit("warm start: nvcc ran for " + ", ".join(_build.BUILD_LOGS))
+dev = torch.device("cuda", 0)
+g = torch.Generator(device=dev).manual_seed(5)
+truth = torch.randn(8, 16, device=dev, generator=g) * 10.0
+x = torch.randn(1 << 20, 16, device=dev, generator=g) + truth[torch.randint(0, 8, (1 << 20,), device=dev, generator=g)]
+before = kernels.LLOYD_LAUNCHES
+sums, counts, inertia, labels = kernels.lloyd_partials(x, truth, x.shape[0], labels=True)
+launches = kernels.LLOYD_LAUNCHES - before
+ps, pc, pi, pl = kernels._lloyd_plain(x, truth, x.shape[0], True)
+bad = torch.nonzero(labels != pl)[:, 0]
+half = (truth.double() ** 2).sum(1)[None, :] - 2.0 * x[bad].double() @ truth.double().T
+dg, dw = half.gather(1, labels[bad, None])[:, 0], half.gather(1, pl[bad, None])[:, 0]
+torch.cuda.synchronize()
+print(json.dumps({"import_s": import_s, "load_s": load_s, "libraries": len(targets), "k1_launches": launches,
+                  "label_mismatches": int(bad.numel()),
+                  "mismatches_near_ties": bool(((dg - dw).abs() <= 1e-4 * (1 + dw.abs())).all()),
+                  "count_diff": float((counts - pc).abs().sum()),
+                  "max_abs_err": float((sums / counts.clamp(min=1)[:, None] - ps / pc.clamp(min=1)[:, None]).abs().max()),
+                  "inertia_rel_err": float(abs(inertia - pi) / pi),
+                  "aot": aot_cache.stats(), "build_dir": str(_build.BUILD_DIR)}))
+"""
+
+
+def dispatch_phase(x, pts, build_s: float, smi: str) -> int:
+    """Phase dispatch: the dispatch layer's surface, ht.jit, ht.vmap and the
+    artifact cache on the main path's points.  Returns the K1 launches of its
+    KMeans fit."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    import heat_tpu_torch as ht
+    from heat_tpu_torch.core import _build, aot_cache, dispatch, kernels
+
+    t_phase = time.perf_counter()
+    # a KMeans fit: one external dispatch per K1 launch (each Lloyd step and
+    # the final assignment; the reference counts one for its on-device loop)
+    # (plain Lloyd steps count as external dispatches too, but never as K1
+    # launches: on the card the main path's shape must have none)
+    dispatch.reset_stats()
+    before, plain_before = kernels.LLOYD_LAUNCHES, kernels.LLOYD_PLAIN_STEPS
+    km = ht.cluster.KMeans(n_clusters=CLUSTERS, init="random", random_state=SEED, max_iter=MAX_ITER).fit(pts)
+    launches = kernels.LLOYD_LAUNCHES - before
+    plain_steps = kernels.LLOYD_PLAIN_STEPS - plain_before
+    stats = dispatch.cache_stats()
+    if plain_steps:
+        raise AssertionError(f"dispatch: {plain_steps} plain Lloyd steps in the fit on the card")
+    if stats["external_dispatches"] != launches + plain_steps or launches != km.n_iter_ + 1:
+        raise AssertionError(f"dispatch: {stats['external_dispatches']} external dispatches for {launches} K1 "
+                             f"launches ({km.n_iter_} iterations)")
+    fit = {"n_iter": km.n_iter_, "k1_launches": launches, "external_dispatches": stats["external_dispatches"],
+           "misses": stats["misses"], "hits": stats["hits"], "dispatches": stats["dispatches"]}
+    del km
+
+    # ht.jit of the reference docstring's pipeline: eager inside, so bitwise
+    # the eager pipeline
+    g = torch.Generator(device=x.device).manual_seed(SEED + 23)
+    w = ht.array(torch.randn(FEATURES, FEATURES, device=x.device, generator=g))
+
+    def pipeline(a, b):
+        return ht.tanh(a @ b) - ht.mean(a, axis=0)
+
+    step = ht.jit(pipeline)
+    ext = dispatch.cache_stats()["external_dispatches"]
+    (fused, jit_ms) = wall_ms(lambda: step(pts, w))
+    eager = pipeline(pts, w)
+    if not torch.equal(fused.larray, eager.larray) or fused.shape != (ROWS, FEATURES) or fused.split != 0:
+        raise AssertionError("dispatch: ht.jit's pipeline differs from the eager one")
+    if dispatch.cache_stats()["external_dispatches"] != ext + 1:
+        raise AssertionError("dispatch: an ht.jit call counted other than one external dispatch")
+    _, jit_warm_ms = wall_ms(lambda: step(pts, w).shape)
+    del fused, eager
+    torch.cuda.empty_cache()
+
+    # cost accounting: FlopCounterMode's count of x @ w is 2 n f f
+    prev = dispatch.set_cost_accounting(True)
+    try:
+        dispatch.clear_cache()
+        with dispatch.meter_costs() as meter:
+            y = pts @ w
+        torch.cuda.synchronize()
+    finally:
+        dispatch.set_cost_accounting(prev)
+    want_flops = 2 * ROWS * FEATURES * FEATURES
+    if meter.flops != want_flops or meter.calls != 1:
+        raise AssertionError(f"dispatch: metered {meter.flops} flops in {meter.calls} calls for x @ w; "
+                             f"{want_flops} in one")
+    summary = dispatch.cost_summary()
+    del y
+
+    # ht.vmap: row sums against x.sum(1)
+    sums = ht.vmap(lambda r: r.sum())(pts)
+    vmap_err = float(((sums.larray - x.sum(1)).abs() / (1 + x.sum(1).abs())).max())
+    if sums.shape != (ROWS,) or not sums.larray.is_cuda or vmap_err > 1e-6:
+        raise AssertionError(f"dispatch: vmap's row sums {sums.shape}, {vmap_err} from x.sum(1)")
+    del sums
+
+    # the artifact cache: the built libraries saved into an empty armed
+    # directory, then a replica with no nvcc and an empty build directory
+    # starts from it (read-only)
+    sources = sorted(p.stem for p in _build.CSRC.glob("*.cu"))
+    tmp = tempfile.mkdtemp(prefix="heat_tpu_torch_aot_")
+    try:
+        cache_dir = os.path.join(tmp, "cache")
+        prev_dir = aot_cache.configure(cache_dir)
+        try:
+            t0 = time.perf_counter()
+            saved = _build.save_artifacts(sources)
+            save_s = time.perf_counter() - t0
+        finally:
+            aot_cache.configure(prev_dir)
+        if saved != len(sources):
+            raise AssertionError(f"dispatch: {saved} of {len(sources)} libraries saved into the artifact cache")
+        cache_bytes = sum(os.path.getsize(os.path.join(cache_dir, f)) for f in os.listdir(cache_dir))
+        env = dict(os.environ)
+        env["PATH"] = os.pathsep.join(d for d in env.get("PATH", "").split(os.pathsep)
+                                      if d and not os.path.exists(os.path.join(d, "nvcc")))
+        env.update({"CUDA_HOME": os.path.join(tmp, "no-cuda-toolkit"), "HEAT_TPU_TORCH_BUILD_DIR": os.path.join(tmp, "b"),
+                    "HEAT_TPU_AOT_CACHE": cache_dir, "HEAT_TPU_AOT_SAVE": "0"})
+        t0 = time.perf_counter()
+        child = subprocess.run([sys.executable, "-c", WARM_START_CHILD], env=env, capture_output=True, text=True,
+                               timeout=300, cwd=str(Path(__file__).resolve().parent))
+        child_s = time.perf_counter() - t0
+        if child.returncode != 0:
+            raise AssertionError(f"dispatch: the warm start without nvcc failed ({child.returncode}):\n"
+                                 f"{child.stdout[-3000:]}\n{child.stderr[-3000:]}")
+        warm = json.loads(child.stdout.strip().splitlines()[-1])
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    aot = warm["aot"]
+    if (aot["hits"] != len(sources) or aot["misses"] or aot["errors"] or aot["stale"] or aot["saves"]
+            or warm["k1_launches"] != 1 or not warm["mismatches_near_ties"]
+            or warm["count_diff"] > 2 * warm["label_mismatches"]
+            or warm["inertia_rel_err"] > 1e-4 or warm["max_abs_err"] > 1e-4):
+        raise AssertionError(f"dispatch: the warm start from the artifact cache: {warm}")
+    emit({"phase": "dispatch", "fit": fit, "jit": {"wall_ms": jit_ms, "warm_wall_ms": jit_warm_ms,
+                                                   "bitwise_eager": True},
+          "meter": {"flops": meter.flops, "want_flops": want_flops, "bytes_accessed": meter.bytes_accessed},
+          "cost_summary": {k: summary[k] for k in ("executables", "flops_total", "bytes_total")},
+          "vmap_row_sums_max_rel_err": vmap_err,
+          "aot": {"libraries": len(sources), "saved": saved, "save_s": save_s, "cache_bytes": cache_bytes,
+                  "warm_start_load_s": warm["load_s"], "warm_start_import_s": warm["import_s"],
+                  "warm_start_process_s": child_s, "nvcc_build_s": build_s, "hits": aot["hits"],
+                  "k1_check": {k: warm[k] for k in ("label_mismatches", "count_diff", "max_abs_err",
+                                                    "inertia_rel_err")}},
+          "seconds": time.perf_counter() - t_phase, "card": smi})
+    return launches
 
 
 def resume_pca(A, smi: str) -> int:
@@ -5101,8 +5280,9 @@ def main() -> int:
     sources = sorted(p.stem for p in _build.CSRC.glob("*.cu"))
     t0 = time.perf_counter()
     _build.build_all(sources)
+    build_s = time.perf_counter() - t0
     regs = [ln.strip() for log in _build.BUILD_LOGS.values() for ln in log.splitlines() if "registers" in ln]
-    emit({"phase": "build", "sources": sources, "seconds": time.perf_counter() - t0, "ptxas": regs})
+    emit({"phase": "build", "sources": sources, "seconds": build_s, "ptxas": regs})
     emit({"phase": "build", **tensor_core_report(_build)})
 
     # the seeded generator on the card draws the host's bits (the host's are
@@ -5287,6 +5467,10 @@ def main() -> int:
     resume_launches = resume_phase(x, smi)
     lloyd["launches"] += resume_launches["lloyd_step"]
     threefry["launches"] += resume_launches["threefry"]
+
+    # 6l. the dispatch layer's surface, ht.jit, ht.vmap and the artifact
+    # cache on the same points (K1 in its fit; a replica without nvcc)
+    lloyd["launches"] += dispatch_phase(x, pts, build_s, smi)
 
     # the KMeans data is freed before the hSVD path's matrix is made
     del x, pts, km, centres, labels, plain_labels, truth, pred

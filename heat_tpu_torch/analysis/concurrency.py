@@ -12,7 +12,8 @@ The names are the reference's, so a sanitizer finding reads the same in
 both packages; only the port's own locks are registered (the metrics
 registry, the span ring, the trace store, the decision journal, the
 diagnostics ring, the conformance checker, the fault injector, the
-async checkpoint writer and the preemption gate).  The
+async checkpoint writer, the preemption gate, the dispatch-key cache and
+the artifact cache).  The
 table is a pure literal: it can be read with ``ast.literal_eval``.
 """
 
@@ -88,6 +89,18 @@ LOCK_REGISTRY = {
         'spellings': ('self._lock',),
         'structures': ('core.preemption.state',),
         'doc': 'PreemptionGate pending-yield slot + counters: requested by an operator or a test (the serving admission of the reference is not ported yet), consulted (and its stats mutated) by fit threads at resumable-fit chunk boundaries, cleared when the request is withdrawn',
+    },
+    'dispatch.cache': {
+        'file': 'heat_tpu_torch/core/dispatch.py',
+        'spellings': ('_CACHE_LOCK',),
+        'structures': ('dispatch.cache',),
+        'doc': 'the dispatch-key LRU + cost records: mutated per op application on whichever thread runs ops, iterated by cache_keys()/cost_summary() from any other',
+    },
+    'dispatch.aot': {
+        'file': 'heat_tpu_torch/core/aot_cache.py',
+        'spellings': ('_LOCK',),
+        'structures': ('dispatch.aot.state',),
+        'doc': 'artifact-cache module configuration (armed directory, save flag, fingerprint memo): configure() swaps it while loads fire from any thread that builds a kernel library; artifact files themselves need no lock -- writes are atomic renames keyed per artifact',
     },
 }
 

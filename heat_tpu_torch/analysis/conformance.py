@@ -26,10 +26,10 @@ legitimately start over).
 
 from __future__ import annotations
 
-import os
 import threading
 from typing import Any, Dict, Iterable, List, Optional, Tuple
 
+from ..core import _env
 from . import tsan as _tsan
 from .protocols import PROTOCOLS, transition_index
 
@@ -66,7 +66,6 @@ _MODE_ALIASES = {
 
 
 def _parse_mode(raw: Optional[str]) -> str:
-    # read from the environment directly, with the reference's default
     if raw is None:
         raw = "0"
     mode = _MODE_ALIASES.get(str(raw).strip().lower())
@@ -77,7 +76,7 @@ def _parse_mode(raw: Optional[str]) -> str:
     return mode
 
 
-_MODE = _parse_mode(os.environ.get("HEAT_TPU_PROTOCOL_CHECK"))
+_MODE = _parse_mode(_env.env_str("HEAT_TPU_PROTOCOL_CHECK"))
 
 #: ``(actor, action) -> (protocol, scope, ((from, to), ...))``
 _INDEX = transition_index()
@@ -113,7 +112,7 @@ def refresh_env() -> str:
     """Re-read ``HEAT_TPU_PROTOCOL_CHECK`` (tests that flip the env var
     mid-process); returns the new mode."""
     global _MODE
-    _MODE = _parse_mode(os.environ.get("HEAT_TPU_PROTOCOL_CHECK"))
+    _MODE = _parse_mode(_env.env_str("HEAT_TPU_PROTOCOL_CHECK"))
     return _MODE
 
 

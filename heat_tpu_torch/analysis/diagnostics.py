@@ -13,12 +13,11 @@ visible from ``telemetry.snapshot()``.
 default), ``1`` (warn: each diagnostic raises an
 :class:`AnalysisWarning`), ``raise`` (the first diagnostic raises
 :class:`ProgramLintError`).  ``HEAT_TPU_ANALYZE_RING`` (default 256) is
-the ring's capacity.  Both are read from the environment directly.
+the ring's capacity.  Both are read through ``core/_env.py``.
 """
 
 from __future__ import annotations
 
-import os
 import threading
 import warnings
 from collections import deque
@@ -26,6 +25,7 @@ from dataclasses import dataclass, field
 from typing import Any, Dict, List, Optional
 
 from ..telemetry import metrics as _tm
+from ..core import _env
 from . import tsan as _tsan
 
 __all__ = [
@@ -94,8 +94,8 @@ def _parse_mode(raw: Optional[str]) -> str:
     return mode
 
 
-_MODE = _parse_mode(os.environ.get("HEAT_TPU_ANALYZE"))
-_RING_SIZE = int(os.environ.get("HEAT_TPU_ANALYZE_RING", "256") or "256")
+_MODE = _parse_mode(_env.env_str("HEAT_TPU_ANALYZE"))
+_RING_SIZE = _env.env_int("HEAT_TPU_ANALYZE_RING")
 _RING: "deque[Diagnostic]" = deque(maxlen=max(1, _RING_SIZE))
 #: emit() appends from any thread (sanitizer findings, protocol
 #: violations); registered so the sanitizer can check the ring itself
@@ -121,7 +121,7 @@ def refresh_env() -> str:
     """Re-read ``HEAT_TPU_ANALYZE`` (tests that flip the env var
     mid-process); returns the new mode."""
     global _MODE
-    _MODE = _parse_mode(os.environ.get("HEAT_TPU_ANALYZE"))
+    _MODE = _parse_mode(_env.env_str("HEAT_TPU_ANALYZE"))
     return _MODE
 
 

@@ -52,6 +52,7 @@ import sys
 import threading
 from typing import Any, Dict, List, Optional, Tuple
 
+from ..core import _env
 from .concurrency import LOCK_REGISTRY, registered_structures
 
 __all__ = [
@@ -93,11 +94,12 @@ def _parse_mode(raw: Optional[str]) -> str:
     return m
 
 
-# direct environ reads, with the reference's defaults: the low-level
-# modules that create registered locks import this one first
-_MODE = _parse_mode(os.environ.get("HEAT_TPU_TSAN"))
+# the knobs, read at import through the registry (core/_env.py imports
+# nothing of the package): the low-level modules that create registered
+# locks import this one first
+_MODE = _parse_mode(_env.env_str("HEAT_TPU_TSAN"))
 _ARMED = _MODE != MODE_OFF
-_STACK_DEPTH = int(os.environ.get("HEAT_TPU_TSAN_STACK_DEPTH", "10") or "10")
+_STACK_DEPTH = int(_env.env_str("HEAT_TPU_TSAN_STACK_DEPTH") or _env.knob_default("HEAT_TPU_TSAN_STACK_DEPTH"))
 
 _TLS = threading.local()
 
@@ -161,7 +163,7 @@ def refresh_env() -> str:
     """Re-read ``HEAT_TPU_TSAN`` (tests that flip the env var
     mid-process); returns the new mode."""
     global _MODE, _ARMED
-    _MODE = _parse_mode(os.environ.get("HEAT_TPU_TSAN"))
+    _MODE = _parse_mode(_env.env_str("HEAT_TPU_TSAN"))
     _ARMED = _MODE != MODE_OFF
     return _MODE
 
@@ -480,7 +482,7 @@ def _dump_at_exit() -> None:  # pragma: no cover - exercised via subprocess
     interpreter exit (checked at exit time).  Plain json.dump: the
     atomic writer lives above this module in the import graph, and a
     reader treats a missing or torn file as a failed run anyway."""
-    path = os.environ.get("HEAT_TPU_TSAN_DUMP")
+    path = _env.env_str("HEAT_TPU_TSAN_DUMP")
     if not path:
         return
     try:

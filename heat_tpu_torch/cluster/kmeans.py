@@ -6,14 +6,16 @@ rank's chunk of the points, followed by one all-reduce of the small partial
 sums.  The loop runs on the host and reads the centre shift once per
 iteration to test convergence, as the JAX package's kernel path does.  With
 ``checkpoint_every`` / ``resume_from`` the same sequence of launches runs in
-checkpointed chunks (``_KCluster._fit_centers``).
+checkpointed chunks (``_KCluster._fit_centers``).  Each of those launches
+counts one ``dispatch.external_dispatches`` (the reference counts one for
+its whole on-device fit loop).
 """
 
 from __future__ import annotations
 
 from typing import Optional, Union
 
-from ..core import kernels, types
+from ..core import dispatch, kernels, types
 from ..core.base import low_precision_predict_requested
 from ..core.dndarray import DNDarray
 from ..spatial import distance
@@ -65,6 +67,7 @@ class KMeans(_KCluster):
         def run(centers, n):
             shift = float("inf")
             for i in range(n):
+                dispatch.record_external_dispatch()  # one launch per Lloyd step
                 centers, shift_t, _ = kernels.lloyd_update(x, centers)
                 shift = float(shift_t)
                 if shift <= self.tol:
@@ -75,6 +78,7 @@ class KMeans(_KCluster):
         self._cluster_centers = DNDarray.from_dense(centers, None, x.device, x.comm)
         # final assignment against the converged centres: labels and
         # inertia from the same kernel, its new centres unused
+        dispatch.record_external_dispatch()
         _, _, inertia, labels = kernels.lloyd_update(x, centers, labels=True)
         self._inertia = inertia
         self._labels = x._like(labels, (x.shape[0],), x.split)

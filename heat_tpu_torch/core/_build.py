@@ -10,7 +10,12 @@ library's file
 name carries a hash of the source, of every ``csrc/*.cu`` it includes (as
 ``csrc/lloyd_phases.cu`` includes ``lloyd.cu``), of every header
 ``csrc/*.cuh`` and of the flags, so an edited source or header builds anew
-and an unchanged one is loaded as it is.  Nothing here runs at import.
+and an unchanged one is loaded as it is.  Before it starts ``nvcc`` for a
+library that is not built, the armed artifact cache
+(:mod:`heat_tpu_torch.core.aot_cache`, ``HEAT_TPU_AOT_CACHE``) is asked
+for it, under the same digest: a replica without the CUDA toolkit starts
+from the cache.  Where the cache may be written, each library built here
+is saved into it.  Nothing here runs at import.
 """
 
 from __future__ import annotations
@@ -24,21 +29,23 @@ import subprocess
 from pathlib import Path
 from typing import Dict, Iterable
 
-__all__ = ["CSRC", "BUILD_DIR", "NVCC_FLAGS", "build_all", "load"]
+from . import _env
+
+__all__ = ["CSRC", "BUILD_DIR", "NVCC_FLAGS", "artifact_key", "build_all", "load", "save_artifacts"]
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 
 
-def _build_dir(environ=os.environ, root: Path = Path(__file__).resolve().parents[2]) -> Path:
+def _build_dir(root: Path = Path(__file__).resolve().parents[2]) -> Path:
     """Where the libraries are built: the override variable's directory; in
     a checkout (``root`` holds ``pyproject.toml`` beside the package) its
     ``build/heat_tpu_torch``; else the per-user cache."""
-    override = environ.get("HEAT_TPU_TORCH_BUILD_DIR")
+    override = _env.env_str("HEAT_TPU_TORCH_BUILD_DIR")
     if override:
         return Path(override)
     if (root / "pyproject.toml").is_file() and (root / "heat_tpu_torch").is_dir():
         return root / "build" / "heat_tpu_torch"
-    cache = environ.get("XDG_CACHE_HOME") or os.path.join(os.path.expanduser("~"), ".cache")
+    cache = os.environ.get("XDG_CACHE_HOME") or os.path.join(os.path.expanduser("~"), ".cache")
     return Path(cache) / "heat_tpu_torch"
 
 
@@ -65,7 +72,9 @@ def _nvcc() -> str:
 _INCLUDED_CU = re.compile(rb'^\s*#\s*include\s+"([\w.]+\.cu)"', re.MULTILINE)
 
 
-def _target(name: str) -> Path:
+def _digest(name: str) -> str:
+    """SHA-256 of the source, of every source it includes, of every header
+    and of the flags."""
     source = (CSRC / f"{name}.cu").read_bytes()
     h = hashlib.sha256(source)
     for included in _INCLUDED_CU.findall(source):
@@ -73,16 +82,64 @@ def _target(name: str) -> Path:
     for header in sorted(CSRC.glob("*.cuh")):
         h.update(header.name.encode() + header.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
-    digest = h.hexdigest()[:16]
-    return BUILD_DIR / f"lib{name}-{digest}.so"
+    return h.hexdigest()
+
+
+def _target(name: str) -> Path:
+    return BUILD_DIR / f"lib{name}-{_digest(name)[:16]}.so"
+
+
+def artifact_key(name: str) -> tuple:
+    """The artifact cache's key of ``csrc/<name>.cu``'s library: its source
+    name and the digest its file name carries (in full)."""
+    return ("heat_tpu_torch.csrc", f"{name}.cu", _digest(name))
+
+
+def _restore(name: str, target: Path) -> bool:
+    """Write the armed artifact cache's verified library of ``name`` to
+    ``target``; False where the cache is off or has no usable artifact (a
+    transient fault at its ``aot.load`` site included: the build serves)."""
+    from . import aot_cache
+    from ..resilience.errors import TransientFault
+
+    if not aot_cache.enabled():
+        return False
+    try:
+        payload = aot_cache.load(artifact_key(name))
+    except TransientFault:
+        return False
+    if payload is None:
+        return False
+    target.parent.mkdir(parents=True, exist_ok=True)
+    tmp = target.with_suffix(f".{os.getpid()}.tmp")
+    tmp.write_bytes(payload)
+    os.replace(tmp, target)
+    return True
+
+
+def save_artifacts(names: Iterable[str]) -> int:
+    """Save the built libraries of ``names`` into the artifact cache (where
+    it is armed and may be written); the number saved."""
+    from . import aot_cache
+
+    if not aot_cache.save_enabled():
+        return 0
+    saved = 0
+    for n in names:
+        target = _target(n)
+        if target.exists():
+            saved += aot_cache.save(artifact_key(n), target.read_bytes())
+    return saved
 
 
 def build_all(names: Iterable[str]) -> Dict[str, Path]:
-    """Build every named source that is not built yet, one ``nvcc`` per
-    source, all started together.  Raises with nvcc's output on failure."""
+    """Build every named source that is not built yet (nor in the armed
+    artifact cache), one ``nvcc`` per source, all started together; save
+    what was built into the cache where it may be written.  Raises with
+    nvcc's output on failure, and where no ``nvcc`` is found."""
     names = list(names)
     targets = {n: _target(n) for n in names}
-    todo = [n for n in names if not targets[n].exists()]
+    todo = [n for n in names if not targets[n].exists() and not _restore(n, targets[n])]
     if not todo:
         return targets
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -102,6 +159,7 @@ def build_all(names: Iterable[str]) -> Dict[str, Path]:
         os.replace(tmp, targets[n])
     if failed:
         raise RuntimeError("\n".join(failed))
+    save_artifacts(todo)
     return targets
 
 

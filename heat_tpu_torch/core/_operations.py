@@ -25,7 +25,7 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
-from . import types
+from . import dispatch, types
 from .dndarray import DNDarray, _pad_along
 from .sanitation import store_out
 from .stride_tricks import broadcast_shape, sanitize_axis
@@ -139,8 +139,9 @@ def __binary_op(operation: Callable, t1, t2, out: Optional[DNDarray] = None, whe
     tensor is t's holding dtype, else of its tensor's own type.  Without it
     the operands are taken to float (:func:`_as_float`).  ``where`` (broadcast to the result) keeps the result where it
     is true and ``out``'s value (0 without ``out``) elsewhere; ``out``
-    receives the result."""
-    res = _binary(operation, t1, t2, widened)
+    receives the result.  Each application of ``operation`` (or
+    ``widened``) goes through the dispatch layer (:mod:`.dispatch`)."""
+    res = _binary(dispatch.dispatched(operation), t1, t2, dispatch.dispatched(widened))
     if where is not True and where is not None:
         cond = _as_dndarray(where, res)
         if not isinstance(cond, DNDarray):
@@ -214,6 +215,7 @@ def __local_op(operation: Callable, x: DNDarray, out: Optional[DNDarray] = None,
     the holding dtype wraps to t's width (``neg``, ``square``)."""
     if not isinstance(x, DNDarray):
         raise TypeError(f"expected x to be a DNDarray, but was {type(x)}")
+    operation, widened = dispatch.dispatched(operation), dispatch.dispatched(widened)
     data = x.larray_padded
     if x.dtype in types._WIDENED:
         if not no_cast:
@@ -269,7 +271,7 @@ def __reduce_op(
     axis, axes = _axes(x, axis)
     split = x.split
     data = x._masked(neutral) if split in axes else x.larray_padded
-    local = partial_op(data, axes, keepdims) if axes else data
+    local = dispatch.eager_apply(partial_op, (data, axes, keepdims)) if axes else data
     gshape = _reduced_shape(x.gshape, axes, keepdims)
     if split is not None and split in axes:
         local = reduction(local.contiguous())
@@ -293,11 +295,11 @@ def __cum_op(x: DNDarray, axis, scan: Callable, combine: Callable, neutral, out:
     if axis is None:
         raise NotImplementedError("cumulative ops over flattened arrays: pass an int axis")
     if x.split == axis and x.larray_padded.shape[axis] and x.comm.size > 1:
-        local = scan(x._masked(neutral), axis)
+        local = dispatch.eager_apply(scan, (x._masked(neutral), axis))
         last = local.narrow(axis, local.shape[axis] - 1, 1).contiguous()
-        local = combine(x.comm.exscan(last, combine, neutral), local)
+        local = dispatch.eager_apply(combine, (x.comm.exscan(last, combine, neutral), local))
     else:
-        local = scan(x.larray_padded, axis)
+        local = dispatch.eager_apply(scan, (x.larray_padded, axis))
     res = x._like(local)
     if natural is not None:
         res = res.astype(natural, copy=False)

@@ -11,6 +11,8 @@ from typing import Callable, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from . import _env
+
 __all__ = [
     "BaseEstimator",
     "ClassificationMixin",
@@ -34,7 +36,7 @@ _NATIVE_PREDICT = ("", "0", "off", "float32", "f32", "native")
 def low_precision_predict_requested() -> bool:
     """True where ``HEAT_TPU_PREDICT_DTYPE`` asks predict and transform for a
     low-precision compute type (not ported yet: callers raise)."""
-    return os.environ.get("HEAT_TPU_PREDICT_DTYPE", "").strip().lower() not in _NATIVE_PREDICT
+    return _env.env_str("HEAT_TPU_PREDICT_DTYPE").strip().lower() not in _NATIVE_PREDICT
 
 
 def _sample_rows(x, *aligned):
@@ -160,7 +162,7 @@ def resumable_fit_loop(
     heartbeat_g = _tm.gauge(
         "fit.heartbeat_ts", "unix time of the last resumable-fit chunk boundary"
     )
-    hb_file = os.environ.get("HEAT_TPU_HEARTBEAT_FILE", "")
+    hb_file = _env.env_str("HEAT_TPU_HEARTBEAT_FILE")
 
     def _beat() -> None:
         heartbeat_g.set(_time.time())

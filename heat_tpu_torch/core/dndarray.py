@@ -31,6 +31,8 @@ the key that falls into its own rows, as the reference's fast path
 
 from __future__ import annotations
 
+import copy
+import threading
 from typing import List, Optional, Tuple
 
 import numpy as np
@@ -42,6 +44,21 @@ from .devices import Device, sanitize_device
 from .stride_tricks import sanitize_axis
 
 __all__ = ["DNDarray"]
+
+class _JitArgs(threading.local):
+    #: storages of the arguments of the ``ht.jit`` calls running on this
+    #: thread
+    storages = frozenset()
+
+
+_JIT_ARGS = _JitArgs()
+
+
+def _jit_argument_storage(t: torch.Tensor) -> bool:
+    """Whether ``t`` shares its storage with an argument of a running
+    ``ht.jit`` call (a view of one, or the argument's own tensor)."""
+    held = _JIT_ARGS.storages
+    return bool(held) and t.untyped_storage().data_ptr() in held
 
 
 class LocalIndex:
@@ -55,6 +72,7 @@ class LocalIndex:
         return self.__arr.larray[key]
 
     def __setitem__(self, key, value):
+        self.__arr._writable()
         local = self.__arr.larray
         local[key] = torch.as_tensor(value, dtype=local.dtype, device=local.device)
 
@@ -134,6 +152,30 @@ class DNDarray:
         active ragged layout is dropped."""
         self.__array = DNDarray.from_dense(dense, self.__split, self.__device, self.__comm).larray_padded
         self.__target_map = self.__ragged_buffer = None
+
+    def _unaliased(self) -> "DNDarray":
+        """This array, or, where its chunk shares storage with an argument
+        of a running ``ht.jit`` call, a copy of it around a clone of that
+        chunk (what ``ht.jit`` returns never aliases its arguments)."""
+        if not _jit_argument_storage(self.__array):
+            return self
+        c = copy.copy(self)
+        c.__array = self.__array.clone()
+        return c
+
+    def _writable(self) -> torch.Tensor:
+        """This rank's padded chunk, about to be written in place.  Where it
+        shares storage with an argument of a running ``ht.jit`` call (the
+        argument itself or any view of it), it is copied first, once;
+        any other write into the existing tensor counts as a dispatch
+        ``donation``."""
+        if _jit_argument_storage(self.__array):
+            self.__array = self.__array.clone()
+        else:
+            from . import dispatch
+
+            dispatch._note_donation()
+        return self.__array
 
     def _replace(self, padded: torch.Tensor, dtype=None) -> None:
         """Replace this rank's padded chunk (same global shape and split).
@@ -763,7 +805,7 @@ class DNDarray:
         comps, layout, shape = _index_plan(self.__gshape, key_t, dev)
         value = torch.broadcast_to(value, shape)
         if split is None or comm.size == 1:
-            _assign(self.__array, comps, layout, value)
+            _assign(self._writable(), comps, layout, value)
             return
         owner_axis = _consumer(comps, split)
         kind = comps[owner_axis][0]
@@ -773,7 +815,7 @@ class DNDarray:
             i = int(comps[owner_axis][1])
             if i // per == comm.rank:
                 local[owner_axis] = ("int", i - comm.rank * per)
-                _assign(self.__array, local, layout, value)
+                _assign(self._writable(), local, layout, value)
             return
         if kind == "slice":
             _, first, count, step = comps[owner_axis]
@@ -782,7 +824,7 @@ class DNDarray:
             if n:
                 local[owner_axis] = ("slice", first + p0 * step - lo, n, step)
                 axis = layout.index(("in", split))
-                _assign(self.__array, local, layout, value.narrow(axis, p0, n))
+                _assign(self._writable(), local, layout, value.narrow(axis, p0, n))
             return
         local, block, _, sel = self._own_positions(comps, owner_axis)
         if not sel.numel():
@@ -790,7 +832,7 @@ class DNDarray:
         axis = layout.index(("adv", 0))
         nb = len(block)
         flat_value = value.reshape(shape[:axis] + (-1,) + shape[axis + nb:])
-        _assign(self.__array, local, layout, flat_value.index_select(axis, sel))
+        _assign(self._writable(), local, layout, flat_value.index_select(axis, sel))
 
     def __len__(self) -> int:
         if self.ndim == 0:
@@ -1146,7 +1188,7 @@ class DNDarray:
         if i.numel():
             v = _value_tensor(value, self.__dtype, self.__array.device)
             rows, cols = (i - lo, i) if self.__split == 0 else ((i, i - lo) if self.__split == 1 else (i, i))
-            self.__array[rows, cols] = v.to(self.__array.dtype)
+            self._writable()[rows, cols] = v.to(self.__array.dtype)
         return self
 
     def flatten(self):

@@ -47,7 +47,7 @@ from ..resilience.atomic import (  # re-exported: the names io has always offere
 from ..resilience.errors import ChecksumError, PermanentFault, TransientFault
 from ..resilience.faults import inject as _inject
 from ..resilience.retry import default_io_policy as _io_policy
-from . import types
+from . import _env, types
 from .devices import sanitize_device
 from .dndarray import DNDarray, _pad_along
 from .stride_tricks import sanitize_axis
@@ -129,7 +129,7 @@ except ImportError:  # pragma: no cover
 # ``HEAT_TPU_IO_CHECKSUM=0`` turns the sidecars off.
 # ----------------------------------------------------------------------
 def _checksums_enabled() -> bool:
-    return os.environ.get("HEAT_TPU_IO_CHECKSUM", "1") != "0"
+    return _env.env_str("HEAT_TPU_IO_CHECKSUM") != "0"
 
 
 def _retried(fn):

@@ -23,7 +23,7 @@ from typing import Optional, Sequence
 
 import torch
 
-from .. import _operations, types
+from .. import _operations, dispatch, types
 from ..dndarray import DNDarray, _pad_along
 from ..sanitation import sanitize_in, store_out
 from ..stride_tricks import sanitize_axis
@@ -76,6 +76,12 @@ def _mm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     if b.ndim == 1:
         out = out.squeeze(-1)
     return out.squeeze(-2) if a.ndim == 1 else out
+
+
+def _dispatched_mm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """:func:`_mm` through the dispatch layer (counted under its key; its
+    flops metered where cost accounting is on)."""
+    return dispatch.eager_apply(_mm, (a, b))
 
 
 _INT_MM_BUDGET = 1 << 25  # elements of the largest temporary of an integer product
@@ -151,11 +157,11 @@ def matmul(a: DNDarray, b: DNDarray, allow_resplit: bool = False) -> DNDarray:
     a_inner, b_inner = a.split == ka, b.split == kb
     if a_inner or b_inner:
         if a_inner and b_inner:
-            local = _mm(_inner(a, ka, True), _inner(b, kb, True))
+            local = _dispatched_mm(_inner(a, ka, True), _inner(b, kb, True))
         elif a_inner and b.split is None:
-            local = _mm(_inner(a, ka, True), _slice_whole(b, kb, a, ka))
+            local = _dispatched_mm(_inner(a, ka, True), _slice_whole(b, kb, a, ka))
         elif b_inner and a.split is None:
-            local = _mm(_slice_whole(a, ka, b, kb), _inner(b, kb, True))
+            local = _dispatched_mm(_slice_whole(a, ka, b, kb), _inner(b, kb, True))
         else:
             local = None
         if local is not None:
@@ -163,16 +169,16 @@ def matmul(a: DNDarray, b: DNDarray, allow_resplit: bool = False) -> DNDarray:
             return DNDarray.from_dense(local, out_split, a.device, comm)
     if out_split is not None and a.split is not None and a.split != ka and b.split is None:
         # rows (or a batch) of a split, b whole: local
-        return a._like(_mm(a.larray_padded, b.larray_padded), gshape, out_split)
+        return a._like(_dispatched_mm(a.larray_padded, b.larray_padded), gshape, out_split)
     if out_split is not None and b.ndim > 1 and b.split == b.ndim - 1 and a.split is None:
-        return a._like(_mm(a.larray_padded, b.larray_padded), gshape, out_split)
+        return a._like(_dispatched_mm(a.larray_padded, b.larray_padded), gshape, out_split)
     # the output split along one operand's axis and the other operand split
     # too: that other operand gathered, then local
     if out_split is not None and a.split is not None and a.split != ka:
-        return a._like(_mm(a.larray_padded, b._dense()), gshape, out_split)
+        return a._like(_dispatched_mm(a.larray_padded, b._dense()), gshape, out_split)
     if out_split is not None and b.split is not None and b.split != kb:
-        return a._like(_mm(a._dense(), b.larray_padded), gshape, out_split)
-    return DNDarray.from_dense(_mm(a._dense(), b._dense()), out_split, a.device, comm)
+        return a._like(_dispatched_mm(a._dense(), b.larray_padded), gshape, out_split)
+    return DNDarray.from_dense(_dispatched_mm(a._dense(), b._dense()), out_split, a.device, comm)
 
 
 def _matmul_split(a: DNDarray, b: DNDarray, out_ndim: int) -> Optional[int]:

@@ -21,7 +21,7 @@ import numpy as np
 import torch
 
 from ..parallel.comm import _as_bytes, _from_bytes
-from . import _operations, arithmetics, types
+from . import _operations, arithmetics, dispatch, types
 from .arithmetics import _CUMSUM, _to_inexact
 from .dndarray import DNDarray, _pad_along
 from .linalg.basics import full_f32_matmul
@@ -96,7 +96,10 @@ def _arg(x: DNDarray, axis, keepdims: bool, largest: bool) -> DNDarray:
     axis = sanitize_axis(x.shape, axis)
     if isinstance(axis, tuple):
         raise TypeError(f"{'argmax' if largest else 'argmin'} takes one axis or None")
-    pick = torch.argmax if largest else torch.argmin
+    # through the dispatch layer, as the reference's _dense_reduce: argmin and
+    # argmax sit on the KMeans-family predict path the serving layer batches
+    pick = dispatch.dispatched(torch.argmax if largest else torch.argmin)
+
     split, comm = x.split, x.comm
 
     def counted(t):  # torch has no bool argmax: 0 and 1

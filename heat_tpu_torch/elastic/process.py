@@ -34,7 +34,8 @@ from typing import Callable, List, Optional, Tuple
 
 from ..resilience.errors import ReshapeError, WorkerLostError
 from ..resilience.faults import inject as _inject
-from .supervisor import LOSSES_C, RECOVERY_H, RESHAPES_C, WORLD_G, _env_float, _env_int
+from ..core._env import env_float, env_int
+from .supervisor import LOSSES_C, RECOVERY_H, RESHAPES_C, WORLD_G
 
 __all__ = ["ProcessSupervisor", "kmeans_worker_source"]
 
@@ -129,17 +130,17 @@ class ProcessSupervisor:
         self.build_worker = build_worker
         self.checkpoint_dir = os.path.abspath(checkpoint_dir)
         self.world_size = int(world_size)
-        self.min_world = _env_int("HEAT_TPU_ELASTIC_MIN_WORLD", 1) if min_world is None else int(min_world)
+        self.min_world = env_int("HEAT_TPU_ELASTIC_MIN_WORLD") if min_world is None else int(min_world)
         self.shrink_by = int(shrink_by)
         self.max_recoveries = (
-            _env_int("HEAT_TPU_ELASTIC_MAX_RECOVERIES", 2) if max_recoveries is None else int(max_recoveries)
+            env_int("HEAT_TPU_ELASTIC_MAX_RECOVERIES") if max_recoveries is None else int(max_recoveries)
         )
         self.heartbeat_timeout_s = (
-            _env_float("HEAT_TPU_ELASTIC_HEARTBEAT_TIMEOUT_S", 0.0)
+            env_float("HEAT_TPU_ELASTIC_HEARTBEAT_TIMEOUT_S")
             if heartbeat_timeout_s is None
             else float(heartbeat_timeout_s)
         )
-        self.poll_s = _env_float("HEAT_TPU_ELASTIC_POLL_S", 0.5) if poll_s is None else float(poll_s)
+        self.poll_s = env_float("HEAT_TPU_ELASTIC_POLL_S") if poll_s is None else float(poll_s)
         self.attempt_timeout_s = float(attempt_timeout_s)
         self.base_env = dict(os.environ if env is None else env)
 

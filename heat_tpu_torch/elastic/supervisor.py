@@ -25,6 +25,7 @@ import os
 import time
 from typing import Callable, Optional, Tuple, Type
 
+from ..core._env import env_float, env_int
 from ..parallel.comm import Communication, get_comm
 from ..resilience.errors import ReshapeError, WorkerLostError
 from ..resilience.faults import inject as _inject
@@ -51,16 +52,6 @@ WORLD_G = _tm.gauge("elastic.world_size", "current elastic world size (devices)"
 _HEARTBEAT_G = _tm.gauge(
     "fit.heartbeat_ts", "unix time of the last resumable-fit chunk boundary"
 )
-
-
-def _env_int(name: str, default: int) -> int:
-    v = os.environ.get(name, "").strip()
-    return int(v) if v else default
-
-
-def _env_float(name: str, default: float) -> float:
-    v = os.environ.get(name, "").strip()
-    return float(v) if v else default
 
 
 def elastic_state() -> dict:
@@ -98,7 +89,7 @@ class HeartbeatMonitor:
         clock: Callable[[], float] = time.time,
     ):
         self.timeout_s = (
-            _env_float("HEAT_TPU_ELASTIC_HEARTBEAT_TIMEOUT_S", 0.0)
+            env_float("HEAT_TPU_ELASTIC_HEARTBEAT_TIMEOUT_S")
             if timeout_s is None
             else float(timeout_s)
         )
@@ -178,12 +169,12 @@ class ElasticSupervisor:
         self.checkpoint_dir = checkpoint_dir
         self.comm = comm
         self.max_recoveries = (
-            _env_int("HEAT_TPU_ELASTIC_MAX_RECOVERIES", 2)
+            env_int("HEAT_TPU_ELASTIC_MAX_RECOVERIES")
             if max_recoveries is None
             else int(max_recoveries)
         )
         self.min_world = (
-            _env_int("HEAT_TPU_ELASTIC_MIN_WORLD", 1)
+            env_int("HEAT_TPU_ELASTIC_MIN_WORLD")
             if min_world is None
             else int(min_world)
         )

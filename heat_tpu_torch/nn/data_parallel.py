@@ -46,12 +46,12 @@ averages.
 from __future__ import annotations
 
 import math
-import os
 from typing import Any, Callable, List, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
+from ..core import _env
 from ..core.dndarray import DNDarray
 from ..optim.dp_optimizer import DataParallelOptimizer
 from ..parallel.comm import Communication, HierarchicalCommunication, sanitize_comm
@@ -59,13 +59,13 @@ from ..parallel.comm import Communication, HierarchicalCommunication, sanitize_c
 __all__ = ["DataParallel", "DataParallelMultiGPU", "bucket_partition", "reduce_gradients"]
 
 #: default collective bucket size for the bucketed schedule, MiB
-DEFAULT_GRAD_BUCKET_MB = 4.0
+DEFAULT_GRAD_BUCKET_MB = float(_env.knob_default("HEAT_TPU_GRAD_BUCKET_MB"))
 #: buckets issued by :func:`reduce_gradients` in this process
 GRAD_BUCKETS = 0
 
 
 def _grad_bucket_bytes() -> int:
-    return int(float(os.environ.get("HEAT_TPU_GRAD_BUCKET_MB", str(DEFAULT_GRAD_BUCKET_MB))) * 2**20)
+    return int(_env.env_float("HEAT_TPU_GRAD_BUCKET_MB") * 2**20)
 
 
 def bucket_partition(leaves: Sequence[torch.Tensor], bucket_bytes: Optional[int]) -> List[List[int]]:

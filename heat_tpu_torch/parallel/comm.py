@@ -423,6 +423,7 @@ class Communication:
             new = self._reshaped(ranks)
         new._origin = (self, ranks)
         self._retired = True
+        _clear_dispatch_cache()
         return new
 
     def _joined(self) -> bool:
@@ -803,6 +804,16 @@ def _reset_defaults() -> None:
     global __default_comm, _EPOCH
     _EPOCH += 1
     __default_comm = WORLD
+    _clear_dispatch_cache()
+
+
+def _clear_dispatch_cache() -> None:
+    """Drop the dispatch keys: they name devices and shapes of the
+    previous process group (the reference drops its compiled executables
+    here)."""
+    from ..core import dispatch
+
+    dispatch.clear_cache()
 
 
 def _as_bytes(x: torch.Tensor) -> torch.Tensor:

@@ -22,6 +22,7 @@ import torch
 
 from ..core.base import (BaseEstimator, RegressionMixin, _sample_rows, lazy_scalar_property, resumable_fit_loop,
                          validate_resume_params)
+from ..core import dispatch
 from ..core.dndarray import DNDarray
 from ..core.linalg.basics import full_f32_matmul
 
@@ -33,6 +34,16 @@ STOP_TEST_READS = 0
 
 def _soft_threshold(d: torch.Tensor, lam: float) -> torch.Tensor:
     return torch.sign(d) * torch.clamp(torch.abs(d) - lam, min=0.0)
+
+
+def _soft_threshold_op(d: torch.Tensor, *, lam: float) -> torch.Tensor:
+    return _soft_threshold(d, lam)
+
+
+def _linear_predict_op(xd: torch.Tensor, th: torch.Tensor) -> torch.Tensor:
+    """Intercept + coefficients, (n, 1) (the predict path the serving
+    layer batches)."""
+    return (_fma_matvec(xd, th[1:]) + th[0]).reshape(-1, 1)
 
 
 def _fma_matvec(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -53,7 +64,9 @@ def _cd_loop(XT: torch.Tensor, yd: torch.Tensor, col_sq: torch.Tensor, lam: torc
     """Sweeps of cyclic coordinate descent from ``theta0`` (zeros by default)
     while ``it < max_iter`` and ``delta >= tol``: ``(theta, sweeps, delta)``,
     delta the last sweep's (inf where none ran).  Each stop test read on the
-    host adds one to :data:`STOP_TEST_READS`."""
+    host adds one to :data:`STOP_TEST_READS`; each sweep counts one
+    ``dispatch.external_dispatches`` (the reference's fit is one on-device
+    loop, one dispatch however many sweeps)."""
     global STOP_TEST_READS
     m = XT.shape[0]
     theta = torch.zeros(m, dtype=XT.dtype, device=XT.device) if theta0 is None else theta0
@@ -61,6 +74,7 @@ def _cd_loop(XT: torch.Tensor, yd: torch.Tensor, col_sq: torch.Tensor, lam: torc
     go = max_iter > 0
     with full_f32_matmul():
         while go:
+            dispatch.record_external_dispatch()
             new = theta.clone()
             for j in range(m):
                 resid = yd - new @ XT + XT[j] * new[j]
@@ -130,8 +144,8 @@ class Lasso(BaseEstimator, RegressionMixin):
         own entries)."""
         lam = float(self._lam)
         if isinstance(rho, DNDarray):
-            return rho._like(_soft_threshold(rho.larray_padded, lam))
-        return _soft_threshold(torch.as_tensor(rho), lam)
+            return rho._like(dispatch.eager_apply(_soft_threshold_op, (rho.larray_padded,), {"lam": lam}))
+        return dispatch.eager_apply(_soft_threshold_op, (torch.as_tensor(rho),), {"lam": lam})
 
     def rmse(self, gt: DNDarray, yest: DNDarray) -> float:
         """Root mean squared error."""
@@ -189,7 +203,7 @@ class Lasso(BaseEstimator, RegressionMixin):
         if not xd.is_floating_point():
             xd = xd.to(torch.float32)
         th = self._theta.larray.reshape(-1).to(xd.device, xd.dtype)
-        yest = (_fma_matvec(xd, th[1:]) + th[0]).reshape(-1, 1)
+        yest = dispatch.eager_apply(_linear_predict_op, (xd, th))
         if local:
             return x._like(yest, (x.shape[0], 1), x.split)
         return DNDarray.from_dense(yest, x.split, x.device, x.comm)

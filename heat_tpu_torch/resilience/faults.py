@@ -8,9 +8,11 @@ points (``faults.inject("io.write", path=...)``) are wired through the
 port's io (``io.open``, ``io.write``), the SpGEMM ring's count re-sync
 (``comm.collective``), the process-group bootstrap (``comm.init``), the
 checkpoints (``checkpoint.*``), the resumable fits' chunk boundaries
-(``kmeans.iter`` and the like, ``qos.preempt``) and the elastic
-supervisors (``elastic.*``), and a **fault plan** decides, per site and per call index, whether a
-scripted fault fires.  Plans, seeds and site names are the reference's:
+(``kmeans.iter`` and the like, ``qos.preempt``), the elastic
+supervisors (``elastic.*``), the dispatch layer's misses
+(``dispatch.compile``) and the artifact cache (``aot.load``,
+``aot.save``), and a **fault plan** decides, per site and per call index,
+whether a scripted fault fires.  Plans, seeds and site names are the reference's:
 the same plan and seed fire at the same call indices in both packages.
 
 Sites may be evaluated from *any* thread; the injector is
@@ -66,6 +68,7 @@ import threading
 from typing import Any, Dict, List, Optional
 
 from .errors import PermanentFault, TransientFault
+from ..core import _env
 from ..analysis import tsan as _tsan
 from ..telemetry import metrics as _tm
 
@@ -86,7 +89,8 @@ PLAN_ENV = "HEAT_TPU_FAULT_PLAN"
 #: plan written for the reference names the same sites).  The port wires
 #: ``comm.init``, ``comm.collective`` (the SpGEMM ring), ``io.open``,
 #: ``io.write``, the ``checkpoint.*`` sites, the estimators' ``*.iter``
-#: and ``pca.stage``, the ``elastic.*`` sites and ``qos.preempt`` so far;
+#: and ``pca.stage``, the ``elastic.*`` sites, ``qos.preempt``,
+#: ``dispatch.compile`` and ``aot.load``/``aot.save`` so far;
 #: the others come with the modules that evaluate them.  A pure literal.
 KNOWN_SITES = (
     "comm.init",
@@ -248,7 +252,7 @@ def fault_plan(plan: Dict[str, Any], seed: int = 0) -> FaultInjector:
 
 
 def _load_env_plan() -> Optional[FaultInjector]:
-    raw = os.environ.get(PLAN_ENV)
+    raw = _env.env_str(PLAN_ENV)
     if not raw:
         return None
     raw = raw.strip()

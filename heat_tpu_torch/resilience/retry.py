@@ -26,7 +26,6 @@ Design points:
 from __future__ import annotations
 
 import functools
-import os
 import time
 from typing import Callable, List, Optional, Tuple, Type
 
@@ -39,6 +38,7 @@ from .errors import (
     ReshapeError,
     TransientFault,
 )
+from ..core import _env
 from ..telemetry import metrics as _tm
 
 __all__ = [
@@ -113,7 +113,8 @@ class RetryPolicy:
         self.retryable = tuple(retryable)
         self.attempt_timeout = attempt_timeout
         if no_sleep is None:
-            no_sleep = os.environ.get("HEAT_TPU_RETRY_NO_SLEEP", "0") == "1"
+            # the reference's reading of this bool knob: only "1" turns it on
+            no_sleep = _env.env_str("HEAT_TPU_RETRY_NO_SLEEP") == "1"
         self.no_sleep = bool(no_sleep)
         self._sleep = sleep
         #: delays slept (or recorded, in no-sleep mode) by the most
@@ -194,12 +195,12 @@ class RetryPolicy:
         )
 
 
-def _env_policy(prefix: str, **defaults) -> RetryPolicy:
+def _env_policy(prefix: str, retryable=(OSError, TimeoutError)) -> RetryPolicy:
     return RetryPolicy(
-        max_attempts=int(os.environ.get(f"{prefix}_ATTEMPTS", defaults.get("max_attempts", 3))),
-        base_delay=float(os.environ.get(f"{prefix}_BASE_DELAY", defaults.get("base_delay", 0.05))),
-        max_delay=float(os.environ.get(f"{prefix}_MAX_DELAY", defaults.get("max_delay", 2.0))),
-        retryable=defaults.get("retryable", (OSError, TimeoutError)),
+        max_attempts=_env.env_int(f"{prefix}_ATTEMPTS"),
+        base_delay=_env.env_float(f"{prefix}_BASE_DELAY"),
+        max_delay=_env.env_float(f"{prefix}_MAX_DELAY"),
+        retryable=retryable,
     )
 
 
@@ -220,8 +221,5 @@ def default_init_policy() -> RetryPolicy:
     reports a failed rendezvous as one, DistNetworkError among them)."""
     return _env_policy(
         "HEAT_TPU_INIT_RETRY",
-        max_attempts=3,
-        base_delay=0.5,
-        max_delay=10.0,
         retryable=(OSError, TimeoutError, RuntimeError),
     )

@@ -10,21 +10,16 @@ small nnz re-sync (:mod:`._planes`).
 from __future__ import annotations
 
 import math
-import os
 
 import numpy as np
 import torch
 
-from ..core import types
+from ..core import _env, types
 from ..core.dndarray import DNDarray
 from . import _planes as _pl
 from .dcsx_matrix import DCSC_matrix, DCSR_matrix, DCSX_matrix
 
 __all__ = ["add", "mul", "sum", "matmul"]
-
-#: estimated output density at which sparse @ sparse takes the dense route
-DENSE_DENSITY_DEFAULT = 0.5
-
 
 def _binary_op_csx(op_name: str, t1: DCSX_matrix, t2: DCSX_matrix) -> DCSX_matrix:
     """A sparse-sparse element-wise op: pattern union (add) or intersection
@@ -198,7 +193,7 @@ def _dense_sp(a, b: DCSX_matrix) -> DNDarray:
 
 
 def _dense_density_threshold() -> float:
-    return float(os.environ.get("HEAT_TPU_SPGEMM_DENSE_DENSITY", str(DENSE_DENSITY_DEFAULT)))
+    return _env.env_float("HEAT_TPU_SPGEMM_DENSE_DENSITY")
 
 
 def _spgemm(a: DCSX_matrix, b: DCSX_matrix):

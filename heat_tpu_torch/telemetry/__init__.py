@@ -27,10 +27,10 @@ process exit.
 from __future__ import annotations
 
 import atexit
-import os
 import time as _time
 from typing import Dict, Optional
 
+from ..core import _env
 from . import metrics
 from . import journal
 from . import tracing
@@ -120,6 +120,7 @@ __all__ = [
 #: maps to the registry prefixes it owns (the reference's names, for the
 #: domains the port has)
 _DOMAIN_PREFIXES = {
+    "dispatch": ("dispatch.",),
     "faults": ("fault.",),
     "retry": ("retry.",),
     "resilience": ("fault.", "retry."),
@@ -139,7 +140,7 @@ def reset_all(domain: Optional[str] = None) -> None:
 
     With no argument: every registered metric AND the span ring buffer
     AND the tail-sampled trace store AND the decision journal.  With a
-    domain name (``"faults"``, ``"retry"``, ``"resilience"``, ``"spans"``,
+    domain name (``"dispatch"``, ``"faults"``, ``"retry"``, ``"resilience"``, ``"spans"``,
     ...), only that domain's metrics (and its ring, store or journal);
     ``reset_fault_stats`` / ``reset_retry_stats`` delegate here."""
     if domain is None:
@@ -168,7 +169,7 @@ def _dump_at_exit() -> None:  # pragma: no cover - exercised via subprocess
     """``HEAT_TPU_METRICS_DUMP=<path>``: write the final metrics snapshot
     as JSON at interpreter exit (checked at exit time, so setting the
     variable after import still works), through the atomic+CRC32 writer."""
-    path = os.environ.get("HEAT_TPU_METRICS_DUMP")
+    path = _env.env_str("HEAT_TPU_METRICS_DUMP")
     if not path:
         return
     try:

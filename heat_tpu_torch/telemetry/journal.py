@@ -42,6 +42,7 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 from ..analysis import conformance as _conformance
 from ..analysis import tsan as _tsan
+from ..core import _env
 from . import metrics as _metrics
 
 __all__ = [
@@ -62,9 +63,8 @@ __all__ = [
     "set_journal_dir",
 ]
 
-# knobs read from the environment directly, with the reference's defaults
-_RING_SIZE = int(os.environ.get("HEAT_TPU_JOURNAL_RING", "256"))
-_DIR: Optional[str] = os.environ.get("HEAT_TPU_JOURNAL_DIR") or None
+_RING_SIZE = _env.env_int("HEAT_TPU_JOURNAL_RING")
+_DIR: Optional[str] = _env.env_str("HEAT_TPU_JOURNAL_DIR") or None
 
 _EMITTED_C = _metrics.counter("journal.events", "decision-journal events emitted")
 _SEGMENTS_C = _metrics.counter(
@@ -144,11 +144,11 @@ def refresh_env() -> None:
     (tests that flip the env mid-process); resizes the hot ring keeping
     the newest events and re-anchors the durable writer."""
     global _RING_SIZE, _EVENTS, _DIR, _NEXT_START
-    _RING_SIZE = int(os.environ.get("HEAT_TPU_JOURNAL_RING", "256"))
+    _RING_SIZE = _env.env_int("HEAT_TPU_JOURNAL_RING")
     with _LOCK:
         _tsan.note_access("telemetry.journal.state")
         _EVENTS = deque(_EVENTS, maxlen=max(1, _RING_SIZE))
-        _DIR = os.environ.get("HEAT_TPU_JOURNAL_DIR") or None
+        _DIR = _env.env_str("HEAT_TPU_JOURNAL_DIR") or None
         _NEXT_START = None
 
 

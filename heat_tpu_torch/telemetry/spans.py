@@ -31,6 +31,7 @@ from collections import deque, namedtuple
 from typing import Any, Callable, Dict, List, Optional
 
 from ..analysis import tsan as _tsan
+from ..core import _env
 from . import metrics as _metrics
 from . import tracing as _tracing
 
@@ -50,15 +51,8 @@ __all__ = [
 ]
 
 
-def _env_on(name: str, default: bool = True) -> bool:
-    v = os.environ.get(name)
-    if v is None:
-        return default
-    return v.strip().lower() not in ("0", "false", "no", "off")
-
-
-_ENABLED = _env_on("HEAT_TPU_TRACE", True)
-_RING_SIZE = int(os.environ.get("HEAT_TPU_TRACE_RING", "4096"))
+_ENABLED = _env.env_flag("HEAT_TPU_TRACE")
+_RING_SIZE = _env.env_int("HEAT_TPU_TRACE_RING")
 _RING: "deque[SpanRecord]" = deque(maxlen=max(1, _RING_SIZE))
 #: spans complete on any thread (async writer, loader workers) while the
 #: introspection server's /trace handler iterates the ring from its own
@@ -109,7 +103,7 @@ def set_tracing(enabled: bool) -> bool:
 def refresh_env() -> bool:
     """Re-read ``HEAT_TPU_TRACE`` (tests that flip the env mid-process)."""
     global _ENABLED
-    _ENABLED = _env_on("HEAT_TPU_TRACE", True)
+    _ENABLED = _env.env_flag("HEAT_TPU_TRACE")
     return _ENABLED
 
 

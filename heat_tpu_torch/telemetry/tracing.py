@@ -39,6 +39,7 @@ from collections import deque, namedtuple
 from typing import Any, Callable, Dict, List, Optional, Sequence
 
 from ..analysis import tsan as _tsan
+from ..core import _env
 from . import metrics as _metrics
 
 __all__ = [
@@ -62,17 +63,9 @@ __all__ = [
 ]
 
 
-def _env_on(name: str, default: bool = True) -> bool:
-    v = os.environ.get(name)
-    if v is None:
-        return default
-    return v.strip().lower() not in ("0", "false", "no", "off")
-
-
-# knobs read from the environment directly, with the reference's defaults
-_KEEP = int(os.environ.get("HEAT_TPU_TRACE_KEEP", "32"))
-_MAX_SPANS = int(os.environ.get("HEAT_TPU_TRACE_MAX_SPANS", "256"))
-_EXEMPLARS = _env_on("HEAT_TPU_TRACE_EXEMPLARS", True)
+_KEEP = _env.env_int("HEAT_TPU_TRACE_KEEP")
+_MAX_SPANS = _env.env_int("HEAT_TPU_TRACE_MAX_SPANS")
+_EXEMPLARS = _env.env_flag("HEAT_TPU_TRACE_EXEMPLARS")
 
 #: the ambient trace context of the current thread/task.  ``None`` means
 #: "not inside a traced request" — the state every untraced code path
@@ -174,9 +167,9 @@ def refresh_env() -> None:
     """Re-read the tracing knobs (tests that flip the env mid-process);
     resizes the retention deques, keeping the newest entries."""
     global _KEEP, _MAX_SPANS, _EXEMPLARS, _RECENT, _ERRORS
-    _KEEP = int(os.environ.get("HEAT_TPU_TRACE_KEEP", "32"))
-    _MAX_SPANS = int(os.environ.get("HEAT_TPU_TRACE_MAX_SPANS", "256"))
-    _EXEMPLARS = _env_on("HEAT_TPU_TRACE_EXEMPLARS", True)
+    _KEEP = _env.env_int("HEAT_TPU_TRACE_KEEP")
+    _MAX_SPANS = _env.env_int("HEAT_TPU_TRACE_MAX_SPANS")
+    _EXEMPLARS = _env.env_flag("HEAT_TPU_TRACE_EXEMPLARS")
     with _STORE_LOCK:
         _tsan.note_access("telemetry.tracing.store")
         _RECENT = deque(_RECENT, maxlen=max(1, _KEEP))

@@ -30,7 +30,6 @@ synchronously).
 
 from __future__ import annotations
 
-import os
 import threading
 import time
 from typing import Any, Dict, List, Optional
@@ -39,6 +38,7 @@ import numpy as np
 import torch
 
 from ..analysis import tsan as _tsan
+from ..core import _env
 from ..resilience.faults import inject as _inject
 from ..telemetry import metrics as _tm
 from ..telemetry import tracing as _tracing
@@ -56,10 +56,7 @@ __all__ = [
 def async_checkpoint_enabled() -> bool:
     """Whether resumable fits use the async checkpoint path (default on;
     ``HEAT_TPU_ASYNC_CKPT=0`` selects synchronous saves)."""
-    v = os.environ.get("HEAT_TPU_ASYNC_CKPT")
-    if v is None:
-        return True
-    return v.strip().lower() not in ("0", "false", "no", "off")
+    return _env.env_flag("HEAT_TPU_ASYNC_CKPT")
 
 
 # ----------------------------------------------------------------------

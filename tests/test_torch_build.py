@@ -51,21 +51,26 @@ def test_the_stamped_lloyd_build_includes_lloyd_cu():
     assert _build._INCLUDED_CU.findall(text.encode()) == [b"lloyd.cu"]
 
 
-def test_build_dir_checkout_cache_and_override(tmp_path):
+def test_build_dir_checkout_cache_and_override(tmp_path, monkeypatch):
+    monkeypatch.delenv("HEAT_TPU_TORCH_BUILD_DIR", raising=False)
+    monkeypatch.delenv("XDG_CACHE_HOME", raising=False)
     checkout = tmp_path / "repo"
     (checkout / "heat_tpu_torch").mkdir(parents=True)
     (checkout / "pyproject.toml").write_text("")
-    assert _build._build_dir({}, checkout) == checkout / "build" / "heat_tpu_torch"
+    assert _build._build_dir(checkout) == checkout / "build" / "heat_tpu_torch"
     site = tmp_path / "site-packages"
     (site / "heat_tpu_torch").mkdir(parents=True)
-    assert _build._build_dir({"XDG_CACHE_HOME": str(tmp_path / "cache")}, site) == tmp_path / "cache" / "heat_tpu_torch"
-    assert _build._build_dir({}, site) == Path("~/.cache/heat_tpu_torch").expanduser()
+    assert _build._build_dir(site) == Path("~/.cache/heat_tpu_torch").expanduser()
+    monkeypatch.setenv("XDG_CACHE_HOME", str(tmp_path / "cache"))
+    assert _build._build_dir(site) == tmp_path / "cache" / "heat_tpu_torch"
     mine = str(tmp_path / "mine")
+    monkeypatch.setenv("HEAT_TPU_TORCH_BUILD_DIR", mine)
     for root in (checkout, site):
-        assert _build._build_dir({"HEAT_TPU_TORCH_BUILD_DIR": mine}, root) == Path(mine)
+        assert _build._build_dir(root) == Path(mine)
+    monkeypatch.delenv("HEAT_TPU_TORCH_BUILD_DIR")
     # this checkout builds into its own build/ (listed in .gitignore)
     repo = Path(__file__).resolve().parents[1]
-    assert _build._build_dir({}, repo) == repo / "build" / "heat_tpu_torch"
+    assert _build._build_dir(repo) == repo / "build" / "heat_tpu_torch"
 
 
 def test_a_built_library_is_reused_without_nvcc(tmp_path, monkeypatch):

@@ -2010,3 +2010,97 @@ def test_a_checkpoint_restores_onto_a_card_communication(card, tmp_path):
     assert st["x"].larray.is_cuda and st["x"].split == 0 and st["x"].numpy().tobytes() == a.tobytes()
     assert np.array_equal(st["t"], np.arange(4.0, dtype=np.float32))
     assert torch.equal(st["bf"], bf.cpu())
+
+
+# ----------------------------------------------------------------------
+# the dispatch layer's surface, ht.jit, ht.vmap and the artifact cache on
+# the card
+# ----------------------------------------------------------------------
+def test_a_kmeans_fit_on_the_card_counts_one_external_dispatch_per_k1_launch(card):
+    from heat_tpu_torch.core import dispatch
+
+    g = torch.Generator(device=card).manual_seed(7)
+    truth = torch.randn(8, 16, device=card, generator=g) * 10
+    x = torch.randn(1 << 14, 16, device=card, generator=g) + truth[torch.randint(0, 8, (1 << 14,), device=card,
+                                                                               generator=g)]
+    dispatch.reset_stats()
+    before, plain_before = kernels.LLOYD_LAUNCHES, kernels.LLOYD_PLAIN_STEPS
+    km = ht.cluster.KMeans(n_clusters=8, init="random", random_state=3, max_iter=20).fit(ht.array(x, split=0))
+    launches = kernels.LLOYD_LAUNCHES - before
+    assert kernels.LLOYD_PLAIN_STEPS == plain_before
+    assert dispatch.cache_stats()["external_dispatches"] == launches == km.n_iter_ + 1
+
+
+def test_metered_flops_of_a_product_on_the_card(card):
+    from heat_tpu_torch.core import dispatch
+
+    x = ht.array(torch.randn(4096, 16, device=card), split=0)
+    w = ht.array(torch.randn(16, 16, device=card))
+    prev = dispatch.set_cost_accounting(True)
+    try:
+        dispatch.clear_cache()
+        with dispatch.meter_costs() as meter:
+            y = x @ w
+    finally:
+        dispatch.set_cost_accounting(prev)
+    assert meter.flops == 2 * 4096 * 16 * 16 and meter.calls == 1
+    torch.testing.assert_close(y.larray, x.larray @ w.larray)
+    assert any("cuda" in k for k in dispatch.cache_keys())
+
+
+def test_jit_on_the_card_is_the_eager_pipeline_bitwise(card):
+    x = ht.array(torch.randn(1000, 16, device=card), split=0)
+    w = ht.array(torch.randn(16, 16, device=card))
+
+    def pipeline(a, b):
+        return ht.tanh(a @ b) - ht.mean(a, axis=0)
+
+    got = ht.jit(pipeline)(x, w)
+    assert torch.equal(got.larray, pipeline(x, w).larray) and got.larray.is_cuda
+    before = x.larray.clone()
+
+    @ht.jit
+    def write(a):
+        a[0] = 5.0
+        return a
+
+    assert float(write(x)[0, 0]) == 5.0 and torch.equal(x.larray, before)
+
+    @ht.jit
+    def write_view(a):
+        v = ht.reshape(a, (16, 1000))
+        v[0, 0] = 7.0
+        return v, a
+
+    v, same = write_view(x)
+    assert float(v[0, 0]) == 7.0 and torch.equal(x.larray, before)
+    x[1] = 3.0  # the results share no storage with the caller's array
+    assert torch.equal(same.larray, before) and float(v[0, 16]) == float(before[1, 0])
+
+
+def test_vmap_on_the_card_is_the_row_sum(card):
+    x = ht.array(torch.randn(1000, 16, device=card), split=0)
+    got = ht.vmap(lambda r: r.sum())(x)
+    assert got.larray.is_cuda and got.shape == (1000,)
+    torch.testing.assert_close(got.larray, x.larray.sum(1))
+
+
+def test_a_library_restored_from_the_artifact_cache_loads_without_nvcc(card, tmp_path, monkeypatch):
+    from heat_tpu_torch.core import _build, aot_cache
+
+    _build.build_all(["lloyd"])
+    prev = aot_cache.configure(str(tmp_path / "cache"))
+    try:
+        assert _build.save_artifacts(["lloyd"]) == 1
+        monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "fresh")
+
+        def no_nvcc():
+            raise AssertionError("a library in the artifact cache needs no nvcc")
+
+        monkeypatch.setattr(_build, "_nvcc", no_nvcc)
+        hits = aot_cache.stats()["hits"]
+        lib = _build.load("lloyd")
+        assert aot_cache.stats()["hits"] == hits + 1 and lib is not None
+        assert _build._target("lloyd").parent == tmp_path / "fresh"
+    finally:
+        aot_cache.configure(prev)
