@@ -318,13 +318,17 @@ cuSPARSE's SpMM is not bitwise repeatable on the card):
     element-wise values bitwise, the products and sums within 1e-5 of
     float64;
 26. csr_spmm_check: the kernel against its plain version at the main
-    path's shapes (2^24 rows, 2^28 entries, 32 columns and one) and at
-    ragged ones (empty rows, rows past a warp, widths 3, 33, 65, float64,
-    int32 and int64, a row stride past the width, accumulating), within
-    1e-6 of the plain
-    sum's largest magnitude (1e-14 in float64), bitwise repeats, the
-    inputs it refuses, its time beside its plain version's, its bound and
-    cuSPARSE's SpMM (``torch.sparse.mm``);
+    path's shapes (2^24 rows, 2^28 entries, 32 columns and one; the CSR of
+    A^T; the dense-route SpGEMM's width 4096), at ragged ones (empty rows,
+    rows past a warp, widths 3, 33, 65, float64, int32 and int64, a row
+    stride past the width, accumulating) and on each of its three routes
+    (spmv, rows, wide, as ``_planes.csr_spmm_route`` names them) for all
+    12 stored types, within 1e-6 of the plain sum's largest magnitude
+    (1e-14 in float64), bitwise repeats, each launch on its gate's route,
+    the inputs it refuses, ptxas's registers and spills (none), and its
+    times at the four shapes (and at width 32 and one on column planes
+    that split gather from latency) beside its plain version's, its bound,
+    its gather floor and cuSPARSE's SpMM (``torch.sparse.mm``);
 27. sparse: a graph of 2^24 nodes of degree 16 (A and B, 2^28 nnz, built
     by ``sparse_csr_matrix`` from torch sparse COO tensors on the card,
     split 0) and X of 2^24 x 32: construction, ``A @ X``, ``A @ x``,
@@ -335,8 +339,9 @@ cuSPARSE's SpMM is not bitwise repeatable on the card):
     wall time, its extra memory and its byte bound, both runs bitwise
     equal; 4096 sampled rows and columns of each result against the host
     (element-wise ops bitwise scipy's, products and sums within 1e-5 of
-    float64), the kernel's launches on the path, the phase's peak under
-    60 GB.
+    float64), the kernel's launches on the path by route (width 32 rows,
+    width 1 and the row sums spmv, the dense route wide), the phase's peak
+    under 60 GB.
 
 The line before the last is the kernel summary, the last line
 ``{"ok": true, "device": {...}}``.
@@ -2334,7 +2339,7 @@ def resilience_phase(x, smi: str) -> dict:
     del coo
     os.environ["HEAT_TPU_SPGEMM_DENSE_DENSITY"] = "1.0"  # the ring route, whatever the estimate
     try:
-        spmm0 = _planes.CSR_SPMM_LAUNCHES
+        spmm0, routes0 = _planes.CSR_SPMM_LAUNCHES, dict(_planes.CSR_SPMM_ROUTE_LAUNCHES)
         clean, clean_ms = wall_ms(lambda: S @ S)
         want = fingerprint(clean)
         del clean
@@ -2351,6 +2356,7 @@ def resilience_phase(x, smi: str) -> dict:
         if fingerprint(again) != want:
             raise AssertionError("resilience spgemm: the retried product differs from the unfaulted one")
         spmm = _planes.CSR_SPMM_LAUNCHES - spmm0
+        spmm_routes = {k: v - routes0[k] for k, v in _planes.CSR_SPMM_ROUTE_LAUNCHES.items()}
     finally:
         del os.environ["HEAT_TPU_SPGEMM_DENSE_DENSITY"]
     emit({"phase": "resilience", "step": "spgemm_ring_retried", "rows": RES_SPGEMM_ROWS, "nnz_in": S.gnnz,
@@ -2372,7 +2378,7 @@ def resilience_phase(x, smi: str) -> dict:
     emit({"phase": "resilience", "step": "guard_finite", "finite_points_ms": ok_ms,
           "bound_ms": x.numel() * 4 / HBM_BYTES_PER_S * 1e3, "divergence": caught,
           "phase_seconds": time.perf_counter() - t_phase, "card": smi})
-    return {**launches, "csr_spmm": spmm}
+    return {**launches, "csr_spmm": spmm, "csr_spmm_by_route": spmm_routes}
 
 
 RESUME_EVERY = 2  # iterations a chunk of the checkpointed KMeans fits
@@ -2885,6 +2891,8 @@ def zero_launches() -> None:
     kernels.LLOYD_LAUNCHES = kernels.GRAM_LAUNCHES = 0
     rnd.THREEFRY_LAUNCHES = 0
     _planes.CSR_SPMM_LAUNCHES = 0
+    for key in _planes.CSR_SPMM_ROUTE_LAUNCHES:
+        _planes.CSR_SPMM_ROUTE_LAUNCHES[key] = 0
     _leading.FFT_STAGE_LAUNCHES = _leading.FFT_PAIR_LAUNCHES = _leading.FFT_EXT_LAUNCHES = 0
     _axis_pass.FFT_AXIS_LAUNCHES = 0
     _flash.FLASH_LAUNCHES = 0
@@ -4637,6 +4645,7 @@ SPGEMM_ROWS = 1 << 20  # S @ S of 2^20 x 2^20, 16 a row: the ring route, about 2
 SPGEMM_DENSE_N = 4096  # the dense route: 4096 x 4096 at density 0.05
 SPGEMM_DENSE_DENSITY = 0.05
 SPARSE_PEAK_BYTES = 60e9
+CSR_RAGGED_ROWS = 3001  # rows of csr_spmm_check's ragged matrices
 
 
 def random_graph(n: int, degree: int, dev, g, density: float = 0.0):
@@ -4705,6 +4714,9 @@ def sparse_twice(fn, name: str, nbytes, smi: str, peaks: list, **extra):
     unless both runs give the same bits and the result lies on the card."""
     import torch
 
+    from heat_tpu_torch.sparse import _planes
+
+    routes0 = dict(_planes.CSR_SPMM_ROUTE_LAUNCHES)
     first, first_ms = wall_ms(fn)
     first_bits = fingerprint(first)
     del first
@@ -4719,9 +4731,10 @@ def sparse_twice(fn, name: str, nbytes, smi: str, peaks: list, **extra):
     if not all(p.is_cuda for p in planes):
         raise AssertionError(f"sparse {name}: the result is not on the card")
     bound_ms = (nbytes(out) if callable(nbytes) else nbytes) / HBM_BYTES_PER_S * 1e3
+    routes = {k: v - routes0[k] for k, v in _planes.CSR_SPMM_ROUTE_LAUNCHES.items() if v != routes0[k]}
     return out, {"phase": "sparse", "call": name, "first_ms": first_ms, "warm_ms": warm_ms, "extra_peak_gb": extra_gb,
                  "bound_ms": bound_ms, "bound_by": "bytes", "share_of_bound": bound_ms / warm_ms,
-                 "repeat_bitwise": True, **extra, "card": smi}
+                 "repeat_bitwise": True, "csr_spmm_launches_by_route": routes, **extra, "card": smi}
 
 
 def planes_csr(m):
@@ -4845,28 +4858,146 @@ def sparse_pattern_check(dev, g, smi: str) -> dict:
     return rec
 
 
+def csr_spmm_shapes(A, x, dev, smi: str) -> list:
+    """The CSR SpMM kernel's time at the main path's four shapes, each
+    beside its bound (every input read once and the output written once at
+    the HBM rate, or its float32 operations at 67 TFLOP/s, the larger), its
+    gather floor (the same with each entry's row of X read from device
+    memory in whole 32-byte sectors), the route its gate names and the
+    library call's time: A (2^24 rows, 2^28 entries) times X's 32 columns
+    and times one column, each also on three other column planes with the
+    same pointers and values -- every column 0 (each gather hits in cache),
+    consecutive rows of X (sequential gathers) and the random columns cut
+    to X's first quarter (17 MB at one column, which stays in L2; the whole
+    67 MB column does not) -- which split the time between the gathers and
+    the kernel's own latency; the CSR of A^T times
+    X; the dense-route SpGEMM's E (4096^2 at density 0.05) times its dense
+    self, beside ``E_dense @ E_dense`` in full float32.  Returns the
+    records, the random planes' first."""
+    import torch
+
+    import heat_tpu_torch as ht
+    from heat_tpu_torch.core.linalg.basics import full_f32_matmul
+    from heat_tpu_torch.sparse import _planes
+
+    def record(shape, ptr, col, w, xx, planes="random", library=None, **extra):
+        n_rows, width, nnz, item = ptr.numel() - 1, xx.shape[1], col.numel(), xx.element_size()
+        ms = time_ms(lambda: _planes.csr_spmm(ptr, col, w, xx), reps=10)
+        once = 8 * (n_rows + 1) + (4 + item) * nnz + item * n_rows * width  # pointers, planes, output
+        bound = {"bytes": (once + item * xx.shape[0] * width) / HBM_BYTES_PER_S * 1e3,
+                 "operations": 2 * nnz * width / F32_FLOPS * 1e3}
+        by = max(bound, key=bound.get)
+        route, lane_bytes = _planes.csr_spmm_route(width, xx.dtype, xx, None)
+        rec = {"phase": "csr_spmm_shape", "shape": shape, "columns": planes, "rows": n_rows, "entries": nnz,
+               "width": width, "route": route, "lane_bytes": lane_bytes, "ms": ms,
+               "bound_ms": bound[by], "bound_by": by, "share_of_bound": bound[by] / ms}
+        if planes == "random":
+            floor = (once + 32 * -(-width * item // 32) * nnz) / HBM_BYTES_PER_S * 1e3
+            rec.update(gather_floor_ms=floor, share_of_gather_floor=floor / ms)
+        if library is not None:
+            rec["library_ms"] = time_ms(library, reps=10)
+        rec.update(extra, card=smi)
+        emit(rec)
+        return rec
+
+    n = A.shape[0]
+    ptr, col, w = A.lindptr, A._other[: A._n], A._val[: A._n]
+    x1 = x[:, :1].contiguous()
+    csr = torch.sparse_csr_tensor(ptr.to(torch.int32), col, w, size=(n, x.shape[0]))
+    recs = [record("A @ X", ptr, col, w, x, library=lambda: torch.sparse.mm(csr, x),
+                   library_call="torch.sparse.mm (cuSPARSE), float32"),
+            record("A @ x", ptr, col, w, x1, library=lambda: torch.sparse.mm(csr, x1),
+                   library_call="torch.sparse.mm (cuSPARSE), float32")]
+    del csr
+    for planes, cols in (("zero", torch.zeros_like(col)),
+                         ("sequential", (torch.arange(col.numel(), device=dev) % x.shape[0]).to(torch.int32)),
+                         ("quarter", col % (x.shape[0] // 4))):
+        for xx, shape in ((x, "A @ X"), (x1, "A @ x")):
+            recs.append(record(shape, ptr, cols, w, xx, planes))
+        del cols
+    # the CSR of A^T (A.T @ X's operand: rows of Poisson(16) lengths)
+    perm = A._by_other()
+    other_sorted = A._other[: A._n][perm]
+    ptr_t = torch.searchsorted(other_sorted, torch.arange(x.shape[0] + 1, dtype=other_sorted.dtype, device=dev))
+    del other_sorted
+    col_t, w_t = A._comp[: A._n][perm].contiguous(), w[perm].contiguous()
+    del perm
+    csr_t = torch.sparse_csr_tensor(ptr_t.to(torch.int32), col_t, w_t, size=(x.shape[0], n))
+    recs.append(record("CSR of A^T @ X", ptr_t, col_t, w_t, x, library=lambda: torch.sparse.mm(csr_t, x),
+                       library_call="torch.sparse.mm (cuSPARSE), float32"))
+    del csr_t, ptr_t, col_t, w_t
+    torch.cuda.empty_cache()
+    # the dense-route SpGEMM's product: E times its dense self
+    g_e = torch.Generator(device=dev).manual_seed(SEED + 20)
+    coo_e = random_graph(SPGEMM_DENSE_N, 0, dev, g_e, density=SPGEMM_DENSE_DENSITY)
+    E = ht.sparse.sparse_csr_matrix(coo_e, split=0)
+    e_dense = coo_e.to_dense()
+    csr_e = torch.sparse_csr_tensor(E.lindptr.to(torch.int32), E._other[: E._n], E._val[: E._n],
+                                    size=tuple(e_dense.shape))
+    with full_f32_matmul():
+        dense_ms = time_ms(lambda: e_dense @ e_dense, reps=10)
+    recs.append(record("dense route E @ E", E.lindptr, E._other[: E._n], E._val[: E._n], e_dense,
+                       library=lambda: torch.sparse.mm(csr_e, e_dense),
+                       library_call="torch.sparse.mm (cuSPARSE), float32", dense_matmul_ms=dense_ms,
+                       dense_matmul_call="E_dense @ E_dense, full float32 (cuBLAS)"))
+    del E, coo_e, e_dense, csr_e
+    torch.cuda.empty_cache()
+    return recs
+
+
+def csr_spmm_ptxas() -> dict:
+    """ptxas's registers and spill stores of each csr_spmm kernel, by its
+    name and template arguments (None where this process built nothing)."""
+    import re
+
+    from heat_tpu_torch.core import _build
+
+    log = _build.BUILD_LOGS.get("csr_spmm")
+    if log is None:
+        return None
+    report, name = {}, None
+    for ln in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", ln)
+        if m:
+            name = m.group(1)
+            name = re.sub(r"^_ZN\d+_GLOBAL__N__\w+?_csr_spmm_cu_\w+?(\d+)(spmv|rows|wide)_kernel", r"\2", name)
+            report[name] = {}
+        m = re.search(r"(\d+) bytes spill stores", ln)
+        if m and name:
+            report[name]["spill_stores"] = int(m.group(1))
+        m = re.search(r"Used (\d+) registers", ln)
+        if m and name:
+            report[name]["registers"] = int(m.group(1))
+    return report
+
+
 def csr_spmm_check(A, x, dev, g, smi: str) -> dict:
     """Phase csr_spmm_check: the CSR SpMM kernel against its plain version
     on the card at the main path's shapes (A's 2^24 rows and 2^28 entries
     times X's 32 columns, and times one column; the CSR of A^T, rows of
     Poisson(16) lengths, times X, as A.T @ X runs it; the dense-route
     SpGEMM's 4096 x 4096 matrix of density 0.05 times its dense self, width
-    4096) and at ragged ones (empty rows, rows longer than a warp, widths
-    3, 33 and 65, float64, x with a row stride past its width, accumulating
-    into out, int32 and int64, and every other value type the port stores:
-    float16, bfloat16, complex64, complex128, int8, uint8, int16, bool):
-    max |kernel - plain| over max |plain| at most 1e-6 (float32; 1e-14
-    float64: the two add each row's products in other orders, the kernel
-    in fused multiply-adds; integers and bool exactly); for float16,
-    bfloat16 and the complex types each element within (2 len + 8) u S of
-    the plain one, S the row's sum of |w||x| (and |out|) and u the type's
-    unit roundoff: each is within (len + 4) u S of the exact sum, the bound
-    of a recursive sum of len products (the plain version adds in the type
-    itself); a
-    second launch bitwise equal to the first; the types and strides it
-    refuses; its time beside its plain version's, its bound and cuSPARSE's
-    SpMM on the same CSR, and how many distinct results cuSPARSE gives in
-    8 runs on A and on the CSR of A^T (the reason the kernel exists).
+    4096), at ragged ones (empty rows, rows longer than a warp, widths 3, 33
+    and 65, float64, x with a row stride past its width, accumulating into
+    out, int32 and int64, and every other value type the port stores:
+    float16, bfloat16, complex64, complex128, int8, uint8, int16, bool),
+    and on every route for every one of the 12 types (widths 1, 31 and just
+    past the rows route's 512 bytes; x 16-byte aligned and not; into a new
+    out and accumulating; rows of 0, 1, 31, 32, 33, 300 and 5000 entries,
+    the last longer than a spmv chunk and a wide stage): max |kernel -
+    plain| over max |plain| at most 1e-6 (float32; 1e-14 float64: the two
+    add each row's products in other orders, the kernel in fused
+    multiply-adds; integers and bool exactly); for float16, bfloat16 and
+    the complex types each element within (2 len + 8) u S of the plain
+    one, S the row's sum of |w||x| (and |out|) and u the type's unit
+    roundoff: each is within (len + 4) u S of the exact sum, the bound of a
+    recursive sum of len products (the plain version adds in the type
+    itself); a second launch bitwise equal to the first; each launch
+    counted on the route :func:`_planes.csr_spmm_route` names; the types
+    and strides it refuses; ptxas's registers and spills (none allowed);
+    its times at the four shapes (:func:`csr_spmm_shapes`) beside its plain
+    version's, and how many distinct results cuSPARSE's SpMM gives in 8
+    runs on A and on the CSR of A^T (the reason the kernel exists).
     Returns its kernel entry (launches filled in by the main path)."""
     import torch
 
@@ -4875,13 +5006,18 @@ def csr_spmm_check(A, x, dev, g, smi: str) -> dict:
 
     def compare(ptr, col, w, xx, label, out=None, tol=1e-6):
         base = None if out is None else out.clone()
+        route, lane_bytes = _planes.csr_spmm_route(xx.shape[1], xx.dtype, xx, out)
+        before = dict(_planes.CSR_SPMM_ROUTE_LAUNCHES)
         got = _planes.csr_spmm(ptr, col, w, xx, None if out is None else out.clone())
         again = _planes.csr_spmm(ptr, col, w, xx, None if out is None else out.clone())
+        took = {k: v - before[k] for k, v in _planes.CSR_SPMM_ROUTE_LAUNCHES.items() if v != before[k]}
+        if took != {route: 2}:
+            raise AssertionError(f"csr_spmm {label}: launched {took}, the gate names {route}")
         want = _planes._csr_spmm_plain(ptr, col, w, xx, torch.zeros_like(got) if base is None else base.clone())
         torch.cuda.synchronize()
         wide = torch.complex128 if got.is_complex() else torch.float64
         diff = (got.to(wide) - want.to(wide)).abs()
-        err = float(diff.max())
+        err = float(diff.max()) if diff.numel() else 0.0
         if tol == "rows":  # (2 len + 8) u S a row, S = sum |w||x| (plus |out|)
             u = (torch.finfo(got.real.dtype).eps if got.is_complex() else torch.finfo(got.dtype).eps) / 2
             s_row = _planes._csr_spmm_plain(ptr, col, w.abs().double(), xx.abs().double(),
@@ -4897,7 +5033,8 @@ def csr_spmm_check(A, x, dev, g, smi: str) -> dict:
         if not ok or not torch.equal(got, again):
             raise AssertionError(f"csr_spmm {label}: {rel} from its plain version (bound {tol}), "
                                  f"repeat bitwise {torch.equal(got, again)}")
-        return {"case": label, "rel_err": rel, "max_abs_err": err, "bitwise_repeat": True}
+        return {"case": label, "route": route, "lane_bytes": lane_bytes, "rel_err": rel, "max_abs_err": err,
+                "bitwise_repeat": True}
 
     n, k = A.shape[0], x.shape[1]
     ptr, col, w = A.lindptr, A._other[: A._n], A._val[: A._n]
@@ -4918,8 +5055,10 @@ def csr_spmm_check(A, x, dev, g, smi: str) -> dict:
                           f"dense route, {SPGEMM_DENSE_N} rows, {E._n} entries, width {SPGEMM_DENSE_N}"))
     del E, coo_e
     torch.cuda.empty_cache()
+    if [c["route"] for c in checks] != ["rows", "spmv", "rows", "wide"]:
+        raise AssertionError(f"csr_spmm: the main path's shapes took {[c['route'] for c in checks]}")
     # ragged: rows of 0 to 200 entries, some past a warp
-    lengths = torch.randint(0, 200, (3001,), device=dev, generator=g)
+    lengths = torch.randint(0, 200, (CSR_RAGGED_ROWS,), device=dev, generator=g)
     lengths[::7] = 0
     rp = torch.cat([torch.zeros(1, dtype=torch.int64, device=dev), torch.cumsum(lengths, 0)])
     nnz = int(rp[-1])
@@ -4937,24 +5076,14 @@ def csr_spmm_check(A, x, dev, g, smi: str) -> dict:
     for width, dt in ((32, torch.float16), (1, torch.float16), (33, torch.bfloat16), (32, torch.complex64),
                       (1, torch.complex128), (32, torch.int8), (1, torch.uint8), (33, torch.int16),
                       (32, torch.bool), (1, torch.bool)):
-        if dt.is_floating_point or dt.is_complex:
-            rw = torch.randn(nnz, device=dev, generator=g, dtype=dt)
-            rx = torch.randn(517, width, device=dev, generator=g, dtype=dt)
-            base = torch.randn(3001, width, device=dev, generator=g, dtype=dt)
-            tol = "rows"
-        else:  # wrapped integer sums, bool's OR of ANDs: exact
-            hi = 2 if dt == torch.bool else 200
-            rw = torch.randint(0, hi, (nnz,), device=dev, generator=g).to(dt)
-            rx = torch.randint(0, hi, (517, width), device=dev, generator=g).to(dt)
-            base = torch.randint(0, hi, (3001, width), device=dev, generator=g).to(dt)
-            tol = 0.0
+        rw, rx, base, tol = csr_spmm_operands(nnz, (517, width), (CSR_RAGGED_ROWS, width), dt, dev, g)
         checks.append(compare(rp, rc, rw, rx, f"ragged rows, width {width}, {dt}", tol=tol))
         checks.append(compare(rp, rc, rw, rx, f"ragged rows, width {width}, {dt}, accumulating", out=base, tol=tol))
     wide = torch.randn(517, 48, device=dev, generator=g)
     rw = torch.randn(nnz, device=dev, generator=g)
     checks.append(compare(rp, rc, rw, wide[:, :40], "x with row stride 48, width 40"))
     checks.append(compare(rp, rc, rw, wide[:, :40], "accumulating into out",
-                          out=torch.randn(3001, 40, device=dev, generator=g)))
+                          out=torch.randn(CSR_RAGGED_ROWS, 40, device=dev, generator=g)))
     for c in checks:
         emit({"phase": "kernel_check", "kernel": "csr_spmm", **c})
     refused = []
@@ -4968,14 +5097,38 @@ def csr_spmm_check(A, x, dev, g, smi: str) -> dict:
         else:
             raise AssertionError(f"csr_spmm took {what}")
 
-    ms = time_ms(lambda: _planes.csr_spmm(ptr, col, w, x), reps=10)
-    ms1 = time_ms(lambda: _planes.csr_spmm(ptr, col, w, x[:, :1].contiguous()), reps=10)
+    # every route for every type: widths 1, 31, 32 and just past 512 bytes,
+    # x (and out) 16-byte aligned or x one element off, into a new out and
+    # accumulating, on rows of 0, 1, 31, 32, 33, 300 and 5000 entries among
+    # the ragged ones
+    lengths[1:7] = torch.tensor([1, 31, 32, 33, 300, 5000], device=dev)
+    rp = torch.cat([torch.zeros(1, dtype=torch.int64, device=dev), torch.cumsum(lengths, 0)])
+    rc = torch.randint(0, 517, (int(rp[-1]),), device=dev, generator=g, dtype=torch.int32)
+    matrix = []
+    for dt in _planes.CSR_SPMM_TYPES:
+        for width in (1, 31, 32, _planes.CSR_SPMM_ROWS_MAX_BYTES // dt.itemsize + 3):
+            pad = -(-width * dt.itemsize // 16) * 16 // dt.itemsize  # a row in whole 16-byte pieces
+            rw, rx, base, tol = csr_spmm_operands(rc.numel(), (517, pad + 16 // dt.itemsize), (CSR_RAGGED_ROWS, pad), dt, dev, g)
+            for xx, where in ((rx[:, :width], "16-byte aligned"), (rx[:, 1:width + 1], "one element off")):
+                for out in (None, base[:, :width]):
+                    matrix.append(compare(rp, rc, rw, xx, f"{dt}, width {width}, x {where}"
+                                          + (", accumulating" if out is not None else ""), out=out, tol=tol))
+    routes = {(c["route"], c["lane_bytes"] == 16) for c in matrix}
+    if not {("spmv", False), ("rows", True), ("rows", False), ("wide", True), ("wide", False)} <= routes:
+        raise AssertionError(f"csr_spmm's type and route checks covered {sorted(routes)}")
+    emit({"phase": "kernel_check", "kernel": "csr_spmm", "types_by_route": len(matrix),
+          "worst_rel_err_by_route": {r: max(c["rel_err"] for c in matrix if c["route"] == r)
+                                     for r in ("spmv", "rows", "wide")}, "cases": matrix})
+    ptxas = csr_spmm_ptxas()
+
+    shapes = csr_spmm_shapes(A, x, dev, smi)
+    ms, ms1, ms_t, ms_e = (next(r for r in shapes if r["shape"] == s and r["columns"] == "random")
+                           for s in ("A @ X", "A @ x", "CSR of A^T @ X", "dense route E @ E"))
     plain_ms = time_ms(lambda: _planes._csr_spmm_plain(ptr, col, w, x, torch.zeros(n, k, device=dev)), reps=2,
                        warmup=1)
-    csr = torch.sparse_csr_tensor(ptr.to(torch.int32), col, w, size=(n, x.shape[0]))
-    library_ms = time_ms(lambda: torch.sparse.mm(csr, x), reps=10)
     # is cuSPARSE's SpMM bitwise repeatable, on A (16 entries a row) and on
     # the CSR of A^T (the CSC route's: rows of Poisson(16) lengths)?
+    csr = torch.sparse_csr_tensor(ptr.to(torch.int32), col, w, size=(n, x.shape[0]))
     distinct = {"A": len({str(digest(torch.sparse.mm(csr, x))) for _ in range(8)})}
     other_sorted = A._other[: A._n][perm]
     csr_t = torch.sparse_csr_tensor(torch.searchsorted(other_sorted, torch.arange(
@@ -4983,18 +5136,37 @@ def csr_spmm_check(A, x, dev, g, smi: str) -> dict:
         size=(x.shape[0], n))
     distinct["A^T"] = len({str(digest(torch.sparse.mm(csr_t, x))) for _ in range(8)})
     del csr, csr_t, other_sorted
-    nbytes = 8 * (n + 1) + 8 * A._n + 4 * x.numel() + 4 * n * k
-    bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    emit({"phase": "kernel_check", "kernel": "csr_spmm", "rows": n, "entries": A._n, "width": k, "ms": ms,
-          "ms_width_1": ms1, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": "bytes",
-          "share_of_bound": bound_ms / ms, "gather_bound_ms": 4 * k * A._n / HBM_BYTES_PER_S * 1e3,
-          "library_ms": library_ms, "library_call": "torch.sparse.mm (cuSPARSE), float32",
-          "library_distinct_results_in_8_runs": distinct, "refused": refused, "card": smi})
+    emit({"phase": "kernel_check", "kernel": "csr_spmm", "rows": n, "entries": A._n, "width": k, "ms": ms["ms"],
+          "ms_width_1": ms1["ms"], "ms_csr_of_a_t": ms_t["ms"], "ms_dense_route": ms_e["ms"], "plain_ms": plain_ms,
+          "bound_ms": ms["bound_ms"], "bound_by": ms["bound_by"], "share_of_bound": ms["share_of_bound"],
+          "gather_floor_ms": ms["gather_floor_ms"], "library_ms": ms["library_ms"],
+          "library_call": "torch.sparse.mm (cuSPARSE), float32", "library_distinct_results_in_8_runs": distinct,
+          "refused": refused, "ptxas": ptxas, "card": smi})
+    if ptxas is not None and any(v.get("spill_stores", 0) for v in ptxas.values()):
+        raise AssertionError(f"csr_spmm: ptxas spills {ptxas}")
     return {"name": "csr_spmm", "route": "cuda", "source": "heat_tpu_torch/csrc/csr_spmm.cu",
             "replaces": "heat_tpu/sparse/_planes.py:493",
             "note": "not a TPU kernel: the JAX package's SpMM is XLA's gather and segment_sum",
-            "launches": None, "max_abs_err": max(c["max_abs_err"] for c in checks[:2]), "ms": ms,
-            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": "bytes", "library_ms": library_ms}
+            "launches": None, "launches_by_route": None, "max_abs_err": max(c["max_abs_err"] for c in checks[:2]),
+            "ms": ms["ms"], "ms_by_route": {"rows": ms["ms"], "spmv": ms1["ms"], "wide": ms_e["ms"]},
+            "plain_ms": plain_ms, "bound_ms": ms["bound_ms"], "bound_by": ms["bound_by"],
+            "library_ms": ms["library_ms"]}
+
+
+def csr_spmm_operands(nnz: int, x_shape, out_shape, dt, dev, g):
+    """Values, x and a base for out of type ``dt`` on the card, and the
+    tolerance of their product: float32 1e-6 and float64 1e-14 of the plain
+    result's largest magnitude, ``"rows"`` (csr_spmm_check's per-element
+    bound) for float16, bfloat16 and complex, exact for integers and bool
+    (small values: the wrapped sums are exact)."""
+    import torch
+
+    if dt.is_floating_point or dt.is_complex:
+        draw = [torch.randn(*s, device=dev, generator=g, dtype=dt) for s in ((nnz,), x_shape, out_shape)]
+        return (*draw, {torch.float32: 1e-6, torch.float64: 1e-14}.get(dt, "rows"))
+    hi = 2 if dt == torch.bool else 200
+    draw = [torch.randint(0, hi, s, device=dev, generator=g).to(dt) for s in ((nnz,), x_shape, out_shape)]
+    return (*draw, 0.0)
 
 
 def sparse_phase(dev, smi: str) -> dict:
@@ -5013,8 +5185,9 @@ def sparse_phase(dev, smi: str) -> dict:
     (sparse_pattern_check); at full size, 4096 sampled rows (and columns)
     of each result against the host: the element-wise ops bitwise scipy's,
     the products and sums within 1e-5 of float64, the conversion's round
-    trip bitwise.  No kernel of the port runs here (the JAX package's
-    sparse layer reaches no Pallas kernel)."""
+    trip bitwise.  The products run the CSR SpMM kernel (the JAX
+    package's sparse layer reaches no Pallas kernel), each on the route its
+    gate names, counted by route."""
     import numpy as np
     import scipy.sparse as sp
     import torch
@@ -5061,6 +5234,8 @@ def sparse_phase(dev, smi: str) -> dict:
     torch.cuda.empty_cache()
     restart_peak(peaks)
     _planes.CSR_SPMM_LAUNCHES = 0  # the path's launches from here on
+    for key in _planes.CSR_SPMM_ROUTE_LAUNCHES:
+        _planes.CSR_SPMM_ROUTE_LAUNCHES[key] = 0
     spmm_bytes = 12 * nnz + 8 * n * k  # the planes and X read, the result written
     gather = {"gather_bound_ms": 4 * k * nnz / HBM_BYTES_PER_S * 1e3}  # one row of X for each entry
     host_rows = sp.csr_matrix(host_a, dtype=np.float64)
@@ -5203,15 +5378,23 @@ def sparse_phase(dev, smi: str) -> dict:
     del PE, E, coo_e
     torch.cuda.empty_cache()
 
-    launches = _planes.CSR_SPMM_LAUNCHES
+    launches, by_route = _planes.CSR_SPMM_LAUNCHES, dict(_planes.CSR_SPMM_ROUTE_LAUNCHES)
+    # each product took the route its gate names: width 32 rows, width 1 spmv, 4096 wide
+    routes = {"A @ X": {"rows": 2}, "A @ x": {"spmv": 2}, "A.sum(axis=1)": {"spmv": 2}, "A.T @ X": {"rows": 2},
+              "X.T @ A": {"rows": 2}, "E @ E (dense route)": {"wide": 2}}
+    for r in records:
+        if r["csr_spmm_launches_by_route"] != routes.get(r["call"], {}):
+            raise AssertionError(f"sparse {r['call']}: csr_spmm launched {r['csr_spmm_launches_by_route']}, "
+                                 f"the gate names {routes.get(r['call'], {})}")
     restart_peak(peaks)
     if max(peaks) > SPARSE_PEAK_BYTES:
         raise AssertionError(f"sparse: the phase peaked at {max(peaks) / 1e9} GB (bound {SPARSE_PEAK_BYTES / 1e9})")
     if launches == 0:
         raise AssertionError("sparse: the path never launched the CSR SpMM kernel")
     emit({"phase": "sparse", "calls": len(records), "nnz": nnz, "csr_spmm_launches": launches,
+          "csr_spmm_launches_by_route": by_route,
           "phase_peak_gb": max(peaks) / 1e9, "phase_seconds": time.perf_counter() - t_phase, "card": smi})
-    csr_entry["launches"] = launches
+    csr_entry["launches"], csr_entry["launches_by_route"] = launches, by_route
     return csr_entry
 
 
@@ -5735,6 +5918,8 @@ def main() -> int:
     # XLA); its products through the CSR SpMM kernel
     csr_spmm = sparse_phase(dev, smi)
     csr_spmm["launches"] += res_launches["csr_spmm"]
+    for key, n in res_launches["csr_spmm_by_route"].items():
+        csr_spmm["launches_by_route"][key] += n
 
     threefry["launches"] += rsvd_threefry + rpca_threefry  # the KMeans inits', rsvd's and the randomized PCA's
     emit({"kernels": [lloyd, lloyd64, threefry, gram, *fft_entries, flash, *flash_bwd, csr_spmm]})

@@ -114,8 +114,12 @@ def segment_sum(data: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
 CSR_SPMM_TYPES = {torch.float16: "f16", torch.bfloat16: "bf16", torch.float32: "f32", torch.float64: "f64",
                   torch.complex64: "c64", torch.complex128: "c128", torch.int8: "i8", torch.uint8: "u8",
                   torch.int16: "i16", torch.int32: "i32", torch.int64: "i64", torch.bool: "b8"}
-#: launches of the CSR SpMM kernel
+#: launches of the CSR SpMM kernel, in all and by route (:func:`csr_spmm_route`)
 CSR_SPMM_LAUNCHES = 0
+CSR_SPMM_ROUTE_LAUNCHES = {"spmv": 0, "rows": 0, "wide": 0}
+#: the widest row of x, in bytes, the rows route takes: a warp's 32 lanes of 16 bytes
+CSR_SPMM_ROWS_MAX_BYTES = 512
+_CSR_ROUTE_IDS = {"spmv": 0, "rows": 1, "wide": 2}
 _CSR_LIB = None
 
 
@@ -125,7 +129,31 @@ def segment_rows(seg, weight, index, rows, n_seg: int, dtype, out=None) -> torch
     ids ``seg`` sorted ascending: the entries are a CSR matrix over the
     planes and the product is :func:`csr_spmm`'s."""
     ptr = torch.searchsorted(seg, torch.arange(n_seg + 1, dtype=seg.dtype, device=seg.device))
-    return csr_spmm(ptr, index.to(torch.int32), weight.to(dtype), rows.to(dtype).contiguous(), out)
+    x = rows.to(dtype)
+    return csr_spmm(ptr, index.to(torch.int32), weight.to(dtype), x if x.stride(1) == 1 else x.contiguous(), out)
+
+
+def csr_spmm_route(width: int, dtype: torch.dtype, x: torch.Tensor, out=None) -> Tuple[str, int]:
+    """The CSR SpMM kernel's route for ``width`` columns of ``dtype`` on the
+    card, and the bytes a lane reads from a row of ``x`` at once (mirrors
+    ``launch`` in csrc/csr_spmm.cu): ``"spmv"`` for one column (a block's
+    rows walked entry by entry, one element a gather); ``"rows"`` where a
+    row of x spans at most :data:`CSR_SPMM_ROWS_MAX_BYTES` (a warp a row);
+    ``"wide"`` above (a block a row, its entries staged once).  The rows
+    and wide routes read and write in 16-byte pieces where ``x`` and
+    ``out`` start on 16-byte boundaries and their rows lie a multiple of 16
+    bytes apart (``out`` None: the new output the wrapper makes, aligned
+    where a row is a multiple of 16 bytes), else one element at a time."""
+    item = dtype.itemsize
+    if width == 1:
+        return "spmv", item
+
+    def aligned(t):
+        return t.data_ptr() % 16 == 0 and (t.stride(0) * item) % 16 == 0
+
+    route = "rows" if width * item <= CSR_SPMM_ROWS_MAX_BYTES else "wide"
+    vector = aligned(x) and ((width * item) % 16 == 0 if out is None else aligned(out))
+    return route, 16 if vector else item
 
 
 def csr_spmm(ptr: torch.Tensor, col: torch.Tensor, w: torch.Tensor, x: torch.Tensor, out=None) -> torch.Tensor:
@@ -135,7 +163,7 @@ def csr_spmm(ptr: torch.Tensor, col: torch.Tensor, w: torch.Tensor, x: torch.Ten
     ``out`` (rows, width) with unit column stride.  Each row's products are
     added in one fixed order.  A CPU tensor runs the plain version; a CUDA
     tensor runs the kernel (csrc/csr_spmm.cu, every type of
-    :data:`CSR_SPMM_TYPES`) or raises."""
+    :data:`CSR_SPMM_TYPES`, by :func:`csr_spmm_route`'s route) or raises."""
     global CSR_SPMM_LAUNCHES
     n_rows = ptr.numel() - 1
     if x.ndim != 2 or ptr.ndim != 1 or n_rows < 0 or col.shape != w.shape or col.ndim != 1:
@@ -160,17 +188,22 @@ def csr_spmm(ptr: torch.Tensor, col: torch.Tensor, w: torch.Tensor, x: torch.Ten
         raise ValueError("the CSR SpMM kernel needs contiguous ptr, col and w")
     if any(t.device != x.device for t in (ptr, col, w)) or (out is not None and out.device != x.device):
         raise ValueError("csr_spmm: every operand on one card")
+    route, lane_bytes = csr_spmm_route(x.shape[1], x.dtype, x, out)
     accumulate = out is not None
     if out is None:
         out = torch.empty((n_rows, x.shape[1]), dtype=x.dtype, device=x.device)
+    if n_rows == 0 or x.shape[1] == 0:
+        return out
     fn = getattr(_csr_lib(), "heat_csr_spmm_" + CSR_SPMM_TYPES[x.dtype])
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = fn(ptr.data_ptr(), col.data_ptr(), w.data_ptr(), x.data_ptr(), x.stride(0), out.data_ptr(),
-                 out.stride(0), n_rows, x.shape[1], int(accumulate), stream)
+                 out.stride(0), n_rows, x.shape[1], int(accumulate), _CSR_ROUTE_IDS[route],
+                 int(lane_bytes == 16 and x.element_size() < 16), stream)
     if err != 0:
-        raise RuntimeError(f"CSR SpMM kernel launch failed: CUDA error {err}")
+        raise RuntimeError(f"CSR SpMM kernel launch failed ({route} route): CUDA error {err}")
     CSR_SPMM_LAUNCHES += 1
+    CSR_SPMM_ROUTE_LAUNCHES[route] += 1
     return out
 
 
@@ -185,7 +218,7 @@ def _csr_lib():
         for suffix in CSR_SPMM_TYPES.values():
             fn = getattr(lib, "heat_csr_spmm_" + suffix)
             fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int64, ctypes.c_void_p] + [ctypes.c_int64] * 3 + \
-                [ctypes.c_int, ctypes.c_void_p]
+                [ctypes.c_int] * 3 + [ctypes.c_void_p]
             fn.restype = ctypes.c_int
         _CSR_LIB = lib
     return _CSR_LIB
@@ -389,8 +422,9 @@ def todense_padded(comp, other, val, n: int, comp_axis: int, comp_pad: int, othe
 # ----------------------------------------------------------------------
 def sum_comp(comp, other, val, n: int, comp_pad: int, other_extent: int) -> torch.Tensor:
     """Per-compressed-index sums of this rank's chunk, (comp_pad,): the
-    chunk's product with a column of ones (each value times 1, exactly)."""
-    ones = torch.ones((max(other_extent, 1), 1), dtype=val.dtype, device=val.device)
+    chunk's product with a column of ones (each value times 1, exactly),
+    one 1 broadcast over the column (row stride 0: no gather leaves L1)."""
+    ones = torch.ones((1, 1), dtype=val.dtype, device=val.device).expand(max(other_extent, 1), 1)
     return segment_rows(comp[:n], val[:n], other[:n], ones, comp_pad, val.dtype)[:, 0]
 
 

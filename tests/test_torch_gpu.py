@@ -1734,27 +1734,37 @@ def test_sparse_ops_on_the_card_are_the_hosts(card, fmt, split, dtype):
                 np.testing.assert_allclose(g, w, rtol=tol, atol=tol * float(np.abs(w).max()), err_msg=name)
 
 
-@pytest.mark.parametrize("width,dtype", [(1, torch.float32), (3, torch.float32), (32, torch.float32),
-                                         (33, torch.float64), (65, torch.float32), (1, torch.int64),
-                                         (7, torch.int32), (32, torch.float16), (1, torch.float16),
-                                         (33, torch.bfloat16), (32, torch.complex64), (1, torch.complex128),
-                                         (32, torch.int8), (1, torch.uint8), (7, torch.int16), (32, torch.bool),
-                                         (1, torch.bool)])
-def test_csr_spmm_kernel_matches_plain(card, width, dtype):
-    """The CSR SpMM kernel against its plain version on ragged rows (empty
-    ones, ones past a warp), into a new output and accumulating into one:
-    float32 within 1e-6 and float64 within 1e-14 of the plain sum's max;
-    float16, bfloat16 and complex each element within (2 len + 8) u S of
-    the plain one, S its row's sum of |w||x| (and |out|) and u the type's
-    unit roundoff: each is within (len + 4) u S of the exact sum, the bound
-    of a recursive sum of len products (the plain version adds in the type
-    itself); integers and bool
-    exactly; a second launch bitwise equal, one launch counted each."""
+_CSR_TYPES = [torch.float16, torch.bfloat16, torch.float32, torch.float64, torch.complex64, torch.complex128,
+              torch.int8, torch.uint8, torch.int16, torch.int32, torch.int64, torch.bool]
+
+
+@pytest.mark.parametrize("width", [1, 2, 31, 32, 33, "bound-1", "bound", "bound+1", 4096])
+@pytest.mark.parametrize("dtype", _CSR_TYPES, ids=str)
+def test_csr_spmm_kernel_matches_plain(card, dtype, width):
+    """The CSR SpMM kernel against its plain version at each route's edges
+    (widths 1, 2, 31, 32, 33, the rows route's 512-byte bound in columns
+    and one either side, 4096 on 41 rows) for every stored type, on rows
+    of 0, 1, 31, 32, 33, 300, 700 and 5000 entries (the last longer than a
+    spmv chunk and a wide stage) among ragged ones, x 16-byte aligned and
+    one element off (both with a row stride past the width), into a new
+    output and accumulating into one: float32 within 1e-6 and float64
+    within 1e-14 of the plain sum's max; float16, bfloat16 and complex each
+    element within (2 len + 8) u S of the plain one, S its row's sum of
+    |w||x| (and |out|) and u the type's unit roundoff: each is within
+    (len + 4) u S of the exact sum, the bound of a recursive sum of len
+    products (the plain version adds in the type itself); integers and
+    bool exactly; a second launch bitwise equal, each launch counted once,
+    on the route its gate names."""
     from heat_tpu_torch.sparse import _planes
 
-    g = torch.Generator(device=card).manual_seed(width)
-    lengths = torch.randint(0, 100, (701,), device=card, generator=g)
+    item = dtype.itemsize
+    if isinstance(width, str):
+        width = _planes.CSR_SPMM_ROWS_MAX_BYTES // item + int(width[len("bound"):] or 0)
+    n_rows = 41 if width == 4096 else 701
+    g = torch.Generator(device=card).manual_seed(width + item)
+    lengths = torch.randint(0, 100, (n_rows,), device=card, generator=g)
     lengths[::5] = 0
+    lengths[1:9] = torch.tensor([1, 31, 32, 33, 300, 0, 700, 5000], device=card)
     ptr = torch.cat([torch.zeros(1, dtype=torch.int64, device=card), torch.cumsum(lengths, 0)])
     col = torch.randint(0, 97, (int(ptr[-1]),), device=card, generator=g, dtype=torch.int32)
 
@@ -1766,28 +1776,35 @@ def test_csr_spmm_kernel_matches_plain(card, width, dtype):
         return torch.randint(-9 if dtype.is_signed else 0, 10, shape, device=card, generator=g).to(dtype)
 
     w = draw(col.numel())
-    x = draw(97, width + 3)[:, :width]
-    for base in (None, draw(701, width)):
-        before = _planes.CSR_SPMM_LAUNCHES
-        got = _planes.csr_spmm(ptr, col, w, x, None if base is None else base.clone())
-        again = _planes.csr_spmm(ptr, col, w, x, None if base is None else base.clone())
-        assert _planes.CSR_SPMM_LAUNCHES == before + 2
-        want = _planes._csr_spmm_plain(ptr, col, w, x, torch.zeros_like(got) if base is None else base.clone())
-        assert torch.equal(got, again)
-        if dtype in (torch.float32, torch.float64):
-            tol = 1e-6 if dtype == torch.float32 else 1e-14
-            assert float((got - want).abs().max()) <= tol * float(want.abs().max())
-        elif dtype.is_floating_point or dtype.is_complex:
-            wide = torch.complex128 if dtype.is_complex else torch.float64
-            s = _planes._csr_spmm_plain(ptr, col, w.abs().double(), x.abs().double(),
-                                        torch.zeros(got.shape, dtype=torch.float64, device=card))
-            if base is not None:
-                s += base.abs().double()
-            u = torch.finfo(got.real.dtype if dtype.is_complex else dtype).eps / 2
-            bound = (2 * lengths.double()[:, None] + 8) * u * s
-            assert bool(((got.to(wide) - want.to(wide)).abs() <= bound).all())
-        else:
-            assert torch.equal(got, want)
+    pad = -(-width * item // 16) * 16 // item + 16 // item  # rows of whole 16-byte pieces, past the width
+    buf = draw(97, pad)
+    want_route = "spmv" if width == 1 else "rows" if width * item <= _planes.CSR_SPMM_ROWS_MAX_BYTES else "wide"
+    for x in (buf[:, :width], buf[:, 1:width + 1]):
+        for base in (None, draw(n_rows, pad)[:, :width]):
+            route, _ = _planes.csr_spmm_route(width, dtype, x, base)
+            assert route == want_route
+            before, by_route = _planes.CSR_SPMM_LAUNCHES, dict(_planes.CSR_SPMM_ROUTE_LAUNCHES)
+            got = _planes.csr_spmm(ptr, col, w, x, None if base is None else base.clone())
+            again = _planes.csr_spmm(ptr, col, w, x, None if base is None else base.clone())
+            assert _planes.CSR_SPMM_LAUNCHES == before + 2
+            assert {k: v - by_route[k] for k, v in _planes.CSR_SPMM_ROUTE_LAUNCHES.items() if v != by_route[k]} \
+                == {route: 2}
+            want = _planes._csr_spmm_plain(ptr, col, w, x, torch.zeros_like(got) if base is None else base.clone())
+            assert torch.equal(got, again)
+            if dtype in (torch.float32, torch.float64):
+                tol = 1e-6 if dtype == torch.float32 else 1e-14
+                assert float((got - want).abs().max()) <= tol * float(want.abs().max())
+            elif dtype.is_floating_point or dtype.is_complex:
+                wide = torch.complex128 if dtype.is_complex else torch.float64
+                s = _planes._csr_spmm_plain(ptr, col, w.abs().double(), x.abs().double(),
+                                            torch.zeros(got.shape, dtype=torch.float64, device=card))
+                if base is not None:
+                    s += base.abs().double()
+                u = torch.finfo(got.real.dtype if dtype.is_complex else dtype).eps / 2
+                bound = (2 * lengths.double()[:, None] + 8) * u * s
+                assert bool(((got.to(wide) - want.to(wide)).abs() <= bound).all())
+            else:
+                assert torch.equal(got, want)
 
 
 def test_csr_spmm_kernel_refuses_what_it_cannot_take(card):
