@@ -148,6 +148,25 @@ file, it exits non-zero before printing any result):
    loading every library from it (aot.hits one a library, no miss, error or
    stale artifact) and launching K1 once against its plain version; the
    warm start's seconds beside the build phase's nvcc seconds.
+6m. telemetry: the device peaks calibrated on the card (an 8192^2 float32
+   matmul with TF32 off, a 1 GiB read-plus-write stream) beside the
+   published 67 TFLOP/s and 3.35 TB/s; with the introspection server on an
+   ephemeral port, the metric-history sampler and a heartbeat SLO running,
+   a fit with every K1 launch fenced (set_sync_every(1): a pair of CUDA
+   events a launch), its Lloyd rows read from /rooflinez?format=json over
+   HTTP (fenced; the steps' row with n_iter calls, the final labels
+   launch's row with one; mean, GB/s, utilization and bound against the
+   calibrated peaks and, through HEAT_TPU_PEAK_FLOPS/GBPS, the published
+   ones); the steps' fenced mean must lie within 0.95-1.15 of phase times'
+   CUDA-event K1 time; a device watermark holding the points; five fits
+   armed and five disarmed; /metrics, /statusz, /healthz, /queryz, /sloz
+   and /rooflinez answering 200; two /profilez captures around one fit
+   each, the fit at once and with a second of margin on each side, each
+   naming K1's kernel, with the trace's launch-to-kernel delays and the
+   launches whose kernels it lacks; a child
+   process on the card failing inside a fit with HEAT_TPU_FLIGHT_RECORDER
+   set, its bundle checksum-verified with the observatory's Lloyd row and
+   the journal; a world-1 psum's accounting cost, spans on and off.
 
 The KMeans data is then freed, and the hierarchical SVD path follows on a
 2^25 x 128 float32 matrix with a decaying spectrum, made on the card:
@@ -2720,6 +2739,296 @@ def dispatch_phase(x, pts, build_s: float, smi: str) -> int:
                                                     "inertia_rel_err")}},
           "seconds": time.perf_counter() - t_phase, "card": smi})
     return launches
+
+
+CRASH_CHILD = r"""
+import torch
+import heat_tpu_torch as ht
+from heat_tpu_torch.core import kernels
+from heat_tpu_torch.telemetry import observatory
+
+observatory.set_sync_every(1)
+dev = torch.device("cuda", 0)
+g = torch.Generator(device=dev).manual_seed(5)
+x = torch.randn(1 << 22, 16, device=dev, generator=g)
+real, steps = kernels.lloyd_update, []
+
+
+def failing(*args, **kwargs):
+    steps.append(1)
+    if len(steps) == 3:
+        raise RuntimeError("injected failure inside the fit's third Lloyd step")
+    return real(*args, **kwargs)
+
+
+kernels.lloyd_update = failing
+ht.cluster.KMeans(n_clusters=8, init="random", random_state=0, max_iter=30).fit(ht.array(x, split=0))
+"""
+
+TEL_FITS = 5  # fits timed with the observatory armed, and as many disarmed, in turns
+TEL_CAPTURE_LEAD_S = 1.0  # seconds of the second capture before and after its fit
+TEL_CALLS = 2000  # world-1 psums a block of the accounting-cost measurement
+TEL_BLOCKS = 5
+
+
+def capture_clock(events: list) -> dict:
+    """What a torch.profiler trace says of its two clocks: each kernel event
+    joined by its correlation id to the runtime call that launched it (the
+    kernel cannot start before its launch, so a negative least delay is how
+    far the card's timestamps lag the host's), and the launches whose
+    kernel the trace dropped, in ms from its first host event."""
+    launches = {e["args"]["correlation"]: e["ts"] for e in events
+                if e.get("cat") == "cuda_runtime" and "Launch" in e.get("name", "") and "correlation" in e.get("args", {})}
+    kern = {e["args"]["correlation"]: e["ts"] for e in events
+            if e.get("cat") == "kernel" and "correlation" in e.get("args", {})}
+    delays = [kern[c] - t for c, t in launches.items() if c in kern]
+    host0 = min((e["ts"] for e in events if e.get("ph") == "X" and e.get("cat") != "kernel"), default=0.0)
+    dropped = sorted((t - host0) / 1e3 for c, t in launches.items() if c not in kern)
+    return {"launches_joined": len(delays), "dropped_launches": len(dropped),
+            "dropped_launch_ms_from_start": [dropped[0], dropped[-1]] if dropped else None,
+            "least_launch_to_kernel_us": min(delays) if delays else None,
+            "median_launch_to_kernel_us": sorted(delays)[len(delays) // 2] if delays else None}
+
+
+def telemetry_phase(x, pts, k1_event_ms: float, smi: str) -> dict:
+    """Phase telemetry: the roofline observatory, the introspection server,
+    the metric history, a heartbeat SLO, a /profilez capture and a crash
+    bundle on the main path's points.  Returns the K1 and threefry
+    launches of its fits."""
+    import shutil
+    import statistics
+    import tempfile
+    import urllib.request
+
+    import torch
+
+    import heat_tpu_torch as ht
+    from heat_tpu_torch import telemetry
+    from heat_tpu_torch.core import kernels
+    from heat_tpu_torch.core import random as rnd
+    from heat_tpu_torch.parallel import Communication
+    from heat_tpu_torch.telemetry import inspect as tinspect
+    from heat_tpu_torch.telemetry import observatory as obs
+    from heat_tpu_torch.telemetry import slo, tsdb
+
+    t_phase = time.perf_counter()
+    k1_0, tf_0 = kernels.LLOYD_LAUNCHES, rnd.THREEFRY_LAUNCHES
+    knobs = ("HEAT_TPU_PEAK_FLOPS", "HEAT_TPU_PEAK_GBPS", "HEAT_TPU_PEAK_CACHE", "HEAT_TPU_PROFILE_DIR")
+    saved_env = {k: os.environ.pop(k, None) for k in knobs}
+    tmp = tempfile.mkdtemp(prefix="heat_tpu_torch_telemetry_")
+    srv = telemetry.start_server(0)
+    tsdb.start_sampler()
+    slo.register_slo(slo.parse_slo("fit_heartbeat", "fit.heartbeat_ts fresh < 600s"))
+    prev_sync = obs.sync_every()
+
+    def get(route):
+        with urllib.request.urlopen(srv.url + route, timeout=300) as r:
+            return r.status, r.read()
+
+    def post(route):
+        req = urllib.request.Request(srv.url + route, method="POST")
+        with urllib.request.urlopen(req, timeout=300) as r:
+            return r.status, r.read()
+
+    def fit():
+        return ht.cluster.KMeans(n_clusters=CLUSTERS, init="random", random_state=SEED, max_iter=MAX_ITER).fit(pts)
+
+    def lloyd_row(doc, name="lloyd_step"):
+        rows = [r for r in doc["ledger"] if f"(kernel, {name}," in r["key"]]
+        if len(rows) != 1:
+            raise AssertionError(f"telemetry: {len(rows)} {name} rows in /rooflinez: {doc['ledger'][:3]}")
+        return rows[0]
+
+    try:
+        # 1. the peaks, calibrated on the card, beside the published figures
+        obs.reset_peaks()
+        t0 = time.perf_counter()
+        peaks = obs.device_peaks(calibrate=True)
+        calibrate_s = time.perf_counter() - t0
+        if peaks is None or peaks["source"] != "calibrated" or peaks["flops"] <= 0 or peaks["bytes_per_s"] <= 0:
+            raise AssertionError(f"telemetry: calibration gave {peaks}")
+        emit({"phase": "telemetry", "step": "calibrate", "flops": peaks["flops"], "bytes_per_s": peaks["bytes_per_s"],
+              "published_f32_flops": F32_FLOPS, "published_bytes_per_s": HBM_BYTES_PER_S,
+              "flops_share_of_published": peaks["flops"] / F32_FLOPS,
+              "bytes_share_of_published": peaks["bytes_per_s"] / HBM_BYTES_PER_S,
+              "matmul": "8192^2 float32, TF32 off", "stream_bytes": 8 * (1 << 28),
+              "fingerprint": peaks["fingerprint"], "seconds": calibrate_s, "card": smi})
+
+        # 2. a fit with every K1 launch fenced, read back from /rooflinez over
+        # HTTP once the card is done (a sample is read when its end event has
+        # completed); the Lloyd steps under one key, the final assignment,
+        # which also writes the labels, under its own
+        obs.set_sync_every(1)
+        obs.reset()
+        k1 = kernels.LLOYD_LAUNCHES
+        km = fit()
+        launches = kernels.LLOYD_LAUNCHES - k1
+        n_iter = km.n_iter_
+        del km
+        torch.cuda.synchronize()
+        status, body = get("/rooflinez?format=json")
+        row, labels_row = lloyd_row(json.loads(body)), lloyd_row(json.loads(body), "lloyd_labels")
+        os.environ["HEAT_TPU_PEAK_FLOPS"] = repr(F32_FLOPS)
+        os.environ["HEAT_TPU_PEAK_GBPS"] = repr(HBM_BYTES_PER_S / 1e9)
+        obs.reset_peaks()
+        published = lloyd_row(json.loads(get("/rooflinez?format=json")[1]))
+        del os.environ["HEAT_TPU_PEAK_FLOPS"], os.environ["HEAT_TPU_PEAK_GBPS"]
+        obs.set_peaks(peaks["flops"], peaks["bytes_per_s"], source="calibrated")
+        ratio = row["mean_ms"] / k1_event_ms
+        fields = ("calls", "mean_ms", "sync_min_ms", "gbytes_per_s", "gflops_per_s", "intensity", "utilization",
+                  "bound")
+        emit({"phase": "telemetry", "step": "ledger", "key": row["key"], "timing": row["timing"],
+              "k1_launches": launches, "n_iter": n_iter, "bytes": row["bytes"], "flops": row["flops"],
+              "calibrated": {k: row[k] for k in fields}, "published": {k: published[k] for k in fields},
+              "labels": {"key": labels_row["key"], "bytes": labels_row["bytes"],
+                         **{k: labels_row[k] for k in fields}},
+              "k1_cuda_event_ms": k1_event_ms, "fenced_mean_over_event_ms": ratio,
+              "fenced_min_over_event_ms": row["sync_min_ms"] / k1_event_ms, "card": smi})
+        if (status != 200 or row["timing"] != "fenced" or row["calls"] != n_iter or row["sync_samples"] != n_iter
+                or labels_row["calls"] != 1 or labels_row["sync_samples"] != 1 or launches != n_iter + 1):
+            raise AssertionError(f"telemetry: the Lloyd rows {row}, {labels_row} for {launches} K1 launches")
+        if row["bound"] != "bandwidth" or published["bound"] != "bandwidth":
+            raise AssertionError(f"telemetry: the Lloyd step read as {row['bound']} / {published['bound']}-bound")
+        # a step launches K1 and a few small ops on k x f values: its device
+        # time is K1's and little more
+        if not 0.95 <= ratio <= 1.15:
+            raise AssertionError(f"telemetry: the fenced mean {row['mean_ms']} ms is {ratio:.3f} of the CUDA-event "
+                                 f"K1 time {k1_event_ms} ms; a step takes K1's time and at most 15% more")
+
+        # 3. watermarks from torch.cuda.memory_stats
+        wm = obs.watermark_tick(force=True)
+        if wm["source"] != "device" or wm["bytes_in_use"] < x.numel() * x.element_size():
+            raise AssertionError(f"telemetry: watermark {wm} with x of {x.numel() * x.element_size()} bytes alive")
+
+        # 4. the observatory's cost: the fit armed (default period) and disarmed
+        obs.set_sync_every(prev_sync)
+        armed, disarmed = [], []
+        for _ in range(TEL_FITS):
+            obs.set_enabled(True)
+            armed.append(wall_ms(fit)[1])
+            obs.set_enabled(False)
+            disarmed.append(wall_ms(fit)[1])
+        obs.set_enabled(True)
+        emit({"phase": "telemetry", "step": "overhead", "sync_every": prev_sync, "armed_fit_ms": armed,
+              "disarmed_fit_ms": disarmed, "armed_median_ms": statistics.median(armed),
+              "disarmed_median_ms": statistics.median(disarmed), "watermark": wm, "card": smi})
+
+        # 5. scrapes, the heartbeat SLO, the metric history and a /profilez capture around one fit
+        verdicts = slo.evaluate()
+        tsdb.sample_once()
+        codes = {}
+        for route in ("/metrics", "/statusz", "/healthz", "/queryz?format=json", "/sloz?format=json", "/rooflinez"):
+            codes[route] = get(route)[0]
+        if set(codes.values()) != {200} or not tsdb.series_names():
+            raise AssertionError(f"telemetry: routes {codes}, tsdb series {tsdb.series_names()}")
+        statusz = json.loads(get("/statusz")[1])
+        os.environ["HEAT_TPU_PROFILE_DIR"] = os.path.join(tmp, "profilez")
+
+        def capture(lead_s):
+            """One /profilez capture around a fit, ``lead_s`` between the
+            start and the fit and between the fit's end and the stop: (K1
+            launches, the trace's kernel events, what capture_clock finds
+            in it, the capture's record)."""
+            free, total = torch.cuda.mem_get_info()
+            reserved = torch.cuda.memory_reserved()
+            if post("/profilez/start?duration_s=120")[0] != 200:
+                raise AssertionError("telemetry: /profilez/start refused")
+            time.sleep(lead_s)
+            k1 = kernels.LLOYD_LAUNCHES
+            fit()
+            torch.cuda.synchronize()
+            launched = kernels.LLOYD_LAUNCHES - k1
+            time.sleep(lead_s)
+            status, body = post("/profilez/stop")
+            rec = json.loads(body)
+            if status != 200 or rec["error"] or not rec["artifacts"]:
+                raise AssertionError(f"telemetry: the capture {rec}")
+            events = []
+            for art in rec["artifacts"]:
+                with open(obs.artifact_path(art["name"])) as f:
+                    events += json.load(f)["traceEvents"]
+            memory = {"card_free_bytes_before_start": free, "card_bytes": total,
+                      "cache_reserved_bytes_before_start": reserved}
+            return launched, [e for e in events if e.get("cat") == "kernel"], dict(capture_clock(events), **memory), rec
+
+        # the capture as a user takes it, the fit at once; then one with a
+        # second of margin on each side.  In this process, after the phases
+        # before this one, a capture's trace lacks the kernels of its first
+        # 25 or so launches, with or without the margin and with no lag
+        # between the clocks (capture_clock); a fresh process's holds them
+        # all.  So the check is that the trace names K1's kernel, and the
+        # counts are reported
+        firsts = {}
+        for lead_s in (0.0, TEL_CAPTURE_LEAD_S):
+            launched, kern, clock, rec = capture(lead_s)
+            tc = [e for e in kern if "lloyd_tc" in e.get("name", "")]
+            firsts[lead_s] = {"lead_s": lead_s, "k1_launches": launched, "kernel_events": len(kern),
+                              "k1_tc_events": len(tc), "k1_kernels": sorted({e["name"] for e in kern if "lloyd" in e["name"]}),
+                              "artifact_bytes": sum(a["bytes"] for a in rec["artifacts"]), **clock}
+            if not tc:
+                raise AssertionError(f"telemetry: the capture names no K1 kernel: {firsts[lead_s]}")
+        emit({"phase": "telemetry", "step": "scrape_and_capture", "routes": codes,
+              "slo": [{k: v.get(k) for k in ("name", "firing", "burn_fast", "burn_slow")} for v in verdicts],
+              "tsdb_series": len(tsdb.series_names()),
+              "statusz_runtime": {k: statusz["runtime"].get(k) for k in ("torch", "cuda", "backend", "device_kind")},
+              "captures": list(firsts.values()), "card": smi})
+
+        # 6. a crash inside a fit on the card, in a subprocess, read back from its bundle
+        bundles = os.path.join(tmp, "bundles")
+        env = dict(os.environ, HEAT_TPU_FLIGHT_RECORDER=bundles)
+        child = subprocess.run([sys.executable, "-c", CRASH_CHILD], env=env, capture_output=True, text=True,
+                               timeout=300, cwd=str(Path(__file__).resolve().parent))
+        paths = sorted(Path(bundles).glob("flight_*.json")) if os.path.isdir(bundles) else []
+        if child.returncode == 0 or "injected failure" not in child.stderr or len(paths) != 1:
+            raise AssertionError(f"telemetry: the crashing child exited {child.returncode} with {len(paths)} "
+                                 f"bundles:\n{child.stderr[-3000:]}")
+        bundle = tinspect.load_bundle(str(paths[0]))  # raises on a checksum mismatch
+        crows = [r for r in (bundle.get("observatory") or {}).get("ledger", []) if "lloyd_step" in r["key"]]
+        if (bundle["exception"]["type"] != "RuntimeError" or not crows or crows[0]["calls"] != 2
+                or bundle.get("journal") is None or bundle["runtime"]["device_kind"] != torch.cuda.get_device_name(0)
+                or bundle["observatory"]["watermark"]["source"] != "device"):
+            raise AssertionError(f"telemetry: the bundle's sections: exception {bundle['exception']['type']}, "
+                                 f"Lloyd rows {crows}, journal {bundle.get('journal') is not None}")
+        emit({"phase": "telemetry", "step": "crash_bundle", "bundle_bytes": paths[0].stat().st_size,
+              "checksum_verified": True, "sections": sorted(k for k, v in bundle.items() if v is not None),
+              "child_k1_calls_noted": crows[0]["calls"], "card": smi})
+
+        # 7. a world-1 collective's accounting cost, spans on and off, beside its unaccounted body
+        comm = Communication(size=1, rank=0)
+        t = torch.ones(1024, device=x.device)
+
+        def per_call_us(fn):
+            blocks = []
+            for _ in range(TEL_BLOCKS):
+                t0 = time.perf_counter()
+                for _ in range(TEL_CALLS):
+                    fn()
+                blocks.append((time.perf_counter() - t0) / TEL_CALLS * 1e6)
+            return statistics.median(blocks)
+
+        body_us = per_call_us(lambda: comm._reduce(t, None))
+        spans_on_us = per_call_us(lambda: comm.psum(t))
+        prev_tracing = telemetry.set_tracing(False)
+        try:
+            spans_off_us = per_call_us(lambda: comm.psum(t))
+        finally:
+            telemetry.set_tracing(prev_tracing)
+        emit({"phase": "telemetry", "step": "collective_accounting", "calls_a_block": TEL_CALLS,
+              "body_us": body_us, "psum_spans_on_us": spans_on_us, "psum_spans_off_us": spans_off_us,
+              "accounting_spans_on_us": spans_on_us - body_us, "accounting_spans_off_us": spans_off_us - body_us,
+              "phase_seconds": time.perf_counter() - t_phase, "card": smi})
+    finally:
+        obs.set_sync_every(prev_sync)
+        obs.set_enabled(True)
+        tsdb.stop_sampler()
+        slo.reset_monitors()
+        telemetry.stop_server()
+        shutil.rmtree(tmp, ignore_errors=True)
+        for k, v in saved_env.items():
+            os.environ.pop(k, None)
+            if v is not None:
+                os.environ[k] = v
+    return {"lloyd_step": kernels.LLOYD_LAUNCHES - k1_0, "threefry": rnd.THREEFRY_LAUNCHES - tf_0}
 
 
 def resume_pca(A, smi: str) -> int:
@@ -5654,6 +5963,13 @@ def main() -> int:
     # 6l. the dispatch layer's surface, ht.jit, ht.vmap and the artifact
     # cache on the same points (K1 in its fit; a replica without nvcc)
     lloyd["launches"] += dispatch_phase(x, pts, build_s, smi)
+
+    # 6m. the roofline observatory, the introspection server, the metric
+    # history, a heartbeat SLO, a /profilez capture and a crash bundle on the
+    # same points (K1 and threefry in its fits; the crashing child's not)
+    tel_launches = telemetry_phase(x, pts, kernel_ms, smi)
+    lloyd["launches"] += tel_launches["lloyd_step"]
+    threefry["launches"] += tel_launches["threefry"]
 
     # the KMeans data is freed before the hSVD path's matrix is made
     del x, pts, km, centres, labels, plain_labels, truth, pred

@@ -102,6 +102,66 @@ LOCK_REGISTRY = {
         'structures': ('dispatch.aot.state',),
         'doc': 'artifact-cache module configuration (armed directory, save flag, fingerprint memo): configure() swaps it while loads fire from any thread that builds a kernel library; artifact files themselves need no lock -- writes are atomic renames keyed per artifact',
     },
+    'telemetry.server': {
+        'file': 'heat_tpu_torch/telemetry/server.py',
+        'spellings': ('_LOCK',),
+        'structures': ('telemetry.server.singleton', 'telemetry.server.routes', 'telemetry.server.readiness'),
+        'doc': "the process's single IntrospectionServer handle (start_server/stop_server swap it), the registered extra-route map (register_route/unregister_route mutate, handler threads take it briefly for the prefix lookup and call the handler outside it), and the readiness-provider slot /readyz consults",
+    },
+    'telemetry.observatory': {
+        'file': 'heat_tpu_torch/telemetry/observatory.py',
+        'spellings': ('_LEDGER_LOCK',),
+        'structures': ('telemetry.observatory.ledger',),
+        'doc': "the roofline observatory's execution ledger + resolved device peaks + watermark state: written per dispatch on whichever thread dispatches (fit thread, coalescer batcher), read by /rooflinez//statusz handler threads, the crash excepthook and the atexit metrics dump; the synchronize fence and the calibration kernels always run OUTSIDE it",
+    },
+    'telemetry.observatory.profiler': {
+        'file': 'heat_tpu_torch/telemetry/observatory.py',
+        'spellings': ('_PROF_LOCK',),
+        'structures': ('telemetry.observatory.profiler',),
+        'doc': 'the single-in-flight /profilez capture slot + completed-capture history: started/stopped from HTTP handler threads, auto-stopped by the deadline timer thread; torch.profiler start/stop runs outside it',
+    },
+    'telemetry.flight_recorder.hooks': {
+        'file': 'heat_tpu_torch/telemetry/flight_recorder.py',
+        'spellings': ('_LOCK',),
+        'structures': (),
+        'doc': 'install/uninstall state of the sys/threading excepthooks (_DIR and the saved previous hooks)',
+    },
+    'telemetry.flight_recorder.dump': {
+        'file': 'heat_tpu_torch/telemetry/flight_recorder.py',
+        'spellings': ('_DUMP_LOCK',),
+        'structures': ('telemetry.flight_recorder.state',),
+        'doc': 'serializes crash-bundle writes: two threads crashing concurrently write one bundle each (distinct thread-id suffixes) instead of racing on one path; guards _LAST_PATH',
+    },
+    'telemetry.alerts': {
+        'file': 'heat_tpu_torch/telemetry/alerts.py',
+        'spellings': ('_LOCK',),
+        'structures': ('telemetry.alerts.state',),
+        'doc': 'the alert active table + fired/resolved transition ring: SLO monitors fire from the tick thread, drift checks from batcher threads, /sloz + /statusz handler threads read',
+    },
+    'telemetry.tsdb': {
+        'file': 'heat_tpu_torch/telemetry/tsdb.py',
+        'spellings': ('_LOCK',),
+        'structures': ('telemetry.tsdb.state',),
+        'doc': 'the metric-history ring map + sampler-thread handle: the sampler scrapes on its interval, controllers push via record(), /queryz handler threads read; the registry scrape itself runs outside it (no cross-module lock nesting)',
+    },
+    'telemetry.slo': {
+        'file': 'heat_tpu_torch/telemetry/slo.py',
+        'spellings': ('_LOCK',),
+        'structures': ('telemetry.slo.state',),
+        'doc': 'the registered-SLO table, per-SLO cumulative sample rings, cached /sloz report, and the tick-thread handle: the evaluation tick mutates while /sloz handler threads render; alert transitions run OUTSIDE this lock (alerts has its own)',
+    },
+    'telemetry.sketch': {
+        'file': 'heat_tpu_torch/telemetry/sketch.py',
+        'spellings': ('self._lock',),
+        'structures': ('telemetry.sketch.registry',),
+        'doc': 'SketchRegistry model->(live sketch, baseline) table: batcher threads fold coalesced batches in, freeze/set_baseline swaps documents, /driftz + per-model /healthz handler threads score',
+    },
+    'telemetry.tenants': {
+        'file': 'heat_tpu_torch/telemetry/tenants.py',
+        'spellings': ('_LOCK',),
+        'structures': ('telemetry.tenants.accounts',),
+        'doc': "the per-tenant cost-metering account table (rows/FLOPs/bytes/device-ms per tenant): batcher threads settle each coalesced batch's pro-rata split in, /tenantz handler threads, the fleet poller scrape and the metrics dump read",
+    },
 }
 
 

@@ -199,12 +199,25 @@ def _step(
 
 
 def _report(ann: Dict[str, Any], doc: Dict[str, Any], mode: str) -> None:
-    """Surface one violation as the H805 diagnostic (which raises in
-    raise mode).  Runs with NO locks held.  The reference also fires a
-    ``protocol:<actor>`` warn alert first; the port's alerts come with
-    the rest of telemetry (ROADMAP item 17a)."""
+    """Surface one violation -- alert first, then the H805 diagnostic
+    (which raises in raise mode).  Runs with NO locks held: the alert
+    fire re-enters ``journal.emit`` (one level of legal recursion)."""
+    from ..telemetry import alerts as _alerts
     from . import diagnostics as _diag
 
+    _alerts.fire(
+        f"protocol:{doc.get('actor')}",
+        severity="warn",
+        message=ann["message"],
+        cause=doc.get("event_id"),
+        evidence={
+            "rule": "H805",
+            "event_id": doc.get("event_id"),
+            "protocol": ann["protocol"],
+            "scope_key": ann["scope_key"],
+            "series": [],
+        },
+    )
     _diag.emit(
         _diag.Diagnostic(
             rule="H805",

@@ -8,7 +8,8 @@ iteration to test convergence, as the JAX package's kernel path does.  With
 ``checkpoint_every`` / ``resume_from`` the same sequence of launches runs in
 checkpointed chunks (``_KCluster._fit_centers``).  Each of those launches
 counts one ``dispatch.external_dispatches`` (the reference counts one for
-its whole on-device fit loop).
+its whole on-device fit loop) and is noted by the roofline observatory
+under one key with the kernel's cost (``dispatch.kernel_launch``).
 """
 
 from __future__ import annotations
@@ -64,11 +65,13 @@ class KMeans(_KCluster):
         if not types.heat_type_is_inexact(x.dtype):
             x = x.astype(types.float32)
 
+        key = kernels.lloyd_launch_cost(x, self.n_clusters)
+
         def run(centers, n):
             shift = float("inf")
             for i in range(n):
-                dispatch.record_external_dispatch()  # one launch per Lloyd step
-                centers, shift_t, _ = kernels.lloyd_update(x, centers)
+                # one launch per Lloyd step
+                centers, shift_t, _ = dispatch.kernel_launch(*key, lambda: kernels.lloyd_update(x, centers))
                 shift = float(shift_t)
                 if shift <= self.tol:
                     return centers, i + 1, shift
@@ -78,8 +81,8 @@ class KMeans(_KCluster):
         self._cluster_centers = DNDarray.from_dense(centers, None, x.device, x.comm)
         # final assignment against the converged centres: labels and
         # inertia from the same kernel, its new centres unused
-        dispatch.record_external_dispatch()
-        _, _, inertia, labels = kernels.lloyd_update(x, centers, labels=True)
+        _, _, inertia, labels = dispatch.kernel_launch(*kernels.lloyd_launch_cost(x, self.n_clusters, labels=True),
+                                                       lambda: kernels.lloyd_update(x, centers, labels=True))
         self._inertia = inertia
         self._labels = x._like(labels, (x.shape[0],), x.split)
         return self

@@ -64,6 +64,35 @@ KNOBS = {
     "HEAT_TPU_TRACE_MAX_SPANS": ("int", "256", "span cap per retained trace in the tail store (extra spans are counted as dropped, never unbounded)"),
     "HEAT_TPU_TRACE_EXEMPLARS": ("bool", "1", "histogram exemplars: stage/latency histogram buckets remember the most recent trace_id that landed in them (OpenMetrics exemplar syntax on /metrics)"),
     "HEAT_TPU_METRICS_DUMP": ("path", "", "write the final metrics snapshot as JSON to this path at process exit"),
+    "HEAT_TPU_HTTP_PORT": ("int", "0", "serve the runtime-introspection HTTP endpoint (/metrics /varz /healthz /trace /statusz) on this port (0 = off)"),
+    "HEAT_TPU_HEALTH_MAX_AGE_S": ("float", "0", "/healthz flips unhealthy when the fit heartbeat is older than this many seconds (0 = staleness check off)"),
+    "HEAT_TPU_FLIGHT_RECORDER": ("path", "", "crash flight recorder: write atomic crash bundles into this directory on unhandled exceptions (empty = off)"),
+    # -- roofline observatory (telemetry/observatory.py, /rooflinez) ----
+    "HEAT_TPU_OBSERVATORY": ("bool", "1", "kernel roofline observatory: the dispatch layer notes every cached-executable call's wall time into the per-key execution ledger /rooflinez reports (0 = the dispatch hot path pays one flag check and records nothing)"),
+    "HEAT_TPU_PERF_SYNC_EVERY": ("int", "16", "fenced-sample period of the execution ledger: every Nth call per dispatch key is a fenced sample that measures device time instead of async enqueue (on a card a pair of CUDA events around the call, read at report time; the host never waits), and piggybacks a throttled HBM watermark cross-check (0 = never fence)"),
+    "HEAT_TPU_PEAK_FLOPS": ("float", "0", "device peak FLOP/s the roofline verdicts compare against (with HEAT_TPU_PEAK_GBPS; 0 = resolve from the calibration cache or the one-shot matmul/copy micro-calibration)"),
+    "HEAT_TPU_PEAK_GBPS": ("float", "0", "device peak memory bandwidth in GB/s for the roofline verdicts (with HEAT_TPU_PEAK_FLOPS; 0 = resolve from the calibration cache or micro-calibration)"),
+    "HEAT_TPU_PEAK_CACHE": ("path", "", "persist the micro-calibrated device peaks to this file (atomic + CRC32 sidecar, invalidated on a jax/backend/device fingerprint change) so fresh processes skip the calibration kernels (empty = in-process only)"),
+    "HEAT_TPU_HBM_BUDGET_BYTES": ("int", "0", "per-device HBM budget for the static peak-memory estimator: a freshly compiled program whose predicted per-device peak exceeds this many bytes emits J301 (0 = budget check off)"),
+    "HEAT_TPU_HBM_ALERT_MARGIN": ("float", "1.25", "measured-vs-predicted watermark margin: the hbm:watermark alert fires when measured memory in use exceeds the static estimator's predicted per-device peak by this factor (or the armed HEAT_TPU_HBM_BUDGET_BYTES at any margin)"),
+    "HEAT_TPU_PROFILE_DIR": ("path", "", "base directory of /profilez on-demand jax.profiler captures (empty = a per-pid directory under the system temp dir)"),
+    "HEAT_TPU_PROFILE_MAX_S": ("float", "30", "hard duration cap of one /profilez capture: every capture auto-stops at min(requested, this) seconds so a forgotten capture can never trace forever"),
+    # -- quality signals: SLOs, drift, alerts, metric history ----------
+    "HEAT_TPU_SLO_TICK_S": ("float", "0", "background SLO-monitor evaluation interval in seconds (0 = manual evaluate() only, except a serving process, which defaults its monitor to 1s when the /v1 routes mount)"),
+    "HEAT_TPU_SLO_FAST_WINDOW_S": ("float", "60", "fast burn-rate window of the SLO monitors (page-latency window)"),
+    "HEAT_TPU_SLO_SLOW_WINDOW_S": ("float", "300", "slow burn-rate window of the SLO monitors (flap suppressor)"),
+    "HEAT_TPU_SLO_FAST_BURN": ("float", "14", "fast-window burn-rate factor an SLO must exceed to fire (error budget consumed 14x faster than allowed)"),
+    "HEAT_TPU_SLO_SLOW_BURN": ("float", "2", "slow-window burn-rate factor an SLO must also exceed to fire (both windows must burn)"),
+    "HEAT_TPU_SLO_LATENCY_MS": ("float", "25", "default serving latency objective: serving.latency_ms p99 must stay under this many milliseconds"),
+    "HEAT_TPU_SLO_SHED_PCT": ("float", "1", "default serving shed objective: shed requests (quota + queue) must stay under this percent of admitted+shed"),
+    "HEAT_TPU_SLO_HEARTBEAT_S": ("float", "0", "fit.heartbeat_ts freshness objective in seconds (0 = heartbeat SLO not installed; serving-only processes have no fit heartbeat)"),
+    "HEAT_TPU_ALERT_RING": ("int", "256", "capacity of the alert fired/resolved transition ring (/sloz, /statusz, crash bundles)"),
+    "HEAT_TPU_TSDB_INTERVAL_S": ("float", "1.0", "embedded metric-history sampler interval: seconds between registry scrapes into the /queryz ring buffers"),
+    "HEAT_TPU_TSDB_RETENTION": ("int", "512", "points retained per metric-history series (memory is series x retention x two floats, strictly bounded)"),
+    "HEAT_TPU_TSDB_SERIES": ("str", "", "comma-separated allowlist of registry series the TSDB sampler scrapes (trailing * = prefix match); empty = the curated control-plane default set (slo.*, serve.*, drift.*, canary.*, fleet.*, qos.*, stream.*, journal.*, alerts.*, dispatch.compile_fallbacks)"),
+    "HEAT_TPU_SKETCH": ("bool", "1", "input-drift sketches on the /v1/predict path: per-feature moments + log-bucket histograms folded per coalesced batch off the caller's latency path"),
+    "HEAT_TPU_DRIFT_THRESHOLD": ("float", "0.25", "PSI score above which a served model's input distribution counts as drifted (fires the drift:<model> alert and flips its /healthz status)"),
+    "HEAT_TPU_DRIFT_MIN_ROWS": ("int", "200", "rows the live sketch must hold before a drift score is reported (small-sample PSI is noise: ~0.2 at 100 in-distribution rows against a 0.25 threshold)"),
     "HEAT_TPU_JOURNAL_RING": ("int", "256", "capacity of the control-plane decision-journal hot ring (/decisionz, cross-worker snapshots, crash bundles)"),
     "HEAT_TPU_JOURNAL_DIR": ("str", "", "durable decision-journal directory: every journal event also commits as an immutable atomic+CRC jsonl segment there, replayable after the process dies via python -m heat_tpu.telemetry.replay (empty = hot ring only)"),
     # -- resilience (resilience/) ---------------------------------------

@@ -63,7 +63,16 @@ meaning:
   of the operands and results (``nbytes``, each read or written once) are
   recorded under the key.  FlopCounterMode counts the products (mm, bmm,
   convolutions, attention: 2mnk for a matrix product) and no element-wise
-  flops, where XLA's cost analysis counts one per element.
+  flops, where XLA's cost analysis counts one per element.  A hand-written
+  kernel has no FlopCounterMode record: its launch site puts the kernel's
+  own cost under the launch key (:func:`kernel_launch`), always, as the
+  bytes and operations of its bound.
+* **roofline observatory** (``telemetry/observatory.py``,
+  ``HEAT_TPU_OBSERVATORY``) -- every warm application of
+  :func:`eager_apply` (a key's hit; the reference notes every warm cached
+  call) and every :func:`kernel_launch` notes its wall time into the
+  observatory's per-key ledger; every ``HEAT_TPU_PERF_SYNC_EVERY``-th
+  call of a key waits for the card, so that sample is device time.
 """
 
 from __future__ import annotations
@@ -80,6 +89,7 @@ import torch
 
 from ..analysis import tsan as _tsan
 from ..telemetry import metrics as _tm
+from ..telemetry import observatory as _obsv
 from . import _env
 
 __all__ = [
@@ -93,6 +103,7 @@ __all__ = [
     "cost_summary",
     "eager_apply",
     "fusion_enabled",
+    "kernel_launch",
     "meter_costs",
     "record_external_dispatch",
     "reset_stats",
@@ -309,8 +320,14 @@ def _counted_apply(key, op, args, kwargs):
     with FlopCounterMode(display=False) as counter:
         out = op(*args, **kwargs)
     nbytes = sum(t.nbytes for t in _tensors(args)) + sum(t.nbytes for t in _tensors(out))
-    rec = {"flops": float(counter.get_total_flops()), "bytes_accessed": float(nbytes),
-           "transcendentals": 0.0}
+    _record_cost(key, counter.get_total_flops(), nbytes)
+    return out
+
+
+def _record_cost(key, flops: float, nbytes: float) -> None:
+    """Keep ``key``'s cost record (bounded like the key cache) and add it
+    to the totals."""
+    rec = {"flops": float(flops), "bytes_accessed": float(nbytes), "transcendentals": 0.0}
     _FLOPS_TOTAL.inc(rec["flops"])
     _COST_BYTES_TOTAL.inc(rec["bytes_accessed"])
     with _CACHE_LOCK:
@@ -318,7 +335,6 @@ def _counted_apply(key, op, args, kwargs):
         _cost_records[key] = rec
         while len(_cost_records) > _CACHE_MAXSIZE:
             _cost_records.popitem(last=False)
-    return out
 
 
 class CostMeter:
@@ -476,13 +492,47 @@ def eager_apply(op, args: Sequence, kwargs: Optional[dict] = None):
         return op(*args, **kwargs)
     _C["dispatches"].inc()
     if hit:
-        out = op(*args, **kwargs)
+        # roofline observatory: every warm call is a measurement
+        out = _noted(key, lambda: op(*args, **kwargs))
     else:
         t0 = time.perf_counter()
         out = _counted_apply(key, op, args, kwargs) if _COST_ENABLED else op(*args, **kwargs)
         _COMPILE_MS.observe((time.perf_counter() - t0) * 1e3)
     if _METER_TLS.meter is not None:
         _meter_note(key)
+    return out
+
+
+def kernel_launch(key: tuple, flops: float, nbytes: float, launch):
+    """``launch()``: one launch of a hand-written kernel (its wrapper and
+    what the wrapper adds, such as the all-reduce of a Lloyd step), counted
+    as an external dispatch.  ``key`` names the kernel, its route, its
+    shape and its type; ``flops`` and ``nbytes`` are its cost (the
+    operations and the bytes of its bound), kept in the cost table under
+    ``key`` so ``/rooflinez`` joins them with the launch's measured time.
+    With the observatory armed the launch is timed and noted under
+    ``key`` (every ``HEAT_TPU_PERF_SYNC_EVERY``-th launch a fenced sample
+    of its device time)."""
+    record_external_dispatch()
+    with _CACHE_LOCK:
+        _tsan.note_access("dispatch.cache", write=False)
+        known = key in _cost_records
+    if not known:
+        _record_cost(key, flops, nbytes)
+    if _METER_TLS.meter is not None:
+        _meter_note(key)
+    return _noted(key, launch)
+
+
+def _noted(key, fn):
+    """``fn()``; with the roofline observatory armed, timed and noted
+    under ``key``, its fenced samples opened just before the call."""
+    if not _obsv.armed():
+        return fn()
+    start = _obsv.fence_start(key)
+    t0 = time.perf_counter()
+    out = fn()
+    _obsv.note(key, time.perf_counter() - t0, out, start)
     return out
 
 

@@ -43,6 +43,7 @@ __all__ = [
     "LLOYD_PLAIN_STEPS",
     "gram_partials",
     "gram_unsupported",
+    "lloyd_launch_cost",
     "lloyd_partials",
     "lloyd_route",
     "lloyd_unsupported",
@@ -336,6 +337,27 @@ def _lloyd_single(xp: torch.Tensor, centers: torch.Tensor, n_true: int, labels: 
     new, shift = _postprocess(sums, counts, centers)
     out = (new, shift, inertia.to(centers.dtype))
     return out + (lab,) if labels else out
+
+
+def lloyd_launch_cost(x, k: int, labels: bool = False) -> Tuple[tuple, float, float]:
+    """``(key, operations, bytes)`` of one :func:`lloyd_update` on the
+    DNDarray ``x`` with ``k`` centres: the key the roofline observatory notes its launches
+    under (kernel, route, this rank's padded chunk shape, k, type), and the
+    cost of its bound: x and the centres read once, the partial sums
+    written once; per point the k dot products, |x|^2, the half-distances
+    and argmin, and the sums.  With ``labels`` the launch also writes one
+    int64 label a point, and is noted under a key of its own
+    (``lloyd_labels``).  On the CPU the route is ``"plain"`` (the
+    kernel's plain version runs there)."""
+    xp = x.larray_padded
+    rows, f = xp.shape
+    n = x.lshape[0] if x.split == 0 else x.shape[0]
+    route = lloyd_route(f, k, xp.data_ptr() % 16 == 0, xp.dtype) if xp.is_cuda else "plain"
+    e = xp.element_size()
+    nbytes = e * n * f + e * k * f + 8 * (k * f + k + 1) + (8 * n if labels else 0)
+    ops = n * (2 * k * f + 2 * f + 3 * k + f)
+    name = "lloyd_labels" if labels else "lloyd_step"
+    return ("kernel", name, route, (rows, f), k, str(xp.dtype)), float(ops), float(nbytes)
 
 
 def lloyd_update(x, centers: torch.Tensor, labels: bool = False) -> Tuple[torch.Tensor, ...]:

@@ -10,6 +10,12 @@ The weight functions return host float64-derived numpy arrays, exactly as
 the reference's do.  :func:`on_device` keeps a torch copy of their result
 per (device, args) in the same LRU and under the same budget, so a transform
 does not upload its matrices on every call.
+
+Evictions are counted into the telemetry registry
+(``fft.weight_cache.evictions``, the reference's counter), and the live
+byte total and the budget are callback gauges (``fft.weight_cache.nbytes``,
+``fft.weight_cache.budget_bytes``), so a workload thrashing the cache shows
+in ``telemetry.snapshot()`` and on ``/varz``.
 """
 
 from __future__ import annotations
@@ -19,6 +25,8 @@ import functools
 import numpy as np
 import torch
 
+from ..telemetry import metrics as _tm
+
 __all__ = ["BUDGET_BYTES", "byte_lru", "on_device", "weight_cache_clear", "weight_cache_stats"]
 
 #: bytes the cache may hold, host and device entries together.  An 8192-point
@@ -26,11 +34,23 @@ __all__ = ["BUDGET_BYTES", "byte_lru", "on_device", "weight_cache_clear", "weigh
 #: matrices, their device copies); with less, each call would build them anew
 #: on the host, which takes seconds.
 BUDGET_BYTES = 4 << 30
-#: entries evicted by the budget in this process
-EVICTIONS = 0
-
 _cache: dict = {}  # insertion-ordered; move-to-end on hit
 _nbytes = 0
+
+_EVICTIONS = _tm.counter(
+    "fft.weight_cache.evictions",
+    "FFT weight-cache entries evicted by the shared byte budget",
+)
+_tm.gauge(
+    "fft.weight_cache.nbytes",
+    "live bytes held by the shared FFT weight cache",
+    fn=lambda: _nbytes,
+)
+_tm.gauge(
+    "fft.weight_cache.budget_bytes",
+    "byte budget of the shared FFT weight cache (host and device entries)",
+    fn=lambda: BUDGET_BYTES,
+)
 
 
 def _entry_nbytes(val) -> int:
@@ -40,7 +60,7 @@ def _entry_nbytes(val) -> int:
 
 
 def _lookup(key, make):
-    global _nbytes, EVICTIONS
+    global _nbytes
     if key in _cache:
         val = _cache.pop(key)  # re-insert: most recently used
         _cache[key] = val
@@ -51,7 +71,7 @@ def _lookup(key, make):
     while _nbytes > BUDGET_BYTES and len(_cache) > 1:
         old = _cache.pop(next(iter(_cache)))
         _nbytes -= _entry_nbytes(old)
-        EVICTIONS += 1
+        _EVICTIONS.inc()
     return val
 
 
@@ -84,7 +104,7 @@ def on_device(make, *args, device: torch.device):
 
 def weight_cache_stats() -> dict:
     """Size/budget snapshot of the shared weight cache."""
-    return {"entries": len(_cache), "nbytes": _nbytes, "budget_nbytes": BUDGET_BYTES, "evictions": EVICTIONS}
+    return {"entries": len(_cache), "nbytes": _nbytes, "budget_nbytes": BUDGET_BYTES, "evictions": int(_EVICTIONS.value)}
 
 
 def weight_cache_clear() -> None:

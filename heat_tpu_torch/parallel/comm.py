@@ -10,6 +10,23 @@ global shape ``g`` split along axis ``s`` over ``n`` ranks is padded along
 is a contiguous prefix and the padding a suffix owned by the highest ranks.
 Each rank stores its padded chunk; anything that reduces or contracts across
 the split axis masks the padding with its own neutral element first.
+
+Collective volume accounting (telemetry): every collective of this module
+(``psum``, ``pmin``, ``pmax``, ``pprod``, ``all_gather``,
+``all_gather_varying``, ``all_to_all_varying``, ``psum_scatter``,
+``bcast``, ``all_to_all``, ``ppermute``, ``ring_shift``, and ``pscan`` /
+``exscan`` counted in rounds) first evaluates the ``comm.collective`` fault
+site, then adds one to ``comm.calls.{op}`` and its payload bytes times its
+participants to ``comm.bytes.{op}``, and runs under a ``comm.{op}`` span
+whose ``bytes`` and ``participants`` attributes carry the same numbers.  A
+world of one is accounted too (one participant), as the reference's is.
+The reference accounts at trace time, once per traced program however often
+the compiled program runs; the port runs eagerly, so it accounts every
+call it issues: a fit of n iterations counts its per-iteration collective
+n times.  The counts model what the collective hands over, not the wire:
+``all_gather_varying`` and ``all_to_all_varying`` count their padded
+blocks, and the scalar max of ``all_to_all_varying`` is a ``pmax`` of its
+own.
 """
 
 from __future__ import annotations
@@ -28,6 +45,47 @@ __all__ = ["Communication", "HierarchicalCommunication", "SELF", "WORLD", "comm_
 #: the ranks within one node (heat_tpu/parallel/comm.py's names)
 GLOBAL_AXIS_NAME = "global"
 NODE_AXIS_NAME = "node"
+
+
+# ----------------------------------------------------------------------
+# collective volume accounting (telemetry): the counters per op, made on
+# first use
+# ----------------------------------------------------------------------
+_COMM_COUNTERS: dict = {}
+#: (inject, metrics, span), imported on first use: this module is imported
+#: before the resilience and telemetry packages
+_HOOKS = None
+
+
+def _hooks():
+    global _HOOKS
+    if _HOOKS is None:
+        from ..resilience.faults import inject
+        from ..telemetry import metrics
+        from ..telemetry.spans import span
+
+        _HOOKS = (inject, metrics, span)
+    return _HOOKS
+
+
+def _comm_counters(op: str):
+    pair = _COMM_COUNTERS.get(op)
+    if pair is None:
+        tm = _hooks()[1]
+        pair = _COMM_COUNTERS[op] = (
+            tm.counter(f"comm.calls.{op}", f"{op} collectives issued (per call)"),
+            tm.counter(f"comm.bytes.{op}", f"{op} payload bytes x participants (per call)"),
+        )
+    return pair
+
+
+def _payload_nbytes(x) -> int:
+    """Total payload bytes of a tensor or a list/tuple of tensors."""
+    if isinstance(x, torch.Tensor):
+        return x.numel() * x.element_size()
+    if isinstance(x, (list, tuple)):
+        return sum(_payload_nbytes(t) for t in x)
+    return 0
 
 
 class Communication:
@@ -138,6 +196,32 @@ class Communication:
     # ------------------------------------------------------------------
     # collectives: eager, on this rank's tensors
     # ------------------------------------------------------------------
+    def _account(self, op: str, x):
+        """Record one issued collective (the ``comm.collective`` fault site,
+        then the counters); returns its ``comm.{op}`` span, carrying the
+        byte model as attributes."""
+        inject, _, span = _hooks()
+        inject("comm.collective", op=op)
+        participants = self.size
+        nbytes = _payload_nbytes(x) * participants
+        calls, byts = _comm_counters(op)
+        calls.inc()
+        byts.inc(nbytes)
+        return span(f"comm.{op}", bytes=nbytes, participants=participants)
+
+    def account_implicit(self, op: str, nbytes: int, **attrs):
+        """Account a collective issued outside this layer's methods, with
+        ``nbytes`` of payload per participant: the same counters and
+        ``comm.{op}`` span as the explicit collectives (the span's
+        attributes carry ``implicit=True``).  Returns the span; wrap the
+        call that issues it."""
+        participants = self.size
+        total = int(nbytes) * participants
+        calls, byts = _comm_counters(op)
+        calls.inc()
+        byts.inc(total)
+        return _hooks()[2](f"comm.{op}", bytes=total, participants=participants, implicit=True, **attrs)
+
     def _check_joined(self) -> None:
         if self._size is not None and self._size > 1:
             raise RuntimeError("this Communication only describes a world; it has joined no process group")
@@ -153,30 +237,35 @@ class Communication:
         takes part in a gradient (``requires_grad`` under grad mode) is
         summed out of place instead, and its gradient is the sum of the
         ranks' gradients, as ``jax.lax.psum`` transposes."""
-        if self.size > 1 and torch.is_grad_enabled() and x.requires_grad:
-            self._check_joined()
-            return _PSum.apply(x, self)
-        return self._reduce(x, dist.ReduceOp.SUM)
+        with self._account("psum", x):
+            if self.size > 1 and torch.is_grad_enabled() and x.requires_grad:
+                self._check_joined()
+                return _PSum.apply(x, self)
+            return self._reduce(x, dist.ReduceOp.SUM)
 
     def pmin(self, x: torch.Tensor) -> torch.Tensor:
-        return self._reduce(x, dist.ReduceOp.MIN)
+        with self._account("pmin", x):
+            return self._reduce(x, dist.ReduceOp.MIN)
 
     def pmax(self, x: torch.Tensor) -> torch.Tensor:
-        return self._reduce(x, dist.ReduceOp.MAX)
+        with self._account("pmax", x):
+            return self._reduce(x, dist.ReduceOp.MAX)
 
     def pprod(self, x: torch.Tensor) -> torch.Tensor:
         """Product of ``x`` over all ranks, in place; returns ``x``."""
-        return self._reduce(x, dist.ReduceOp.PRODUCT)
+        with self._account("pprod", x):
+            return self._reduce(x, dist.ReduceOp.PRODUCT)
 
     def all_gather(self, x: torch.Tensor, axis: int = 0) -> torch.Tensor:
         """Every rank's ``x`` (all of one shape), concatenated along ``axis``
         in rank order."""
-        if self.size == 1:
-            return x
-        self._check_joined()
-        parts = [torch.empty_like(x) for _ in range(self.size)]
-        dist.all_gather(parts, x.contiguous(), group=self.group)
-        return torch.cat(parts, dim=axis)
+        with self._account("all_gather", x):
+            if self.size == 1:
+                return x
+            self._check_joined()
+            parts = [torch.empty_like(x) for _ in range(self.size)]
+            dist.all_gather(parts, x.contiguous(), group=self.group)
+            return torch.cat(parts, dim=axis)
 
     def all_gather_varying(self, x: torch.Tensor, extents: Sequence[int], axis: int) -> List[torch.Tensor]:
         """Every rank's ``x``, in rank order, where rank r's extent along
@@ -190,12 +279,13 @@ class Communication:
             widths = list(x.shape)
             widths[axis] = pad
             x = torch.cat([x, x.new_zeros(widths)], dim=axis)
-        if self.size == 1:
-            return [x.narrow(axis, 0, extents[0])]
-        self._check_joined()
-        parts = [torch.empty_like(x) for _ in range(self.size)]
-        dist.all_gather(parts, x.contiguous(), group=self.group)
-        return [p.narrow(axis, 0, e) for p, e in zip(parts, extents)]
+        with self._account("all_gather_varying", x):
+            if self.size == 1:
+                return [x.narrow(axis, 0, extents[0])]
+            self._check_joined()
+            parts = [torch.empty_like(x) for _ in range(self.size)]
+            dist.all_gather(parts, x.contiguous(), group=self.group)
+            return [p.narrow(axis, 0, e) for p, e in zip(parts, extents)]
 
     def all_to_all_varying(self, blocks: Sequence[torch.Tensor], recv_extents: Sequence[int],
                            axis: int) -> List[torch.Tensor]:
@@ -210,7 +300,8 @@ class Communication:
         if len(blocks) != self.size or len(recv_extents) != self.size:
             raise ValueError(f"need one block and one extent per rank, got {len(blocks)} and {len(recv_extents)}")
         if self.size == 1:
-            return [blocks[0].narrow(axis, 0, recv_extents[0])]
+            with self._account("all_to_all_varying", blocks):
+                return [blocks[0].narrow(axis, 0, recv_extents[0])]
         self._check_joined()
         top = torch.tensor([max(b.shape[axis] for b in blocks)], dtype=torch.int64, device=blocks[0].device)
         pad = int(self.pmax(top)[0])
@@ -221,9 +312,10 @@ class Communication:
                 widths[axis] = pad - b.shape[axis]
                 b = torch.cat([b, b.new_zeros(widths)], dim=axis)
             send.append(b.contiguous())
-        got = [torch.empty_like(send[0]) for _ in range(self.size)]
-        dist.all_to_all(got, send, group=self.group)
-        return [g.narrow(axis, 0, e) for g, e in zip(got, recv_extents)]
+        with self._account("all_to_all_varying", send):
+            got = [torch.empty_like(send[0]) for _ in range(self.size)]
+            dist.all_to_all(got, send, group=self.group)
+            return [g.narrow(axis, 0, e) for g, e in zip(got, recv_extents)]
 
     def psum_scatter(self, x: torch.Tensor, scatter_dimension: int = 0) -> torch.Tensor:
         """Reduce-scatter, tiled (``jax.lax.psum_scatter(..., tiled=True)``):
@@ -233,11 +325,17 @@ class Communication:
         size, d = self.size, scatter_dimension % max(x.ndim, 1)
         if x.shape[d] % size:
             raise ValueError(f"psum_scatter: extent {x.shape[d]} of axis {d} is not divisible by {size} ranks")
+        with self._account("psum_scatter", x):
+            return self._psum_scatter(x, d)
+
+    def _psum_scatter(self, x: torch.Tensor, d: int) -> torch.Tensor:
+        """The reduce-scatter itself (``d`` non-negative)."""
+        size = self.size
         if size == 1:
             return x
         self._check_joined()
         if x.is_complex():
-            return torch.view_as_complex(self.psum_scatter(torch.view_as_real(x), d))
+            return torch.view_as_complex(self._psum_scatter(torch.view_as_real(x), d))
         send = x.movedim(d, 0).contiguous()
         out = send.new_empty((send.shape[0] // size,) + tuple(send.shape[1:]))
         _REDUCE_SCATTER(out, send, op=dist.ReduceOp.SUM, group=self.group)
@@ -246,11 +344,12 @@ class Communication:
     def bcast(self, x: torch.Tensor, root: int) -> torch.Tensor:
         """Rank ``root``'s ``x`` on every rank (of one shape and dtype on
         all of them); in place, returns ``x``."""
-        if self.size == 1:
+        with self._account("bcast", x):
+            if self.size == 1:
+                return x
+            self._check_joined()
+            dist.broadcast(x, src=self._global_rank(root), group=self.group)
             return x
-        self._check_joined()
-        dist.broadcast(x, src=self._global_rank(root), group=self.group)
-        return x
 
     def all_to_all(self, x: torch.Tensor, split_axis: int, concat_axis: int) -> torch.Tensor:
         """The tiled all-to-all of ``jax.lax.all_to_all(..., tiled=True)``:
@@ -262,10 +361,11 @@ class Communication:
         size = self.size
         if x.shape[split_axis] % size:
             raise ValueError(f"all_to_all: extent {x.shape[split_axis]} of axis {split_axis} is not divisible by {size} ranks")
-        if size == 1:
-            return x
-        self._check_joined()
-        return _AllToAll.apply(x, self, split_axis % x.ndim, concat_axis % x.ndim)
+        with self._account("all_to_all", x):
+            if size == 1:
+                return x
+            self._check_joined()
+            return _AllToAll.apply(x, self, split_axis % x.ndim, concat_axis % x.ndim)
 
     def _all_to_all(self, x: torch.Tensor, split_axis: int, concat_axis: int) -> torch.Tensor:
         """The exchange itself, outside autograd (both axes non-negative)."""
@@ -283,6 +383,11 @@ class Communication:
         once as a source and once as a destination.  Differentiable: the
         gradient goes back by the ppermute with every pair reversed (a
         rank that sent nothing gets a zero gradient)."""
+        with self._account("ppermute", x):
+            return self._permuted(x, perm)
+
+    def _permuted(self, x: torch.Tensor, perm) -> torch.Tensor:
+        """:meth:`ppermute` unaccounted (the rounds of a scan, a ring shift)."""
         perm = tuple((int(s), int(d)) for s, d in perm)
         if self.size == 1:
             return x if (0, 0) in perm else torch.zeros_like(x)
@@ -295,13 +400,21 @@ class Communication:
         :meth:`ppermute`, in each of which a rank combines what the rank
         ``shift`` below it sends.  The exclusive scan is the previous rank's
         inclusive one, ``neutral`` at rank 0.  ``x`` travels as bytes, so
-        any dtype goes; the scan is not differentiable."""
+        any dtype goes; the scan is not differentiable.  It is accounted as
+        one ``pscan`` (``exscan``) of its rounds' payloads: log2(size)
+        rounds, and one more for the exclusive shift."""
+        n = self.size
+        rounds = max(n - 1, 0).bit_length() + (0 if inclusive else 1)
+        with self._account("pscan" if inclusive else "exscan", [x] * rounds):
+            return self._scan(x, inclusive, combine, neutral)
+
+    def _scan(self, x: torch.Tensor, inclusive: bool, combine, neutral) -> torch.Tensor:
         n = self.size
         if n == 1:
             return x if inclusive else torch.full_like(x, neutral)
 
         def shifted(t, shift):
-            return _from_bytes(self.ppermute(_as_bytes(t), [(i, i + shift) for i in range(n - shift)]), t.dtype)
+            return _from_bytes(self._permuted(_as_bytes(t), [(i, i + shift) for i in range(n - shift)]), t.dtype)
 
         acc, shift = x, 1
         while shift < n:
@@ -345,7 +458,8 @@ class Communication:
         ``(i + shift) % size`` (the ring of ring attention).  Its gradient
         goes back by ``ring_shift(-shift)``."""
         n = self.size
-        return self.ppermute(x, [(i, (i + shift) % n) for i in range(n)])
+        with self._account("ring_shift", x):
+            return self._permuted(x, [(i, (i + shift) % n) for i in range(n)])
 
     def _global_rank(self, rank: int) -> int:
         return rank if self.group is None else dist.get_global_rank(self.group, rank)

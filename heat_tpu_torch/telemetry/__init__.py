@@ -1,5 +1,6 @@
 """Observability (counterpart of heat_tpu/telemetry): the metrics
-registry, structured spans, request tracing and the decision journal.
+registry, structured spans, request tracing, the decision journal, and
+the quality, roofline and forensics layers built on them.
 
 * :mod:`~heat_tpu_torch.telemetry.metrics` — process-global named
   counters, gauges and bounded histograms; :func:`snapshot` returns
@@ -13,15 +14,40 @@ registry, structured spans, request tracing and the decision journal.
 * :mod:`~heat_tpu_torch.telemetry.tracing` — request trace contexts
   carried across threads and the tail-sampled trace store.
 * :mod:`~heat_tpu_torch.telemetry.journal` — the control-plane decision
-  journal (hot ring, durable CRC32-checked segments, causal links).
+  journal (hot ring, durable CRC32-checked segments, causal links);
+  :mod:`~heat_tpu_torch.telemetry.replay` replays a durable journal.
+* :mod:`~heat_tpu_torch.telemetry.profiling` — ``start_trace``/
+  ``stop_trace``/``trace``/``annotate``/``monitor`` on ``torch.profiler``
+  (also ``utils.profiling``).
+* :mod:`~heat_tpu_torch.telemetry.observatory` — the roofline
+  observatory: every warm dispatch and every hand-written kernel launch
+  timed into a per-key ledger (fenced every ``HEAT_TPU_PERF_SYNC_EVERY``-th
+  call), joined with its cost against peaks calibrated on the device;
+  watermarks from ``torch.cuda.memory_stats``; ``/profilez`` captures.
+* :mod:`~heat_tpu_torch.telemetry.server` — the runtime-introspection
+  HTTP endpoint (``HEAT_TPU_HTTP_PORT``; ``/metrics`` ``/varz``
+  ``/healthz`` ``/rooflinez`` ``/queryz`` ``/sloz`` ``/statusz`` and the
+  rest of the reference's routes, on a daemon thread, off by default).
+* :mod:`~heat_tpu_torch.telemetry.slo`, :mod:`~.alerts`, :mod:`~.sketch`,
+  :mod:`~.tsdb`, :mod:`~.tenants` — SLO burn rates, deduplicated alerts,
+  drift sketches, the embedded metric history and per-tenant cost.
+* :mod:`~heat_tpu_torch.telemetry.aggregate` — cross-worker snapshot
+  tagging/merging with straggler/skew gauges (``all_gather_object`` over
+  a joined process group, else per-worker JSON files).
+* :mod:`~heat_tpu_torch.telemetry.flight_recorder` — crash bundles
+  (``HEAT_TPU_FLIGHT_RECORDER``), rendered by
+  ``python -m heat_tpu_torch.telemetry.inspect``.
 
-The rest of the reference's telemetry (the time-series store, alerts,
-SLOs, drift sketches, cross-worker aggregation, the flight recorder,
-the roofline observatory, the introspection server, profiling hooks and
-the inspect CLI) is ROADMAP item 17a.
+Instrumentation wired through the stack: every collective of
+``parallel.comm`` accounts payload bytes x participants into
+``comm.bytes.{op}`` / ``comm.calls.{op}`` under a ``comm.{op}`` span, per
+call issued; the dispatch layer records first-application wall time into
+``dispatch.compile_ms`` and notes warm calls and kernel launches into the
+observatory; ``core.base.resumable_fit_loop`` emits heartbeat spans and
+the ``fit.iter_rate`` gauge.
 
-``HEAT_TPU_METRICS_DUMP=<path>`` writes the final snapshot as JSON at
-process exit.
+``HEAT_TPU_METRICS_DUMP=<path>`` writes the final snapshot (with the
+observatory section) as JSON at process exit.
 """
 
 from __future__ import annotations
@@ -33,8 +59,18 @@ from typing import Dict, Optional
 from ..core import _env
 from . import metrics
 from . import journal
+from . import tsdb
 from . import tracing
 from . import spans
+from . import profiling
+from . import alerts
+from . import slo
+from . import sketch
+from . import aggregate
+from . import flight_recorder
+from . import observatory
+from . import server
+from . import tenants
 from .metrics import (
     Counter,
     Gauge,
@@ -69,6 +105,23 @@ from .tracing import (
     tracez_report,
     use_context,
 )
+from .profiling import annotate, monitor, start_trace, stop_trace, trace
+from .aggregate import (
+    gather_snapshots,
+    merge_snapshots,
+    tag_snapshot,
+    write_worker_snapshot,
+)
+from .flight_recorder import dump_bundle
+from .observatory import (
+    device_peaks,
+    rooflinez_report,
+    start_capture,
+    stop_capture,
+    watermark_tick,
+)
+from .server import start_server, stop_server
+from .alerts import active_alerts, alert_events, alerts_snapshot
 from .journal import (
     DecisionEvent,
     causal_chain,
@@ -77,6 +130,25 @@ from .journal import (
     journal_events,
     read_journal,
 )
+from .tsdb import (
+    query,
+    queryz_report,
+    record,
+    sample_once,
+    start_sampler,
+    stop_sampler,
+    window_stats,
+)
+from .slo import (
+    SLO,
+    install_default_slos,
+    parse_slo,
+    register_slo,
+    slo_report,
+    start_monitor,
+    stop_monitor,
+)
+from .sketch import SKETCHES, check_drift, drift_report, record_batch
 
 __all__ = [
     "Counter",
@@ -86,34 +158,73 @@ __all__ = [
     "Info",
     "MetricsRegistry",
     "REGISTRY",
+    "SKETCHES",
+    "SLO",
     "SpanRecord",
     "TraceContext",
+    "active_alerts",
+    "alert_events",
+    "alerts_snapshot",
+    "annotate",
     "bind_context",
     "causal_chain",
+    "check_drift",
     "chrome_trace_doc",
     "clear_spans",
     "counter",
     "current_context",
     "current_trace_id",
     "decisionz_report",
+    "device_peaks",
+    "drift_report",
+    "dump_bundle",
     "dump_json",
     "emit",
     "export_chrome_trace",
     "expose",
+    "gather_snapshots",
     "gauge",
     "get_spans",
     "histogram",
+    "install_default_slos",
     "journal_events",
+    "merge_snapshots",
+    "monitor",
+    "parse_slo",
+    "query",
+    "queryz_report",
     "read_journal",
+    "record",
+    "record_batch",
     "record_span",
+    "register_slo",
     "request_span",
     "reset_all",
+    "rooflinez_report",
+    "sample_once",
     "set_tracing",
+    "slo_report",
     "snapshot",
     "span",
+    "start_capture",
+    "start_monitor",
+    "start_sampler",
+    "start_server",
+    "start_trace",
+    "stop_capture",
+    "stop_monitor",
+    "stop_sampler",
+    "stop_server",
+    "stop_trace",
+    "summary_line",
+    "tag_snapshot",
+    "trace",
     "tracez_report",
     "tracing_enabled",
     "use_context",
+    "watermark_tick",
+    "window_stats",
+    "write_worker_snapshot",
 ]
 
 #: per-domain reset functions delegate here with these names; a domain
@@ -129,9 +240,17 @@ _DOMAIN_PREFIXES = {
     "fit": ("fit.",),
     "spans": ("spans.",),
     "tracing": ("tracing.",),
+    "flight": ("flight.",),
     "checkpoint": ("checkpoint.",),
+    "alerts": ("alerts.",),
+    "slo": ("slo.",),
+    "drift": ("drift.",),
+    "observatory": ("observatory.",),
     "journal": ("journal.",),
-    "telemetry": ("spans.", "tracing.", "fit.", "telemetry.", "checkpoint.", "journal."),
+    "tsdb": ("tsdb.",),
+    "telemetry": ("spans.", "tracing.", "fit.", "telemetry.", "flight.",
+                  "checkpoint.", "alerts.", "slo.", "drift.", "observatory.",
+                  "journal.", "tsdb."),
 }
 
 
@@ -139,15 +258,22 @@ def reset_all(domain: Optional[str] = None) -> None:
     """Zero telemetry state in one call.
 
     With no argument: every registered metric AND the span ring buffer
-    AND the tail-sampled trace store AND the decision journal.  With a
-    domain name (``"dispatch"``, ``"faults"``, ``"retry"``, ``"resilience"``, ``"spans"``,
-    ...), only that domain's metrics (and its ring, store or journal);
+    AND the tail-sampled trace store AND the alerts, SLO monitors, drift
+    sketches, observatory ledger, decision journal and metric history.
+    With a domain name (``"dispatch"``, ``"faults"``, ``"retry"``,
+    ``"resilience"``, ``"comm"``, ``"spans"``, ``"observatory"``, ...),
+    only that domain's metrics (and its ring, store or table);
     ``reset_fault_stats`` / ``reset_retry_stats`` delegate here."""
     if domain is None:
         metrics.reset(None)
         spans.clear_spans()
         tracing.reset_store()
+        alerts.clear_alerts()
+        slo.reset_monitors()
+        sketch.SKETCHES.clear()
+        observatory.reset()
         journal.reset_journal()
+        tsdb.reset_tsdb()
         return
     prefixes = _DOMAIN_PREFIXES.get(domain)
     if prefixes is None:
@@ -160,8 +286,43 @@ def reset_all(domain: Optional[str] = None) -> None:
         spans.clear_spans()
     if domain in ("tracing", "telemetry"):
         tracing.reset_store()
+    if domain in ("alerts", "telemetry"):
+        alerts.clear_alerts()
+    if domain in ("slo", "telemetry"):
+        slo.reset_monitors()
+    if domain in ("drift", "telemetry"):
+        sketch.SKETCHES.clear()
+    if domain in ("observatory", "telemetry"):
+        observatory.reset()
     if domain in ("journal", "telemetry"):
         journal.reset_journal()
+    if domain in ("tsdb", "telemetry"):
+        tsdb.reset_tsdb()
+
+
+def summary_line(iter_rate: Optional[float] = None) -> str:
+    """One-line human summary of the headline metrics — the string the
+    example scripts print after a fit: cumulative collective traffic
+    (bytes x participants of the collectives issued), total
+    first-application wall time (``dispatch.compile_ms``), and the last
+    fit iteration rate (``fit.iter_rate`` gauge, or the explicit
+    ``iter_rate`` argument)."""
+    snap = metrics.snapshot()
+    comm_bytes = sum(
+        v for k, v in snap.items()
+        if k.startswith("comm.bytes.") and isinstance(v, (int, float))
+    )
+    compile_doc = snap.get("dispatch.compile_ms") or {}
+    compile_ms = float(compile_doc.get("sum") or 0.0)
+    if iter_rate is None:
+        rate = snap.get("fit.iter_rate") or 0.0
+    else:
+        rate = iter_rate
+    rate_s = f"{rate:.1f} iter/s" if rate else "n/a"
+    return (
+        f"telemetry: comm {comm_bytes / 2**30:.4f} GiB · "
+        f"compile {compile_ms:.0f} ms · iter rate {rate_s}"
+    )
 
 
 @atexit.register
@@ -213,3 +374,9 @@ metrics.gauge(
     "unix timestamp this process imported heat_tpu_torch.telemetry",
     fn=lambda: _PROCESS_START_TS,
 )
+
+# runtime introspection: HEAT_TPU_HTTP_PORT starts the HTTP endpoint,
+# HEAT_TPU_FLIGHT_RECORDER arms the crash recorder — both off by
+# default, both zero-cost when off
+server.maybe_start_from_env()
+flight_recorder.maybe_install_from_env()

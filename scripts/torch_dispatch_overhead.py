@@ -1,15 +1,19 @@
-"""Host cost of the port's dispatch-key counting (heat_tpu_torch/core/dispatch.py).
+"""Host cost of the port's dispatch-key counting and of the roofline
+observatory (heat_tpu_torch/core/dispatch.py, telemetry/observatory.py).
 
 Times loops of small wrapper ops on a few-row array, and optionally a
-KMeans fit at chip_smoke.py's size and its prediction of four rows, with
-key counting on and off in turns within one process
-(``HEAT_TPU_DISPATCH_CACHE`` is read at import, so the script flips the
-module's switch between rounds).  An op on a 4 x 16
-array moves almost no data: its time is the host's, which is what the
-counting adds to.
+chain of eager ops on a 2^20 x 16 array (device time above host time, so
+a host stall shows), Lasso fits and KMeans fits at chip_smoke.py's sizes
+and a KMeans prediction of four rows, in three modes taken in turns
+within one process: key counting off; counting on with the observatory
+disarmed; counting on with the observatory armed at the default fenced
+period (``HEAT_TPU_PERF_SYNC_EVERY``).  ``HEAT_TPU_DISPATCH_CACHE`` is
+read at import, so the script flips the module's switch between rounds.
+An op on a 4 x 16 array moves almost no data: its time is the host's,
+which is what counting and noting add to.
 
     python3 scripts/torch_dispatch_overhead.py                 # on the card
-    python3 scripts/torch_dispatch_overhead.py --fit           # and the fit
+    python3 scripts/torch_dispatch_overhead.py --fit --chain --lasso
     python3 scripts/torch_dispatch_overhead.py --device cpu --ops 2000
 
 Prints the card's name and power limit, one JSON line per round, and a
@@ -28,18 +32,43 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 
 
+#: mode -> (key counting, observatory armed)
+MODES = {"off": (False, False), "counting": (True, False), "armed": (True, True)}
+
+
 def _sync(torch, device):
     if device == "cuda":
         torch.cuda.synchronize()
+
+
+def _set_mode(mode: str) -> None:
+    from heat_tpu_torch.core import dispatch
+    from heat_tpu_torch.telemetry import observatory
+
+    dispatch._CACHE_ENABLED, armed = MODES[mode]
+    observatory.set_enabled(armed)
+
+
+def _medians(samples: dict) -> dict:
+    """Each mode's median, and what counting and the observatory add."""
+    med = {m: statistics.median(v) for m, v in samples.items() if v}
+    out = {f"{m}_median": v for m, v in med.items()}
+    if len(med) == len(MODES):
+        out["counting_added"] = med["counting"] - med["off"]
+        out["observatory_added"] = med["armed"] - med["counting"]
+    return dict(out, **samples)
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
     ap.add_argument("--ops", type=int, default=10000, help="applications per op and round")
-    ap.add_argument("--rounds", type=int, default=6, help="rounds, counting on and off in turns")
+    ap.add_argument("--rounds", type=int, default=9, help="rounds, the three modes in turns")
     ap.add_argument("--fit", action="store_true",
                     help="also time KMeans fits at chip_smoke.py's size and predictions of four rows")
+    ap.add_argument("--chain", action="store_true",
+                    help="also time a chain of eager ops on a 2^20 x 16 array (y = y * 0.5 + b)")
+    ap.add_argument("--lasso", action="store_true", help="also time Lasso fits at chip_smoke.py's size")
     ap.add_argument("--out", default="", help="write the summary JSON here too")
     args = ap.parse_args()
 
@@ -47,7 +76,7 @@ def main() -> int:
     import torch
 
     import heat_tpu_torch as ht
-    from heat_tpu_torch.core import dispatch
+    from heat_tpu_torch.telemetry import observatory
 
     card = "cpu"
     if args.device == "cuda":
@@ -81,10 +110,11 @@ def main() -> int:
         _sync(torch, args.device)
         first_ms[name] = (time.perf_counter() - t0) * 1e3
 
-    per_op = {name: {"on": [], "off": []} for name in ops}
+    modes = list(MODES)
+    per_op = {name: {m: [] for m in modes} for name in ops}
     for r in range(args.rounds):
-        on = r % 2 == 0
-        dispatch._CACHE_ENABLED = on
+        mode = modes[r % len(modes)]
+        _set_mode(mode)
         for name, fn in ops.items():
             for _ in range(50):
                 fn()
@@ -93,18 +123,58 @@ def main() -> int:
             for _ in range(args.ops):
                 fn()
             _sync(torch, args.device)
-            per_op[name]["on" if on else "off"].append((time.perf_counter() - t0) / args.ops * 1e6)
-        print(json.dumps({"round": r, "key_counting": on,
-                          "us_per_op": {n: v["on" if on else "off"][-1] for n, v in per_op.items()},
+            per_op[name][mode].append((time.perf_counter() - t0) / args.ops * 1e6)
+        print(json.dumps({"round": r, "mode": mode, "us_per_op": {n: v[mode][-1] for n, v in per_op.items()},
                           "card": card}), flush=True)
-    dispatch._CACHE_ENABLED = True
+    _set_mode("armed")
 
     summary = {"device": args.device, "card": card, "ops_per_round": args.ops, "rounds": args.rounds,
-               "first_application_ms": first_ms, "us_per_op": {}}
-    for name, v in per_op.items():
-        on, off = statistics.median(v["on"]), statistics.median(v["off"])
-        summary["us_per_op"][name] = {"on_median": on, "off_median": off, "added": on - off,
-                                      "on": v["on"], "off": v["off"]}
+               "modes": {m: {"key_counting": c, "observatory": o} for m, (c, o) in MODES.items()},
+               "sync_every": observatory.sync_every(), "first_application_ms": first_ms,
+               "us_per_op": {name: _medians(v) for name, v in per_op.items()}}
+
+    if args.chain:
+        big_rng = np.random.default_rng(1)
+        y0 = ht.array(big_rng.random((1 << 20, 16), dtype=np.float32), split=0)
+        c = ht.array(big_rng.random((1 << 20, 16), dtype=np.float32), split=0)
+        steps = 500
+        chain = {m: [] for m in modes}
+        for r in range(args.rounds + 1):  # the first round warms the ops: not kept
+            mode = modes[r % len(modes)]
+            _set_mode(mode)
+            y = y0
+            _sync(torch, args.device)
+            t0 = time.perf_counter()
+            for _ in range(steps):
+                y = y * 0.5 + c
+            _sync(torch, args.device)
+            if r:
+                chain[mode].append((time.perf_counter() - t0) / (2 * steps) * 1e6)
+        _set_mode("armed")
+        summary["chain_us_per_op"] = dict(_medians(chain), shape=[1 << 20, 16], ops_a_round=2 * steps)
+
+    if args.lasso:
+        import chip_smoke as cs
+
+        gen = torch.Generator(device=args.device).manual_seed(cs.SEED + 5)
+        w = torch.randn(cs.FEATURES, device=args.device, generator=gen)
+        w[::4] = 0.0
+        xl = torch.randn(cs.LASSO_ROWS, cs.FEATURES, device=args.device, generator=gen)
+        yl = xl @ w + 0.5 + 0.01 * torch.randn(cs.LASSO_ROWS, device=args.device, generator=gen)
+        XL, YL = ht.array(xl, split=0), ht.array(yl, split=0)
+        lasso = {m: [] for m in modes}
+        for r in range(2 * len(modes) + 1):  # the first fit loads the ops: not kept
+            mode = modes[r % len(modes)]
+            _set_mode(mode)
+            _sync(torch, args.device)
+            t0 = time.perf_counter()
+            ht.regression.Lasso(lam=0.01).fit(XL, YL)
+            _sync(torch, args.device)
+            if r:
+                lasso[mode].append((time.perf_counter() - t0) * 1e3)
+        _set_mode("armed")
+        summary["lasso_fit_ms"] = dict(_medians(lasso), rows=cs.LASSO_ROWS, features=cs.FEATURES)
+        del XL, YL, xl, yl
 
     if args.fit:
         import chip_smoke as cs
@@ -117,23 +187,24 @@ def main() -> int:
         x += truth[member]
         del member
         pts = ht.array(x, split=0)
-        fits = []
-        for r in range(5):  # the first fit builds and loads K1: not kept
-            on = r % 2 == 1
-            dispatch._CACHE_ENABLED = on
+        fits = {m: [] for m in modes}
+        for r in range(2 * len(modes) + 1):  # the first fit builds and loads K1: not kept
+            mode = modes[r % len(modes)]
+            _set_mode(mode)
             _sync(torch, args.device)
             t0 = time.perf_counter()
             km = ht.cluster.KMeans(n_clusters=cs.CLUSTERS, init="random", random_state=cs.SEED,
                                    max_iter=cs.MAX_ITER).fit(pts)
             _sync(torch, args.device)
-            fits.append({"key_counting": on, "fit_ms": (time.perf_counter() - t0) * 1e3, "n_iter": km.n_iter_})
+            if r:
+                fits[mode].append((time.perf_counter() - t0) * 1e3)
         # predicting a few rows (PERF.md's end-to-end metric that host time
-        # per op rules), counting on and off in turns
+        # per op rules), the modes in turns
         few = ht.array(x[:4].clone(), split=0)
-        predict = {"on": [], "off": []}
+        predict = {m: [] for m in modes}
         for r in range(args.rounds):
-            on = r % 2 == 0
-            dispatch._CACHE_ENABLED = on
+            mode = modes[r % len(modes)]
+            _set_mode(mode)
             for _ in range(20):
                 km.predict(few)
             _sync(torch, args.device)
@@ -141,12 +212,10 @@ def main() -> int:
             for _ in range(1000):
                 km.predict(few)
             _sync(torch, args.device)
-            predict["on" if on else "off"].append((time.perf_counter() - t0) / 1000 * 1e6)
-        dispatch._CACHE_ENABLED = True
-        summary["fits"] = fits[1:]
-        summary["fit_first_ms"] = fits[0]["fit_ms"]
-        summary["predict_4_rows_us"] = {"on_median": statistics.median(predict["on"]),
-                                        "off_median": statistics.median(predict["off"]), **predict}
+            predict[mode].append((time.perf_counter() - t0) / 1000 * 1e6)
+        _set_mode("armed")
+        summary["fit_ms"] = dict(_medians(fits), n_iter=km.n_iter_)
+        summary["predict_4_rows_us"] = _medians(predict)
 
     line = json.dumps(summary)
     if args.out:

@@ -5,8 +5,10 @@ over rows (one Gram all-reduce) and over columns (the merge tree), rsvd
 and the randomized PCA over uneven rows, the
 FFT along a split axis (the pencil: tiled all-to-alls, no gather), and
 sequence-parallel attention (the ring of ring_shift, Ulysses' all-to-alls)
-and its gradients across the ranks, and DataParallel's three gradient
-schedules.
+and its gradients across the ranks, DataParallel's three gradient
+schedules, and the telemetry of a world (each rank's collective
+accounting, the observatory's K1 ledger, snapshots gathered by
+``all_gather_object``).
 
 One world of 3 rank processes (tests/torch_world.py) runs every slice of
 the file in turn (one rank script a slice, each in a fresh namespace, the
@@ -1240,6 +1242,61 @@ def linalg_world(world):
     return world["linalg"][0], hj.Communication(jax.devices()[:WORLD]), world.ranks("linalg")
 
 
+_TELEMETRY_MAIN = r"""
+from heat_tpu_torch import telemetry as tel
+from heat_tpu_torch.core import kernels
+from heat_tpu_torch.telemetry import observatory
+
+tel.reset_all()
+observatory.set_sync_every(1)
+
+
+def counts():
+    snap = tel.snapshot()
+    return snap.get("comm.calls.psum", 0), snap.get("comm.bytes.psum", 0)
+
+
+x = ht.array(arrays["x"], split=0)
+km = ht.cluster.KMeans(n_clusters=4, init="random", random_state=0, max_iter=10).fit(x)
+fit = counts()
+rows = [r for r in observatory.ledger_report() if "(kernel, lloyd_step," in r["key"]]
+kernels.lloyd_update(x, km.cluster_centers_.larray)
+step = counts()
+ht.get_comm().psum(torch.arange(6, dtype=torch.float32) + rank)
+one = counts()
+snaps = tel.gather_snapshots()
+merged = tel.merge_snapshots(snaps, publish=False)["merged"]["comm.calls.psum"]["per_worker"]
+np.savez(out, fit=np.asarray(fit), step=np.asarray(step), one=np.asarray(one), n_iter=np.asarray(km.n_iter_),
+         ledger=np.asarray([len(rows), rows[0]["calls"], rows[0]["sync_samples"]]),
+         gathered=np.asarray([s["process_index"] for s in snaps]),
+         gathered_calls=np.asarray([s["metrics"]["comm.calls.psum"] for s in snaps]),
+         merged=np.asarray([merged[str(i)] for i in range(len(snaps))]))
+"""
+
+
+def _telemetry_inputs():
+    return dict(x=_blobs(301, 6, 4, 5)), None
+
+
+def test_telemetry_of_a_gloo_world_of_three(world):
+    """Every rank counts the same psums (the Lloyd step's packed partial
+    sums, k f + k + 1 float64 values x 3 participants, one a K1 launch),
+    notes each Lloyd step's K1 launch in its ledger, and gathers every rank's snapshot
+    in rank order by one all_gather_object."""
+    ranks = world.ranks("telemetry")
+    k, f = 4, 6
+    lloyd_bytes = (k * f + k + 1) * 8 * WORLD
+    for got in ranks:
+        n_iter = int(got["n_iter"])
+        assert got["ledger"].tolist() == [1, n_iter, n_iter]
+        assert got["fit"][0] >= n_iter + 1 and got["fit"][1] >= (n_iter + 1) * lloyd_bytes
+        assert (got["step"] - got["fit"]).tolist() == [1, lloyd_bytes]
+        assert (got["one"] - got["step"]).tolist() == [1, 6 * 4 * WORLD]
+        assert got["gathered"].tolist() == list(range(WORLD))
+        assert got["gathered_calls"].tolist() == [got["one"][0]] * WORLD == got["merged"].tolist()
+    assert len({tuple(got["one"].tolist()) for got in ranks}) == 1
+
+
 # each slice: its rank script and the function that makes its inputs (and
 # the reference's objects its tests go on with)
 _SLICES = {
@@ -1253,6 +1310,7 @@ _SLICES = {
     "ops": (_OPS_MAIN, _ops_inputs),
     "distances": (_DISTANCES_MAIN, _distances_inputs),
     "linalg": (_LINALG_MAIN, _linalg_inputs),
+    "telemetry": (_TELEMETRY_MAIN, _telemetry_inputs),
 }
 
 

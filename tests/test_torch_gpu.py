@@ -2121,3 +2121,113 @@ def test_a_library_restored_from_the_artifact_cache_loads_without_nvcc(card, tmp
         assert _build._target("lloyd").parent == tmp_path / "fresh"
     finally:
         aot_cache.configure(prev)
+
+
+# ----------------------------------------------------------------------
+# the roofline observatory on the card
+# ----------------------------------------------------------------------
+def test_fenced_ledger_samples_of_k1_carry_the_kernels_cost(card):
+    from heat_tpu_torch.telemetry import observatory as obs
+
+    prev = obs.set_sync_every(1)
+    obs.reset()
+    try:
+        rng = np.random.default_rng(4)
+        pts = (rng.normal(scale=8.0, size=(4, 16))[rng.integers(0, 4, 1 << 16)] + rng.normal(size=(1 << 16, 16)))
+        x = ht.array(torch.from_numpy(pts.astype(np.float32)).to(card), split=0)
+        before = kernels.LLOYD_LAUNCHES
+        ht.cluster.KMeans(n_clusters=4, init="random", random_state=0, max_iter=20).fit(x)
+        launches = kernels.LLOYD_LAUNCHES - before
+        key, flops, nbytes = kernels.lloyd_launch_cost(x, 4)
+        assert key[2] == "tc"
+        torch.cuda.synchronize(card)  # the last launch's end event has completed: its sample is read
+        rows = [r for r in obs.ledger_report({"flops": 6.7e13, "bytes_per_s": 3.35e12})
+                if "(kernel, lloyd_step," in r["key"]]
+        labels = [r for r in obs.ledger_report() if "(kernel, lloyd_labels," in r["key"]]
+        assert len(rows) == 1 and rows[0]["calls"] == launches - 1 and labels[0]["calls"] == 1
+        assert rows[0]["timing"] == "fenced" and rows[0]["sync_samples"] == launches - 1
+        assert labels[0]["sync_samples"] == 1
+        assert (rows[0]["flops"], rows[0]["bytes"]) == (flops, nbytes)
+        assert rows[0]["bound"] == "bandwidth" and 0 < rows[0]["utilization"] < 1.2
+    finally:
+        obs.set_sync_every(prev)
+        obs.reset()
+
+
+def test_fenced_samples_on_the_card_never_wait_for_it(card, monkeypatch):
+    """A fenced sample on the card is a pair of CUDA events read at report
+    time: the dispatch path calls no synchronize, and the sample covers
+    its own call, not the device work queued before it."""
+    from heat_tpu_torch.telemetry import observatory as obs
+
+    prev = obs.set_sync_every(1)
+    obs.reset()
+    try:
+        x = ht.array(torch.ones(4, 16, device=card), split=0)
+        x * 2.0  # the key's first call: a miss, not noted
+        a = torch.ones(1 << 24, device=card)
+        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize(card)
+        real = torch.cuda.synchronize
+        waits = []
+        monkeypatch.setattr(torch.cuda, "synchronize", lambda *args: waits.append(args))
+        e0.record()
+        for _ in range(200):  # a queue of plain device work, not noted
+            a.mul_(1.0000001)
+        e1.record()
+        x * 2.0  # noted and sampled behind the queue
+        assert not waits
+        monkeypatch.setattr(torch.cuda, "synchronize", real)
+        torch.cuda.synchronize(card)
+        queued_ms = e0.elapsed_time(e1)
+        rows = [r for r in obs.ledger_report() if r["calls"] == 1 and r["sync_samples"] == 1]
+        assert rows and rows[0]["timing"] == "fenced"
+        assert queued_ms > 2.0 and rows[0]["mean_ms"] < queued_ms / 4
+    finally:
+        obs.set_sync_every(prev)
+        obs.reset()
+
+
+def test_calibration_on_the_card_round_trips_its_cache(card, tmp_path, monkeypatch):
+    from heat_tpu_torch.telemetry import observatory as obs
+
+    for k in ("HEAT_TPU_PEAK_FLOPS", "HEAT_TPU_PEAK_GBPS"):
+        monkeypatch.delenv(k, raising=False)
+    monkeypatch.setenv("HEAT_TPU_PEAK_CACHE", str(tmp_path / "peaks.json"))
+    obs.reset_peaks()
+    try:
+        peaks = obs.device_peaks(calibrate=True)
+        assert peaks["source"] == "calibrated" and peaks["flops"] > 1e12 and peaks["bytes_per_s"] > 1e11
+        assert f"|kind={torch.cuda.get_device_name(card)}|" in peaks["fingerprint"]
+        obs.reset_peaks()
+        again = obs.device_peaks(calibrate=False)
+        assert again["source"] == "cache" and again["flops"] == peaks["flops"]
+        assert again["fingerprint"] == peaks["fingerprint"]
+    finally:
+        obs.reset_peaks()
+
+
+def test_watermarks_on_the_card_come_from_the_device(card):
+    from heat_tpu_torch.telemetry import observatory as obs
+
+    big = torch.empty(1 << 28, dtype=torch.uint8, device=card)
+    doc = obs.watermark_tick(force=True)
+    assert doc["source"] == "device" and doc["bytes_in_use"] >= big.numel()
+    assert doc["peak_bytes"] >= doc["bytes_in_use"]
+    del big
+
+
+def test_a_profiler_capture_on_the_card_holds_a_cuda_kernel(card, tmp_path):
+    import json
+
+    from heat_tpu_torch.telemetry import profiling
+
+    profiling.start_trace(str(tmp_path))
+    x = torch.randn(1 << 16, 16, device=card)
+    kernels.lloyd_partials(x, x[:8].clone(), x.shape[0])
+    torch.cuda.synchronize()
+    path = profiling.stop_trace()
+    events = json.load(open(path))["traceEvents"]
+    kinds = {e.get("cat") for e in events}
+    assert "kernel" in kinds
+    assert any("lloyd" in e.get("name", "") for e in events if e.get("cat") == "kernel")

@@ -92,7 +92,13 @@ for name in ("heat_tpu_torch.resilience", "heat_tpu_torch.resilience.faults", "h
              "heat_tpu_torch.telemetry.metrics", "heat_tpu_torch.telemetry.spans", "heat_tpu_torch.telemetry.tracing",
              "heat_tpu_torch.telemetry.journal", "heat_tpu_torch.analysis.concurrency", "heat_tpu_torch.analysis.tsan",
              "heat_tpu_torch.analysis.diagnostics", "heat_tpu_torch.analysis.protocols",
-             "heat_tpu_torch.analysis.conformance", "heat_tpu_torch.datasets"):
+             "heat_tpu_torch.analysis.conformance", "heat_tpu_torch.datasets",
+             "heat_tpu_torch.telemetry.aggregate", "heat_tpu_torch.telemetry.alerts",
+             "heat_tpu_torch.telemetry.flight_recorder", "heat_tpu_torch.telemetry.inspect",
+             "heat_tpu_torch.telemetry.observatory", "heat_tpu_torch.telemetry.profiling",
+             "heat_tpu_torch.telemetry.replay", "heat_tpu_torch.telemetry.server", "heat_tpu_torch.telemetry.sketch",
+             "heat_tpu_torch.telemetry.slo", "heat_tpu_torch.telemetry.tenants", "heat_tpu_torch.telemetry.tsdb",
+             "heat_tpu_torch.utils.profiling"):
     importlib.import_module(name)
 import heat_tpu_torch as ht
 assert ht.communication is ht.parallel
@@ -102,7 +108,7 @@ print("BAD", bad)
 
 
 def test_the_resilience_telemetry_and_analysis_subpackages_load_no_jax():
-    """Each module of the resilience, telemetry and analysis slice, and
+    """Each module of the resilience, telemetry and analysis slices, and
     the datasets, imported on its own in a fresh interpreter."""
     out = subprocess.run(
         [sys.executable, "-c", _NEW_SUBPACKAGES], cwd=REPO, capture_output=True, text=True, timeout=120,
